@@ -12,11 +12,20 @@ Phases, each reported on its own lines:
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, with its time, the plain version's
    time and the least time the card could take (bound);
-4. the main path: NeRF-Det-R50 low-res detection inference at full width
-   (50 views at 240x320, a 40x40x16 volume, random weights from a seed)
-   through ``init_detector`` -> ``eval_step`` -> host NMS, with the
-   kernels' launch counts, finiteness, the same graph with the plain
-   fusion, a per-stage time breakdown and scenes/s on this card.
+4. the first path: NeRF-Det-R50 low-res detection inference at full
+   width (50 views at 240x320, a 40x40x16 volume, random weights from a
+   seed) through ``init_detector`` -> ``eval_step`` -> host NMS, with
+   the kernels' launch counts, finiteness, the same graph with the plain
+   fusion, a per-stage time breakdown and scenes/s on this card;
+5. the second path: VoteNet-ScanNet inference at full width (a seeded
+   40000-point synthetic cloud, random weights) through
+   ``init_detector`` -> ``points_eval_step`` -> ``votenet_nms``, with
+   the launch counts (K3 exactly 5 per forward), finiteness, the same
+   graph with the plain FPS, a per-stage time breakdown, clouds/s and
+   peak memory.
+
+Each path runs with every launch count set to 0 just before it and
+read just after.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -30,7 +39,10 @@ import sys
 import time
 
 CONFIG = "configs/nerfdet/nerfdet_res50_2x_low_res.py"
+VOTENET_CONFIG = "configs/votenet/votenet_8x8_scannet-3d-18class.py"
 N_VIEWS = 50
+N_POINTS = 40000  # IndoorPointSample of the ScanNet pipeline
+FPS_LAUNCHES = 5  # 4 SA levels + the vote aggregation, per forward
 SEED = 0
 FP32_PEAK = 67e12  # H100 SXM, fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM, bytes/s
@@ -134,6 +146,247 @@ def check_fusion(voxel, pix, hw, gen):
     return results
 
 
+def fps_bound(n, c, s):
+    """Least time of K3 on an (N, C) cloud and S picks: bytes (points
+    read once, indices written once) over HBM rate against operations
+    (per point and step: C subtractions, multiplies and adds, the
+    minimum and the comparison) over the fp32 rate."""
+    nbytes = n * c * 4 + s * 4
+    ops = (s - 1) * n * (3 * c + 2)
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def check_fps(pointnet, cases):
+    """K3 vs its plain version on the card: indices must be equal."""
+    import torch
+
+    results = {}
+    for name, pts, s in cases:
+        n, c = pts.shape
+        got = pointnet.furthest_point_sample(pts, s)
+        want = pointnet.furthest_point_sample_plain(pts, s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"K3 {name} indices differ from the plain "
+                             f"version at {int((got != want).sum())} of {s}")
+        err = float((got - want).abs().max())
+        ms = cuda_time_ms(lambda: pointnet.furthest_point_sample(pts, s), 10)
+        plain_ms = cuda_time_ms(
+            lambda: pointnet.furthest_point_sample_plain(pts, s), 2,
+            warmup=1)
+        bound_ms, bound_by, nbytes, ops = fps_bound(n, c, s)
+        log(f"[kernel] furthest_point_sample {name}: N={n} C={c} S={s}: "
+            f"indices equal (max_abs_err={err:.0f}, tol: exact) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}; {nbytes} B, {ops} FLOP)")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+    return results
+
+
+def stage_times(model, pts, iters=5):
+    """Per-stage CUDA-event times (ms, mean of ``iters``) of the real
+    VoteNet forward ``model(pts)``, in the order the stages start.
+
+    Forward hooks record an event pair around each module of the path;
+    the SA modules' FPS, ball query and grouping are timed by wrappers
+    in a stand-in for the point-op namespace their module calls through
+    (the kernel wrapper and its launch count are left as they are)."""
+    import types
+
+    import torch
+    from nerfdet_tpu_torch.nn import pointnet2
+
+    bb, head = model.backbone, model.bbox_head
+    sa = [(f"sa{i}", getattr(bb, f"sa{i}")) for i in range(bb.n_sa)]
+    sa.append(("vote_aggregation", head.vote_aggregation))
+    mods = [("forward", model), ("backbone", bb)]
+    for name, m in sa:
+        mods += [(name, m), (f"{name} MLP", m.mlp)]
+    mods += [(f"fp{i}", getattr(bb, f"fp{i}")) for i in range(bb.n_fp)]
+    mods += [("vote head", head), ("vote module", head.vote_module),
+             ("prediction MLP", head.pred_mlp)]
+
+    spans, stack = [], []
+
+    def begin(label):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        spans.append([label, start, None])
+        return spans[-1]
+
+    def finish(span):
+        span[2] = torch.cuda.Event(enable_timing=True)
+        span[2].record()
+
+    def timed(label, fn):
+        def run(*args, **kwargs):
+            span = begin(f"{stack[-1][0]} {label}")
+            out = fn(*args, **kwargs)
+            finish(span)
+            return out
+        return run
+
+    ops = pointnet2.pointnet
+    proxy = types.SimpleNamespace(**vars(ops))
+    proxy.furthest_point_sample = timed("FPS", ops.furthest_point_sample)
+    proxy.ball_query = timed("ball query", ops.ball_query)
+    proxy.group_points = timed("group", ops.group_points)
+    hooks = []
+    for name, m in mods:
+        hooks.append(m.register_forward_pre_hook(
+            lambda m, args, name=name: stack.append(begin(name))))
+        hooks.append(m.register_forward_hook(
+            lambda m, args, out: finish(stack.pop())))
+    pointnet2.pointnet = proxy
+    try:
+        with torch.inference_mode():
+            model(pts)  # warm-up
+            spans.clear()
+            for _ in range(iters):
+                model(pts)
+        torch.cuda.synchronize()
+    finally:
+        pointnet2.pointnet = ops
+        for h in hooks:
+            h.remove()
+    totals = {}
+    for label, start, end in spans:
+        totals[label] = totals.get(label, 0.0) + start.elapsed_time(end)
+    return {label: t / iters for label, t in totals.items()}
+
+
+def forward_with_fps(model, pts):
+    """One VoteNet forward: the (points, S) and the picks of each FPS
+    call, one per SA module in call order, and the prediction dict.
+    Hooks on the SA modules collect them."""
+    import torch
+
+    calls, picks = [], []
+    mods = [getattr(model.backbone, f"sa{i}")
+            for i in range(model.backbone.n_sa)]
+    mods.append(model.bbox_head.vote_aggregation)
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: calls.append((args[0], m.num_point))) for m in mods]
+    hooks += [m.register_forward_hook(
+        lambda m, args, out: picks.append(out[2])) for m in mods]
+    try:
+        with torch.inference_mode():
+            preds = model(pts)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls, picks, preds
+
+
+def plain_fps(pointnet, fn, *args):
+    """``fn(*args)`` with the plain FPS in place of K3."""
+    kernel_fn = pointnet.furthest_point_sample
+    pointnet.furthest_point_sample = pointnet.furthest_point_sample_plain
+    try:
+        return fn(*args)
+    finally:
+        pointnet.furthest_point_sample = kernel_fn
+
+
+def votenet_path(api, pointnet, voxel, model, cloud, card):
+    """Phase 5: VoteNet-ScanNet inference at full width."""
+    import torch
+
+    from nerfdet_tpu_torch.models.votenet import votenet_nms
+    from nerfdet_tpu_torch.nn.vote_head import vote_head_get_bboxes
+
+    points = cloud["points"]
+    dev = next(model.parameters()).device
+    voxel.fusion_carry.launches = 0
+    pointnet.furthest_point_sample.launches = 0
+    boxes, obj, sem = api.points_eval_step(model, points)
+    det = votenet_nms(boxes.cpu().numpy(), obj.cpu().numpy(),
+                      sem.cpu().numpy(), points[:, :3])
+    launches = pointnet.furthest_point_sample.launches
+    log(f"[votenet] points_eval_step -> boxes {tuple(boxes.shape)}, obj "
+        f"{tuple(obj.shape)}, sem {tuple(sem.shape)}; votenet_nms kept "
+        f"{len(det['labels_3d'])} (box, class) proposals; launches: "
+        f"furthest_point_sample {launches}, fused_mean_cov "
+        f"{voxel.fusion_carry.launches}")
+    if launches != FPS_LAUNCHES:
+        raise SystemExit(f"VoteNet launched furthest_point_sample "
+                         f"{launches} times, expected {FPS_LAUNCHES}")
+    n_prop = model.bbox_head.vote_aggregation.num_point
+    if (tuple(boxes.shape) != (n_prop, 7)
+            or tuple(sem.shape) != (n_prop, model.num_classes)
+            or not all(bool(torch.isfinite(t).all())
+                       for t in (boxes, obj, sem))):
+        raise SystemExit("VoteNet outputs: wrong shape or non-finite")
+
+    # the same graph with the plain FPS: equal indices, outputs 1e-5
+    pts = torch.as_tensor(points, device=dev)
+    _, picks_k, preds_k = forward_with_fps(model, pts)
+    _, picks_p, preds_p = plain_fps(pointnet, forward_with_fps, model, pts)
+    torch.cuda.synchronize()
+    if len(picks_k) != FPS_LAUNCHES or not all(
+            torch.equal(a, b) for a, b in zip(picks_k, picks_p)):
+        raise SystemExit("VoteNet FPS indices differ between kernel and "
+                         "plain graphs")
+    diff, scale = 0.0, 0.0
+    for key, a in preds_k.items():
+        b = preds_p[key]
+        for x, y in zip(a if isinstance(a, list) else [a],
+                        b if isinstance(b, list) else [b]):
+            if not x.is_floating_point():
+                if not torch.equal(x, y):
+                    raise SystemExit(f"VoteNet {key} indices differ")
+                continue
+            diff = max(diff, float((x - y).abs().max()))
+            scale = max(scale, float(y.abs().max()))
+    log(f"[votenet] kernel vs plain FPS through the whole graph: "
+        f"{FPS_LAUNCHES} FPS calls with equal indices, max |diff| "
+        f"{diff:.3e} (max |out| {scale:.3e}, tol 1e-5 relative)")
+    if diff > 1e-5 * max(scale, 1.0):
+        raise SystemExit("kernel and plain FPS graphs disagree")
+
+    # per-stage breakdown of the real forward (CUDA events, 5 forwards)
+    for label, ms in stage_times(model, pts).items():
+        log(f"[stage] votenet {label}: {ms:.3f} ms")
+    with torch.inference_mode():
+        ms = cuda_time_ms(
+            lambda: vote_head_get_bboxes(preds_k, model.bbox_coder), 5,
+            warmup=1)
+    log(f"[stage] votenet decode: {ms:.3f} ms")
+    host = [b.cpu().numpy() for b in (boxes, obj, sem)]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        votenet_nms(*host, points[:, :3])
+    log(f"[stage] votenet host tail (votenet_nms, host clock): "
+        f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms")
+
+    # throughput on the host clock, and peak memory
+    iters = 5
+    for _ in range(2):
+        api.points_eval_step(model, points)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        api.points_eval_step(model, points)
+    torch.cuda.synchronize()
+    dev_dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        det = api.single_cloud_test(model, points)
+    dt = time.perf_counter() - t0
+    log(f"[votenet] {iters / dev_dt:.3f} clouds/s device path "
+        f"({dev_dt / iters * 1e3:.2f} ms per cloud: points_eval_step); "
+        f"{iters / dt:.3f} clouds/s with the host tail "
+        f"({dt / iters * 1e3:.2f} ms: single_cloud_test, "
+        f"{len(det['labels_3d'])} proposals kept at score_thr 0.05); "
+        f"peak memory {peak / 2**30:.2f} GiB; measured on {card}")
+    return launches
+
+
 def main():
     import torch
 
@@ -145,10 +398,11 @@ def main():
     os.chdir(root)
     from nerfdet_tpu_torch import api
     from nerfdet_tpu_torch.config import Config
-    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfdet_tpu_torch.data.synthetic import (make_synthetic_cloud,
+                                                  make_synthetic_scene)
     from nerfdet_tpu_torch.device import resolve_device
     from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
-    from nerfdet_tpu_torch.ops import cuda_build, voxel
+    from nerfdet_tpu_torch.ops import cuda_build, pointnet, voxel
 
     # ---- 1. the card -------------------------------------------------
     card = card_line()
@@ -196,14 +450,33 @@ def main():
                                           w // stride)
     pix = voxel.pixel_index(x, y, valid, fw).contiguous()
 
+    # the VoteNet model, its cloud, and the inputs of its five FPS calls
+    t0 = time.perf_counter()
+    vmodel = api.init_detector(VOTENET_CONFIG, device="cuda", seed=SEED)
+    cloud = make_synthetic_cloud(seed=SEED, n_points=N_POINTS)
+    fps_calls, _, _ = plain_fps(pointnet, forward_with_fps, vmodel,
+                                torch.as_tensor(cloud["points"], device=dev))
+    log(f"[setup] VoteNet {sum(p.numel() for p in vmodel.parameters())} "
+        f"parameters, cloud {cloud['points'].shape}, FPS calls "
+        f"{[(tuple(p.shape), s) for p, s in fps_calls]}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # ---- 3. kernels against their plain versions ----------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     fusion = check_fusion(voxel, pix, (fh, fw), gen)
+    path_names = ["sa0", "sa1", "sa2", "sa3", "vote_aggregation"]
+    half = torch.rand((N_POINTS // 2, 3), generator=gen, device=dev) * 8
+    extra = [("F-FPS C=19", torch.randn((4096, 19), generator=gen,
+                                        device=dev), 512),
+             ("duplicated points", torch.cat([half, half]), 2048)]
+    fps = check_fps(pointnet, [(n, p, s) for n, (p, s) in
+                               zip(path_names, fps_calls)] + extra)
 
-    # ---- 4. the main path ---------------------------------------------
+    # ---- 4. the first path: NeRF-Det ------------------------------------
     test_cfg = Config.fromfile(CONFIG).test_cfg
     nms_pre, iou_thr = test_cfg["nms_pre"], test_cfg["iou_thr"]
     voxel.fusion_carry.launches = 0
+    pointnet.furthest_point_sample.launches = 0
     out = api.eval_step(model, batch, nms_pre)
     det = api.detections_from_candidates(
         out["boxes"].cpu().numpy(), out["scores"].cpu().numpy(),
@@ -211,7 +484,8 @@ def main():
     launches = voxel.fusion_carry.launches
     log(f"[path] eval_step -> {tuple(out['boxes'].shape)} candidates, "
         f"NMS kept {len(det['labels_3d'])} boxes; fused_mean_cov launches "
-        f"{launches}")
+        f"{launches}, furthest_point_sample launches "
+        f"{pointnet.furthest_point_sample.launches}")
     if launches < 1:
         raise SystemExit("the main path did not launch fused_mean_cov")
     if not (torch.isfinite(out["boxes"]).all()
@@ -287,7 +561,12 @@ def main():
         f"host rgb sums excluded), measured on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # ---- 5. the second path: VoteNet-ScanNet ----------------------------
+    fps_launches = votenet_path(api, pointnet, voxel, vmodel, cloud, card)
+
     main = fusion["float32 mapped"]
+    on_path = [fps[n] for n in path_names]  # one forward's five calls
+    fps_bound_by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]
     record = {"kernels": [{
         "name": "fused_mean_cov",
         "route": "cuda",
@@ -299,6 +578,18 @@ def main():
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "furthest_point_sample",
+        "route": "cuda",
+        "source": "nerfdet_tpu_torch/csrc/furthest_point_sample.cu",
+        "replaces": "nerfdet_tpu/ops/pallas_fps.py:99",
+        "launches": fps_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in fps.values()),
+        "ms": sum(r["ms"] for r in on_path),
+        "plain_ms": sum(r["plain_ms"] for r in on_path),
+        "bound_ms": sum(r["bound_ms"] for r in on_path),
+        "bound_by": fps_bound_by,
         "library_ms": None,
     }]}
     log(card)

@@ -7,6 +7,10 @@ Port of ``nerfdet_tpu/api.py`` (``init_detector``,
 the graph the parity tests and the benchmark run: the nerf_density
 modulation is on (the JAX ``make_eval_step`` defaults to
 ``with_rays=False``, which skips it).
+
+For VoteNet, ``points_eval_step`` and ``single_cloud_test`` are the
+per-scene forward + decode and host tail of
+``nerfdet_tpu/train/points_step.py:run_indoor_points_eval``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from .data.rgb_stats import host_rgb_stats
 from .device import resolve_device
 from .models.builder import build_model
 from .models.nerfdet import NerfDet, SceneMeta
+from .models.votenet import VoteNet, votenet_nms
 from .nn.heads import get_candidate_bboxes
+from .nn.vote_head import vote_head_get_bboxes
 from .utils.weight_convert import load_reference_state_dict
 
 
@@ -44,17 +50,21 @@ def scene_meta_from_config(config) -> SceneMeta:
 
 
 def init_detector(config, checkpoint: Optional[str] = None,
-                  device="cuda", seed: int = 0) -> NerfDet:
-    """Build the detector from a config file or object, in eval mode on
-    ``device``. Weights are random from ``seed`` unless ``checkpoint``
-    names a reference NeRF-Det ``.pth`` state_dict. Raises if
-    ``device`` is CUDA and there is none."""
+                  device="cuda", seed: int = 0) -> torch.nn.Module:
+    """Build the detector (NeRF-Det or VoteNet) from a config file or
+    object, in eval mode on ``device``. Weights are random from ``seed``
+    unless ``checkpoint`` names a reference NeRF-Det ``.pth``
+    state_dict. Raises if ``device`` is CUDA and there is none."""
     dev = resolve_device(device)
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = build_model(config.model, meta=scene_meta_from_config(config))
     model.init_weights(torch.Generator().manual_seed(seed))
     if checkpoint is not None:
+        if not isinstance(model, NerfDet):
+            raise NotImplementedError(
+                f"reference checkpoints of {type(model).__name__} are not "
+                f"ported yet")
         obj = torch.load(checkpoint, map_location="cpu", weights_only=True)
         load_reference_state_dict(model, obj.get("state_dict", obj))
     return model.to(dev).eval()
@@ -130,3 +140,25 @@ def single_scene_test(model: NerfDet, scene: Dict, score_thr: float = 0.01,
     return detections_from_candidates(out["boxes"].cpu().numpy(),
                                       out["scores"].cpu().numpy(),
                                       score_thr, iou_thr)
+
+
+@torch.inference_mode()
+def points_eval_step(model: VoteNet, points):
+    """One cloud through VoteNet and the decode, on the model's device:
+    (N, 3 + extra) points (numpy or tensor) -> ((P, 7) gravity-centered
+    boxes, (P,) objectness, (P, num_classes) semantic probabilities)."""
+    pts = torch.as_tensor(points, dtype=torch.float32,
+                          device=_device_of(model))
+    return vote_head_get_bboxes(model(pts), model.bbox_coder)
+
+
+def single_cloud_test(model: VoteNet, points, nms_thr: float = 0.25,
+                      score_thr: float = 0.05,
+                      per_class_proposal: bool = True) -> Dict:
+    """Device path + host ``votenet_nms`` for one (N, 3 + extra) numpy
+    cloud: boxes_3d (bottom-centered), scores_3d, labels_3d."""
+    boxes, obj, sem = points_eval_step(model, points)
+    return votenet_nms(boxes.cpu().numpy(), obj.cpu().numpy(),
+                       sem.cpu().numpy(), np.asarray(points)[:, :3],
+                       nms_thr=nms_thr, score_thr=score_thr,
+                       per_class_proposal=per_class_proposal)

@@ -9,6 +9,11 @@ does, so the detection keys (imgs, denorm_images, intrinsic,
 extrinsics, origin, gt_boxes, gt_labels, gt_mask) are bitwise equal to
 the original's for the same arguments; the render-target rays are left
 out.
+
+``make_synthetic_cloud`` is the point-cloud counterpart for VoteNet:
+box surfaces on a floor as ``write_synthetic_scannet`` builds them,
+given the height column of ``load_points`` and resampled to a static
+count as ``sample_points`` does (``nerfdet_tpu/data/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -200,3 +205,40 @@ def make_synthetic_scene(
     out["gt_boxes"], out["gt_labels"], out["gt_mask"] = pad_gt(
         boxes, labels, max_gt)
     return out
+
+
+# the synthetic cloud: 4 boxes of 8000 surface points on a 16000-point
+# floor, 48000 points in all, more than ScanNet's 40000-point sample
+CLOUD_BOXES, POINTS_PER_BOX, FLOOR_POINTS = 4, 8000, 16000
+
+
+def make_synthetic_cloud(seed: int = 0,
+                         n_points: int = 40000) -> Dict[str, np.ndarray]:
+    """One synthetic ScanNet-like cloud for VoteNet.
+
+    Each box contributes ``POINTS_PER_BOX`` points on its faces, the
+    floor ``FLOOR_POINTS`` points in a 3 cm slab over 8 x 8 m. The
+    height above the floor (0.99th percentile of z) is appended as the
+    fourth column, then ``n_points`` are sampled without replacement,
+    as a scan is.
+    Returns points (n_points, 4) float32, gt_boxes (CLOUD_BOXES, 7)
+    bottom-centered, gt_labels (CLOUD_BOXES,).
+    """
+    rng = np.random.RandomState(seed)
+    boxes, labels = make_scene_geometry(rng, CLOUD_BOXES)
+    cloud = []
+    for b in boxes:
+        local = rng.uniform(-0.5, 0.5, (POINTS_PER_BOX, 3)).astype(
+            np.float32)
+        face = rng.randint(0, 3, POINTS_PER_BOX)
+        sign = rng.randint(0, 2, POINTS_PER_BOX) * 2 - 1
+        local[np.arange(POINTS_PER_BOX), face] = 0.48 * sign
+        cloud.append(local * b[3:6] + [b[0], b[1], b[2] + b[5] / 2])
+    cloud.append(rng.uniform([-4, -4, 0], [4, 4, 0.03],
+                             (FLOOR_POINTS, 3)))
+    xyz = np.concatenate(cloud).astype(np.float32)
+    floor = np.percentile(xyz[:, 2], 0.99)
+    pts = np.concatenate([xyz, (xyz[:, 2] - floor)[:, None]],
+                         axis=-1).astype(np.float32)
+    sel = rng.choice(pts.shape[0], n_points, replace=False)
+    return dict(points=pts[sel], gt_boxes=boxes, gt_labels=labels)

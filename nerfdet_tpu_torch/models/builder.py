@@ -1,19 +1,20 @@
-"""Build the port's NeRF-Det from a config's ``model`` dict.
+"""Build the port's models from a config's ``model`` dict.
 
-Port of ``nerfdet_tpu/models/builder.py:_build_nerfdet`` (NeRF-Det
-only). The config's ``pretrained='torchvision://...'`` is not read: that
-is a download; weights come from a seed or a checkpoint.
+Port of ``nerfdet_tpu/models/builder.py`` for the two ported types:
+``"nerfdet"`` (``_build_nerfdet``) and ``"VoteNet"``
+(``_build_votenet``). The config's ``pretrained='torchvision://...'`` is
+not read: that is a download; weights come from a seed or a checkpoint.
 """
 
 from __future__ import annotations
 
+from torch import nn
+
 from .nerfdet import NerfDet, SceneMeta
+from .votenet import SCANNET_MEAN_SIZES, VoteNet
 
 
-def build_model(cfg: dict, meta: SceneMeta = None) -> NerfDet:
-    if cfg["type"] != "nerfdet":
-        raise NotImplementedError(
-            f"model type {cfg['type']!r} is not ported; only 'nerfdet' is")
+def _build_nerfdet(cfg: dict, meta: SceneMeta = None) -> NerfDet:
     backbone = cfg["backbone"]
     if backbone.get("type", "ResNet") != "ResNet":
         raise NotImplementedError("only the ResNet backbone is ported")
@@ -37,3 +38,31 @@ def build_model(cfg: dict, meta: SceneMeta = None) -> NerfDet:
         nerf_density=cfg.get("nerf_density", False),
         meta=meta or SceneMeta(),
     )
+
+
+def _build_votenet(cfg: dict, meta: SceneMeta = None) -> VoteNet:
+    """Point-cloud VoteNet; ``meta`` is not used. The IoU loss weight
+    belongs to training and is not read."""
+    head = cfg.get("bbox_head", {})
+    coder = head.get("bbox_coder", {})
+    return VoteNet(
+        num_classes=head.get("num_classes", 18),
+        num_dir_bins=coder.get("num_dir_bins", 1),
+        with_rot=coder.get("with_rot", False),
+        mean_sizes=tuple(tuple(m) for m in coder.get(
+            "mean_sizes", SCANNET_MEAN_SIZES)),
+        num_proposal=head.get("num_proposal", 256),
+        backbone_cfg=cfg.get("backbone_cfg"),
+    )
+
+
+_BUILDERS = {"nerfdet": _build_nerfdet, "VoteNet": _build_votenet}
+
+
+def build_model(cfg: dict, meta: SceneMeta = None) -> nn.Module:
+    builder = _BUILDERS.get(cfg["type"])
+    if builder is None:
+        raise NotImplementedError(
+            f"model type {cfg['type']!r} is not ported; ported: "
+            f"{sorted(_BUILDERS)}")
+    return builder(cfg, meta)

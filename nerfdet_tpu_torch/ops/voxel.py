@@ -180,11 +180,12 @@ def fusion_carry(features, pix, mapped_kernel=None, mapped_bias=None):
     if n == 0:
         return s1, s2, count, s2m
     lib = _lib()
-    err = lib.fused_mean_cov_carry(
-        features.data_ptr(), int(features.dtype == torch.bfloat16),
-        pix.data_ptr(), w_ptr, b_ptr, s1.data_ptr(), s2.data_ptr(),
-        count.data_ptr(), s2m_ptr, v, h * w, c, n, m,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = lib.fused_mean_cov_carry(
+            features.data_ptr(), int(features.dtype == torch.bfloat16),
+            pix.data_ptr(), w_ptr, b_ptr, s1.data_ptr(), s2.data_ptr(),
+            count.data_ptr(), s2m_ptr, v, h * w, c, n, m,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mean_cov kernel launch failed: "
                            f"cudaError {err}")

@@ -11,7 +11,10 @@
 * dense kernels (in, out) -> (out, in);
 * the 3D neck's BatchNorm scale/bias + running mean/var;
 * the backbone's FrozenAffine scale/bias as they are (the JAX package
-  already holds its frozen norms folded).
+  already holds its frozen norms folded);
+* for VoteNet, every dense layer and BatchNorm under its own flax path
+  (``backbone/sa{i}/mlp/fc{j}``, ``bbox_head/vote_module/bn{i}``, ...),
+  the port's module names being the flax names.
 
 ``from_reference_state_dict`` takes a reference NeRF-Det state_dict,
 whose keys the port's module names follow, and folds the backbone's
@@ -138,12 +141,30 @@ def _mlp(out: Dict, key: str, p: Mapping) -> None:
             _linear(out, f"{key}.hidden_layers.{i}", layer)
 
 
+def _dense_bn_tree(out: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """Dense layers and BatchNorms of a flax tree under their own path:
+    a node with a ``kernel`` is a Dense, one with batch statistics a
+    BatchNorm."""
+    for name, sub in p.items():
+        key = f"{prefix}.{name}"
+        if "kernel" in sub:
+            _linear(out, key, sub)
+        elif "mean" in s.get(name, {}):
+            _bn(out, key, sub, s[name])
+        else:
+            _dense_bn_tree(out, key, sub, s.get(name, {}))
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX NerfDet ``{"params", "batch_stats"}`` -> the port's
-    state_dict (float32 CPU tensors)."""
+    """JAX NerfDet or VoteNet ``{"params", "batch_stats"}`` -> the
+    port's state_dict (float32 CPU tensors)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
+    if "sa0" in params["backbone"]:  # VoteNet: PointNet++ levels
+        for name in ("backbone", "bbox_head"):
+            _dense_bn_tree(out, name, params[name], stats.get(name, {}))
+        return out
     _backbone(out, params["backbone"])
     for name, layer in params["neck"].items():
         kind, i = name.rsplit("_", 1)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from nerfdet_tpu_torch.ops import voxel
+from nerfdet_tpu_torch.ops import pointnet, voxel
 
 pytestmark = pytest.mark.cuda
 
@@ -89,6 +89,49 @@ def test_fusion_carry_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="pix"):
         voxel.fusion_carry(torch.zeros((2, 60, 80, 64), device=dev),
                            pix.long())
+
+
+def _cloud(dev, n, c, seed, dup=False):
+    """A room-sized cloud (8 x 8 x 3 m), or half of one repeated."""
+    rng = np.random.RandomState(seed)
+    m = n // 2 if dup else n
+    pts = rng.uniform(0, 1, (m, c)).astype(np.float32) * np.float32(8)
+    pts[:, 2] *= np.float32(3 / 8)
+    if dup:
+        pts = np.concatenate([pts, pts])
+    return torch.from_numpy(pts).to(dev)
+
+
+@pytest.mark.parametrize("n,c,s,dup", [
+    (40000, 3, 2048, False), (2048, 3, 1024, False), (1024, 3, 512, False),
+    (512, 3, 256, False), (1024, 3, 256, False),  # VoteNet's five calls
+    (4096, 19, 512, False), (40000, 3, 2048, True),  # F-FPS; ties
+    (100, 3, 100, False), (1000, 3, 1, False), (1001, 3, 64, False),
+    (46, 5, 20, True),
+])
+def test_furthest_point_sample_matches_plain(dev, n, c, s, dup):
+    pts = _cloud(dev, n, c, n + c + s, dup)
+    before = pointnet.furthest_point_sample.launches
+    got = pointnet.furthest_point_sample(pts, s)
+    want = pointnet.furthest_point_sample_plain(pts, s)
+    torch.cuda.synchronize()
+    assert pointnet.furthest_point_sample.launches == before + 1
+    assert got.dtype == torch.int32 and got.device == pts.device
+    assert torch.equal(got, want)
+    if not dup:
+        assert int(torch.unique(got).numel()) == s
+
+
+def test_furthest_point_sample_rejects_what_it_cannot_take(dev):
+    pts = _cloud(dev, 1000, 3, 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pointnet.furthest_point_sample(pts.to("meta"), 10)
+    with pytest.raises(TypeError, match="float32"):
+        pointnet.furthest_point_sample(pts.double(), 10)
+    with pytest.raises(ValueError, match="n_samples"):
+        pointnet.furthest_point_sample(pts, 1001)
+    with pytest.raises(ValueError, match="shared memory"):
+        pointnet.furthest_point_sample(_cloud(dev, 60000, 3, 0), 10)
 
 
 def test_entry_device_turns_tf32_off(dev):

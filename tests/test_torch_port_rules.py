@@ -12,16 +12,20 @@ import pytest
 import torch
 
 from nerfdet_tpu.config import Config as JaxConfig
+from nerfdet_tpu.core.boxes import corners_from_boxes as jax_corners
 from nerfdet_tpu.data.synthetic import make_synthetic_scene as jax_scene
+from nerfdet_tpu.models.votenet import votenet_nms as jax_votenet_nms
 from nerfdet_tpu.ops.voxel import host_rgb_stats as jax_rgb_stats
 from nerfdet_tpu.utils.weight_convert import (convert_reference_checkpoint,
                                               merge_params)
 
 from nerfdet_tpu_torch.api import init_detector
 from nerfdet_tpu_torch.config import Config
+from nerfdet_tpu_torch.core.boxes import corners_from_boxes
 from nerfdet_tpu_torch.data.rgb_stats import host_rgb_stats
 from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
 from nerfdet_tpu_torch.models.nerfdet import NerfDet
+from nerfdet_tpu_torch.models.votenet import VoteNet, votenet_nms
 from nerfdet_tpu_torch.utils.weight_convert import (
     from_jax_variables, from_reference_state_dict, load_reference_state_dict)
 
@@ -54,7 +58,8 @@ def test_no_jax_imports(path):
 
 
 @pytest.mark.parametrize("cfg", sorted(glob.glob(
-    os.path.join(ROOT, "configs", "nerfdet", "*.py"))),
+    os.path.join(ROOT, "configs", "nerfdet", "*.py"))) + sorted(glob.glob(
+    os.path.join(ROOT, "configs", "votenet", "*.py"))),
     ids=os.path.basename)
 def test_config_copy(cfg):
     assert Config.fromfile(cfg).to_dict() == JaxConfig.fromfile(cfg).to_dict()
@@ -84,6 +89,44 @@ def test_host_rgb_stats_copy(dtype):
                          jax_rgb_stats(*args, compute_dtype=dtype)):
         assert got.dtype == want.dtype == np.float32
         np.testing.assert_array_equal(got, want)
+
+
+def _boxes(rng, n, yaw=True):
+    boxes = np.concatenate([
+        rng.uniform(-3, 3, (n, 2)), rng.uniform(-0.2, 1.0, (n, 1)),
+        rng.uniform(0.2, 2.0, (n, 3)),
+        rng.uniform(-np.pi, np.pi, (n, 1)) * yaw], axis=1)
+    return boxes.astype(np.float32)
+
+
+@pytest.mark.parametrize("yaw", [False, True])
+def test_corners_from_boxes_copy(yaw):
+    boxes = _boxes(np.random.RandomState(int(yaw)), 50, yaw)
+    got, want = corners_from_boxes(boxes), jax_corners(boxes)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("per_class_proposal", [True, False])
+def test_votenet_nms_copy(per_class_proposal):
+    """The host tail on seeded gravity-centered proposals and a cloud
+    dense enough that some boxes pass the non-empty filter."""
+    rng = np.random.RandomState(2)
+    boxes = _boxes(rng, 64, yaw=False)
+    boxes[:, 2] += boxes[:, 5] / 2
+    obj = rng.uniform(0, 1, 64).astype(np.float32)
+    sem = rng.dirichlet(np.ones(18), 64).astype(np.float32)
+    pts = rng.uniform([-3, -3, 0], [3, 3, 2], (4000, 3)).astype(np.float32)
+    got = votenet_nms(boxes, obj, sem, pts,
+                      per_class_proposal=per_class_proposal)
+    want = jax_votenet_nms(boxes, obj, sem, pts,
+                           per_class_proposal=per_class_proposal)
+    assert set(got) == set(want)
+    assert 0 < len(want["labels_3d"]) < 64 * (18 if per_class_proposal
+                                              else 1)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _reference_state():
@@ -163,3 +206,27 @@ def test_init_detector_loads_reference_checkpoint(tmp_path):
     for k, v in model.state_dict().items():
         if not k.endswith("num_batches_tracked"):
             assert torch.equal(v, torch.as_tensor(want[k]).float()), k
+
+
+def test_votenet_init_detector_needs_cuda_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    cfg = os.path.join(ROOT, "configs", "votenet",
+                       "votenet_8x8_scannet-3d-18class.py")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_detector(cfg)
+    model = init_detector(cfg, device="cpu")
+    assert isinstance(model, VoteNet) and not model.training
+    assert next(model.parameters()).device.type == "cpu"
+    assert model.backbone.sa0.num_point == 2048
+    assert model.bbox_head.conv_cls.out_features == 18 + 2
+
+
+def test_votenet_init_detector_refuses_a_checkpoint(tmp_path):
+    """Reference checkpoints load into NeRF-Det only; a VoteNet config
+    with one raises before any file is read."""
+    cfg = os.path.join(ROOT, "configs", "votenet",
+                       "votenet_8x8_scannet-3d-18class.py")
+    with pytest.raises(NotImplementedError, match="VoteNet"):
+        init_detector(cfg, checkpoint=str(tmp_path / "absent.pth"),
+                      device="cpu")
