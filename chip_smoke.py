@@ -22,7 +22,14 @@ Phases, each reported on its own lines:
    ``init_detector`` -> ``points_eval_step`` -> ``votenet_nms``, with
    the launch counts (K3 exactly 5 per forward), finiteness, the same
    graph with the plain FPS, a per-stage time breakdown, clouds/s and
-   peak memory.
+   peak memory;
+6. the third path: NeRF-Det-R50 novel-view rendering (image mode, 64
+   samples per ray) of one full 219x300 target view (65,700 rays) from
+   the 50 views of phase 4's scene with phase 4's model, through
+   ``run_nvs_eval`` -> ``render_full`` (exactly 33 K2 launches at chunk
+   2048), then ``eval_step`` on a batch that carries 2048 rays; the
+   outputs' range, the view-mask shares, the same render with the plain
+   K2, a per-stage time breakdown, views/s and peak memory.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.
@@ -37,12 +44,15 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 CONFIG = "configs/nerfdet/nerfdet_res50_2x_low_res.py"
 VOTENET_CONFIG = "configs/votenet/votenet_8x8_scannet-3d-18class.py"
 N_VIEWS = 50
 N_POINTS = 40000  # IndoorPointSample of the ScanNet pipeline
 FPS_LAUNCHES = 5  # 4 SA levels + the vote aggregation, per forward
+MARGIN = 10  # ray-grid margin of the config's pipeline
+CHUNK = 2048  # rays per render chunk, one K2 launch each
 SEED = 0
 FP32_PEAK = 67e12  # H100 SXM, fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM, bytes/s
@@ -297,11 +307,13 @@ def votenet_path(api, pointnet, voxel, model, cloud, card):
 
     from nerfdet_tpu_torch.models.votenet import votenet_nms
     from nerfdet_tpu_torch.nn.vote_head import vote_head_get_bboxes
+    from nerfdet_tpu_torch.ops import render
 
     points = cloud["points"]
     dev = next(model.parameters()).device
     voxel.fusion_carry.launches = 0
     pointnet.furthest_point_sample.launches = 0
+    render.ray_view_carry.launches = 0
     boxes, obj, sem = api.points_eval_step(model, points)
     det = votenet_nms(boxes.cpu().numpy(), obj.cpu().numpy(),
                       sem.cpu().numpy(), points[:, :3])
@@ -310,7 +322,8 @@ def votenet_path(api, pointnet, voxel, model, cloud, card):
         f"{tuple(obj.shape)}, sem {tuple(sem.shape)}; votenet_nms kept "
         f"{len(det['labels_3d'])} (box, class) proposals; launches: "
         f"furthest_point_sample {launches}, fused_mean_cov "
-        f"{voxel.fusion_carry.launches}")
+        f"{voxel.fusion_carry.launches}, ray_view_carry "
+        f"{render.ray_view_carry.launches}")
     if launches != FPS_LAUNCHES:
         raise SystemExit(f"VoteNet launched furthest_point_sample "
                          f"{launches} times, expected {FPS_LAUNCHES}")
@@ -387,7 +400,345 @@ def votenet_path(api, pointnet, voxel, model, cloud, card):
     return launches
 
 
+def ray_bound(pts, images, feats):
+    """Least time of K2 on these inputs: bytes (points, images, feature
+    maps and projections read once, the three (N, 3 + C) sums and the
+    counts written once) over HBM rate against the operations over the
+    fp32 rate. Per (point, view): 20 for the projection and its divides,
+    14 per map for the scale, the window and the tap weights, 12 per
+    channel (4 products and 3 sums of the taps, 5 for the three
+    accumulators) and 1 for the count."""
+    n = pts.numel() // 3
+    v, c = images.shape[0], 3 + feats.shape[-1]
+    nbytes = (pts.numel() + images.numel() + feats.numel() + v * 16
+              + n * (3 * c + 1)) * 4
+    ops = n * v * (20 + 2 * 14 + 12 * c + 1)
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def check_ray_carry(render, cases, img_hw):
+    """K2 vs its plain version on the card: counts and the two-view
+    mask exact, the sums within 1e-5 relative. ``cases``: (name, pts,
+    images, featmaps, proj, timed)."""
+    import torch
+
+    results = {}
+    for name, pts, images, feats, proj, timed in cases:
+        got = render.ray_view_carry(pts, images, feats, proj, img_hw)
+        want = render.ray_view_carry_plain(pts, images, feats, proj, img_hw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[3], want[3]):
+            raise SystemExit(f"K2 {name}: cnt differs from the plain version")
+        abs_err, rel_err = 0.0, 0.0
+        for g, p in zip(got[:3], want[:3]):
+            e = float((g - p).abs().max())
+            abs_err = max(abs_err, e)
+            rel_err = max(rel_err, e / max(float(p.abs().max()), 1e-30))
+        cnt = got[3][..., 0]
+        line = (f"[kernel] ray_view_carry {name}: V={images.shape[0]} "
+                f"N={cnt.numel()} C={got[0].shape[-1]}: cnt and pixel_mask "
+                f"equal (pixel_mask share {float((cnt > 1).float().mean()):.4f}"
+                f", unseen share {float((cnt == 0).float().mean()):.4f}); "
+                f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} (tol: "
+                f"cnt exact, rel 1e-5); bitwise equal "
+                f"{all(torch.equal(g, p) for g, p in zip(got, want))}")
+        result = dict(max_abs_err=abs_err, cnt=cnt)
+        if timed:
+            ms = cuda_time_ms(lambda: render.ray_view_carry(
+                pts, images, feats, proj, img_hw), 10)
+            plain_ms = cuda_time_ms(lambda: render.ray_view_carry_plain(
+                pts, images, feats, proj, img_hw), 2, warmup=1)
+            bound_ms, bound_by, nbytes, ops = ray_bound(pts, images, feats)
+            line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, "
+                     f"{ops} FLOP)")
+            result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        log(line)
+        if rel_err > 1e-5:
+            raise SystemExit(f"K2 {name} disagrees: rel {rel_err:.3e}")
+        results[name] = result
+    return results
+
+
+def ray_cases(model, scene, batch, img_hw):
+    """K2's inputs at one chunk of the render path (the first 2048 rays
+    of ``scene``'s target view, 64 samples, the 50 views: the first
+    launch of ``render_full(batch)``), and the edge cases:
+    points above the scene (behind every camera: they look down),
+    points whose pixels fall in the partial windows (-1, 0) and
+    (size - 1, size) of view 0, and a view that sees no point."""
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.ops import render
+
+    dev = batch["imgs"].device
+    with torch.inference_mode():
+        feats = model.render_featmaps(model.extract_2d(batch["imgs"]))
+    images = batch["denorm_images"]
+    proj = model.render_projection(scene["intrinsic"], scene["extrinsics"],
+                                   dev)
+    pts, _ = render.sample_along_camera_ray(
+        torch.as_tensor(scene["ray_o"][0, :CHUNK], device=dev),
+        torch.as_tensor(scene["ray_d"][0, :CHUNK], device=dev),
+        *model.near_far_range, model.n_samples)
+    above = pts[:64].clone()
+    above[..., 2] += 100.0
+    h, w = img_hw
+    k = scene["intrinsic"][:3, :3].astype(np.float64)
+    k[:2] /= model.meta.ori_shape[0] / model.meta.img_shape[0]
+    c2w = np.linalg.inv(scene["extrinsics"][0].astype(np.float64))
+    pix = [(x, y) for y in np.linspace(1, h - 2, 16)
+           for x in (-0.5, -0.9, -0.02, w - 0.5, w - 1 + 0.3, w - 0.01)]
+    pix += [(x, y) for x in np.linspace(1, w - 2, 16)
+            for y in (-0.5, -0.9, h - 0.5, h - 1 + 0.3)]
+    edge = [c2w[:3, :3] @ (d * np.linalg.solve(k, [x, y, 1.0]))
+            + c2w[:3, 3] for d in (1.0, 2.5, 5.0) for x, y in pix]
+    edge = torch.as_tensor(np.asarray(edge, np.float32).reshape(
+        3, len(pix), 3), device=dev)
+    blind = proj.clone()
+    blind[0, 0] += 1e4 * blind[0, 2]  # view 0's pixels move 1e4 right
+    return [("render chunk", pts, images, feats, proj, True),
+            ("behind every camera", above, images, feats, proj, False),
+            ("partial edge windows", edge, images, feats, proj, False),
+            ("a view with no valid point", pts, images, feats, blind,
+             False)]
+
+
+class NvsScenes(list):
+    """Scenes as ``run_nvs_eval`` reads a dataset: ``len``, ``[i]`` and
+    ``pipeline.pad_size`` / ``.margin`` of the target views' ray grid."""
+
+    def __init__(self, scenes, grid_hw, margin):
+        super().__init__(scenes)
+        self.pipeline = types.SimpleNamespace(pad_size=grid_hw,
+                                              margin=margin)
+
+
+def nvs_dataset(scene, intrinsic, hw):
+    """The scene's one target view as an ``NvsScenes`` item: its rays
+    and targets put back in image order, (1, R, ...). The rays come
+    shuffled; each one's pixel is recovered from the target camera
+    (every synthetic camera looks at ``LOOK_AT``, from ``ray_o``)."""
+    import numpy as np
+
+    from nerfdet_tpu_torch.data.synthetic import LOOK_AT, _look_at
+
+    rot = _look_at(scene["ray_o"][0], LOOK_AT)[:3, :3]
+    cam = scene["ray_d"].astype(np.float64) @ rot  # rows (x, y, 1)
+    px = np.rint(cam[:, 0] / cam[:, 2] * intrinsic[0, 0] + intrinsic[0, 2]
+                 - 0.5).astype(np.int64) - MARGIN
+    py = np.rint(cam[:, 1] / cam[:, 2] * intrinsic[1, 1] + intrinsic[1, 2]
+                 - 0.5).astype(np.int64) - MARGIN
+    flat = py * (hw[1] - 2 * MARGIN) + px
+    order = np.argsort(flat)
+    if not np.array_equal(flat[order], np.arange(len(flat))):
+        raise SystemExit("the target rays do not tile the target view")
+    item = dict(scene)
+    for key in ("ray_o", "ray_d", "gt_rgb", "gt_depth"):
+        item[key] = scene[key][order][None]
+    return NvsScenes([item], hw, MARGIN)
+
+
+def render_stage_times(model, render, batch, n_rays, iters=2):
+    """Per-stage CUDA-event times (ms, mean of ``iters``) of the real
+    ``render_full(batch, CHUNK)``, and the last run's shares of sample
+    points seen by more than one view and of rays whose mask is set.
+
+    Events come from forward hooks on ``mapping`` and the NeRF MLP, and
+    from wrappers of ``extract_2d`` (an instance attribute over the
+    method) and of the renderer functions ``render_rays_chunk`` calls
+    through its module: ``streaming_sample_mean_var`` (K2 + epilogue),
+    ``sample_stats`` (the epilogue) and ``raw2outputs``. K2's own time is
+    the first minus the second; the kernel wrapper and its launch count
+    are left as they are."""
+    import torch
+
+    spans, masks = [], {"pixel": [], "ray": []}
+
+    def begin(label):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        spans.append([label, start, None])
+        return spans[-1]
+
+    def finish(span):
+        span[2] = torch.cuda.Event(enable_timing=True)
+        span[2].record()
+
+    def timed(label, fn, keep=None):
+        def run(*args, **kwargs):
+            span = begin(label)
+            out = fn(*args, **kwargs)
+            finish(span)
+            if keep is not None:
+                masks[keep].append(out[1] if keep == "pixel"
+                                   else out["mask"])
+            return out
+        return run
+
+    originals = {name: getattr(render, name) for name in (
+        "streaming_sample_mean_var", "sample_stats", "raw2outputs")}
+    render.streaming_sample_mean_var = timed(
+        "K2 + epilogue", originals["streaming_sample_mean_var"])
+    render.sample_stats = timed("epilogue", originals["sample_stats"],
+                                "pixel")
+    render.raw2outputs = timed("compositing (raw2outputs)",
+                               originals["raw2outputs"], "ray")
+    model.extract_2d = timed("extract_2d (ResNet-50 + FPN)",
+                             type(model).extract_2d.__get__(model))
+    hooks = []
+    for label, m in (("mapping (cropped featmaps)", model.mapping),
+                     ("NeRF MLP", model.nerf_mlp)):
+        hooks.append(m.register_forward_pre_hook(
+            lambda m, args, label=label: stack.append(begin(label))))
+        hooks.append(m.register_forward_hook(
+            lambda m, args, out: finish(stack.pop())))
+    stack, totals = [], {}
+    try:
+        with torch.inference_mode():
+            model.render_full(batch, CHUNK)  # warm-up
+            for _ in range(iters):
+                spans.clear()
+                masks["pixel"].clear()
+                masks["ray"].clear()
+                span = begin("render_full")
+                model.render_full(batch, CHUNK)
+                finish(span)
+                for label, start, end in spans:
+                    totals.setdefault(label, []).append((start, end))
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(render, name, fn)
+        del model.extract_2d
+        for h in hooks:
+            h.remove()
+    out = {label: sum(a.elapsed_time(b) for a, b in pairs) / iters
+           for label, pairs in totals.items()}
+    out["K2 ray_view_carry (stream - epilogue)"] = (
+        out["K2 + epilogue"] - out["epilogue"])
+    pixel = torch.cat(masks["pixel"])[:n_rays]
+    ray = torch.cat(masks["ray"])[:n_rays]
+    return out, float(pixel.float().mean()), float(ray.float().mean())
+
+
+def render_path(api, render, voxel, pointnet, model, dataset, card, nms_pre):
+    """Phase 6: novel-view rendering of one full target view."""
+    import math
+
+    import numpy as np
+    import torch
+
+    item = dataset[0]
+    n_rays = item["ray_o"].shape[1]
+    expect = math.ceil(n_rays / CHUNK)
+    for fn in (voxel.fusion_carry, pointnet.furthest_point_sample,
+               render.ray_view_carry):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = api.run_nvs_eval(model, dataset, chunk=CHUNK, progress=False)
+    first_s = time.perf_counter() - t0
+    launches = render.ray_view_carry.launches
+    log(f"[render] run_nvs_eval: {n_rays} rays x {model.n_samples} samples "
+        f"from {item['imgs'].shape[0]} views at chunk {CHUNK}: psnr "
+        f"{metrics['psnr']:.4f} ssim {metrics['ssim']:.4f} rmse "
+        f"{metrics['rmse']:.4f} (random weights); launches: "
+        f"ray_view_carry {launches}, fused_mean_cov "
+        f"{voxel.fusion_carry.launches}, furthest_point_sample "
+        f"{pointnet.furthest_point_sample.launches}; first call "
+        f"{first_s:.2f} s")
+    if launches != expect:
+        raise SystemExit(f"render_full launched ray_view_carry {launches} "
+                         f"times, expected {expect}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise SystemExit(f"non-finite NVS metrics {metrics}")
+
+    batch = api.render_batch(model, item)
+    near, far = model.near_far_range
+    with torch.inference_mode():
+        rgb, depth = model.render_full(batch, CHUNK)
+        kernel_fn = render.ray_view_carry
+        render.ray_view_carry = render.ray_view_carry_plain
+        try:
+            rgb_p, depth_p = model.render_full(batch, CHUNK)
+        finally:
+            render.ray_view_carry = kernel_fn
+    torch.cuda.synchronize()
+    if (tuple(rgb.shape) != (n_rays, 3) or tuple(depth.shape) != (n_rays,)
+            or not (torch.isfinite(rgb).all() and torch.isfinite(depth).all())
+            or float(rgb.min()) < 0 or float(rgb.max()) > 1
+            or float(depth.min()) < near or float(depth.max()) > far):
+        raise SystemExit("render_full outputs: wrong shape, non-finite or "
+                         "out of range")
+    rgb_diff = float((rgb - rgb_p).abs().max())
+    depth_diff = float((depth - depth_p).abs().max())
+    log(f"[render] rgb in [{float(rgb.min()):.4f}, {float(rgb.max()):.4f}], "
+        f"depth in [{float(depth.min()):.4f}, {float(depth.max()):.4f}] "
+        f"(near/far {near}/{far}); kernel vs plain K2 through render_full: "
+        f"rgb max |diff| {rgb_diff:.3e} (tol 1e-5), depth {depth_diff:.3e}")
+    if rgb_diff > 1e-5:
+        raise SystemExit("kernel and plain K2 renders disagree")
+
+    # the forward on a batch that carries the first chunk's rays
+    fwd = dict(item, ray_o=item["ray_o"][0, :CHUNK],
+               ray_d=item["ray_d"][0, :CHUNK])
+    fbatch = {**api.device_batch(model, fwd), **api.render_batch(model, fwd)}
+    render.ray_view_carry.launches = 0
+    out = api.eval_step(model, fbatch, nms_pre)
+    fwd_launches = render.ray_view_carry.launches
+    fwd_diff = float((out["render_rgb"] - rgb[:CHUNK]).abs().max())
+    log(f"[render] eval_step with {CHUNK} rays: {fwd_launches} "
+        f"ray_view_carry launch, {tuple(out['boxes'].shape)} candidates, "
+        f"render_rgb vs render_full's first chunk max |diff| "
+        f"{fwd_diff:.3e} (tol 1e-5)")
+    if fwd_launches != 1 or fwd_diff > 1e-5:
+        raise SystemExit("the forward with rays did not render as "
+                         "render_full does")
+
+    stages, pixel_share, ray_share = render_stage_times(
+        model, render, batch, n_rays)
+    # the MLP's work from its layer shapes, over the padded chunks
+    mlp_flop = 2 * expect * CHUNK * model.n_samples * sum(
+        m.in_features * m.out_features for m in model.nerf_mlp.modules()
+        if isinstance(m, torch.nn.Linear))
+    for label, ms in stages.items():
+        extra = ""
+        if label == "NeRF MLP":
+            extra = (f" ({mlp_flop / 1e9:.1f} GFLOP f32, "
+                     f"{mlp_flop / ms / 1e9:.2f} TFLOP/s)")
+        elif label.startswith("K2 ray_view_carry"):
+            extra = f" ({ms / expect:.4f} ms per chunk, {expect} chunks)"
+        log(f"[stage] render {label}: {ms:.3f} ms{extra}")
+    log(f"[render] sample points seen by more than one view: "
+        f"{pixel_share:.4f}; rays with the mask set: {ray_share:.4f}")
+
+    # throughput on the host clock, and peak memory
+    iters = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(iters):
+            model.render_full(batch, CHUNK)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    api.run_nvs_eval(model, dataset, chunk=CHUNK, progress=False)
+    nvs_dt = time.perf_counter() - t0
+    log(f"[render] {1 / dt:.3f} views/s ({dt * 1e3:.2f} ms per view: "
+        f"render_full, {n_rays} rays); {1 / nvs_dt:.3f} views/s with "
+        f"run_nvs_eval's host copies and metrics ({nvs_dt * 1e3:.2f} ms); "
+        f"peak memory {peak / 2**30:.2f} GiB; measured on {card}")
+    return launches
+
+
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -402,7 +753,7 @@ def main():
                                                   make_synthetic_scene)
     from nerfdet_tpu_torch.device import resolve_device
     from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
-    from nerfdet_tpu_torch.ops import cuda_build, pointnet, voxel
+    from nerfdet_tpu_torch.ops import cuda_build, pointnet, render, voxel
 
     # ---- 1. the card -------------------------------------------------
     card = card_line()
@@ -425,14 +776,15 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
 
-    # ---- the scene and the model (shared by phases 3 and 4) ----------
+    # ---- the scene and the model (shared by phases 3, 4 and 6) -------
     t0 = time.perf_counter()
     model = api.init_detector(CONFIG, device="cuda", seed=SEED)
     meta = model.meta
     h, w = meta.img_shape
     scene = make_synthetic_scene(seed=SEED, n_views=N_VIEWS, n_targets=1,
                                  hw=(h, w), pad_hw=meta.pad_shape,
-                                 n_boxes=4, max_gt=8)
+                                 n_rand=(h - 2 * MARGIN) * (w - 2 * MARGIN),
+                                 n_boxes=4, max_gt=8, margin=MARGIN)
     batch = api.device_batch(model, scene)
     log(f"[setup] model {sum(p.numel() for p in model.parameters())} "
         f"parameters, scene {N_VIEWS} views {meta.pad_shape}, volume "
@@ -472,11 +824,28 @@ def main():
     fps = check_fps(pointnet, [(n, p, s) for n, (p, s) in
                                zip(path_names, fps_calls)] + extra)
 
+    # the render path's scene: the synthetic intrinsic is at the rendered
+    # size; the renderer takes it at ori_shape, so it is scaled up here
+    intrinsic = scene["intrinsic"].copy()
+    intrinsic[:2] *= np.float32(meta.ori_shape[0] / h)
+    nvs = nvs_dataset(dict(scene, intrinsic=intrinsic), scene["intrinsic"],
+                      (h, w))
+    rbatch = api.render_batch(model, nvs[0])
+    ray = check_ray_carry(render, ray_cases(model, nvs[0], rbatch, (h, w)),
+                          (h, w))
+    if bool(ray["behind every camera"]["cnt"].any()):
+        raise SystemExit("K2 counted a view for a point behind every camera")
+    blind, seen = ray["a view with no valid point"]["cnt"], \
+        ray["render chunk"]["cnt"]
+    if not (bool((blind <= seen).all()) and bool((blind < seen).any())):
+        raise SystemExit("K2 counted the view that sees no point")
+
     # ---- 4. the first path: NeRF-Det ------------------------------------
     test_cfg = Config.fromfile(CONFIG).test_cfg
     nms_pre, iou_thr = test_cfg["nms_pre"], test_cfg["iou_thr"]
     voxel.fusion_carry.launches = 0
     pointnet.furthest_point_sample.launches = 0
+    render.ray_view_carry.launches = 0
     out = api.eval_step(model, batch, nms_pre)
     det = api.detections_from_candidates(
         out["boxes"].cpu().numpy(), out["scores"].cpu().numpy(),
@@ -485,7 +854,8 @@ def main():
     log(f"[path] eval_step -> {tuple(out['boxes'].shape)} candidates, "
         f"NMS kept {len(det['labels_3d'])} boxes; fused_mean_cov launches "
         f"{launches}, furthest_point_sample launches "
-        f"{pointnet.furthest_point_sample.launches}")
+        f"{pointnet.furthest_point_sample.launches}, ray_view_carry "
+        f"launches {render.ray_view_carry.launches}")
     if launches < 1:
         raise SystemExit("the main path did not launch fused_mean_cov")
     if not (torch.isfinite(out["boxes"]).all()
@@ -493,11 +863,11 @@ def main():
         raise SystemExit("non-finite candidates")
 
     with torch.inference_mode():
-        head_k, valid_k = model(batch)
+        head_k, valid_k, _ = model(batch)
         kernel_fn = voxel.fusion_carry
         voxel.fusion_carry = voxel.fusion_carry_plain
         try:
-            head_p, valid_p = model(batch)
+            head_p, valid_p, _ = model(batch)
         finally:
             voxel.fusion_carry = kernel_fn
     torch.cuda.synchronize()
@@ -564,6 +934,10 @@ def main():
     # ---- 5. the second path: VoteNet-ScanNet ----------------------------
     fps_launches = votenet_path(api, pointnet, voxel, vmodel, cloud, card)
 
+    # ---- 6. the third path: novel-view rendering ------------------------
+    ray_launches = render_path(api, render, voxel, pointnet, model, nvs,
+                               card, nms_pre)
+
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
     fps_bound_by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]
@@ -590,6 +964,18 @@ def main():
         "plain_ms": sum(r["plain_ms"] for r in on_path),
         "bound_ms": sum(r["bound_ms"] for r in on_path),
         "bound_by": fps_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "ray_view_carry",
+        "route": "cuda",
+        "source": "nerfdet_tpu_torch/csrc/ray_view_carry.cu",
+        "replaces": "nerfdet_tpu/ops/render.py:162",
+        "launches": ray_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in ray.values()),
+        "ms": ray["render chunk"]["ms"],
+        "plain_ms": ray["render chunk"]["plain_ms"],
+        "bound_ms": ray["render chunk"]["bound_ms"],
+        "bound_by": ray["render chunk"]["bound_by"],
         "library_ms": None,
     }]}
     log(card)

@@ -1,10 +1,10 @@
-"""Detection inference entry points.
+"""Inference entry points: detection and novel-view rendering.
 
 Port of ``nerfdet_tpu/api.py`` (``init_detector``,
 ``scene_meta_from_config``, ``single_scene_test``,
-``detections_from_candidates``) and of the eval step of
-``nerfdet_tpu/train/step.py:make_eval_step``. The port's eval step runs
-the graph the parity tests and the benchmark run: the nerf_density
+``detections_from_candidates``, ``run_nvs_eval``) and of the eval step
+of ``nerfdet_tpu/train/step.py:make_eval_step``. The port's eval step
+runs the graph the parity tests and the benchmark run: the nerf_density
 modulation is on (the JAX ``make_eval_step`` defaults to
 ``with_rays=False``, which skips it).
 
@@ -22,6 +22,7 @@ import torch
 
 from .config import Config
 from .core.nms import aligned_3d_nms
+from .core.nvs_metrics import aggregate_nvs, evaluate_rendering
 from .data.rgb_stats import host_rgb_stats
 from .device import resolve_device
 from .models.builder import build_model
@@ -74,15 +75,30 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _to_device(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+
+def render_batch(model: NerfDet, scene: Dict) -> Dict:
+    """``render_full``'s inputs for one scene: images, denormalized
+    images and the rays on the model's device, the geometry on the host
+    (the projection is computed there)."""
+    dev = _device_of(model)
+    batch = {k: scene[k] for k in ("intrinsic", "extrinsics")}
+    for k in ("imgs", "denorm_images", "ray_o", "ray_d"):
+        batch[k] = _to_device(scene[k], dev)
+    return batch
+
+
 def device_batch(model: NerfDet, scene: Dict) -> Dict:
-    """The eval step's inputs for one scene: images on the model's
-    device; the small geometry arrays stay on the host (the projection
-    is computed there); the host rgb sums of the density path are
-    computed here when the scene does not carry them."""
+    """The eval step's detection inputs for one scene: images on the
+    model's device; the small geometry arrays stay on the host (the
+    projection is computed there); the host rgb sums of the density
+    path are computed here when the scene does not carry them. Merged
+    with ``render_batch``, the forward also renders the scene's rays."""
     dev = _device_of(model)
     batch = {k: scene[k] for k in ("intrinsic", "extrinsics", "origin")}
-    batch["imgs"] = torch.as_tensor(np.asarray(scene["imgs"], np.float32),
-                                    device=dev)
+    batch["imgs"] = _to_device(scene["imgs"], dev)
     if model.nerf_density:
         if "rgb_s1" in scene:
             s1, s2 = scene["rgb_s1"], scene["rgb_s2"]
@@ -91,22 +107,25 @@ def device_batch(model: NerfDet, scene: Dict) -> Dict:
                 scene["denorm_images"], scene["intrinsic"],
                 scene["extrinsics"], scene["origin"], model.n_voxels,
                 model.voxel_size, model.meta.ori_shape, model.meta.img_shape)
-        batch["rgb_s1"] = torch.as_tensor(np.asarray(s1, np.float32),
-                                          device=dev)
-        batch["rgb_s2"] = torch.as_tensor(np.asarray(s2, np.float32),
-                                          device=dev)
+        batch["rgb_s1"] = _to_device(s1, dev)
+        batch["rgb_s2"] = _to_device(s2, dev)
     return batch
 
 
 @torch.inference_mode()
 def eval_step(model: NerfDet, batch: Dict, nms_pre: int = 1000) -> Dict:
     """Single-scene inference on the device: candidate boxes (M, 6) and
-    scores (M, n_classes), density modulation on."""
-    head_outs, valid = model(batch)
+    scores (M, n_classes), density modulation on; with a ray bundle in
+    ``batch`` also its render_rgb (R, 3) and render_depth (R,)."""
+    head_outs, valid, render_out = model(batch)
     boxes, scores = get_candidate_bboxes(
         head_outs, valid, model.mlvl_points(batch["origin"]), nms_pre,
         model.n_classes)
-    return dict(boxes=boxes, scores=scores)
+    out = dict(boxes=boxes, scores=scores)
+    if render_out is not None:
+        out["render_rgb"] = render_out["rgb"]
+        out["render_depth"] = render_out["depth"]
+    return out
 
 
 def detections_from_candidates(boxes, scores, score_thr: float = 0.01,
@@ -162,3 +181,38 @@ def single_cloud_test(model: VoteNet, points, nms_thr: float = 0.25,
                        sem.cpu().numpy(), np.asarray(points)[:, :3],
                        nms_thr=nms_thr, score_thr=score_thr,
                        per_class_proposal=per_class_proposal)
+
+
+@torch.inference_mode()
+def run_nvs_eval(model: NerfDet, dataset, chunk: int = 2048,
+                 out_dir: Optional[str] = None, progress: bool = True
+                 ) -> Dict:
+    """Novel-view-synthesis evaluation: render every target view of
+    every scene with ``render_full``, score PSNR / SSIM / RMSE, and
+    optionally dump comparison PNGs under ``out_dir``.
+
+    ``dataset`` needs ``len``, ``dataset[i]`` (a numpy scene with
+    ``ray_o``/``ray_d`` (T, R, 3) or (R, 3), ``gt_rgb`` and optionally
+    ``gt_depth``) and ``dataset.pipeline.pad_size`` / ``.margin``, which
+    give the target views' (h, w). Returns the metrics averaged over
+    scenes."""
+    h = dataset.pipeline.pad_size[0] - 2 * dataset.pipeline.margin
+    w = dataset.pipeline.pad_size[1] - 2 * dataset.pipeline.margin
+    per_scene = {}
+    for i in range(len(dataset)):
+        scene = dataset[i]
+        rgb, depth = model.render_full(render_batch(model, scene), chunk)
+        t = scene["ray_o"].shape[0] if scene["ray_o"].ndim == 3 else 1
+        rgb = rgb.cpu().numpy().reshape(t, h, w, 3)
+        depth = depth.cpu().numpy().reshape(t, h, w)
+        gt_rgb = np.asarray(scene["gt_rgb"]).reshape(t, h, w, 3)
+        gt_depth = (np.asarray(scene["gt_depth"]).reshape(t, h, w)
+                    if "gt_depth" in scene else None)
+        per_scene[f"scene_{i}"] = evaluate_rendering(
+            rgb, gt_rgb, depth=depth, gt_depth=gt_depth, out_dir=out_dir,
+            scene=f"scene_{i}")
+        if progress:
+            m = per_scene[f"scene_{i}"]
+            print(f"[nvs] scene {i}: psnr={m['psnr']:.2f} "
+                  f"ssim={m['ssim']:.3f}", flush=True)
+    return aggregate_nvs(per_scene)

@@ -1,14 +1,14 @@
-"""Synthetic ScanNet-like scenes for detection (numpy only).
+"""Synthetic ScanNet-like scenes (numpy only).
 
-A copy of the detection part of ``nerfdet_tpu/data/synthetic.py``
-(``make_synthetic_scene``) and of the image helpers it uses from
-``nerfdet_tpu/data/pipeline.py``, so the port has a scene without JAX.
-Colored axis-aligned boxes on a checkered floor are ray-cast into posed
-pinhole views. The random stream is consumed exactly as the original
-does, so the detection keys (imgs, denorm_images, intrinsic,
-extrinsics, origin, gt_boxes, gt_labels, gt_mask) are bitwise equal to
-the original's for the same arguments; the render-target rays are left
-out.
+A copy of ``make_synthetic_scene`` of ``nerfdet_tpu/data/synthetic.py``
+and of the image helpers it uses from ``nerfdet_tpu/data/pipeline.py``,
+so the port has a scene without JAX. Colored axis-aligned boxes on a
+checkered floor are ray-cast into posed pinhole views. The random
+stream is consumed exactly as the original does, so every key (the
+detection keys imgs, denorm_images, intrinsic, extrinsics, origin,
+gt_boxes, gt_labels, gt_mask and the render targets ray_o, ray_d,
+gt_rgb, gt_depth) is bitwise equal to the original's for the same
+arguments.
 
 ``make_synthetic_cloud`` is the point-cloud counterpart for VoteNet:
 box surfaces on a floor as ``write_synthetic_scannet`` builds them,
@@ -82,7 +82,8 @@ def _look_at(cam_pos, target, up=(0.0, 0.0, 1.0)):
 
 
 def _render_view(boxes, colors, c2w, intr, hw: Tuple[int, int]):
-    """Nearest axis-aligned box hit per pixel: rgb in [0, 1], (H, W, 3)."""
+    """Nearest axis-aligned box hit per pixel: rgb in [0, 1] (H, W, 3)
+    and the camera depth (H, W), 0 where no surface is hit."""
     h, w = hw
     py, px = np.mgrid[0:h, 0:w].astype(np.float32)
     pix = np.stack([px, py], axis=-1)
@@ -118,7 +119,10 @@ def _render_view(boxes, colors, c2w, intr, hw: Tuple[int, int]):
         rgb = np.where(hit[..., None],
                        np.asarray(color, np.float32) * shade[..., None],
                        rgb)
-    return np.clip(rgb, 0, 1)
+    # ray dirs have camera-space z = 1 before rotation, so the ray
+    # parameter t IS the camera depth
+    depth = np.where(np.isfinite(t_best), t_best, 0.0).astype(np.float32)
+    return np.clip(rgb, 0, 1), depth
 
 
 def make_scene_geometry(rng: np.random.RandomState, n_boxes: int = 3):
@@ -140,6 +144,9 @@ def make_scene_geometry(rng: np.random.RandomState, n_boxes: int = 3):
     return np.stack(boxes), np.asarray(labels, np.int64)
 
 
+# every camera of a synthetic scene looks at this point
+LOOK_AT = (0.0, 0.0, 0.6)
+
 _PALETTE = np.array([
     [0.9, 0.2, 0.2], [0.2, 0.8, 0.3], [0.25, 0.35, 0.9], [0.9, 0.8, 0.2],
     [0.8, 0.3, 0.8], [0.3, 0.8, 0.8], [0.95, 0.55, 0.2], [0.6, 0.4, 0.2],
@@ -152,17 +159,22 @@ def make_synthetic_scene(
     n_targets: int = 2,
     hw: Tuple[int, int] = (60, 80),
     pad_hw: Optional[Tuple[int, int]] = None,
+    n_rand: int = 512,
     n_boxes: int = 3,
     max_gt: int = 8,
+    margin: int = 2,
 ) -> Dict[str, np.ndarray]:
-    """One synthetic scene with the detection keys.
+    """One synthetic scene: source views, boxes and target-view rays.
 
     Returns imgs (V, Hp, Wp, 3) normalized and denorm_images
     (V, Hp, Wp, 3) in [0, 1], both zero-padded from ``hw`` to
-    ``pad_hw``; intrinsic (4, 4); extrinsics (V, 4, 4) world->camera;
-    origin (3,); gt_boxes (max_gt, 7), gt_labels, gt_mask.
-    ``n_targets`` only places the (unrendered) target cameras, which
-    keeps the random stream and the source poses those of the original.
+    ``pad_hw``; intrinsic (4, 4) at ``hw``; extrinsics (V, 4, 4)
+    world->camera; origin (3,); gt_boxes (max_gt, 7), gt_labels,
+    gt_mask; and ``n_rand`` rays drawn without replacement from the
+    pixel grids of the ``n_targets`` target views, inside ``margin``:
+    ray_o, ray_d (n_rand, 3), gt_rgb (n_rand, 3) uint8-quantized and
+    gt_depth (n_rand,). With ``n_rand`` at least the grid's size the
+    rays are all of them, in random order.
     """
     rng = np.random.RandomState(seed)
     h, w = hw
@@ -180,11 +192,11 @@ def make_synthetic_scene(
         r = rng.uniform(3.2, 4.2)
         pos = np.array([r * np.cos(ang), r * np.sin(ang),
                         rng.uniform(1.2, 2.2)], np.float32)
-        views.append(_look_at(pos, (0.0, 0.0, 0.6)))
+        views.append(_look_at(pos, LOOK_AT))
 
     imgs, denorms, extr = [], [], []
     for c2w in views[:n_views]:
-        rgb = _render_view(boxes, colors, c2w, intr, hw)
+        rgb, _ = _render_view(boxes, colors, c2w, intr, hw)
         norm = imnormalize(rgb * 255.0, IMG_MEAN, IMG_STD)
         denorm = imdenormalize(norm, IMG_MEAN, IMG_STD)
         pad = np.zeros((ph, pw, 3), np.float32)
@@ -202,6 +214,32 @@ def make_synthetic_scene(
         extrinsics=np.stack(extr),
         origin=np.array([0.0, 0.0, 0.5], np.float32),
     )
+
+    # target-view rays
+    ray_o, ray_d, gt_rgb, gt_depth = [], [], [], []
+    py, px = np.mgrid[margin:h - margin, margin:w - margin]
+    pix = np.stack([px, py], axis=-1).astype(np.float32)
+    for c2w in views[n_views:]:
+        rgb, depth = _render_view(boxes, colors, c2w, intr, hw)
+        dirs = get_dtu_raydir(pix, intr, c2w[:3, :3]).reshape(-1, 3)
+        ray_d.append(dirs)
+        ray_o.append(np.broadcast_to(c2w[:3, 3], dirs.shape))
+        # round-trip through the uint8 quantization like the pipeline
+        q = imdenormalize(imnormalize(rgb * 255.0, IMG_MEAN, IMG_STD),
+                          IMG_MEAN, IMG_STD)
+        gt_rgb.append(q[py, px].reshape(-1, 3))
+        gt_depth.append(depth[py, px].reshape(-1))
+    ray_o = np.concatenate(ray_o)
+    ray_d = np.concatenate(ray_d)
+    gt_rgb = np.concatenate(gt_rgb)
+    gt_depth = np.concatenate(gt_depth)
+    sel = rng.choice(ray_d.shape[0], size=(min(n_rand, ray_d.shape[0]),),
+                     replace=False)
+    out["ray_o"] = ray_o[sel].astype(np.float32)
+    out["ray_d"] = ray_d[sel].astype(np.float32)
+    out["gt_rgb"] = gt_rgb[sel].astype(np.float32)
+    out["gt_depth"] = gt_depth[sel].astype(np.float32)
+
     out["gt_boxes"], out["gt_labels"], out["gt_mask"] = pad_gt(
         boxes, labels, max_gt)
     return out

@@ -34,6 +34,8 @@ def _build_nerfdet(cfg: dict, meta: SceneMeta = None) -> NerfDet:
         n_scales=head["n_scales"],
         n_voxels=tuple(cfg["n_voxels"]),
         voxel_size=tuple(cfg["voxel_size"]),
+        near_far_range=tuple(cfg["near_far_range"]),
+        n_samples=cfg.get("N_samples", 64),
         squeeze_scale=cfg.get("squeeze_scale", 4),
         nerf_density=cfg.get("nerf_density", False),
         meta=meta or SceneMeta(),

@@ -1,12 +1,13 @@
-"""NeRF-Det detection inference for one scene.
+"""NeRF-Det inference for one scene: detection and novel-view rendering.
 
-Port of the detection path of ``nerfdet_tpu/models/nerfdet.py``:
-ResNet + FPN over the views, projection and view-streaming mean/variance
-fusion (K1) with the nerf_density global volume, the density MLP's
-alpha modulation, the 3D neck and the head. Public methods take and
-return channels-last tensors without a batch dimension, like the JAX
-package; the modules inside run NCHW / NCDHW. The render branch is not
-ported yet.
+Port of ``nerfdet_tpu/models/nerfdet.py``. Detection: ResNet + FPN over
+the views, projection and view-streaming mean/variance fusion (K1) with
+the nerf_density global volume, the density MLP's alpha modulation, the
+3D neck and the head. Rendering (image mode, evenly spaced samples):
+the ``mapping`` of the cropped stride-4 maps, the view-streaming ray
+sampler (K2), the NeRF MLP and alpha compositing, in ray chunks. Public
+methods take and return channels-last tensors without a batch
+dimension, like the JAX package; the modules inside run NCHW / NCDHW.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from ..nn.heads import ScanNetImVoxelHeadV2
 from ..nn.neck3d import FastIndoorImVoxelNeck
 from ..nn.nerf_mlp import VanillaNeRFRadianceField
 from ..nn.resnet import ResNet
+from ..ops import render as render_ops
+from ..ops.render import view_projection
 from ..ops.voxel import compute_projection, fused_mean_cov, get_points
 
 
@@ -47,6 +50,8 @@ class NerfDet(nn.Module):
                  n_scales: int = 3,
                  n_voxels: Tuple[int, int, int] = (40, 40, 16),
                  voxel_size: Tuple[float, float, float] = (0.16, 0.16, 0.2),
+                 near_far_range: Tuple[float, float] = (0.2, 8.0),
+                 n_samples: int = 64,
                  squeeze_scale: int = 4, nerf_density: bool = True,
                  meta: SceneMeta = SceneMeta()):
         super().__init__()
@@ -54,6 +59,8 @@ class NerfDet(nn.Module):
         self.n_scales = n_scales
         self.n_voxels = tuple(n_voxels)
         self.voxel_size = tuple(voxel_size)
+        self.near_far_range = tuple(near_far_range)
+        self.n_samples = n_samples
         self.nerf_density = nerf_density
         self.meta = meta
         self.backbone = ResNet(depth=backbone_depth,
@@ -154,17 +161,83 @@ class NerfDet(nn.Module):
         outs = self.bbox_head(self.neck_3d(x))
         return [tuple(t[0].permute(1, 2, 3, 0) for t in o) for o in outs]
 
+    # ------------------------------------------------------------------
+    # the render branch (image mode)
+    # ------------------------------------------------------------------
+
+    def render_featmaps(self, features) -> torch.Tensor:
+        """``mapping`` of the stride-4 maps cropped to (img_h // 4,
+        img_w // 4): the pixels are normalized by ``img_shape``, so the
+        renderer samples the cropped extent, not the padded one."""
+        stride = self.meta.pad_shape[1] // features.shape[2]
+        fh = self.meta.img_shape[0] // stride
+        fw = self.meta.img_shape[1] // stride
+        return self.mapping(features[:, :fh, :fw])
+
+    def render_projection(self, intrinsic, extrinsics, device):
+        """(V, 4, 4) ``K4 @ pose`` with the intrinsic scaled from
+        ``ori_shape`` to ``img_shape``."""
+        ratio = self.meta.ori_shape[0] / self.meta.img_shape[0]
+        return view_projection(intrinsic, extrinsics, ratio, device)
+
+    def _render_chunk(self, ray_o, ray_d, imgs_denorm, proj, featmaps):
+        return render_ops.render_rays_chunk(
+            ray_o, ray_d, self.nerf_mlp, near_far=self.near_far_range,
+            n_samples=self.n_samples, images=imgs_denorm, proj=proj,
+            img_hw=self.meta.img_shape, featmaps=featmaps)
+
+    def render(self, ray_o, ray_d, features, imgs_denorm, intrinsic,
+               extrinsics) -> Dict[str, torch.Tensor]:
+        """Render a bundle of rays (R, 3) with evenly spaced samples:
+        rgb (R, 3), depth (R,) and the ray mask (R,).
+        ``features`` are the stride-4 FPN maps, ``imgs_denorm`` the
+        (V, Hp, Wp, 3) denormalized views."""
+        proj = self.render_projection(intrinsic, extrinsics, ray_o.device)
+        return self._render_chunk(ray_o, ray_d, imgs_denorm, proj,
+                                  self.render_featmaps(features))
+
+    @torch.inference_mode()
+    def render_full(self, batch: Dict, chunk: int = 2048):
+        """Test-time rendering, without autograd, of every ray of
+        ``batch['ray_o'/'ray_d']`` ((T, R, 3) per target view or flat
+        (N, 3)) in chunks of ``chunk``: the rays are padded by repeating
+        the first ones, and the output cut back. Returns rgb (N, 3) and
+        depth (N,)."""
+        features = self.extract_2d(batch["imgs"])
+        featmaps = self.render_featmaps(features)
+        ray_o = batch["ray_o"].reshape(-1, 3)
+        ray_d = batch["ray_d"].reshape(-1, 3)
+        n = ray_o.shape[0]
+        pad = (-n) % chunk
+        if pad:
+            ray_o = torch.cat([ray_o, ray_o[:pad]])
+            ray_d = torch.cat([ray_d, ray_d[:pad]])
+        proj = self.render_projection(batch["intrinsic"], batch["extrinsics"],
+                                      ray_o.device)
+        images = batch["denorm_images"]
+        outs = render_ops.render_rays_full(
+            ray_o, ray_d, chunk, lambda ro, rd: self._render_chunk(
+                ro, rd, images, proj, featmaps))
+        return outs["rgb"][:n], outs["depth"][:n]
+
     def forward(self, batch: Dict[str, torch.Tensor]):
         """One scene: ``batch`` holds imgs (V, Hp, Wp, 3), intrinsic
-        (4, 4), extrinsics (V, 4, 4), origin (3,) and, for the density
-        path, rgb_s1/rgb_s2 (N, 3). Returns (head_outs, valid)."""
+        (4, 4), extrinsics (V, 4, 4), origin (3,), for the density path
+        rgb_s1/rgb_s2 (N, 3), and optionally a ray bundle ray_o/ray_d
+        (R, 3) with denorm_images (V, Hp, Wp, 3). Returns (head_outs,
+        valid, render_out), render_out None without rays."""
         features = self.extract_2d(batch["imgs"])
         rgb_stats = ((batch["rgb_s1"], batch["rgb_s2"])
                      if "rgb_s1" in batch else None)
         vol = self.build_volume(features, batch["intrinsic"],
                                 batch["extrinsics"], batch["origin"],
                                 rgb_stats=rgb_stats)
-        return self.detect(vol["det_volume"]), vol["valid"]
+        render_out = None
+        if "ray_o" in batch:
+            render_out = self.render(batch["ray_o"], batch["ray_d"], features,
+                                     batch["denorm_images"],
+                                     batch["intrinsic"], batch["extrinsics"])
+        return self.detect(vol["det_volume"]), vol["valid"], render_out
 
     def mlvl_points(self, origin) -> List[torch.Tensor]:
         """Per-scale voxel-center grids, each (P, 3)."""

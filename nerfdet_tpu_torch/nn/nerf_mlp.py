@@ -5,9 +5,9 @@ here they are stated: the trunk input is the encoded position
 (``encoded_dim(3, 0, 10)`` = 63) plus the feature width, and a skip
 layer concatenates the trunk input back after its ReLU. Module names
 follow the reference state_dict (``mlp.base.hidden_layers.{i}``,
-``mlp.sigma_layer.output_layer``, ...). This slice runs
-``query_density`` only; the view-conditioned rgb layers are built so a
-full checkpoint loads.
+``mlp.sigma_layer.output_layer``, ...). Detection runs
+``query_density``; rendering runs the full forward, whose rgb head is
+conditioned on the encoded view direction.
 """
 
 from __future__ import annotations
@@ -91,6 +91,21 @@ class NerfMLP(nn.Module):
             x = torch.cat([x, features], dim=-1)
         return self.sigma_layer(self.base(x))
 
+    def forward(self, x, condition, features):
+        """Raw (rgb, sigma) of (..., in) points: the trunk over [x,
+        features], the sigma head, then the rgb head over [bottleneck,
+        condition]; ``condition`` (R, D) is broadcast over the samples
+        of each ray."""
+        x = self.base(torch.cat([x, features], dim=-1))
+        raw_sigma = self.sigma_layer(x)
+        if condition.shape[:-1] != x.shape[:-1]:
+            condition = condition.reshape(
+                condition.shape[:1] + (1,) * (x.dim() - condition.dim())
+                + condition.shape[-1:]).expand(
+                    x.shape[:-1] + condition.shape[-1:])
+        x = torch.cat([self.bottleneck_layer(x), condition], dim=-1)
+        return self.rgb_layer(x), raw_sigma
+
 
 class VanillaNeRFRadianceField(nn.Module):
     """Radiance field with the sinusoidal encoders built in."""
@@ -108,3 +123,10 @@ class VanillaNeRFRadianceField(nn.Module):
     def query_density(self, x, features=None):
         x = sinusoidal_encode(x, 0, 10)
         return torch.relu(self.mlp.query_density(x, features))
+
+    def forward(self, x, condition, features):
+        """(sigmoid(rgb), relu(sigma)) at points ``x`` (..., 3) with
+        view directions ``condition`` (R, 3) and ``features`` (..., F)."""
+        rgb, sigma = self.mlp(sinusoidal_encode(x, 0, 10),
+                              sinusoidal_encode(condition, 0, 4), features)
+        return torch.sigmoid(rgb), torch.relu(sigma)

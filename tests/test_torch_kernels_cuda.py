@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from nerfdet_tpu_torch.ops import pointnet, voxel
+from nerfdet_tpu_torch.ops import pointnet, render, voxel
 
 pytestmark = pytest.mark.cuda
 
@@ -132,6 +132,57 @@ def test_furthest_point_sample_rejects_what_it_cannot_take(dev):
         pointnet.furthest_point_sample(pts, 1001)
     with pytest.raises(ValueError, match="shared memory"):
         pointnet.furthest_point_sample(_cloud(dev, 60000, 3, 0), 10)
+
+
+def _ray_inputs(dev, v, r, s, c, seed=0):
+    """Sample points over a room (some above it, behind every camera:
+    the cameras look down), 240x320 images, 59x80 feature maps, and the
+    cameras of ``_cameras`` at 239x320."""
+    rng = np.random.RandomState(seed)
+    intrinsic, extr = _cameras(rng, v)
+    pts = rng.uniform([-3, -3, -0.5], [3, 3, 3], (r, s, 3))
+    pts[: r // 8, :, 2] += 50.0
+    images = rng.uniform(0, 1, (v, 240, 320, 3))
+    feats = rng.randn(v, 59, 80, c)
+    proj = render.view_projection(intrinsic, extr, 1.0, dev)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (pts, images, feats)] + [proj]
+
+
+@pytest.mark.parametrize("v,r,s,c", [
+    (50, 2048, 64, 32),  # one chunk of the render path
+    (3, 37, 5, 8), (5, 100, 64, 1), (1, 1, 1, 32),
+])
+def test_ray_view_carry_matches_plain(dev, v, r, s, c):
+    pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=v + r)
+    before = render.ray_view_carry.launches
+    got = render.ray_view_carry(pts, images, feats, proj, (239, 320))
+    want = render.ray_view_carry_plain(pts, images, feats, proj, (239, 320))
+    torch.cuda.synchronize()
+    assert render.ray_view_carry.launches == before + 1
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
+    # counts exact; the sums follow the plain version's rounding in view
+    # order (tolerance 1e-5 relative)
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        assert _rel(a, b) <= 1e-5
+    if r >= 8:
+        assert int((got[3] == 0).sum()) > 0 and float(got[3].max()) >= 2
+
+
+def test_ray_view_carry_rejects_what_it_cannot_take(dev):
+    pts, images, feats, proj = _ray_inputs(dev, 2, 16, 4, 32)
+    with pytest.raises(TypeError, match="float32"):
+        render.ray_view_carry(pts.double(), images, feats, proj, (239, 320))
+    with pytest.raises(ValueError, match="feature channels"):
+        render.ray_view_carry(pts, images, torch.cat([feats, feats], -1),
+                              proj, (239, 320))
+    with pytest.raises(ValueError, match="contiguous"):
+        render.ray_view_carry(pts, images, feats[:, :, :40], proj,
+                              (239, 320))
+    with pytest.raises(ValueError, match="unsupported device"):
+        render.ray_view_carry(pts.to("meta"), images, feats, proj,
+                              (239, 320))
 
 
 def test_entry_device_turns_tf32_off(dev):

@@ -110,7 +110,8 @@ def test_eval_step_matches_jax_graph(toy):
 
     tbatch = api.device_batch(model, scene)
     with torch.inference_mode():
-        head_t, valid_t = model(tbatch)
+        head_t, valid_t, render_t = model(tbatch)
+    assert render_t is None
     out = api.eval_step(model, tbatch, NMS_PRE)
 
     np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
@@ -145,10 +146,10 @@ def test_density_modulation_is_on(toy):
     _, _, model, scene = toy
     batch = api.device_batch(model, scene)
     with torch.inference_mode():
-        on, _ = model(batch)
+        on, _, _ = model(batch)
         model.nerf_density = False
         try:
-            off, _ = model(batch)
+            off, _, _ = model(batch)
         finally:
             model.nerf_density = True
     assert np.abs(on[0][2].numpy() - off[0][2].numpy()).max() > 1e-3

@@ -7,13 +7,17 @@ import ast
 import glob
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from nerfdet_tpu.config import Config as JaxConfig
+from nerfdet_tpu.core import nvs_metrics as jax_nvs_metrics
 from nerfdet_tpu.core.boxes import corners_from_boxes as jax_corners
 from nerfdet_tpu.data.synthetic import make_synthetic_scene as jax_scene
+from nerfdet_tpu.models.nerfdet import NerfDet as JaxNerfDet
+from nerfdet_tpu.models.nerfdet import SceneMeta as JaxSceneMeta
 from nerfdet_tpu.models.votenet import votenet_nms as jax_votenet_nms
 from nerfdet_tpu.ops.voxel import host_rgb_stats as jax_rgb_stats
 from nerfdet_tpu.utils.weight_convert import (convert_reference_checkpoint,
@@ -21,6 +25,7 @@ from nerfdet_tpu.utils.weight_convert import (convert_reference_checkpoint,
 
 from nerfdet_tpu_torch.api import init_detector
 from nerfdet_tpu_torch.config import Config
+from nerfdet_tpu_torch.core import nvs_metrics
 from nerfdet_tpu_torch.core.boxes import corners_from_boxes
 from nerfdet_tpu_torch.data.rgb_stats import host_rgb_stats
 from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
@@ -31,8 +36,9 @@ from nerfdet_tpu_torch.utils.weight_convert import (
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "ml_dtypes", "nerfdet_tpu")
-DET_KEYS = ("imgs", "denorm_images", "intrinsic", "extrinsics", "origin",
-            "gt_boxes", "gt_labels", "gt_mask")
+SCENE_KEYS = ("imgs", "denorm_images", "intrinsic", "extrinsics", "origin",
+              "gt_boxes", "gt_labels", "gt_mask", "ray_o", "ray_d", "gt_rgb",
+              "gt_depth")
 
 
 def _port_files():
@@ -68,14 +74,48 @@ def test_config_copy(cfg):
 @pytest.mark.parametrize("kw", [
     dict(seed=0, n_views=3, n_targets=1, hw=(31, 40), pad_hw=(32, 40)),
     dict(seed=5, n_views=2, n_targets=2, hw=(24, 32), n_boxes=4,
-         max_gt=2),
+         max_gt=2, n_rand=10000, margin=3),
 ])
 def test_synthetic_scene_copy(kw):
     want = jax_scene(**kw)
     got = make_synthetic_scene(**kw)
-    for k in DET_KEYS:
+    assert set(got) == set(SCENE_KEYS)
+    for k in SCENE_KEYS:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _nvs_case(mod, name, out_dir):
+    rng = np.random.RandomState(3)
+    rgb = rng.uniform(0, 1, (2, 20, 24, 3)).astype(np.float32)
+    gt = np.clip(rgb + rng.normal(0, 0.05, rgb.shape), 0, 1).astype(
+        np.float32)
+    depth = rng.uniform(0.5, 5, (2, 20, 24)).astype(np.float32)
+    gt_depth = depth + rng.normal(0, 0.1, depth.shape).astype(np.float32)
+    if name == "compute_psnr":
+        return (mod.compute_psnr(rgb, gt),
+                mod.compute_psnr(rgb, gt, mask=depth > 2))
+    if name == "compute_ssim":
+        return mod.compute_ssim(rgb[0], gt[0])
+    if name == "evaluate_rendering":
+        return mod.evaluate_rendering(rgb, gt, depth=depth,
+                                      gt_depth=gt_depth, out_dir=out_dir)
+    return mod.aggregate_nvs({"a": dict(psnr=20.5, ssim=0.7, rmse=0.1),
+                              "b": dict(psnr=25.0, ssim=0.8)})
+
+
+@pytest.mark.parametrize("name", ["compute_psnr", "compute_ssim",
+                                  "evaluate_rendering", "aggregate_nvs"])
+def test_nvs_metrics_copy(name, tmp_path):
+    got = _nvs_case(nvs_metrics, name, str(tmp_path / "port"))
+    want = _nvs_case(jax_nvs_metrics, name, str(tmp_path / "jax"))
+    assert got == want
+    if name == "evaluate_rendering":
+        for i in range(2):
+            rel = os.path.join("scene", f"view_{i}.png")
+            with open(tmp_path / "port" / rel, "rb") as a, \
+                    open(tmp_path / "jax" / rel, "rb") as b:
+                assert a.read() == b.read()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -175,6 +215,41 @@ def test_from_jax_variables_round_trip():
         assert torch.equal(a.float(), torch.as_tensor(b).float()), k
     model.load_state_dict(via_jax, strict=True)
     load_reference_state_dict(model, state)
+
+
+def test_from_jax_variables_loads_the_render_head():
+    """A JAX tree initialized with a ray bundle holds the rgb head
+    (bottleneck_layer, rgb_layer): it loads strictly into the port, and
+    a reference checkpoint still loads over it."""
+    meta = JaxSceneMeta(ori_shape=(128, 160), img_shape=(31, 40),
+                        pad_shape=(32, 40))
+    jmodel = JaxNerfDet(fpn_out_channels=64, neck3d_out_channels=16,
+                        neck3d_n_blocks=(1, 1), n_classes=5, n_scales=2,
+                        n_voxels=(8, 8, 4), n_samples=16, meta=meta)
+    scene = jax_scene(seed=0, n_views=2, n_targets=1, hw=(31, 40),
+                      pad_hw=(32, 40), n_rand=8)
+    batch = {k: scene[k] for k in ("imgs", "denorm_images", "intrinsic",
+                                   "extrinsics", "origin", "ray_o",
+                                   "ray_d")}
+    shapes = jax.eval_shape(lambda k: jmodel.init(
+        k, batch, train=False, with_rays=True), jax.random.PRNGKey(0))
+    rng = np.random.RandomState(0)
+    variables = jax.tree_util.tree_map(
+        lambda x: rng.randn(*x.shape).astype(np.float32), shapes)
+    state = from_jax_variables(variables)
+    rgb_head = variables["params"]["nerf_mlp"]["mlp"]["rgb_layer"]
+    for key, kernel in (
+            ("bottleneck_layer.output_layer", variables["params"]["nerf_mlp"]
+             ["mlp"]["bottleneck_layer"]["output"]["kernel"]),
+            ("rgb_layer.hidden_layers.0", rgb_head["hidden_0"]["kernel"]),
+            ("rgb_layer.output_layer", rgb_head["output"]["kernel"])):
+        np.testing.assert_array_equal(
+            state[f"nerf_mlp.mlp.{key}.weight"].numpy(), kernel.T)
+    model = NerfDet(fpn_out_channels=64, neck3d_out_channels=16,
+                    neck3d_n_blocks=(1, 1), n_classes=5, n_scales=2,
+                    n_voxels=(8, 8, 4), n_samples=16)
+    model.load_state_dict(state, strict=True)
+    load_reference_state_dict(model, _reference_state())
 
 
 def test_entry_points_need_cuda_unless_cpu():
