@@ -11,7 +11,9 @@ Phases, each reported on its own lines:
    register / shared-memory report;
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, with its time, the plain version's
-   time and the least time the card could take (bound);
+   time and the least time the card could take (bound); K3's cluster
+   size and time a step, and ``[lever]`` lines: K3 on other cluster
+   sizes, the fused K2 with each way of loading its taps;
 4. the first path: NeRF-Det-R50 low-res detection inference at full
    width (50 views at 240x320, a 40x40x16 volume, random weights from a
    seed) through ``init_detector`` -> ``eval_step`` -> host NMS, with
@@ -29,7 +31,8 @@ Phases, each reported on its own lines:
    ``run_nvs_eval`` -> ``render_full`` (exactly 33 K2 launches at chunk
    2048), then ``eval_step`` on a batch that carries 2048 rays; the
    outputs' range, the view-mask shares, the same render with the plain
-   K2, a per-stage time breakdown, views/s and peak memory.
+   K2, a per-stage time breakdown, the share of feature windows a sample
+   shares with the previous one, views/s and peak memory.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.
@@ -169,12 +172,16 @@ def fps_bound(n, c, s):
 
 
 def check_fps(pointnet, cases):
-    """K3 vs its plain version on the card: indices must be equal."""
+    """K3 vs its plain version on the card: indices must be equal. Each
+    line gives the plan's cluster size and the time a step; the path's
+    shapes are also timed on the other cluster sizes that hold them
+    (``[lever]`` lines: does a cluster pay at this N?)."""
     import torch
 
     results = {}
-    for name, pts, s in cases:
+    for name, pts, s, on_path in cases:
         n, c = pts.shape
+        k = pointnet.fps_plan(n, c)[0]
         got = pointnet.furthest_point_sample(pts, s)
         want = pointnet.furthest_point_sample_plain(pts, s)
         torch.cuda.synchronize()
@@ -187,12 +194,31 @@ def check_fps(pointnet, cases):
             lambda: pointnet.furthest_point_sample_plain(pts, s), 2,
             warmup=1)
         bound_ms, bound_by, nbytes, ops = fps_bound(n, c, s)
+        us_step = ms * 1e3 / max(s - 1, 1)
         log(f"[kernel] furthest_point_sample {name}: N={n} C={c} S={s}: "
-            f"indices equal (max_abs_err={err:.0f}, tol: exact) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"cluster {k} CTAs; indices equal (max_abs_err={err:.0f}, tol: "
+            f"exact) ms={ms:.4f} ({us_step:.3f} us per step) "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
             f"({bound_by}; {nbytes} B, {ops} FLOP)")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             cluster=k, us_step=us_step)
+        if not on_path:
+            continue
+        for alt in pointnet.FPS_CLUSTER_SIZES:
+            if alt == k or not (k // 4 <= alt <= 4 * k):
+                continue
+            alt_out = pointnet._fps_launch(pts, s, alt)
+            torch.cuda.synchronize()
+            if not torch.equal(alt_out, want):
+                raise SystemExit(f"K3 {name} on {alt} CTAs differs from "
+                                 f"the plain version")
+            alt_ms = cuda_time_ms(lambda: pointnet._fps_launch(pts, s, alt),
+                                  10)
+            log(f"[lever] furthest_point_sample {name} on {alt} CTAs: "
+                f"indices equal, ms={alt_ms:.4f} "
+                f"({alt_ms * 1e3 / max(s - 1, 1):.3f} us per step) against "
+                f"{ms:.4f} on the plan's {k}")
     return results
 
 
@@ -313,7 +339,7 @@ def votenet_path(api, pointnet, voxel, model, cloud, card):
     dev = next(model.parameters()).device
     voxel.fusion_carry.launches = 0
     pointnet.furthest_point_sample.launches = 0
-    render.ray_view_carry.launches = 0
+    render.streaming_sample_mean_var.launches = 0
     boxes, obj, sem = api.points_eval_step(model, points)
     det = votenet_nms(boxes.cpu().numpy(), obj.cpu().numpy(),
                       sem.cpu().numpy(), points[:, :3])
@@ -322,8 +348,8 @@ def votenet_path(api, pointnet, voxel, model, cloud, card):
         f"{tuple(obj.shape)}, sem {tuple(sem.shape)}; votenet_nms kept "
         f"{len(det['labels_3d'])} (box, class) proposals; launches: "
         f"furthest_point_sample {launches}, fused_mean_cov "
-        f"{voxel.fusion_carry.launches}, ray_view_carry "
-        f"{render.ray_view_carry.launches}")
+        f"{voxel.fusion_carry.launches}, streaming_sample_mean_var "
+        f"{render.streaming_sample_mean_var.launches}")
     if launches != FPS_LAUNCHES:
         raise SystemExit(f"VoteNet launched furthest_point_sample "
                          f"{launches} times, expected {FPS_LAUNCHES}")
@@ -402,54 +428,64 @@ def votenet_path(api, pointnet, voxel, model, cloud, card):
 
 def ray_bound(pts, images, feats):
     """Least time of K2 on these inputs: bytes (points, images, feature
-    maps and projections read once, the three (N, 3 + C) sums and the
-    counts written once) over HBM rate against the operations over the
-    fp32 rate. Per (point, view): 20 for the projection and its divides,
-    14 per map for the scale, the window and the tap weights, 12 per
-    channel (4 products and 3 sums of the taps, 5 for the three
-    accumulators) and 1 for the count."""
+    maps and projections read once, globalfeat (2(3 + C) floats a point)
+    and the one-byte mask written once) over HBM rate against the
+    operations over the fp32 rate. Per (point, view): 20 for the
+    projection and its divides, 14 per map for the scale, the window and
+    the tap weights, 12 per channel (4 products and 3 sums of the taps, 5
+    for the three accumulators) and 1 for the count; per point: 10 per
+    channel for the statistics (mean's divide, the variance's 3 products,
+    2 sums and divide, the negation and exp, the two stores' moves) and
+    2 for the denominator and the mask."""
     n = pts.numel() // 3
     v, c = images.shape[0], 3 + feats.shape[-1]
     nbytes = (pts.numel() + images.numel() + feats.numel() + v * 16
-              + n * (3 * c + 1)) * 4
-    ops = n * v * (20 + 2 * 14 + 12 * c + 1)
+              + n * 2 * c) * 4 + n
+    ops = n * v * (20 + 2 * 14 + 12 * c + 1) + n * (10 * c + 2)
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, ops)
 
 
-def check_ray_carry(render, cases, img_hw):
-    """K2 vs its plain version on the card: counts and the two-view
-    mask exact, the sums within 1e-5 relative. ``cases``: (name, pts,
-    images, featmaps, proj, timed)."""
+def check_k2(render, cases, img_hw):
+    """The fused K2 vs its plain version (the carry, then the epilogue)
+    on the card: pixel_mask and the unseen count exact, globalfeat within
+    1e-5 relative. The unseen count is read from each side's own output:
+    a point no view counts has s1m = 0, so every mean is exactly 0.
+    ``cases``: (name, pts, images, featmaps, proj, timed). The timed
+    case also runs each way of loading the taps (``[lever]`` lines)."""
     import torch
 
     results = {}
     for name, pts, images, feats, proj, timed in cases:
-        got = render.ray_view_carry(pts, images, feats, proj, img_hw)
-        want = render.ray_view_carry_plain(pts, images, feats, proj, img_hw)
+        args = (pts, images, proj, img_hw, feats)
+        got = render.streaming_sample_mean_var(*args)
+        want = render.streaming_sample_mean_var_plain(*args)
         torch.cuda.synchronize()
-        if not torch.equal(got[3], want[3]):
-            raise SystemExit(f"K2 {name}: cnt differs from the plain version")
-        abs_err, rel_err = 0.0, 0.0
-        for g, p in zip(got[:3], want[:3]):
-            e = float((g - p).abs().max())
-            abs_err = max(abs_err, e)
-            rel_err = max(rel_err, e / max(float(p.abs().max()), 1e-30))
-        cnt = got[3][..., 0]
-        line = (f"[kernel] ray_view_carry {name}: V={images.shape[0]} "
-                f"N={cnt.numel()} C={got[0].shape[-1]}: cnt and pixel_mask "
-                f"equal (pixel_mask share {float((cnt > 1).float().mean()):.4f}"
-                f", unseen share {float((cnt == 0).float().mean()):.4f}); "
-                f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} (tol: "
-                f"cnt exact, rel 1e-5); bitwise equal "
+        cs = got[0].shape[-1] // 2
+        unseen = [int((g[0][..., :cs] == 0).all(-1).sum()) for g in
+                  (got, want)]
+        if not torch.equal(got[1], want[1]) or unseen[0] != unseen[1]:
+            raise SystemExit(f"K2 {name}: pixel_mask or the unseen count "
+                             f"differs from the plain version")
+        abs_err = float((got[0] - want[0]).abs().max())
+        rel_err = abs_err / max(float(want[0].abs().max()), 1e-30)
+        n_pts = got[1].numel()
+        line = (f"[kernel] streaming_sample_mean_var {name}: "
+                f"V={images.shape[0]} N={n_pts} C={cs}: pixel_mask and "
+                f"unseen count equal (pixel_mask share "
+                f"{float(got[1].float().mean()):.4f}, unseen "
+                f"{unseen[0]} of {n_pts}); globalfeat max_abs_err="
+                f"{abs_err:.3e} max_rel_err={rel_err:.3e} (tol: mask exact, "
+                f"rel 1e-5); bitwise equal "
                 f"{all(torch.equal(g, p) for g, p in zip(got, want))}")
-        result = dict(max_abs_err=abs_err, cnt=cnt)
+        result = dict(max_abs_err=abs_err, gf=got[0], mask=got[1],
+                      unseen=unseen[0])
         if timed:
-            ms = cuda_time_ms(lambda: render.ray_view_carry(
-                pts, images, feats, proj, img_hw), 10)
-            plain_ms = cuda_time_ms(lambda: render.ray_view_carry_plain(
-                pts, images, feats, proj, img_hw), 2, warmup=1)
+            ms = cuda_time_ms(lambda: render.streaming_sample_mean_var(
+                *args), 10)
+            plain_ms = cuda_time_ms(lambda: render.streaming_sample_mean_var_plain(
+                *args), 2, warmup=1)
             bound_ms, bound_by, nbytes, ops = ray_bound(pts, images, feats)
             line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                      f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, "
@@ -459,8 +495,54 @@ def check_ray_carry(render, cases, img_hw):
         log(line)
         if rel_err > 1e-5:
             raise SystemExit(f"K2 {name} disagrees: rel {rel_err:.3e}")
+        if timed:
+            k2_levers(render, args, want)
         results[name] = result
     return results
+
+
+def k2_levers(render, args, want):
+    """K2 at the render chunk with each way of loading the feature taps:
+    16-byte (4 channels a lane) or 4-byte, with and without reusing the
+    previous point's taps."""
+    import torch
+
+    pts, images, proj, img_hw, feats = args
+    for vec in (4, 1):
+        for reuse in (True, False):
+            def run():
+                return render._k2_launch(pts, images, proj, img_hw, feats,
+                                         vec, reuse)
+            gf, mask = run()
+            torch.cuda.synchronize()
+            if not torch.equal(mask, want[1]) or float(
+                    (gf - want[0]).abs().max()) > 1e-5 * float(
+                    want[0].abs().max()):
+                raise SystemExit(f"K2 vec={vec} reuse={reuse} disagrees "
+                                 f"with the plain version")
+            log(f"[lever] streaming_sample_mean_var render chunk: "
+                f"{4 * vec}-byte feature taps, reuse {reuse}: ms="
+                f"{cuda_time_ms(run, 10):.4f}")
+
+
+def window_reuse(render, pts, images, proj, feats, img_hw):
+    """Shares of the (sample, view) pairs of ``pts`` (R, S, 3) whose
+    feature window (its start pixel) equals the previous sample's on the
+    ray, and of those K2 can reuse (the second of each lane group's two
+    consecutive points)."""
+    import torch
+
+    r, s, _ = pts.shape
+    fh, fw = feats.shape[1:3]
+    _, _, fsx, fsy = render._scales(images, feats, img_hw)
+    pix, _ = render.project_to_views(pts.reshape(-1, 3), proj)
+    fx = torch.clamp(torch.floor(pix[..., 0] * fsx), 0, fw - 1)
+    fy = torch.clamp(torch.floor(pix[..., 1] * fsy), 0, fh - 1)
+    idx = (fy * fw + fx).reshape(-1, r, s)
+    same = idx[..., 1:] == idx[..., :-1]
+    pairs = idx.numel()
+    return (float(same.sum()) / pairs,
+            float(same[..., 0::2].sum()) / pairs)
 
 
 def ray_cases(model, scene, batch, img_hw):
@@ -551,10 +633,10 @@ def render_stage_times(model, render, batch, n_rays, iters=2):
     Events come from forward hooks on ``mapping`` and the NeRF MLP, and
     from wrappers of ``extract_2d`` (an instance attribute over the
     method) and of the renderer functions ``render_rays_chunk`` calls
-    through its module: ``streaming_sample_mean_var`` (K2 + epilogue),
-    ``sample_stats`` (the epilogue) and ``raw2outputs``. K2's own time is
-    the first minus the second; the kernel wrapper and its launch count
-    are left as they are."""
+    through its module: ``_k2_launch`` (K2, its statistics fused in,
+    which the counted wrapper ``streaming_sample_mean_var`` calls) and
+    ``raw2outputs``; the kernel wrapper and its launch count are left as
+    they are."""
     import torch
 
     spans, masks = [], {"pixel": [], "ray": []}
@@ -581,11 +663,9 @@ def render_stage_times(model, render, batch, n_rays, iters=2):
         return run
 
     originals = {name: getattr(render, name) for name in (
-        "streaming_sample_mean_var", "sample_stats", "raw2outputs")}
-    render.streaming_sample_mean_var = timed(
-        "K2 + epilogue", originals["streaming_sample_mean_var"])
-    render.sample_stats = timed("epilogue", originals["sample_stats"],
-                                "pixel")
+        "_k2_launch", "raw2outputs")}
+    render._k2_launch = timed("K2 (fused)", originals["_k2_launch"],
+                              "pixel")
     render.raw2outputs = timed("compositing (raw2outputs)",
                                originals["raw2outputs"], "ray")
     model.extract_2d = timed("extract_2d (ResNet-50 + FPN)",
@@ -619,8 +699,6 @@ def render_stage_times(model, render, batch, n_rays, iters=2):
             h.remove()
     out = {label: sum(a.elapsed_time(b) for a, b in pairs) / iters
            for label, pairs in totals.items()}
-    out["K2 ray_view_carry (stream - epilogue)"] = (
-        out["K2 + epilogue"] - out["epilogue"])
     pixel = torch.cat(masks["pixel"])[:n_rays]
     ray = torch.cat(masks["ray"])[:n_rays]
     return out, float(pixel.float().mean()), float(ray.float().mean())
@@ -637,23 +715,23 @@ def render_path(api, render, voxel, pointnet, model, dataset, card, nms_pre):
     n_rays = item["ray_o"].shape[1]
     expect = math.ceil(n_rays / CHUNK)
     for fn in (voxel.fusion_carry, pointnet.furthest_point_sample,
-               render.ray_view_carry):
+               render.streaming_sample_mean_var):
         fn.launches = 0
     t0 = time.perf_counter()
     metrics = api.run_nvs_eval(model, dataset, chunk=CHUNK, progress=False)
     first_s = time.perf_counter() - t0
-    launches = render.ray_view_carry.launches
+    launches = render.streaming_sample_mean_var.launches
     log(f"[render] run_nvs_eval: {n_rays} rays x {model.n_samples} samples "
         f"from {item['imgs'].shape[0]} views at chunk {CHUNK}: psnr "
         f"{metrics['psnr']:.4f} ssim {metrics['ssim']:.4f} rmse "
         f"{metrics['rmse']:.4f} (random weights); launches: "
-        f"ray_view_carry {launches}, fused_mean_cov "
+        f"streaming_sample_mean_var {launches}, fused_mean_cov "
         f"{voxel.fusion_carry.launches}, furthest_point_sample "
         f"{pointnet.furthest_point_sample.launches}; first call "
         f"{first_s:.2f} s")
     if launches != expect:
-        raise SystemExit(f"render_full launched ray_view_carry {launches} "
-                         f"times, expected {expect}")
+        raise SystemExit(f"render_full launched streaming_sample_mean_var "
+                         f"{launches} times, expected {expect}")
     if not all(np.isfinite(v) for v in metrics.values()):
         raise SystemExit(f"non-finite NVS metrics {metrics}")
 
@@ -661,12 +739,13 @@ def render_path(api, render, voxel, pointnet, model, dataset, card, nms_pre):
     near, far = model.near_far_range
     with torch.inference_mode():
         rgb, depth = model.render_full(batch, CHUNK)
-        kernel_fn = render.ray_view_carry
-        render.ray_view_carry = render.ray_view_carry_plain
+        kernel_fn = render.streaming_sample_mean_var
+        render.streaming_sample_mean_var = \
+            render.streaming_sample_mean_var_plain
         try:
             rgb_p, depth_p = model.render_full(batch, CHUNK)
         finally:
-            render.ray_view_carry = kernel_fn
+            render.streaming_sample_mean_var = kernel_fn
     torch.cuda.synchronize()
     if (tuple(rgb.shape) != (n_rays, 3) or tuple(depth.shape) != (n_rays,)
             or not (torch.isfinite(rgb).all() and torch.isfinite(depth).all())
@@ -687,12 +766,13 @@ def render_path(api, render, voxel, pointnet, model, dataset, card, nms_pre):
     fwd = dict(item, ray_o=item["ray_o"][0, :CHUNK],
                ray_d=item["ray_d"][0, :CHUNK])
     fbatch = {**api.device_batch(model, fwd), **api.render_batch(model, fwd)}
-    render.ray_view_carry.launches = 0
+    render.streaming_sample_mean_var.launches = 0
     out = api.eval_step(model, fbatch, nms_pre)
-    fwd_launches = render.ray_view_carry.launches
+    fwd_launches = render.streaming_sample_mean_var.launches
     fwd_diff = float((out["render_rgb"] - rgb[:CHUNK]).abs().max())
     log(f"[render] eval_step with {CHUNK} rays: {fwd_launches} "
-        f"ray_view_carry launch, {tuple(out['boxes'].shape)} candidates, "
+        f"streaming_sample_mean_var launch, {tuple(out['boxes'].shape)} "
+        f"candidates, "
         f"render_rgb vs render_full's first chunk max |diff| "
         f"{fwd_diff:.3e} (tol 1e-5)")
     if fwd_launches != 1 or fwd_diff > 1e-5:
@@ -710,11 +790,24 @@ def render_path(api, render, voxel, pointnet, model, dataset, card, nms_pre):
         if label == "NeRF MLP":
             extra = (f" ({mlp_flop / 1e9:.1f} GFLOP f32, "
                      f"{mlp_flop / ms / 1e9:.2f} TFLOP/s)")
-        elif label.startswith("K2 ray_view_carry"):
+        elif label.startswith("K2"):
             extra = f" ({ms / expect:.4f} ms per chunk, {expect} chunks)"
         log(f"[stage] render {label}: {ms:.3f} ms{extra}")
     log(f"[render] sample points seen by more than one view: "
         f"{pixel_share:.4f}; rays with the mask set: {ray_share:.4f}")
+    with torch.inference_mode():
+        feats = model.render_featmaps(model.extract_2d(batch["imgs"]))
+        proj = model.render_projection(batch["intrinsic"],
+                                       batch["extrinsics"], rgb.device)
+        pts, _ = render.sample_along_camera_ray(
+            batch["ray_o"].reshape(-1, 3)[:CHUNK],
+            batch["ray_d"].reshape(-1, 3)[:CHUNK], near, far,
+            model.n_samples)
+        same, reused = window_reuse(render, pts, batch["denorm_images"], proj,
+                                    feats, model.meta.img_shape)
+    log(f"[render] first chunk's (sample, view) pairs whose feature window "
+        f"equals the previous sample's: {same:.4f}; reused by K2 (the "
+        f"second of each lane group's two points): {reused:.4f}")
 
     # throughput on the host clock, and peak memory
     iters = 3
@@ -821,8 +914,9 @@ def main():
     extra = [("F-FPS C=19", torch.randn((4096, 19), generator=gen,
                                         device=dev), 512),
              ("duplicated points", torch.cat([half, half]), 2048)]
-    fps = check_fps(pointnet, [(n, p, s) for n, (p, s) in
-                               zip(path_names, fps_calls)] + extra)
+    fps = check_fps(pointnet, [(n, p, s, True) for n, (p, s) in
+                               zip(path_names, fps_calls)]
+                    + [(n, p, s, False) for n, p, s in extra])
 
     # the render path's scene: the synthetic intrinsic is at the rendered
     # size; the renderer takes it at ori_shape, so it is scaled up here
@@ -831,13 +925,13 @@ def main():
     nvs = nvs_dataset(dict(scene, intrinsic=intrinsic), scene["intrinsic"],
                       (h, w))
     rbatch = api.render_batch(model, nvs[0])
-    ray = check_ray_carry(render, ray_cases(model, nvs[0], rbatch, (h, w)),
-                          (h, w))
-    if bool(ray["behind every camera"]["cnt"].any()):
+    ray = check_k2(render, ray_cases(model, nvs[0], rbatch, (h, w)), (h, w))
+    above = ray["behind every camera"]
+    if above["unseen"] != above["mask"].numel() or bool(above["mask"].any()):
         raise SystemExit("K2 counted a view for a point behind every camera")
-    blind, seen = ray["a view with no valid point"]["cnt"], \
-        ray["render chunk"]["cnt"]
-    if not (bool((blind <= seen).all()) and bool((blind < seen).any())):
+    blind, seen = ray["a view with no valid point"], ray["render chunk"]
+    if not (bool((blind["mask"] <= seen["mask"]).all())
+            and not torch.equal(blind["gf"], seen["gf"])):
         raise SystemExit("K2 counted the view that sees no point")
 
     # ---- 4. the first path: NeRF-Det ------------------------------------
@@ -845,7 +939,7 @@ def main():
     nms_pre, iou_thr = test_cfg["nms_pre"], test_cfg["iou_thr"]
     voxel.fusion_carry.launches = 0
     pointnet.furthest_point_sample.launches = 0
-    render.ray_view_carry.launches = 0
+    render.streaming_sample_mean_var.launches = 0
     out = api.eval_step(model, batch, nms_pre)
     det = api.detections_from_candidates(
         out["boxes"].cpu().numpy(), out["scores"].cpu().numpy(),
@@ -854,8 +948,9 @@ def main():
     log(f"[path] eval_step -> {tuple(out['boxes'].shape)} candidates, "
         f"NMS kept {len(det['labels_3d'])} boxes; fused_mean_cov launches "
         f"{launches}, furthest_point_sample launches "
-        f"{pointnet.furthest_point_sample.launches}, ray_view_carry "
-        f"launches {render.ray_view_carry.launches}")
+        f"{pointnet.furthest_point_sample.launches}, "
+        f"streaming_sample_mean_var launches "
+        f"{render.streaming_sample_mean_var.launches}")
     if launches < 1:
         raise SystemExit("the main path did not launch fused_mean_cov")
     if not (torch.isfinite(out["boxes"]).all()
@@ -966,9 +1061,9 @@ def main():
         "bound_by": fps_bound_by,
         "library_ms": None,
     }, {
-        "name": "ray_view_carry",
+        "name": "streaming_sample_mean_var",
         "route": "cuda",
-        "source": "nerfdet_tpu_torch/csrc/ray_view_carry.cu",
+        "source": "nerfdet_tpu_torch/csrc/streaming_sample_mean_var.cu",
         "replaces": "nerfdet_tpu/ops/render.py:162",
         "launches": ray_launches,
         "max_abs_err": max(r["max_abs_err"] for r in ray.values()),

@@ -1,4 +1,5 @@
-// K3: iterative farthest-point sampling of one cloud.
+// K3: iterative farthest-point sampling of one cloud, on a thread-block
+// cluster.
 //
 // Replaces the Pallas TPU kernel nerfdet_tpu/ops/pallas_fps.py
 // (fps_pallas -> _fps_kernel): starting from index 0, step i keeps the
@@ -7,168 +8,256 @@
 // first index of its maximum. C is a runtime argument: 3 for D-FPS, more
 // for F-FPS over (xyz, features).
 //
-// Design: one block of up to 1024 threads owns the cloud and runs the
-// whole serial loop. The points arrive as (C, N) planes, so a warp's
-// loads of one column are coalesced; each thread keeps the loads of four
-// points in flight (C=3 is compiled apart, so a point's three loads issue
-// together). The (N,) running minimum stays in
-// dynamic shared memory for the whole loop (4*N bytes: 160 KB at
-// N=40000, above the 48 KB default, hence cudaFuncSetAttribute), as the
-// Pallas kernel keeps it in VMEM. Each step a thread updates its strided
-// points and keeps its (value, index) maximum, warps reduce it with
-// shuffles, one warp reduces the warps' partials and broadcasts the
-// pick's coordinates through shared memory. A tie goes to the smaller
-// index at every level. Distances use __fsub_rn/__fmul_rn/__fadd_rn
-// starting from 0, so nvcc cannot contract them into FMAs and the indices
-// equal the plain PyTorch version's bit for bit.
+// What bounds it on an H100: neither bytes (the points are read from
+// device memory once) nor operations (~11 per point and step at C = 3),
+// but the serial chain of S - 1 argmaxes over the whole cloud. A design
+// on one SM re-reads the 480 KB of a 40000-point cloud from L2 through
+// that SM every step (~58 GB/s measured: 8.3 us a step).
 //
-// What bounds it on an H100: not bytes (the points are read once from
-// device memory, then from L1/L2) nor operations (~11 per point and step
-// at C=3), but the serial chain of S-1 block-wide reductions, each with
-// two barriers, on one SM; at N=40000 each step also re-reads the 480 KB
-// of points from L2 through that one SM. The later redesign spreads a
-// cloud over a thread-block cluster (points and distances held on chip
-// across its SMs, the argmax exchanged through distributed shared
-// memory) and batches clouds, one cluster each.
+// Design: the cloud is cut into `cluster` contiguous slices of `slice`
+// points, one per CTA of a thread-block cluster (1 to 16 CTAs on
+// neighbouring SMs). Each CTA copies its slice's C planes into shared
+// memory once and keeps its slice's running minimum beside them for the
+// whole loop. A step:
+//   1. each thread updates its strided points and keeps its (value,
+//      index) maximum; warps reduce it (two redux.sync) and write their
+//      partials, double-buffered by step parity; one block barrier;
+//   2. alone (cluster of 1): every warp reduces the partials itself, the
+//      pick's coordinates are read from the slice in shared memory: one
+//      barrier a step;
+//      in a cluster: warp 0 reduces the partials and writes the CTA's
+//      best (value, index, C coordinates) into this step's slot of every
+//      CTA's shared memory (distributed shared memory, map_shared_rank);
+//      the slots are double-buffered by step parity, so one cluster
+//      barrier (arrive.release / wait.acquire) a step suffices; every
+//      warp then reduces the cluster's slots itself and takes the pick's
+//      coordinates from its slot, never from device memory.
+// A tie goes to the smaller index at every level. Distances use
+// __fsub_rn/__fmul_rn/__fadd_rn starting from 0, so nvcc cannot contract
+// them into FMAs and the indices equal the plain PyTorch version's bit
+// for bit. The cluster size and slice are chosen by the caller
+// (ops/pointnet.fps_plan), a pure function of (N, C).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr int kMaxCluster = 16;
 constexpr int kMaxThreads = 1024;
-constexpr int kWarps = kMaxThreads / 32;
-constexpr int kUnroll = 4;
+constexpr int kPointsPerThread = 4;
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+// The warp's best (value, index) in every lane: the largest value, then
+// the smallest index. Distances are >= 0, so their bit patterns order as
+// unsigned integers and two redux.sync reductions replace a shuffle
+// tree; a lane without a point (-inf, n) counts as (0, n), which loses
+// to every point, ties included, since a point's index is below n.
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+  const unsigned key = __float_as_uint(fmaxf(v, 0.f));
+  const unsigned top = __reduce_max_sync(0xffffffffu, key);
+  i = (int)__reduce_min_sync(0xffffffffu,
+                             key == top ? (unsigned)i : 0xffffffffu);
+  v = __uint_as_float(top);
+}
+
+// Shared memory of a CTA, in floats: the slice's planes [c][slice], its
+// running minimum [slice], the first pick [c], the warps' partials
+// (values [2][32], indices [2][32]) and the slots [2][kMaxCluster][c + 2]
+// (value, index bits, coordinates).
+__host__ __device__ inline size_t smem_floats(int c, int slice) {
+  return (size_t)(c + 1) * slice + c + 4 * 32 +
+         2 * kMaxCluster * (size_t)(c + 2);
+}
+
+// kC > 0: C fixed at compile time; kC == 0: C read from c_rt.
+template <int kC, bool kCluster>
+__global__ void __launch_bounds__(kMaxThreads)
+    fps_kernel(const float* __restrict__ planes, int* __restrict__ out,
+               int n, int c_rt, int n_samples, int slice) {
+  extern __shared__ float smem[];
+  const int c = kC > 0 ? kC : c_rt;
+  int rank = 0, n_ranks = 1;
+  if constexpr (kCluster) {
+    rank = (int)cg::this_cluster().block_rank();
+    n_ranks = (int)cg::this_cluster().num_blocks();
+  }
+  const int lo = rank * slice;
+  const int m = max(0, min(slice, n - lo));  // points of this CTA
+  float* pts = smem;                         // [c][slice]
+  float* min_dist = pts + (size_t)c * slice;  // [slice]
+  float* first = min_dist + slice;            // [c]
+  float* part_v = first + c;                  // [2][32]
+  int* part_i = reinterpret_cast<int*>(part_v + 64);        // [2][32]
+  float* slots = reinterpret_cast<float*>(part_i + 64);     // [2][16][c+2]
+  const int sw = c + 2;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  for (int k = 0; k < c; ++k)
+    for (int j = tid; j < m; j += blockDim.x)
+      pts[(size_t)k * slice + j] = planes[(size_t)k * n + lo + j];
+  for (int j = tid; j < m; j += blockDim.x) min_dist[j] = INFINITY;
+  for (int k = tid; k < c; k += blockDim.x) first[k] = planes[(size_t)k * n];
+  if (tid == 0 && rank == 0) out[0] = 0;
+  if constexpr (kCluster)
+    cg::this_cluster().sync();  // every CTA's shared memory exists
+  else
+    __syncthreads();
+
+  const float* sel = first;  // coordinates of the last pick,
+  int sel_stride = 1;        // sel[k * sel_stride]
+  for (int i = 1; i < n_samples; ++i) {
+    const int p = i & 1;
+    float s[kC > 0 ? kC : 1];
+    if constexpr (kC > 0) {
+#pragma unroll
+      for (int k = 0; k < kC; ++k) s[k] = sel[k * sel_stride];
+    }
+    float best = -INFINITY;
+    int best_i = n;
+#pragma unroll 4
+    for (int j = tid; j < m; j += blockDim.x) {
+      float d = 0.f;
+      if constexpr (kC > 0) {
+#pragma unroll
+        for (int k = 0; k < kC; ++k) {
+          const float diff = __fsub_rn(pts[(size_t)k * slice + j], s[k]);
+          d = __fadd_rn(d, __fmul_rn(diff, diff));
+        }
+      } else {
+        for (int k = 0; k < c; ++k) {
+          const float diff =
+              __fsub_rn(pts[(size_t)k * slice + j], sel[k * sel_stride]);
+          d = __fadd_rn(d, __fmul_rn(diff, diff));
+        }
+      }
+      const float md = fminf(min_dist[j], d);
+      min_dist[j] = md;
+      if (md > best) {  // j grows: strict keeps the first index
+        best = md;
+        best_i = lo + j;
+      }
+    }
+    warp_best(best, best_i);
+    if (lane == 0) {
+      part_v[p * 32 + warp] = best;
+      part_i[p * 32 + warp] = best_i;
+    }
+    __syncthreads();  // partials written
+
+    if constexpr (!kCluster) {
+      best = lane < n_warps ? part_v[p * 32 + lane] : -INFINITY;
+      best_i = lane < n_warps ? part_i[p * 32 + lane] : n;
+      warp_best(best, best_i);
+      sel = pts + best_i;
+      sel_stride = slice;
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (warp == 0) {
+        best = lane < n_warps ? part_v[p * 32 + lane] : -INFINITY;
+        best_i = lane < n_warps ? part_i[p * 32 + lane] : n;
+        warp_best(best, best_i);
+        // lane r writes the CTA's best into its slot in CTA r
+        if (lane < n_ranks) {
+          float* dst = cluster.map_shared_rank(slots, lane) +
+                       (p * kMaxCluster + rank) * sw;
+          const bool has = best_i < n;  // false only for an empty slice
+          dst[0] = best;
+          dst[1] = __int_as_float(best_i);
+          for (int k = 0; k < c; ++k)
+            dst[2 + k] = has ? pts[(size_t)k * slice + (best_i - lo)] : 0.f;
+        }
+      }
+      cluster.sync();  // slots of step i written everywhere
+      best = -INFINITY;
+      best_i = n;
+      if (lane < n_ranks) {
+        const float* row = slots + (p * kMaxCluster + lane) * sw;
+        best = row[0];
+        best_i = __float_as_int(row[1]);
+      }
+      warp_best(best, best_i);
+      // the slices are contiguous: the pick's slot is that of its slice
+      sel = slots + (p * kMaxCluster + best_i / slice) * sw + 2;
+      sel_stride = 1;
+    }
+    if (tid == 0 && rank == 0) out[i] = best_i;
   }
 }
 
-// kC > 0: C fixed at compile time (the loads of a point issue together);
-// kC == 0: C read from c_rt.
-template <int kC>
-__global__ void fps_kernel(const float* __restrict__ planes,
-                           int* __restrict__ out, int n, int c_rt,
-                           int n_samples) {
-  extern __shared__ float smem[];
-  const int c = kC > 0 ? kC : c_rt;
-  float* min_dist = smem;              // [n]
-  float* sel = smem + n;               // [c] coordinates of the last pick
-  float* part_v = sel + c;             // [kWarps]
-  int* part_i = reinterpret_cast<int*>(part_v + kWarps);  // [kWarps]
-
-  const int tid = threadIdx.x;
-  const int stride = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = (stride + 31) >> 5;
-
-  for (int j = tid; j < n; j += stride) min_dist[j] = INFINITY;
-  for (int k = tid; k < c; k += stride) sel[k] = planes[(size_t)k * n];
-  if (tid == 0) out[0] = 0;
-  __syncthreads();
-
-  for (int i = 1; i < n_samples; ++i) {
-    float best = -INFINITY;
-    int best_i = n;
-    // kUnroll points per thread per pass, so their loads are in flight
-    // together; a thread still visits its points in increasing order
-    for (int j0 = tid; j0 < n; j0 += kUnroll * stride) {
-      float d[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) d[u] = 0.f;
-#pragma unroll
-      for (int k = 0; k < c; ++k) {
-        const float s = sel[k];
-        const float* col = planes + (size_t)k * n;
-        float x[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int j = j0 + u * stride;
-          x[u] = j < n ? __ldg(col + j) : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const float diff = __fsub_rn(x[u], s);
-          d[u] = __fadd_rn(d[u], __fmul_rn(diff, diff));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = j0 + u * stride;
-        if (j < n) {
-          const float m = fminf(min_dist[j], d[u]);
-          min_dist[j] = m;
-          if (m > best) {  // j grows: strict keeps the first index
-            best = m;
-            best_i = j;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      better(best, best_i, ov, oi);
-    }
-    if (lane == 0) {
-      part_v[warp] = best;
-      part_i[warp] = best_i;
-    }
-    __syncthreads();  // partials written
-    if (warp == 0) {
-      best = lane < n_warps ? part_v[lane] : -INFINITY;
-      best_i = lane < n_warps ? part_i[lane] : n;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-        better(best, best_i, ov, oi);
-      }
-      best_i = __shfl_sync(0xffffffffu, best_i, 0);
-      if (lane == 0) out[i] = best_i;
-      for (int k = lane; k < c; k += 32)
-        sel[k] = planes[(size_t)k * n + best_i];
-    }
-    __syncthreads();  // sel holds the pick; partials free for the next step
+template <int kC, bool kCluster>
+cudaError_t launch(const float* planes, int* out, int n, int c,
+                   int n_samples, int cluster, int slice, int threads,
+                   size_t smem, cudaStream_t stream) {
+  auto kernel = fps_kernel<kC, kCluster>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if constexpr (!kCluster) {
+    kernel<<<1, threads, smem, stream>>>(planes, out, n, c, n_samples, slice);
+    return cudaGetLastError();
   }
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, planes, out, n, c, n_samples,
+                           slice);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory the kernel needs for an (N, C) cloud.
-extern "C" int furthest_point_sample_smem_bytes(int n, int c) {
-  return static_cast<int>(sizeof(float) * ((size_t)n + c + kWarps) +
-                          sizeof(int) * kWarps);
+// Dynamic shared memory of one CTA for a slice of an (N, C) cloud.
+extern "C" long long furthest_point_sample_smem_bytes(int c, int slice) {
+  return (long long)(sizeof(float) * smem_floats(c, slice));
 }
 
-// The most dynamic shared memory a block may opt into on `device`.
-extern "C" int furthest_point_sample_smem_limit(int device) {
-  int bytes = 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return 0;
-  return bytes;
-}
-
-// planes (C, N) float32; out (n_samples,) int32. The caller checks
-// 1 <= n_samples <= N and the shared-memory size. Returns the
-// cudaError_t of the set-up and launch.
+// planes (C, N) float32; out (n_samples,) int32; the cloud is cut into
+// `cluster` (1, 2, 4, 8 or 16) slices of `slice` points. The caller
+// checks 1 <= n_samples <= N, cluster * slice >= N and the shared-memory
+// size. Returns the cudaError_t of the set-up and launch.
 extern "C" int furthest_point_sample(const float* planes, int* out, int n,
-                                     int c, int n_samples, void* stream) {
-  const int smem = furthest_point_sample_smem_bytes(n, c);
-  auto kernel = c == 3 ? fps_kernel<3> : fps_kernel<0>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      planes, out, n, c, n_samples);
-  return static_cast<int>(cudaGetLastError());
+                                     int c, int n_samples, int cluster,
+                                     int slice, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * slice < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * smem_floats(c, slice);
+  int threads = (slice + kPointsPerThread - 1) / kPointsPerThread;
+  threads = ((threads + 31) / 32) * 32;
+  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (cluster == 1)
+    err = c == 3 ? launch<3, false>(planes, out, n, c, n_samples, 1, slice,
+                                    threads, smem, s)
+                 : launch<0, false>(planes, out, n, c, n_samples, 1, slice,
+                                    threads, smem, s);
+  else
+    err = c == 3 ? launch<3, true>(planes, out, n, c, n_samples, cluster,
+                                   slice, threads, smem, s)
+                 : launch<0, true>(planes, out, n, c, n_samples, cluster,
+                                   slice, threads, smem, s);
+  return static_cast<int>(err);
 }

@@ -57,17 +57,61 @@ def furthest_point_sample_plain(points: torch.Tensor,
     return out
 
 
+FPS_CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is above the portable 8
+FPS_SMEM_LIMIT = 232448  # opt-in shared memory of an H100 block, bytes
+FPS_CTA_POINTS = 2048  # points one CTA takes before the cloud spreads
+
+
+def fps_smem_bytes(c: int, slice_: int) -> int:
+    """Shared memory of one K3 CTA holding ``slice_`` points of C
+    columns: the planes and the running minimum, the first pick, the
+    warps' partials and the cluster's slots (``csrc/
+    furthest_point_sample.cu``: ``smem_floats``)."""
+    return 4 * ((c + 1) * slice_ + c + 4 * 32 + 2 * 16 * (c + 2))
+
+
+def fps_plan(n: int, c: int) -> Tuple[int, int, int]:
+    """K3's launch for an (N, C) cloud: (cluster size, points per CTA,
+    shared-memory bytes per CTA).
+
+    The smallest cluster whose slices hold at most ``FPS_CTA_POINTS``
+    points each and fit a CTA's shared memory; where none does, the
+    largest, 16. Raises above what a 16-CTA cluster holds."""
+    fits = [k for k in FPS_CLUSTER_SIZES
+            if fps_smem_bytes(c, -(-n // k)) <= FPS_SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"K3 holds the cloud in the shared memory of a 16-CTA cluster: "
+            f"N={n} C={c} needs {fps_smem_bytes(c, -(-n // 16))} bytes a "
+            f"CTA, above {FPS_SMEM_LIMIT}")
+    small = [k for k in fits if -(-n // k) <= FPS_CTA_POINTS]
+    k = small[0] if small else fits[-1]
+    slice_ = -(-n // k)
+    return k, slice_, fps_smem_bytes(c, slice_)
+
+
 def furthest_point_sample(points: torch.Tensor,
                           n_samples: int) -> torch.Tensor:
     """K3: farthest-point sampling (see ``furthest_point_sample_plain``).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel, or raises where the kernel does not take the input: it keeps
-    the (N,) running minimum in shared memory, so N is bounded by the
-    card's shared memory per block.
+    kernel on a thread-block cluster of ``fps_plan(N, C)[0]`` CTAs, or
+    raises where the kernel does not take the input: the cloud must fit
+    the cluster's shared memory.
     """
     if points.device.type == "cpu":
         return furthest_point_sample_plain(points, n_samples)
+    out = _fps_launch(points, n_samples, None)
+    furthest_point_sample.launches += 1
+    return out
+
+
+furthest_point_sample.launches = 0
+
+
+def _fps_launch(points, n_samples, cluster):
+    """Check and launch K3 on the card, on ``cluster`` CTAs (None: the
+    plan's); the launch is not counted."""
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     if points.dtype != torch.float32:
@@ -78,27 +122,21 @@ def furthest_point_sample(points: torch.Tensor,
     if not 1 <= n_samples <= n or c < 1:
         raise ValueError(f"need 1 <= n_samples <= N and C >= 1, got "
                          f"N={n} C={c} n_samples={n_samples}")
+    k, slice_, _ = fps_plan(n, c)
+    if cluster is not None:
+        k, slice_ = cluster, -(-n // cluster)
     lib = _lib()
     dev = points.device
-    smem = lib.furthest_point_sample_smem_bytes(n, c)
-    limit = lib.furthest_point_sample_smem_limit(dev.index or 0)
-    if smem > limit:
-        raise ValueError(f"K3 keeps N={n} distances in shared memory: "
-                         f"{smem} bytes, above the card's {limit}")
     planes = points.t().contiguous()  # (C, N): coalesced loads
     out = torch.empty((n_samples,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):  # the attribute and launch act on it
+    with torch.cuda.device(dev):  # the attributes and launch act on it
         err = lib.furthest_point_sample(
-            planes.data_ptr(), out.data_ptr(), n, c, n_samples,
+            planes.data_ptr(), out.data_ptr(), n, c, n_samples, k, slice_,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"furthest_point_sample kernel launch failed: "
                            f"cudaError {err}")
-    furthest_point_sample.launches += 1
     return out
-
-
-furthest_point_sample.launches = 0
 
 
 def _lib():
@@ -106,12 +144,10 @@ def _lib():
     fn = lib.furthest_point_sample
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, p]
+        fn.argtypes = [p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.furthest_point_sample_smem_bytes.argtypes = [i, i]
-        lib.furthest_point_sample_smem_bytes.restype = ctypes.c_int
-        lib.furthest_point_sample_smem_limit.argtypes = [i]
-        lib.furthest_point_sample_smem_limit.restype = ctypes.c_int
+        lib.furthest_point_sample_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

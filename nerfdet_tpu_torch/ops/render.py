@@ -4,10 +4,10 @@ Port of the image-mode renderer of ``nerfdet_tpu/ops/render.py``. Every
 ray sample point projects into every source view, where it samples the
 denormalized image (3 channels) and the mapped feature map (C channels)
 bilinearly; the view loop keeps only running sums, so the
-(rays, samples, views, 3 + C) tensor never exists. That carry is the
-hand-written CUDA kernel K2 (``csrc/ray_view_carry.cu``); the epilogue
-(masked mean, variance over all views, ``exp(-var)``, the two-view mask)
-is plain torch, as for K1.
+(rays, samples, views, 3 + C) tensor never exists. The carry and its
+epilogue (masked mean, variance over all views, ``exp(-var)``, the
+two-view mask) are one hand-written CUDA kernel, K2
+(``csrc/streaming_sample_mean_var.cu``): the sums stay in registers.
 
 Exactness: the projection sums its four products in a fixed order with
 separately rounded operations, every scalar is a float32 value, and the
@@ -96,7 +96,7 @@ def _scales(images, featmaps, img_hw) -> Tuple[float, float, float, float]:
 
 
 def ray_view_carry_plain(pts, images, featmaps, proj, img_hw):
-    """Plain PyTorch version of K2 (same signature and results).
+    """K2's carry in plain PyTorch: the sums before the epilogue.
 
     Args:
         pts: (R, S, 3) float32 sample points.
@@ -136,15 +136,50 @@ def ray_view_carry_plain(pts, images, featmaps, proj, img_hw):
             s1m.reshape(r, s, c), cnt.reshape(r, s, 1))
 
 
-def ray_view_carry(pts, images, featmaps, proj, img_hw):
-    """K2: the view-streaming ray-sample carry (see
-    ``ray_view_carry_plain``).
+def sample_stats(s1u, s2u, s1m, cnt, n_views: int):
+    """The plain epilogue of ``ray_view_carry_plain``: (globalfeat (R, S,
+    2(3 + C)), pixel_mask (R, S)).
+
+    mean = s1m / (cnt + 1e-8); the variance sums over ALL views,
+    ``(s2u - 2*mean*s1u + V*mean^2) / (cnt + 1e-8)``; globalfeat is
+    [mean, exp(-var)]; pixel_mask is cnt > 1."""
+    denom = cnt + 1e-8
+    mean = s1m / denom
+    var = (s2u - 2.0 * mean * s1u + n_views * mean * mean) / denom
+    return torch.cat([mean, torch.exp(-var)], dim=-1), cnt[..., 0] > 1
+
+
+def streaming_sample_mean_var_plain(pts, images, proj, img_hw, featmaps):
+    """Plain PyTorch version of K2 (same signature and results): the
+    carry ``ray_view_carry_plain``, then its epilogue ``sample_stats``."""
+    carry = ray_view_carry_plain(pts, images, featmaps, proj, img_hw)
+    return sample_stats(*carry, images.shape[0])
+
+
+def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps):
+    """K2: per-view sampling with masked mean / exp(-var) over views.
+    Returns (globalfeat (R, S, 2(3 + C)), pixel_mask (R, S)); see
+    ``streaming_sample_mean_var_plain``.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel, or raises where the kernel does not take the input.
+    fused kernel, which allocates only the two outputs, or raises where
+    the kernel does not take the input.
     """
     if pts.device.type == "cpu":
-        return ray_view_carry_plain(pts, images, featmaps, proj, img_hw)
+        return streaming_sample_mean_var_plain(pts, images, proj, img_hw,
+                                               featmaps)
+    out = _k2_launch(pts, images, proj, img_hw, featmaps)
+    streaming_sample_mean_var.launches += 1
+    return out
+
+
+streaming_sample_mean_var.launches = 0
+
+
+def _k2_launch(pts, images, proj, img_hw, featmaps, vec=None, reuse=True):
+    """Check and launch K2 on the card; the launch is not counted.
+    ``vec`` (4 or 1) and ``reuse`` choose how feature taps are loaded
+    (default: 16-byte loads where C and the map allow, taps reused)."""
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     for name, t in (("pts", pts), ("images", images),
@@ -162,59 +197,37 @@ def ray_view_carry(pts, images, featmaps, proj, img_hw):
                          "featmaps (V, h, w, C) and proj (V, 4, 4)")
     if not 1 <= c <= 32:
         raise ValueError(f"K2 takes 1 to 32 feature channels, got {c}")
+    if vec is None:
+        vec = 4 if c % 4 == 0 and featmaps.data_ptr() % 16 == 0 else 1
     dev = pts.device
-    s1u = torch.empty((r, s, 3 + c), dtype=torch.float32, device=dev)
-    s2u, s1m = torch.empty_like(s1u), torch.empty_like(s1u)
-    cnt = torch.empty((r, s, 1), dtype=torch.float32, device=dev)
+    gf = torch.empty((r, s, 2 * (3 + c)), dtype=torch.float32, device=dev)
+    mask = torch.empty((r, s), dtype=torch.bool, device=dev)
     n = r * s
     if n == 0:
-        return s1u, s2u, s1m, cnt
+        return gf, mask
     h, w = img_hw
     sx, sy, fsx, fsy = _scales(images, featmaps, img_hw)
     lib = _lib()
     with torch.cuda.device(dev):  # the launch acts on the current device
-        err = lib.ray_view_carry(
+        err = lib.streaming_sample_mean_var(
             pts.data_ptr(), images.data_ptr(), featmaps.data_ptr(),
-            proj.data_ptr(), s1u.data_ptr(), s2u.data_ptr(), s1m.data_ptr(),
-            cnt.data_ptr(), n, v, ih, iw, fh, fw, c, h, w, sx, sy, fsx, fsy,
+            proj.data_ptr(), gf.data_ptr(), mask.data_ptr(), n, v, ih, iw,
+            fh, fw, c, h, w, sx, sy, fsx, fsy, vec, int(reuse),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ray_view_carry kernel launch failed: "
-                           f"cudaError {err}")
-    ray_view_carry.launches += 1
-    return s1u, s2u, s1m, cnt
-
-
-ray_view_carry.launches = 0
+        raise RuntimeError(f"streaming_sample_mean_var kernel launch "
+                           f"failed: cudaError {err}")
+    return gf, mask
 
 
 def _lib():
-    lib = cuda_build.load("ray_view_carry")
-    fn = lib.ray_view_carry
+    lib = cuda_build.load("streaming_sample_mean_var")
+    fn = lib.streaming_sample_mean_var
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 9 + [f] * 4 + [p]
+        fn.argtypes = [p] * 6 + [i] * 9 + [f] * 4 + [i, i, p]
         fn.restype = ctypes.c_int
     return lib
-
-
-def sample_stats(s1u, s2u, s1m, cnt, n_views: int):
-    """K2's epilogue: (globalfeat (R, S, 2(3 + C)), pixel_mask (R, S)).
-
-    mean = s1m / (cnt + 1e-8); the variance sums over ALL views,
-    ``(s2u - 2*mean*s1u + V*mean^2) / (cnt + 1e-8)``; globalfeat is
-    [mean, exp(-var)]; pixel_mask is cnt > 1."""
-    denom = cnt + 1e-8
-    mean = s1m / denom
-    var = (s2u - 2.0 * mean * s1u + n_views * mean * mean) / denom
-    return torch.cat([mean, torch.exp(-var)], dim=-1), cnt[..., 0] > 1
-
-
-def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps):
-    """Per-view sampling with masked mean / exp(-var) over views: K2
-    then its epilogue. Returns (globalfeat, pixel_mask)."""
-    carry = ray_view_carry(pts, images, featmaps, proj, img_hw)
-    return sample_stats(*carry, images.shape[0])
 
 
 def raw2outputs(raw, z_vals, mask) -> Dict[str, torch.Tensor]:
@@ -243,7 +256,7 @@ def render_rays_chunk(ray_o, ray_d, mlp_fn: Callable, *,
     """Render one chunk of rays in image mode.
 
     ``mlp_fn(pts, viewdirs, features) -> (rgb, sigma)`` is the radiance
-    field. Evenly spaced samples, the view statistics (K2 + epilogue) as
+    field. Evenly spaced samples, the view statistics (K2) as
     the field's features, then compositing (``raw2outputs``)."""
     pts, z_vals = sample_along_camera_ray(ray_o, ray_d, near_far[0],
                                           near_far[1], n_samples)

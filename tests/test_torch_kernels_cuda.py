@@ -107,7 +107,8 @@ def _cloud(dev, n, c, seed, dup=False):
     (512, 3, 256, False), (1024, 3, 256, False),  # VoteNet's five calls
     (4096, 19, 512, False), (40000, 3, 2048, True),  # F-FPS; ties
     (100, 3, 100, False), (1000, 3, 1, False), (1001, 3, 64, False),
-    (46, 5, 20, True),
+    (46, 5, 20, True), (40001, 3, 2048, False), (8191, 3, 4096, False),
+    (231000, 3, 64, False),  # the most a 16-CTA cluster holds at C = 3
 ])
 def test_furthest_point_sample_matches_plain(dev, n, c, s, dup):
     pts = _cloud(dev, n, c, n + c + s, dup)
@@ -122,6 +123,24 @@ def test_furthest_point_sample_matches_plain(dev, n, c, s, dup):
         assert int(torch.unique(got).numel()) == s
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_furthest_point_sample_any_cluster_matches_plain(dev, cluster):
+    """Every cluster size gives the plain version's indices, ties
+    included (the duplicated half lies in other slices)."""
+    pts = _cloud(dev, 4096, 3, cluster, dup=True)
+    got = pointnet._fps_launch(pts, 512, cluster)
+    want = pointnet.furthest_point_sample_plain(pts, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fps_smem_bytes_match_the_kernel(dev):
+    lib = pointnet._lib()
+    for c, slice_ in ((3, 2500), (19, 2048), (1, 1), (32, 100)):
+        assert (lib.furthest_point_sample_smem_bytes(c, slice_)
+                == pointnet.fps_smem_bytes(c, slice_))
+
+
 def test_furthest_point_sample_rejects_what_it_cannot_take(dev):
     pts = _cloud(dev, 1000, 3, 0)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -130,8 +149,8 @@ def test_furthest_point_sample_rejects_what_it_cannot_take(dev):
         pointnet.furthest_point_sample(pts.double(), 10)
     with pytest.raises(ValueError, match="n_samples"):
         pointnet.furthest_point_sample(pts, 1001)
-    with pytest.raises(ValueError, match="shared memory"):
-        pointnet.furthest_point_sample(_cloud(dev, 60000, 3, 0), 10)
+    with pytest.raises(ValueError, match="16-CTA cluster"):
+        pointnet.furthest_point_sample(_cloud(dev, 240000, 3, 0), 10)
 
 
 def _ray_inputs(dev, v, r, s, c, seed=0):
@@ -152,37 +171,50 @@ def _ray_inputs(dev, v, r, s, c, seed=0):
 @pytest.mark.parametrize("v,r,s,c", [
     (50, 2048, 64, 32),  # one chunk of the render path
     (3, 37, 5, 8), (5, 100, 64, 1), (1, 1, 1, 32),
+    (7, 64, 64, 32),  # views not a multiple of the 4 projected a round
+    (4, 33, 3, 32),  # R * S = 99, not a multiple of the 64-point tile
+    (6, 50, 13, 30),  # C % 4 != 0: one channel a lane
 ])
-def test_ray_view_carry_matches_plain(dev, v, r, s, c):
+def test_streaming_sample_mean_var_matches_plain(dev, v, r, s, c):
     pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=v + r)
-    before = render.ray_view_carry.launches
-    got = render.ray_view_carry(pts, images, feats, proj, (239, 320))
-    want = render.ray_view_carry_plain(pts, images, feats, proj, (239, 320))
+    args = (pts, images, proj, (239, 320), feats)
+    before = render.streaming_sample_mean_var.launches
+    got = render.streaming_sample_mean_var(*args)
+    want = render.streaming_sample_mean_var_plain(*args)
     torch.cuda.synchronize()
-    assert render.ray_view_carry.launches == before + 1
+    assert render.streaming_sample_mean_var.launches == before + 1
     assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
-    # counts exact; the sums follow the plain version's rounding in view
-    # order (tolerance 1e-5 relative)
-    assert torch.equal(got[3], want[3])
-    for a, b in zip(got[:3], want[:3]):
-        assert _rel(a, b) <= 1e-5
+    assert got[1].dtype == torch.bool
+    # the mask exact; globalfeat follows the plain version's rounding
+    # (tolerance 1e-5 relative)
+    assert torch.equal(got[1], want[1])
+    assert _rel(got[0], want[0]) <= 1e-5
+    # every way of loading the feature taps
+    for vec in ((4, 1) if c % 4 == 0 else (1,)):
+        for reuse in (True, False):
+            alt = render._k2_launch(pts, images, proj, (239, 320), feats, vec,
+                                    reuse)
+            assert torch.equal(alt[1], want[1])
+            assert _rel(alt[0], want[0]) <= 1e-5
     if r >= 8:
-        assert int((got[3] == 0).sum()) > 0 and float(got[3].max()) >= 2
+        cnt = render.ray_view_carry_plain(pts, images, feats, proj,
+                                          (239, 320))[3]
+        assert int((cnt == 0).sum()) > 0 and float(cnt.max()) >= 2
 
 
-def test_ray_view_carry_rejects_what_it_cannot_take(dev):
+def test_streaming_sample_mean_var_rejects_what_it_cannot_take(dev):
     pts, images, feats, proj = _ray_inputs(dev, 2, 16, 4, 32)
+    fused = render.streaming_sample_mean_var
     with pytest.raises(TypeError, match="float32"):
-        render.ray_view_carry(pts.double(), images, feats, proj, (239, 320))
+        fused(pts.double(), images, proj, (239, 320), feats)
     with pytest.raises(ValueError, match="feature channels"):
-        render.ray_view_carry(pts, images, torch.cat([feats, feats], -1),
-                              proj, (239, 320))
+        fused(pts, images, proj, (239, 320), torch.cat([feats, feats], -1))
     with pytest.raises(ValueError, match="contiguous"):
-        render.ray_view_carry(pts, images, feats[:, :, :40], proj,
-                              (239, 320))
+        fused(pts, images, proj, (239, 320), feats[:, :, :40])
+    with pytest.raises(ValueError, match="images"):
+        fused(pts, images[..., :2].contiguous(), proj, (239, 320), feats)
     with pytest.raises(ValueError, match="unsupported device"):
-        render.ray_view_carry(pts.to("meta"), images, feats, proj,
-                              (239, 320))
+        fused(pts.to("meta"), images, proj, (239, 320), feats)
 
 
 def test_entry_device_turns_tf32_off(dev):

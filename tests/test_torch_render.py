@@ -7,9 +7,10 @@ the port with ``from_jax_variables``. On the CPU every K2 call runs its
 plain version. Held against JAX, in float32:
 
 * the bilinear packing bit for bit and its sample within 1e-6;
-* the plain K2 + epilogue against ``streaming_sample_mean_var``: the
-  two-view mask exactly, globalfeat within 2e-5 (the projection's
-  products are summed in another order);
+* K2's wrapper (on the CPU its plain version: the carry, then the
+  epilogue) against ``streaming_sample_mean_var``: the two-view mask
+  exactly, globalfeat within 2e-5 (the projection's products are summed
+  in another order);
 * ``render`` and ``forward`` with rays: rgb within 1e-4, depth within
   1e-3, the ray mask exactly; ``render_full`` at chunk 128 with padding;
 * ``run_nvs_eval`` on the dataset ``tests/test_nvs.py`` builds: PSNR
@@ -163,20 +164,23 @@ def test_ray_view_carry_plain_matches_jax(case):
 
     proj = trender.view_projection(scene["intrinsic"], scene["extrinsics"],
                                    RATIO)
-    before = trender.ray_view_carry.launches
-    carry = trender.ray_view_carry(torch.from_numpy(pts),
-                                   torch.from_numpy(images),
-                                   torch.from_numpy(feats), proj, IMG)
-    assert trender.ray_view_carry.launches == before  # CPU: plain version
-    gf_t, mask_t = trender.sample_stats(*carry, 3)
-
+    args = (torch.from_numpy(pts), torch.from_numpy(images), proj, IMG,
+            torch.from_numpy(feats))
+    before = trender.streaming_sample_mean_var.launches
+    gf_t, mask_t = trender.streaming_sample_mean_var(*args)
+    # CPU: the plain version
+    assert trender.streaming_sample_mean_var.launches == before
     c = 3 + feats.shape[-1]
-    assert [t.shape[-1] for t in carry] == [c, c, c, 1]
+    assert gf_t.shape == pts.shape[:2] + (2 * c,)
     np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
     np.testing.assert_allclose(gf_t.numpy(), np.asarray(gf_j), rtol=0,
                                atol=2e-5)
-    cnt = carry[3].numpy()[..., 0]
     assert 0 < mask_t.numpy().mean() < 1
+
+    carry = trender.ray_view_carry_plain(args[0], args[1], args[4], proj, IMG)
+    assert [t.shape[-1] for t in carry] == [c, c, c, 1]
+    cnt = carry[3].numpy()[..., 0]
+    np.testing.assert_array_equal(cnt > 1, mask_t.numpy())
     if case == "edges":
         # behind every camera: unseen, yet s1u holds the samples
         assert (cnt[3] == 0).all()
