@@ -12,8 +12,7 @@ Phases, each reported on its own lines:
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, with its time, the plain version's
    time and the least time the card could take (bound); K3's cluster
-   size and time a step, and ``[lever]`` lines: K3 on other cluster
-   sizes, the fused K2 with each way of loading its taps;
+   size and time a step;
 4. the first path: NeRF-Det-R50 low-res detection inference at full
    width (50 views at 240x320, a 40x40x16 volume, random weights from a
    seed) through ``init_detector`` -> ``eval_step`` -> host NMS, with
@@ -173,13 +172,11 @@ def fps_bound(n, c, s):
 
 def check_fps(pointnet, cases):
     """K3 vs its plain version on the card: indices must be equal. Each
-    line gives the plan's cluster size and the time a step; the path's
-    shapes are also timed on the other cluster sizes that hold them
-    (``[lever]`` lines: does a cluster pay at this N?)."""
+    line gives the plan's cluster size and the time a step."""
     import torch
 
     results = {}
-    for name, pts, s, on_path in cases:
+    for name, pts, s in cases:
         n, c = pts.shape
         k = pointnet.fps_plan(n, c)[0]
         got = pointnet.furthest_point_sample(pts, s)
@@ -203,22 +200,6 @@ def check_fps(pointnet, cases):
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              cluster=k, us_step=us_step)
-        if not on_path:
-            continue
-        for alt in pointnet.FPS_CLUSTER_SIZES:
-            if alt == k or not (k // 4 <= alt <= 4 * k):
-                continue
-            alt_out = pointnet._fps_launch(pts, s, alt)
-            torch.cuda.synchronize()
-            if not torch.equal(alt_out, want):
-                raise SystemExit(f"K3 {name} on {alt} CTAs differs from "
-                                 f"the plain version")
-            alt_ms = cuda_time_ms(lambda: pointnet._fps_launch(pts, s, alt),
-                                  10)
-            log(f"[lever] furthest_point_sample {name} on {alt} CTAs: "
-                f"indices equal, ms={alt_ms:.4f} "
-                f"({alt_ms * 1e3 / max(s - 1, 1):.3f} us per step) against "
-                f"{ms:.4f} on the plan's {k}")
     return results
 
 
@@ -452,11 +433,12 @@ def check_k2(render, cases, img_hw):
     on the card: pixel_mask and the unseen count exact, globalfeat within
     1e-5 relative. The unseen count is read from each side's own output:
     a point no view counts has s1m = 0, so every mean is exactly 0.
-    ``cases``: (name, pts, images, featmaps, proj, timed). The timed
-    case also runs each way of loading the taps (``[lever]`` lines)."""
+    ``cases``: (name, pts, images, featmaps, proj, timed); the first is
+    the timed render chunk, and each later case of its shape records
+    whether its globalfeat equals the chunk's (``same_as_chunk``)."""
     import torch
 
-    results = {}
+    results, chunk_gf = {}, None
     for name, pts, images, feats, proj, timed in cases:
         args = (pts, images, proj, img_hw, feats)
         got = render.streaming_sample_mean_var(*args)
@@ -479,8 +461,11 @@ def check_k2(render, cases, img_hw):
                 f"{abs_err:.3e} max_rel_err={rel_err:.3e} (tol: mask exact, "
                 f"rel 1e-5); bitwise equal "
                 f"{all(torch.equal(g, p) for g, p in zip(got, want))}")
-        result = dict(max_abs_err=abs_err, gf=got[0], mask=got[1],
-                      unseen=unseen[0])
+        result = dict(max_abs_err=abs_err, mask=got[1], unseen=unseen[0])
+        if chunk_gf is None:
+            chunk_gf = got[0]
+        elif chunk_gf.shape == got[0].shape:
+            result["same_as_chunk"] = torch.equal(got[0], chunk_gf)
         if timed:
             ms = cuda_time_ms(lambda: render.streaming_sample_mean_var(
                 *args), 10)
@@ -495,46 +480,29 @@ def check_k2(render, cases, img_hw):
         log(line)
         if rel_err > 1e-5:
             raise SystemExit(f"K2 {name} disagrees: rel {rel_err:.3e}")
-        if timed:
-            k2_levers(render, args, want)
         results[name] = result
     return results
 
 
-def k2_levers(render, args, want):
-    """K2 at the render chunk with each way of loading the feature taps:
-    16-byte (4 channels a lane) or 4-byte, with and without reusing the
-    previous point's taps."""
+def window_reuse(render, model, batch):
+    """Shares of the (sample, view) pairs of ``batch``'s first chunk of
+    rays whose feature window (its start pixel) equals the previous
+    sample's on the ray, and of those K2 can reuse (the second of each
+    lane group's two consecutive points)."""
     import torch
 
-    pts, images, proj, img_hw, feats = args
-    for vec in (4, 1):
-        for reuse in (True, False):
-            def run():
-                return render._k2_launch(pts, images, proj, img_hw, feats,
-                                         vec, reuse)
-            gf, mask = run()
-            torch.cuda.synchronize()
-            if not torch.equal(mask, want[1]) or float(
-                    (gf - want[0]).abs().max()) > 1e-5 * float(
-                    want[0].abs().max()):
-                raise SystemExit(f"K2 vec={vec} reuse={reuse} disagrees "
-                                 f"with the plain version")
-            log(f"[lever] streaming_sample_mean_var render chunk: "
-                f"{4 * vec}-byte feature taps, reuse {reuse}: ms="
-                f"{cuda_time_ms(run, 10):.4f}")
-
-
-def window_reuse(render, pts, images, proj, feats, img_hw):
-    """Shares of the (sample, view) pairs of ``pts`` (R, S, 3) whose
-    feature window (its start pixel) equals the previous sample's on the
-    ray, and of those K2 can reuse (the second of each lane group's two
-    consecutive points)."""
-    import torch
-
+    with torch.inference_mode():
+        feats = model.render_featmaps(model.extract_2d(batch["imgs"]))
+        proj = model.render_projection(batch["intrinsic"],
+                                       batch["extrinsics"], feats.device)
+        pts, _ = render.sample_along_camera_ray(
+            batch["ray_o"].reshape(-1, 3)[:CHUNK],
+            batch["ray_d"].reshape(-1, 3)[:CHUNK], *model.near_far_range,
+            model.n_samples)
     r, s, _ = pts.shape
     fh, fw = feats.shape[1:3]
-    _, _, fsx, fsy = render._scales(images, feats, img_hw)
+    _, _, fsx, fsy = render._scales(batch["denorm_images"], feats,
+                                    model.meta.img_shape)
     pix, _ = render.project_to_views(pts.reshape(-1, 3), proj)
     fx = torch.clamp(torch.floor(pix[..., 0] * fsx), 0, fw - 1)
     fy = torch.clamp(torch.floor(pix[..., 1] * fsy), 0, fh - 1)
@@ -795,16 +763,7 @@ def render_path(api, render, voxel, pointnet, model, dataset, card, nms_pre):
         log(f"[stage] render {label}: {ms:.3f} ms{extra}")
     log(f"[render] sample points seen by more than one view: "
         f"{pixel_share:.4f}; rays with the mask set: {ray_share:.4f}")
-    with torch.inference_mode():
-        feats = model.render_featmaps(model.extract_2d(batch["imgs"]))
-        proj = model.render_projection(batch["intrinsic"],
-                                       batch["extrinsics"], rgb.device)
-        pts, _ = render.sample_along_camera_ray(
-            batch["ray_o"].reshape(-1, 3)[:CHUNK],
-            batch["ray_d"].reshape(-1, 3)[:CHUNK], near, far,
-            model.n_samples)
-        same, reused = window_reuse(render, pts, batch["denorm_images"], proj,
-                                    feats, model.meta.img_shape)
+    same, reused = window_reuse(render, model, batch)
     log(f"[render] first chunk's (sample, view) pairs whose feature window "
         f"equals the previous sample's: {same:.4f}; reused by K2 (the "
         f"second of each lane group's two points): {reused:.4f}")
@@ -914,9 +873,8 @@ def main():
     extra = [("F-FPS C=19", torch.randn((4096, 19), generator=gen,
                                         device=dev), 512),
              ("duplicated points", torch.cat([half, half]), 2048)]
-    fps = check_fps(pointnet, [(n, p, s, True) for n, (p, s) in
-                               zip(path_names, fps_calls)]
-                    + [(n, p, s, False) for n, p, s in extra])
+    fps = check_fps(pointnet, [(n, p, s) for n, (p, s) in
+                               zip(path_names, fps_calls)] + extra)
 
     # the render path's scene: the synthetic intrinsic is at the rendered
     # size; the renderer takes it at ori_shape, so it is scaled up here
@@ -931,7 +889,7 @@ def main():
         raise SystemExit("K2 counted a view for a point behind every camera")
     blind, seen = ray["a view with no valid point"], ray["render chunk"]
     if not (bool((blind["mask"] <= seen["mask"]).all())
-            and not torch.equal(blind["gf"], seen["gf"])):
+            and not blind["same_as_chunk"]):
         raise SystemExit("K2 counted the view that sees no point")
 
     # ---- 4. the first path: NeRF-Det ------------------------------------

@@ -64,14 +64,11 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   v = __uint_as_float(top);
 }
 
-// Shared memory of a CTA, in floats: the slice's planes [c][slice], its
-// running minimum [slice], the first pick [c], the warps' partials
-// (values [2][32], indices [2][32]) and the slots [2][kMaxCluster][c + 2]
-// (value, index bits, coordinates).
-__host__ __device__ inline size_t smem_floats(int c, int slice) {
-  return (size_t)(c + 1) * slice + c + 4 * 32 +
-         2 * kMaxCluster * (size_t)(c + 2);
-}
+// Shared memory of a CTA: the slice's planes [c][slice], its running
+// minimum [slice], the first pick [c], the warps' partials (values
+// [2][32], indices [2][32]) and the slots [2][kMaxCluster][c + 2] (value,
+// index bits, coordinates). The caller sizes it (ops/pointnet.py:
+// fps_smem_bytes) and passes the byte count.
 
 // kC > 0: C fixed at compile time; kC == 0: C read from c_rt.
 template <int kC, bool kCluster>
@@ -229,35 +226,40 @@ cudaError_t launch(const float* planes, int* out, int n, int c,
 
 }  // namespace
 
-// Dynamic shared memory of one CTA for a slice of an (N, C) cloud.
-extern "C" long long furthest_point_sample_smem_bytes(int c, int slice) {
-  return (long long)(sizeof(float) * smem_floats(c, slice));
-}
-
 // planes (C, N) float32; out (n_samples,) int32; the cloud is cut into
-// `cluster` (1, 2, 4, 8 or 16) slices of `slice` points. The caller
-// checks 1 <= n_samples <= N, cluster * slice >= N and the shared-memory
-// size. Returns the cudaError_t of the set-up and launch.
+// `cluster` (1, 2, 4, 8 or 16) slices of `slice` points, each CTA given
+// `smem` bytes of shared memory. The caller checks 1 <= n_samples <= N
+// and cluster * slice >= N; a cluster above 16 or a shared-memory size
+// above what the device lets a block opt into is refused here. Returns
+// the cudaError_t of the set-up and launch.
 extern "C" int furthest_point_sample(const float* planes, int* out, int n,
                                      int c, int n_samples, int cluster,
-                                     int slice, void* stream) {
+                                     int slice, long long smem,
+                                     void* stream) {
   if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * slice < n)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * smem_floats(c, slice);
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem < 0 || smem > smem_max)
+    return static_cast<int>(cudaErrorInvalidValue);
   int threads = (slice + kPointsPerThread - 1) / kPointsPerThread;
   threads = ((threads + 31) / 32) * 32;
   threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const size_t bytes = static_cast<size_t>(smem);
   if (cluster == 1)
     err = c == 3 ? launch<3, false>(planes, out, n, c, n_samples, 1, slice,
-                                    threads, smem, s)
+                                    threads, bytes, s)
                  : launch<0, false>(planes, out, n, c, n_samples, 1, slice,
-                                    threads, smem, s);
+                                    threads, bytes, s);
   else
     err = c == 3 ? launch<3, true>(planes, out, n, c, n_samples, cluster,
-                                   slice, threads, smem, s)
+                                   slice, threads, bytes, s)
                  : launch<0, true>(planes, out, n, c, n_samples, cluster,
-                                   slice, threads, smem, s);
+                                   slice, threads, bytes, s);
   return static_cast<int>(err);
 }

@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
     const float* __restrict__ feats, const float* __restrict__ proj,
     float* __restrict__ gf, uint8_t* __restrict__ mask, int n, int n_views,
     int ih, int iw, int fh, int fw, int c, float h1, float w1,
-    float sx, float sy, float fsx, float fsy, int reuse) {
+    float sx, float sy, float fsx, float fsy) {
   constexpr int kGroup = 32 / kVec;          // lanes per point
   constexpr int kRun = kPts / kVec;          // points per lane group
   __shared__ Tap taps[2][kViews][kTile];
@@ -257,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
           const float4 w = tk[p].wf;
           // the edge flags follow from the window's start pixel, so the
           // index alone says whether the taps are those of point p - 1
-          if (!(reuse && idx == prev)) {
+          if (idx != prev) {
             load<kVec>(fv + (size_t)idx * c, t00);
             if (fl & kFeatX1) load<kVec>(fv + (size_t)(idx + 1) * c, t01);
             else zero(t01);
@@ -318,23 +318,25 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
 // globalfeat (N, 2(3 + C)) float32 and pixel_mask (N,) bool (one byte),
 // all contiguous. (h, w) is the image size the projection lives in; sx,
 // sy, fsx, fsy scale its pixels into the images and the feature maps.
-// vec = 4 needs C % 4 == 0 and a 16-byte aligned feats, else vec = 1;
-// reuse = 0 loads every point's taps (for measurement). The caller checks
-// shapes. Returns the cudaError_t of the launch.
+// Feature taps load 16 bytes at a time where C % 4 == 0 and feats is
+// 16-byte aligned, 4 bytes otherwise. The caller checks shapes. Returns
+// the cudaError_t of the launch.
 extern "C" int streaming_sample_mean_var(
     const float* pts, const float* imgs, const float* feats,
     const float* proj, float* gf, uint8_t* mask, int n, int n_views, int ih,
     int iw, int fh, int fw, int c, int h, int w, float sx, float sy,
-    float fsx, float fsy, int vec, int reuse, void* stream) {
+    float fsx, float fsy, void* stream) {
   const int blocks = (n + kTile - 1) / kTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4)
+  const bool vec4 =
+      c % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  if (vec4)
     k2_kernel<4><<<blocks, kThreads, 0, s>>>(
         pts, imgs, feats, proj, gf, mask, n, n_views, ih, iw, fh, fw, c,
-        (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy, reuse);
+        (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
   else
     k2_kernel<1><<<blocks, kThreads, 0, s>>>(
         pts, imgs, feats, proj, gf, mask, n, n_views, ih, iw, fh, fw, c,
-        (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy, reuse);
+        (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
   return static_cast<int>(cudaGetLastError());
 }

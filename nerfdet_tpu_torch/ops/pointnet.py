@@ -59,14 +59,16 @@ def furthest_point_sample_plain(points: torch.Tensor,
 
 FPS_CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is above the portable 8
 FPS_SMEM_LIMIT = 232448  # opt-in shared memory of an H100 block, bytes
+# (the launcher also checks the byte count against the device's own)
 FPS_CTA_POINTS = 2048  # points one CTA takes before the cloud spreads
 
 
 def fps_smem_bytes(c: int, slice_: int) -> int:
     """Shared memory of one K3 CTA holding ``slice_`` points of C
-    columns: the planes and the running minimum, the first pick, the
-    warps' partials and the cluster's slots (``csrc/
-    furthest_point_sample.cu``: ``smem_floats``)."""
+    columns, in bytes: the planes and the running minimum, the first
+    pick, the warps' partials and the cluster's 16 slots a step parity
+    (the layout in ``csrc/furthest_point_sample.cu``). The launch passes
+    this size to the kernel."""
     return 4 * ((c + 1) * slice_ + c + 4 * 32 + 2 * 16 * (c + 2))
 
 
@@ -101,7 +103,7 @@ def furthest_point_sample(points: torch.Tensor,
     """
     if points.device.type == "cpu":
         return furthest_point_sample_plain(points, n_samples)
-    out = _fps_launch(points, n_samples, None)
+    out = _fps_launch(points, n_samples)
     furthest_point_sample.launches += 1
     return out
 
@@ -109,9 +111,9 @@ def furthest_point_sample(points: torch.Tensor,
 furthest_point_sample.launches = 0
 
 
-def _fps_launch(points, n_samples, cluster):
-    """Check and launch K3 on the card, on ``cluster`` CTAs (None: the
-    plan's); the launch is not counted."""
+def _fps_launch(points, n_samples):
+    """Check and launch K3 on the card on the plan's cluster; the launch
+    is not counted."""
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     if points.dtype != torch.float32:
@@ -122,9 +124,7 @@ def _fps_launch(points, n_samples, cluster):
     if not 1 <= n_samples <= n or c < 1:
         raise ValueError(f"need 1 <= n_samples <= N and C >= 1, got "
                          f"N={n} C={c} n_samples={n_samples}")
-    k, slice_, _ = fps_plan(n, c)
-    if cluster is not None:
-        k, slice_ = cluster, -(-n // cluster)
+    k, slice_, smem = fps_plan(n, c)
     lib = _lib()
     dev = points.device
     planes = points.t().contiguous()  # (C, N): coalesced loads
@@ -132,7 +132,7 @@ def _fps_launch(points, n_samples, cluster):
     with torch.cuda.device(dev):  # the attributes and launch act on it
         err = lib.furthest_point_sample(
             planes.data_ptr(), out.data_ptr(), n, c, n_samples, k, slice_,
-            torch.cuda.current_stream(dev).cuda_stream)
+            smem, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"furthest_point_sample kernel launch failed: "
                            f"cudaError {err}")
@@ -144,10 +144,8 @@ def _lib():
     fn = lib.furthest_point_sample
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, i, i, i, i, i, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
-        lib.furthest_point_sample_smem_bytes.argtypes = [i, i]
-        lib.furthest_point_sample_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -176,10 +176,8 @@ def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps):
 streaming_sample_mean_var.launches = 0
 
 
-def _k2_launch(pts, images, proj, img_hw, featmaps, vec=None, reuse=True):
-    """Check and launch K2 on the card; the launch is not counted.
-    ``vec`` (4 or 1) and ``reuse`` choose how feature taps are loaded
-    (default: 16-byte loads where C and the map allow, taps reused)."""
+def _k2_launch(pts, images, proj, img_hw, featmaps):
+    """Check and launch K2 on the card; the launch is not counted."""
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
     for name, t in (("pts", pts), ("images", images),
@@ -197,8 +195,6 @@ def _k2_launch(pts, images, proj, img_hw, featmaps, vec=None, reuse=True):
                          "featmaps (V, h, w, C) and proj (V, 4, 4)")
     if not 1 <= c <= 32:
         raise ValueError(f"K2 takes 1 to 32 feature channels, got {c}")
-    if vec is None:
-        vec = 4 if c % 4 == 0 and featmaps.data_ptr() % 16 == 0 else 1
     dev = pts.device
     gf = torch.empty((r, s, 2 * (3 + c)), dtype=torch.float32, device=dev)
     mask = torch.empty((r, s), dtype=torch.bool, device=dev)
@@ -212,7 +208,7 @@ def _k2_launch(pts, images, proj, img_hw, featmaps, vec=None, reuse=True):
         err = lib.streaming_sample_mean_var(
             pts.data_ptr(), images.data_ptr(), featmaps.data_ptr(),
             proj.data_ptr(), gf.data_ptr(), mask.data_ptr(), n, v, ih, iw,
-            fh, fw, c, h, w, sx, sy, fsx, fsy, vec, int(reuse),
+            fh, fw, c, h, w, sx, sy, fsx, fsy,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var kernel launch "
@@ -225,7 +221,7 @@ def _lib():
     fn = lib.streaming_sample_mean_var
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 6 + [i] * 9 + [f] * 4 + [i, i, p]
+        fn.argtypes = [p] * 6 + [i] * 9 + [f] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
 

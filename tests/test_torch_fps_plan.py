@@ -40,3 +40,11 @@ def test_fps_plan_sizes_on_the_paths(n, c, k):
 def test_fps_plan_refuses_a_cloud_above_a_16_cta_cluster(n, c):
     with pytest.raises(ValueError, match="16-CTA cluster"):
         pointnet.fps_plan(n, c)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+def test_fps_plan_gives_a_cta_2048_points(k):
+    """The card tests reach every cluster size through these clouds."""
+    assert pointnet.fps_plan(2048 * k, 3)[:2] == (k, 2048)
+    if k < 16:
+        assert pointnet.fps_plan(2048 * k + 1, 3)[0] == 2 * k

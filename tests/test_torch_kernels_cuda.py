@@ -126,19 +126,32 @@ def test_furthest_point_sample_matches_plain(dev, n, c, s, dup):
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
 def test_furthest_point_sample_any_cluster_matches_plain(dev, cluster):
     """Every cluster size gives the plain version's indices, ties
-    included (the duplicated half lies in other slices)."""
-    pts = _cloud(dev, 4096, 3, cluster, dup=True)
-    got = pointnet._fps_launch(pts, 512, cluster)
+    included (the duplicated half lies in other slices): a cloud of
+    2048 points a CTA takes ``cluster`` CTAs."""
+    n = 2048 * cluster
+    assert pointnet.fps_plan(n, 3)[0] == cluster
+    pts = _cloud(dev, n, 3, cluster, dup=True)
+    got = pointnet.furthest_point_sample(pts, 512)
     want = pointnet.furthest_point_sample_plain(pts, 512)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
-def test_fps_smem_bytes_match_the_kernel(dev):
+def test_fps_launcher_refuses_more_shared_memory_than_the_card_has(dev):
+    n, c, s = 1000, 3, 10
+    planes = _cloud(dev, n, c, 0).t().contiguous()
+    out = torch.empty((s,), dtype=torch.int32, device=dev)
     lib = pointnet._lib()
-    for c, slice_ in ((3, 2500), (19, 2048), (1, 1), (32, 100)):
-        assert (lib.furthest_point_sample_smem_bytes(c, slice_)
-                == pointnet.fps_smem_bytes(c, slice_))
+    # 1 MiB a block is above any card's opt-in shared memory
+    for smem, refused in ((1 << 20, True), (pointnet.fps_smem_bytes(c, n),
+                                            False)):
+        err = lib.furthest_point_sample(
+            planes.data_ptr(), out.data_ptr(), n, c, s, 1, n, smem,
+            torch.cuda.current_stream(dev).cuda_stream)
+        assert (err != 0) == refused
+    torch.cuda.synchronize()
+    assert torch.equal(out, pointnet.furthest_point_sample_plain(
+        planes.t().contiguous(), s))
 
 
 def test_furthest_point_sample_rejects_what_it_cannot_take(dev):
@@ -189,17 +202,26 @@ def test_streaming_sample_mean_var_matches_plain(dev, v, r, s, c):
     # (tolerance 1e-5 relative)
     assert torch.equal(got[1], want[1])
     assert _rel(got[0], want[0]) <= 1e-5
-    # every way of loading the feature taps
-    for vec in ((4, 1) if c % 4 == 0 else (1,)):
-        for reuse in (True, False):
-            alt = render._k2_launch(pts, images, proj, (239, 320), feats, vec,
-                                    reuse)
-            assert torch.equal(alt[1], want[1])
-            assert _rel(alt[0], want[0]) <= 1e-5
     if r >= 8:
         cnt = render.ray_view_carry_plain(pts, images, feats, proj,
                                           (239, 320))[3]
         assert int((cnt == 0).sum()) > 0 and float(cnt.max()) >= 2
+
+
+def test_streaming_sample_mean_var_takes_an_unaligned_map(dev):
+    """C % 4 == 0 but the map starts off a 16-byte boundary: the launch
+    takes 4-byte taps and still equals the plain version."""
+    pts, images, feats, proj = _ray_inputs(dev, 5, 40, 16, 32, seed=1)
+    buf = torch.empty(feats.numel() + 1, device=dev)
+    shifted = buf[1:].view(feats.shape)
+    shifted.copy_(feats)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    args = (pts, images, proj, (239, 320), shifted)
+    got = render.streaming_sample_mean_var(*args)
+    want = render.streaming_sample_mean_var_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert _rel(got[0], want[0]) <= 1e-5
 
 
 def test_streaming_sample_mean_var_rejects_what_it_cannot_take(dev):
