@@ -11,12 +11,15 @@ Phases, each reported on its own lines:
    register / shared-memory report;
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, with its time, the plain version's
-   time and the least time the card could take (bound); K3's cluster
-   size and time a step;
+   time and the least time the card could take (bound); K1's two phases'
+   times, ``torch.addmm`` on the same maps (phase A's yardstick) and one
+   more f32 mapped line at the intrinsic scaled to ``ori_shape``; K3's
+   cluster size and time a step;
 4. the first path: NeRF-Det-R50 low-res detection inference at full
    width (50 views at 240x320, a 40x40x16 volume, random weights from a
    seed) through ``init_detector`` -> ``eval_step`` -> host NMS, with
-   the kernels' launch counts, finiteness, the same graph with the plain
+   the kernels' launch counts (K1 exactly once), finiteness, the same
+   graph with the plain
    fusion, a per-stage time breakdown and scenes/s on this card;
 5. the second path: VoteNet-ScanNet inference at full width (a seeded
    40000-point synthetic cloud, random weights) through
@@ -94,7 +97,12 @@ def cuda_time_ms(fn, iters, warmup=2):
 def fusion_bound(pix, c, m, elt):
     """Least time of K1 on these inputs: bytes (each referenced feature
     row, the indices, W/b and the outputs, once) over HBM rate against
-    the operations these inputs need over the fp32 rate."""
+    the operations these inputs need over the fp32 rate. Operations: 3 a
+    valid (voxel, view) pair and channel for s1 and s2; with the mapped
+    stream, the product of each referenced pixel row once (2·rows·C·M:
+    the mapped value depends on the pixel, not the voxel) and 3 a pair
+    and mapped channel for the square and its sum. Also returns the
+    valid pairs and the referenced rows."""
     import torch
 
     n = pix.shape[1]
@@ -105,56 +113,90 @@ def fusion_bound(pix, c, m, elt):
     ops = 3 * n_valid * c
     if m:
         nbytes += (c * m + m + n * m) * 4
-        ops += 2 * n_valid * c * m + 3 * pix.numel() * m
+        ops += 2 * rows * c * m + 3 * pix.numel() * m
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", nbytes, ops)
+            "operations", nbytes, ops, n_valid, rows)
 
 
-def check_fusion(voxel, pix, hw, gen):
-    """K1 vs its plain version at the main path's shape, four forms."""
+def mapped_rows_bound(feats, m):
+    """Least time of K1's phase A: the maps read once and the mapped rows
+    written once, against 2·C·M operations a pixel row."""
+    v, fh, fw, c = feats.shape
+    rows = v * fh * fw
+    nbytes = feats.numel() * feats.element_size() + (rows * m + c * m
+                                                     + m) * 4
+    ops = 2 * rows * c * m
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_fusion(voxel, cases, hw, gen):
+    """K1 vs its plain version at the main path's shape: count, s1 and
+    s2 bitwise equal, s2m within 1e-5 relative. ``cases``: (name, pix,
+    dtype, mapped). Each line gives K1's time, its phases' (the uncounted
+    launches ``_mapped_rows_launch`` and ``_carry_launch``), the plain
+    version's and the bound; the f32 mapped forms also time
+    ``torch.addmm`` on the same maps, phase A's one-call yardstick."""
     import torch
 
-    dev = pix.device
-    v, (fh, fw), c, m = pix.shape[0], hw, 256, 32
+    dev = cases[0][1].device
+    v, (fh, fw), c, m = cases[0][1].shape[0], hw, 256, 32
     feats32 = torch.randn((v, fh, fw, c), generator=gen, device=dev)
     w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
     b = torch.randn((m,), generator=gen, device=dev)
+    maps = {torch.float32: feats32, torch.bfloat16: feats32.bfloat16()}
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        feats = feats32.to(dtype).contiguous()
-        for mapped in (False, True):
-            wm, bm = (w, b) if mapped else (None, None)
-            got = voxel.fusion_carry(feats, pix, wm, bm)
-            want = voxel.fusion_carry_plain(feats, pix, wm, bm)
-            torch.cuda.synchronize()
-            if not torch.equal(got[2], want[2]):
-                raise SystemExit("K1 count differs from the plain version")
-            abs_err, rel_err = 0.0, 0.0
-            for g, p in zip(got[:2] + got[3:4], want[:2] + want[3:4]):
-                if g is None:
-                    continue
-                e = float((g - p).abs().max())
-                abs_err = max(abs_err, e)
-                rel_err = max(rel_err, e / max(float(p.abs().max()), 1e-30))
-            ms = cuda_time_ms(lambda: voxel.fusion_carry(feats, pix, wm, bm),
-                              20)
-            plain_ms = cuda_time_ms(
-                lambda: voxel.fusion_carry_plain(feats, pix, wm, bm), 5)
-            bound_ms, bound_by, nbytes, ops = fusion_bound(
-                pix, c, m if mapped else 0, feats.element_size())
-            name = f"{str(dtype)[6:]}{' mapped' if mapped else ''}"
-            log(f"[kernel] fused_mean_cov {name}: V={v} map={fh}x{fw} "
-                f"C={c} N={pix.shape[1]} M={m if mapped else 0}: "
-                f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
-                f"(tol: count exact, rel 1e-5) ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"({bound_by}; {nbytes} B, {ops} FLOP)")
-            if rel_err > 1e-5:
-                raise SystemExit(f"K1 {name} disagrees: rel {rel_err:.3e}")
-            results[name] = dict(max_abs_err=abs_err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+    for name, pix, dtype, mapped in cases:
+        feats = maps[dtype]
+        wm, bm = (w, b) if mapped else (None, None)
+        got = voxel.fusion_carry(feats, pix, wm, bm)
+        want = voxel.fusion_carry_plain(feats, pix, wm, bm)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, p) for g, p in zip(got[:3], want[:3])):
+            raise SystemExit(f"K1 {name}: count, s1 or s2 differs from the "
+                             f"plain version")
+        abs_err = max(float((g - p).abs().max())
+                      for g, p in zip(got, want) if g is not None)
+        rel_err = 0.0
+        if mapped:
+            rel_err = float((got[3] - want[3]).abs().max()) / max(
+                float(want[3].abs().max()), 1e-30)
+        ms = cuda_time_ms(lambda: voxel.fusion_carry(feats, pix, wm, bm), 20)
+        plain_ms = cuda_time_ms(
+            lambda: voxel.fusion_carry_plain(feats, pix, wm, bm), 5)
+        rows_p = voxel._mapped_rows_launch(feats, w, b) if mapped else None
+        a_ms = cuda_time_ms(lambda: voxel._mapped_rows_launch(feats, w, b),
+                            20) if mapped else 0.0
+        b_ms = cuda_time_ms(lambda: voxel._carry_launch(feats, pix, rows_p,
+                                                        bm), 20)
+        del rows_p
+        bound_ms, bound_by, nbytes, ops, n_valid, rows = fusion_bound(
+            pix, c, m if mapped else 0, feats.element_size())
+        result = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, phase_a_ms=a_ms,
+                      phase_b_ms=b_ms, library_ms=None)
+        line = (f"[kernel] fused_mean_cov {name}: V={v} map={fh}x{fw} C={c} "
+                f"N={pix.shape[1]} M={m if mapped else 0}; {n_valid} valid "
+                f"pairs ({n_valid / pix.numel():.4f}), {rows} referenced "
+                f"rows: count, s1, s2 bitwise equal, max_abs_err="
+                f"{abs_err:.3e} s2m max_rel_err={rel_err:.3e} (tol: s2m rel "
+                f"1e-5) ms={ms:.4f} (phase A {a_ms:.4f}, phase B "
+                f"{b_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms="
+                f"{bound_ms:.4f} ({bound_by}; {nbytes} B, {ops} FLOP)")
+        if mapped:
+            a_bound, a_by = mapped_rows_bound(feats, m)
+            line += f"; phase A bound_ms={a_bound:.4f} ({a_by})"
+        if mapped and dtype == torch.float32:
+            flat = feats.reshape(-1, c)
+            result["library_ms"] = cuda_time_ms(
+                lambda: torch.addmm(b, flat, w), 20)
+            line += (f"; library_ms={result['library_ms']:.4f} "
+                     f"(torch.addmm, phase A's work)")
+        log(line)
+        if rel_err > 1e-5:
+            raise SystemExit(f"K1 {name} disagrees: rel {rel_err:.3e}")
+        results[name] = result
     return results
 
 
@@ -842,17 +884,22 @@ def main():
         f"parameters, scene {N_VIEWS} views {meta.pad_shape}, volume "
         f"{model.n_voxels}: {time.perf_counter() - t0:.1f} s")
 
-    # pixel indices exactly as the main path computes them
+    # pixel indices exactly as the main path computes them, and at the
+    # intrinsic scaled to ori_shape (as phase 6 takes it)
     stride = 4
     fh, fw = meta.pad_shape[0] // stride, meta.pad_shape[1] // stride
-    proj = voxel.compute_projection(
-        scene["intrinsic"], scene["extrinsics"],
-        meta.ori_shape[0] / (h / stride), dev)
     points = voxel.get_points(model.n_voxels, model.voxel_size,
                               scene["origin"], dev).reshape(-1, 3)
-    x, y, _, valid = voxel.project_points(points, proj, h // stride,
-                                          w // stride)
-    pix = voxel.pixel_index(x, y, valid, fw).contiguous()
+    intrinsic = scene["intrinsic"].copy()
+    intrinsic[:2] *= np.float32(meta.ori_shape[0] / h)
+
+    def pixel_indices(k):
+        proj = voxel.compute_projection(k, scene["extrinsics"],
+                                        meta.ori_shape[0] / (h / stride),
+                                        dev)
+        x, y, _, valid = voxel.project_points(points, proj, h // stride,
+                                              w // stride)
+        return voxel.pixel_index(x, y, valid, fw).contiguous()
 
     # the VoteNet model, its cloud, and the inputs of its five FPS calls
     t0 = time.perf_counter()
@@ -867,7 +914,13 @@ def main():
 
     # ---- 3. kernels against their plain versions ----------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    fusion = check_fusion(voxel, pix, (fh, fw), gen)
+    pix = pixel_indices(scene["intrinsic"])
+    f32, bf16 = torch.float32, torch.bfloat16
+    fusion = check_fusion(voxel, [
+        ("float32", pix, f32, False), ("float32 mapped", pix, f32, True),
+        ("bfloat16", pix, bf16, False), ("bfloat16 mapped", pix, bf16, True),
+        ("float32 mapped, intrinsic scaled to ori_shape",
+         pixel_indices(intrinsic), f32, True)], (fh, fw), gen)
     path_names = ["sa0", "sa1", "sa2", "sa3", "vote_aggregation"]
     half = torch.rand((N_POINTS // 2, 3), generator=gen, device=dev) * 8
     extra = [("F-FPS C=19", torch.randn((4096, 19), generator=gen,
@@ -877,9 +930,7 @@ def main():
                                zip(path_names, fps_calls)] + extra)
 
     # the render path's scene: the synthetic intrinsic is at the rendered
-    # size; the renderer takes it at ori_shape, so it is scaled up here
-    intrinsic = scene["intrinsic"].copy()
-    intrinsic[:2] *= np.float32(meta.ori_shape[0] / h)
+    # size; the renderer takes it at ori_shape (scaled up above)
     nvs = nvs_dataset(dict(scene, intrinsic=intrinsic), scene["intrinsic"],
                       (h, w))
     rbatch = api.render_batch(model, nvs[0])
@@ -909,8 +960,9 @@ def main():
         f"{pointnet.furthest_point_sample.launches}, "
         f"streaming_sample_mean_var launches "
         f"{render.streaming_sample_mean_var.launches}")
-    if launches < 1:
-        raise SystemExit("the main path did not launch fused_mean_cov")
+    if launches != 1:
+        raise SystemExit(f"the main path launched fused_mean_cov {launches} "
+                         f"times, expected 1")
     if not (torch.isfinite(out["boxes"]).all()
             and torch.isfinite(out["scores"]).all()):
         raise SystemExit("non-finite candidates")
@@ -1005,7 +1057,11 @@ def main():
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
-        "library_ms": None,
+        "library_ms": main["library_ms"],
+        "phase_a_ms": main["phase_a_ms"],
+        "phase_b_ms": main["phase_b_ms"],
+        "library_of": "phase A: torch.addmm(b, features.reshape(-1, C), "
+                      "W); K1 as a whole has no one-call counterpart",
     }, {
         "name": "furthest_point_sample",
         "route": "cuda",

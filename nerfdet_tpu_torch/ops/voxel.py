@@ -4,8 +4,10 @@ Port of ``nerfdet_tpu/ops/voxel.py``. Each voxel takes its nearest pixel
 in every view; the fusion streams over views, so the (V, N, C) per-view
 volume never exists. The carry of that stream (sums, squared sums,
 observing-view counts and the squared sums of the mapped stream) is the
-hand-written CUDA kernel K1 (``csrc/fused_mean_cov.cu``); the epilogue
-(mean and exp(-variance)) is plain torch.
+hand-written CUDA kernel K1 (``csrc/fused_mean_cov.cu``), in two phases:
+A maps every pixel of every view once (``mapped_rows_plain``), B walks
+the views for each voxel and gathers its rows and their mapped values.
+The epilogue (mean and exp(-variance)) is plain torch.
 
 Exactness: geometry is float32 with explicitly ordered multiply-adds
 (no TF32, no library-chosen order) and ``torch.round`` (half to even,
@@ -132,68 +134,130 @@ def fusion_carry_plain(features, pix, mapped_kernel=None, mapped_bias=None):
     return s1, s2, count, s2m
 
 
+def mapped_rows_plain(features, mapped_kernel, mapped_bias):
+    """Plain PyTorch version of K1's phase A: the mapped stream of every
+    pixel of every view, ``x @ W + b``, (V, H*W, M) float32."""
+    v, h, w, c = features.shape
+    return (features.float().reshape(v, h * w, c) @ mapped_kernel.float()
+            + mapped_bias.float())
+
+
+K1_CHANNELS = (32, 64, 128, 256, 512, 1024)  # 32 x a power of two
+K1_MAX_MAP = 32  # mapped outputs: lane m of a warp owns output m
+
+
+def fusion_smem_bytes(c: int, itemsize: int) -> int:
+    """Shared memory of one K1 block for C channels of ``itemsize``-byte
+    maps, in bytes. Phase A holds W zero-padded to 32 columns and b, then
+    a ring of 4 stages of 128 rows x 32 channels, a row padded to 36
+    floats or 40 bfloat16 (the layout in ``csrc/fused_mean_cov.cu``);
+    phase B holds none: its warps own their voxels. The launch passes
+    this size to phase A, whose launcher refuses more than the device
+    lets a block opt into."""
+    pitch = 36 if itemsize == 4 else 40
+    return 4 * (c * K1_MAX_MAP + K1_MAX_MAP) + 4 * 128 * pitch * itemsize
+
+
 def fusion_carry(features, pix, mapped_kernel=None, mapped_bias=None):
     """K1: the view-streaming fusion carry (see ``fusion_carry_plain``).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernel, or raises where the kernel does not take the input.
+    kernel (phase A, the mapped rows, where the mapped stream is given;
+    then phase B, the carry), or raises where the kernel does not take
+    the input.
     """
     if features.device.type == "cpu":
         return fusion_carry_plain(features, pix, mapped_kernel, mapped_bias)
+    mapped = None
+    if mapped_kernel is not None:
+        mapped = _mapped_rows_launch(features, mapped_kernel, mapped_bias)
+    out = _carry_launch(features, pix, mapped, mapped_bias)
+    fusion_carry.launches += 1
+    return out
+
+
+fusion_carry.launches = 0
+
+
+def _check_maps(features):
     if features.device.type != "cuda":
         raise ValueError(f"unsupported device {features.device}")
-    v, h, w, c = features.shape
-    n = pix.shape[1]
     if features.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"features must be float32 or bfloat16, "
                         f"got {features.dtype}")
-    if not features.is_contiguous():
-        raise ValueError("features must be contiguous")
-    if c % 32 or c > 1024:
-        raise ValueError(f"K1 needs C % 32 == 0 and C <= 1024, got C={c}")
+    if features.dim() != 4 or not features.is_contiguous():
+        raise ValueError("features must be a contiguous (V, H, W, C) map")
+    c = features.shape[3]
+    if c not in K1_CHANNELS:
+        raise ValueError(f"K1 takes C in {K1_CHANNELS} (C % 32 == 0 and C "
+                         f"/ 32 a power of two), got C={c}")
+
+
+def _mapped_rows_launch(features, mapped_kernel, mapped_bias):
+    """Check and launch K1's phase A; returns P (V, H*W, M) float32. The
+    launch is not counted."""
+    _check_maps(features)
+    v, h, w, c = features.shape
+    dev = features.device
+    if mapped_kernel.dim() != 2 or mapped_kernel.shape[0] != c:
+        raise ValueError(f"mapped kernel must be (C, M) with C={c}")
+    m = mapped_kernel.shape[1]
+    if not 1 <= m <= K1_MAX_MAP:
+        raise ValueError(f"K1 takes 1 to {K1_MAX_MAP} mapped channels, "
+                         f"got M={m}")
+    if (mapped_bias.shape != (m,) or mapped_kernel.dtype != torch.float32
+            or mapped_bias.dtype != torch.float32
+            or not mapped_kernel.is_contiguous()
+            or mapped_kernel.device != dev or mapped_bias.device != dev):
+        raise ValueError("mapped stream needs float32 contiguous "
+                         "(C, M) kernel and (M,) bias on the device")
+    out = torch.empty((v, h * w, m), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):  # the attribute and launch act on it
+        err = lib.fused_mean_cov_mapped_rows(
+            features.data_ptr(), int(features.dtype == torch.bfloat16),
+            mapped_kernel.data_ptr(), mapped_bias.data_ptr(), out.data_ptr(),
+            v * h * w, c, m, fusion_smem_bytes(c, features.element_size()),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mean_cov phase A launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def _carry_launch(features, pix, mapped=None, mapped_bias=None):
+    """Check and launch K1's phase B on ``mapped`` (phase A's output) or
+    none; returns (s1, s2, count, s2m or None). The launch is not
+    counted."""
+    _check_maps(features)
+    v, h, w, c = features.shape
+    n = pix.shape[1] if pix.dim() == 2 else -1
+    dev = features.device
     if (pix.dtype != torch.int32 or pix.shape != (v, n)
-            or not pix.is_contiguous() or pix.device != features.device):
+            or not pix.is_contiguous() or pix.device != dev):
         raise ValueError("pix must be a contiguous (V, N) int32 tensor on "
                          "the features' device")
-    dev = features.device
     s1 = torch.empty((n, c), dtype=torch.float32, device=dev)
     s2 = torch.empty_like(s1)
     count = torch.empty((n,), dtype=torch.float32, device=dev)
     s2m = None
     m = 0
-    w_ptr = b_ptr = s2m_ptr = None
-    if mapped_kernel is not None:
-        m = mapped_kernel.shape[1]
-        if (mapped_kernel.shape != (c, m) or mapped_bias.shape != (m,)
-                or mapped_kernel.dtype != torch.float32
-                or mapped_bias.dtype != torch.float32
-                or not mapped_kernel.is_contiguous()
-                or mapped_kernel.device != dev or mapped_bias.device != dev):
-            raise ValueError("mapped stream needs float32 contiguous "
-                             "(C, M) kernel and (M,) bias on the device")
-        smem = 4 * _tile() * (c + m)
-        if smem > 48 * 1024:
-            raise ValueError(f"K1 tile needs {smem} bytes of shared memory")
+    if mapped is not None:
+        m = mapped.shape[-1]
         s2m = torch.empty((n, m), dtype=torch.float32, device=dev)
-        w_ptr, b_ptr, s2m_ptr = (mapped_kernel.data_ptr(),
-                                 mapped_bias.data_ptr(), s2m.data_ptr())
-    if n == 0:
-        return s1, s2, count, s2m
     lib = _lib()
     with torch.cuda.device(dev):  # the launch acts on the current device
         err = lib.fused_mean_cov_carry(
             features.data_ptr(), int(features.dtype == torch.bfloat16),
-            pix.data_ptr(), w_ptr, b_ptr, s1.data_ptr(), s2.data_ptr(),
-            count.data_ptr(), s2m_ptr, v, h * w, c, n, m,
+            pix.data_ptr(), None if mapped is None else mapped.data_ptr(),
+            None if mapped is None else mapped_bias.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), count.data_ptr(),
+            None if s2m is None else s2m.data_ptr(), v, h * w, c, n, m,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused_mean_cov kernel launch failed: "
+        raise RuntimeError(f"fused_mean_cov phase B launch failed: "
                            f"cudaError {err}")
-    fusion_carry.launches += 1
     return s1, s2, count, s2m
-
-
-fusion_carry.launches = 0
 
 
 def _lib():
@@ -203,13 +267,10 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.fused_mean_cov_tile.argtypes = []
-        lib.fused_mean_cov_tile.restype = ctypes.c_int
+        lib.fused_mean_cov_mapped_rows.argtypes = [
+            p, i, p, p, p, i, i, i, ctypes.c_longlong, p]
+        lib.fused_mean_cov_mapped_rows.restype = ctypes.c_int
     return lib
-
-
-def _tile() -> int:
-    return _lib().fused_mean_cov_tile()
 
 
 def _stats(s1, s2, count, n_views):

@@ -6,8 +6,12 @@ JAX package's own back-projected (V, N, C) volume, and the fused
 mean / exp(-var) against ``nerfdet_tpu.ops.voxel.fused_mean_cov``.
 Tolerances: counts exact; sums 1e-5 relative (only the summation order
 differs); mean and cov 1e-4 absolute (the variance cancels
-``s2 - 2*mean*s1 + V*mean^2``). The CUDA kernel itself is held against
-the plain version on the card in ``test_torch_kernels_cuda.py``.
+``s2 - 2*mean*s1 + V*mean^2``). The kernel's factoring of the mapped
+stream (phase A maps each pixel once, ``mapped_rows_plain``; phase B
+gathers the mapped rows, the bias where a view does not see the voxel)
+is held against the JAX scan's per-voxel product, 1e-5 relative. The
+CUDA kernel itself is held against the plain version on the card in
+``test_torch_kernels_cuda.py``.
 """
 
 import numpy as np
@@ -125,3 +129,73 @@ def test_unported_forms_raise():
         tvox.fused_mean_cov(*args, depth=torch.zeros(3, 31, 40))
     with pytest.raises(NotImplementedError, match="depth_sp"):
         tvox.fused_mean_cov(*args, extra_features=torch.zeros(3, 31, 40, 3))
+
+
+def _blind(proj, view):
+    """``proj`` with ``view``'s pixels moved 1e4 to the right: the view
+    sees no voxel."""
+    proj = proj.copy()
+    proj[view, 0] += np.float32(1e4) * proj[view, 2]
+    return proj
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mapped_rows_plain_matches_jax_product(dtype):
+    feats, _, _, w_map, b_map, _ = _scene(seed=2)
+    v, fh, fw, c = feats.shape
+    rows = jnp.asarray(feats).astype(dtype).astype(jnp.float32)
+    want = np.asarray(rows.reshape(v, fh * fw, c) @ jnp.asarray(w_map)
+                      + jnp.asarray(b_map))
+    got = tvox.mapped_rows_plain(
+        torch.from_numpy(feats).to(getattr(torch, dtype)),
+        torch.from_numpy(w_map), torch.from_numpy(b_map))
+    assert tuple(got.shape) == want.shape == (v, fh * fw, w_map.shape[1])
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_per_pixel_factoring_matches_jax_s2m(dtype):
+    """s2m as K1 computes it: the mapped rows once per pixel, gathered by
+    ``pix``, the bias for an invalid pair, squares summed in view order;
+    against the JAX scan body's ``contrib @ w + b`` per voxel and view."""
+    feats, points, proj, w_map, b_map, _ = _scene(seed=3)
+    proj = _blind(proj, 1)
+    image_hw = (7, 10)
+    jf = jnp.asarray(feats).astype(dtype)
+    vol, _ = jvox.backproject_volume(jf, jnp.asarray(points),
+                                     jnp.asarray(proj), image_hw=image_hw)
+    want = jnp.zeros((points.shape[0], w_map.shape[1]), jnp.float32)
+    for view in vol.astype(jnp.float32):
+        mapped = view @ jnp.asarray(w_map) + jnp.asarray(b_map)
+        want = want + mapped * mapped
+
+    x, y, _, valid = tvox.project_points(torch.from_numpy(points),
+                                         torch.from_numpy(proj), *image_hw)
+    pix = tvox.pixel_index(x, y, valid, feats.shape[2])
+    assert int((pix[1] >= 0).sum()) == 0  # the blind view
+    seen = [torch.unique(p[p >= 0]).numel() for p in pix]
+    assert sum(seen) < int((pix >= 0).sum())  # voxels share pixels
+    b = torch.from_numpy(b_map)
+    rows = tvox.mapped_rows_plain(
+        torch.from_numpy(feats).to(getattr(torch, dtype)),
+        torch.from_numpy(w_map), b)
+    got = torch.zeros(tuple(want.shape))
+    for p, r in zip(pix, rows):
+        mapped = torch.where(p[:, None] >= 0, r[p.clamp(min=0).long()], b)
+        got += mapped * mapped
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-5
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("c", tvox.K1_CHANNELS)
+def test_k1_shared_memory_fits_an_h100_block(c, itemsize):
+    """Phase A's shared memory at every width K1 takes is within the
+    232,448 bytes an H100 block may opt into."""
+    assert tvox.fusion_smem_bytes(c, itemsize) <= 232448
+
+
+def test_k1_main_path_holds_two_blocks_an_sm():
+    """At the main path's C = 256 two phase A blocks share an SM's 228
+    KB (1 KB of each block's is the system's)."""
+    assert 2 * (tvox.fusion_smem_bytes(256, 4) + 1024) <= 228 * 1024

@@ -53,14 +53,41 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` one element off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+def _fusion_case(dev, case):
+    """K1's pixel indices for one case: the card tests' scene; N = 315, a
+    multiple of no phase B tile; view 2 seeing no voxel; half the voxels
+    on one pixel in every view."""
+    if case == "ragged N":
+        return _pix(dev, nvox=(7, 9, 5))
+    pix = _pix(dev)
+    if case == "blind view":
+        pix[2] = -1
+    elif case == "one pixel":
+        pix[:, ::2] = 1234
+    return pix
+
+
+@pytest.mark.parametrize("case", ["scene", "ragged N", "blind view",
+                                  "one pixel", "unaligned map"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mapped", [False, True])
-@pytest.mark.parametrize("c", [64, 256])
-def test_fusion_carry_matches_plain(dev, dtype, mapped, c):
-    pix = _pix(dev)
+@pytest.mark.parametrize("c", [32, 64, 256])
+def test_fusion_carry_matches_plain(dev, dtype, mapped, c, case):
+    pix = _fusion_case(dev, case)
     gen = torch.Generator(device=dev).manual_seed(0)
     feats = torch.randn((pix.shape[0], 60, 80, c), generator=gen,
                         device=dev).to(dtype)
+    if case == "unaligned map":  # both phases take narrow loads
+        feats = _unaligned(feats)
     w = b = None
     if mapped:
         w = torch.randn((c, 32), generator=gen, device=dev) / c ** 0.5
@@ -71,6 +98,8 @@ def test_fusion_carry_matches_plain(dev, dtype, mapped, c):
     torch.cuda.synchronize()
     assert voxel.fusion_carry.launches == before + 1
     assert int((pix >= 0).sum()) > 0
+    if case == "blind view":
+        assert int((pix[2] >= 0).sum()) == 0
     # counts exact; s1 and s2 use the plain version's rounding in view
     # order; s2m differs in the order of its C-long dot products
     assert torch.equal(got[2], want[2])
@@ -82,6 +111,31 @@ def test_fusion_carry_matches_plain(dev, dtype, mapped, c):
         assert got[3] is None
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,m,hw,aligned", [
+    (256, 32, (60, 80), True),  # the main path's maps
+    (32, 32, (7, 9), True),  # 63 rows a view: tiles straddle views
+    (64, 8, (5, 13), True),  # M < 32, not a multiple of 4 rows
+    (256, 5, (60, 80), True),  # M % 4 != 0
+    (128, 32, (6, 10), False),  # staged element by element
+])
+def test_mapped_rows_match_plain(dev, dtype, c, m, hw, aligned):
+    """K1's phase A against ``mapped_rows_plain`` (1e-5 relative: the
+    C-long dot products run in another order)."""
+    gen = torch.Generator(device=dev).manual_seed(c + m)
+    feats = torch.randn((3,) + hw + (c,), generator=gen,
+                        device=dev).to(dtype)
+    if not aligned:
+        feats = _unaligned(feats)
+    w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
+    b = torch.randn((m,), generator=gen, device=dev)
+    got = voxel._mapped_rows_launch(feats, w, b)
+    want = voxel.mapped_rows_plain(feats, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (3, hw[0] * hw[1], m)
+    assert _rel(got, want) <= 1e-5
+
+
 def test_fusion_carry_rejects_what_it_cannot_take(dev):
     pix = _pix(dev, v=2)
     with pytest.raises(ValueError, match="C % 32"):
@@ -89,6 +143,50 @@ def test_fusion_carry_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="pix"):
         voxel.fusion_carry(torch.zeros((2, 60, 80, 64), device=dev),
                            pix.long())
+
+
+@pytest.mark.parametrize("c", [96, 2048])
+def test_fusion_carry_refuses_c_off_its_widths(dev, c):
+    """Phase B keeps C / 32 channels a lane in registers, compiled for
+    C = 32 x a power of two up to 1024."""
+    pix = _pix(dev, v=2)
+    with pytest.raises(ValueError, match="power of two"):
+        voxel.fusion_carry(torch.zeros((2, 60, 80, c), device=dev), pix)
+
+
+def test_fusion_carry_refuses_more_than_32_mapped_channels(dev):
+    pix = _pix(dev, v=2)
+    feats = torch.zeros((2, 60, 80, 64), device=dev)
+    w = torch.zeros((64, 33), device=dev)
+    with pytest.raises(ValueError, match="mapped channels"):
+        voxel.fusion_carry(feats, pix, w, torch.zeros((33,), device=dev))
+
+
+def test_fusion_carry_refuses_a_bfloat16_mapped_kernel(dev):
+    pix = _pix(dev, v=2)
+    feats = torch.zeros((2, 60, 80, 64), device=dev)
+    w = torch.zeros((64, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        voxel.fusion_carry(feats, pix, w, torch.zeros((32,), device=dev))
+
+
+def test_mapped_rows_launcher_refuses_more_shared_memory_than_the_card_has(
+        dev):
+    c, m = 64, 32
+    feats = torch.randn((2, 6, 10, c), device=dev)
+    w = torch.randn((c, m), device=dev)
+    b = torch.randn((m,), device=dev)
+    out = torch.zeros((2, 60, m), device=dev)
+    lib = voxel._lib()
+    # 1 MiB a block is above any card's opt-in shared memory
+    for smem, refused in ((1 << 20, True),
+                          (voxel.fusion_smem_bytes(c, 4), False)):
+        err = lib.fused_mean_cov_mapped_rows(
+            feats.data_ptr(), 0, w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            120, c, m, smem, torch.cuda.current_stream(dev).cuda_stream)
+        assert (err != 0) == refused
+    torch.cuda.synchronize()
+    assert _rel(out, voxel.mapped_rows_plain(feats, w, b)) <= 1e-5
 
 
 def _cloud(dev, n, c, seed, dup=False):
