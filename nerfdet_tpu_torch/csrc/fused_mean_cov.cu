@@ -114,10 +114,33 @@ __device__ __forceinline__ void store(float* p, const float* x) {
 
 // ---- phase A: the mapped rows ---------------------------------------------
 
+#ifndef K1_A_ROWS_THREAD
+#define K1_A_ROWS_THREAD 4
+#endif
+#ifndef K1_A_STAGES
+#define K1_A_STAGES 4
+#endif
+#ifndef K1_A_PERSISTENT
+#define K1_A_PERSISTENT 1
+#endif
+#ifndef K1_B_SUMS
+#define K1_B_SUMS 8
+#endif
+#ifndef K1_B_INFLIGHT
+#define K1_B_INFLIGHT 1
+#endif
+#ifndef K1_B_WARPS
+#define K1_B_WARPS 8
+#endif
+#ifndef K1_B_SKEW
+#define K1_B_SKEW 0
+#endif
+
 constexpr int kThreadsA = 256;
-constexpr int kRowsA = 128;  // rows a tile
+constexpr int kRowsT = K1_A_ROWS_THREAD;
+constexpr int kRowsA = 32 * kRowsT;  // rows a tile
 constexpr int kChunk = 32;   // channels a stage
-constexpr int kStages = 4;
+constexpr int kStages = K1_A_STAGES;
 
 // Elements a staged row: a multiple of 16 bytes, and the four rows a warp
 // reads at once fall in distinct banks (must match the wrapper's size).
@@ -216,9 +239,9 @@ __global__ void __launch_bounds__(kThreadsA)
 
   // thread tile: outputs 4 mg .. 4 mg + 3 of rows rg + 32 i, i < 4
   const int mg = tid % 8, rg = tid / 8;
-  float acc[4][4];
+  float acc[kRowsT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kRowsT; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
 
@@ -232,15 +255,15 @@ __global__ void __launch_bounds__(kThreadsA)
     const float* wk = w_s + (j % n_chunks) * kChunk * kMaxMap + 4 * mg;
 #pragma unroll
     for (int kk = 0; kk < kChunk; kk += 4) {
-      float4 x[4];
+      float4 x[kRowsT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = four(st + 32 * i * kPitch + kk);
+      for (int i = 0; i < kRowsT; ++i) x[i] = four(st + 32 * i * kPitch + kk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float4 wv =
             *reinterpret_cast<const float4*>(wk + (kk + e) * kMaxMap);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kRowsT; ++i) {
           const float xe = part(x[i], e);
           acc[i][0] = fmaf(xe, wv.x, acc[i][0]);
           acc[i][1] = fmaf(xe, wv.y, acc[i][1]);
@@ -253,7 +276,7 @@ __global__ void __launch_bounds__(kThreadsA)
       const int r0 = ((int)blockIdx.x + (j / n_chunks) * (int)gridDim.x) *
                      kRowsA;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kRowsT; ++i) {
         const int row = r0 + rg + 32 * i;
         float y[4];
 #pragma unroll
@@ -278,12 +301,12 @@ __global__ void __launch_bounds__(kThreadsA)
 
 // ---- phase B: the carry ---------------------------------------------------
 
-constexpr int kWarpsB = 8;
+constexpr int kWarpsB = K1_B_WARPS;
 constexpr int kThreadsB = 32 * kWarpsB;
 
 // Voxels a warp owns, for kCpl channels a lane: about 16 sums a lane.
 __host__ __device__ constexpr int vox_per_warp(int cpl) {
-  return cpl >= 16 ? 1 : (16 / cpl > 8 ? 8 : 16 / cpl);
+  return cpl >= K1_B_SUMS ? 1 : (K1_B_SUMS / cpl > 8 ? 8 : K1_B_SUMS / cpl);
 }
 
 // Lane l holds channels (j * 32 + l) * kW + e, j < kCpl / kW, e < kW.
@@ -316,20 +339,24 @@ __global__ void __launch_bounds__(kThreadsB)
   const bool has_m = mapped != nullptr && lane < n_map;
   const float bias = has_m ? __ldg(b + lane) : 0.f;
   const size_t view_elems = (size_t)hw * kC;
+  const int skew = K1_B_SKEW ? (n0 / kVox * 13) % n_views : 0;
+  auto view_of = [&](int t) {
+    return K1_B_SKEW ? (t + skew) % n_views : t;
+  };
 
   for (int v0 = 0; v0 < n_views; v0 += kViews) {
     // lane l: the index of view v0 + l / kVox, voxel n0 + l % kVox
     const int lv = v0 + lane / kVox, ln = n0 + lane % kVox;
     const int lp = lv < n_views && ln < n_vox
-                       ? __ldg(pix + (size_t)lv * n_vox + ln)
+                       ? __ldg(pix + (size_t)view_of(lv) * n_vox + ln)
                        : -1;
     const int nv = min(kViews, n_views - v0);
-    for (int i = 0; i < nv; i += 2) {  // two views in flight
-      float x[2][kVox][kCpl], y[2][kVox];
-      int p[2][kVox];
+    for (int i = 0; i < nv; i += K1_B_INFLIGHT) {  // views in flight
+      float x[K1_B_INFLIGHT][kVox][kCpl], y[K1_B_INFLIGHT][kVox];
+      int p[K1_B_INFLIGHT][kVox];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int v = v0 + i + u;
+      for (int u = 0; u < K1_B_INFLIGHT; ++u) {
+        const int v = view_of(min(v0 + i + u, n_views - 1));
         const T* fv = feats + (size_t)v * view_elems;
 #pragma unroll
         for (int k = 0; k < kVox; ++k) {
@@ -348,7 +375,7 @@ __global__ void __launch_bounds__(kThreadsB)
         }
       }
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < K1_B_INFLIGHT; ++u) {
         if (i + u >= nv) break;  // uniform over the warp
 #pragma unroll
         for (int k = 0; k < kVox; ++k) {
@@ -444,7 +471,7 @@ cudaError_t launch_mapped_rows(const T* feats, const float* w, const float* b,
   if (err != cudaSuccess) return err;
   const int tiles = (n_rows + kRowsA - 1) / kRowsA;
   const int resident = (per_sm > 0 ? per_sm : 1) * sms;
-  const int blocks = tiles < resident ? tiles : resident;
+  const int blocks = tiles < resident || !K1_A_PERSISTENT ? tiles : resident;
   kernel<<<blocks, kThreadsA, smem, s>>>(feats, w, b, out, n_rows, channels,
                                          n_map);
   return cudaGetLastError();
