@@ -29,16 +29,18 @@
 //   4-row x 4-output tile in registers (two 16-byte shared loads per 16
 //   FMAs). A map that is not 16-byte aligned is staged element by element.
 //
-// Phase B (carry_kernel): each warp owns kVox consecutive voxels and walks
-//   all views in order, with no shared memory and no barrier. One load
-//   gives each lane the pixel index of one (view, voxel) pair, 32 / kVox
-//   views at once, handed out by shuffles. Lane l holds C / 32 channels of
-//   each voxel, read with 16-byte loads where the map is 16-byte aligned
-//   (one element a load otherwise); two views' rows are in flight before
-//   either is summed. Lane m < M adds y^2 with y = P[v, p, m], or b[m]
-//   where the view does not see the voxel. What bounds it is the gathered
-//   rows (1.07 GB from L1/L2 at the flagship; a view's 4.9 MB map stays in
-//   L2), not device memory.
+// Phase B (carry_kernel): each warp owns its voxels (one at C >= 256,
+//   256 / C of them below) and walks all views in order, with no shared
+//   memory and no barrier. One load gives each lane the pixel index of one
+//   (view, voxel) pair, 32 views at once at C >= 256, handed out by
+//   shuffles. Lane l holds C / 32 channels of each voxel, read with 16-byte
+//   loads where the map is 16-byte aligned (one element a load otherwise).
+//   Lane m < M adds y^2 with y = P[v, p, m], or b[m] where the view does
+//   not see the voxel. All warps walk the views in step, so the current
+//   view's map (4.9 MB at the flagship) and P (0.6 MB) stay in L2. What
+//   bounds it is the gathered rows (1.07 GB from L1/L2 at the flagship),
+//   not device memory; a warp a voxel keeps 16 sums a lane and so the most
+//   warps resident.
 //
 // s1, s2, count and s2m use separately rounded multiply and add in view
 // order, so s1, s2 and count equal the plain PyTorch version bit for bit;
@@ -114,33 +116,11 @@ __device__ __forceinline__ void store(float* p, const float* x) {
 
 // ---- phase A: the mapped rows ---------------------------------------------
 
-#ifndef K1_A_ROWS_THREAD
-#define K1_A_ROWS_THREAD 4
-#endif
-#ifndef K1_A_STAGES
-#define K1_A_STAGES 4
-#endif
-#ifndef K1_A_PERSISTENT
-#define K1_A_PERSISTENT 1
-#endif
-#ifndef K1_B_SUMS
-#define K1_B_SUMS 8
-#endif
-#ifndef K1_B_INFLIGHT
-#define K1_B_INFLIGHT 1
-#endif
-#ifndef K1_B_WARPS
-#define K1_B_WARPS 8
-#endif
-#ifndef K1_B_SKEW
-#define K1_B_SKEW 0
-#endif
-
 constexpr int kThreadsA = 256;
-constexpr int kRowsT = K1_A_ROWS_THREAD;
+constexpr int kRowsT = 4;            // rows a thread
 constexpr int kRowsA = 32 * kRowsT;  // rows a tile
-constexpr int kChunk = 32;   // channels a stage
-constexpr int kStages = K1_A_STAGES;
+constexpr int kChunk = 32;           // channels a stage
+constexpr int kStages = 4;
 
 // Elements a staged row: a multiple of 16 bytes, and the four rows a warp
 // reads at once fall in distinct banks (must match the wrapper's size).
@@ -301,12 +281,13 @@ __global__ void __launch_bounds__(kThreadsA)
 
 // ---- phase B: the carry ---------------------------------------------------
 
-constexpr int kWarpsB = K1_B_WARPS;
+constexpr int kWarpsB = 8;
 constexpr int kThreadsB = 32 * kWarpsB;
 
-// Voxels a warp owns, for kCpl channels a lane: about 16 sums a lane.
+// Voxels a warp owns, for kCpl channels a lane: 8 channels a lane in
+// all, one voxel from C = 256 up.
 __host__ __device__ constexpr int vox_per_warp(int cpl) {
-  return cpl >= K1_B_SUMS ? 1 : (K1_B_SUMS / cpl > 8 ? 8 : K1_B_SUMS / cpl);
+  return cpl >= 8 ? 1 : 8 / cpl;
 }
 
 // Lane l holds channels (j * 32 + l) * kW + e, j < kCpl / kW, e < kW.
@@ -339,57 +320,44 @@ __global__ void __launch_bounds__(kThreadsB)
   const bool has_m = mapped != nullptr && lane < n_map;
   const float bias = has_m ? __ldg(b + lane) : 0.f;
   const size_t view_elems = (size_t)hw * kC;
-  const int skew = K1_B_SKEW ? (n0 / kVox * 13) % n_views : 0;
-  auto view_of = [&](int t) {
-    return K1_B_SKEW ? (t + skew) % n_views : t;
-  };
 
   for (int v0 = 0; v0 < n_views; v0 += kViews) {
     // lane l: the index of view v0 + l / kVox, voxel n0 + l % kVox
     const int lv = v0 + lane / kVox, ln = n0 + lane % kVox;
     const int lp = lv < n_views && ln < n_vox
-                       ? __ldg(pix + (size_t)view_of(lv) * n_vox + ln)
+                       ? __ldg(pix + (size_t)lv * n_vox + ln)
                        : -1;
     const int nv = min(kViews, n_views - v0);
-    for (int i = 0; i < nv; i += K1_B_INFLIGHT) {  // views in flight
-      float x[K1_B_INFLIGHT][kVox][kCpl], y[K1_B_INFLIGHT][kVox];
-      int p[K1_B_INFLIGHT][kVox];
+    for (int i = 0; i < nv; ++i) {
+      // the view's rows for the warp's voxels, then their sums
+      const int v = v0 + i;
+      const T* fv = feats + (size_t)v * view_elems;
+      float x[kVox][kCpl], y[kVox];
+      int p[kVox];
 #pragma unroll
-      for (int u = 0; u < K1_B_INFLIGHT; ++u) {
-        const int v = view_of(min(v0 + i + u, n_views - 1));
-        const T* fv = feats + (size_t)v * view_elems;
+      for (int k = 0; k < kVox; ++k) {
+        p[k] = __shfl_sync(0xffffffffu, lp, i * kVox + k);
+        y[k] = bias;
+        if (p[k] >= 0) {
+          const T* row = fv + (size_t)p[k] * kC + lane * kW;
 #pragma unroll
-        for (int k = 0; k < kVox; ++k) {
-          const int q = __shfl_sync(0xffffffffu, lp, ((i + u) * kVox + k) & 31);
-          p[u][k] = i + u < nv ? q : -1;
-          y[u][k] = bias;
-          if (p[u][k] >= 0) {
-            const T* row = fv + (size_t)p[u][k] * kC + lane * kW;
-#pragma unroll
-            for (int j = 0; j < kPass; ++j)
-              load<kW>(row + j * 32 * kW, &x[u][k][j * kW]);
-            if (has_m)
-              y[u][k] = __ldg(mapped + ((size_t)v * hw + p[u][k]) * n_map +
-                              lane);
-          }
+          for (int j = 0; j < kPass; ++j)
+            load<kW>(row + j * 32 * kW, &x[k][j * kW]);
+          if (has_m)
+            y[k] = __ldg(mapped + ((size_t)v * hw + p[k]) * n_map + lane);
         }
       }
 #pragma unroll
-      for (int u = 0; u < K1_B_INFLIGHT; ++u) {
-        if (i + u >= nv) break;  // uniform over the warp
+      for (int k = 0; k < kVox; ++k) {
+        if (p[k] >= 0) {
 #pragma unroll
-        for (int k = 0; k < kVox; ++k) {
-          if (p[u][k] >= 0) {
-#pragma unroll
-            for (int c = 0; c < kCpl; ++c) {
-              const float xc = x[u][k][c];
-              a1[k][c] = __fadd_rn(a1[k][c], xc);
-              a2[k][c] = __fadd_rn(a2[k][c], __fmul_rn(xc, xc));
-            }
-            cnt[k] = __fadd_rn(cnt[k], 1.f);
+          for (int c = 0; c < kCpl; ++c) {
+            a1[k][c] = __fadd_rn(a1[k][c], x[k][c]);
+            a2[k][c] = __fadd_rn(a2[k][c], __fmul_rn(x[k][c], x[k][c]));
           }
-          am[k] = __fadd_rn(am[k], __fmul_rn(y[u][k], y[u][k]));
+          cnt[k] = __fadd_rn(cnt[k], 1.f);
         }
+        am[k] = __fadd_rn(am[k], __fmul_rn(y[k], y[k]));
       }
     }
   }
@@ -471,7 +439,7 @@ cudaError_t launch_mapped_rows(const T* feats, const float* w, const float* b,
   if (err != cudaSuccess) return err;
   const int tiles = (n_rows + kRowsA - 1) / kRowsA;
   const int resident = (per_sm > 0 ? per_sm : 1) * sms;
-  const int blocks = tiles < resident || !K1_A_PERSISTENT ? tiles : resident;
+  const int blocks = tiles < resident ? tiles : resident;
   kernel<<<blocks, kThreadsA, smem, s>>>(feats, w, b, out, n_rows, channels,
                                          n_map);
   return cudaGetLastError();
