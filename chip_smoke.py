@@ -19,8 +19,8 @@ Phases, each reported on its own lines:
    width (50 views at 240x320, a 40x40x16 volume, random weights from a
    seed) through ``init_detector`` -> ``eval_step`` -> host NMS, with
    the kernels' launch counts (K1 exactly once), finiteness, the same
-   graph with the plain
-   fusion, a per-stage time breakdown and scenes/s on this card;
+   graph with the plain fusion, a per-stage time breakdown and scenes/s
+   on this card;
 5. the second path: VoteNet-ScanNet inference at full width (a seeded
    40000-point synthetic cloud, random weights) through
    ``init_detector`` -> ``points_eval_step`` -> ``votenet_nms``, with

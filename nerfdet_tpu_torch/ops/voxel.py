@@ -225,10 +225,10 @@ def _mapped_rows_launch(features, mapped_kernel, mapped_bias):
     return out
 
 
-def _carry_launch(features, pix, mapped=None, mapped_bias=None):
-    """Check and launch K1's phase B on ``mapped`` (phase A's output) or
-    none; returns (s1, s2, count, s2m or None). The launch is not
-    counted."""
+def _carry_launch(features, pix, mapped, mapped_bias):
+    """Check and launch K1's phase B on ``mapped`` (phase A's output) and
+    the bias, or on neither (None); returns (s1, s2, count, s2m or None).
+    The launch is not counted."""
     _check_maps(features)
     v, h, w, c = features.shape
     n = pix.shape[1] if pix.dim() == 2 else -1
