@@ -34,7 +34,20 @@ Phases, each reported on its own lines:
    2048), then ``eval_step`` on a batch that carries 2048 rays; the
    outputs' range, the view-mask shares, the same render with the plain
    K2, a per-stage time breakdown, the share of feature windows a sample
-   shares with the previous one, views/s and peak memory.
+   shares with the previous one, views/s and peak memory;
+7. the fourth path: NeRF-Det-R50 detection training at full width
+   (``rgb_supervision=False``, one scene a step as the config's
+   ``samples_per_gpu=1``) through ``init_trainer`` -> ``train_batch`` ->
+   ``Trainer.step`` on a seeded 4-box scene: 2 warm-up steps and 5 timed
+   ones with K1's forward and backward launched once a step and K2
+   never, finite loss terms with positives, frozen parameters bitwise
+   unchanged and a parameter changed in each trained part, the loss and
+   gradients of one step with the plain K1 forward and backward, the
+   forward / backward / optimizer times, steps/s and peak memory.
+
+Phase 3 also holds K1's backward kernel against its plain version at
+phase 4's pixel indices (the main path's form: no s2 cotangent), with
+``torch.mm`` on the two products it contains as its yardstick.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.
@@ -198,6 +211,93 @@ def check_fusion(voxel, cases, hw, gen):
             raise SystemExit(f"K1 {name} disagrees: rel {rel_err:.3e}")
         results[name] = result
     return results
+
+
+def fusion_backward_bound(pix, hw, c, m, with_g2):
+    """Least time of K1's backward on these inputs. Bytes: each referenced
+    pixel row of the maps and of phase A's mapped rows read once, the
+    whole d-features map written once, the cotangents g1 (g2), gm, the
+    indices, counts, W, b read once and dW, db written once. Operations:
+    per valid (voxel, view) pair, C adds for G1 (2C with g2) and M for
+    GM; per referenced row, 2M for dY, 2CM for dY @ W^T, C for the sum
+    (3C more with g2), 2CM for dW and M for db; 2M per voxel for the
+    unseen views' bias term. Also returns the referenced rows."""
+    import torch
+
+    v, n = pix.shape
+    valid = pix >= 0
+    rows = sum(int(torch.unique(p[k]).numel()) for p, k in zip(pix, valid))
+    n_valid = int(valid.sum())
+    g = 2 if with_g2 else 1
+    nbytes = 4 * (rows * (c + m) + v * hw * c + g * n * c + n * m
+                  + pix.numel() + n + 2 * (c * m + m))
+    ops = (n_valid * (g * c + m) + rows * (2 * m + 4 * c * m + c + m
+                                           + (3 * c if with_g2 else 0))
+           + 2 * n * m)
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops, rows)
+
+
+def check_fusion_backward(voxel, pix, hw, gen):
+    """K1's backward kernel vs ``fusion_carry_backward_plain`` at the main
+    path's form (C = 256, M = 32, f32 maps, cotangents of s1 and s2m, none
+    of s2): d features within 1e-5 x max, dW and db within 1e-4 x max,
+    two runs bitwise equal. Times the kernel (the index preparation
+    included), the plain version and ``torch.mm`` on the two products it
+    contains (dY @ W^T and x^T dY over the referenced rows)."""
+    import torch
+
+    dev = pix.device
+    v, n = pix.shape
+    c, m = 256, 32
+    feats = torch.randn((v,) + hw + (c,), generator=gen, device=dev)
+    w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
+    b = torch.randn((m,), generator=gen, device=dev)
+    g1 = torch.randn((n, c), generator=gen, device=dev)
+    gm = torch.randn((n, m), generator=gen, device=dev)
+    count = (pix >= 0).float().sum(0)
+    rows_p = voxel.mapped_rows_plain(feats, w, b)
+    args = (feats, pix, count, g1, None, gm, w, b, rows_p)
+    got = voxel.fusion_carry_backward(*args)
+    again = voxel.fusion_carry_backward(*args)
+    want = voxel.fusion_carry_backward_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise SystemExit("K1 backward: two runs differ")
+    errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+    rels = [e / max(float(y.abs().max()), 1e-30) for e, y in zip(errs, want)]
+    ms = cuda_time_ms(lambda: voxel.fusion_carry_backward(*args), 20)
+    index_ms = cuda_time_ms(lambda: voxel.pixel_order(pix, hw[0] * hw[1]),
+                            20)
+    plain_ms = cuda_time_ms(lambda: voxel.fusion_carry_backward_plain(*args),
+                            3, warmup=1)
+    # the yardstick: the two products over the referenced rows
+    keys = torch.where(pix >= 0, pix.long() + torch.arange(
+        v, device=dev)[:, None] * (hw[0] * hw[1]), -1).flatten()
+    ref = torch.unique(keys[keys >= 0])
+    x_r = feats.reshape(-1, c)[ref]
+    dy_r = torch.randn((ref.numel(), m), generator=gen, device=dev)
+    wt = w.t().contiguous()
+    library_ms = cuda_time_ms(
+        lambda: (torch.mm(dy_r, wt), torch.mm(x_r.t(), dy_r)), 20)
+    bound_ms, bound_by, nbytes, ops, rows = fusion_backward_bound(
+        pix, hw[0] * hw[1], c, m, False)
+    log(f"[kernel] fused_mean_cov_backward float32 mapped, no s2 cotangent: "
+        f"V={v} map={hw[0]}x{hw[1]} C={c} N={n} M={m}; {rows} referenced "
+        f"rows: two runs bitwise equal; max_abs_err d features "
+        f"{errs[0]:.3e} (rel {rels[0]:.3e}, tol 1e-5), dW {errs[1]:.3e} "
+        f"(rel {rels[1]:.3e}, tol 1e-4), db {errs[2]:.3e} (rel "
+        f"{rels[2]:.3e}, tol 1e-4) ms={ms:.4f} (index preparation "
+        f"{index_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (torch.mm: dY @ W^T and x^T dY over "
+        f"the referenced rows) bound_ms={bound_ms:.4f} ({bound_by}; "
+        f"{nbytes} B, {ops} FLOP)")
+    if rels[0] > 1e-5 or rels[1] > 1e-4 or rels[2] > 1e-4:
+        raise SystemExit("K1 backward disagrees with its plain version")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                index_ms=index_ms)
 
 
 def fps_bound(n, c, s):
@@ -831,6 +931,173 @@ def render_path(api, render, voxel, pointnet, model, dataset, card, nms_pre):
     return launches
 
 
+TRAINED_PARTS = ("backbone.layer3.", "neck.", "mapping.", "nerf_mlp.",
+                 "neck_3d.", "bbox_head.")
+
+
+def train_grads(api, model, scene):
+    """Loss, metrics and gradients of one train-step forward + backward
+    (no update) on ``scene``, and the FPN output's gradient."""
+    import torch
+
+    from nerfdet_tpu_torch.train.step import (reduce_loss_terms,
+                                              scene_loss_terms)
+
+    fpn_out = []
+
+    def keep(module, args, out):
+        out[0].retain_grad()
+        fpn_out.append(out[0])
+
+    hook = model.neck.register_forward_hook(keep)
+    model.zero_grad()
+    try:
+        loss, metrics = reduce_loss_terms(
+            [scene_loss_terms(model, b) for b in api.train_batch(model,
+                                                                  [scene])])
+        loss.backward()
+    finally:
+        hook.remove()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return float(loss.detach()), metrics, grads, fpn_out[0].grad.clone()
+
+
+def train_path(api, voxel, pointnet, render, card):
+    """Phase 7: NeRF-Det-R50 detection training at full width."""
+    import torch
+
+    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfdet_tpu_torch.train.optim import param_labels
+
+    t0 = time.perf_counter()
+    tr = api.init_trainer(CONFIG, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    model = tr.model
+    meta = model.meta
+    scene = make_synthetic_scene(seed=SEED + 1, n_views=N_VIEWS,
+                                 n_targets=1, hw=meta.img_shape,
+                                 pad_hw=meta.pad_shape, n_rand=8, n_boxes=4,
+                                 max_gt=8, margin=MARGIN)
+    labels = param_labels(model)
+    n_label = {k: sum(v == k for v in labels.values())
+               for k in ("frozen", "backbone", "main")}
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    log(f"[train] init_trainer: {sum(p.numel() for p in model.parameters())} "
+        f"parameters ({n_label['frozen']} tensors frozen, "
+        f"{n_label['backbone']} backbone at lr x{tr.optimizer.lr_mult}, "
+        f"{n_label['main']} main), lr {tr.optimizer.schedule(0):.1e}, clip "
+        f"{tr.optimizer.max_norm}; scene {N_VIEWS} views, "
+        f"{int(scene['gt_mask'].sum())} boxes: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # one forward + backward with the kernels, then with the plain K1
+    # forward and backward, from the same weights (train mode)
+    model.train()
+    loss_k, _, grads_k, fpn_k = train_grads(api, model, scene)
+    kernel_fn = voxel.fusion_carry
+    voxel.fusion_carry = voxel.fusion_carry_plain  # autograd through it
+    try:
+        model.load_state_dict(start)
+        loss_p, _, grads_p, fpn_p = train_grads(api, model, scene)
+    finally:
+        voxel.fusion_carry = kernel_fn
+    model.load_state_dict(start)
+    model.zero_grad()
+    torch.cuda.synchronize()
+    if float(fpn_p.abs().max()) == 0.0:
+        raise SystemExit("no gradient reached the FPN output")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    map_rel = max(float((grads_k[n] - grads_p[n]).abs().max())
+                  / float(grads_p[n].abs().max())
+                  for n in ("mapping.0.weight", "mapping.0.bias"))
+    fpn_rel = float((fpn_k - fpn_p).norm() / fpn_p.norm())
+    log(f"[train] kernel vs plain K1 (forward and backward) for one step's "
+        f"gradients: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, "
+        f"tol 1e-5); mapping gradients max rel {map_rel:.3e} (tol 1e-3 x "
+        f"max); FPN-output gradient rel norm {fpn_rel:.3e} (tol 1e-3)")
+    if loss_rel > 1e-5 or map_rel > 1e-3 or fpn_rel > 1e-3:
+        raise SystemExit("kernel and plain K1 training steps disagree")
+
+    # the path: 2 warm-up steps, then 5 timed, K1 forward and backward
+    # once a step, K2 never
+    batch = api.train_batch(model, [scene])
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                pointnet.furthest_point_sample,
+                render.streaming_sample_mean_var)
+    for _ in range(2):
+        tr.step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters, history = 5, []
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        history.append(tr.step(batch))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    launches = [fn.launches for fn in counters]
+    peak = torch.cuda.max_memory_allocated()
+    last = {k: float(v) for k, v in history[-1].items()}
+    log(f"[train] {iters} steps: launches fused_mean_cov {launches[0]}, "
+        f"fused_mean_cov_backward {launches[1]}, furthest_point_sample "
+        f"{launches[2]}, streaming_sample_mean_var {launches[3]}; last "
+        f"step " + ", ".join(f"{k} {v:.6g}" for k, v in last.items()))
+    if launches != [iters, iters, 0, 0]:
+        raise SystemExit(f"the training path launched {launches}, expected "
+                         f"K1 forward and backward once a step, K2 never")
+    import math
+
+    for m in history:
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            raise SystemExit(f"non-finite train metrics {m}")
+    if float(history[-1]["n_pos"]) <= 0:
+        raise SystemExit("no positive voxels in the training scene")
+    state = model.state_dict()
+    moved = {part: False for part in TRAINED_PARTS}
+    for name, label in labels.items():
+        changed = not torch.equal(state[name], start[name])
+        if label == "frozen" and changed:
+            raise SystemExit(f"frozen parameter {name} changed")
+        for part in TRAINED_PARTS:
+            moved[part] |= name.startswith(part) and changed
+    if not all(moved.values()):
+        raise SystemExit(f"parts without a changed parameter: "
+                         f"{[p for p, v in moved.items() if not v]}")
+    log(f"[train] frozen parameters bitwise unchanged; a parameter changed "
+        f"in each of {', '.join(p.rstrip('.') for p in TRAINED_PARTS)}")
+
+    # stage times of one step (CUDA events): the forward and loss, the
+    # backward, the optimizer
+    from nerfdet_tpu_torch.train.step import (reduce_loss_terms,
+                                              scene_loss_terms)
+
+    opt = tr.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    stage = {"forward + loss": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(3):
+        opt.zero_grad()
+        ev[0].record()
+        loss, _ = reduce_loss_terms([scene_loss_terms(model, b)
+                                     for b in batch])
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(stage):
+            stage[k] += ev[i].elapsed_time(ev[i + 1]) / 3
+    for k, ms in stage.items():
+        log(f"[stage] train {k}: {ms:.3f} ms")
+    log(f"[train] {1 / dt:.3f} steps/s ({dt * 1e3:.2f} ms per step: "
+        f"Trainer.step, one scene of {N_VIEWS} views, host clock after 2 "
+        f"warm-up steps); peak memory {peak / 2**30:.2f} GiB; measured on "
+        f"{card}")
+    return launches[1]
+
+
 def main():
     import numpy as np
     import torch
@@ -921,6 +1188,7 @@ def main():
         ("bfloat16", pix, bf16, False), ("bfloat16 mapped", pix, bf16, True),
         ("float32 mapped, intrinsic scaled to ori_shape",
          pixel_indices(intrinsic), f32, True)], (fh, fw), gen)
+    fusion_bwd = check_fusion_backward(voxel, pix, (fh, fw), gen)
     path_names = ["sa0", "sa1", "sa2", "sa3", "vote_aggregation"]
     half = torch.rand((N_POINTS // 2, 3), generator=gen, device=dev) * 8
     extra = [("F-FPS C=19", torch.randn((4096, 19), generator=gen,
@@ -1043,6 +1311,11 @@ def main():
     ray_launches = render_path(api, render, voxel, pointnet, model, nvs,
                                card, nms_pre)
 
+    # ---- 7. the fourth path: detection training --------------------------
+    del model
+    torch.cuda.empty_cache()
+    bwd_launches = train_path(api, voxel, pointnet, render, card)
+
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
     fps_bound_by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]
@@ -1086,6 +1359,21 @@ def main():
         "bound_ms": ray["render chunk"]["bound_ms"],
         "bound_by": ray["render chunk"]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_mean_cov_backward",
+        "route": "cuda",
+        "source": "nerfdet_tpu_torch/csrc/fused_mean_cov_backward.cu",
+        "replaces": "nerfdet_tpu/ops/voxel.py:370",
+        "launches": bwd_launches,
+        "max_abs_err": fusion_bwd["max_abs_err"],
+        "ms": fusion_bwd["ms"],
+        "plain_ms": fusion_bwd["plain_ms"],
+        "bound_ms": fusion_bwd["bound_ms"],
+        "bound_by": fusion_bwd["bound_by"],
+        "library_ms": fusion_bwd["library_ms"],
+        "index_ms": fusion_bwd["index_ms"],
+        "library_of": "torch.mm on dY @ W^T and x^T dY over the referenced "
+                      "rows; the per-pixel sums have no one-call counterpart",
     }]}
     log(card)
     log(json.dumps(record))

@@ -1,4 +1,5 @@
-"""Inference entry points: detection and novel-view rendering.
+"""Entry points: detection and novel-view rendering, and detection
+training.
 
 Port of ``nerfdet_tpu/api.py`` (``init_detector``,
 ``scene_meta_from_config``, ``single_scene_test``,
@@ -11,11 +12,17 @@ modulation is on (the JAX ``make_eval_step`` defaults to
 For VoteNet, ``points_eval_step`` and ``single_cloud_test`` are the
 per-scene forward + decode and host tail of
 ``nerfdet_tpu/train/points_step.py:run_indoor_points_eval``.
+
+``init_trainer`` and ``train_batch`` set up what ``tools/train.py`` of
+the JAX package sets up for one detection train step
+(``rgb_supervision=False``): the model in train mode, the optimizer and
+the schedule from the config, and the scenes on the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -30,6 +37,9 @@ from .models.nerfdet import NerfDet, SceneMeta
 from .models.votenet import VoteNet, votenet_nms
 from .nn.heads import get_candidate_bboxes
 from .nn.vote_head import vote_head_get_bboxes
+from .train.optim import (Optimizer, build_lr_schedule_from_config,
+                          build_optimizer)
+from .train.step import make_train_step
 from .utils.weight_convert import load_reference_state_dict
 
 
@@ -110,6 +120,60 @@ def device_batch(model: NerfDet, scene: Dict) -> Dict:
         batch["rgb_s1"] = _to_device(s1, dev)
         batch["rgb_s2"] = _to_device(s2, dev)
     return batch
+
+
+def train_batch(model: NerfDet, scenes: List[Dict]) -> List[Dict]:
+    """The train step's inputs for a list of numpy scenes: each scene's
+    ``device_batch`` (images and host rgb sums on the model's device)
+    with its padded ground truth: gt_boxes (G, 7) float32, gt_labels
+    (G,) int64 and gt_mask (G,) bool."""
+    dev = _device_of(model)
+    out = []
+    for scene in scenes:
+        batch = device_batch(model, scene)
+        batch["gt_boxes"] = _to_device(scene["gt_boxes"], dev)
+        batch["gt_labels"] = torch.as_tensor(
+            np.asarray(scene["gt_labels"], np.int64), device=dev)
+        batch["gt_mask"] = torch.as_tensor(
+            np.asarray(scene["gt_mask"], bool), device=dev)
+        out.append(batch)
+    return out
+
+
+@dataclasses.dataclass
+class Trainer:
+    """What ``init_trainer`` builds: the model (train mode), its
+    optimizer (``optimizer.schedule(k)`` is the rate of update k) and the
+    train step (``step(train_batch(model, scenes))`` -> metrics)."""
+
+    model: NerfDet
+    optimizer: Optimizer
+    step: Callable[[List[Dict]], Dict[str, torch.Tensor]]
+
+
+def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
+                 seed: int = 0, steps_per_epoch: int = 1) -> Trainer:
+    """Detection training from a NeRF-Det config: the model as
+    ``init_detector`` builds it, in train mode; AdamW, gradient clipping
+    and the lr schedule from the config's ``optimizer``,
+    ``optimizer_config`` and ``lr_config`` (``total_epochs`` epochs of
+    ``steps_per_epoch`` steps); the step without the NVS loss. Runs on
+    the card unless ``device="cpu"``."""
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    model = init_detector(config, checkpoint, device, seed)
+    if not isinstance(model, NerfDet):
+        raise NotImplementedError(
+            f"training {type(model).__name__} is not ported yet")
+    model.train()
+    schedule = build_lr_schedule_from_config(
+        config.optimizer["lr"], config.get("lr_config", dict(step=(8, 11))),
+        steps_per_epoch, config.get("total_epochs", 12))
+    optimizer = build_optimizer(
+        model, dict(config.optimizer),
+        grad_clip=config.get("optimizer_config", {}).get("grad_clip"),
+        lr_schedule=schedule)
+    return Trainer(model, optimizer, make_train_step(model, optimizer))
 
 
 @torch.inference_mode()

@@ -1,15 +1,48 @@
-"""Box geometry of the indoor Depth frame (z up), numpy only.
+"""Box geometry of the indoor Depth frame (z up).
 
 The port's copy of the numpy branches of ``gravity_center``,
 ``corners_from_boxes`` and the z-axis case of ``rotation_3d_in_axis``
 in ``nerfdet_tpu/core/boxes.py``, held bit for bit against them by
-``tests/test_torch_port_rules.py``. Boxes are (N, 7) rows (cx, cy,
-z_bottom, dx, dy, dz, yaw).
+``tests/test_torch_port_rules.py``, and torch versions of
+``volume_of_boxes`` and ``axis_aligned_iou_corner_format`` for the
+head's targets and IoU loss. Boxes are (N, 7) rows (cx, cy, z_bottom,
+dx, dy, dz, yaw).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def volume_of_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """(N,) volumes dx * dy * dz."""
+    return boxes[..., 3] * boxes[..., 4] * boxes[..., 5]
+
+
+def axis_aligned_iou_corner_format(boxes1, boxes2, aligned: bool = True,
+                                   eps: float = 1e-6) -> torch.Tensor:
+    """IoU of (x1, y1, z1, x2, y2, z2) corner-format boxes: row by row
+    when ``aligned`` ((N,)), else every pair ((N, M)); the union is
+    clamped to ``eps``."""
+    def volume(b):
+        return ((b[..., 3] - b[..., 0]) * (b[..., 4] - b[..., 1])
+                * (b[..., 5] - b[..., 2]))
+
+    vol1, vol2 = volume(boxes1), volume(boxes2)
+    if aligned:
+        lt = torch.maximum(boxes1[..., :3], boxes2[..., :3])
+        rb = torch.minimum(boxes1[..., 3:], boxes2[..., 3:])
+        whd = torch.clamp(rb - lt, min=0)
+        inter = whd[..., 0] * whd[..., 1] * whd[..., 2]
+        union = vol1 + vol2 - inter
+    else:
+        lt = torch.maximum(boxes1[..., :, None, :3], boxes2[..., None, :, :3])
+        rb = torch.minimum(boxes1[..., :, None, 3:], boxes2[..., None, :, 3:])
+        whd = torch.clamp(rb - lt, min=0)
+        inter = whd[..., 0] * whd[..., 1] * whd[..., 2]
+        union = vol1[..., :, None] + vol2[..., None, :] - inter
+    return inter / torch.clamp(union, min=eps)
 
 
 def rotation_3d_in_z(points, angles):

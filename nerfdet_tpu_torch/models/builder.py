@@ -32,6 +32,8 @@ def _build_nerfdet(cfg: dict, meta: SceneMeta = None) -> NerfDet:
         n_classes=head["n_classes"],
         head_n_reg_outs=head["n_reg_outs"],
         n_scales=head["n_scales"],
+        head_limit=head.get("limit", 27),
+        head_centerness_topk=head.get("centerness_topk", 18),
         n_voxels=tuple(cfg["n_voxels"]),
         voxel_size=tuple(cfg["voxel_size"]),
         near_far_range=tuple(cfg["near_far_range"]),

@@ -1,4 +1,5 @@
-"""NeRF-Det inference for one scene: detection and novel-view rendering.
+"""NeRF-Det for one scene: detection (inference and training) and
+novel-view rendering (inference).
 
 Port of ``nerfdet_tpu/models/nerfdet.py``. Detection: ResNet + FPN over
 the views, projection and view-streaming mean/variance fusion (K1) with
@@ -8,6 +9,11 @@ the ``mapping`` of the cropped stride-4 maps, the view-streaming ray
 sampler (K2), the NeRF MLP and alpha compositing, in ray chunks. Public
 methods take and return channels-last tensors without a batch
 dimension, like the JAX package; the modules inside run NCHW / NCDHW.
+In train mode (``model.train()``) the forward is the JAX ``train=True``
+detection graph: the 3D neck's BatchNorm normalizes by the scene's
+statistics and updates its running ones, and the gradient reaches the
+FPN and ``mapping`` through K1's backward. A training batch with a ray
+bundle is refused: the render's backward (K2's) is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ class NerfDet(nn.Module):
                  neck3d_out_channels: int = 128,
                  neck3d_n_blocks: Sequence[int] = (1, 1, 1),
                  n_classes: int = 18, head_n_reg_outs: int = 6,
-                 n_scales: int = 3,
+                 n_scales: int = 3, head_limit: int = 27,
+                 head_centerness_topk: int = 18,
                  n_voxels: Tuple[int, int, int] = (40, 40, 16),
                  voxel_size: Tuple[float, float, float] = (0.16, 0.16, 0.2),
                  near_far_range: Tuple[float, float] = (0.2, 8.0),
@@ -57,6 +64,8 @@ class NerfDet(nn.Module):
         super().__init__()
         self.n_classes = n_classes
         self.n_scales = n_scales
+        self.head_limit = head_limit
+        self.head_centerness_topk = head_centerness_topk
         self.n_voxels = tuple(n_voxels)
         self.voxel_size = tuple(voxel_size)
         self.near_far_range = tuple(near_far_range)
@@ -225,7 +234,14 @@ class NerfDet(nn.Module):
         (4, 4), extrinsics (V, 4, 4), origin (3,), for the density path
         rgb_s1/rgb_s2 (N, 3), and optionally a ray bundle ray_o/ray_d
         (R, 3) with denorm_images (V, Hp, Wp, 3). Returns (head_outs,
-        valid, render_out), render_out None without rays."""
+        valid, render_out), render_out None without rays. In train mode
+        a ray bundle raises (joint detection + NVS training is not
+        ported yet)."""
+        if self.training and "ray_o" in batch:
+            raise NotImplementedError(
+                "training with a ray bundle (rgb_supervision) needs K2's "
+                "backward, not ported yet (ROADMAP §1, joint det+NVS "
+                "training)")
         features = self.extract_2d(batch["imgs"])
         rgb_stats = ((batch["rgb_s1"], batch["rgb_s2"])
                      if "rgb_s1" in batch else None)

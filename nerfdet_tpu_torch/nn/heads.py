@@ -1,19 +1,24 @@
-"""Anchor-free 3D detection head (ScanNet variant), inference part.
+"""Anchor-free 3D detection head (ScanNet variant): forward, decode and
+the training targets and loss sums.
 
-Port of the forward and decode parts of ``nerfdet_tpu/nn/heads.py``:
+Port of ``nerfdet_tpu/nn/heads.py`` for the non-yawed V2 head:
 ``ScanNetImVoxelHeadV2`` (shared 3x3x3 conv towers over the scales),
-``bbox_pred_to_bbox``, ``resize_valid`` and ``get_candidate_bboxes``.
-Module names follow the reference state_dict (``centerness_conv``,
+``bbox_pred_to_bbox``, ``resize_valid``, ``get_candidate_bboxes``,
+``compute_centerness``, ``get_targets`` and ``head_loss_sums``. Module
+names follow the reference state_dict (``centerness_conv``,
 ``reg_conv``, ``cls_conv``, ``scales.{i}.scale``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..core.boxes import volume_of_boxes
+from . import losses
 
 
 class _Scale(nn.Module):
@@ -127,3 +132,146 @@ def get_candidate_bboxes(head_outs, valid, mlvl_points, nms_pre: int,
         all_boxes.append(bbox_pred_to_bbox(points, bbox_pred))
         all_scores.append(scores)
     return torch.cat(all_boxes), torch.cat(all_scores)
+
+
+def compute_centerness(bbox_targets):
+    """(..., 6) distance targets -> centerness, sqrt of the product of
+    min/max over the three axes (NaN where a max is 0, as in JAX)."""
+    x_dims = bbox_targets[..., 0:2]
+    y_dims = bbox_targets[..., 2:4]
+    z_dims = bbox_targets[..., 4:6]
+    prod = (x_dims.min(-1).values / x_dims.max(-1).values
+            * y_dims.min(-1).values / y_dims.max(-1).values
+            * z_dims.min(-1).values / z_dims.max(-1).values)
+    return torch.sqrt(torch.clamp(prod, min=0.0))
+
+
+def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
+                n_scales: int, limit: int, centerness_topk: int):
+    """Assign each voxel center a target box and label.
+
+    A point is a candidate for a (real) gt box when it lies inside it, on
+    the box's best scale and among the box's ``centerness_topk`` most
+    central points there (strictly above the (k+1)-th centerness). The
+    best scale is the one before the first scale with fewer than
+    ``limit`` points inside the box (scale 0 if that is scale 0), or the
+    coarsest if no scale has fewer. A point that several boxes take goes
+    to the smallest volume, then to the first box.
+
+    Args:
+        points: (P, 3) voxel centers of all scales, concatenated.
+        scale_ids: (P,) scale of each point.
+        gt_boxes: (G, 7) bottom-centered boxes, padded; gt_labels (G,);
+            gt_mask (G,) bool, the real rows.
+
+    Returns (centerness targets (P,), corner-format target boxes (P, 6),
+    labels (P,), -1 for background).
+    """
+    float_max = 1e8
+    n_points = points.shape[0]
+    volumes = volume_of_boxes(gt_boxes)
+    bottom = gt_boxes[..., :3]
+    centers = torch.cat(
+        [bottom[..., :2], bottom[..., 2:3] + gt_boxes[..., 5:6] * 0.5],
+        dim=-1)
+    dims = gt_boxes[:, 3:6]
+    local = points[:, None, :]
+    dx_min = local[..., 0] - centers[None, :, 0] + dims[None, :, 0] / 2
+    dx_max = centers[None, :, 0] + dims[None, :, 0] / 2 - local[..., 0]
+    dy_min = local[..., 1] - centers[None, :, 1] + dims[None, :, 1] / 2
+    dy_max = centers[None, :, 1] + dims[None, :, 1] / 2 - local[..., 1]
+    dz_min = local[..., 2] - centers[None, :, 2] + dims[None, :, 2] / 2
+    dz_max = centers[None, :, 2] + dims[None, :, 2] / 2 - local[..., 2]
+    bbox_targets = torch.stack(
+        [dx_min, dx_max, dy_min, dy_max, dz_min, dz_max], dim=-1)  # (P, G, 6)
+
+    # inside a real box
+    inside = (bbox_targets.min(-1).values > 0) & gt_mask[None, :]
+
+    # the best scale of each box (>= limit points inside)
+    scale_onehot = torch.nn.functional.one_hot(
+        scale_ids.long(), n_scales).to(torch.float32)
+    n_pos_per_scale = scale_onehot.t() @ inside.to(torch.float32)  # (S, G)
+    lower_limit_mask = n_pos_per_scale < limit
+    extra = torch.arange(n_scales, 0, -1, dtype=torch.int32,
+                         device=points.device)[:, None]
+    lower_index = torch.argmax(lower_limit_mask.to(torch.int32) * extra,
+                               dim=0) - 1  # first index of the max
+    lower_index = torch.clamp(lower_index, min=0)
+    all_upper = torch.all(~lower_limit_mask, dim=0)
+    best_scale = torch.where(all_upper, torch.full_like(lower_index,
+                                                        n_scales - 1),
+                             lower_index)
+    inside_best_scale = best_scale[None, :] == scale_ids[:, None]
+
+    # the box's top-k centerness
+    centerness = compute_centerness(bbox_targets)
+    centerness = torch.where(inside, centerness,
+                             torch.full_like(centerness, -1.0))
+    centerness = torch.where(inside_best_scale, centerness,
+                             torch.full_like(centerness, -1.0))
+    top_c = torch.topk(centerness.t(), centerness_topk + 1, dim=1).values
+    inside_top = centerness > top_c[:, -1][None, :]
+
+    # smallest volume, then the first box
+    vols = volumes[None, :].expand(n_points, -1)
+    vols = torch.where(inside & inside_best_scale & inside_top, vols,
+                       torch.full_like(vols, float_max))
+    min_area, min_inds = vols.min(dim=1).values, torch.argmin(vols, dim=1)
+    labels = gt_labels[min_inds]
+    labels = torch.where(min_area == float_max, torch.full_like(labels, -1),
+                         labels)
+    sel_targets = bbox_targets[torch.arange(n_points, device=points.device),
+                               min_inds]
+    return (compute_centerness(sel_targets),
+            bbox_pred_to_bbox(points, sel_targets), labels)
+
+
+def head_loss_sums(head_outs, valid, mlvl_points, gt_boxes, gt_labels,
+                   gt_mask, n_scales: int, limit: int, centerness_topk: int,
+                   n_classes: int) -> Dict[str, torch.Tensor]:
+    """Per-scene loss sums and their normalizers: cls_sum (focal over the
+    observed voxels), centerness_sum (BCE over the positives), bbox_sum
+    (1 - IoU weighted by the centerness targets), n_pos and bbox_avg (the
+    positives' centerness sum). The train step normalizes them.
+
+    ``head_outs``: per scale (centerness, bbox_pred, cls_score),
+    channels-last without a batch dimension; ``valid`` the (nx, ny, nz)
+    view counts at scale 0; ``mlvl_points`` per-scale (P_i, 3) centers.
+    Targets carry no gradient.
+    """
+    flat_center, flat_bbox, flat_cls, flat_valid = [], [], [], []
+    for c, b, s in head_outs:
+        flat_center.append(c.reshape(-1))
+        flat_bbox.append(b.reshape(-1, b.shape[-1]))
+        flat_cls.append(s.reshape(-1, n_classes))
+        flat_valid.append(resize_valid(valid, c.shape[:-1]).reshape(-1))
+    centerness = torch.cat(flat_center)
+    bbox_preds = torch.cat(flat_bbox)
+    cls_scores = torch.cat(flat_cls)
+    valids = torch.cat(flat_valid)
+    points = torch.cat(mlvl_points)
+    scale_ids = torch.cat([
+        torch.full((p.shape[0],), i, dtype=torch.int32, device=p.device)
+        for i, p in enumerate(mlvl_points)])
+
+    with torch.no_grad():
+        centerness_t, bbox_t, labels = get_targets(
+            points, scale_ids, gt_boxes, gt_labels, gt_mask, n_scales,
+            limit, centerness_topk)
+    pos = (labels >= 0) & valids
+    n_pos = pos.sum().to(torch.float32)
+    cls_sum = losses.sigmoid_focal_loss(
+        cls_scores, torch.where(valids, labels, torch.full_like(labels, -1)),
+        weight=valids.to(torch.float32))
+    pos_w = pos.to(torch.float32)
+    centerness_t = torch.where(pos, centerness_t,
+                               torch.zeros_like(centerness_t))
+    centerness_sum = losses.binary_cross_entropy(centerness, centerness_t,
+                                                 weight=pos_w)
+    bbox_avg = torch.sum(centerness_t * pos_w)
+    bbox_sum = losses.axis_aligned_iou_loss(
+        bbox_pred_to_bbox(points, bbox_preds), bbox_t,
+        weight=centerness_t * pos_w)
+    return dict(cls_sum=cls_sum, centerness_sum=centerness_sum,
+                bbox_sum=bbox_sum, n_pos=n_pos, bbox_avg=bbox_avg)

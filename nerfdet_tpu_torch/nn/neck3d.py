@@ -3,10 +3,12 @@
 Port of ``nerfdet_tpu/nn/neck3d.py`` (``FastIndoorImVoxelNeck``): a
 residual 3D conv encoder over ``len(n_blocks)`` scales, a transpose-conv
 top-down path and one output block per scale; the volume axes
-(nx, ny, nz) are the (D, H, W) of the convolutions. Inference only:
-BatchNorm runs on its running statistics. Module names follow the
-reference state_dict (``down_layer_{i}.{b}``, ``up_block_{i}``,
-``out_block_{i}``).
+(nx, ny, nz) are the (D, H, W) of the convolutions. BatchNorm follows
+flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``: in eval mode it runs
+on its running statistics; in train mode it normalizes by the batch's
+biased statistics and moves the running ones 0.1 of the way to them
+(``BatchNorm3d``). Module names follow the reference state_dict
+(``down_layer_{i}.{b}``, ``up_block_{i}``, ``out_block_{i}``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,30 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with flax's train-mode update: the running
+    variance moves toward the biased batch variance (torch's moves toward
+    the unbiased one). Normalization uses the biased batch variance in
+    both; flax computes it as E[x^2] - E[x]^2, torch in two passes, which
+    differ by rounding. Eval mode is torch's."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
+            for run, batch in ((self.running_mean, mean),
+                               (self.running_var, var)):
+                run.mul_(1.0 - self.momentum).add_(batch, alpha=self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 def _conv3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv3d:
@@ -27,14 +52,14 @@ class BasicBlock3dV2(nn.Module):
     def __init__(self, c_in: int, c_out: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv3(c_in, c_out, stride)
-        self.norm1 = nn.BatchNorm3d(c_out)
+        self.norm1 = BatchNorm3d(c_out)
         self.conv2 = _conv3(c_out, c_out)
-        self.norm2 = nn.BatchNorm3d(c_out)
+        self.norm2 = BatchNorm3d(c_out)
         self.downsample = None
         if stride != 1:
             self.downsample = nn.Sequential(
                 nn.Conv3d(c_in, c_out, 1, stride, bias=False),
-                nn.BatchNorm3d(c_out))
+                BatchNorm3d(c_out))
 
     def forward(self, x):
         y = torch.relu(self.norm1(self.conv1(x)))
@@ -46,12 +71,12 @@ class BasicBlock3dV2(nn.Module):
 def _up_block(c_in: int, c_out: int) -> nn.Sequential:
     return nn.Sequential(
         nn.ConvTranspose3d(c_in, c_out, 2, 2, bias=False),
-        nn.BatchNorm3d(c_out), nn.ReLU(),
-        _conv3(c_out, c_out), nn.BatchNorm3d(c_out), nn.ReLU())
+        BatchNorm3d(c_out), nn.ReLU(),
+        _conv3(c_out, c_out), BatchNorm3d(c_out), nn.ReLU())
 
 
 def _out_block(c_in: int, c_out: int) -> nn.Sequential:
-    return nn.Sequential(_conv3(c_in, c_out), nn.BatchNorm3d(c_out),
+    return nn.Sequential(_conv3(c_in, c_out), BatchNorm3d(c_out),
                          nn.ReLU())
 
 

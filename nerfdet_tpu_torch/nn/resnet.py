@@ -20,12 +20,16 @@ STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 class FrozenAffine(nn.Module):
-    """Per-channel scale and bias standing in for a frozen BatchNorm."""
+    """Per-channel scale and bias standing in for a frozen BatchNorm.
+
+    They are parameters, as in the JAX package: they take gradients (which
+    count in the clip norm), and the optimizer leaves them unchanged
+    (``train/optim.is_frozen_backbone_param``)."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.register_buffer("scale", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
         return x * self.scale[:, None, None] + self.bias[:, None, None]

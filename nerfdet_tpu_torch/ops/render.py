@@ -163,11 +163,17 @@ def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps):
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
     fused kernel, which allocates only the two outputs, or raises where
-    the kernel does not take the input.
+    the kernel does not take the input. K2 has no backward yet: on the
+    card it refuses ``featmaps`` that need a gradient.
     """
     if pts.device.type == "cpu":
         return streaming_sample_mean_var_plain(pts, images, proj, img_hw,
                                                featmaps)
+    if torch.is_grad_enabled() and featmaps.requires_grad:
+        raise NotImplementedError(
+            "K2 (streaming_sample_mean_var) has no backward yet; it comes "
+            "with joint detection + NVS training (ROADMAP §2). Render "
+            "under torch.no_grad() or inference_mode()")
     out = _k2_launch(pts, images, proj, img_hw, featmaps)
     streaming_sample_mean_var.launches += 1
     return out

@@ -7,7 +7,11 @@ observing-view counts and the squared sums of the mapped stream) is the
 hand-written CUDA kernel K1 (``csrc/fused_mean_cov.cu``), in two phases:
 A maps every pixel of every view once (``mapped_rows_plain``), B walks
 the views for each voxel and gathers its rows and their mapped values.
-The epilogue (mean and exp(-variance)) is plain torch.
+The epilogue (mean and exp(-variance)) is plain torch. The carry is
+differentiable: its backward is the hand-written kernel
+``csrc/fused_mean_cov_backward.cu`` (``fusion_carry_backward``), which
+sums the cotangents of the voxels that share a pixel and maps them back
+once per pixel, as phase A maps forward.
 
 Exactness: geometry is float32 with explicitly ordered multiply-adds
 (no TF32, no library-chosen order) and ``torch.round`` (half to even,
@@ -159,24 +163,149 @@ def fusion_smem_bytes(c: int, itemsize: int) -> int:
 
 
 def fusion_carry(features, pix, mapped_kernel=None, mapped_bias=None):
-    """K1: the view-streaming fusion carry (see ``fusion_carry_plain``).
+    """K1: the view-streaming fusion carry (see ``fusion_carry_plain``),
+    differentiable in ``features`` and the mapped stream's kernel and bias
+    (``count`` is not differentiable).
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the
+    A CPU tensor takes the plain version forward and
+    ``fusion_carry_backward_plain`` backward. A CUDA tensor launches the
     kernel (phase A, the mapped rows, where the mapped stream is given;
-    then phase B, the carry), or raises where the kernel does not take
-    the input.
+    then phase B, the carry) and, for the gradient, K1's backward kernel
+    (``fusion_carry_backward``), or raises where a kernel does not take
+    the input. Maps that need a gradient must be float32.
     """
-    if features.device.type == "cpu":
-        return fusion_carry_plain(features, pix, mapped_kernel, mapped_bias)
-    mapped = None
-    if mapped_kernel is not None:
-        mapped = _mapped_rows_launch(features, mapped_kernel, mapped_bias)
-    out = _carry_launch(features, pix, mapped, mapped_bias)
-    fusion_carry.launches += 1
-    return out
+    if (torch.is_grad_enabled() and features.requires_grad
+            and features.dtype != torch.float32):
+        raise TypeError(
+            f"K1's backward takes float32 maps, got {features.dtype}; a "
+            f"bfloat16 training path is the compute_dtype item of ROADMAP "
+            f"§1 (the NeRF-Det config surface)")
+    return _FusionCarry.apply(features, pix, mapped_kernel, mapped_bias)
 
 
 fusion_carry.launches = 0
+
+
+class _FusionCarry(torch.autograd.Function):
+    """K1's forward and backward, dispatched by device. The forward on the
+    card saves phase A's mapped rows P for the backward (30.7 MB at the
+    flagship, against a second pass over the 245.8 MB of maps to
+    recompute them); the plain version recomputes them."""
+
+    @staticmethod
+    def forward(ctx, features, pix, mapped_kernel, mapped_bias):
+        mapped = None
+        if features.device.type == "cpu":
+            s1, s2, count, s2m = fusion_carry_plain(
+                features, pix, mapped_kernel, mapped_bias)
+        else:
+            if mapped_kernel is not None:
+                mapped = _mapped_rows_launch(features, mapped_kernel,
+                                             mapped_bias)
+            s1, s2, count, s2m = _carry_launch(features, pix, mapped,
+                                               mapped_bias)
+            fusion_carry.launches += 1
+        ctx.mark_non_differentiable(count)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(features, pix, count, mapped_kernel,
+                              mapped_bias, mapped)
+        return s1, s2, count, s2m
+
+    @staticmethod
+    def backward(ctx, g1, g2, _, gm):
+        features, pix, count, w, b, mapped = ctx.saved_tensors
+        d_feats, d_w, d_b = fusion_carry_backward(
+            features, pix, count, g1, g2, gm, w, b, mapped)
+        if not ctx.needs_input_grad[0]:
+            d_feats = None
+        return d_feats, None, d_w, d_b
+
+
+@torch.no_grad()
+def fusion_carry_backward_plain(features, pix, count, g1=None, g2=None,
+                                gm=None, mapped_kernel=None, mapped_bias=None,
+                                mapped=None):
+    """Plain PyTorch version of K1's backward (same signature and results
+    as ``fusion_carry_backward``).
+
+    With x the row of view v at pixel p, y = x @ W + b its mapped value
+    (``mapped``, phase A's rows, or recomputed) and G1, G2, GM the sums of
+    the cotangents g1, g2 (N, C) and gm (N, M) over the voxels that view v
+    sees at p (``index_add_`` per view):
+
+        d features[v, p] = G1 + 2 x G2 + dY @ W^T,   dY = 2 y GM
+        dW = sum_(v, p) x^T dY
+        db = sum_(v, p) dY + 2 b sum_n (V - count[n]) gm[n]
+
+    (an unseen view's mapped value is b). A None g1/g2/gm contributes
+    nothing; dW and db are None without the mapped stream or gm.
+    """
+    v, h, w, c = features.shape
+    x = features.float().reshape(v, h * w, c)
+    d = torch.zeros_like(x)
+    with_m = mapped_kernel is not None and gm is not None
+    d_w = d_b = None
+    if with_m:
+        wm = mapped_kernel.float()
+        y = mapped if mapped is not None else mapped_rows_plain(
+            features, mapped_kernel, mapped_bias)
+        d_w = torch.zeros_like(wm)
+        d_b = torch.zeros((wm.shape[1],), dtype=torch.float32,
+                          device=x.device)
+    for i in range(v):
+        n = torch.nonzero(pix[i] >= 0)[:, 0]
+        p = pix[i, n].long()
+        if g1 is not None:
+            d[i].index_add_(0, p, g1[n].float())
+        if g2 is not None:
+            g2_sum = torch.zeros_like(x[i]).index_add_(0, p, g2[n].float())
+            d[i] += 2.0 * x[i] * g2_sum
+        if with_m:
+            gm_sum = torch.zeros_like(y[i]).index_add_(0, p, gm[n].float())
+            dy = 2.0 * y[i] * gm_sum
+            d[i] += dy @ wm.t()
+            d_w += x[i].t() @ dy
+            d_b += dy.sum(0)
+    if with_m:
+        d_b += 2.0 * mapped_bias.float() * ((v - count)[:, None]
+                                            * gm.float()).sum(0)
+    return d.reshape(v, h, w, c), d_w, d_b
+
+
+def fusion_carry_backward(features, pix, count, g1=None, g2=None, gm=None,
+                          mapped_kernel=None, mapped_bias=None, mapped=None):
+    """K1's backward: (d features, dW, db) from the cotangents of s1, s2
+    and s2m (see ``fusion_carry_backward_plain``). ``mapped`` is phase
+    A's (V, H*W, M) rows from the forward.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    backward kernel (``csrc/fused_mean_cov_backward.cu``), or raises where
+    it does not take the input.
+    """
+    if features.device.type == "cpu":
+        return fusion_carry_backward_plain(features, pix, count, g1, g2, gm,
+                                           mapped_kernel, mapped_bias, mapped)
+    out = _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
+                           mapped_bias, mapped)
+    fusion_carry_backward.launches += 1
+    return out
+
+
+fusion_carry_backward.launches = 0
+
+
+def pixel_order(pix, hw: int):
+    """The backward kernel's inverse index of ``pix`` (V, N): each view's
+    voxels sorted stably by pixel, ``order`` (V, N) int32 (the invalid
+    ones first), and ``off`` (V, hw + 1) int32, where the voxels of pixel
+    p start in ``order[v]``; pixel p of view v has ``off[v, p + 1] -
+    off[v, p]`` of them, in ascending voxel order."""
+    v = pix.shape[0]
+    keys, order = torch.sort(pix, dim=1, stable=True)
+    bounds = torch.arange(hw + 1, dtype=torch.int32, device=pix.device)
+    off = torch.searchsorted(keys, bounds.expand(v, -1).contiguous(),
+                             out_int32=True)
+    return order.to(torch.int32), off
 
 
 def _check_maps(features):
@@ -260,6 +389,87 @@ def _carry_launch(features, pix, mapped, mapped_bias):
     return s1, s2, count, s2m
 
 
+def _contiguous_f32(t, shape, name, dev):
+    if (t.dtype != torch.float32 or tuple(t.shape) != shape
+            or t.device != dev):
+        raise ValueError(f"{name} must be a float32 {shape} tensor on {dev}")
+    return t.contiguous()
+
+
+def _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
+                     mapped_bias, mapped):
+    """Check and launch K1's backward; returns (d features, dW or None,
+    db or None). The index preparation (``pixel_order``) is torch's; the
+    sums and products are the kernel's. The launch is not counted."""
+    _check_maps(features)
+    if features.dtype != torch.float32:
+        raise TypeError(f"K1's backward takes float32 maps, got "
+                        f"{features.dtype}")
+    v, h, w, c = features.shape
+    n = pix.shape[1] if pix.dim() == 2 else -1
+    dev = features.device
+    if (pix.dtype != torch.int32 or pix.shape != (v, n)
+            or not pix.is_contiguous() or pix.device != dev):
+        raise ValueError("pix must be a contiguous (V, N) int32 tensor on "
+                         "the features' device")
+    g1 = (torch.zeros((n, c), device=dev) if g1 is None
+          else _contiguous_f32(g1, (n, c), "g1", dev))
+    if g2 is not None:
+        g2 = _contiguous_f32(g2, (n, c), "g2", dev)
+    with_m = mapped_kernel is not None and gm is not None
+    m = mapped_kernel.shape[1] if with_m else 0
+    if with_m:
+        if mapped is None:
+            raise ValueError("K1's backward needs phase A's mapped rows")
+        gm = _contiguous_f32(gm, (n, m), "gm", dev)
+        mapped = _contiguous_f32(mapped, (v, h * w, m), "mapped", dev)
+        mapped_kernel = _contiguous_f32(mapped_kernel, (c, m), "W", dev)
+        mapped_bias = _contiguous_f32(mapped_bias, (m,), "b", dev)
+        count = _contiguous_f32(count, (n,), "count", dev)
+    order, off = pixel_order(pix, h * w)
+    d_feats = torch.empty_like(features)
+    lib = _backward_lib()
+    d_w = d_b = dy = part_w = part_b = part_i = None
+    if with_m:
+        parts = lib.fused_mean_cov_backward_parts()
+        dy = torch.empty((v, h * w, m), dtype=torch.float32, device=dev)
+        part_w = torch.empty((parts, c, m), dtype=torch.float32, device=dev)
+        part_b = torch.empty((parts, m), dtype=torch.float32, device=dev)
+        part_i = torch.empty_like(part_b)
+        d_w = torch.empty((c, m), dtype=torch.float32, device=dev)
+        d_b = torch.empty((m,), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):  # the attribute and launches act on it
+        err = lib.fused_mean_cov_backward(
+            features.data_ptr(), order.data_ptr(), off.data_ptr(),
+            g1.data_ptr(), ptr(g2), ptr(gm if with_m else None),
+            ptr(mapped if with_m else None),
+            ptr(mapped_kernel if with_m else None),
+            ptr(mapped_bias if with_m else None),
+            ptr(count if with_m else None), d_feats.data_ptr(), ptr(dy),
+            ptr(part_w), ptr(part_b), ptr(part_i), ptr(d_w), ptr(d_b),
+            v, h * w, c, n, m, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mean_cov backward launch failed: "
+                           f"cudaError {err}")
+    return d_feats, d_w, d_b
+
+
+def _backward_lib():
+    lib = cuda_build.load("fused_mean_cov_backward")
+    fn = lib.fused_mean_cov_backward
+    if fn.argtypes is None:  # pointers must not pass as 32-bit ints
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 17 + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
+        lib.fused_mean_cov_backward_parts.argtypes = []
+        lib.fused_mean_cov_backward_parts.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     lib = cuda_build.load("fused_mean_cov")
     fn = lib.fused_mean_cov_carry
@@ -309,7 +519,10 @@ def fused_mean_cov(features, points, projection,
             (``data/rgb_stats.host_rgb_stats``).
 
     Returns (mean, cov, count), or (mean, cov, count, g_mean, g_cov)
-    with the mapped stream, g_* channels ordered [rgb, mapped].
+    with the mapped stream, g_* channels ordered [rgb, mapped]. The
+    outputs are differentiable in ``features`` (float32), the mapped
+    kernel and bias: the carry through K1's backward, ``s1m`` and the
+    statistics through torch autograd.
     """
     if depth is not None:
         raise NotImplementedError(

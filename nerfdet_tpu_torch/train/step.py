@@ -1,0 +1,104 @@
+"""The detection train step: per-scene loss sums, their reduction, and
+one optimizer update.
+
+Port of ``nerfdet_tpu/train/step.py`` (``scene_loss_terms``,
+``reduce_loss_terms``, ``make_train_step``) for ``rgb_supervision=False``:
+the loss is the head's centerness + cls + bbox terms. As in the JAX step,
+which ``vmap``s the scenes of a batch:
+
+* every scene runs its own forward, its BatchNorms normalized by its own
+  statistics and updated from the same running statistics; the running
+  statistics are then the mean of the scenes' updates (running the
+  scenes one after another through stock BatchNorm would chain them);
+* the focal and centerness losses divide by the cross-scene mean of the
+  positive counts (at least 1), the bbox loss by each scene's own
+  positives' centerness sum;
+* ``grad_norm`` is the global norm of every gradient, frozen parameters
+  included.
+
+The scenes' graphs are all kept until the one backward (the cross-scene
+n_pos is known only after every forward); one scene a step, as the
+configs' ``samples_per_gpu=1``, keeps one.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence
+
+import torch
+
+from ..models.nerfdet import NerfDet
+from ..nn.heads import head_loss_sums
+from .optim import Optimizer
+
+
+def scene_loss_terms(model: NerfDet, scene: Dict) -> Dict[str, torch.Tensor]:
+    """Loss sums of ONE scene through the train-mode forward (which
+    updates the 3D neck's running statistics in place)."""
+    head_outs, valid, _ = model(scene)
+    return head_loss_sums(
+        head_outs, valid, model.mlvl_points(scene["origin"]),
+        scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"],
+        model.n_scales, model.head_limit, model.head_centerness_topk,
+        model.n_classes)
+
+
+def reduce_loss_terms(terms: Sequence[Dict[str, torch.Tensor]]):
+    """The global loss and metrics from the per-scene sums."""
+    def mean(key):
+        return torch.stack([t[key] for t in terms]).mean()
+
+    n_pos = torch.clamp(mean("n_pos"), min=1.0)
+    loss_centerness = mean("centerness_sum") / n_pos
+    loss_cls = mean("cls_sum") / n_pos
+    loss_bbox = torch.stack([
+        t["bbox_sum"] / torch.clamp(t["bbox_avg"], min=1e-6)
+        for t in terms]).mean()
+    loss = loss_centerness + loss_cls + loss_bbox
+    metrics = dict(loss_centerness=loss_centerness, loss_cls=loss_cls,
+                   loss_bbox=loss_bbox, n_pos=mean("n_pos"), loss=loss)
+    return loss, metrics
+
+
+def _running_stats(model) -> List[torch.Tensor]:
+    return [b for name, b in model.named_buffers()
+            if name.endswith(("running_mean", "running_var"))]
+
+
+def make_train_step(model: NerfDet, optimizer: Optimizer,
+                    rgb_supervision: bool = False
+                    ) -> Callable[[List[Dict]], Dict[str, torch.Tensor]]:
+    """The train step: ``step(scenes)`` runs a forward per scene, one
+    backward and one update of ``optimizer``, and returns the metrics
+    (loss, loss_centerness, loss_cls, loss_bbox, n_pos, grad_norm) as
+    0-d tensors on the model's device. ``scenes`` are
+    ``api.train_batch`` dicts. The model is put in train mode."""
+    if rgb_supervision:
+        raise NotImplementedError(
+            "the NVS and depth losses need the render's backward (K2's), "
+            "not ported yet (ROADMAP §1, joint det+NVS training)")
+
+    def step(scenes: List[Dict]) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad()
+        stats = _running_stats(model)
+        start = [s.clone() for s in stats]
+        updated = [torch.zeros_like(s) for s in stats]
+        terms = []
+        for scene in scenes:
+            with torch.no_grad():
+                for s, s0 in zip(stats, start):
+                    s.copy_(s0)
+            terms.append(scene_loss_terms(model, scene))
+            with torch.no_grad():
+                for u, s in zip(updated, stats):
+                    u += s
+        with torch.no_grad():
+            for s, u in zip(stats, updated):
+                s.copy_(u / len(scenes))
+        loss, metrics = reduce_loss_terms(terms)
+        loss.backward()
+        metrics["grad_norm"] = optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step

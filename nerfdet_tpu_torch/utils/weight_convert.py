@@ -16,6 +16,11 @@
   (``backbone/sa{i}/mlp/fc{j}``, ``bbox_head/vote_module/bn{i}``, ...),
   the port's module names being the flax names.
 
+Every mapping of ``from_jax_variables`` is a permutation (a transpose, a
+spatial flip) or a copy, so a JAX gradient tree, given as ``params``
+with zero ``batch_stats``, maps onto the port's gradients the same way
+(``tests/test_torch_train.py`` compares the train steps' gradients so).
+
 ``from_reference_state_dict`` takes a reference NeRF-Det state_dict,
 whose keys the port's module names follow, and folds the backbone's
 frozen BatchNorms into scale/bias the same way.

@@ -17,6 +17,7 @@ CUDA kernel itself is held against the plain version on the card in
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -199,3 +200,110 @@ def test_k1_main_path_holds_two_blocks_an_sm():
     """At the main path's C = 256 two phase A blocks share an SM's 228
     KB (1 KB of each block's is the system's)."""
     assert 2 * (tvox.fusion_smem_bytes(256, 4) + 1024) <= 228 * 1024
+
+
+def _shared_pixel_scene(seed, c=32, m=8):
+    """The card tests' scene at C channels, M mapped outputs and 3 views;
+    its pixel indices put several voxels on one pixel of each view."""
+    feats, points, proj, w_map, b_map, rgb = _scene(seed=seed, c=c, m=m)
+    x, y, _, valid = tvox.project_points(torch.from_numpy(points),
+                                         torch.from_numpy(proj), 7, 10)
+    pix = tvox.pixel_index(x, y, valid, feats.shape[2])
+    seen = [torch.unique(p[p >= 0]).numel() for p in pix]
+    assert sum(seen) < int((pix >= 0).sum())  # voxels share pixels
+    return feats, points, proj, w_map, b_map, rgb, pix
+
+
+def test_fused_mean_cov_gradients_match_jax():
+    """d features, dW and db of every output (mean, cov, g_mean, g_cov)
+    under random cotangents, through the port's K1 Function (the plain
+    backward on the CPU), against ``jax.grad`` of the JAX scan; 1e-4 x
+    max |g| (float32, other summation orders)."""
+    feats, points, proj, w_map, b_map, rgb, _ = _shared_pixel_scene(4)
+    image_hw = (7, 10)
+    rng = np.random.RandomState(5)
+    n, c, m = points.shape[0], feats.shape[-1], w_map.shape[1]
+    cots = [rng.randn(n, c), rng.randn(n, c), rng.randn(n, 3 + m),
+            rng.randn(n, 3 + m)]
+    cots = [a.astype(np.float32) for a in cots]
+
+    def jloss(f, w, b):
+        out = jvox.fused_mean_cov(
+            f, jnp.asarray(points), jnp.asarray(proj), image_hw=image_hw,
+            mapped_kernel=w, mapped_bias=b,
+            precomputed_extra=tuple(jnp.asarray(r) for r in rgb))
+        return sum(jnp.sum(o * jnp.asarray(t))
+                   for o, t in zip(out[:2] + out[3:], cots))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(feats), jnp.asarray(w_map), jnp.asarray(b_map))
+    f = torch.tensor(feats, requires_grad=True)
+    w = torch.tensor(w_map, requires_grad=True)
+    b = torch.tensor(b_map, requires_grad=True)
+    out = tvox.fused_mean_cov(
+        f, torch.from_numpy(points), torch.from_numpy(proj),
+        image_hw=image_hw, mapped_kernel=w, mapped_bias=b,
+        precomputed_extra=tuple(torch.from_numpy(r) for r in rgb))
+    assert not out[2].requires_grad  # count
+    sum((o * torch.from_numpy(t)).sum()
+        for o, t in zip(out[:2] + out[3:], cots)).backward()
+    for got, ref in zip((f.grad, w.grad, b.grad), want):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape
+        assert np.abs(got.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("mapped", [False, True])
+@pytest.mark.parametrize("with_g2", [False, True])
+def test_backward_plain_equals_autograd_through_plain(mapped, with_g2):
+    """``fusion_carry_backward_plain`` against torch autograd through
+    ``fusion_carry_plain`` (1e-5 x max |g|): the per-pixel factoring,
+    the unseen views' bias term and a None g2 (the mean volume)."""
+    feats, _, proj, w_map, b_map, _, pix = _shared_pixel_scene(6)
+    pix[1, :] = -1  # a view that sees no voxel
+    rng = np.random.RandomState(7)
+    n, c, m = pix.shape[1], feats.shape[-1], w_map.shape[1]
+    g1 = torch.from_numpy(rng.randn(n, c).astype(np.float32))
+    g2 = torch.from_numpy(rng.randn(n, c).astype(np.float32))
+    gm = torch.from_numpy(rng.randn(n, m).astype(np.float32))
+    f = torch.tensor(feats, requires_grad=True)
+    w = torch.tensor(w_map, requires_grad=True) if mapped else None
+    b = torch.tensor(b_map, requires_grad=True) if mapped else None
+    s1, s2, count, s2m = tvox.fusion_carry_plain(f, pix, w, b)
+    outs, cots = [s1], [g1]
+    if with_g2:
+        outs, cots = outs + [s2], cots + [g2]
+    if mapped:
+        outs, cots = outs + [s2m], cots + [gm]
+    inputs = [f] + ([w, b] if mapped else [])
+    want = torch.autograd.grad(outs, inputs, cots)
+    got = tvox.fusion_carry_backward_plain(
+        f.detach(), pix, count, g1, g2 if with_g2 else None,
+        gm if mapped else None, w, b)
+    if not mapped:
+        assert got[1] is None and got[2] is None
+    for a, r in zip(got, want):
+        assert np.abs((a - r).numpy()).max() <= 1e-5 * float(r.abs().max())
+
+
+def test_fusion_carry_function_wiring():
+    """The autograd Function on the CPU: count takes no gradient, a
+    missing mapped stream gives no gradient to W and b, the backward
+    counter does not move (the plain version runs), and float32 is the
+    only dtype that may need a gradient."""
+    feats, _, _, w_map, b_map, _, pix = _shared_pixel_scene(8)
+    f = torch.tensor(feats, requires_grad=True)
+    before = tvox.fusion_carry_backward.launches
+    s1, s2, count, s2m = tvox.fusion_carry(f, pix)
+    assert s2m is None and not count.requires_grad
+    s1.sum().backward()
+    want = tvox.fusion_carry_backward_plain(
+        f.detach(), pix, count, torch.ones_like(s1))[0]
+    assert torch.equal(f.grad, want)
+    assert tvox.fusion_carry_backward.launches == before
+    with pytest.raises(TypeError, match="compute_dtype"):
+        tvox.fusion_carry(f.detach().bfloat16().requires_grad_(), pix)
+    with torch.no_grad():
+        out = tvox.fusion_carry(f.bfloat16(), pix, torch.from_numpy(w_map),
+                                torch.from_numpy(b_map))
+    assert out[3].dtype == torch.float32

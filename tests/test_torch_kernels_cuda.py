@@ -189,6 +189,118 @@ def test_mapped_rows_launcher_refuses_more_shared_memory_than_the_card_has(
     assert _rel(out, voxel.mapped_rows_plain(feats, w, b)) <= 1e-5
 
 
+def _backward_case(dev, case, c, mapped, with_g2, seed=0):
+    """K1's backward inputs on the card tests' scene (6 views, 3200
+    voxels, 60x80 maps): its pixel indices (view 2 seeing no voxel, or 64
+    voxels on one pixel of every view), f32 maps, W and b, and seeded
+    cotangents."""
+    pix = _pix(dev)
+    if case == "blind view":
+        pix[2] = -1
+    elif case == "64 voxels on one pixel":
+        pix[:, :64] = 1234
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, m = pix.shape[1], 32
+    feats = torch.randn((pix.shape[0], 60, 80, c), generator=gen, device=dev)
+    w = b = gm = None
+    if mapped:
+        w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
+        b = torch.randn((m,), generator=gen, device=dev)
+        gm = torch.randn((n, m), generator=gen, device=dev)
+    g1 = torch.randn((n, c), generator=gen, device=dev)
+    g2 = torch.randn((n, c), generator=gen, device=dev) if with_g2 else None
+    count = (pix >= 0).float().sum(0)
+    return feats, pix, count, g1, g2, gm, w, b
+
+
+def _close(got, want, tol):
+    if want is None:
+        return got is None
+    return float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("case", ["scene", "blind view",
+                                  "64 voxels on one pixel"])
+@pytest.mark.parametrize("with_g2", [False, True])
+@pytest.mark.parametrize("mapped", [False, True])
+@pytest.mark.parametrize("c", [32, 1024])
+def test_fusion_backward_matches_plain(dev, c, mapped, with_g2, case):
+    """K1's backward kernel against ``fusion_carry_backward_plain``:
+    d features within 1e-5 x max (sums of a pixel's voxels in another
+    order), dW and db within 1e-4 x max (sums over every referenced
+    row)."""
+    feats, pix, count, g1, g2, gm, w, b = _backward_case(
+        dev, case, c, mapped, with_g2)
+    mapped_rows = voxel.mapped_rows_plain(feats, w, b) if mapped else None
+    before = voxel.fusion_carry_backward.launches
+    got = voxel.fusion_carry_backward(feats, pix, count, g1, g2, gm, w, b,
+                                      mapped_rows)
+    want = voxel.fusion_carry_backward_plain(feats, pix, count, g1, g2, gm,
+                                             w, b, mapped_rows)
+    torch.cuda.synchronize()
+    assert voxel.fusion_carry_backward.launches == before + 1
+    assert got[0].shape == feats.shape
+    assert _close(got[0], want[0], 1e-5)
+    assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
+    if case == "blind view":
+        assert float(got[0][2].abs().max()) == 0.0
+    # bitwise the same on a second run: a fixed summation order
+    again = voxel.fusion_carry_backward(feats, pix, count, g1, g2, gm, w, b,
+                                        mapped_rows)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mapped", [False, True])
+def test_fusion_carry_gradient_is_the_kernels(dev, mapped):
+    """Through ``fusion_carry`` on the card, autograd takes K1's backward
+    kernel (one counted launch), and its gradients agree with autograd
+    through the plain forward (1e-5 x max for the maps, 1e-4 for W and
+    b)."""
+    feats, pix, _, g1, g2, gm, w, b = _backward_case(dev, "scene", 256,
+                                                     mapped, True, seed=1)
+
+    def grads(fn):
+        f = feats.clone().requires_grad_()
+        wr = None if w is None else w.clone().requires_grad_()
+        br = None if b is None else b.clone().requires_grad_()
+        s1, s2, _, s2m = fn(f, pix, wr, br)
+        loss = (s1 * g1).sum() + (s2 * g2).sum()
+        if mapped:
+            loss = loss + (s2m * gm).sum()
+        loss.backward()
+        return f.grad, None if wr is None else wr.grad, \
+            None if br is None else br.grad
+
+    before = voxel.fusion_carry_backward.launches
+    got = grads(voxel.fusion_carry)
+    assert voxel.fusion_carry_backward.launches == before + 1
+    want = grads(voxel.fusion_carry_plain)
+    torch.cuda.synchronize()
+    assert _close(got[0], want[0], 1e-5)
+    assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
+
+
+def test_fusion_carry_refuses_bfloat16_maps_under_grad(dev):
+    pix = _pix(dev, v=2)
+    feats = torch.randn((2, 60, 80, 64), device=dev).bfloat16()
+    with pytest.raises(TypeError, match="compute_dtype"):
+        voxel.fusion_carry(feats.requires_grad_(), pix)
+    with torch.no_grad():
+        assert voxel.fusion_carry(feats, pix)[0].dtype == torch.float32
+
+
+def test_streaming_sample_mean_var_refuses_a_gradient(dev):
+    """K2 has no backward yet: featmaps that need a gradient raise rather
+    than return outputs autograd cannot follow."""
+    pts, images, feats, proj = _ray_inputs(dev, 2, 16, 4, 32)
+    args = (pts, images, proj, (239, 320))
+    with pytest.raises(NotImplementedError, match="backward"):
+        render.streaming_sample_mean_var(*args, feats.requires_grad_())
+    with torch.no_grad():
+        render.streaming_sample_mean_var(*args, feats)
+
+
 def _cloud(dev, n, c, seed, dup=False):
     """A room-sized cloud (8 x 8 x 3 m), or half of one repeated."""
     rng = np.random.RandomState(seed)
