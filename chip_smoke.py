@@ -38,16 +38,31 @@ Phases, each reported on its own lines:
 7. the fourth path: NeRF-Det-R50 detection training at full width
    (``rgb_supervision=False``, one scene a step as the config's
    ``samples_per_gpu=1``) through ``init_trainer`` -> ``train_batch`` ->
-   ``Trainer.step`` on a seeded 4-box scene: 2 warm-up steps and 5 timed
-   ones with K1's forward and backward launched once a step and K2
-   never, finite loss terms with positives, frozen parameters bitwise
-   unchanged and a parameter changed in each trained part, the loss and
-   gradients of one step with the plain K1 forward and backward, the
+   ``Trainer.step`` on a seeded 4-box scene without rays: 2 warm-up
+   steps and 5 timed ones with K1's forward and backward launched once a
+   step and K2 never, finite loss terms with positives, frozen
+   parameters bitwise unchanged and a parameter changed in each trained
+   part, the loss and gradients of one step with the plain K1 forward and
+   backward, the forward / backward / optimizer times, steps/s and peak
+   memory;
+8. the fifth path: NeRF-Det-R50 joint detection + NVS training at full
+   width (the config's ``rgb_supervision``, N_rand = 2048 rays of 64
+   samples a step, the host ray stream drawn and summed on the host,
+   outside the timed step, its time on a line of its own) through
+   ``init_trainer`` -> ``train_batch`` -> ``Trainer.step`` on a seeded
+   4-box scene: one step's loss and ``mapping`` / FPN-output gradients
+   against the same step with the plain K2 forward and backward, a
+   ``mapping`` gradient from ``loss_nvs`` alone, 2 warm-up steps and 5
+   timed ones with K1's and K2's forward and backward launched once a
+   step, finite loss terms (``loss_nvs`` included) with positives, the
    forward / backward / optimizer times, steps/s and peak memory.
 
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices (the main path's form: no s2 cotangent), with
-``torch.mm`` on the two products it contains as its yardstick.
+``torch.mm`` on the two products it contains as its yardstick; and, at
+phase 8's shape, K2's training form (host rgb sums) against its plain
+version, and K2's backward against its plain version (two runs bitwise
+equal), with ``index_add_`` of the weighted tap rows as its yardstick.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.
@@ -626,6 +641,162 @@ def check_k2(render, cases, img_hw):
     return results
 
 
+def k2_train_bound(pts, feats, n_host):
+    """Least time of K2's training form: bytes (points, feature maps,
+    projections and the ``n_host`` floats a point of host sums and count
+    read once, globalfeat and the mask written once) over HBM rate against
+    the operations of ``ray_bound`` without the rgb taps and the count."""
+    n = pts.numel() // 3
+    v, c = feats.shape[0], feats.shape[-1]
+    nbytes = (pts.numel() + feats.numel() + v * 16 + n * n_host
+              + n * 2 * (3 + c)) * 4 + n
+    ops = n * v * (20 + 14 + 12 * c) + n * (10 * (3 + c) + 2)
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def k2_scatter_rows(render, pts, proj, img_hw, feats, g, gf, s1u, cnt):
+    """What K2's backward scatters, as its plain version computes it: the
+    flat texel index (V FH FW) and weighted tap row (C) of every in-map
+    tap of every (point, view) pair, and the count of pairs with a
+    non-zero weight (the pairs the kernel keeps)."""
+    import torch
+
+    from nerfdet_tpu_torch.ops.grid_sample import _window
+
+    v, fh, fw, c = feats.shape
+    h, w = img_hw
+    xyz = pts.reshape(-1, 3)
+    d_s1u, d_s2u, d_s1m = render._point_cotangents(g, gf, s1u, cnt, v)
+    idx, rows, kept = [], [], 0
+    for i in range(v):
+        px, py, m = render._view_pixels(xyz, proj[i:i + 1], img_hw)
+        px, py = px * render._scale(fw, w), py * render._scale(fh, h)
+        f = render.grid_sample_2d_packed(render.pack_bilinear(feats[i]),
+                                         px, py)
+        df = (d_s1u + (2.0 * f) * d_s2u) + m * d_s1m
+        sx, wx0, wx1 = _window(px, fw)
+        sy, wy0, wy1 = _window(py, fh)
+        x0, y0 = sx.long(), sy.long()
+        nonzero = torch.zeros_like(x0, dtype=torch.bool)
+        for dy, dx, wk in ((0, 0, wy0 * wx0), (0, 1, wy0 * wx1),
+                           (1, 0, wy1 * wx0), (1, 1, wy1 * wx1)):
+            nonzero |= wk != 0
+            keep = (x0 + dx < fw) & (y0 + dy < fh)
+            idx.append((i * fh * fw + (y0 + dy) * fw + x0 + dx)[keep])
+            rows.append((df * wk[:, None])[keep])
+        kept += int(nonzero.sum())
+    return torch.cat(idx), torch.cat(rows), kept
+
+
+def k2_backward_bound(pts, feats, kept):
+    """Least time of K2's backward on these inputs. Bytes: the feature
+    maps read and their gradient written once; g's and globalfeat's
+    feature halves, s1u, cnt, the points and projections read once; the
+    pairs' keys written and read by the sort once, the kept pairs'
+    sorted indices written and read once. Operations: 20 per (kept pair,
+    channel) (the sample's 4 products and 3 sums, df's 3 products and 2
+    sums, the four taps' products and sums) and 40 per kept pair for its
+    projection and weights; 15 per (point, channel) for the
+    cotangents."""
+    n = pts.numel() // 3
+    v, fh, fw, c = feats.shape
+    pairs = n * v
+    nbytes = (2 * v * fh * fw * c + 2 * n * 2 * c + n * c + n + 3 * n
+              + 16 * v) * 4 + 8 * pairs + 8 * kept
+    ops = kept * (20 * c + 40) + 15 * n * c
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
+    """K2's training form (host rgb sums) against its plain version at the
+    training path's shape (pixel_mask exact, globalfeat within 1e-5
+    relative), then K2's backward against
+    ``streaming_sample_mean_var_backward_plain`` on a random cotangent
+    (within 1e-5 x max, two runs bitwise equal), with times, bounds and
+    ``index_add_`` of the weighted tap rows into the flat feature map as
+    the backward's yardstick (it does the scatter alone)."""
+    import torch
+
+    args = (pts, None, proj, img_hw, feats, host)
+    got = render.streaming_sample_mean_var(*args)
+    want = render.streaming_sample_mean_var_plain(*args)
+    torch.cuda.synchronize()
+    fwd_err = float((got[0] - want[0]).abs().max())
+    fwd_rel = fwd_err / max(float(want[0].abs().max()), 1e-30)
+    if not torch.equal(got[1], want[1]) or fwd_rel > 1e-5:
+        raise SystemExit(f"K2's training form disagrees with its plain "
+                         f"version (rel {fwd_rel:.3e})")
+    ms = cuda_time_ms(lambda: render.streaming_sample_mean_var(*args), 10)
+    plain_ms = cuda_time_ms(
+        lambda: render.streaming_sample_mean_var_plain(*args), 2, warmup=1)
+    bound_ms, bound_by, nbytes, ops = k2_train_bound(pts, feats, 10)
+    n_pts = got[1].numel()
+    log(f"[kernel] streaming_sample_mean_var training form (host rgb): "
+        f"V={feats.shape[0]} N={n_pts} C={feats.shape[-1]}: pixel_mask "
+        f"equal (share {float(got[1].float().mean()):.4f}); globalfeat "
+        f"max_abs_err={fwd_err:.3e} max_rel_err={fwd_rel:.3e} (tol: mask "
+        f"exact, rel 1e-5); bitwise equal "
+        f"{all(torch.equal(a, b) for a, b in zip(got, want))} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+        f"{nbytes} B, {ops} FLOP)")
+    train_form = dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+
+    gf, _, s1u, cnt = render._k2_launch(*args, for_grad=True)
+    g = torch.randn(gf.shape, generator=gen, device=gf.device)
+    bargs = (pts, proj, img_hw, feats, g, gf, s1u, cnt)
+    d = render.streaming_sample_mean_var_backward(*bargs)
+    again = render.streaming_sample_mean_var_backward(*bargs)
+    want = render.streaming_sample_mean_var_backward_plain(*bargs)
+    torch.cuda.synchronize()
+    if not torch.equal(d, again):
+        raise SystemExit("K2 backward: two runs differ")
+    err = float((d - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    b_ms = cuda_time_ms(
+        lambda: render.streaming_sample_mean_var_backward(*bargs), 10)
+    b_plain_ms = cuda_time_ms(
+        lambda: render.streaming_sample_mean_var_backward_plain(*bargs), 2,
+        warmup=1)
+    # its parts: pass 0 (keys and cotangents), the index preparation
+    # (torch.sort + searchsorted); passes 1 and 2 take the rest
+    keys, _ = render._backward_keys(*bargs)
+    keys_ms = cuda_time_ms(lambda: render._backward_keys(*bargs), 10)
+    n_win = feats.numel() // feats.shape[-1]
+    index_ms = cuda_time_ms(lambda: render.window_order(keys, n_win), 10)
+    del keys
+    idx, rows, kept = k2_scatter_rows(render, *bargs)
+    flat = torch.zeros((feats.numel() // feats.shape[-1], feats.shape[-1]),
+                       device=feats.device)
+    library_ms = cuda_time_ms(lambda: flat.index_add_(0, idx, rows), 5)
+    n_rows = idx.numel()
+    del idx, rows, flat
+    b_bound, b_by, b_bytes, b_ops = k2_backward_bound(pts, feats, kept)
+    pairs = n_pts * feats.shape[0]
+    unseen = int((cnt == 0).sum())
+    log(f"[kernel] streaming_sample_mean_var_backward: V={feats.shape[0]} "
+        f"N={n_pts} C={feats.shape[-1]}; {pairs} (point, view) pairs, "
+        f"{kept} with a non-zero tap weight ({kept / pairs:.4f}), {unseen} "
+        f"points seen by no view: two runs bitwise equal; d featmaps "
+        f"max_abs_err={err:.3e} (rel {rel:.3e} of max "
+        f"{float(want.abs().max()):.3e}, tol 1e-5) ms={b_ms:.4f} (pass 0 "
+        f"{keys_ms:.4f}, index preparation {index_ms:.4f}) "
+        f"plain_ms={b_plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"(index_add_ of {n_rows} weighted tap rows into the flat map) "
+        f"bound_ms={b_bound:.4f} ({b_by}; {b_bytes} B, {b_ops} FLOP)")
+    if rel > 1e-5:
+        raise SystemExit(f"K2 backward disagrees with its plain version: "
+                         f"rel {rel:.3e}")
+    return train_form, dict(max_abs_err=err, ms=b_ms, plain_ms=b_plain_ms,
+                            bound_ms=b_bound, bound_by=b_by,
+                            library_ms=library_ms, pass0_ms=keys_ms,
+                            index_ms=index_ms)
+
+
 def window_reuse(render, model, batch):
     """Shares of the (sample, view) pairs of ``batch``'s first chunk of
     rays whose feature window (its start pixel) equals the previous
@@ -643,8 +814,8 @@ def window_reuse(render, model, batch):
             model.n_samples)
     r, s, _ = pts.shape
     fh, fw = feats.shape[1:3]
-    _, _, fsx, fsy = render._scales(batch["denorm_images"], feats,
-                                    model.meta.img_shape)
+    h, w = model.meta.img_shape
+    fsx, fsy = render._scale(fw, w), render._scale(fh, h)
     pix, _ = render.project_to_views(pts.reshape(-1, 3), proj)
     fx = torch.clamp(torch.floor(pix[..., 0] * fsx), 0, fw - 1)
     fy = torch.clamp(torch.floor(pix[..., 1] * fsy), 0, fh - 1)
@@ -963,15 +1134,72 @@ def train_grads(api, model, scene):
     return float(loss.detach()), metrics, grads, fpn_out[0].grad.clone()
 
 
+def timed_steps(tr, batch, counters, iters=5):
+    """2 warm-up steps of ``tr``, then ``iters`` timed on the host clock
+    with every count of ``counters`` set to 0 just before. Returns the
+    metrics of each timed step, the seconds a step, the counts and the
+    peak memory."""
+    import torch
+
+    for _ in range(2):
+        tr.step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        history.append(tr.step(batch))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    return (history, dt, [fn.launches for fn in counters],
+            torch.cuda.max_memory_allocated())
+
+
+def step_stage_times(tr, batch, iters=3):
+    """CUDA-event times (ms, mean of ``iters``) of one train step's
+    stages: the forward and loss, the backward, the optimizer."""
+    import torch
+
+    from nerfdet_tpu_torch.train.step import (reduce_loss_terms,
+                                              scene_loss_terms)
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    stage = {"forward + loss": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(iters):
+        tr.optimizer.zero_grad()
+        ev[0].record()
+        loss, _ = reduce_loss_terms([scene_loss_terms(tr.model, b)
+                                     for b in batch])
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tr.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(stage):
+            stage[k] += ev[i].elapsed_time(ev[i + 1]) / iters
+    return stage
+
+
+RAY_KEYS = ("ray_o", "ray_d", "gt_rgb", "gt_depth")
+
+
 def train_path(api, voxel, pointnet, render, card):
-    """Phase 7: NeRF-Det-R50 detection training at full width."""
+    """Phase 7: NeRF-Det-R50 detection training at full width
+    (``rgb_supervision=False``, a scene without rays)."""
     import torch
 
     from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
     from nerfdet_tpu_torch.train.optim import param_labels
 
+    from nerfdet_tpu_torch.config import Config
+
     t0 = time.perf_counter()
-    tr = api.init_trainer(CONFIG, device="cuda", seed=SEED,
+    cfg = Config.fromfile(CONFIG)
+    cfg.model["rgb_supervision"] = False
+    tr = api.init_trainer(cfg, device="cuda", seed=SEED,
                           steps_per_epoch=1000)
     model = tr.model
     meta = model.meta
@@ -979,6 +1207,7 @@ def train_path(api, voxel, pointnet, render, card):
                                  n_targets=1, hw=meta.img_shape,
                                  pad_hw=meta.pad_shape, n_rand=8, n_boxes=4,
                                  max_gt=8, margin=MARGIN)
+    scene = {k: v for k, v in scene.items() if k not in RAY_KEYS}
     labels = param_labels(model)
     n_label = {k: sum(v == k for v in labels.values())
                for k in ("frozen", "backbone", "main")}
@@ -1025,20 +1254,8 @@ def train_path(api, voxel, pointnet, render, card):
     counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
                 pointnet.furthest_point_sample,
                 render.streaming_sample_mean_var)
-    for _ in range(2):
-        tr.step(batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    iters, history = 5, []
-    for fn in counters:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        history.append(tr.step(batch))
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / iters
-    launches = [fn.launches for fn in counters]
-    peak = torch.cuda.max_memory_allocated()
+    iters = 5
+    history, dt, launches, peak = timed_steps(tr, batch, counters, iters)
     last = {k: float(v) for k, v in history[-1].items()}
     log(f"[train] {iters} steps: launches fused_mean_cov {launches[0]}, "
         f"fused_mean_cov_backward {launches[1]}, furthest_point_sample "
@@ -1068,34 +1285,148 @@ def train_path(api, voxel, pointnet, render, card):
     log(f"[train] frozen parameters bitwise unchanged; a parameter changed "
         f"in each of {', '.join(p.rstrip('.') for p in TRAINED_PARTS)}")
 
-    # stage times of one step (CUDA events): the forward and loss, the
-    # backward, the optimizer
-    from nerfdet_tpu_torch.train.step import (reduce_loss_terms,
-                                              scene_loss_terms)
-
-    opt = tr.optimizer
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    stage = {"forward + loss": 0.0, "backward": 0.0, "optimizer": 0.0}
-    for _ in range(3):
-        opt.zero_grad()
-        ev[0].record()
-        loss, _ = reduce_loss_terms([scene_loss_terms(model, b)
-                                     for b in batch])
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        for i, k in enumerate(stage):
-            stage[k] += ev[i].elapsed_time(ev[i + 1]) / 3
-    for k, ms in stage.items():
+    for k, ms in step_stage_times(tr, batch).items():
         log(f"[stage] train {k}: {ms:.3f} ms")
     log(f"[train] {1 / dt:.3f} steps/s ({dt * 1e3:.2f} ms per step: "
         f"Trainer.step, one scene of {N_VIEWS} views, host clock after 2 "
         f"warm-up steps); peak memory {peak / 2**30:.2f} GiB; measured on "
         f"{card}")
     return launches[1]
+
+
+def train_scene(model, seed):
+    """A seeded 4-box scene of the config's geometry with every ray of its
+    target view (the intrinsic scaled to ``ori_shape``, as the renderer
+    and the fusion take it)."""
+    import numpy as np
+
+    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
+
+    meta = model.meta
+    h, w = meta.img_shape
+    scene = make_synthetic_scene(seed=seed, n_views=N_VIEWS, n_targets=1,
+                                 hw=(h, w), pad_hw=meta.pad_shape,
+                                 n_rand=(h - 2 * MARGIN) * (w - 2 * MARGIN),
+                                 n_boxes=4, max_gt=8, margin=MARGIN)
+    scene["intrinsic"] = scene["intrinsic"].copy()
+    scene["intrinsic"][:2] *= np.float32(meta.ori_shape[0] / h)
+    return scene
+
+
+def host_ray_stream(ray_stats, model, scene):
+    """``prepare_rays`` at the model's N_rand, near/far and samples from
+    a seeded RandomState, and its host-clock seconds."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = ray_stats.prepare_rays(
+        scene, np.random.RandomState(SEED), model.n_rand,
+        model.near_far_range, model.n_samples, model.meta.ori_shape,
+        model.meta.img_shape)
+    return out, time.perf_counter() - t0
+
+
+def joint_train_path(api, voxel, pointnet, render, card):
+    """Phase 8: NeRF-Det-R50 joint detection + NVS training at full
+    width: the config's ``rgb_supervision`` (True), N_rand rays of 64
+    samples a step with the host ray stream, K2 in its training form and
+    its backward."""
+    import math
+
+    import torch
+
+    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.train.step import scene_loss_terms
+
+    t0 = time.perf_counter()
+    tr = api.init_trainer(CONFIG, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    model = tr.model
+    scene = train_scene(model, SEED + 1)
+    n_all = scene["ray_o"].shape[0]
+    prepared, host_s = host_ray_stream(ray_stats, model, scene)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    log(f"[train+nvs] init_trainer: rgb_supervision from the config, "
+        f"N_rand {model.n_rand} rays x {model.n_samples} samples in "
+        f"{model.near_far_range}; scene {N_VIEWS} views, "
+        f"{int(scene['gt_mask'].sum())} boxes: "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[train+nvs] host ray stream (prepare_rays: {model.n_rand} of "
+        f"{n_all} rays drawn, stratified z, rgb sums over {N_VIEWS} views, "
+        f"numpy, outside the timed step): {host_s * 1e3:.2f} ms on the "
+        f"host")
+
+    # one forward + backward with the kernels, then with the plain K2
+    # forward (autograd through it) from the same weights
+    model.train()
+    loss_k, metrics_k, grads_k, fpn_k = train_grads(api, model, prepared)
+    kernel_fn = render.streaming_sample_mean_var
+    render.streaming_sample_mean_var = render.streaming_sample_mean_var_plain
+    try:
+        model.load_state_dict(start)
+        loss_p, _, grads_p, fpn_p = train_grads(api, model, prepared)
+    finally:
+        render.streaming_sample_mean_var = kernel_fn
+    model.load_state_dict(start)
+    torch.cuda.synchronize()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    map_rel = max(float((grads_k[n] - grads_p[n]).norm())
+                  / float(grads_p[n].norm())
+                  for n in ("mapping.0.weight", "mapping.0.bias"))
+    fpn_rel = float((fpn_k - fpn_p).norm() / fpn_p.norm())
+    log(f"[train+nvs] kernel vs plain K2 (forward and backward) for one "
+        f"step's gradients: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+        f"{loss_rel:.3e}, tol 1e-5; bitwise {loss_k == loss_p}), loss_nvs "
+        f"{float(metrics_k['loss_nvs'].detach()):.6f}; mapping gradients rel "
+        f"norm {map_rel:.3e} (tol 1e-4); FPN-output gradient rel norm "
+        f"{fpn_rel:.3e} (tol 1e-4)")
+    if loss_rel > 1e-5 or map_rel > 1e-4 or fpn_rel > 1e-4:
+        raise SystemExit("kernel and plain K2 training steps disagree")
+
+    # the render side alone trains mapping (through K2's backward)
+    batch = api.train_batch(model, [prepared])
+    model.zero_grad()
+    terms = scene_loss_terms(model, batch[0])
+    terms["loss_nvs"].backward()
+    nvs_map = float(model.mapping[0].weight.grad.abs().max())
+    model.zero_grad()
+    model.load_state_dict(start)
+    log(f"[train+nvs] loss_nvs alone: max |d mapping.weight| {nvs_map:.3e}")
+    if not nvs_map > 0:
+        raise SystemExit("no gradient reached mapping from the render")
+
+    # the path: 2 warm-up steps, then 5 timed; K1 forward and backward and
+    # K2's training form and backward once a step
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                pointnet.furthest_point_sample,
+                render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward)
+    iters = 5
+    history, dt, launches, peak = timed_steps(tr, batch, counters, iters)
+    last = {k: float(v) for k, v in history[-1].items()}
+    log(f"[train+nvs] {iters} steps: launches fused_mean_cov {launches[0]}, "
+        f"fused_mean_cov_backward {launches[1]}, furthest_point_sample "
+        f"{launches[2]}, streaming_sample_mean_var {launches[3]}, "
+        f"streaming_sample_mean_var_backward {launches[4]}; last step "
+        + ", ".join(f"{k} {v:.6g}" for k, v in last.items()))
+    if launches != [iters, iters, 0, iters, iters]:
+        raise SystemExit(f"the joint training path launched {launches}, "
+                         f"expected K1 and K2 forward and backward once a "
+                         f"step, K3 never")
+    for m in history:
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            raise SystemExit(f"non-finite train metrics {m}")
+    if float(history[-1]["n_pos"]) <= 0 or "loss_nvs" not in last:
+        raise SystemExit("no positive voxels or no NVS loss")
+
+    for k, ms in step_stage_times(tr, batch).items():
+        log(f"[stage] joint train {k}: {ms:.3f} ms")
+    log(f"[train+nvs] {1 / dt:.3f} steps/s ({dt * 1e3:.2f} ms per step: "
+        f"Trainer.step, one scene of {N_VIEWS} views and {model.n_rand} "
+        f"rays, host clock after 2 warm-up steps; the host ray stream "
+        f"excluded); peak memory {peak / 2**30:.2f} GiB; measured on "
+        f"{card}")
+    return launches[4]
 
 
 def main():
@@ -1110,6 +1441,7 @@ def main():
     os.chdir(root)
     from nerfdet_tpu_torch import api
     from nerfdet_tpu_torch.config import Config
+    from nerfdet_tpu_torch.data import ray_stats
     from nerfdet_tpu_torch.data.synthetic import (make_synthetic_cloud,
                                                   make_synthetic_scene)
     from nerfdet_tpu_torch.device import resolve_device
@@ -1117,6 +1449,7 @@ def main():
     from nerfdet_tpu_torch.ops import cuda_build, pointnet, render, voxel
 
     # ---- 1. the card -------------------------------------------------
+    t_start = time.perf_counter()
     card = card_line()
     dev = resolve_device("cuda")
     log(f"[card] {card}")
@@ -1210,6 +1543,23 @@ def main():
     if not (bool((blind["mask"] <= seen["mask"]).all())
             and not blind["same_as_chunk"]):
         raise SystemExit("K2 counted the view that sees no point")
+
+    # K2's training form and its backward at the training path's shape:
+    # phase 8's scene, N_rand rays at the host's stratified depths
+    tscene, _ = host_ray_stream(ray_stats, model,
+                                train_scene(model, SEED + 1))
+    with torch.no_grad():
+        tfeats = model.render_featmaps(model.extract_2d(
+            torch.as_tensor(tscene["imgs"], device=dev)))
+    ray_t = {k: torch.as_tensor(tscene[k], device=dev) for k in (
+        "ray_o", "ray_d") + ray_stats.RAY_STREAM_KEYS}
+    k2_train, k2_bwd = check_k2_training(
+        render, render.points_at(ray_t["ray_o"], ray_t["ray_d"],
+                                 ray_t["z_vals"]),
+        model.render_projection(tscene["intrinsic"], tscene["extrinsics"],
+                                dev), (h, w), tfeats,
+        tuple(ray_t[k] for k in ray_stats.RAY_STREAM_KEYS[1:]), gen)
+    del tscene, tfeats, ray_t
 
     # ---- 4. the first path: NeRF-Det ------------------------------------
     test_cfg = Config.fromfile(CONFIG).test_cfg
@@ -1316,6 +1666,10 @@ def main():
     torch.cuda.empty_cache()
     bwd_launches = train_path(api, voxel, pointnet, render, card)
 
+    # ---- 8. the fifth path: joint detection + NVS training ---------------
+    torch.cuda.empty_cache()
+    k2_bwd_launches = joint_train_path(api, voxel, pointnet, render, card)
+
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
     fps_bound_by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]
@@ -1353,12 +1707,14 @@ def main():
         "source": "nerfdet_tpu_torch/csrc/streaming_sample_mean_var.cu",
         "replaces": "nerfdet_tpu/ops/render.py:162",
         "launches": ray_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in ray.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in ray.values()]
+                           + [k2_train["max_abs_err"]]),
         "ms": ray["render chunk"]["ms"],
         "plain_ms": ray["render chunk"]["plain_ms"],
         "bound_ms": ray["render chunk"]["bound_ms"],
         "bound_by": ray["render chunk"]["bound_by"],
         "library_ms": None,
+        "training_form": k2_train,
     }, {
         "name": "fused_mean_cov_backward",
         "route": "cuda",
@@ -1374,7 +1730,25 @@ def main():
         "index_ms": fusion_bwd["index_ms"],
         "library_of": "torch.mm on dY @ W^T and x^T dY over the referenced "
                       "rows; the per-pixel sums have no one-call counterpart",
+    }, {
+        "name": "streaming_sample_mean_var_backward",
+        "route": "cuda",
+        "source": "nerfdet_tpu_torch/csrc/"
+                  "streaming_sample_mean_var_backward.cu",
+        "replaces": "nerfdet_tpu/ops/render.py:162",
+        "launches": k2_bwd_launches,
+        "max_abs_err": k2_bwd["max_abs_err"],
+        "ms": k2_bwd["ms"],
+        "plain_ms": k2_bwd["plain_ms"],
+        "bound_ms": k2_bwd["bound_ms"],
+        "bound_by": k2_bwd["bound_by"],
+        "library_ms": k2_bwd["library_ms"],
+        "pass0_ms": k2_bwd["pass0_ms"],
+        "index_ms": k2_bwd["index_ms"],
+        "library_of": "index_add_ of the weighted tap rows into the flat "
+                      "feature map: the scatter alone",
     }]}
+    log(f"[done] phases 1-8 in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -14,9 +14,10 @@ per-scene forward + decode and host tail of
 ``nerfdet_tpu/train/points_step.py:run_indoor_points_eval``.
 
 ``init_trainer`` and ``train_batch`` set up what ``tools/train.py`` of
-the JAX package sets up for one detection train step
-(``rgb_supervision=False``): the model in train mode, the optimizer and
-the schedule from the config, and the scenes on the device.
+the JAX package sets up for one joint detection + NVS train step: the
+model in train mode, the optimizer, the schedule and the loss switches
+(``rgb_supervision``, ``depth_supervise``, ``use_nerf_mask``) from the
+config, and the scenes with their host ray stream on the device.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from .config import Config
 from .core.nms import aligned_3d_nms
 from .core.nvs_metrics import aggregate_nvs, evaluate_rendering
+from .data.ray_stats import RAY_STREAM_KEYS, prepare_rays
 from .data.rgb_stats import host_rgb_stats
 from .device import resolve_device
 from .models.builder import build_model
@@ -122,11 +124,16 @@ def device_batch(model: NerfDet, scene: Dict) -> Dict:
     return batch
 
 
-def train_batch(model: NerfDet, scenes: List[Dict]) -> List[Dict]:
+def train_batch(model: NerfDet, scenes: List[Dict],
+                rng: Optional[np.random.RandomState] = None) -> List[Dict]:
     """The train step's inputs for a list of numpy scenes: each scene's
     ``device_batch`` (images and host rgb sums on the model's device)
     with its padded ground truth: gt_boxes (G, 7) float32, gt_labels
-    (G,) int64 and gt_mask (G,) bool."""
+    (G,) int64 and gt_mask (G,) bool. A scene with rays (ray_o, ray_d,
+    gt_rgb, optionally gt_depth) also brings them and their host ray
+    stream (``data/ray_stats.prepare_rays`` at the model's N_rand,
+    near/far and samples, drawn from ``rng``, a fresh unseeded
+    ``RandomState`` if None, where the scene carries no stream yet)."""
     dev = _device_of(model)
     out = []
     for scene in scenes:
@@ -136,6 +143,16 @@ def train_batch(model: NerfDet, scenes: List[Dict]) -> List[Dict]:
             np.asarray(scene["gt_labels"], np.int64), device=dev)
         batch["gt_mask"] = torch.as_tensor(
             np.asarray(scene["gt_mask"], bool), device=dev)
+        if "ray_o" in scene:
+            if "z_vals" not in scene:
+                scene = prepare_rays(
+                    scene, rng if rng is not None else
+                    np.random.RandomState(), model.n_rand,
+                    model.near_far_range, model.n_samples,
+                    model.meta.ori_shape, model.meta.img_shape)
+            keys = ("ray_o", "ray_d", "gt_rgb") + RAY_STREAM_KEYS + (
+                ("gt_depth",) if "gt_depth" in scene else ())
+            batch.update((k, _to_device(scene[k], dev)) for k in keys)
         out.append(batch)
     return out
 
@@ -153,12 +170,15 @@ class Trainer:
 
 def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
                  seed: int = 0, steps_per_epoch: int = 1) -> Trainer:
-    """Detection training from a NeRF-Det config: the model as
+    """Joint detection + NVS training from a NeRF-Det config, as
+    ``tools/train.py`` of the JAX package trains it: the model as
     ``init_detector`` builds it, in train mode; AdamW, gradient clipping
     and the lr schedule from the config's ``optimizer``,
     ``optimizer_config`` and ``lr_config`` (``total_epochs`` epochs of
-    ``steps_per_epoch`` steps); the step without the NVS loss. Runs on
-    the card unless ``device="cpu"``."""
+    ``steps_per_epoch`` steps); the step's losses from ``config.model``:
+    ``rgb_supervision`` (default True: the NVS loss on the batch's rays),
+    ``depth_supervise`` (default False) and ``use_nerf_mask`` (default
+    True). Runs on the card unless ``device="cpu"``."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = init_detector(config, checkpoint, device, seed)
@@ -173,7 +193,12 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
         model, dict(config.optimizer),
         grad_clip=config.get("optimizer_config", {}).get("grad_clip"),
         lr_schedule=schedule)
-    return Trainer(model, optimizer, make_train_step(model, optimizer))
+    step = make_train_step(
+        model, optimizer,
+        depth_supervise=config.model.get("depth_supervise", False),
+        use_nerf_mask=config.model.get("use_nerf_mask", True),
+        rgb_supervision=config.model.get("rgb_supervision", True))
+    return Trainer(model, optimizer, step)
 
 
 @torch.inference_mode()

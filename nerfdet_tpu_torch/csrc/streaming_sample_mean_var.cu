@@ -54,6 +54,16 @@
 // Every product and sum is rounded on its own, in the order of the plain
 // PyTorch version (ray_view_carry_plain, then sample_stats), and the
 // exponential is expf, so the kernel equals it bit for bit.
+//
+// Two forms, one template (kHost): the eval form samples the images' rgb
+// in the kernel; the training form (the precomputed_rgb branch of the
+// JAX function) takes the rgb sums and the count from the host
+// (data/ray_stats.host_ray_rgb_stats), samples only the C feature
+// channels, and computes every channel's statistics with the host count,
+// as the JAX function does. Under autograd either form also writes what
+// K2's backward (csrc/streaming_sample_mean_var_backward.cu) needs beside
+// globalfeat: the feature channels' unmasked sums s1u (N, C) and, in the
+// eval form, its count (N, 1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,6 +75,8 @@ constexpr int kWarps = 8;                 // warps per block
 constexpr int kThreads = 32 * kWarps;     // 256
 constexpr int kTile = kPts * kWarps;      // 64 points per block
 constexpr int kViews = kThreads / kTile;  // views projected per round
+// three blocks an SM: at most 85 registers a thread
+constexpr int kMinBlocks = 3;
 
 constexpr int kImgX1 = 1, kImgY1 = 2, kFeatX1 = 4, kFeatY1 = 8, kMask = 16;
 
@@ -149,12 +161,21 @@ __device__ __forceinline__ float2 stats(float s1u, float s2u, float s1m,
   return make_float2(mean, expf(-var));
 }
 
-template <int kVec>
-__global__ void __launch_bounds__(kThreads) k2_kernel(
+// The host sums of the training form (null in the eval form).
+struct HostRgb {
+  const float* s1u;  // (N, 3)
+  const float* s2u;  // (N, 3)
+  const float* s1m;  // (N, 3)
+  const float* cnt;  // (N,)
+};
+
+template <int kVec, bool kHost>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
     const float* __restrict__ pts, const float* __restrict__ imgs,
     const float* __restrict__ feats, const float* __restrict__ proj,
-    float* __restrict__ gf, uint8_t* __restrict__ mask, int n, int n_views,
-    int ih, int iw, int fh, int fw, int c, float h1, float w1,
+    HostRgb host, float* __restrict__ gf, uint8_t* __restrict__ mask,
+    float* __restrict__ s1u_out, float* __restrict__ cnt_out, int n,
+    int n_views, int ih, int iw, int fh, int fw, int c, float h1, float w1,
     float sx, float sy, float fsx, float fsy) {
   constexpr int kGroup = 32 / kVec;          // lanes per point
   constexpr int kRun = kPts / kVec;          // points per lane group
@@ -189,11 +210,12 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
       const float py = fminf(fmaxf(__fdiv_rn(cy, zc), -1e6f), 1e6f);
       const bool m = cz > 0.f && px <= w1 && px >= 0.f && py <= h1 &&
                      py >= 0.f;
-      t.flags = weights(__fmul_rn(px, sx), __fmul_rn(py, sy), ih, iw, &t.wi,
-                        &t.img_idx) |
-                weights(__fmul_rn(px, fsx), __fmul_rn(py, fsy), fh, fw,
-                        &t.wf, &t.feat_idx) << 2 |
-                (m ? kMask : 0);
+      if constexpr (!kHost)
+        t.flags = weights(__fmul_rn(px, sx), __fmul_rn(py, sy), ih, iw,
+                          &t.wi, &t.img_idx);
+      t.flags |= weights(__fmul_rn(px, fsx), __fmul_rn(py, fsy), fh, fw,
+                         &t.wf, &t.feat_idx) << 2 |
+                 (m ? kMask : 0);
     }
     taps[buf][tv][tp] = t;
   };
@@ -229,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
     for (int k = 0; k < nv; ++k) {
       const Tap* tk = taps[buf][k] + q0;
       const int v = v0 + k;
-      if (has_rgb) {
+      if (!kHost && has_rgb) {
         const Tap& tr = tk[rp];
         const float* base = imgs + v * img_view + rc;
         const int i0 = tr.img_idx;
@@ -245,7 +267,8 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
         r2 = __fadd_rn(r2, __fmul_rn(f, f));
         rm = __fadd_rn(rm, __fmul_rn(f, m));
       }
-      if (s < kRun) count = __fadd_rn(count, tk[s].flags & kMask ? 1.f : 0.f);
+      if (!kHost && s < kRun)
+        count = __fadd_rn(count, tk[s].flags & kMask ? 1.f : 0.f);
       if (has_ch) {
         const float* fv = feats + v * feat_view + ch;
         float t00[kVec], t01[kVec], t10[kVec], t11[kVec];
@@ -283,15 +306,24 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
   }
 
   // the epilogue, in the lanes that hold the sums; the counts come from
-  // the lanes that hold them
+  // the lanes that hold them, or from the host
   const float nvf = (float)n_views;
   const int cs = 3 + c;
   const size_t out_row = 2 * (size_t)cs;
-  const float rgb_cnt = __shfl_sync(0xffffffffu, count, g * kGroup + rp);
+  const int nr = n0 + q0 + rp;
+  float rgb_cnt;
+  if constexpr (kHost)
+    rgb_cnt = has_rgb && nr < n ? __ldg(host.cnt + nr) : 0.f;
+  else
+    rgb_cnt = __shfl_sync(0xffffffffu, count, g * kGroup + rp);
 #pragma unroll
   for (int p = 0; p < kRun; ++p) {
-    const float cnt = __shfl_sync(0xffffffffu, count, g * kGroup + p);
     const int np = n0 + q0 + p;
+    float cnt;
+    if constexpr (kHost)
+      cnt = has_ch && np < n ? __ldg(host.cnt + np) : 0.f;
+    else
+      cnt = __shfl_sync(0xffffffffu, count, g * kGroup + p);
     if (has_ch && np < n) {
       float* o = gf + (size_t)np * out_row + 3 + ch;
 #pragma unroll
@@ -300,43 +332,83 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
         o[e] = st.x;
         o[cs + e] = st.y;
       }
+      if (s1u_out != nullptr) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          s1u_out[(size_t)np * c + ch + e] = f1[p][e];
+      }
     }
   }
-  const int nr = n0 + q0 + rp;
   if (has_rgb && nr < n) {
+    if constexpr (kHost) {
+      const size_t i = (size_t)nr * 3 + rc;
+      r1 = __ldg(host.s1u + i);
+      r2 = __ldg(host.s2u + i);
+      rm = __ldg(host.s1m + i);
+    }
     const float2 st = stats(r1, r2, rm, rgb_cnt, nvf);
     gf[(size_t)nr * out_row + rc] = st.x;
     gf[(size_t)nr * out_row + cs + rc] = st.y;
   }
-  if (s < kRun && n0 + q0 + s < n) mask[n0 + q0 + s] = count > 1.f;
+  const int ns = n0 + q0 + s;
+  if (s < kRun && ns < n) {
+    if constexpr (kHost) {
+      mask[ns] = __ldg(host.cnt + ns) > 1.f;
+    } else {
+      mask[ns] = count > 1.f;
+      if (cnt_out != nullptr) cnt_out[ns] = count;
+    }
+  }
+}
+
+template <int kVec, bool kHost>
+void launch(int blocks, cudaStream_t s, const float* pts, const float* imgs,
+            const float* feats, const float* proj, HostRgb host, float* gf,
+            uint8_t* mask, float* s1u_out, float* cnt_out, int n,
+            int n_views, int ih, int iw, int fh, int fw, int c, int h, int w,
+            float sx, float sy, float fsx, float fsy) {
+  k2_kernel<kVec, kHost><<<blocks, kThreads, 0, s>>>(
+      pts, imgs, feats, proj, host, gf, mask, s1u_out, cnt_out, n, n_views,
+      ih, iw, fh, fw, c, (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
 }
 
 }  // namespace
 
-// pts (N, 3); imgs (V, IH, IW, 3); feats (V, FH, FW, C), 1 <= C <= 32;
-// proj (V, 4, 4); outputs
-// globalfeat (N, 2(3 + C)) float32 and pixel_mask (N,) bool (one byte),
-// all contiguous. (h, w) is the image size the projection lives in; sx,
-// sy, fsx, fsy scale its pixels into the images and the feature maps.
-// Feature taps load 16 bytes at a time where C % 4 == 0 and feats is
-// 16-byte aligned, 4 bytes otherwise. The caller checks shapes. Returns
-// the cudaError_t of the launch.
+// pts (N, 3); imgs (V, IH, IW, 3), or null in the training form, where
+// host_s1u, host_s2u, host_s1m (N, 3) and host_cnt (N,) hold the host rgb
+// sums and count (all null in the eval form); feats (V, FH, FW, C), 1 <= C
+// <= 32; proj (V, 4, 4); outputs globalfeat (N, 2(3 + C)) float32 and
+// pixel_mask (N,) bool (one byte), and, where not null, s1u_out (N, C)
+// (the feature channels' unmasked sums) and cnt_out (N,) (the eval form's
+// count), all contiguous. (h, w) is the image size the projection lives
+// in; sx, sy, fsx, fsy scale its pixels into the images and the feature
+// maps. Feature taps load 16 bytes at a time where C % 4 == 0 and feats
+// is 16-byte aligned, 4 bytes otherwise. The caller checks shapes.
+// Returns the cudaError_t of the launch.
 extern "C" int streaming_sample_mean_var(
     const float* pts, const float* imgs, const float* feats,
-    const float* proj, float* gf, uint8_t* mask, int n, int n_views, int ih,
-    int iw, int fh, int fw, int c, int h, int w, float sx, float sy,
-    float fsx, float fsy, void* stream) {
+    const float* proj, const float* host_s1u, const float* host_s2u,
+    const float* host_s1m, const float* host_cnt, float* gf, uint8_t* mask,
+    float* s1u_out, float* cnt_out, int n, int n_views, int ih, int iw,
+    int fh, int fw, int c, int h, int w, float sx, float sy, float fsx,
+    float fsy, void* stream) {
   const int blocks = (n + kTile - 1) / kTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HostRgb host = {host_s1u, host_s2u, host_s1m, host_cnt};
+  const bool with_host = host_cnt != nullptr;
+  if (with_host && (host_s1u == nullptr || host_s2u == nullptr ||
+                    host_s1m == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool vec4 =
       c % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
-  if (vec4)
-    k2_kernel<4><<<blocks, kThreads, 0, s>>>(
-        pts, imgs, feats, proj, gf, mask, n, n_views, ih, iw, fh, fw, c,
-        (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
-  else
-    k2_kernel<1><<<blocks, kThreads, 0, s>>>(
-        pts, imgs, feats, proj, gf, mask, n, n_views, ih, iw, fh, fw, c,
-        (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
+#define K2_LAUNCH(VEC, HOST)                                                \
+  launch<VEC, HOST>(blocks, s, pts, imgs, feats, proj, host, gf, mask,     \
+                    s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c, h, w, \
+                    sx, sy, fsx, fsy)
+  if (vec4 && with_host) K2_LAUNCH(4, true);
+  else if (vec4) K2_LAUNCH(4, false);
+  else if (with_host) K2_LAUNCH(1, true);
+  else K2_LAUNCH(1, false);
+#undef K2_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,301 @@
+// K2's backward: the gradient of the view-streaming ray sampler
+// (csrc/streaming_sample_mean_var.cu) with respect to the feature maps.
+//
+// Replaces the autodiff of the lax.scan over views in
+// nerfdet_tpu/ops/render.py (streaming_sample_mean_var, scan body `body`,
+// and the statistics after it) through its packed bilinear gathers
+// (nerfdet_tpu/ops/grid_sample.py: grid_sample_2d_packed): per (point,
+// view) the transpose of the bilinear sample, a scatter-add into the
+// feature maps. Given g, the cotangent of globalfeat's feature half, mean
+// and e = exp(-var) from the forward, its unmasked sums s1u and count cnt,
+// with d = cnt + 1e-8 and V views, per point and channel (pass 0)
+//
+//   g_var = -(g_e e)
+//   d s1m = (g_mean + (g_var (2V mean - 2 s1u)) / d) / d
+//   d s2u = g_var / d          d s1u = ((-2 mean) g_var) / d
+//
+// and per (point, view), with f the forward's bilinear sample (recomputed
+// from the map), m the view's mask and w_k the window's four tap weights,
+//
+//   df = (d s1u + (2 f) d s2u) + m d s1m,   d map[tap k] += df w_k.
+//
+// Nothing is skipped where cnt = 0: 1 / d is then 1e8, and a point seen by
+// no view but with a partial border weight in some view has a small s2u,
+// so exp(-var) need not underflow and its gradient can be large. JAX
+// computes exactly this.
+//
+// Deterministic, with no float atomics, as K1's backward:
+//
+// Pass 0 (keys_kernel, coef_kernel): each (point n, view v) pair, at p = v
+//   N + n, gets the key v FH FW + its feature window's start texel, or V FH
+//   FW (past every window) where all four tap weights are 0; the points'
+//   cotangents (d s1u, d s2u, d s1m) go to coef (N, 3, C). Dropping the
+//   zero-weight pairs (most of the pairs outside a view: their window is
+//   clamped to the map's edge, so one edge window would otherwise sum
+//   millions of zero terms) changes at most the sign of an exact zero:
+//   their terms are df * 0. A pair with a partial weight, its coordinate in
+//   (-1, 0) or (size - 1, size), keeps its key.
+// The wrapper sorts the keys stably (torch.sort) and finds each window's
+//   run (torch.searchsorted), so a window's pairs are in ascending point
+//   order.
+// Pass 1 (window_kernel): a warp a window (v, texel), lane c channel c.
+//   The warp loads the window's four taps once, walks its pairs in order,
+//   recomputes each pair's projection, weights, mask and sample f (the
+//   forward's arithmetic, separately rounded), and sums df w_k into four
+//   registers a lane: packed (V FH FW, 4, C).
+// Pass 2 (unpack_kernel): a thread a (texel, channel) adds the four
+//   windows that hold it in a fixed order, packed[y, x].00 + packed[y,
+//   x-1].01 + packed[y-1, x].10 + packed[y-1, x-1].11; a window's taps
+//   past the right or bottom edge are never read (the transpose of
+//   pack_bilinear's zero pad).
+//
+// What bounds it on an H100 at the training path's shape (2048 rays x 64
+// samples, 50 views, 59x80x32 f32 maps): the least traffic is the maps
+// read and their gradient written once (30.2 MB each), g and the saved
+// globalfeat (33.5 MB each), s1u (16.8 MB), and the sort's key and index
+// passes over the 6.55 M pairs; ~20 FLOP a (pair, channel). This first
+// version is simple: pass 1 reads each pair's 3 C cotangents from coef
+// (L2), and the packed windows make one more round trip through memory.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// The forward's projection row ((p0 x + p1 y) + p2 z) + p3.
+__device__ __forceinline__ float row(const float* p, float x, float y,
+                                     float z) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(p[0], x), __fmul_rn(p[1], y)),
+                             __fmul_rn(p[2], z)),
+                   p[3]);
+}
+
+// Window start clip(floor(p), 0, size - 1) and its two tap weights.
+__device__ __forceinline__ int window(float p, int size, float* w0,
+                                      float* w1) {
+  const float s = fminf(fmaxf(floorf(p), 0.f), (float)(size - 1));
+  const float r = __fsub_rn(p, s);
+  *w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(r)));
+  *w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(r, 1.f))));
+  return (int)s;
+}
+
+// One (point, view): the feature window's start texel, its tap weights
+// (00, 01, 10, 11) and the view's mask, as the forward computes them.
+struct Pair {
+  int idx;
+  float4 w;
+  bool m;
+};
+
+__device__ __forceinline__ Pair project(const float* pv, const float* pt,
+                                        float h1, float w1, int fh, int fw,
+                                        float fsx, float fsy) {
+  const float x = pt[0], y = pt[1], z = pt[2];
+  const float cx = row(pv, x, y, z);
+  const float cy = row(pv + 4, x, y, z);
+  const float cz = row(pv + 8, x, y, z);
+  const float zc = fmaxf(cz, 1e-8f);
+  const float px = fminf(fmaxf(__fdiv_rn(cx, zc), -1e6f), 1e6f);
+  const float py = fminf(fmaxf(__fdiv_rn(cy, zc), -1e6f), 1e6f);
+  Pair q;
+  q.m = cz > 0.f && px <= w1 && px >= 0.f && py <= h1 && py >= 0.f;
+  float wx0, wx1, wy0, wy1;
+  const int x0 = window(__fmul_rn(px, fsx), fw, &wx0, &wx1);
+  const int y0 = window(__fmul_rn(py, fsy), fh, &wy0, &wy1);
+  q.w = make_float4(__fmul_rn(wy0, wx0), __fmul_rn(wy0, wx1),
+                    __fmul_rn(wy1, wx0), __fmul_rn(wy1, wx1));
+  q.idx = y0 * fw + x0;
+  return q;
+}
+
+// ---- pass 0 ------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    keys_kernel(const float* __restrict__ pts, const float* __restrict__ proj,
+                int* __restrict__ keys, int n, int n_views, int fh, int fw,
+                float h1, float w1, float fsx, float fsy) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n * n_views) return;
+  const int v = p / n, i = p - v * n;
+  float pv[12], pt[3];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) pv[k] = __ldg(proj + 16 * v + k);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pt[k] = __ldg(pts + (size_t)i * 3 + k);
+  const Pair q = project(pv, pt, h1, w1, fh, fw, fsx, fsy);
+  const int hw = fh * fw;
+  const bool zero =
+      q.w.x == 0.f && q.w.y == 0.f && q.w.z == 0.f && q.w.w == 0.f;
+  keys[p] = zero ? n_views * hw : v * hw + q.idx;
+}
+
+// Thread t of the grid: point t / C, channel t % C.
+__global__ void __launch_bounds__(kThreads)
+    coef_kernel(const float* __restrict__ g, const float* __restrict__ gf,
+                const float* __restrict__ s1u, const float* __restrict__ cnt,
+                float* __restrict__ coef, int n, int n_views, int c) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)n * c) return;
+  const int i = (int)(t / c), ch = (int)(t % c);
+  const int cs = 3 + c;
+  const size_t at = (size_t)i * 2 * cs + 3 + ch;
+  const float g_mean = __ldg(g + at), g_e = __ldg(g + at + cs);
+  const float mean = __ldg(gf + at), e = __ldg(gf + at + cs);
+  const float su = __ldg(s1u + (size_t)i * c + ch);
+  const float d = __fadd_rn(__ldg(cnt + i), 1e-8f);
+  const float g_var = -__fmul_rn(g_e, e);
+  const float slope = __fsub_rn(__fmul_rn(2.f * (float)n_views, mean),
+                                __fmul_rn(2.f, su));
+  const float d_s1m =
+      __fdiv_rn(__fadd_rn(g_mean, __fdiv_rn(__fmul_rn(g_var, slope), d)), d);
+  float* out = coef + (size_t)i * 3 * c + ch;
+  out[0] = __fdiv_rn(__fmul_rn(__fmul_rn(-2.f, mean), g_var), d);  // d s1u
+  out[c] = __fdiv_rn(g_var, d);                                    // d s2u
+  out[2 * c] = d_s1m;
+}
+
+// ---- pass 1: a warp a window ---------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    window_kernel(const float* __restrict__ pts,
+                  const float* __restrict__ proj,
+                  const float* __restrict__ feats,
+                  const float* __restrict__ coef,
+                  const int* __restrict__ order, const int* __restrict__ off,
+                  float* __restrict__ packed, int n, int n_views, int fh,
+                  int fw, int c, float h1, float w1, float fsx, float fsy) {
+  const int hw = fh * fw;
+  const int win = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (win >= n_views * hw) return;
+  const int lane = threadIdx.x & 31;
+  const int v = win / hw, idx = win - v * hw;
+  const int beg = __ldg(off + win), end = __ldg(off + win + 1);
+  const bool has_ch = lane < c;
+  float* out = packed + (size_t)win * 4 * c + lane;
+  float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+  if (beg < end) {
+    float pv[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) pv[k] = __ldg(proj + 16 * v + k);
+    // the window's four taps of channel `lane`, zero past the edges
+    const int y0 = idx / fw, x0 = idx - y0 * fw;
+    const bool x1 = x0 + 1 < fw, y1 = y0 + 1 < fh;
+    const float* fv = feats + (size_t)v * hw * c + lane;
+    float t00 = 0.f, t01 = 0.f, t10 = 0.f, t11 = 0.f;
+    if (has_ch) {
+      t00 = __ldg(fv + (size_t)idx * c);
+      if (x1) t01 = __ldg(fv + (size_t)(idx + 1) * c);
+      if (y1) t10 = __ldg(fv + (size_t)(idx + fw) * c);
+      if (x1 && y1) t11 = __ldg(fv + (size_t)(idx + fw + 1) * c);
+    }
+    for (int j = beg; j < end; ++j) {
+      const int i = __ldg(order + j) - v * n;
+      float pt[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pt[k] = __ldg(pts + (size_t)i * 3 + k);
+      const Pair q = project(pv, pt, h1, w1, fh, fw, fsx, fsy);
+      if (!has_ch) continue;
+      // the forward's sample ((t00 w00 + t01 w01) + t10 w10) + t11 w11
+      float f = __fmul_rn(t00, q.w.x);
+      f = __fadd_rn(f, __fmul_rn(t01, q.w.y));
+      f = __fadd_rn(f, __fmul_rn(t10, q.w.z));
+      f = __fadd_rn(f, __fmul_rn(t11, q.w.w));
+      const float* cf = coef + (size_t)i * 3 * c + lane;
+      const float d_s1u = __ldg(cf), d_s2u = __ldg(cf + c);
+      const float d_s1m = __ldg(cf + 2 * c);
+      const float df = __fadd_rn(
+          __fadd_rn(d_s1u, __fmul_rn(__fmul_rn(2.f, f), d_s2u)),
+          __fmul_rn(q.m ? 1.f : 0.f, d_s1m));
+      a00 = __fadd_rn(a00, __fmul_rn(df, q.w.x));
+      a01 = __fadd_rn(a01, __fmul_rn(df, q.w.y));
+      a10 = __fadd_rn(a10, __fmul_rn(df, q.w.z));
+      a11 = __fadd_rn(a11, __fmul_rn(df, q.w.w));
+    }
+  }
+  if (has_ch) {
+    out[0] = a00;
+    out[c] = a01;
+    out[2 * c] = a10;
+    out[3 * c] = a11;
+  }
+}
+
+// ---- pass 2: the windows into texels -------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    unpack_kernel(const float* __restrict__ packed, float* __restrict__ d_feats,
+                  int n_views, int fh, int fw, int c) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int hw = fh * fw;
+  if (t >= (long long)n_views * hw * c) return;
+  const int ch = (int)(t % c);
+  const int texel = (int)(t / c);
+  const int v = texel / hw, idx = texel - v * hw;
+  const int y = idx / fw, x = idx - y * fw;
+  const float* pv = packed + (size_t)v * hw * 4 * c + ch;
+  const size_t stride = 4 * (size_t)c;
+  float s = __ldg(pv + (size_t)idx * stride);
+  if (x > 0) s = __fadd_rn(s, __ldg(pv + (size_t)(idx - 1) * stride + c));
+  if (y > 0)
+    s = __fadd_rn(s, __ldg(pv + (size_t)(idx - fw) * stride + 2 * c));
+  if (x > 0 && y > 0)
+    s = __fadd_rn(s, __ldg(pv + (size_t)(idx - fw - 1) * stride + 3 * c));
+  d_feats[t] = s;
+}
+
+int blocks_for(long long threads) {
+  return (int)((threads + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// Pass 0. pts (N, 3); proj (V, 4, 4); g and globalfeat (N, 2(3 + C)); s1u
+// (N, C), the feature channels' unmasked sums; cnt (N,), the count the
+// forward's statistics used; outputs keys (V, N) int32 and coef (N, 3, C).
+// (h, w) is the image size the projection lives in, fsx, fsy scale its
+// pixels into the (FH, FW) maps. Everything contiguous, 1 <= C <= 32, V N
+// < 2^31. Returns the first cudaError_t of the launches.
+extern "C" int streaming_sample_mean_var_backward_keys(
+    const float* pts, const float* proj, const float* g, const float* gf,
+    const float* s1u, const float* cnt, int* keys, float* coef, int n,
+    int n_views, int fh, int fw, int c, int h, int w, float fsx, float fsy,
+    void* stream) {
+  if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || n_views == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  keys_kernel<<<blocks_for((long long)n * n_views), kThreads, 0, s>>>(
+      pts, proj, keys, n, n_views, fh, fw, (float)(h - 1), (float)(w - 1),
+      fsx, fsy);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  coef_kernel<<<blocks_for((long long)n * c), kThreads, 0, s>>>(
+      g, gf, s1u, cnt, coef, n, n_views, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Passes 1 and 2. order (V N) int32, the pairs sorted stably by key; off
+// (V FH FW + 1) int32, where each window's pairs start in `order`; feats
+// (V, FH, FW, C); coef from pass 0; packed (V FH FW, 4, C) scratch;
+// d_feats (V, FH, FW, C) out. Returns the first cudaError_t.
+extern "C" int streaming_sample_mean_var_backward_scatter(
+    const float* pts, const float* proj, const float* feats,
+    const float* coef, const int* order, const int* off, float* packed,
+    float* d_feats, int n, int n_views, int fh, int fw, int c, int h, int w,
+    float fsx, float fsy, void* stream) {
+  if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const long long windows = (long long)n_views * fh * fw;
+  if (windows == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  window_kernel<<<(int)((windows + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+      pts, proj, feats, coef, order, off, packed, n, n_views, fh, fw, c,
+      (float)(h - 1), (float)(w - 1), fsx, fsy);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unpack_kernel<<<blocks_for(windows * c), kThreads, 0, s>>>(
+      packed, d_feats, n_views, fh, fw, c);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -38,6 +38,7 @@ def _build_nerfdet(cfg: dict, meta: SceneMeta = None) -> NerfDet:
         voxel_size=tuple(cfg["voxel_size"]),
         near_far_range=tuple(cfg["near_far_range"]),
         n_samples=cfg.get("N_samples", 64),
+        n_rand=cfg.get("N_rand", 2048),
         squeeze_scale=cfg.get("squeeze_scale", 4),
         nerf_density=cfg.get("nerf_density", False),
         meta=meta or SceneMeta(),

@@ -1,5 +1,5 @@
-"""NeRF-Det for one scene: detection (inference and training) and
-novel-view rendering (inference).
+"""NeRF-Det for one scene: detection and novel-view rendering, for
+inference and joint training.
 
 Port of ``nerfdet_tpu/models/nerfdet.py``. Detection: ResNet + FPN over
 the views, projection and view-streaming mean/variance fusion (K1) with
@@ -10,17 +10,19 @@ sampler (K2), the NeRF MLP and alpha compositing, in ray chunks. Public
 methods take and return channels-last tensors without a batch
 dimension, like the JAX package; the modules inside run NCHW / NCDHW.
 In train mode (``model.train()``) the forward is the JAX ``train=True``
-detection graph: the 3D neck's BatchNorm normalizes by the scene's
-statistics and updates its running ones, and the gradient reaches the
-FPN and ``mapping`` through K1's backward. A training batch with a ray
-bundle is refused: the render's backward (K2's) is not ported yet.
+graph: the 3D neck's BatchNorm normalizes by the scene's statistics and
+updates its running ones; the batch's rays are rendered at the host's
+stratified depths (``z_vals``) with K2 in its training form (the host
+rgb sums), or, without ``z_vals``, at depths jittered on the device. The
+gradient reaches the FPN and ``mapping`` through K1's backward and
+through K2's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,7 +60,7 @@ class NerfDet(nn.Module):
                  n_voxels: Tuple[int, int, int] = (40, 40, 16),
                  voxel_size: Tuple[float, float, float] = (0.16, 0.16, 0.2),
                  near_far_range: Tuple[float, float] = (0.2, 8.0),
-                 n_samples: int = 64,
+                 n_samples: int = 64, n_rand: int = 2048,
                  squeeze_scale: int = 4, nerf_density: bool = True,
                  meta: SceneMeta = SceneMeta()):
         super().__init__()
@@ -70,6 +72,7 @@ class NerfDet(nn.Module):
         self.voxel_size = tuple(voxel_size)
         self.near_far_range = tuple(near_far_range)
         self.n_samples = n_samples
+        self.n_rand = n_rand
         self.nerf_density = nerf_density
         self.meta = meta
         self.backbone = ResNet(depth=backbone_depth,
@@ -189,21 +192,28 @@ class NerfDet(nn.Module):
         ratio = self.meta.ori_shape[0] / self.meta.img_shape[0]
         return view_projection(intrinsic, extrinsics, ratio, device)
 
-    def _render_chunk(self, ray_o, ray_d, imgs_denorm, proj, featmaps):
+    def _render_chunk(self, ray_o, ray_d, imgs_denorm, proj, featmaps,
+                      **kw):
         return render_ops.render_rays_chunk(
             ray_o, ray_d, self.nerf_mlp, near_far=self.near_far_range,
             n_samples=self.n_samples, images=imgs_denorm, proj=proj,
-            img_hw=self.meta.img_shape, featmaps=featmaps)
+            img_hw=self.meta.img_shape, featmaps=featmaps, **kw)
 
     def render(self, ray_o, ray_d, features, imgs_denorm, intrinsic,
-               extrinsics) -> Dict[str, torch.Tensor]:
-        """Render a bundle of rays (R, 3) with evenly spaced samples:
-        rgb (R, 3), depth (R,) and the ray mask (R,).
-        ``features`` are the stride-4 FPN maps, ``imgs_denorm`` the
-        (V, Hp, Wp, 3) denormalized views."""
+               extrinsics, det: bool = True,
+               generator: Optional[torch.Generator] = None, z_vals=None,
+               precomputed_rgb=None) -> Dict[str, torch.Tensor]:
+        """Render a bundle of rays (R, 3): rgb (R, 3), depth (R,) and the
+        ray mask (R,). ``features`` are the stride-4 FPN maps,
+        ``imgs_denorm`` the (V, Hp, Wp, 3) denormalized views (unused
+        with ``precomputed_rgb``, the host rgb sums and count). The
+        samples lie at ``z_vals`` (R, S) where given, else evenly spaced
+        (``det``) or jittered from ``generator``."""
         proj = self.render_projection(intrinsic, extrinsics, ray_o.device)
         return self._render_chunk(ray_o, ray_d, imgs_denorm, proj,
-                                  self.render_featmaps(features))
+                                  self.render_featmaps(features), det=det,
+                                  generator=generator, z_vals=z_vals,
+                                  precomputed_rgb=precomputed_rgb)
 
     @torch.inference_mode()
     def render_full(self, batch: Dict, chunk: int = 2048):
@@ -229,19 +239,16 @@ class NerfDet(nn.Module):
                 ro, rd, images, proj, featmaps))
         return outs["rgb"][:n], outs["depth"][:n]
 
-    def forward(self, batch: Dict[str, torch.Tensor]):
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
         """One scene: ``batch`` holds imgs (V, Hp, Wp, 3), intrinsic
         (4, 4), extrinsics (V, 4, 4), origin (3,), for the density path
         rgb_s1/rgb_s2 (N, 3), and optionally a ray bundle ray_o/ray_d
-        (R, 3) with denorm_images (V, Hp, Wp, 3). Returns (head_outs,
-        valid, render_out), render_out None without rays. In train mode
-        a ray bundle raises (joint detection + NVS training is not
-        ported yet)."""
-        if self.training and "ray_o" in batch:
-            raise NotImplementedError(
-                "training with a ray bundle (rgb_supervision) needs K2's "
-                "backward, not ported yet (ROADMAP §1, joint det+NVS "
-                "training)")
+        (R, 3) with denorm_images (V, Hp, Wp, 3) or the host ray stream
+        (``data/ray_stats.RAY_STREAM_KEYS``: z_vals and the rgb sums).
+        Returns (head_outs, valid, render_out), render_out None without
+        rays. The rays' samples are evenly spaced in eval mode and, in
+        train mode without ``z_vals``, jittered from ``generator``."""
         features = self.extract_2d(batch["imgs"])
         rgb_stats = ((batch["rgb_s1"], batch["rgb_s2"])
                      if "rgb_s1" in batch else None)
@@ -250,9 +257,15 @@ class NerfDet(nn.Module):
                                 rgb_stats=rgb_stats)
         render_out = None
         if "ray_o" in batch:
-            render_out = self.render(batch["ray_o"], batch["ray_d"], features,
-                                     batch["denorm_images"],
-                                     batch["intrinsic"], batch["extrinsics"])
+            host = (tuple(batch[k] for k in ("ray_s1u", "ray_s2u",
+                                             "ray_s1m", "ray_cnt"))
+                    if "ray_s1u" in batch else None)
+            render_out = self.render(
+                batch["ray_o"], batch["ray_d"], features,
+                batch.get("denorm_images"), batch["intrinsic"],
+                batch["extrinsics"], det=not self.training,
+                generator=generator, z_vals=batch.get("z_vals"),
+                precomputed_rgb=host)
         return self.detect(vol["det_volume"]), vol["valid"], render_out
 
     def mlvl_points(self, origin) -> List[torch.Tensor]:

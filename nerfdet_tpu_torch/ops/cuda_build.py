@@ -22,7 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("fused_mean_cov", "fused_mean_cov_backward",
-           "furthest_point_sample", "streaming_sample_mean_var")
+           "furthest_point_sample", "streaming_sample_mean_var",
+           "streaming_sample_mean_var_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

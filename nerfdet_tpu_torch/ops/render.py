@@ -8,6 +8,11 @@ bilinearly; the view loop keeps only running sums, so the
 epilogue (masked mean, variance over all views, ``exp(-var)``, the
 two-view mask) are one hand-written CUDA kernel, K2
 (``csrc/streaming_sample_mean_var.cu``): the sums stay in registers.
+In training the rgb sums come from the host (``data/ray_stats.py``) and
+K2 samples only the feature maps. K2 is differentiable in the feature
+maps: its backward is the hand-written CUDA kernel
+``csrc/streaming_sample_mean_var_backward.cu``, the transpose of the
+bilinear taps as a deterministic scatter (pairs sorted by their window).
 
 Exactness: the projection sums its four products in a fixed order with
 separately rounded operations, every scalar is a float32 value, and the
@@ -19,13 +24,13 @@ threshold on the projected pixel) agree between them bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import cuda_build
-from .grid_sample import grid_sample_2d_packed, pack_bilinear
+from .grid_sample import _window, grid_sample_2d_packed, pack_bilinear
 from .voxel import _host
 
 
@@ -48,16 +53,30 @@ def view_projection(intrinsic, extrinsics, ratio: float,
 
 
 def sample_along_camera_ray(ray_o, ray_d, near: float, far: float,
-                            n_samples: int):
-    """Evenly spaced depths in [near, far] (the deterministic branch of
-    the stratified sampler). Returns (pts (R, S, 3), z_vals (R, S))."""
+                            n_samples: int, det: bool = True,
+                            generator: Optional[torch.Generator] = None):
+    """Depths along each ray in [near, far] and their points. ``det``:
+    the evenly spaced depths; otherwise each is drawn uniformly inside its
+    stratum (between the midpoints to its neighbours) from ``generator``
+    (on the rays' device). Returns (pts (R, S, 3), z_vals (R, S))."""
     r = ray_d.shape[0]
     step = (far - near) / (n_samples - 1)
     z = near + step * torch.arange(n_samples, dtype=torch.float32,
                                    device=ray_d.device)
     z_vals = z[None].expand(r, n_samples)
-    pts = z_vals[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
-    return pts, z_vals
+    if not det:
+        mids = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+        upper = torch.cat([mids, z_vals[:, -1:]], dim=-1)
+        lower = torch.cat([z_vals[:, :1], mids], dim=-1)
+        t = torch.rand(z_vals.shape, generator=generator,
+                       device=ray_d.device)
+        z_vals = lower + (upper - lower) * t
+    return points_at(ray_o, ray_d, z_vals), z_vals
+
+
+def points_at(ray_o, ray_d, z_vals):
+    """The sample points (R, S, 3) at depths ``z_vals`` (R, S)."""
+    return z_vals[..., None] * ray_d[:, None, :] + ray_o[:, None, :]
 
 
 def project_to_views(pts, proj):
@@ -83,16 +102,12 @@ def project_to_views(pts, proj):
             (cz > 0).reshape((v,) + shape))
 
 
-def _scales(images, featmaps, img_hw) -> Tuple[float, float, float, float]:
-    """Pixel -> map coordinate scales ``(size - 1) / (img - 1)`` per axis
-    for the images and the feature maps, as float32 values: the
-    projection lives at ``img_hw``, the maps are sampled in their own
-    extent (the images padded, the feature maps cropped)."""
-    h, w = img_hw
-    ih, iw = images.shape[1:3]
-    fh, fw = featmaps.shape[1:3]
-    return tuple(float(np.float32((m - 1.0) / (i - 1.0)))
-                 for m, i in ((iw, w), (ih, h), (fw, w), (fh, h)))
+def _scale(size: int, img: int) -> float:
+    """Pixel -> map coordinate scale ``(size - 1) / (img - 1)`` as a
+    float32 value: the projection lives at the image size, a map is
+    sampled in its own extent (the images padded, the feature maps
+    cropped)."""
+    return float(np.float32((size - 1.0) / (img - 1.0)))
 
 
 def ray_view_carry_plain(pts, images, featmaps, proj, img_hw):
@@ -100,40 +115,54 @@ def ray_view_carry_plain(pts, images, featmaps, proj, img_hw):
 
     Args:
         pts: (R, S, 3) float32 sample points.
-        images: (V, IH, IW, 3) float32 denormalized views (padded).
+        images: (V, IH, IW, 3) float32 denormalized views (padded), or
+            None for the feature channels alone (the training form, whose
+            rgb sums come from the host).
         featmaps: (V, FH, FW, C) float32 mapped feature maps (cropped).
         proj: (V, 4, 4) float32 ``K4 @ pose`` (``view_projection``).
         img_hw: (h, w) the projection's image size.
 
-    Returns (s1u, s2u, s1m) (R, S, 3 + C) and cnt (R, S, 1), float32,
-    accumulated in view order: per view the point's bilinear sample f
-    ([rgb, features]) adds to ``s1u += f`` and ``s2u += f*f`` whatever
-    the view sees; ``s1m += f*m`` and ``cnt += m`` only where the pixel
-    is inside ``img_hw`` and the point in front of the camera (m).
+    Returns (s1u, s2u, s1m) (R, S, 3 + C), or (R, S, C) without images,
+    and cnt (R, S, 1), float32, accumulated in view order: per view the
+    point's bilinear sample f ([rgb, features]) adds to ``s1u += f`` and
+    ``s2u += f*f`` whatever the view sees; ``s1m += f*m`` and ``cnt += m``
+    only where the pixel is inside ``img_hw`` and the point in front of
+    the camera (m).
     """
     h, w = img_hw
     r, s, _ = pts.shape
     xyz = pts.reshape(-1, 3)
-    sx, sy, fsx, fsy = _scales(images, featmaps, img_hw)
-    c = 3 + featmaps.shape[-1]
+    fh, fw = featmaps.shape[1:3]
+    fsx, fsy = _scale(fw, w), _scale(fh, h)
+    c = featmaps.shape[-1] + (0 if images is None else 3)
     s1u = torch.zeros((r * s, c), dtype=torch.float32, device=pts.device)
     s2u, s1m = torch.zeros_like(s1u), torch.zeros_like(s1u)
     cnt = torch.zeros((r * s, 1), dtype=torch.float32, device=pts.device)
-    for i in range(images.shape[0]):
-        pix, in_front = project_to_views(xyz, proj[i:i + 1])
-        px, py = pix[0, :, 0], pix[0, :, 1]
-        inbound = (px <= w - 1.0) & (px >= 0) & (py <= h - 1.0) & (py >= 0)
-        m = (inbound & in_front[0]).float()[:, None]
-        f = torch.cat([
-            grid_sample_2d_packed(pack_bilinear(images[i]), px * sx, py * sy),
-            grid_sample_2d_packed(pack_bilinear(featmaps[i]), px * fsx,
-                                  py * fsy)], dim=-1)
+    for i in range(featmaps.shape[0]):
+        px, py, m = _view_pixels(xyz, proj[i:i + 1], img_hw)
+        f = grid_sample_2d_packed(pack_bilinear(featmaps[i]), px * fsx,
+                                  py * fsy)
+        if images is not None:
+            ih, iw = images.shape[1:3]
+            f = torch.cat([grid_sample_2d_packed(
+                pack_bilinear(images[i]), px * _scale(iw, w),
+                py * _scale(ih, h)), f], dim=-1)
         s1u = s1u + f
         s2u = s2u + f * f
         s1m = s1m + f * m
         cnt = cnt + m
     return (s1u.reshape(r, s, c), s2u.reshape(r, s, c),
             s1m.reshape(r, s, c), cnt.reshape(r, s, 1))
+
+
+def _view_pixels(xyz, proj_v, img_hw):
+    """One view's pixels px, py (N,) of the points ``xyz`` (N, 3) and its
+    mask m (N, 1): inside ``img_hw`` and in front of the camera."""
+    h, w = img_hw
+    pix, in_front = project_to_views(xyz, proj_v)
+    px, py = pix[0, :, 0], pix[0, :, 1]
+    inbound = (px <= w - 1.0) & (px >= 0) & (py <= h - 1.0) & (py >= 0)
+    return px, py, (inbound & in_front[0]).float()[:, None]
 
 
 def sample_stats(s1u, s2u, s1m, cnt, n_views: int):
@@ -149,77 +178,266 @@ def sample_stats(s1u, s2u, s1m, cnt, n_views: int):
     return torch.cat([mean, torch.exp(-var)], dim=-1), cnt[..., 0] > 1
 
 
-def streaming_sample_mean_var_plain(pts, images, proj, img_hw, featmaps):
+def _carry_with_host_rgb(pts, images, proj, img_hw, featmaps,
+                         precomputed_rgb):
+    """The plain carry of either form: with ``precomputed_rgb`` (the host
+    rgb sums (s1u, s2u, s1m) (R, S, 3) and cnt (R, S, 1),
+    ``data/ray_stats.host_ray_rgb_stats``) the feature sums with the host
+    rgb sums in front of them and the host count; otherwise the carry
+    with the images."""
+    if precomputed_rgb is None:
+        return ray_view_carry_plain(pts, images, featmaps, proj, img_hw)
+    feat = ray_view_carry_plain(pts, None, featmaps, proj, img_hw)
+    host = [t.float() for t in precomputed_rgb]
+    return tuple(torch.cat([hr, fr], dim=-1)
+                 for hr, fr in zip(host[:3], feat[:3])) + (host[3],)
+
+
+def streaming_sample_mean_var_plain(pts, images, proj, img_hw, featmaps,
+                                    precomputed_rgb=None):
     """Plain PyTorch version of K2 (same signature and results): the
-    carry ``ray_view_carry_plain``, then its epilogue ``sample_stats``."""
-    carry = ray_view_carry_plain(pts, images, featmaps, proj, img_hw)
-    return sample_stats(*carry, images.shape[0])
+    carry ``ray_view_carry_plain`` (in the training form only over the
+    feature maps, the host rgb sums and count in front), then its
+    epilogue ``sample_stats``."""
+    carry = _carry_with_host_rgb(pts, images, proj, img_hw, featmaps,
+                                 precomputed_rgb)
+    return sample_stats(*carry, featmaps.shape[0])
 
 
-def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps):
+def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps,
+                              precomputed_rgb=None):
     """K2: per-view sampling with masked mean / exp(-var) over views.
     Returns (globalfeat (R, S, 2(3 + C)), pixel_mask (R, S)); see
     ``streaming_sample_mean_var_plain``.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the
-    fused kernel, which allocates only the two outputs, or raises where
-    the kernel does not take the input. K2 has no backward yet: on the
-    card it refuses ``featmaps`` that need a gradient.
+    Two forms: the eval form samples the images' rgb in the kernel; the
+    training form takes ``precomputed_rgb``, the host rgb sums and count
+    (``data/ray_stats.host_ray_rgb_stats``), samples only the feature
+    maps and takes the count from the host (``images`` is then unused).
+    Differentiable in ``featmaps`` (float32 only), in both forms; the
+    points, images, projections and host sums take no gradient.
+
+    A CPU tensor takes the plain version forward and
+    ``streaming_sample_mean_var_backward_plain`` backward. A CUDA tensor
+    launches the fused kernel and, for the gradient, K2's backward kernel
+    (``streaming_sample_mean_var_backward``), or raises where a kernel
+    does not take the input.
     """
-    if pts.device.type == "cpu":
-        return streaming_sample_mean_var_plain(pts, images, proj, img_hw,
-                                               featmaps)
-    if torch.is_grad_enabled() and featmaps.requires_grad:
-        raise NotImplementedError(
-            "K2 (streaming_sample_mean_var) has no backward yet; it comes "
-            "with joint detection + NVS training (ROADMAP §2). Render "
-            "under torch.no_grad() or inference_mode()")
-    out = _k2_launch(pts, images, proj, img_hw, featmaps)
-    streaming_sample_mean_var.launches += 1
-    return out
+    if not (torch.is_grad_enabled() and featmaps.requires_grad):
+        return _k2_forward(pts, images, proj, img_hw, featmaps,
+                           precomputed_rgb, False)[:2]
+    if featmaps.dtype != torch.float32:
+        raise TypeError(
+            f"K2's backward takes float32 maps, got {featmaps.dtype}; a "
+            f"bfloat16 training path is the compute_dtype item of ROADMAP "
+            f"§1 (the NeRF-Det config surface)")
+    host = tuple(precomputed_rgb) if precomputed_rgb is not None else ()
+    return _StreamingSampleMeanVar.apply(pts, images, proj, img_hw,
+                                         featmaps, *host)
 
 
 streaming_sample_mean_var.launches = 0
 
 
-def _k2_launch(pts, images, proj, img_hw, featmaps):
-    """Check and launch K2 on the card; the launch is not counted."""
+def _k2_forward(pts, images, proj, img_hw, featmaps, precomputed_rgb,
+                for_grad: bool):
+    """K2 by device: (globalfeat, pixel_mask, s1u, cnt), the last two
+    being the feature channels' unmasked sums (R, S, C) and the count the
+    statistics used (R, S, 1); on the card None unless ``for_grad``. A
+    CUDA launch is counted."""
+    if pts.device.type == "cpu":
+        carry = _carry_with_host_rgb(pts, images, proj, img_hw, featmaps,
+                                     precomputed_rgb)
+        gf, mask = sample_stats(*carry, featmaps.shape[0])
+        c = featmaps.shape[-1]
+        return gf, mask, carry[0][..., -c:], carry[3]
+    out = _k2_launch(pts, images, proj, img_hw, featmaps, precomputed_rgb,
+                     for_grad)
+    streaming_sample_mean_var.launches += 1
+    return out
+
+
+class _StreamingSampleMeanVar(torch.autograd.Function):
+    """K2 forward and backward, dispatched by device. The forward saves
+    globalfeat (its mean and exp(-var) are the backward's residuals), the
+    feature channels' unmasked sums s1u and the count; the backward
+    recomputes each (point, view)'s bilinear sample from the maps."""
+
+    @staticmethod
+    def forward(ctx, pts, images, proj, img_hw, featmaps, *host):
+        gf, mask, s1u, cnt = _k2_forward(pts, images, proj, img_hw,
+                                         featmaps, host or None, True)
+        ctx.mark_non_differentiable(mask)
+        ctx.img_hw = img_hw
+        ctx.save_for_backward(pts, proj, featmaps, gf, s1u, cnt)
+        return gf, mask
+
+    @staticmethod
+    def backward(ctx, g, _):
+        pts, proj, featmaps, gf, s1u, cnt = ctx.saved_tensors
+        d_feats = streaming_sample_mean_var_backward(
+            pts, proj, ctx.img_hw, featmaps, g, gf, s1u, cnt)
+        return (None, None, None, None, d_feats) + (None,) * (
+            len(ctx.needs_input_grad) - 5)
+
+
+def _point_cotangents(g, gf, s1u, cnt, n_views: int):
+    """The cotangents of the feature channels' sums, each (N, C): d s1u,
+    d s2u and d s1m from g, the cotangent of globalfeat (N, 2(3 + C)),
+    the forward's globalfeat (mean, exp(-var)), s1u and cnt. With d = cnt
+    + 1e-8 and g_var = -g_e exp(-var):
+
+        d s1m = (g_mean + g_var (2 V mean - 2 s1u) / d) / d
+        d s2u = g_var / d          d s1u = -2 mean g_var / d
+    """
+    c = s1u.shape[-1]
+    cs = gf.shape[-1] // 2
+    g, gf = g.reshape(-1, 2 * cs).float(), gf.reshape(-1, 2 * cs)
+    g_mean, g_e = g[:, cs - c:cs], g[:, 2 * cs - c:]
+    mean, e = gf[:, cs - c:cs], gf[:, 2 * cs - c:]
+    s1u = s1u.reshape(-1, c)
+    d = cnt.reshape(-1, 1) + 1e-8
+    g_var = -(g_e * e)
+    slope = (2.0 * n_views) * mean - 2.0 * s1u
+    d_s1m = (g_mean + (g_var * slope) / d) / d
+    return ((-2.0 * mean) * g_var) / d, g_var / d, d_s1m
+
+
+@torch.no_grad()
+def streaming_sample_mean_var_backward_plain(pts, proj, img_hw, featmaps, g,
+                                             globalfeat, s1u, cnt):
+    """Plain PyTorch version of K2's backward (same signature and result
+    as ``streaming_sample_mean_var_backward``): d featmaps (V, FH, FW, C).
+
+    Per point the cotangents of the sums (``_point_cotangents``), then
+    per (point, view), with f the bilinear sample recomputed from the map
+    and m the view's mask, ``df = d s1u + 2 f d s2u + m d s1m``, and
+    ``df * w_k`` goes to each tap k of the point's window
+    (``index_add_``, in point order), a tap past the right or bottom edge
+    dropped (the transpose of ``pack_bilinear``'s zero pad).
+    """
+    v, fh, fw, c = featmaps.shape
+    h, w = img_hw
+    xyz = pts.reshape(-1, 3)
+    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    fsx, fsy = _scale(fw, w), _scale(fh, h)
+    out = torch.zeros((v, fh * fw, c), dtype=torch.float32,
+                      device=featmaps.device)
+    for i in range(v):
+        px, py, m = _view_pixels(xyz, proj[i:i + 1], img_hw)
+        px, py = px * fsx, py * fsy
+        f = grid_sample_2d_packed(pack_bilinear(featmaps[i]), px, py)
+        df = (d_s1u + (2.0 * f) * d_s2u) + m * d_s1m
+        sx, wx0, wx1 = _window(px, fw)
+        sy, wy0, wy1 = _window(py, fh)
+        x0, y0 = sx.long(), sy.long()
+        for dy, dx, wk in ((0, 0, wy0 * wx0), (0, 1, wy0 * wx1),
+                           (1, 0, wy1 * wx0), (1, 1, wy1 * wx1)):
+            keep = (x0 + dx < fw) & (y0 + dy < fh)
+            lin = ((y0 + dy) * fw + x0 + dx)[keep]
+            out[i].index_add_(0, lin, (df * wk[:, None])[keep])
+    return out.reshape(v, fh, fw, c)
+
+
+def streaming_sample_mean_var_backward(pts, proj, img_hw, featmaps, g,
+                                       globalfeat, s1u, cnt):
+    """K2's backward: d featmaps (V, FH, FW, C) from g, the cotangent of
+    globalfeat (R, S, 2(3 + C)), given the forward's globalfeat, the
+    feature channels' unmasked sums s1u (R, S, C) and the count its
+    statistics used (R, S, 1). Either form's: the backward reads only the
+    feature channels.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    backward kernel (``csrc/streaming_sample_mean_var_backward.cu``), or
+    raises where it does not take the input.
+    """
+    if featmaps.device.type == "cpu":
+        return streaming_sample_mean_var_backward_plain(
+            pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt)
+    out = _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
+                           cnt)
+    streaming_sample_mean_var_backward.launches += 1
+    return out
+
+
+streaming_sample_mean_var_backward.launches = 0
+
+
+def _check_k2(pts, images, proj, featmaps, host):
+    """Checks K2's inputs on the card (``images`` None in the training
+    form, where ``host`` holds the four host sums)."""
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
-    for name, t in (("pts", pts), ("images", images),
-                    ("featmaps", featmaps), ("proj", proj)):
+    named = [("pts", pts), ("featmaps", featmaps), ("proj", proj)]
+    named += [("images", images)] if images is not None else []
+    named += list(zip(("s1u", "s2u", "s1m", "cnt"), host or ()))
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"K2 takes float32 only; {name} is {t.dtype}")
         if t.device != pts.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {pts.device}")
     r, s, _ = pts.shape
-    v, ih, iw, _ = images.shape
-    _, fh, fw, c = featmaps.shape
-    if (pts.shape[2] != 3 or images.shape[3] != 3 or featmaps.shape[0] != v
-            or proj.shape != (v, 4, 4)):
+    v, _, _, c = featmaps.shape
+    if (pts.shape[2] != 3 or proj.shape != (v, 4, 4)
+            or (images is not None and (images.shape[3] != 3
+                                        or images.shape[0] != v))):
         raise ValueError("K2 needs pts (R, S, 3), images (V, H, W, 3), "
                          "featmaps (V, h, w, C) and proj (V, 4, 4)")
+    if host is not None and [tuple(t.shape) for t in host] != [
+            (r, s, 3)] * 3 + [(r, s, 1)]:
+        raise ValueError("the host rgb sums must be (R, S, 3) x 3 and the "
+                         "count (R, S, 1)")
     if not 1 <= c <= 32:
         raise ValueError(f"K2 takes 1 to 32 feature channels, got {c}")
+
+
+def _k2_launch(pts, images, proj, img_hw, featmaps, precomputed_rgb=None,
+               for_grad: bool = False):
+    """Check and launch K2 on the card; the launch is not counted.
+    Returns (globalfeat, pixel_mask, s1u, cnt): with ``for_grad`` the
+    kernel also writes the feature channels' unmasked sums s1u (R, S, C)
+    and, in the eval form, its count (the training form's is the host
+    one); otherwise both are None."""
+    host = (None if precomputed_rgb is None
+            else [t.contiguous() for t in precomputed_rgb])
+    if host is not None:
+        images = None
+    _check_k2(pts, images, proj, featmaps, host)
+    r, s, _ = pts.shape
+    v, fh, fw, c = featmaps.shape
     dev = pts.device
     gf = torch.empty((r, s, 2 * (3 + c)), dtype=torch.float32, device=dev)
     mask = torch.empty((r, s), dtype=torch.bool, device=dev)
+    s1u = cnt = None
+    if for_grad:
+        s1u = torch.empty((r, s, c), dtype=torch.float32, device=dev)
+        cnt = (host[3] if host is not None else
+               torch.empty((r, s, 1), dtype=torch.float32, device=dev))
     n = r * s
     if n == 0:
-        return gf, mask
+        return gf, mask, s1u, cnt
     h, w = img_hw
-    sx, sy, fsx, fsy = _scales(images, featmaps, img_hw)
+    ih, iw = images.shape[1:3] if images is not None else (0, 0)
+    sx = _scale(iw, w) if images is not None else 0.0
+    sy = _scale(ih, h) if images is not None else 0.0
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _lib()
     with torch.cuda.device(dev):  # the launch acts on the current device
         err = lib.streaming_sample_mean_var(
-            pts.data_ptr(), images.data_ptr(), featmaps.data_ptr(),
-            proj.data_ptr(), gf.data_ptr(), mask.data_ptr(), n, v, ih, iw,
-            fh, fw, c, h, w, sx, sy, fsx, fsy,
+            pts.data_ptr(), ptr(images), featmaps.data_ptr(),
+            proj.data_ptr(), *(ptr(t) for t in host or (None,) * 4),
+            gf.data_ptr(),
+            mask.data_ptr(), ptr(s1u),
+            ptr(cnt if host is None else None), n, v, ih, iw, fh, fw, c,
+            h, w, sx, sy, _scale(fw, w), _scale(fh, h),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var kernel launch "
                            f"failed: cudaError {err}")
-    return gf, mask
+    return gf, mask, s1u, cnt
 
 
 def _lib():
@@ -227,8 +445,101 @@ def _lib():
     fn = lib.streaming_sample_mean_var
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 6 + [i] * 9 + [f] * 4 + [p]
+        fn.argtypes = [p] * 12 + [i] * 9 + [f] * 4 + [p]
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
+    """Check and launch K2's backward; returns d featmaps. Pass 0 (the
+    kernel, ``_backward_keys``) keys each (point, view) pair by its
+    feature window and writes the points' cotangents; torch sorts the
+    keys stably and finds each window's run (``window_order``, the index
+    preparation, as K1's backward does); passes 1 and 2 (the kernel) sum
+    each window's pairs in point order and unpack the windows into
+    texels. The launch is not counted."""
+    if featmaps.dtype != torch.float32:
+        raise TypeError(f"K2's backward takes float32 maps, got "
+                        f"{featmaps.dtype}")
+    _check_k2(pts, None, proj, featmaps, None)
+    r, s, _ = pts.shape
+    v, fh, fw, c = featmaps.shape
+    n, cs, dev = r * s, 3 + c, pts.device
+    for name, t, shape in (("g", g, (r, s, 2 * cs)),
+                           ("globalfeat", globalfeat, (r, s, 2 * cs)),
+                           ("s1u", s1u, (r, s, c)), ("cnt", cnt, (r, s, 1))):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != dev):
+            raise ValueError(f"{name} must be a float32 {shape} tensor on "
+                             f"{dev}")
+    if v * n >= 2 ** 31 or v * fh * fw * 4 * c >= 2 ** 31:
+        raise ValueError("K2's backward indexes pairs and texels in int32")
+    if n == 0:
+        return torch.zeros_like(featmaps)
+    keys, coef = _backward_keys(pts, proj, img_hw, featmaps, g.contiguous(),
+                                globalfeat.contiguous(), s1u.contiguous(),
+                                cnt.contiguous())
+    order, off = window_order(keys, v * fh * fw)
+    packed = torch.empty((v * fh * fw, 4, c), dtype=torch.float32,
+                         device=dev)
+    d_feats = torch.empty_like(featmaps)
+    with torch.cuda.device(dev):  # the launches act on the current device
+        err = _backward_lib().streaming_sample_mean_var_backward_scatter(
+            pts.data_ptr(), proj.data_ptr(), featmaps.data_ptr(),
+            coef.data_ptr(), order.data_ptr(), off.data_ptr(),
+            packed.data_ptr(), d_feats.data_ptr(), n, v, fh, fw, c,
+            *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var backward launch "
+                           f"failed: cudaError {err}")
+    return d_feats
+
+
+def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
+    """K2's backward pass 0 on checked, contiguous inputs: the pairs'
+    keys (V, N) int32 and the points' cotangents coef (N, 3, C)."""
+    r, s, _ = pts.shape
+    v, fh, fw, c = featmaps.shape
+    n, dev = r * s, pts.device
+    keys = torch.empty((v, n), dtype=torch.int32, device=dev)
+    coef = torch.empty((n, 3, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):  # the launches act on the current device
+        err = _backward_lib().streaming_sample_mean_var_backward_keys(
+            pts.data_ptr(), proj.data_ptr(), g.data_ptr(),
+            globalfeat.data_ptr(), s1u.data_ptr(), cnt.data_ptr(),
+            keys.data_ptr(), coef.data_ptr(), n, v, fh, fw, c, *img_hw,
+            _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var backward pass 0 "
+                           f"launch failed: cudaError {err}")
+    return keys, coef
+
+
+def window_order(keys, n_windows: int):
+    """The inverse index of K2's backward: the pairs sorted stably by key,
+    ``order`` (V N) int32 (the dropped pairs, keyed ``n_windows``, last),
+    and ``off`` (n_windows + 1) int32, where each window's pairs start in
+    ``order``; window k has ``off[k + 1] - off[k]`` of them, in ascending
+    pair (so point) order."""
+    sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
+    bounds = torch.arange(n_windows + 1, dtype=torch.int32,
+                          device=keys.device)
+    off = torch.searchsorted(sorted_keys, bounds, out_int32=True)
+    return order.to(torch.int32), off
+
+
+def _backward_lib():
+    lib = cuda_build.load("streaming_sample_mean_var_backward")
+    keys = lib.streaming_sample_mean_var_backward_keys
+    if keys.argtypes is None:  # pointers must not pass as 32-bit ints
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        keys.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [p]
+        keys.restype = ctypes.c_int
+        scatter = lib.streaming_sample_mean_var_backward_scatter
+        scatter.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [p]
+        scatter.restype = ctypes.c_int
     return lib
 
 
@@ -254,16 +565,25 @@ def raw2outputs(raw, z_vals, mask) -> Dict[str, torch.Tensor]:
 
 def render_rays_chunk(ray_o, ray_d, mlp_fn: Callable, *,
                       near_far: Tuple[float, float], n_samples: int,
-                      images, proj, img_hw, featmaps) -> Dict:
+                      images, proj, img_hw, featmaps, det: bool = True,
+                      generator: Optional[torch.Generator] = None,
+                      z_vals=None, precomputed_rgb=None) -> Dict:
     """Render one chunk of rays in image mode.
 
     ``mlp_fn(pts, viewdirs, features) -> (rgb, sigma)`` is the radiance
-    field. Evenly spaced samples, the view statistics (K2) as
-    the field's features, then compositing (``raw2outputs``)."""
-    pts, z_vals = sample_along_camera_ray(ray_o, ray_d, near_far[0],
-                                          near_far[1], n_samples)
+    field. The samples: at ``z_vals`` (R, S) where given (the host's
+    stratified depths), else ``sample_along_camera_ray`` (evenly spaced
+    if ``det``, else jittered from ``generator``); the view statistics
+    (K2, in its training form with ``precomputed_rgb``) as the field's
+    features, then compositing (``raw2outputs``)."""
+    if z_vals is not None:
+        pts = points_at(ray_o, ray_d, z_vals)
+    else:
+        pts, z_vals = sample_along_camera_ray(
+            ray_o, ray_d, near_far[0], near_far[1], n_samples, det=det,
+            generator=generator)
     globalfeat, pixel_mask = streaming_sample_mean_var(
-        pts, images, proj, img_hw, featmaps)
+        pts, images, proj, img_hw, featmaps, precomputed_rgb)
     rgb_pts, density_pts = mlp_fn(pts, ray_d, globalfeat)
     return raw2outputs(torch.cat([rgb_pts, density_pts], dim=-1), z_vals,
                        pixel_mask)

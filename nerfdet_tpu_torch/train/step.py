@@ -1,10 +1,13 @@
-"""The detection train step: per-scene loss sums, their reduction, and
-one optimizer update.
+"""The joint detection + NVS train step: per-scene loss sums, their
+reduction, and one optimizer update.
 
 Port of ``nerfdet_tpu/train/step.py`` (``scene_loss_terms``,
-``reduce_loss_terms``, ``make_train_step``) for ``rgb_supervision=False``:
-the loss is the head's centerness + cls + bbox terms. As in the JAX step,
-which ``vmap``s the scenes of a batch:
+``reduce_loss_terms``, ``make_train_step``): the loss is the head's
+centerness + cls + bbox terms plus, for a scene with rays under
+``rgb_supervision``, the masked photometric loss ``loss_nvs`` and under
+``depth_supervise`` the masked depth loss ``loss_depth``, each a per-scene
+term averaged over the scenes. As in the JAX step, which ``vmap``s the
+scenes of a batch:
 
 * every scene runs its own forward, its BatchNorms normalized by its own
   statistics and updated from the same running statistics; the running
@@ -32,15 +35,32 @@ from ..nn.heads import head_loss_sums
 from .optim import Optimizer
 
 
-def scene_loss_terms(model: NerfDet, scene: Dict) -> Dict[str, torch.Tensor]:
+def scene_loss_terms(model: NerfDet, scene: Dict,
+                     depth_supervise: bool = False,
+                     use_nerf_mask: bool = True,
+                     rgb_supervision: bool = True) -> Dict[str, torch.Tensor]:
     """Loss sums of ONE scene through the train-mode forward (which
-    updates the 3D neck's running statistics in place)."""
-    head_outs, valid, _ = model(scene)
-    return head_loss_sums(
+    updates the 3D neck's running statistics in place). With rays and
+    ``rgb_supervision``: ``loss_nvs``, the squared rgb error summed over
+    the rays' mask (the ray mask if ``use_nerf_mask``, else every ray)
+    over the mask's sum + 1e-6, and with ``depth_supervise`` likewise
+    ``loss_depth`` from the absolute depth error."""
+    head_outs, valid, render = model(scene)
+    terms = head_loss_sums(
         head_outs, valid, model.mlvl_points(scene["origin"]),
         scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"],
         model.n_scales, model.head_limit, model.head_centerness_topk,
         model.n_classes)
+    if render is not None and rgb_supervision:
+        mask = (render["mask"].float() if use_nerf_mask
+                else torch.ones_like(render["depth"]))
+        den = mask.sum() + 1e-6
+        terms["loss_nvs"] = torch.sum(
+            mask[..., None] * (render["rgb"] - scene["gt_rgb"]) ** 2) / den
+        if depth_supervise:
+            terms["loss_depth"] = torch.sum(
+                mask * torch.abs(render["depth"] - scene["gt_depth"])) / den
+    return terms
 
 
 def reduce_loss_terms(terms: Sequence[Dict[str, torch.Tensor]]):
@@ -56,7 +76,12 @@ def reduce_loss_terms(terms: Sequence[Dict[str, torch.Tensor]]):
         for t in terms]).mean()
     loss = loss_centerness + loss_cls + loss_bbox
     metrics = dict(loss_centerness=loss_centerness, loss_cls=loss_cls,
-                   loss_bbox=loss_bbox, n_pos=mean("n_pos"), loss=loss)
+                   loss_bbox=loss_bbox, n_pos=mean("n_pos"))
+    for key in ("loss_nvs", "loss_depth"):
+        if key in terms[0]:
+            metrics[key] = mean(key)
+            loss = loss + metrics[key]
+    metrics["loss"] = loss
     return loss, metrics
 
 
@@ -66,17 +91,18 @@ def _running_stats(model) -> List[torch.Tensor]:
 
 
 def make_train_step(model: NerfDet, optimizer: Optimizer,
-                    rgb_supervision: bool = False
+                    depth_supervise: bool = False,
+                    use_nerf_mask: bool = True,
+                    rgb_supervision: bool = True
                     ) -> Callable[[List[Dict]], Dict[str, torch.Tensor]]:
     """The train step: ``step(scenes)`` runs a forward per scene, one
     backward and one update of ``optimizer``, and returns the metrics
-    (loss, loss_centerness, loss_cls, loss_bbox, n_pos, grad_norm) as
-    0-d tensors on the model's device. ``scenes`` are
-    ``api.train_batch`` dicts. The model is put in train mode."""
-    if rgb_supervision:
-        raise NotImplementedError(
-            "the NVS and depth losses need the render's backward (K2's), "
-            "not ported yet (ROADMAP §1, joint det+NVS training)")
+    (loss, loss_centerness, loss_cls, loss_bbox, n_pos, grad_norm, and
+    loss_nvs / loss_depth where the scenes carry rays and
+    ``rgb_supervision`` / ``depth_supervise`` ask for them) as 0-d
+    tensors on the model's device. ``scenes`` are ``api.train_batch``
+    dicts. The model is put in train mode. The defaults are the JAX
+    step's."""
 
     def step(scenes: List[Dict]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -89,7 +115,8 @@ def make_train_step(model: NerfDet, optimizer: Optimizer,
             with torch.no_grad():
                 for s, s0 in zip(stats, start):
                     s.copy_(s0)
-            terms.append(scene_loss_terms(model, scene))
+            terms.append(scene_loss_terms(model, scene, depth_supervise,
+                                          use_nerf_mask, rgb_supervision))
             with torch.no_grad():
                 for u, s in zip(updated, stats):
                     u += s

@@ -290,17 +290,6 @@ def test_fusion_carry_refuses_bfloat16_maps_under_grad(dev):
         assert voxel.fusion_carry(feats, pix)[0].dtype == torch.float32
 
 
-def test_streaming_sample_mean_var_refuses_a_gradient(dev):
-    """K2 has no backward yet: featmaps that need a gradient raise rather
-    than return outputs autograd cannot follow."""
-    pts, images, feats, proj = _ray_inputs(dev, 2, 16, 4, 32)
-    args = (pts, images, proj, (239, 320))
-    with pytest.raises(NotImplementedError, match="backward"):
-        render.streaming_sample_mean_var(*args, feats.requires_grad_())
-    with torch.no_grad():
-        render.streaming_sample_mean_var(*args, feats)
-
-
 def _cloud(dev, n, c, seed, dup=False):
     """A room-sized cloud (8 x 8 x 3 m), or half of one repeated."""
     rng = np.random.RandomState(seed)
@@ -447,6 +436,133 @@ def test_streaming_sample_mean_var_rejects_what_it_cannot_take(dev):
         fused(pts, images[..., :2].contiguous(), proj, (239, 320), feats)
     with pytest.raises(ValueError, match="unsupported device"):
         fused(pts.to("meta"), images, proj, (239, 320), feats)
+
+
+def _host_rgb(pts, images, proj):
+    """The training form's host rgb sums and count: the plain carry's rgb
+    channels (they equal ``data/ray_stats.host_ray_rgb_stats``'s)."""
+    carry = render.ray_view_carry_plain(pts, images, images[..., :1], proj,
+                                        (239, 320))
+    return tuple(t[..., :3].contiguous() for t in carry[:3]) + (carry[3],)
+
+
+@pytest.mark.parametrize("v,r,s,c", [
+    (50, 2048, 64, 32),  # the training path's shape
+    (3, 37, 5, 8), (7, 64, 64, 32), (6, 50, 13, 30),
+])
+def test_streaming_sample_mean_var_training_form_matches_plain(dev, v, r, s,
+                                                               c):
+    """K2 with the host rgb sums (the training form) against its plain
+    version: the mask exact, globalfeat 1e-5 relative, and under grad the
+    feature channels' s1u and the host count as the carry has them."""
+    pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=v + s)
+    host = _host_rgb(pts, images, proj)
+    args = (pts, None, proj, (239, 320), feats, host)
+    before = render.streaming_sample_mean_var.launches
+    got = render._k2_launch(*args, for_grad=True)
+    render.streaming_sample_mean_var(*args)
+    want = render.streaming_sample_mean_var_plain(*args)
+    carry = render.ray_view_carry_plain(pts, None, feats, proj, (239, 320))
+    torch.cuda.synchronize()
+    assert render.streaming_sample_mean_var.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    assert _rel(got[0], want[0]) <= 1e-5
+    assert _rel(got[2], carry[0]) <= 1e-5
+    assert got[3] is host[3]
+    # the eval form under grad writes its own count
+    ev = render._k2_launch(pts, images, proj, (239, 320), feats,
+                           for_grad=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ev[3], render.ray_view_carry_plain(
+        pts, images, feats, proj, (239, 320))[3])
+
+
+def _backward_inputs(dev, case, v, r, s, c, seed):
+    """K2's backward inputs: the forward's globalfeat, s1u and count at
+    ``_ray_inputs`` points and a random cotangent. "border": every point
+    pushed to the maps' edge band, where windows clamp and weights are
+    partial; "interior": points near the room's centre."""
+    pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=seed)
+    if case == "border":
+        pts = pts * 2.5
+    elif case == "interior":
+        pts = pts * 0.3
+    host = _host_rgb(pts, images, proj)
+    gf, _, s1u, cnt = render._k2_launch(pts, None, proj, (239, 320), feats,
+                                        host, for_grad=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(gf.shape, generator=gen, device=dev)
+    return pts, proj, feats, g, gf, s1u, cnt
+
+
+@pytest.mark.parametrize("case", ["scene", "border", "interior"])
+@pytest.mark.parametrize("v,r,s,c", [
+    (50, 2048, 64, 32), (5, 300, 16, 8), (4, 33, 3, 32), (6, 50, 13, 30),
+])
+def test_streaming_sample_mean_var_backward_matches_plain(dev, case, v, r,
+                                                          s, c):
+    """K2's backward kernel against its plain version (``index_add_`` in
+    point order): within 1e-5 x max (the texel sums run in another
+    order), and bitwise the same on a second run."""
+    pts, proj, feats, g, gf, s1u, cnt = _backward_inputs(
+        dev, case, v, r, s, c, seed=v + r + c)
+    before = render.streaming_sample_mean_var_backward.launches
+    got = render.streaming_sample_mean_var_backward(
+        pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    want = render.streaming_sample_mean_var_backward_plain(
+        pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    torch.cuda.synchronize()
+    assert render.streaming_sample_mean_var_backward.launches == before + 1
+    assert got.shape == feats.shape and got.dtype == torch.float32
+    assert float(want.abs().max()) > 0
+    assert _rel(got, want) <= 1e-5
+    again = render.streaming_sample_mean_var_backward(
+        pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("form", ["training", "eval"])
+def test_streaming_sample_mean_var_gradient_is_the_kernels(dev, form):
+    """Through ``streaming_sample_mean_var`` on the card, autograd takes
+    K2's backward kernel (one counted launch), and the gradient agrees
+    with autograd through the plain version (1e-5 x max)."""
+    pts, images, feats, proj = _ray_inputs(dev, 8, 256, 32, 32, seed=3)
+    host = _host_rgb(pts, images, proj) if form == "training" else None
+    g = torch.randn((256, 32, 70), device=dev)
+
+    def grad(fn):
+        f = feats.clone().requires_grad_()
+        gf, _ = fn(pts, images, proj, (239, 320), f, host)
+        (gf * g).sum().backward()
+        return f.grad
+
+    before = render.streaming_sample_mean_var_backward.launches
+    got = grad(render.streaming_sample_mean_var)
+    assert render.streaming_sample_mean_var_backward.launches == before + 1
+    want = grad(render.streaming_sample_mean_var_plain)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+
+
+def test_streaming_sample_mean_var_backward_refuses_what_it_cannot_take(dev):
+    pts, proj, feats, g, gf, s1u, cnt = _backward_inputs(
+        dev, "scene", 2, 16, 4, 32, seed=0)
+    bwd = render.streaming_sample_mean_var_backward
+    args = (pts, proj, (239, 320))
+    with pytest.raises(TypeError, match="compute_dtype"):
+        render.streaming_sample_mean_var(
+            pts, None, proj, (239, 320),
+            feats.bfloat16().requires_grad_(), _host_rgb(
+                pts, torch.rand((2, 240, 320, 3), device=dev), proj))
+    with pytest.raises(TypeError, match="float32"):
+        bwd(*args, feats.bfloat16(), g, gf, s1u, cnt)
+    wide = torch.cat([feats, feats[..., :1]], -1)
+    with pytest.raises(ValueError, match="feature channels"):
+        bwd(*args, wide, g, gf, s1u, cnt)
+    with pytest.raises(ValueError, match="g must be"):
+        bwd(*args, feats, g[..., :-1], gf, s1u, cnt)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bwd(pts.to("meta"), proj, (239, 320), feats, g, gf, s1u, cnt)
 
 
 def test_entry_device_turns_tf32_off(dev):

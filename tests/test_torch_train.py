@@ -117,7 +117,8 @@ def _port_step(model, start, scenes, max_norm):
     model.load_state_dict(start, strict=True)
     opt = toptim.build_optimizer(model, OPTIMIZER,
                                  grad_clip=dict(max_norm=max_norm))
-    metrics = make_train_step(model, opt)(api.train_batch(model, scenes))
+    step = make_train_step(model, opt, rgb_supervision=False)
+    metrics = step(api.train_batch(model, scenes))
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
              for n, p in model.named_parameters()}
     return metrics, grads, copy.deepcopy(model.state_dict())
@@ -424,17 +425,50 @@ def test_get_targets_matches_jax(seed):
         rtol=0, atol=1e-6)
 
 
-def test_training_refuses_rays_and_the_nvs_loss(toy):
+def test_training_without_rays_gives_no_nvs_term(toy):
+    """Under ``rgb_supervision`` (the default) a scene without rays adds
+    no NVS term: the step's metrics and loss are the detection step's."""
     model = _port_model()
     model.load_state_dict(toy["start"])
-    opt = toptim.build_optimizer(model, OPTIMIZER)
-    with pytest.raises(NotImplementedError, match="K2"):
-        make_train_step(model, opt, rgb_supervision=True)
-    batch = api.train_batch(model, toy["scenes"][:1])[0]
-    batch["ray_o"] = batch["ray_d"] = torch.zeros((8, 3))
-    model.train()
-    with pytest.raises(NotImplementedError, match="ray bundle"):
-        model(batch)
+    opt = toptim.build_optimizer(model, OPTIMIZER,
+                                 grad_clip=dict(max_norm=MAX_NORM))
+    scenes = [{k: v for k, v in s.items()
+               if k not in ("ray_o", "ray_d", "gt_rgb", "gt_depth")}
+              for s in toy["scenes"]]
+    batch = api.train_batch(model, scenes)
+    assert all("ray_o" not in b for b in batch)
+    got = make_train_step(model, opt)(batch)
+    want = toy["port"][MAX_NORM][0]
+    assert set(got) == set(want) and "loss_nvs" not in got
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("rgb_supervision", [None, True, False])
+def test_init_trainer_reads_the_loss_switches_from_the_config(
+        monkeypatch, rgb_supervision):
+    """``init_trainer`` builds the step ``tools/train.py`` builds for the
+    config: the NVS loss unless ``model.rgb_supervision`` is False, and
+    ``depth_supervise`` and ``use_nerf_mask`` as the config sets them."""
+    from nerfdet_tpu_torch.config import Config
+
+    cfg = Config.fromfile("configs/nerfdet/nerfdet_res50_2x_low_res.py")
+    assert "rgb_supervision" not in cfg.model
+    assert cfg.model["depth_supervise"] is False
+    if rgb_supervision is not None:
+        cfg.model["rgb_supervision"] = rgb_supervision
+    cfg.model["use_nerf_mask"] = False
+    seen = {}
+
+    def spy(model, optimizer, **kw):
+        seen.update(kw)
+        return make_train_step(model, optimizer, **kw)
+
+    monkeypatch.setattr(api, "make_train_step", spy)
+    tr = api.init_trainer(cfg, device="cpu")
+    assert seen == dict(rgb_supervision=rgb_supervision is not False,
+                        depth_supervise=False, use_nerf_mask=False)
+    assert tr.model.n_rand == 2048 and tr.model.n_samples == 64
 
 
 def test_init_trainer_needs_cuda_unless_cpu():
