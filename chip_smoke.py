@@ -58,11 +58,15 @@ Phases, each reported on its own lines:
    forward / backward / optimizer times, steps/s and peak memory.
 
 Phase 3 also holds K1's backward kernel against its plain version at
-phase 4's pixel indices (the main path's form: no s2 cotangent), with
+phase 4's pixel indices and at phase 8's (the intrinsic scaled to
+``ori_shape``), in the main path's form (no s2 cotangent), with the
+times of its passes (the index preparation, passes 1, 2 and 3) and
 ``torch.mm`` on the two products it contains as its yardstick; and, at
 phase 8's shape, K2's training form (host rgb sums) against its plain
 version, and K2's backward against its plain version (two runs bitwise
-equal), with ``index_add_`` of the weighted tap rows as its yardstick.
+equal), with the times of its passes (pass 0, the index preparation,
+passes 1 and 2) and ``index_add_`` of the weighted tap rows as its
+yardstick.
 
 Each path runs with every launch count set to 0 just before it and
 read just after.
@@ -254,13 +258,14 @@ def fusion_backward_bound(pix, hw, c, m, with_g2):
             "operations", nbytes, ops, rows)
 
 
-def check_fusion_backward(voxel, pix, hw, gen):
+def check_fusion_backward(voxel, pix, hw, gen, label):
     """K1's backward kernel vs ``fusion_carry_backward_plain`` at the main
     path's form (C = 256, M = 32, f32 maps, cotangents of s1 and s2m, none
     of s2): d features within 1e-5 x max, dW and db within 1e-4 x max,
-    two runs bitwise equal. Times the kernel (the index preparation
-    included), the plain version and ``torch.mm`` on the two products it
-    contains (dY @ W^T and x^T dY over the referenced rows)."""
+    two runs bitwise equal. Times the kernel, its passes (the index
+    preparation, pass 1, 2 and 3, each on the last one's outputs), the
+    plain version and ``torch.mm`` on the two products it contains (dY @
+    W^T and x^T dY over the referenced rows)."""
     import torch
 
     dev = pix.device
@@ -283,36 +288,47 @@ def check_fusion_backward(voxel, pix, hw, gen):
     errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
     rels = [e / max(float(y.abs().max()), 1e-30) for e, y in zip(errs, want)]
     ms = cuda_time_ms(lambda: voxel.fusion_carry_backward(*args), 20)
-    index_ms = cuda_time_ms(lambda: voxel.pixel_order(pix, hw[0] * hw[1]),
-                            20)
+    n_pix = hw[0] * hw[1]
+    order, off, rows, n_rows = voxel.pixel_order(pix, n_pix)
+    _, dy = voxel._pixel_sums(feats, order, off, g1, None, gm, rows_p, w)
+    parts = voxel._weight_parts(feats, dy, rows, n_rows, gm, count)
+    passes = {
+        "index_ms": cuda_time_ms(lambda: voxel.pixel_order(pix, n_pix), 20),
+        "pass1_ms": cuda_time_ms(lambda: voxel._pixel_sums(
+            feats, order, off, g1, None, gm, rows_p, w), 20),
+        "pass2_ms": cuda_time_ms(lambda: voxel._weight_parts(
+            feats, dy, rows, n_rows, gm, count), 20),
+        "pass3_ms": cuda_time_ms(lambda: voxel._weight_reduce(*parts, b),
+                                 20)}
     plain_ms = cuda_time_ms(lambda: voxel.fusion_carry_backward_plain(*args),
                             3, warmup=1)
     # the yardstick: the two products over the referenced rows
     keys = torch.where(pix >= 0, pix.long() + torch.arange(
-        v, device=dev)[:, None] * (hw[0] * hw[1]), -1).flatten()
+        v, device=dev)[:, None] * n_pix, -1).flatten()
     ref = torch.unique(keys[keys >= 0])
     x_r = feats.reshape(-1, c)[ref]
     dy_r = torch.randn((ref.numel(), m), generator=gen, device=dev)
     wt = w.t().contiguous()
     library_ms = cuda_time_ms(
         lambda: (torch.mm(dy_r, wt), torch.mm(x_r.t(), dy_r)), 20)
-    bound_ms, bound_by, nbytes, ops, rows = fusion_backward_bound(
-        pix, hw[0] * hw[1], c, m, False)
-    log(f"[kernel] fused_mean_cov_backward float32 mapped, no s2 cotangent: "
-        f"V={v} map={hw[0]}x{hw[1]} C={c} N={n} M={m}; {rows} referenced "
-        f"rows: two runs bitwise equal; max_abs_err d features "
+    bound_ms, bound_by, nbytes, ops, n_ref = fusion_backward_bound(
+        pix, n_pix, c, m, False)
+    log(f"[kernel] fused_mean_cov_backward float32 mapped, no s2 cotangent, "
+        f"{label}: V={v} map={hw[0]}x{hw[1]} C={c} N={n} M={m}; {n_ref} "
+        f"referenced rows: two runs bitwise equal; max_abs_err d features "
         f"{errs[0]:.3e} (rel {rels[0]:.3e}, tol 1e-5), dW {errs[1]:.3e} "
         f"(rel {rels[1]:.3e}, tol 1e-4), db {errs[2]:.3e} (rel "
         f"{rels[2]:.3e}, tol 1e-4) ms={ms:.4f} (index preparation "
-        f"{index_ms:.4f}) plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} (torch.mm: dY @ W^T and x^T dY over "
-        f"the referenced rows) bound_ms={bound_ms:.4f} ({bound_by}; "
-        f"{nbytes} B, {ops} FLOP)")
+        f"{passes['index_ms']:.4f}, pass 1 {passes['pass1_ms']:.4f}, pass 2 "
+        f"{passes['pass2_ms']:.4f}, pass 3 {passes['pass3_ms']:.4f}) "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.mm: "
+        f"dY @ W^T and x^T dY over the referenced rows) "
+        f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, {ops} FLOP)")
     if rels[0] > 1e-5 or rels[1] > 1e-4 or rels[2] > 1e-4:
         raise SystemExit("K1 backward disagrees with its plain version")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                index_ms=index_ms)
+                **passes)
 
 
 def fps_bound(n, c, s):
@@ -762,13 +778,24 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     b_plain_ms = cuda_time_ms(
         lambda: render.streaming_sample_mean_var_backward_plain(*bargs), 2,
         warmup=1)
-    # its parts: pass 0 (keys and cotangents), the index preparation
-    # (torch.sort + searchsorted); passes 1 and 2 take the rest
-    keys, _ = render._backward_keys(*bargs)
-    keys_ms = cuda_time_ms(lambda: render._backward_keys(*bargs), 10)
-    n_win = feats.numel() // feats.shape[-1]
-    index_ms = cuda_time_ms(lambda: render.window_order(keys, n_win), 10)
-    del keys
+    # its passes, each on the last one's outputs: pass 0 (keys and
+    # cotangents), the index preparation (the counting sort), pass 1 (the
+    # windows' sums), pass 2 (the unpack)
+    keys, coef = render._backward_keys(*bargs)
+    n_win = feats.shape[1] * feats.shape[2]
+    order, off = render._window_order_launch(keys, n_win)
+    packed = render._window_sums(pts, proj, img_hw, feats, coef, order, off)
+    passes = {
+        "pass0_ms": cuda_time_ms(lambda: render._backward_keys(*bargs), 10),
+        "index_ms": cuda_time_ms(
+            lambda: render._window_order_launch(keys, n_win), 10),
+        "pass1_ms": cuda_time_ms(lambda: render._window_sums(
+            pts, proj, img_hw, feats, coef, order, off), 10),
+        "pass2_ms": cuda_time_ms(lambda: render._unpack(packed, off, feats),
+                                 10)}
+    held = int(((off[1:] - off[:-1]) > 0).sum())
+    longest = int((off[1:] - off[:-1]).max())
+    del keys, coef, order, off, packed
     idx, rows, kept = k2_scatter_rows(render, *bargs)
     flat = torch.zeros((feats.numel() // feats.shape[-1], feats.shape[-1]),
                        device=feats.device)
@@ -783,8 +810,11 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
         f"{kept} with a non-zero tap weight ({kept / pairs:.4f}), {unseen} "
         f"points seen by no view: two runs bitwise equal; d featmaps "
         f"max_abs_err={err:.3e} (rel {rel:.3e} of max "
-        f"{float(want.abs().max()):.3e}, tol 1e-5) ms={b_ms:.4f} (pass 0 "
-        f"{keys_ms:.4f}, index preparation {index_ms:.4f}) "
+        f"{float(want.abs().max()):.3e}, tol 1e-5); {held} of "
+        f"{feats.numel() // feats.shape[-1]} windows hold a pair, the "
+        f"longest {longest} ms={b_ms:.4f} (pass 0 {passes['pass0_ms']:.4f}, "
+        f"index preparation {passes['index_ms']:.4f}, pass 1 "
+        f"{passes['pass1_ms']:.4f}, pass 2 {passes['pass2_ms']:.4f}) "
         f"plain_ms={b_plain_ms:.4f} library_ms={library_ms:.4f} "
         f"(index_add_ of {n_rows} weighted tap rows into the flat map) "
         f"bound_ms={b_bound:.4f} ({b_by}; {b_bytes} B, {b_ops} FLOP)")
@@ -793,8 +823,7 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
                          f"rel {rel:.3e}")
     return train_form, dict(max_abs_err=err, ms=b_ms, plain_ms=b_plain_ms,
                             bound_ms=b_bound, bound_by=b_by,
-                            library_ms=library_ms, pass0_ms=keys_ms,
-                            index_ms=index_ms)
+                            library_ms=library_ms, **passes)
 
 
 def window_reuse(render, model, batch):
@@ -1521,7 +1550,11 @@ def main():
         ("bfloat16", pix, bf16, False), ("bfloat16 mapped", pix, bf16, True),
         ("float32 mapped, intrinsic scaled to ori_shape",
          pixel_indices(intrinsic), f32, True)], (fh, fw), gen)
-    fusion_bwd = check_fusion_backward(voxel, pix, (fh, fw), gen)
+    fusion_bwd = check_fusion_backward(voxel, pix, (fh, fw), gen,
+                                       "phase 4/7's pix")
+    fusion_bwd_scaled = check_fusion_backward(
+        voxel, pixel_indices(intrinsic), (fh, fw), gen,
+        "phase 8's pix (intrinsic scaled to ori_shape)")
     path_names = ["sa0", "sa1", "sa2", "sa3", "vote_aggregation"]
     half = torch.rand((N_POINTS // 2, 3), generator=gen, device=dev) * 8
     extra = [("F-FPS C=19", torch.randn((4096, 19), generator=gen,
@@ -1727,7 +1760,11 @@ def main():
         "bound_ms": fusion_bwd["bound_ms"],
         "bound_by": fusion_bwd["bound_by"],
         "library_ms": fusion_bwd["library_ms"],
-        "index_ms": fusion_bwd["index_ms"],
+        **{k: fusion_bwd[k] for k in ("index_ms", "pass1_ms", "pass2_ms",
+                                      "pass3_ms")},
+        "intrinsic_scaled": {k: fusion_bwd_scaled[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "index_ms", "pass1_ms", "pass2_ms", "pass3_ms")},
         "library_of": "torch.mm on dY @ W^T and x^T dY over the referenced "
                       "rows; the per-pixel sums have no one-call counterpart",
     }, {
@@ -1743,8 +1780,8 @@ def main():
         "bound_ms": k2_bwd["bound_ms"],
         "bound_by": k2_bwd["bound_by"],
         "library_ms": k2_bwd["library_ms"],
-        "pass0_ms": k2_bwd["pass0_ms"],
-        "index_ms": k2_bwd["index_ms"],
+        **{k: k2_bwd[k] for k in ("pass0_ms", "index_ms", "pass1_ms",
+                                  "pass2_ms")},
         "library_of": "index_add_ of the weighted tap rows into the flat "
                       "feature map: the scatter alone",
     }]}

@@ -1,0 +1,267 @@
+"""Time K2's backward and K1's backward of one checkout on the card, pass
+by pass, for comparing two designs of them in one call.
+
+    python3 kernel_ab.py [CHECKOUT] [--save OUT.pt] [--profile]
+    python3 kernel_ab.py --compare A.pt B.pt
+
+Imports ``nerfdet_tpu_torch`` from CHECKOUT (default: this file's
+directory), building its kernels there, and makes the inputs of
+``chip_smoke.py`` (this directory's) from their seeds: NeRF-Det-R50 at
+full width with random weights, phase 4's pixel indices (the intrinsic as
+the synthetic scene gives it) and phase 8's (scaled to ``ori_shape``),
+and phase 8's training batch (2048 rays x 64 samples over 50 views of
+59x80x32 mapped maps). With CUDA events it times K2's backward (whole;
+pass 0, the index preparation, passes 1 and 2) and K1's backward at
+both pixel indices (whole; the index preparation, passes 1, 2 and 3),
+C = 256, M = 32 and no s2 cotangent as on the training path. A design without a pass's own entry point reports what
+the whole leaves after the passes it has ("rest"). With ``--save`` it
+writes the backwards' outputs, which ``--compare`` holds bit for bit
+against another checkout's. With ``--profile`` it also prints each
+backward's device time by kernel (``torch.profiler``, 5 calls). Prints
+one line of times and the card. Run
+two checkouts in turns (A B B A) in one call: calls may land on cards of
+other power limits.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def timed(fn, iters=20):
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k2_times(render, bargs, out):
+    """K2's backward, pass by pass where the design has them."""
+    hw_img, feats = bargs[2], bargs[3]
+    n_win = feats.shape[1] * feats.shape[2]
+    t = {"k2_bwd": timed(lambda: render.streaming_sample_mean_var_backward(
+        *bargs), 10)}
+    out["k2_bwd"] = render.streaming_sample_mean_var_backward(*bargs)
+    keys, coef = render._backward_keys(*bargs)
+    t["k2_pass0"] = timed(lambda: render._backward_keys(*bargs), 10)
+    if hasattr(render, "_window_sums"):
+        order, off = render._window_order_launch(keys, n_win)
+        t["k2_index"] = timed(lambda: render._window_order_launch(keys,
+                                                                  n_win), 10)
+        pts, proj = bargs[0], bargs[1]
+        t["k2_pass1"] = timed(lambda: render._window_sums(
+            pts, proj, hw_img, feats, coef, order, off), 10)
+        packed = render._window_sums(pts, proj, hw_img, feats, coef, order,
+                                     off)
+        t["k2_pass2"] = timed(lambda: render._unpack(packed, off, feats), 10)
+    else:
+        keys2 = keys.reshape(-1)
+        t["k2_index"] = timed(lambda: render.window_order(
+            keys2, feats.shape[0] * n_win), 10)
+        t["k2_rest"] = t["k2_bwd"] - t["k2_pass0"] - t["k2_index"]
+    return t
+
+
+def k1_times(voxel, tag, feats, pix, w, b, g1, gm, out):
+    """K1's backward, pass by pass where the design has them."""
+    import torch
+
+    count = (pix >= 0).float().sum(0)
+    mapped = voxel.mapped_rows_plain(feats, w, b)
+    args = (feats, pix, count, g1, None, gm, w, b, mapped)
+    hw = feats.shape[1] * feats.shape[2]
+    t = {f"k1_bwd_{tag}": timed(lambda: voxel.fusion_carry_backward(*args))}
+    out[f"k1_bwd_{tag}"] = voxel.fusion_carry_backward(*args)
+    t[f"k1_index_{tag}"] = timed(lambda: voxel.pixel_order(pix, hw))
+    if hasattr(voxel, "_pixel_sums"):
+        order, off, rows, n_rows = voxel._pixel_order_launch(pix, hw)
+        t[f"k1_pass1_{tag}"] = timed(lambda: voxel._pixel_sums(
+            feats, order, off, g1, None, gm, mapped, w))
+        _, dy = voxel._pixel_sums(feats, order, off, g1, None, gm, mapped, w)
+        t[f"k1_pass2_{tag}"] = timed(lambda: voxel._weight_parts(
+            feats, dy, rows, n_rows, gm, count))
+        parts = voxel._weight_parts(feats, dy, rows, n_rows, gm, count)
+        t[f"k1_pass3_{tag}"] = timed(lambda: voxel._weight_reduce(*parts, b))
+    else:
+        t[f"k1_rest_{tag}"] = t[f"k1_bwd_{tag}"] - t[f"k1_index_{tag}"]
+    torch.cuda.synchronize()
+    return t
+
+
+def inputs(root):
+    """The checkout's modules and the A/B's inputs, from their seeds: for
+    K1 the maps, W, b and cotangents with each intrinsic's ``pix``; for
+    K2 its backward's arguments at phase 8's training batch."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch import api
+    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfdet_tpu_torch.ops import cuda_build, render, voxel
+
+    spec = importlib.util.spec_from_file_location(
+        "smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cuda_build.build([k for k in cuda_build.KERNELS if "mean" in k])
+    for name, (_, log) in cuda_build.BUILD_LOG.items():
+        if "backward" in name:
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[ptxas] {name}: {line.strip()}")
+
+    model = api.init_detector(smoke.CONFIG, device="cuda", seed=smoke.SEED)
+    meta = model.meta
+    h, w = meta.img_shape
+    stride = 4
+    fh, fw = meta.pad_shape[0] // stride, meta.pad_shape[1] // stride
+    scene = make_synthetic_scene(
+        seed=smoke.SEED, n_views=smoke.N_VIEWS, n_targets=1, hw=(h, w),
+        pad_hw=meta.pad_shape,
+        n_rand=(h - 2 * smoke.MARGIN) * (w - 2 * smoke.MARGIN), n_boxes=4,
+        max_gt=8, margin=smoke.MARGIN)
+    points = voxel.get_points(model.n_voxels, model.voxel_size,
+                              scene["origin"], dev).reshape(-1, 3)
+    scaled = scene["intrinsic"].copy()
+    scaled[:2] *= np.float32(meta.ori_shape[0] / h)
+
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    c, m = 256, 32
+    n_vox = points.shape[0]
+    k1 = dict(feats=torch.randn((smoke.N_VIEWS, fh, fw, c), generator=gen,
+                                device=dev),
+              w=torch.randn((c, m), generator=gen, device=dev) / c ** 0.5,
+              b=torch.randn((m,), generator=gen, device=dev),
+              g1=torch.randn((n_vox, c), generator=gen, device=dev),
+              gm=torch.randn((n_vox, m), generator=gen, device=dev), pix={})
+    for tag, k in (("phase4", scene["intrinsic"]), ("phase8", scaled)):
+        proj = voxel.compute_projection(k, scene["extrinsics"],
+                                        meta.ori_shape[0] / (h / stride), dev)
+        x, y, _, valid = voxel.project_points(points, proj, h // stride,
+                                              w // stride)
+        k1["pix"][tag] = voxel.pixel_index(x, y, valid, fw).contiguous()
+
+    tscene, _ = smoke.host_ray_stream(ray_stats, model,
+                                      smoke.train_scene(model,
+                                                        smoke.SEED + 1))
+    with torch.no_grad():
+        tfeats = model.render_featmaps(model.extract_2d(
+            torch.as_tensor(tscene["imgs"], device=dev)))
+    ray = {k: torch.as_tensor(tscene[k], device=dev) for k in (
+        "ray_o", "ray_d") + ray_stats.RAY_STREAM_KEYS}
+    pts = render.points_at(ray["ray_o"], ray["ray_d"], ray["z_vals"])
+    proj = model.render_projection(tscene["intrinsic"],
+                                   tscene["extrinsics"], dev)
+    host = tuple(ray[k] for k in ray_stats.RAY_STREAM_KEYS[1:])
+    gf, _, s1u, cnt = render._k2_launch(pts, None, proj, (h, w), tfeats,
+                                        host, for_grad=True)
+    g = torch.randn(gf.shape, generator=gen, device=dev)
+    k2 = (pts, proj, (h, w), tfeats, g, gf, s1u, cnt)
+    return (render, voxel), k1, k2
+
+
+def profile(name, fn, iters=5):
+    """Device microseconds a call of ``fn``, by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    for e in sorted(prof.key_averages(), key=lambda e: -e.device_time_total):
+        if e.device_time_total > 0:
+            print(f"[kernel_ab] profile {name}: "
+                  f"{e.device_time_total / iters:.1f} us x{e.count // iters} "
+                  f"{e.key[:100]}", flush=True)
+
+
+def run(root, save, with_profile):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    (render, voxel), k1, bargs = inputs(root)
+    out, t = {}, {}
+    for tag, pix in k1["pix"].items():
+        t.update(k1_times(voxel, tag, k1["feats"], pix, k1["w"], k1["b"],
+                          k1["g1"], k1["gm"], out))
+        if with_profile:
+            count = (pix >= 0).float().sum(0)
+            args = (k1["feats"], pix, count, k1["g1"], None, k1["gm"],
+                    k1["w"], k1["b"], voxel.mapped_rows_plain(
+                        k1["feats"], k1["w"], k1["b"]))
+            profile(f"K1 backward {tag}",
+                    lambda: voxel.fusion_carry_backward(*args))
+    del k1
+    t.update(k2_times(render, bargs, out))
+    if with_profile:
+        profile("K2 backward",
+                lambda: render.streaming_sample_mean_var_backward(*bargs))
+    if save:
+        os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
+        torch.save({k: v if isinstance(v, torch.Tensor) else list(v)
+                    for k, v in out.items()}, save)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"[kernel_ab] {root}: " + " ".join(f"{k}={v:.4f}"
+                                             for k, v in t.items())
+          + f" ({time.strftime('%H:%M:%S')}; {card})", flush=True)
+    return 0
+
+
+def compare(a, b):
+    import torch
+
+    x, y = torch.load(a), torch.load(b)
+    for k in sorted(x):
+        xs = x[k] if isinstance(x[k], list) else [x[k]]
+        ys = y[k] if isinstance(y[k], list) else [y[k]]
+        same = [torch.equal(p, q) for p, q in zip(xs, ys)]
+        diff = [float((p - q).abs().max() / q.abs().max().clamp_min(1e-30))
+                for p, q in zip(xs, ys)]
+        print(f"[kernel_ab] {k}: bitwise equal {same}, max rel diff "
+              f"{['%.3e' % d for d in diff]}", flush=True)
+    return 0
+
+
+def main(argv):
+    if argv[:1] == ["--compare"]:
+        return compare(argv[1], argv[2])
+    save = None
+    if "--save" in argv:
+        i = argv.index("--save")
+        save = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    with_profile = "--profile" in argv
+    argv = [a for a in argv if a != "--profile"]
+    return run(os.path.abspath(argv[0] if argv else HERE), save,
+               with_profile)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -21,25 +21,50 @@
 //
 // the last term being the views that do not see voxel n, whose y is b.
 //
-// The sums run in a fixed order, so two runs give the same bits:
+// What bounds it on an H100 at the training path's shape (50 views of
+// 60x80 rows, C = 256, M = 32, 25,600 voxels, no s2 cotangent): bytes. At
+// phase 4's pixel indices (34% of the rows referenced) the least traffic
+// is 373.9 MB (the d-features map written, 245.8 MB; the referenced rows
+// of the maps and of phase A's mapped rows read once; g1, gm and the
+// indices), 0.112 ms at 3.35 TB/s, against 3.0 GFLOP (0.045 ms); at the
+// intrinsic scaled to ori_shape (85% referenced) 514.7 MB, 0.154 ms. What
+// the design moves on top of that: pass 1 gathers each valid (voxel,
+// view) pair's 1 KB g1 row and its gm row (1.05 M pairs at phase 4, ~1.1
+// GB, from L2: g1 is 26 MB), and pass 2 reads the referenced rows of the
+// maps again.
 //
+// The sums run in a fixed order, so two runs give the same bits; integer
+// atomics only count:
+//
+// Index preparation (csrc/counting_sort.cuh): a stable counting sort of
+//   each view's pix over its HW + 1 bins (bin 0 the invalid voxels), which
+//   gives order (V, N), each pixel's voxels in ascending order, off (V, HW
+//   + 1) from its own scan, and each view's referenced rows, compacted.
 // Pass 1 (pixel_kernel): a warp per pixel row, over all V*HW rows (a
-//   persistent grid). The voxels of row (v, p) are order[v, off[v, p] ..
-//   off[v, p + 1]), pix[v] sorted stably (the wrapper's index
-//   preparation), so the warp sums their g1, g2, gm rows in ascending voxel
+//   persistent grid; each warp loads its next row's range while it works
+//   on this one). The warp loads up to 32 of the row's voxel indices in
+//   one load, hands them out by shuffle and keeps the g1 (g2, gm) rows of
+//   kDepth voxels in flight before it adds the first, in ascending voxel
 //   order. Lane l holds C / 32 channels (16-byte loads where every row is
 //   16-byte aligned) and lane m < M holds GM[m] and dY[m]. The product dY @
 //   W^T takes W^T from shared memory, dY[m] by shuffle. It writes the
 //   d-features row and, for a referenced row, its dY row.
-// Pass 2 (weight_kernel): the grid splits the rows into kParts fixed
-//   ranges and the channels into tiles of up to 256. Each block walks its
-//   range 32 rows at a time, stages the referenced ones (a ballot of
-//   off[v, p + 1] > off[v, p], in row order) and adds x[c] * dY[m] into one
-//   register a (c, m) cell; warp 0 of the first tile adds dY into db, warp 1
-//   the invalid-view sums (V - count[n]) gm[n] over its range of voxels.
+// Pass 2 (weight_kernel): x^T dY as a product over the compacted
+//   referenced rows in f32 FMA (no TF32), split into kParts fixed ranges of
+//   them and channel tiles of up to 256. A block resolves its rows' indices
+//   into shared memory, then stages kRows rows of x and dY at a time with
+//   cp.async, kStages - 1 stages in flight while it computes one; a thread holds a 4 x 8 tile of
+//   (channel, mapped output) sums. The first channel tile also sums dY into
+//   db and the invalid-view sums (V - count[n]) gm[n] over its range of
+//   voxels (a warp every kTile / 32-th voxel, the warps' sums in order).
 //   Each block writes its partial sums.
 // Pass 3 (reduce_kernel): dW and db as the sums of the partials in block
-//   order.
+//   order, 16 partials loaded ahead of their adds.
+//
+// Summation order: d features as the design before this one, bit for bit
+// (each pixel's voxels in ascending voxel order); dW and db per range of
+// referenced rows in ascending (view, pixel) order, then the ranges in
+// order (the design before summed fixed ranges of all rows).
 //
 // Inputs: f32 maps (the forward's bf16 maps take no gradient), C in {32,
 // 64, 128, 256, 512, 1024}, 1 <= M <= 32.
@@ -47,13 +72,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "counting_sort.cuh"
+
 namespace {
 
 constexpr int kMaxMap = 32;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kParts = 256;  // row ranges of pass 2 (must match the wrapper)
+constexpr int kParts = 256;  // ranges of referenced rows in pass 2
 constexpr int kTileMax = 256;
+constexpr int kRows = 16;  // rows a stage of pass 2
+constexpr int kStages = 4;  // stages of pass 2 in shared memory
+constexpr int kIdx = 1024;  // row indices pass 2 resolves at a time
 
 template <int kW>
 __device__ __forceinline__ void load(const float* p, float* x) {
@@ -86,9 +116,10 @@ __device__ __forceinline__ void store(float* p, const float* x) {
 // ---- pass 1: a warp per pixel row ------------------------------------------
 
 // Lane l holds channels (j * 32 + l) * kW + e, j < kCpl / kW, e < kW.
-// Shared memory: W^T [n_map][C] f32 when the mapped stream is given.
-template <int kCpl, int kW>
-__global__ void __launch_bounds__(kThreads)
+// kG2: the s2 cotangent is given. Shared memory: W^T [n_map][C] f32 when
+// the mapped stream is given.
+template <int kCpl, int kW, bool kG2>
+__global__ void __launch_bounds__(kThreads, (kG2 || kCpl > 8) ? 1 : 3)
     pixel_kernel(const float* __restrict__ feats,
                  const int* __restrict__ order, const int* __restrict__ off,
                  const float* __restrict__ g1, const float* __restrict__ g2,
@@ -99,6 +130,8 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float wt_s[];
   constexpr int kC = 32 * kCpl;
   constexpr int kPass = kCpl / kW;
+  // voxels whose rows are loaded before the first is added
+  constexpr int kDepth = kCpl >= 32 ? 1 : (32 / kCpl < 8 ? 32 / kCpl : 8);
   const int lane = threadIdx.x & 31;
   const bool with_m = mapped != nullptr;
   if (with_m) {
@@ -110,11 +143,27 @@ __global__ void __launch_bounds__(kThreads)
   }
   const long long rows = (long long)n_views * hw;
   const long long warps = (long long)gridDim.x * kWarps;
-  for (long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       r < rows; r += warps) {
-    const int v = (int)(r / hw), p = (int)(r % hw);
-    const int* offv = off + (size_t)v * (hw + 1);
-    const int beg = __ldg(offv + p), end = __ldg(offv + p + 1);
+  // a row's voxel range, loaded one row ahead
+  auto range = [&](long long r, int* beg, int* end) {
+    *beg = *end = 0;
+    if (r < rows) {
+      const int v = (int)(r / hw), p = (int)(r % hw);
+      const int* offv = off + (size_t)v * (hw + 1);
+      *beg = __ldg(offv + p);
+      *end = __ldg(offv + p + 1);
+    }
+  };
+  long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  int beg, end;
+  range(r, &beg, &end);
+  for (; r < rows; r += warps) {
+    int next_beg, next_end;
+    range(r + warps, &next_beg, &next_end);
+    const int v = (int)(r / hw);
+    // the row's mapped value, loaded before its voxels
+    float y = 0.f;
+    if (with_m && lane < n_map && beg < end)
+      y = __ldg(mapped + (size_t)r * n_map + lane);
     float a1[kCpl], a2[kCpl];
 #pragma unroll
     for (int c = 0; c < kCpl; ++c) {
@@ -123,148 +172,300 @@ __global__ void __launch_bounds__(kThreads)
     }
     float am = 0.f;
     const int* ordv = order + (size_t)v * n_vox;
-    for (int i = beg; i < end; ++i) {
-      const int n = __ldg(ordv + i);
-      float t[kCpl];
-      const float* row1 = g1 + (size_t)n * kC + lane * kW;
+    for (int i0 = beg; i0 < end; i0 += 32) {
+      const int cnt = min(32, end - i0);
+      const int mine = lane < cnt ? __ldg(ordv + i0 + lane) : 0;
+      for (int k0 = 0; k0 < cnt; k0 += kDepth) {
+        float t1[kDepth][kCpl], t2[kG2 ? kDepth : 1][kCpl], tm[kDepth];
 #pragma unroll
-      for (int j = 0; j < kPass; ++j) load<kW>(row1 + j * 32 * kW, &t[j * kW]);
+        for (int u = 0; u < kDepth; ++u) {
+          const int n = __shfl_sync(0xffffffffu, mine, (k0 + u) & 31);
+          if (k0 + u >= cnt) break;  // uniform over the warp
+          const float* row1 = g1 + (size_t)n * kC + lane * kW;
 #pragma unroll
-      for (int c = 0; c < kCpl; ++c) a1[c] = __fadd_rn(a1[c], t[c]);
-      if (g2 != nullptr) {
-        const float* row2 = g2 + (size_t)n * kC + lane * kW;
+          for (int j = 0; j < kPass; ++j)
+            load<kW>(row1 + j * 32 * kW, &t1[u][j * kW]);
+          if constexpr (kG2) {
+            const float* row2 = g2 + (size_t)n * kC + lane * kW;
 #pragma unroll
-        for (int j = 0; j < kPass; ++j)
-          load<kW>(row2 + j * 32 * kW, &t[j * kW]);
+            for (int j = 0; j < kPass; ++j)
+              load<kW>(row2 + j * 32 * kW, &t2[u][j * kW]);
+          }
+          if (with_m && lane < n_map)
+            tm[u] = __ldg(gm + (size_t)n * n_map + lane);
+        }
 #pragma unroll
-        for (int c = 0; c < kCpl; ++c) a2[c] = __fadd_rn(a2[c], t[c]);
+        for (int u = 0; u < kDepth; ++u) {
+          if (k0 + u >= cnt) break;
+#pragma unroll
+          for (int c = 0; c < kCpl; ++c) a1[c] = __fadd_rn(a1[c], t1[u][c]);
+          if constexpr (kG2) {
+#pragma unroll
+            for (int c = 0; c < kCpl; ++c)
+              a2[c] = __fadd_rn(a2[c], t2[u][c]);
+          }
+          if (with_m && lane < n_map) am = __fadd_rn(am, tm[u]);
+        }
       }
-      if (with_m && lane < n_map)
-        am = __fadd_rn(am, __ldg(gm + (size_t)n * n_map + lane));
     }
     float* out = dfeat + (size_t)r * kC + lane * kW;
-    if (beg == end) {  // no voxel maps here
-#pragma unroll
-      for (int c = 0; c < kCpl; ++c) a1[c] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPass; ++j)
-        store<kW>(out + j * 32 * kW, &a1[j * kW]);
-      continue;
-    }
-    if (g2 != nullptr) {  // G1 + 2 x G2
-      float x[kCpl];
-      const float* xr = feats + (size_t)r * kC + lane * kW;
-#pragma unroll
-      for (int j = 0; j < kPass; ++j) load<kW>(xr + j * 32 * kW, &x[j * kW]);
-#pragma unroll
-      for (int c = 0; c < kCpl; ++c)
-        a1[c] = __fadd_rn(a1[c], __fmul_rn(__fmul_rn(2.f, x[c]), a2[c]));
-    }
-    if (with_m) {  // + dY @ W^T
-      float d = 0.f;
-      if (lane < n_map) {
-        d = __fmul_rn(__fmul_rn(2.f, __ldg(mapped + (size_t)r * n_map + lane)),
-                      am);
-        dy[(size_t)r * n_map + lane] = d;
-      }
-      float acc[kCpl];
-#pragma unroll
-      for (int c = 0; c < kCpl; ++c) acc[c] = 0.f;
-      for (int m = 0; m < n_map; ++m) {
-        const float dm = __shfl_sync(0xffffffffu, d, m);
-        const float* wm = wt_s + m * kC + lane * kW;
+    if (beg < end) {
+      if constexpr (kG2) {  // G1 + 2 x G2
+        float x[kCpl];
+        const float* xr = feats + (size_t)r * kC + lane * kW;
 #pragma unroll
         for (int j = 0; j < kPass; ++j)
+          load<kW>(xr + j * 32 * kW, &x[j * kW]);
 #pragma unroll
-          for (int e = 0; e < kW; ++e)
-            acc[j * kW + e] = fmaf(dm, wm[j * 32 * kW + e], acc[j * kW + e]);
+        for (int c = 0; c < kCpl; ++c)
+          a1[c] = __fadd_rn(a1[c], __fmul_rn(__fmul_rn(2.f, x[c]), a2[c]));
       }
+      if (with_m) {  // + dY @ W^T
+        float d = 0.f;
+        if (lane < n_map) {
+          d = __fmul_rn(__fmul_rn(2.f, y), am);
+          dy[(size_t)r * n_map + lane] = d;
+        }
+        float acc[kCpl];
 #pragma unroll
-      for (int c = 0; c < kCpl; ++c) a1[c] = __fadd_rn(a1[c], acc[c]);
-    }
+        for (int c = 0; c < kCpl; ++c) acc[c] = 0.f;
+        for (int m = 0; m < n_map; ++m) {
+          const float dm = __shfl_sync(0xffffffffu, d, m);
+          const float* wm = wt_s + m * kC + lane * kW;
+#pragma unroll
+          for (int j = 0; j < kPass; ++j)
+#pragma unroll
+            for (int e = 0; e < kW; ++e)
+              acc[j * kW + e] =
+                  fmaf(dm, wm[j * 32 * kW + e], acc[j * kW + e]);
+        }
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c) a1[c] = __fadd_rn(a1[c], acc[c]);
+      }
+    }  // else no voxel maps here: a1 holds zeros
 #pragma unroll
     for (int j = 0; j < kPass; ++j) store<kW>(out + j * 32 * kW, &a1[j * kW]);
+    beg = next_beg;
+    end = next_end;
   }
 }
 
 // ---- pass 2: per-block partial sums of dW and db -------------------------
 
-// Thread t owns mapped output m = t % 32 and channels c0 + t / 32 + 8 k of
-// the block's tile, k < kTile / 8. Shared memory: the staged rows' x tile
-// [32][kTile] and dY [32][kMaxMap].
-template <int kTile>
-__global__ void __launch_bounds__(kThreads)
-    weight_kernel(const float* __restrict__ feats, const int* __restrict__ off,
-                  const float* __restrict__ dy, const float* __restrict__ gm,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kN) : "memory");
+}
+
+// A block of kTile threads: thread t sums channels c0 + 4 (t % (kTile / 4))
+// + e, e < 4, against mapped outputs 8 (t / (kTile / 4)) + k, k < 8. The
+// block's referenced rows are [g_beg, g_end) of the views' compacted lists
+// in order; pre (V + 1) in dynamic shared memory holds where each view's
+// list starts. kVec: the rows of x and dY are 16-byte aligned.
+template <int kTile, bool kVec>
+__global__ void __launch_bounds__(kTile)
+    weight_kernel(const float* __restrict__ feats,
+                  const float* __restrict__ dy, const int* __restrict__ rows,
+                  const int* __restrict__ n_rows,
+                  const float* __restrict__ gm,
                   const float* __restrict__ count, float* __restrict__ part_w,
                   float* __restrict__ part_b, float* __restrict__ part_i,
                   int n_views, int hw, int channels, int n_vox, int n_map) {
-  constexpr int kAcc = kTile / kWarps;
-  __shared__ __align__(16) float x_s[32][kTile];
-  __shared__ float dy_s[32][kMaxMap];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kGroups = kTile / 4;
+  // dynamic shared memory: kStages buffers of kRows rows of x, then of
+  // dY, then pre (V + 1)
+  extern __shared__ __align__(16) float stage_s[];
+  float(*x_s)[kRows][kTile] =
+      reinterpret_cast<float(*)[kRows][kTile]>(stage_s);
+  float(*dy_s)[kRows][kMaxMap] = reinterpret_cast<float(*)[kRows][kMaxMap]>(
+      stage_s + kStages * kRows * kTile);
+  int* pre = reinterpret_cast<int*>(stage_s + kStages * kRows *
+                                                  (kTile + kMaxMap));
+  __shared__ int at_s[kIdx];
+  __shared__ int red[32];
+  const int tid = threadIdx.x;
   const int part = blockIdx.x, c0 = blockIdx.y * kTile;
-  const long long rows = (long long)n_views * hw;
-  const long long per = (rows + kParts - 1) / kParts;
-  const long long r_beg = part * per;
-  const long long r_end = r_beg + per < rows ? r_beg + per : rows;
   const bool first_tile = blockIdx.y == 0;
 
-  float acc[kAcc];
-#pragma unroll
-  for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
-  float acc_b = 0.f;
+  // where each view's referenced rows start in the concatenated list
+  int carry = 0;
+  for (int v0 = 0; v0 < n_views; v0 += kTile) {
+    const int v = v0 + tid;
+    const int k = v < n_views ? __ldg(n_rows + v) : 0;
+    int total;
+    const int ex = csort::block_scan(k, red, &total);
+    if (v < n_views) pre[v] = carry + ex;
+    carry += total;
+  }
+  if (tid == 0) pre[n_views] = carry;
+  __syncthreads();
+  const int per = (carry + kParts - 1) / kParts;
+  const int g_beg = min(part * per, carry);
+  const int g_end = min(g_beg + per, carry);
 
-  for (long long r0 = r_beg; r0 < r_end; r0 += 32) {
-    // the window's referenced rows, in row order
-    const long long r = r0 + lane;
-    bool ref = false;
-    if (r < r_end) {
-      const int v = (int)(r / hw), p = (int)(r % hw);
-      const int* offv = off + (size_t)v * (hw + 1);
-      ref = __ldg(offv + p + 1) > __ldg(offv + p);
+  // rows at_s[s0, s0 + n_s) into buffer `buf`, zeros past n_s
+  auto stage = [&](int buf, int s0, int n_s) {
+    constexpr int kChunks = kVec ? kTile / 4 : kTile;
+    for (int q = tid; q < kRows * kChunks; q += kTile) {
+      const int s = q / kChunks, k = q % kChunks;
+      const int r = s < n_s ? at_s[s0 + s] : -1;
+      if (kVec) {
+        float* dst = &x_s[buf][s][4 * k];
+        if (r >= 0)
+          cp_async16(dst, feats + (size_t)r * channels + c0 + 4 * k);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        if (r >= 0)
+          cp_async4(&x_s[buf][s][k], feats + (size_t)r * channels + c0 + k);
+        else
+          x_s[buf][s][k] = 0.f;
+      }
     }
-    const unsigned mask = __ballot_sync(0xffffffffu, ref);
-    const int n_ref = __popc(mask);
-    if (n_ref == 0) continue;  // uniform over the block: same window
-    // stage: slot s holds the s-th referenced row of the window
-    for (int i = tid; i < n_ref * kTile; i += kThreads) {
-      const int s = i / kTile, c = i % kTile;
-      const int bit = __fns(mask, 0, s + 1);  // position of the s-th set bit
-      x_s[s][c] = __ldg(feats + (size_t)(r0 + bit) * channels + c0 + c);
+    constexpr int kMapChunks = kVec ? kMaxMap / 4 : kMaxMap;
+    for (int q = tid; q < kRows * kMapChunks; q += kTile) {
+      const int s = q / kMapChunks, k = q % kMapChunks;
+      const int r = s < n_s ? at_s[s0 + s] : -1;
+      if (kVec) {  // n_map % 4 == 0
+        float* dst = &dy_s[buf][s][4 * k];
+        if (r >= 0 && 4 * k < n_map)
+          cp_async16(dst, dy + (size_t)r * n_map + 4 * k);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        if (r >= 0 && k < n_map)
+          cp_async4(&dy_s[buf][s][k], dy + (size_t)r * n_map + k);
+        else
+          dy_s[buf][s][k] = 0.f;
+      }
     }
-    for (int i = tid; i < n_ref * kMaxMap; i += kThreads) {
-      const int s = i / kMaxMap, m = i % kMaxMap;
-      const int bit = __fns(mask, 0, s + 1);
-      dy_s[s][m] = m < n_map ? __ldg(dy + (size_t)(r0 + bit) * n_map + m)
-                             : 0.f;
-    }
-    __syncthreads();
-    for (int s = 0; s < n_ref; ++s) {
-      const float d = dy_s[s][lane];
+    cp_async_commit();
+  };
+
+  const int cg = tid % kGroups, mg = tid / kGroups;
+  float acc[4][8];
 #pragma unroll
-      for (int k = 0; k < kAcc; ++k)
-        acc[k] = fmaf(x_s[s][warp + kWarps * k], d, acc[k]);
-      if (warp == 0) acc_b = __fadd_rn(acc_b, d);
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[e][k] = 0.f;
+  float acc_b[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc_b[k] = 0.f;
+  const bool sums_b = first_tile && cg == 0;
+
+  for (int gb = g_beg; gb < g_end; gb += kIdx) {
+    // the rows' indices: the last view whose list starts at or before g
+    const int n_idx = min(kIdx, g_end - gb);
+    for (int k = tid; k < n_idx; k += kTile) {
+      const int g = gb + k;
+      int lo = 0, hi = n_views;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (pre[mid] <= g) lo = mid; else hi = mid;
+      }
+      at_s[k] = lo * hw + __ldg(rows + (size_t)lo * hw + (g - pre[lo]));
     }
     __syncthreads();
+    // kStages - 1 stages in flight ahead of the one computed (an empty
+    // group where the rows run out keeps the count)
+    for (int q = 0; q < kStages - 1; ++q) {
+      if (q * kRows < n_idx)
+        stage(q, q * kRows, min(kRows, n_idx - q * kRows));
+      else
+        cp_async_commit();
+    }
+    for (int s0 = 0, t = 0; s0 < n_idx; s0 += kRows, ++t) {
+      const int buf = t % kStages, ahead = s0 + (kStages - 1) * kRows;
+      if (ahead < n_idx)
+        stage((t + kStages - 1) % kStages, ahead,
+              min(kRows, n_idx - ahead));
+      else
+        cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+      const int n_s = min(kRows, n_idx - s0);
+      for (int s = 0; s < n_s; ++s) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(&x_s[buf][s][4 * cg]);
+        const float4 d0 =
+            *reinterpret_cast<const float4*>(&dy_s[buf][s][8 * mg]);
+        const float4 d1 =
+            *reinterpret_cast<const float4*>(&dy_s[buf][s][8 * mg + 4]);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+        const float ds[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            acc[e][k] = fmaf(xs[e], ds[k], acc[e][k]);
+        if (sums_b) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc_b[k] = __fadd_rn(acc_b[k], ds[k]);
+        }
+      }
+      __syncthreads();  // before this buffer, or at_s, is written again
+    }
   }
 
-  if (lane < n_map) {
 #pragma unroll
-    for (int k = 0; k < kAcc; ++k)
-      part_w[((size_t)part * channels + c0 + warp + kWarps * k) * n_map +
-             lane] = acc[k];
-    if (first_tile && warp == 0) part_b[(size_t)part * n_map + lane] = acc_b;
-    if (first_tile && warp == 1) {  // views that do not see the voxel
-      const int nper = (n_vox + kParts - 1) / kParts;
-      const int n_beg = part * nper;
-      const int n_end = n_beg + nper < n_vox ? n_beg + nper : n_vox;
-      float s = 0.f;
-      for (int n = n_beg; n < n_end; ++n)
-        s = fmaf(__fsub_rn((float)n_views, __ldg(count + n)),
-                 __ldg(gm + (size_t)n * n_map + lane), s);
-      part_i[(size_t)part * n_map + lane] = s;
+  for (int k = 0; k < 8; ++k) {
+    const int m = 8 * mg + k;
+    if (m >= n_map) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part_w[((size_t)part * channels + c0 + 4 * cg + e) * n_map + m] =
+          acc[e][k];
+    if (sums_b) part_b[(size_t)part * n_map + m] = acc_b[k];
+  }
+  if (first_tile) {  // views that do not see the voxel
+    // warp q sums voxels n_beg + q, n_beg + q + kTile / 32, ... (lane m
+    // output m), then the warps' sums add in warp order
+    constexpr int kGroups32 = kTile / 32;
+    __shared__ float inv_s[kGroups32][kMaxMap];
+    const int lane = tid & 31, q = tid >> 5;
+    const int nper = (n_vox + kParts - 1) / kParts;
+    const int n_beg = min(part * nper, n_vox);
+    const int n_end = min(n_beg + nper, n_vox);
+    float s = 0.f;
+    constexpr int kAhead = 8;  // voxels loaded before their products add
+    if (lane < n_map)
+      for (int n0 = n_beg + q; n0 < n_end; n0 += kAhead * kGroups32) {
+        float cv[kAhead], gv[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          const int n = n0 + u * kGroups32;
+          cv[u] = n < n_end ? __ldg(count + n) : 0.f;
+          gv[u] = n < n_end ? __ldg(gm + (size_t)n * n_map + lane) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u)
+          if (n0 + u * kGroups32 < n_end)
+            s = fmaf(__fsub_rn((float)n_views, cv[u]), gv[u], s);
+      }
+    inv_s[q][lane] = s;
+    __syncthreads();
+    if (tid < n_map) {
+      float t = inv_s[0][tid];
+      for (int k = 1; k < kGroups32; ++k) t = __fadd_rn(t, inv_s[k][tid]);
+      part_i[(size_t)part * n_map + tid] = t;
     }
   }
 }
@@ -277,38 +478,51 @@ __global__ void reduce_kernel(const float* __restrict__ part_w,
                               const float* __restrict__ b,
                               float* __restrict__ dw, float* __restrict__ db,
                               int cm, int n_map) {
+  constexpr int kAhead = 16;  // partials loaded before they are added
+  static_assert(kParts % kAhead == 0, "whole groups of partials");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < cm) {
     float s = 0.f;
-    for (int q = 0; q < kParts; ++q)
-      s = __fadd_rn(s, part_w[(size_t)q * cm + i]);
+    for (int q0 = 0; q0 < kParts; q0 += kAhead) {
+      float x[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        x[u] = __ldg(part_w + (size_t)(q0 + u) * cm + i);
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) s = __fadd_rn(s, x[u]);
+    }
     dw[i] = s;
   } else if (i < cm + n_map) {
     const int m = i - cm;
     float s = 0.f, t = 0.f;
-    for (int q = 0; q < kParts; ++q) {
-      s = __fadd_rn(s, part_b[q * n_map + m]);
-      t = __fadd_rn(t, part_i[q * n_map + m]);
+    for (int q0 = 0; q0 < kParts; q0 += kAhead) {
+      float x[kAhead], y[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        x[u] = __ldg(part_b + (q0 + u) * n_map + m);
+        y[u] = __ldg(part_i + (q0 + u) * n_map + m);
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        s = __fadd_rn(s, x[u]);
+        t = __fadd_rn(t, y[u]);
+      }
     }
     db[m] = __fadd_rn(s, __fmul_rn(__fmul_rn(2.f, __ldg(b + m)), t));
   }
 }
 
-template <int kCpl, int kW>
+template <int kCpl, int kW, bool kG2>
 cudaError_t launch_pixel(const float* feats, const int* order, const int* off,
                          const float* g1, const float* g2, const float* gm,
                          const float* mapped, const float* w, float* dfeat,
                          float* dy, int n_views, int hw, int n_vox, int n_map,
                          cudaStream_t s) {
-  auto kernel = pixel_kernel<kCpl, kW>;
+  auto kernel = pixel_kernel<kCpl, kW, kG2>;
   const size_t smem =
       mapped != nullptr ? (size_t)32 * kCpl * n_map * sizeof(float) : 0;
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = csort::fit_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -327,6 +541,21 @@ cudaError_t launch_pixel(const float* feats, const int* order, const int* off,
   return cudaGetLastError();
 }
 
+template <int kCpl, int kW>
+cudaError_t pixel_by_g2(const float* feats, const int* order, const int* off,
+                        const float* g1, const float* g2, const float* gm,
+                        const float* mapped, const float* w, float* dfeat,
+                        float* dy, int n_views, int hw, int n_vox, int n_map,
+                        cudaStream_t s) {
+  return g2 != nullptr
+             ? launch_pixel<kCpl, kW, true>(feats, order, off, g1, g2, gm,
+                                            mapped, w, dfeat, dy, n_views, hw,
+                                            n_vox, n_map, s)
+             : launch_pixel<kCpl, kW, false>(feats, order, off, g1, g2, gm,
+                                             mapped, w, dfeat, dy, n_views,
+                                             hw, n_vox, n_map, s);
+}
+
 template <int kCpl>
 cudaError_t pixel_by_width(bool vec, const float* feats, const int* order,
                            const int* off, const float* g1, const float* g2,
@@ -335,59 +564,102 @@ cudaError_t pixel_by_width(bool vec, const float* feats, const int* order,
                            int n_views, int hw, int n_vox, int n_map,
                            cudaStream_t s) {
   constexpr int kVec = kCpl < 4 ? kCpl : 4;
-  return vec ? launch_pixel<kCpl, kVec>(feats, order, off, g1, g2, gm, mapped,
-                                        w, dfeat, dy, n_views, hw, n_vox,
-                                        n_map, s)
-             : launch_pixel<kCpl, 1>(feats, order, off, g1, g2, gm, mapped, w,
-                                     dfeat, dy, n_views, hw, n_vox, n_map, s);
+  return vec ? pixel_by_g2<kCpl, kVec>(feats, order, off, g1, g2, gm, mapped,
+                                       w, dfeat, dy, n_views, hw, n_vox,
+                                       n_map, s)
+             : pixel_by_g2<kCpl, 1>(feats, order, off, g1, g2, gm, mapped, w,
+                                    dfeat, dy, n_views, hw, n_vox, n_map, s);
+}
+
+template <int kTile, bool kVec>
+cudaError_t launch_weight(const float* feats, const float* dy,
+                          const int* rows, const int* n_rows, const float* gm,
+                          const float* count, float* part_w, float* part_b,
+                          float* part_i, int n_views, int hw, int channels,
+                          int n_vox, int n_map, cudaStream_t s) {
+  auto kernel = weight_kernel<kTile, kVec>;
+  const size_t smem = sizeof(float) * kStages * kRows * (kTile + kMaxMap) +
+                      (size_t)(n_views + 1) * sizeof(int);
+  cudaError_t err = csort::fit_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(kParts, channels / kTile);
+  kernel<<<grid, kTile, smem, s>>>(feats, dy, rows, n_rows, gm, count,
+                                   part_w, part_b, part_i, n_views, hw,
+                                   channels, n_vox, n_map);
+  return cudaGetLastError();
 }
 
 template <int kTile>
-cudaError_t launch_weight(const float* feats, const int* off, const float* dy,
-                          const float* gm, const float* count, float* part_w,
-                          float* part_b, float* part_i, int n_views, int hw,
-                          int channels, int n_vox, int n_map, cudaStream_t s) {
-  const dim3 grid(kParts, channels / kTile);
-  weight_kernel<kTile><<<grid, kThreads, 0, s>>>(feats, off, dy, gm, count,
-                                                 part_w, part_b, part_i,
-                                                 n_views, hw, channels, n_vox,
-                                                 n_map);
-  return cudaGetLastError();
+cudaError_t weight_by_alignment(bool vec, const float* feats,
+                                const float* dy, const int* rows,
+                                const int* n_rows, const float* gm,
+                                const float* count, float* part_w,
+                                float* part_b, float* part_i, int n_views,
+                                int hw, int channels, int n_vox, int n_map,
+                                cudaStream_t s) {
+  return vec ? launch_weight<kTile, true>(feats, dy, rows, n_rows, gm, count,
+                                          part_w, part_b, part_i, n_views,
+                                          hw, channels, n_vox, n_map, s)
+             : launch_weight<kTile, false>(feats, dy, rows, n_rows, gm,
+                                           count, part_w, part_b, part_i,
+                                           n_views, hw, channels, n_vox,
+                                           n_map, s);
 }
 
 bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+bool k1_width(int channels) {
+  return channels == 32 || channels == 64 || channels == 128 ||
+         channels == 256 || channels == 512 || channels == 1024;
+}
+
 }  // namespace
 
-// The row ranges pass 2 splits the rows into: the wrapper sizes the
-// partial-sum buffers by it.
+// The ranges of referenced rows pass 2 splits them into: the wrapper sizes
+// the partial-sum buffers by it.
 extern "C" int fused_mean_cov_backward_parts() { return kParts; }
 
-// feats (V, HW, C) f32; order (V, N) int32, each view's voxels sorted
-// stably by pixel; off (V, HW + 1) int32, the start of each pixel's voxels
-// in `order` (off[v, p + 1] - off[v, p] of them); g1 (N, C); g2 (N, C) or
-// null; dfeat (V, HW, C) out. With the mapped stream: gm (N, M), mapped (V,
-// HW, M) (phase A's rows), w (C, M), b (M,), count (N,); dy (V, HW, M)
-// scratch, part_w (kParts, C, M), part_b and part_i (kParts, M) scratch;
-// dw (C, M) and db (M,) out. Without it, all of those are null. Everything
-// contiguous; C in {32, ..., 1024}, 1 <= M <= 32. Returns the first
-// cudaError_t of the set-up and the launches.
-extern "C" int fused_mean_cov_backward(
+// The voxels of a tile of the index preparation: the wrapper sizes its
+// scratch by it.
+extern "C" int fused_mean_cov_backward_tile() { return csort::kTile; }
+
+// Index preparation. pix (V, N) int32, -1 where invalid; hist (V, J, HW +
+// 1) and tile_kept (V, J) int32 scratch, J = ceil(N / tile); outputs order
+// (V, N) int32, each view's voxels sorted stably by pixel (the invalid
+// first); off (V, HW + 1) int32, the start of each pixel's voxels in
+// `order` (off[v, p + 1] - off[v, p] of them); rows (V, HW) int32, each
+// view's referenced pixels in order, -1 past n_rows[v]; n_rows (V,) int32.
+extern "C" int fused_mean_cov_backward_order(const int* pix, int* hist,
+                                             int* tile_kept, int* order,
+                                             int* off, int* rows, int* n_rows,
+                                             int n_views, int n_vox, int hw,
+                                             void* stream) {
+  return static_cast<int>(csort::sort(
+      pix, hist, tile_kept, order, off, rows, n_rows, n_views, n_vox, hw + 1,
+      0, 1, 1, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// Pass 1. feats (V, HW, C) f32; order and off from the index preparation;
+// g1 (N, C); g2 (N, C) or null; dfeat (V, HW, C) out. With the mapped
+// stream: gm (N, M), mapped (V, HW, M) (phase A's rows), w (C, M); dy (V,
+// HW, M) out at the referenced rows. Without it, those are null.
+// Everything contiguous; C in {32, ..., 1024}, 1 <= M <= 32. Returns the
+// first cudaError_t of the set-up and the launch.
+extern "C" int fused_mean_cov_backward_pixels(
     const float* feats, const int* order, const int* off, const float* g1,
     const float* g2, const float* gm, const float* mapped, const float* w,
-    const float* b, const float* count, float* dfeat, float* dy,
-    float* part_w, float* part_b, float* part_i, float* dw, float* db,
-    int n_views, int hw, int channels, int n_vox, int n_map, void* stream) {
-  const bool with_m = mapped != nullptr;
-  if (with_m && (n_map < 1 || n_map > kMaxMap || gm == nullptr))
+    float* dfeat, float* dy, int n_views, int hw, int channels, int n_vox,
+    int n_map, void* stream) {
+  if (mapped != nullptr && (n_map < 1 || n_map > kMaxMap || gm == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!k1_width(channels)) return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)n_views * hw == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(feats) && aligned16(g1) && aligned16(g2) &&
                    aligned16(dfeat);
-  cudaError_t err;
+  cudaError_t err = cudaSuccess;
 #define K1B_PIXEL(CPL)                                                        \
   err = pixel_by_width<CPL>(vec, feats, order, off, g1, g2, gm, mapped, w,   \
                             dfeat, dy, n_views, hw, n_vox, n_map, s);        \
@@ -399,32 +671,61 @@ extern "C" int fused_mean_cov_backward(
     case 256: K1B_PIXEL(8);
     case 512: K1B_PIXEL(16);
     case 1024: K1B_PIXEL(32);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K1B_PIXEL
-  if (err != cudaSuccess || !with_m) return static_cast<int>(err);
+  return static_cast<int>(err);
+}
+
+// Pass 2. feats (V, HW, C); dy from pass 1; rows and n_rows from the index
+// preparation; gm (N, M); count (N,); part_w (kParts, C, M), part_b and
+// part_i (kParts, M) out.
+extern "C" int fused_mean_cov_backward_weights(
+    const float* feats, const float* dy, const int* rows, const int* n_rows,
+    const float* gm, const float* count, float* part_w, float* part_b,
+    float* part_i, int n_views, int hw, int channels, int n_vox, int n_map,
+    void* stream) {
+  if (n_map < 1 || n_map > kMaxMap || !k1_width(channels))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = aligned16(feats) && aligned16(dy) && n_map % 4 == 0;
+  cudaError_t err;
   switch (channels) {
     case 32:
-      err = launch_weight<32>(feats, off, dy, gm, count, part_w, part_b,
-                              part_i, n_views, hw, channels, n_vox, n_map, s);
+      err = weight_by_alignment<32>(vec, feats, dy, rows, n_rows, gm, count,
+                                    part_w, part_b, part_i, n_views, hw,
+                                    channels, n_vox, n_map, s);
       break;
     case 64:
-      err = launch_weight<64>(feats, off, dy, gm, count, part_w, part_b,
-                              part_i, n_views, hw, channels, n_vox, n_map, s);
+      err = weight_by_alignment<64>(vec, feats, dy, rows, n_rows, gm, count,
+                                    part_w, part_b, part_i, n_views, hw,
+                                    channels, n_vox, n_map, s);
       break;
     case 128:
-      err = launch_weight<128>(feats, off, dy, gm, count, part_w, part_b,
-                               part_i, n_views, hw, channels, n_vox, n_map, s);
+      err = weight_by_alignment<128>(vec, feats, dy, rows, n_rows, gm, count,
+                                     part_w, part_b, part_i, n_views, hw,
+                                     channels, n_vox, n_map, s);
       break;
     default:  // 256 and up: tiles of 256 channels
-      err = launch_weight<kTileMax>(feats, off, dy, gm, count, part_w, part_b,
-                                    part_i, n_views, hw, channels, n_vox,
-                                    n_map, s);
+      err = weight_by_alignment<kTileMax>(vec, feats, dy, rows, n_rows, gm,
+                                          count, part_w, part_b, part_i,
+                                          n_views, hw, channels, n_vox,
+                                          n_map, s);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(err);
+}
+
+// Pass 3. dw (C, M) and db (M,) out from pass 2's partials and b (M,).
+extern "C" int fused_mean_cov_backward_reduce(const float* part_w,
+                                              const float* part_b,
+                                              const float* part_i,
+                                              const float* b, float* dw,
+                                              float* db, int channels,
+                                              int n_map, void* stream) {
   const int cm = channels * n_map;
   const int threads = 256;
-  reduce_kernel<<<(cm + n_map + threads - 1) / threads, threads, 0, s>>>(
-      part_w, part_b, part_i, b, dw, db, cm, n_map);
+  reduce_kernel<<<(cm + n_map + threads - 1) / threads, threads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(part_w, part_b,
+                                                       part_i, b, dw, db, cm,
+                                                       n_map);
   return static_cast<int>(cudaGetLastError());
 }

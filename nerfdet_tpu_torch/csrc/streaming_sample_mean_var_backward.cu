@@ -17,48 +17,71 @@
 // and per (point, view), with f the forward's bilinear sample (recomputed
 // from the map), m the view's mask and w_k the window's four tap weights,
 //
-//   df = (d s1u + (2 f) d s2u) + m d s1m,   d map[tap k] += df w_k.
+//   df = (d s1u + m d s1m) + (2 f) d s2u,   d map[tap k] += df w_k
+//
+// (JAX adds df's terms as (d s1u + (2 f) d s2u) + m d s1m: one rounding of
+// df apart, well inside the 1e-5 x max the kernel is held to).
 //
 // Nothing is skipped where cnt = 0: 1 / d is then 1e8, and a point seen by
 // no view but with a partial border weight in some view has a small s2u,
 // so exp(-var) need not underflow and its gradient can be large. JAX
 // computes exactly this.
 //
-// Deterministic, with no float atomics, as K1's backward:
+// What bounds it on an H100 at the training path's shape (2048 rays x 64
+// samples = 131,072 points, 50 views, 59x80x32 f32 maps: 6.55 M (point,
+// view) pairs, 4.20 M with a non-zero tap weight): bytes. The least
+// traffic is 232.5 MB (the maps read and their gradient written, 30.2 MB
+// each; g's and globalfeat's feature halves, 33.5 MB each; s1u 16.8 MB;
+// the pairs' keys and the kept pairs' indices), 0.069 ms at 3.35 TB/s,
+// against 2.92 GFLOP (0.044 ms). What the design moves on top of that is
+// the gather of each kept pair's cotangent rows, 4.20 M x 256 B = 1.08 GB
+// from a 50.3 MB array (coef) that the 50 MB L2 does not keep, and the
+// packed windows' round trip (120.8 MB each way).
+//
+// Deterministic, with no float atomics; integer atomics only count:
 //
 // Pass 0 (keys_kernel, coef_kernel): each (point n, view v) pair, at p = v
 //   N + n, gets the key v FH FW + its feature window's start texel, or V FH
 //   FW (past every window) where all four tap weights are 0; the points'
-//   cotangents (d s1u, d s2u, d s1m) go to coef (N, 3, C). Dropping the
+//   cotangents go to coef (N, 3, C) as the rows d s1u + d s1m (for a view
+//   that sees the point), d s1u (for one that does not) and d s2u, so pass
+//   1 reads two rows a pair, 256 B, where d s1u, d s2u and d s1m would
+//   take three. Dropping the
 //   zero-weight pairs (most of the pairs outside a view: their window is
 //   clamped to the map's edge, so one edge window would otherwise sum
 //   millions of zero terms) changes at most the sign of an exact zero:
 //   their terms are df * 0. A pair with a partial weight, its coordinate in
 //   (-1, 0) or (size - 1, size), keeps its key.
-// The wrapper sorts the keys stably (torch.sort) and finds each window's
-//   run (torch.searchsorted), so a window's pairs are in ascending point
-//   order.
+// Index preparation (csrc/counting_sort.cuh): a stable counting sort per
+//   view over its FH FW window bins that places only the kept pairs, a
+//   window's pairs in ascending point order, and writes `off`, where each
+//   window's pairs start, from its own scan.
 // Pass 1 (window_kernel): a warp a window (v, texel), lane c channel c.
-//   The warp loads the window's four taps once, walks its pairs in order,
-//   recomputes each pair's projection, weights, mask and sample f (the
-//   forward's arithmetic, separately rounded), and sums df w_k into four
-//   registers a lane: packed (V FH FW, 4, C).
-// Pass 2 (unpack_kernel): a thread a (texel, channel) adds the four
-//   windows that hold it in a fixed order, packed[y, x].00 + packed[y,
-//   x-1].01 + packed[y-1, x].10 + packed[y-1, x-1].11; a window's taps
+//   The warp loads the window's four taps once, then its pairs 32 at a
+//   time: lane j loads pair j's index and projects it once (the forward's
+//   arithmetic, separately rounded), and the warp walks the 32 in order,
+//   each pair's weights and mask handed out by shuffle, the cotangent rows
+//   of kDepth pairs loaded before the first of them is used. It sums df w_k
+//   into four registers a lane: packed (V FH FW, 4, C), written only for
+//   the windows that hold a pair.
+// Pass 2 (unpack_kernel): a thread a texel and 4 channels (1 where C % 4
+//   != 0) adds the four windows that hold it in a fixed order, packed[y,
+//   x].00 + packed[y, x-1].01 + packed[y-1, x].10 + packed[y-1, x-1].11,
+//   reading only the windows that hold a pair (an empty window's sum is
+//   +0, which adds nothing to a sum that cannot be -0); a window's taps
 //   past the right or bottom edge are never read (the transpose of
 //   pack_bilinear's zero pad).
 //
-// What bounds it on an H100 at the training path's shape (2048 rays x 64
-// samples, 50 views, 59x80x32 f32 maps): the least traffic is the maps
-// read and their gradient written once (30.2 MB each), g and the saved
-// globalfeat (33.5 MB each), s1u (16.8 MB), and the sort's key and index
-// passes over the 6.55 M pairs; ~20 FLOP a (pair, channel). This first
-// version is simple: pass 1 reads each pair's 3 C cotangents from coef
-// (L2), and the packed windows make one more round trip through memory.
+// Summation order: per window, its pairs in ascending point order; then
+// the fixed unpack: the order of the design before this one, whose df
+// added its terms as JAX does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "counting_sort.cuh"
 
 namespace {
 
@@ -152,13 +175,16 @@ __global__ void __launch_bounds__(kThreads)
                                 __fmul_rn(2.f, su));
   const float d_s1m =
       __fdiv_rn(__fadd_rn(g_mean, __fdiv_rn(__fmul_rn(g_var, slope), d)), d);
+  const float d_s1u = __fdiv_rn(__fmul_rn(__fmul_rn(-2.f, mean), g_var), d);
   float* out = coef + (size_t)i * 3 * c + ch;
-  out[0] = __fdiv_rn(__fmul_rn(__fmul_rn(-2.f, mean), g_var), d);  // d s1u
-  out[c] = __fdiv_rn(g_var, d);                                    // d s2u
-  out[2 * c] = d_s1m;
+  out[0] = __fadd_rn(d_s1u, d_s1m);  // a pair the view sees
+  out[c] = d_s1u;                    // one it does not
+  out[2 * c] = __fdiv_rn(g_var, d);  // d s2u
 }
 
 // ---- pass 1: a warp a window ---------------------------------------------
+
+constexpr int kDepth = 8;  // pairs whose cotangent rows are loaded ahead
 
 __global__ void __launch_bounds__(kThreads)
     window_kernel(const float* __restrict__ pts,
@@ -174,46 +200,72 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int v = win / hw, idx = win - v * hw;
   const int beg = __ldg(off + win), end = __ldg(off + win + 1);
+  if (beg >= end) return;  // no pair here: pass 2 does not read the window
   const bool has_ch = lane < c;
   float* out = packed + (size_t)win * 4 * c + lane;
   float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
-  if (beg < end) {
-    float pv[12];
+  float pv[12];
 #pragma unroll
-    for (int k = 0; k < 12; ++k) pv[k] = __ldg(proj + 16 * v + k);
-    // the window's four taps of channel `lane`, zero past the edges
-    const int y0 = idx / fw, x0 = idx - y0 * fw;
-    const bool x1 = x0 + 1 < fw, y1 = y0 + 1 < fh;
-    const float* fv = feats + (size_t)v * hw * c + lane;
-    float t00 = 0.f, t01 = 0.f, t10 = 0.f, t11 = 0.f;
-    if (has_ch) {
-      t00 = __ldg(fv + (size_t)idx * c);
-      if (x1) t01 = __ldg(fv + (size_t)(idx + 1) * c);
-      if (y1) t10 = __ldg(fv + (size_t)(idx + fw) * c);
-      if (x1 && y1) t11 = __ldg(fv + (size_t)(idx + fw + 1) * c);
-    }
-    for (int j = beg; j < end; ++j) {
-      const int i = __ldg(order + j) - v * n;
+  for (int k = 0; k < 12; ++k) pv[k] = __ldg(proj + 16 * v + k);
+  // the window's four taps of channel `lane`, zero past the edges
+  const int y0 = idx / fw, x0 = idx - y0 * fw;
+  const bool x1 = x0 + 1 < fw, y1 = y0 + 1 < fh;
+  const float* fv = feats + (size_t)v * hw * c + lane;
+  float t00 = 0.f, t01 = 0.f, t10 = 0.f, t11 = 0.f;
+  if (has_ch) {
+    t00 = __ldg(fv + (size_t)idx * c);
+    if (x1) t01 = __ldg(fv + (size_t)(idx + 1) * c);
+    if (y1) t10 = __ldg(fv + (size_t)(idx + fw) * c);
+    if (x1 && y1) t11 = __ldg(fv + (size_t)(idx + fw + 1) * c);
+  }
+  for (int j0 = beg; j0 < end; j0 += 32) {
+    const int cnt = min(32, end - j0);
+    // lane k: pair j0 + k, projected once
+    int i = 0;
+    float4 wq = make_float4(0.f, 0.f, 0.f, 0.f);
+    float mq = 0.f;
+    if (lane < cnt) {
+      i = __ldg(order + j0 + lane) - v * n;
       float pt[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) pt[k] = __ldg(pts + (size_t)i * 3 + k);
       const Pair q = project(pv, pt, h1, w1, fh, fw, fsx, fsy);
-      if (!has_ch) continue;
-      // the forward's sample ((t00 w00 + t01 w01) + t10 w10) + t11 w11
-      float f = __fmul_rn(t00, q.w.x);
-      f = __fadd_rn(f, __fmul_rn(t01, q.w.y));
-      f = __fadd_rn(f, __fmul_rn(t10, q.w.z));
-      f = __fadd_rn(f, __fmul_rn(t11, q.w.w));
-      const float* cf = coef + (size_t)i * 3 * c + lane;
-      const float d_s1u = __ldg(cf), d_s2u = __ldg(cf + c);
-      const float d_s1m = __ldg(cf + 2 * c);
-      const float df = __fadd_rn(
-          __fadd_rn(d_s1u, __fmul_rn(__fmul_rn(2.f, f), d_s2u)),
-          __fmul_rn(q.m ? 1.f : 0.f, d_s1m));
-      a00 = __fadd_rn(a00, __fmul_rn(df, q.w.x));
-      a01 = __fadd_rn(a01, __fmul_rn(df, q.w.y));
-      a10 = __fadd_rn(a10, __fmul_rn(df, q.w.z));
-      a11 = __fadd_rn(a11, __fmul_rn(df, q.w.w));
+      wq = q.w;
+      mq = q.m ? 1.f : 0.f;
+    }
+    for (int k0 = 0; k0 < cnt; k0 += kDepth) {
+      float da[kDepth], d2[kDepth];
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        const int k = (k0 + u) & 31;
+        const int ik = __shfl_sync(0xffffffffu, i, k);
+        const float m = __shfl_sync(0xffffffffu, mq, k);
+        da[u] = d2[u] = 0.f;
+        if (has_ch && k0 + u < cnt) {
+          const float* cf = coef + (size_t)ik * 3 * c + lane;
+          da[u] = __ldg(cf + (m != 0.f ? 0 : c));
+          d2[u] = __ldg(cf + 2 * c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        const int k = (k0 + u) & 31;
+        const float w00 = __shfl_sync(0xffffffffu, wq.x, k);
+        const float w01 = __shfl_sync(0xffffffffu, wq.y, k);
+        const float w10 = __shfl_sync(0xffffffffu, wq.z, k);
+        const float w11 = __shfl_sync(0xffffffffu, wq.w, k);
+        if (k0 + u >= cnt) break;  // uniform over the warp
+        // the forward's sample ((t00 w00 + t01 w01) + t10 w10) + t11 w11
+        float f = __fmul_rn(t00, w00);
+        f = __fadd_rn(f, __fmul_rn(t01, w01));
+        f = __fadd_rn(f, __fmul_rn(t10, w10));
+        f = __fadd_rn(f, __fmul_rn(t11, w11));
+        const float df = __fadd_rn(da[u], __fmul_rn(__fmul_rn(2.f, f), d2[u]));
+        a00 = __fadd_rn(a00, __fmul_rn(df, w00));
+        a01 = __fadd_rn(a01, __fmul_rn(df, w01));
+        a10 = __fadd_rn(a10, __fmul_rn(df, w10));
+        a11 = __fadd_rn(a11, __fmul_rn(df, w11));
+      }
     }
   }
   if (has_ch) {
@@ -226,25 +278,45 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- pass 2: the windows into texels -------------------------------------
 
+// Thread t: texel t / (C / kW), channels kW (t % (C / kW)) + e, e < kW.
+template <int kW>
 __global__ void __launch_bounds__(kThreads)
-    unpack_kernel(const float* __restrict__ packed, float* __restrict__ d_feats,
+    unpack_kernel(const float* __restrict__ packed,
+                  const int* __restrict__ off, float* __restrict__ d_feats,
                   int n_views, int fh, int fw, int c) {
+  using Vec = typename std::conditional<kW == 4, float4, float>::type;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int hw = fh * fw;
-  if (t >= (long long)n_views * hw * c) return;
-  const int ch = (int)(t % c);
-  const int texel = (int)(t / c);
+  const int hw = fh * fw, groups = c / kW;
+  if (t >= (long long)n_views * hw * groups) return;
+  const int ch = (int)(t % groups) * kW;
+  const int texel = (int)(t / groups);
   const int v = texel / hw, idx = texel - v * hw;
   const int y = idx / fw, x = idx - y * fw;
   const float* pv = packed + (size_t)v * hw * 4 * c + ch;
+  const int* ov = off + (size_t)v * hw;
   const size_t stride = 4 * (size_t)c;
-  float s = __ldg(pv + (size_t)idx * stride);
-  if (x > 0) s = __fadd_rn(s, __ldg(pv + (size_t)(idx - 1) * stride + c));
-  if (y > 0)
-    s = __fadd_rn(s, __ldg(pv + (size_t)(idx - fw) * stride + 2 * c));
-  if (x > 0 && y > 0)
-    s = __fadd_rn(s, __ldg(pv + (size_t)(idx - fw - 1) * stride + 3 * c));
-  d_feats[t] = s;
+  float s[kW];
+#pragma unroll
+  for (int e = 0; e < kW; ++e) s[e] = 0.f;
+  // tap j of window k, where the window holds a pair (+0 + x is x: a
+  // window's sum is never -0)
+  auto add = [&](int k, int j) {
+    if (__ldg(ov + k + 1) == __ldg(ov + k)) return;
+    const Vec q = __ldg(
+        reinterpret_cast<const Vec*>(pv + (size_t)k * stride + j * c));
+    const float* qa = reinterpret_cast<const float*>(&q);
+#pragma unroll
+    for (int e = 0; e < kW; ++e) s[e] = __fadd_rn(s[e], qa[e]);
+  };
+  add(idx, 0);
+  if (x > 0) add(idx - 1, 1);
+  if (y > 0) add(idx - fw, 2);
+  if (x > 0 && y > 0) add(idx - fw - 1, 3);
+  float* out = d_feats + (size_t)texel * c + ch;
+  if constexpr (kW == 4)
+    *reinterpret_cast<float4*>(out) = make_float4(s[0], s[1], s[2], s[3]);
+  else
+    out[0] = s[0];
 }
 
 int blocks_for(long long threads) {
@@ -277,25 +349,56 @@ extern "C" int streaming_sample_mean_var_backward_keys(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Passes 1 and 2. order (V N) int32, the pairs sorted stably by key; off
-// (V FH FW + 1) int32, where each window's pairs start in `order`; feats
-// (V, FH, FW, C); coef from pass 0; packed (V FH FW, 4, C) scratch;
-// d_feats (V, FH, FW, C) out. Returns the first cudaError_t.
-extern "C" int streaming_sample_mean_var_backward_scatter(
+// The points of a tile of the index preparation: the wrapper sizes its
+// scratch by it.
+extern "C" int streaming_sample_mean_var_backward_tile() {
+  return csort::kTile;
+}
+
+// Index preparation. keys (V, N) from pass 0; hist (V, J, FH FW) and
+// tile_kept (V, J) int32 scratch, J = ceil(N / tile); order (V N) int32
+// out, the kept
+// pairs by window in point order (the entries past off[V FH FW]
+// unspecified); off (V FH FW + 1) int32 out. Returns the first cudaError_t.
+extern "C" int streaming_sample_mean_var_backward_order(
+    const int* keys, int* hist, int* tile_kept, int* order, int* off, int n,
+    int n_views, int hw, void* stream) {
+  return static_cast<int>(csort::sort(
+      keys, hist, tile_kept, order, off, nullptr, nullptr, n_views, n, hw,
+      -hw, 0, 0, n, static_cast<cudaStream_t>(stream)));
+}
+
+// Pass 1: feats (V, FH, FW, C); coef from pass 0; order and off from the
+// index preparation; packed (V FH FW, 4, C), of which it writes the windows
+// that hold a pair.
+extern "C" int streaming_sample_mean_var_backward_windows(
     const float* pts, const float* proj, const float* feats,
-    const float* coef, const int* order, const int* off, float* packed,
-    float* d_feats, int n, int n_views, int fh, int fw, int c, int h, int w,
-    float fsx, float fsy, void* stream) {
+    const float* coef, const int* order, const int* off, float* packed, int n,
+    int n_views, int fh, int fw, int c, int h, int w, float fsx, float fsy,
+    void* stream) {
+  if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const long long windows = (long long)n_views * fh * fw;
+  if (windows == 0 || n == 0) return 0;
+  window_kernel<<<(int)((windows + kWarps - 1) / kWarps), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      pts, proj, feats, coef, order, off, packed, n, n_views, fh, fw, c,
+      (float)(h - 1), (float)(w - 1), fsx, fsy);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 2: d_feats (V, FH, FW, C) out from packed and off.
+extern "C" int streaming_sample_mean_var_backward_unpack(
+    const float* packed, const int* off, float* d_feats, int n_views, int fh,
+    int fw, int c, void* stream) {
   if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
   const long long windows = (long long)n_views * fh * fw;
   if (windows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  window_kernel<<<(int)((windows + kWarps - 1) / kWarps), kThreads, 0, s>>>(
-      pts, proj, feats, coef, order, off, packed, n, n_views, fh, fw, c,
-      (float)(h - 1), (float)(w - 1), fsx, fsy);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  unpack_kernel<<<blocks_for(windows * c), kThreads, 0, s>>>(
-      packed, d_feats, n_views, fh, fw, c);
+  if (c % 4 == 0)
+    unpack_kernel<4><<<blocks_for(windows * (c / 4)), kThreads, 0, s>>>(
+        packed, off, d_feats, n_views, fh, fw, c);
+  else
+    unpack_kernel<1><<<blocks_for(windows * c), kThreads, 0, s>>>(
+        packed, off, d_feats, n_views, fh, fw, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/lib<name>-<hash>.so`` (``sm_90a``), at first use. The hash
-is that of the source, so an edited source never loads a stale library.
+is that of the source and of the headers beside it (``csrc/*.cuh``), so
+an edited source or header never loads a stale library.
 Nothing is built or loaded when a module is imported: the CPU tests
 import every module and this machine need not have ``nvcc``.
 """
@@ -45,9 +46,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _start(name: str):

@@ -12,7 +12,8 @@ In training the rgb sums come from the host (``data/ray_stats.py``) and
 K2 samples only the feature maps. K2 is differentiable in the feature
 maps: its backward is the hand-written CUDA kernel
 ``csrc/streaming_sample_mean_var_backward.cu``, the transpose of the
-bilinear taps as a deterministic scatter (pairs sorted by their window).
+bilinear taps as a deterministic scatter (pairs sorted by their window
+with a counting sort by hand, ``csrc/counting_sort.cuh``).
 
 Exactness: the projection sums its four products in a fixed order with
 separately rounded operations, every scalar is a float32 value, and the
@@ -31,7 +32,7 @@ import torch
 
 from . import cuda_build
 from .grid_sample import _window, grid_sample_2d_packed, pack_bilinear
-from .voxel import _host
+from .voxel import _SMEM_OPTIN, _host, _ptrs, _stream
 
 
 def view_projection(intrinsic, extrinsics, ratio: float,
@@ -451,12 +452,12 @@ def _lib():
 
 
 def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
-    """Check and launch K2's backward; returns d featmaps. Pass 0 (the
-    kernel, ``_backward_keys``) keys each (point, view) pair by its
-    feature window and writes the points' cotangents; torch sorts the
-    keys stably and finds each window's run (``window_order``, the index
-    preparation, as K1's backward does); passes 1 and 2 (the kernel) sum
-    each window's pairs in point order and unpack the windows into
+    """Check and launch K2's backward; returns d featmaps. Pass 0
+    (``_backward_keys``) keys each (point, view) pair by its feature
+    window and writes the points' cotangents; the index preparation
+    (``_window_order_launch``, a counting sort by hand) lists each
+    window's kept pairs in point order; pass 1 (``_window_sums``) sums
+    each window's pairs, pass 2 (``_unpack``) unpacks the windows into
     texels. The launch is not counted."""
     if featmaps.dtype != torch.float32:
         raise TypeError(f"K2's backward takes float32 maps, got "
@@ -474,26 +475,17 @@ def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
                              f"{dev}")
     if v * n >= 2 ** 31 or v * fh * fw * 4 * c >= 2 ** 31:
         raise ValueError("K2's backward indexes pairs and texels in int32")
+    if 4 * (fh * fw + 1) > _SMEM_OPTIN:
+        raise ValueError(f"K2's backward keeps a map's {fh * fw} windows in "
+                         f"shared memory: at most {_SMEM_OPTIN // 4 - 1}")
     if n == 0:
         return torch.zeros_like(featmaps)
     keys, coef = _backward_keys(pts, proj, img_hw, featmaps, g.contiguous(),
                                 globalfeat.contiguous(), s1u.contiguous(),
                                 cnt.contiguous())
-    order, off = window_order(keys, v * fh * fw)
-    packed = torch.empty((v * fh * fw, 4, c), dtype=torch.float32,
-                         device=dev)
-    d_feats = torch.empty_like(featmaps)
-    with torch.cuda.device(dev):  # the launches act on the current device
-        err = _backward_lib().streaming_sample_mean_var_backward_scatter(
-            pts.data_ptr(), proj.data_ptr(), featmaps.data_ptr(),
-            coef.data_ptr(), order.data_ptr(), off.data_ptr(),
-            packed.data_ptr(), d_feats.data_ptr(), n, v, fh, fw, c,
-            *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"streaming_sample_mean_var backward launch "
-                           f"failed: cudaError {err}")
-    return d_feats
+    order, off = _window_order_launch(keys, fh * fw)
+    packed = _window_sums(pts, proj, img_hw, featmaps, coef, order, off)
+    return _unpack(packed, off, featmaps)
 
 
 def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
@@ -506,28 +498,95 @@ def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     coef = torch.empty((n, 3, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):  # the launches act on the current device
         err = _backward_lib().streaming_sample_mean_var_backward_keys(
-            pts.data_ptr(), proj.data_ptr(), g.data_ptr(),
-            globalfeat.data_ptr(), s1u.data_ptr(), cnt.data_ptr(),
-            keys.data_ptr(), coef.data_ptr(), n, v, fh, fw, c, *img_hw,
-            _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *_ptrs(pts, proj, g, globalfeat, s1u, cnt, keys, coef), n, v,
+            fh, fw, c, *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 0 "
                            f"launch failed: cudaError {err}")
     return keys, coef
 
 
-def window_order(keys, n_windows: int):
-    """The inverse index of K2's backward: the pairs sorted stably by key,
-    ``order`` (V N) int32 (the dropped pairs, keyed ``n_windows``, last),
-    and ``off`` (n_windows + 1) int32, where each window's pairs start in
-    ``order``; window k has ``off[k + 1] - off[k]`` of them, in ascending
-    pair (so point) order."""
+def _window_order_launch(keys, hw: int):
+    """K2's backward index preparation on the card, a stable counting
+    sort of each view's pairs by window: ``window_order``'s (order, off),
+    ``order``'s entries past ``off[-1]`` unspecified."""
+    v, n = keys.shape
+    dev = keys.device
+    lib = _backward_lib()
+    tiles = -(-n // lib.streaming_sample_mean_var_backward_tile())
+    if v * tiles * hw >= 2 ** 31:
+        raise ValueError("K2's backward indexes its tiles' bins in int32")
+    hist = torch.empty((v, tiles, hw), dtype=torch.int32, device=dev)
+    kept = torch.empty((v, tiles), dtype=torch.int32, device=dev)
+    order = torch.empty((v * n,), dtype=torch.int32, device=dev)
+    off = torch.empty((v * hw + 1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):  # the launches act on the current device
+        err = lib.streaming_sample_mean_var_backward_order(
+            *_ptrs(keys, hist, kept, order, off), n, v, hw, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var backward index "
+                           f"preparation failed: cudaError {err}")
+    return order, off
+
+
+def _window_sums(pts, proj, img_hw, featmaps, coef, order, off):
+    """K2's backward pass 1: packed (V FH FW, 4, C), each window's four
+    taps' sums over its pairs in point order; a window that holds no pair
+    is left unwritten."""
+    v, fh, fw, c = featmaps.shape
+    n, dev = coef.shape[0], pts.device
+    packed = torch.empty((v * fh * fw, 4, c), dtype=torch.float32,
+                         device=dev)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = _backward_lib().streaming_sample_mean_var_backward_windows(
+            *_ptrs(pts, proj, featmaps, coef, order, off, packed), n, v, fh,
+            fw, c, *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var backward pass 1 "
+                           f"launch failed: cudaError {err}")
+    return packed
+
+
+def _unpack(packed, off, featmaps):
+    """K2's backward pass 2: d featmaps from the packed windows."""
+    v, fh, fw, c = featmaps.shape
+    dev = featmaps.device
+    d_feats = torch.empty_like(featmaps)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = _backward_lib().streaming_sample_mean_var_backward_unpack(
+            *_ptrs(packed, off, d_feats), v, fh, fw, c, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var backward pass 2 "
+                           f"launch failed: cudaError {err}")
+    return d_feats
+
+
+def window_order_plain(keys, n_windows: int):
+    """Plain version of K2's backward index preparation (same signature
+    as ``window_order``): the pairs sorted stably by key, ``order`` (V N)
+    int32 (the dropped pairs, keyed ``n_windows``, last), and ``off``
+    (n_windows + 1) int32, where each window's pairs start in ``order``;
+    window k has ``off[k + 1] - off[k]`` of them, in ascending pair (so
+    point) order."""
     sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
     bounds = torch.arange(n_windows + 1, dtype=torch.int32,
                           device=keys.device)
     off = torch.searchsorted(sorted_keys, bounds, out_int32=True)
     return order.to(torch.int32), off
+
+
+def window_order(keys, n_windows: int):
+    """The inverse index of K2's backward from the pairs' keys (V, N):
+    (order, off) as ``window_order_plain`` gives them, except that on the
+    card ``order``'s entries past ``off[-1]`` (the dropped pairs') are
+    unspecified. A CPU tensor takes the plain version; a CUDA tensor the
+    counting sort of ``csrc/counting_sort.cuh``."""
+    if keys.device.type == "cpu":
+        return window_order_plain(keys, n_windows)
+    return _window_order_launch(keys.contiguous(),
+                                n_windows // keys.shape[0])
 
 
 def _backward_lib():
@@ -537,9 +596,17 @@ def _backward_lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         keys.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [p]
         keys.restype = ctypes.c_int
-        scatter = lib.streaming_sample_mean_var_backward_scatter
-        scatter.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [p]
-        scatter.restype = ctypes.c_int
+        lib.streaming_sample_mean_var_backward_tile.argtypes = []
+        lib.streaming_sample_mean_var_backward_tile.restype = ctypes.c_int
+        order = lib.streaming_sample_mean_var_backward_order
+        order.argtypes = [p] * 5 + [i] * 3 + [p]
+        order.restype = ctypes.c_int
+        windows = lib.streaming_sample_mean_var_backward_windows
+        windows.argtypes = [p] * 7 + [i] * 7 + [f] * 2 + [p]
+        windows.restype = ctypes.c_int
+        unpack = lib.streaming_sample_mean_var_backward_unpack
+        unpack.argtypes = [p] * 3 + [i] * 4 + [p]
+        unpack.restype = ctypes.c_int
     return lib
 
 

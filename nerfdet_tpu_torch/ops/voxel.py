@@ -10,8 +10,9 @@ the views for each voxel and gathers its rows and their mapped values.
 The epilogue (mean and exp(-variance)) is plain torch. The carry is
 differentiable: its backward is the hand-written kernel
 ``csrc/fused_mean_cov_backward.cu`` (``fusion_carry_backward``), which
-sums the cotangents of the voxels that share a pixel and maps them back
-once per pixel, as phase A maps forward.
+sums the cotangents of the voxels that share a pixel (found by a counting
+sort by hand, ``csrc/counting_sort.cuh``) and maps them back once per
+pixel, as phase A maps forward.
 
 Exactness: geometry is float32 with explicitly ordered multiply-adds
 (no TF32, no library-chosen order) and ``torch.round`` (half to even,
@@ -294,18 +295,77 @@ def fusion_carry_backward(features, pix, count, g1=None, g2=None, gm=None,
 fusion_carry_backward.launches = 0
 
 
-def pixel_order(pix, hw: int):
-    """The backward kernel's inverse index of ``pix`` (V, N): each view's
-    voxels sorted stably by pixel, ``order`` (V, N) int32 (the invalid
-    ones first), and ``off`` (V, hw + 1) int32, where the voxels of pixel
-    p start in ``order[v]``; pixel p of view v has ``off[v, p + 1] -
-    off[v, p]`` of them, in ascending voxel order."""
+def pixel_order_plain(pix, hw: int):
+    """Plain version of K1's backward index preparation (same signature
+    and results as ``pixel_order``): each view's voxels sorted stably by
+    pixel, ``order`` (V, N) int32 (the invalid ones first), and ``off``
+    (V, hw + 1) int32, where the voxels of pixel p start in ``order[v]``;
+    pixel p of view v has ``off[v, p + 1] - off[v, p]`` of them, in
+    ascending voxel order. Then the referenced pixels: ``rows`` (V, hw)
+    int32, each view's pixels with a voxel in ascending order, -1 past
+    ``n_rows`` (V,) int32 of them."""
     v = pix.shape[0]
     keys, order = torch.sort(pix, dim=1, stable=True)
     bounds = torch.arange(hw + 1, dtype=torch.int32, device=pix.device)
     off = torch.searchsorted(keys, bounds.expand(v, -1).contiguous(),
                              out_int32=True)
-    return order.to(torch.int32), off
+    held = off[:, 1:] > off[:, :-1]
+    n_rows = held.sum(1).to(torch.int32)
+    # a stable sort puts each view's referenced pixels first, in order
+    rank = torch.sort((~held).to(torch.int8), dim=1, stable=True)[1]
+    rows = torch.where(torch.arange(hw, device=pix.device)[None]
+                       < n_rows[:, None], rank, -1).to(torch.int32)
+    return order.to(torch.int32), off, rows, n_rows
+
+
+def pixel_order(pix, hw: int):
+    """The inverse index of K1's backward from ``pix`` (V, N): (order,
+    off, rows, n_rows), see ``pixel_order_plain``. A CPU tensor takes the
+    plain version; a CUDA tensor the counting sort of
+    ``csrc/counting_sort.cuh``."""
+    if pix.device.type == "cpu":
+        return pixel_order_plain(pix, hw)
+    return _pixel_order_launch(pix.contiguous(), hw)
+
+
+def _pixel_order_launch(pix, hw: int):
+    v, n = pix.shape
+    dev = pix.device
+    lib = _backward_lib()
+    tiles = -(-n // lib.fused_mean_cov_backward_tile())
+    if v * tiles * (hw + 1) >= 2 ** 31 or v * n >= 2 ** 31:
+        raise ValueError("K1's backward indexes its voxels and tiles' bins "
+                         "in int32")
+    if 4 * (hw + 2) > _SMEM_OPTIN:
+        raise ValueError(f"K1's backward keeps a view's {hw} pixels in "
+                         f"shared memory: at most {_SMEM_OPTIN // 4 - 2}")
+    hist = torch.empty((v, tiles, hw + 1), dtype=torch.int32, device=dev)
+    kept = torch.empty((v, tiles), dtype=torch.int32, device=dev)
+    order = torch.empty((v, n), dtype=torch.int32, device=dev)
+    off = torch.empty((v, hw + 1), dtype=torch.int32, device=dev)
+    rows = torch.empty((v, hw), dtype=torch.int32, device=dev)
+    n_rows = torch.empty((v,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):  # the launches act on the current device
+        err = lib.fused_mean_cov_backward_order(
+            *_ptrs(pix, hist, kept, order, off, rows, n_rows), v, n, hw,
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_mean_cov backward index preparation "
+                           f"failed: cudaError {err}")
+    return order, off, rows, n_rows
+
+
+# the most shared memory a block may opt into on an H100 (bytes): the
+# backwards' index preparation keeps a view's bins there
+_SMEM_OPTIN = 232448
+
+
+def _ptrs(*tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_maps(features):
@@ -399,8 +459,9 @@ def _contiguous_f32(t, shape, name, dev):
 def _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
                      mapped_bias, mapped):
     """Check and launch K1's backward; returns (d features, dW or None,
-    db or None). The index preparation (``pixel_order``) is torch's; the
-    sums and products are the kernel's. The launch is not counted."""
+    db or None): the index preparation (``pixel_order``), pass 1
+    (``_pixel_sums``), and with the mapped stream passes 2 and 3
+    (``_weight_parts``, ``_weight_reduce``). The launch is not counted."""
     _check_maps(features)
     if features.dtype != torch.float32:
         raise TypeError(f"K1's backward takes float32 maps, got "
@@ -426,47 +487,91 @@ def _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
         mapped_kernel = _contiguous_f32(mapped_kernel, (c, m), "W", dev)
         mapped_bias = _contiguous_f32(mapped_bias, (m,), "b", dev)
         count = _contiguous_f32(count, (n,), "count", dev)
-    order, off = pixel_order(pix, h * w)
+    order, off, rows, n_rows = _pixel_order_launch(pix, h * w)
+    if not with_m:
+        d_feats, _ = _pixel_sums(features, order, off, g1, g2)
+        return d_feats, None, None
+    d_feats, dy = _pixel_sums(features, order, off, g1, g2, gm, mapped,
+                              mapped_kernel)
+    parts = _weight_parts(features, dy, rows, n_rows, gm, count)
+    return (d_feats,) + _weight_reduce(*parts, mapped_bias)
+
+
+def _pixel_sums(features, order, off, g1, g2, gm=None, mapped=None, w=None):
+    """K1's backward pass 1 on checked inputs: d features and, with the
+    mapped stream, dY (V, H*W, M) at the referenced rows (else None)."""
+    v, h, wd, c = features.shape
+    n, dev = g1.shape[0], features.device
+    m = 0 if mapped is None else mapped.shape[-1]
     d_feats = torch.empty_like(features)
-    lib = _backward_lib()
-    d_w = d_b = dy = part_w = part_b = part_i = None
-    if with_m:
-        parts = lib.fused_mean_cov_backward_parts()
-        dy = torch.empty((v, h * w, m), dtype=torch.float32, device=dev)
-        part_w = torch.empty((parts, c, m), dtype=torch.float32, device=dev)
-        part_b = torch.empty((parts, m), dtype=torch.float32, device=dev)
-        part_i = torch.empty_like(part_b)
-        d_w = torch.empty((c, m), dtype=torch.float32, device=dev)
-        d_b = torch.empty((m,), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):  # the attribute and launches act on it
-        err = lib.fused_mean_cov_backward(
-            features.data_ptr(), order.data_ptr(), off.data_ptr(),
-            g1.data_ptr(), ptr(g2), ptr(gm if with_m else None),
-            ptr(mapped if with_m else None),
-            ptr(mapped_kernel if with_m else None),
-            ptr(mapped_bias if with_m else None),
-            ptr(count if with_m else None), d_feats.data_ptr(), ptr(dy),
-            ptr(part_w), ptr(part_b), ptr(part_i), ptr(d_w), ptr(d_b),
-            v, h * w, c, n, m, torch.cuda.current_stream(dev).cuda_stream)
+    dy = (None if mapped is None else
+          torch.empty((v, h * wd, m), dtype=torch.float32, device=dev))
+    with torch.cuda.device(dev):  # the attribute and launch act on it
+        err = _backward_lib().fused_mean_cov_backward_pixels(
+            *_ptrs(features, order, off, g1, g2, gm, mapped, w, d_feats, dy),
+            v, h * wd, c, n, m, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"fused_mean_cov backward launch failed: "
+        raise RuntimeError(f"fused_mean_cov backward pass 1 launch failed: "
                            f"cudaError {err}")
-    return d_feats, d_w, d_b
+    return d_feats, dy
+
+
+def _weight_parts(features, dy, rows, n_rows, gm, count):
+    """K1's backward pass 2: the partial sums of x^T dY, of dY and of the
+    unseen views' gm over fixed ranges, (parts, C, M), (parts, M) and
+    (parts, M)."""
+    v, h, w, c = features.shape
+    n, m = gm.shape
+    dev = features.device
+    lib = _backward_lib()
+    parts = lib.fused_mean_cov_backward_parts()
+    part_w = torch.empty((parts, c, m), dtype=torch.float32, device=dev)
+    part_b = torch.empty((parts, m), dtype=torch.float32, device=dev)
+    part_i = torch.empty_like(part_b)
+    with torch.cuda.device(dev):  # the attribute and launch act on it
+        err = lib.fused_mean_cov_backward_weights(
+            *_ptrs(features, dy, rows, n_rows, gm, count, part_w, part_b,
+                   part_i), v, h * w, c, n, m, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_mean_cov backward pass 2 launch failed: "
+                           f"cudaError {err}")
+    return part_w, part_b, part_i
+
+
+def _weight_reduce(part_w, part_b, part_i, mapped_bias):
+    """K1's backward pass 3: (dW, db), the partials summed in order."""
+    _, c, m = part_w.shape
+    dev = part_w.device
+    d_w = torch.empty((c, m), dtype=torch.float32, device=dev)
+    d_b = torch.empty((m,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = _backward_lib().fused_mean_cov_backward_reduce(
+            *_ptrs(part_w, part_b, part_i, mapped_bias, d_w, d_b), c, m,
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_mean_cov backward pass 3 launch failed: "
+                           f"cudaError {err}")
+    return d_w, d_b
 
 
 def _backward_lib():
     lib = cuda_build.load("fused_mean_cov_backward")
-    fn = lib.fused_mean_cov_backward
+    fn = lib.fused_mean_cov_backward_pixels
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 17 + [i] * 5 + [p]
+        fn.argtypes = [p] * 10 + [i] * 5 + [p]
         fn.restype = ctypes.c_int
-        lib.fused_mean_cov_backward_parts.argtypes = []
-        lib.fused_mean_cov_backward_parts.restype = ctypes.c_int
+        for name in ("parts", "tile"):
+            f = getattr(lib, f"fused_mean_cov_backward_{name}")
+            f.argtypes = []
+            f.restype = ctypes.c_int
+        lib.fused_mean_cov_backward_order.argtypes = [p] * 7 + [i] * 3 + [p]
+        lib.fused_mean_cov_backward_order.restype = ctypes.c_int
+        lib.fused_mean_cov_backward_weights.argtypes = (
+            [p] * 9 + [i] * 5 + [p])
+        lib.fused_mean_cov_backward_weights.restype = ctypes.c_int
+        lib.fused_mean_cov_backward_reduce.argtypes = [p] * 6 + [i] * 2 + [p]
+        lib.fused_mean_cov_backward_reduce.restype = ctypes.c_int
     return lib
 
 

@@ -189,16 +189,25 @@ def test_mapped_rows_launcher_refuses_more_shared_memory_than_the_card_has(
     assert _rel(out, voxel.mapped_rows_plain(feats, w, b)) <= 1e-5
 
 
-def _backward_case(dev, case, c, mapped, with_g2, seed=0):
-    """K1's backward inputs on the card tests' scene (6 views, 3200
-    voxels, 60x80 maps): its pixel indices (view 2 seeing no voxel, or 64
-    voxels on one pixel of every view), f32 maps, W and b, and seeded
-    cotangents."""
+def _k1_pix(dev, case):
     pix = _pix(dev)
     if case == "blind view":
         pix[2] = -1
-    elif case == "64 voxels on one pixel":
-        pix[:, :64] = 1234
+    elif case.endswith("voxels on one pixel"):
+        pix[:, :int(case.split()[0])] = 1234
+    elif case == "single view":
+        pix = pix[:1].contiguous()
+    elif case == "no valid voxel":
+        pix[:] = -1
+    return pix
+
+
+def _backward_case(dev, case, c, mapped, with_g2, seed=0):
+    """K1's backward inputs on the card tests' scene (6 views, 3200
+    voxels, 60x80 maps): its pixel indices (view 2 seeing no voxel, 64 or
+    100 voxels on one pixel of every view, one view, or no valid voxel),
+    f32 maps, W and b, and seeded cotangents."""
+    pix = _k1_pix(dev, case)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, m = pix.shape[1], 32
     feats = torch.randn((pix.shape[0], 60, 80, c), generator=gen, device=dev)
@@ -220,7 +229,8 @@ def _close(got, want, tol):
 
 
 @pytest.mark.parametrize("case", ["scene", "blind view",
-                                  "64 voxels on one pixel"])
+                                  "64 voxels on one pixel", "single view",
+                                  "no valid voxel"])
 @pytest.mark.parametrize("with_g2", [False, True])
 @pytest.mark.parametrize("mapped", [False, True])
 @pytest.mark.parametrize("c", [32, 1024])
@@ -240,7 +250,11 @@ def test_fusion_backward_matches_plain(dev, c, mapped, with_g2, case):
     torch.cuda.synchronize()
     assert voxel.fusion_carry_backward.launches == before + 1
     assert got[0].shape == feats.shape
-    assert _close(got[0], want[0], 1e-5)
+    if case == "no valid voxel":
+        assert float(got[0].abs().max()) == 0.0
+        assert not mapped or float(got[1].abs().max()) == 0.0
+    else:
+        assert _close(got[0], want[0], 1e-5)
     assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
     if case == "blind view":
         assert float(got[0][2].abs().max()) == 0.0
@@ -250,6 +264,29 @@ def test_fusion_backward_matches_plain(dev, c, mapped, with_g2, case):
     for x, y in zip(got, again):
         assert (x is None and y is None) or torch.equal(x, y)
 
+
+
+@pytest.mark.parametrize("m", [5, 32])
+def test_fusion_backward_takes_unaligned_maps_and_any_mapped_width(dev, m):
+    """Maps off a 16-byte boundary and M % 4 != 0 take the backward's
+    4-byte loads and copies; the results match the plain version as the
+    aligned ones do."""
+    feats, pix, count, g1, g2, _, _, _ = _backward_case(dev, "scene", 64,
+                                                        False, True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w = torch.randn((64, m), generator=gen, device=dev) / 8.0
+    b = torch.randn((m,), generator=gen, device=dev)
+    gm = torch.randn((pix.shape[1], m), generator=gen, device=dev)
+    shifted = _unaligned(feats)
+    assert shifted.data_ptr() % 16 != 0
+    rows = voxel.mapped_rows_plain(shifted, w, b)
+    got = voxel.fusion_carry_backward(shifted, pix, count, g1, g2, gm, w, b,
+                                      rows)
+    want = voxel.fusion_carry_backward_plain(shifted, pix, count, g1, g2, gm,
+                                             w, b, rows)
+    torch.cuda.synchronize()
+    assert _close(got[0], want[0], 1e-5)
+    assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
 
 @pytest.mark.parametrize("mapped", [False, True])
 def test_fusion_carry_gradient_is_the_kernels(dev, mapped):
@@ -481,12 +518,19 @@ def _backward_inputs(dev, case, v, r, s, c, seed):
     """K2's backward inputs: the forward's globalfeat, s1u and count at
     ``_ray_inputs`` points and a random cotangent. "border": every point
     pushed to the maps' edge band, where windows clamp and weights are
-    partial; "interior": points near the room's centre."""
+    partial; "interior": points near the room's centre; "one point":
+    every sample at one point, so each view's pairs share one window;
+    "behind": every point behind every camera, so every pair is
+    dropped."""
     pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=seed)
     if case == "border":
         pts = pts * 2.5
     elif case == "interior":
         pts = pts * 0.3
+    elif case == "one point":
+        pts = pts[-1:, -1:].expand_as(pts).contiguous() * 0.3
+    elif case == "behind":
+        pts = pts + torch.tensor([0.0, 0.0, 60.0], device=dev)
     host = _host_rgb(pts, images, proj)
     gf, _, s1u, cnt = render._k2_launch(pts, None, proj, (239, 320), feats,
                                         host, for_grad=True)
@@ -495,10 +539,23 @@ def _backward_inputs(dev, case, v, r, s, c, seed):
     return pts, proj, feats, g, gf, s1u, cnt
 
 
-@pytest.mark.parametrize("case", ["scene", "border", "interior"])
-@pytest.mark.parametrize("v,r,s,c", [
-    (50, 2048, 64, 32), (5, 300, 16, 8), (4, 33, 3, 32), (6, 50, 13, 30),
-])
+def _k2_backward_cases():
+    """Each shape with each case, except "one point" at the training
+    path's 131,072 points: its one window a view sums 131,072 terms, and
+    two float32 sums of that many terms in different orders (the kernel's
+    point order, the plain version's atomic ``index_add_`` on the card)
+    differ by more than 1e-5 of the max. The smaller shapes hold the skew;
+    ``test_streaming_sample_mean_var_backward_sums_in_point_order`` holds
+    it bit for bit."""
+    shapes = [(50, 2048, 64, 32), (5, 300, 16, 8), (4, 33, 3, 32),
+              (6, 50, 13, 30), (5, 100, 16, 1), (1, 64, 16, 32)]
+    return [pytest.param(case, *shape, id="-".join(map(str, shape + (case,))))
+            for case in ("scene", "border", "interior", "one point",
+                         "behind") for shape in shapes
+            if not (case == "one point" and shape[1] * shape[2] > 10 ** 5)]
+
+
+@pytest.mark.parametrize("case,v,r,s,c", _k2_backward_cases())
 def test_streaming_sample_mean_var_backward_matches_plain(dev, case, v, r,
                                                           s, c):
     """K2's backward kernel against its plain version (``index_add_`` in
@@ -514,8 +571,11 @@ def test_streaming_sample_mean_var_backward_matches_plain(dev, case, v, r,
     torch.cuda.synchronize()
     assert render.streaming_sample_mean_var_backward.launches == before + 1
     assert got.shape == feats.shape and got.dtype == torch.float32
-    assert float(want.abs().max()) > 0
-    assert _rel(got, want) <= 1e-5
+    if case == "behind":
+        assert float(got.abs().max()) == float(want.abs().max()) == 0.0
+    else:
+        assert float(want.abs().max()) > 0
+        assert _rel(got, want) <= 1e-5
     again = render.streaming_sample_mean_var_backward(
         pts, proj, (239, 320), feats, g, gf, s1u, cnt)
     assert torch.equal(got, again)
@@ -563,6 +623,168 @@ def test_streaming_sample_mean_var_backward_refuses_what_it_cannot_take(dev):
         bwd(*args, feats, g[..., :-1], gf, s1u, cnt)
     with pytest.raises(ValueError, match="unsupported device"):
         bwd(pts.to("meta"), proj, (239, 320), feats, g, gf, s1u, cnt)
+
+
+# ---- the backwards' index preparation and summation order -----------------
+
+
+def _window_keys(dev, case, v, n, hw, seed):
+    """Pair keys as K2's pass 0 writes them: v hw + window, v hw the
+    dropped pairs' key."""
+    rng = np.random.RandomState(seed)
+    win = rng.randint(0, hw, (v, n))
+    if case == "few windows":  # most windows hold no pair
+        win = (rng.randint(0, 5, (v, n)) * 7) % hw
+    elif case == "one window":
+        win[:] = hw // 2
+    keys = win + (np.arange(v) * hw)[:, None]
+    if case == "dropped":
+        keys[rng.rand(v, n) < 0.36] = v * hw
+    elif case == "all dropped":
+        keys[:] = v * hw
+    return torch.from_numpy(keys.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("case", ["dropped", "few windows", "one window",
+                                  "all dropped"])
+@pytest.mark.parametrize("v,n,hw", [
+    (50, 20000, 4720),  # three tiles a view
+    (1, 2 * 8192 + 5, 4720), (3, 100, 12), (2, 1, 7),
+])
+def test_window_order_kernel_equals_plain(dev, case, v, n, hw):
+    """K2's index preparation (a counting sort by hand) gives exactly
+    the plain version's ``off`` and, up to ``off[-1]``, its ``order``;
+    two runs bitwise equal."""
+    keys = _window_keys(dev, case, v, n, hw, seed=v + n)
+    order, off = render.window_order(keys, v * hw)
+    want_order, want_off = render.window_order_plain(keys, v * hw)
+    again = render.window_order(keys, v * hw)
+    torch.cuda.synchronize()
+    assert order.dtype == off.dtype == torch.int32
+    assert torch.equal(off, want_off) and torch.equal(again[1], off)
+    kept = int(want_off[-1])
+    assert torch.equal(order[:kept], want_order[:kept])
+    assert torch.equal(again[0][:kept], order[:kept])
+
+
+@pytest.mark.parametrize("case", ["scene", "blind view",
+                                  "100 voxels on one pixel", "single view",
+                                  "no valid voxel", "training path"])
+def test_pixel_order_kernel_equals_plain(dev, case):
+    """K1's index preparation (a counting sort by hand) gives exactly the
+    plain version's order, off, referenced rows and their counts."""
+    if case == "training path":  # 50 views, 25,600 voxels: four tiles
+        pix = _pix(dev, v=50, nvox=(40, 40, 16))
+    else:
+        pix = _k1_pix(dev, case)
+    got = voxel.pixel_order(pix, 4800)
+    want = voxel.pixel_order_plain(pix, 4800)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _k1_in_voxel_order(feats, pix, g1, g2):
+    """K1's d features without the mapped stream, summed in torch op by op
+    in the order the kernel keeps: each pixel's voxels ascending."""
+    v, h, w, c = feats.shape
+    order, off, _, _ = voxel.pixel_order_plain(pix, h * w)
+    x = feats.reshape(v, h * w, c)
+    a1, a2 = torch.zeros_like(x), torch.zeros_like(x)
+    cnt = off[:, 1:] - off[:, :-1]
+    for k in range(int(cnt.max())):
+        vi, pi = torch.nonzero(cnt > k, as_tuple=True)
+        n = order[vi, off[vi, pi] + k].long()
+        a1[vi, pi] = a1[vi, pi] + g1[n]
+        if g2 is not None:
+            a2[vi, pi] = a2[vi, pi] + g2[n]
+    if g2 is not None:
+        a1 = a1 + (2.0 * x) * a2
+    return torch.where((cnt > 0)[..., None], a1, 0.0).reshape(v, h, w, c)
+
+
+@pytest.mark.parametrize("case", ["scene", "100 voxels on one pixel"])
+@pytest.mark.parametrize("with_g2", [False, True])
+@pytest.mark.parametrize("c", [32, 256])
+def test_fusion_backward_sums_each_pixel_in_voxel_order(dev, c, with_g2,
+                                                        case):
+    """K1's d features bitwise equal to its pixels' voxels summed in
+    ascending voxel order (the order of the design before this one)."""
+    feats, pix, count, g1, g2, _, _, _ = _backward_case(dev, case, c, False,
+                                                        with_g2)
+    got = voxel.fusion_carry_backward(feats, pix, count, g1, g2)[0]
+    want = _k1_in_voxel_order(feats, pix, g1, g2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _k2_in_point_order(pts, proj, feats, coef, keys):
+    """K2's backward from pass 0's keys and cotangents, summed in torch op
+    by op in the order the kernel keeps: each window's pairs in ascending
+    point order, then the fixed unpack."""
+    from nerfdet_tpu_torch.ops.grid_sample import _window
+
+    v, fh, fw, c = feats.shape
+    n, dev = coef.shape[0], feats.device
+    xyz = pts.reshape(-1, 3)
+    order, off = render.window_order_plain(keys, v * fh * fw)
+    kept = int(off[-1])
+    order = order[:kept].long()
+    win = torch.repeat_interleave(torch.arange(v * fh * fw, device=dev),
+                                  (off[1:] - off[:-1]).long())
+    rank = torch.arange(kept, device=dev) - off[:-1].long()[win]
+    wts = torch.empty((v, n, 4), device=dev)
+    dfs = torch.empty((v, n, c), device=dev)
+    for i in range(v):
+        px, py, m = render._view_pixels(xyz, proj[i:i + 1], (239, 320))
+        px, py = px * render._scale(fw, 320), py * render._scale(fh, 239)
+        f = render.grid_sample_2d_packed(render.pack_bilinear(feats[i]),
+                                         px, py)
+        # the kernel's df: (d s1u + m d s1m) + (2 f) d s2u, from pass 0's
+        # rows d s1u + d s1m, d s1u and d s2u
+        dfs[i] = torch.where(m > 0, coef[:, 0], coef[:, 1]) + (
+            2.0 * f) * coef[:, 2]
+        _, wx0, wx1 = _window(px, fw)
+        _, wy0, wy1 = _window(py, fh)
+        wts[i] = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], -1)
+    df, w = dfs[order // n, order % n], wts[order // n, order % n]
+    acc = torch.zeros((v * fh * fw, 4, c), device=dev)
+    for k in range(int(rank.max()) + 1 if kept else 0):
+        sel = rank == k
+        acc[win[sel]] = acc[win[sel]] + w[sel][:, :, None] * df[sel][:, None]
+    acc = acc.reshape(v, fh, fw, 4, c)
+    out = acc[..., 0, :].clone()
+    out[:, :, 1:] = out[:, :, 1:] + acc[:, :, :-1, 1]
+    out[:, 1:] = out[:, 1:] + acc[:, :-1, :, 2]
+    out[:, 1:, 1:] = out[:, 1:, 1:] + acc[:, :-1, :-1, 3]
+    return out
+
+
+@pytest.mark.parametrize("case", ["scene", "border", "one point"])
+@pytest.mark.parametrize("v,r,s,c", [(5, 100, 64, 8), (3, 40, 16, 1),
+                                     (4, 33, 3, 30)])
+def test_streaming_sample_mean_var_backward_sums_in_point_order(dev, case, v,
+                                                                r, s, c):
+    """K2's backward bitwise equal to its windows' pairs summed in
+    ascending point order and unpacked in the fixed order (the order of
+    the design before this one)."""
+    pts, proj, feats, g, gf, s1u, cnt = _backward_inputs(
+        dev, case, v, r, s, c, seed=v + r + c)
+    bargs = (pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    got = render.streaming_sample_mean_var_backward(*bargs)
+    keys, coef = render._backward_keys(*bargs)
+    want = _k2_in_point_order(pts, proj, feats, coef, keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k2_backward_refuses_more_windows_than_shared_memory_holds(dev):
+    pts, proj, feats, g, gf, s1u, cnt = _backward_inputs(
+        dev, "scene", 2, 16, 4, 1, seed=0)
+    big = torch.zeros((2, 250, 240, 1), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        render.streaming_sample_mean_var_backward(
+            pts, proj, (239, 320), big, g, gf, s1u, cnt)
 
 
 def test_entry_device_turns_tf32_off(dev):

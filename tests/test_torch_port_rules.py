@@ -44,7 +44,8 @@ SCENE_KEYS = ("imgs", "denorm_images", "intrinsic", "extrinsics", "origin",
 def _port_files():
     files = glob.glob(os.path.join(ROOT, "nerfdet_tpu_torch", "**", "*.py"),
                       recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+    return sorted(files) + [os.path.join(ROOT, name)
+                            for name in ("chip_smoke.py", "kernel_ab.py")]
 
 
 @pytest.mark.parametrize("path", _port_files(),
