@@ -57,6 +57,23 @@ Phases, each reported on its own lines:
    step, finite loss terms (``loss_nvs`` included) with positives, the
    forward / backward / optimizer times, steps/s and peak memory.
 
+9. the runtime from files: a ScanNet-layout dataset written as PNG at
+   484x648 (one train scene of 60 views, one val scene of 110, in 8
+   processes; ``--options ori_shape=(484,648)``, so the pipeline's
+   keep-ratio resize gives the flagship's 239x320 padded to 240x320),
+   then in process ``tools/train.main`` on the flagship config (RepeatDataset
+   x6, so 6 steps an epoch) for 8 steps with the config's one loader
+   thread: a checkpoint and a validation (``run_eval``) after each epoch,
+   K1's and K2's forward and backward launched once a step, finite
+   losses; the same 8 steps with 8 loader threads; each run's steps/s
+   from files over steps 3-8 on the host clock, its mean loader wait and
+   the loader threads' host time a scene (decode + resize, rgb sums, ray
+   stream); a resume from ``ckpt_1`` for one step (the step count and the
+   rate continue); then ``tools/test.main --eval mAP nvs`` from
+   ``ckpt_2`` with K1 once a scene and K2 33 times a target view, the
+   metrics, ``run_eval`` scenes/s at 100 source views, ``run_nvs_eval``
+   views/s, peak memory and the phase's wall time.
+
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
 ``ori_shape``), in the main path's form (no s2 cotangent), with the
@@ -69,7 +86,7 @@ passes 1 and 2) and ``index_add_`` of the weighted tap rows as its
 yardstick.
 
 Each path runs with every launch count set to 0 just before it and
-read just after.
+read just after; phase 9 also counts each train step's launches.
 
 The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -1458,6 +1475,385 @@ def joint_train_path(api, voxel, pointnet, render, card):
     return launches[4]
 
 
+# phase 9: the flagship trained and evaluated from files
+RUNTIME_HW = (484, 648)  # half ScanNet's 968x1296: keep-ratio to 239x320
+RUNTIME_TRAIN_VIEWS = 60
+RUNTIME_VAL_VIEWS = 110  # the test pipeline's 101 draws without repeats
+RUNTIME_MAX_STEPS = 8  # through one epoch boundary (6 steps an epoch)
+RUNTIME_WORKERS = 8  # the second run's loader threads
+RUNTIME_TIMED = slice(2, None)  # steps 3.. on the host clock
+
+
+class HostClock:
+    """Seconds the loader threads spend in named host functions, by
+    wrapping module attributes (restored by ``restore``); calls from the
+    main thread (validation, evaluation) are not counted."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.main = threading.main_thread
+        self.current = threading.current_thread
+        self.secs, self.calls, self.saved = {}, {}, []
+
+    def wrap(self, owner, name, key):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            if self.current() is self.main():
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self.lock:
+                    self.secs[key] = (self.secs.get(key, 0.0)
+                                      + time.perf_counter() - t0)
+                    self.calls[key] = self.calls.get(key, 0) + 1
+
+        setattr(owner, name, timed)
+        self.saved.append((owner, name, fn))
+
+    def take(self):
+        """(scenes, seconds a scene by key) since the last take."""
+        with self.lock:
+            n = max(self.calls.get("scene", 0), 1)
+            out = {k: v / n for k, v in self.secs.items()}
+            self.secs, self.calls = {}, {}
+        return n, out
+
+    def restore(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        self.saved = []
+
+
+def counted_trainers(api, counters, per_step):
+    """Wrap ``api.init_trainer`` so every ``Trainer.step`` appends the
+    launches of ``counters`` it made to ``per_step``. Returns the
+    original, to put back."""
+    original = api.init_trainer
+
+    def init_trainer(*args, **kwargs):
+        tr = original(*args, **kwargs)
+        step = tr.step
+
+        def counted(batch):
+            before = [fn.launches for fn in counters]
+            out = step(batch)
+            per_step.append([fn.launches - b
+                             for fn, b in zip(counters, before)])
+            return out
+
+        tr.step = counted
+        return tr
+
+    api.init_trainer = init_trainer
+    return original
+
+
+def runtime_options(cfg, train_root, val_root):
+    """``--options`` pointing the config's data at the written scenes."""
+    train = ("data.train.dataset." if cfg.data["train"].get("type")
+             == "RepeatDataset" else "data.train.")
+    return [f"{train}data_root={train_root}/",
+            f"{train}ann_file={train_root}/scannet_infos_train.pkl",
+            f"data.val.data_root={val_root}/",
+            f"data.val.ann_file={val_root}/scannet_infos_val.pkl",
+            f"data.test.data_root={val_root}/",
+            f"data.test.ann_file={val_root}/scannet_infos_val.pkl",
+            f"ori_shape=({RUNTIME_HW[0]},{RUNTIME_HW[1]})"]
+
+
+def report_run(tag, result, per_step, names, clock, peak, card):
+    """Print a train run's steps, its rates from files and its host
+    split; return (steps/s over the timed steps, mean loader wait)."""
+    import math
+
+    hist = result["history"]
+    for h, launches in zip(hist, per_step):
+        losses = ", ".join(f"{k} {h[k]:.5g}" for k in (
+            "loss", "loss_cls", "loss_bbox", "loss_centerness", "loss_nvs",
+            "grad_norm") if k in h)
+        log(f"[runtime] {tag} step {h['step']} (epoch {h['epoch']}, lr "
+            f"{h['lr']:.3e}): waited {h['data_s']:.3f} s on the loader, "
+            f"step {h['step_s']:.3f} s; launches "
+            + ", ".join(f"{n} {c}" for n, c in zip(names, launches))
+            + f"; {losses}")
+        if not all(math.isfinite(h[k]) for k in h if k.startswith(
+                ("loss", "grad"))) or "loss_nvs" not in h:
+            raise SystemExit(f"{tag}: non-finite or missing losses {h}")
+    timed = hist[RUNTIME_TIMED]
+    total = sum(h["data_s"] + h["step_s"] for h in timed)
+    wait = sum(h["data_s"] for h in timed) / len(timed)
+    n, split = clock.take()
+    decode = split.get("decode", 0.0) + split.get("resize", 0.0)
+    log(f"[runtime] {tag}: {len(timed) / total:.3f} steps/s from files "
+        f"(steps {timed[0]['step']}-{timed[-1]['step']} on the host clock, "
+        f"loader wait + Trainer.step), mean loader wait {wait:.3f} s a "
+        f"step; peak memory {peak / 2**30:.2f} GiB; measured on {card}")
+    log(f"[runtime] {tag}: host time a scene in the loader threads "
+        f"({n} scenes): {split.get('scene', 0.0):.3f} s, of it decode + "
+        f"resize {decode:.3f} s (decode {split.get('decode', 0.0):.3f}, "
+        f"resize {split.get('resize', 0.0):.3f}), rgb sums "
+        f"{split.get('rgb sums', 0.0):.3f} s, ray stream "
+        f"{split.get('ray stream', 0.0):.3f} s")
+    return len(timed) / total, wait
+
+
+def runtime_path(api, voxel, pointnet, render, card):
+    """Phase 9: the flagship trained and evaluated from a ScanNet-layout
+    dataset on disk through the port's CLIs, in process. Returns the
+    kernels' launches in the first training run."""
+    import math
+    import tempfile
+
+    import torch
+
+    from nerfdet_tpu_torch.config import Config
+    from nerfdet_tpu_torch.data import dataset as dataset_mod
+    from nerfdet_tpu_torch.data import pipeline as pipeline_mod
+    from nerfdet_tpu_torch.data.dataset import (build_dataset,
+                                                rgb_stats_spec_from_config)
+    from nerfdet_tpu_torch.data.synthetic import write_synthetic_scannet
+    from nerfdet_tpu_torch.models.nerfdet import NerfDet
+    from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.tools import train as train_cli
+
+    t_phase = time.perf_counter()
+    names = ("fused_mean_cov", "fused_mean_cov_backward",
+             "streaming_sample_mean_var",
+             "streaming_sample_mean_var_backward")
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward)
+    every = counters + (pointnet.furthest_point_sample,)
+    cfg = Config.fromfile(CONFIG)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
+        # ---- data on disk ----
+        t0 = time.perf_counter()
+        train_root = write_synthetic_scannet(
+            os.path.join(tmp, "train"), n_scenes=1,
+            n_images=RUNTIME_TRAIN_VIEWS, hw=RUNTIME_HW, seed=SEED,
+            splits=("train",), workers=8)
+        val_root = write_synthetic_scannet(
+            os.path.join(tmp, "val"), n_scenes=1,
+            n_images=RUNTIME_VAL_VIEWS, hw=RUNTIME_HW, seed=SEED + 1,
+            splits=("val",), workers=8)
+        log(f"[runtime] wrote a ScanNet-layout dataset (one train scene of "
+            f"{RUNTIME_TRAIN_VIEWS} views, one val scene of "
+            f"{RUNTIME_VAL_VIEWS}, PNG at {RUNTIME_HW[0]}x{RUNTIME_HW[1]}, "
+            f"8 processes): {time.perf_counter() - t0:.1f} s")
+        opts = runtime_options(cfg, train_root, val_root)
+        cfg.merge_from_options(opts)
+        meta = api.scene_meta_from_config(cfg)
+        log(f"[runtime] config {CONFIG} with --options ori_shape="
+            f"{meta.ori_shape}: img_shape {meta.img_shape}, pad "
+            f"{meta.pad_shape}, workers_per_gpu "
+            f"{cfg.data['workers_per_gpu']}")
+
+        clock = HostClock()
+        clock.wrap(pipeline_mod, "imread", "decode")
+        clock.wrap(pipeline_mod, "imresize", "resize")
+        clock.wrap(dataset_mod, "host_rgb_stats", "rgb sums")
+        clock.wrap(dataset_mod, "host_sample_z", "ray stream")
+        clock.wrap(dataset_mod, "host_ray_rgb_stats", "ray stream")
+        clock.wrap(dataset_mod.ScanNetMultiViewDataset, "__getitem__",
+                   "scene")
+        per_step = []
+        original_init = counted_trainers(api, counters, per_step)
+        try:
+            # ---- train, the config's loader threads, with validation ----
+            work = os.path.join(tmp, "work")
+            args = [CONFIG, "--work-dir", work, "--max-steps",
+                    str(RUNTIME_MAX_STEPS), "--options", *opts]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in every:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            result = train_cli.main(args)
+            train_s = time.perf_counter() - t0
+            totals = [fn.launches for fn in every]
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[runtime] tools/train: {len(result['history'])} steps, "
+                f"{result['steps_per_epoch']} an epoch, checkpoints "
+                f"{[os.path.basename(p) for p in result['checkpoints']]}, "
+                f"{len(result['val'])} validations: {train_s:.1f} s")
+            rate_1, wait_1 = report_run(
+                f"train ({cfg.data['workers_per_gpu']} loader thread)",
+                result, per_step, names, clock, peak, card)
+            if per_step != [[1, 1, 1, 1]] * RUNTIME_MAX_STEPS:
+                raise SystemExit(f"launches a step {per_step}, expected "
+                                 f"each kernel once a step")
+            n_val = len(result["val"])
+            if totals != [RUNTIME_MAX_STEPS + n_val, RUNTIME_MAX_STEPS,
+                          RUNTIME_MAX_STEPS, RUNTIME_MAX_STEPS, 0]:
+                raise SystemExit(f"run launches {totals}: expected K1 once "
+                                 f"a step and a validation scene, the "
+                                 f"backwards and K2 once a step, K3 never")
+            ckpts = [os.path.basename(p) for p in result["checkpoints"]]
+            if ckpts != ["ckpt_1.pth", "ckpt_2.pth"] or n_val != 2:
+                raise SystemExit(f"checkpoints {ckpts}, {n_val} validations")
+            for m in result["val"]:
+                if not all(math.isfinite(v) for v in m.values()):
+                    raise SystemExit(f"non-finite validation {m}")
+            log(f"[runtime] validation after each epoch (run_eval, "
+                f"{cfg.model['nerf_density'] and 'density on'}): "
+                + "; ".join(f"mAP_0.25 {m['mAP_0.25']:.4f} mAR_0.25 "
+                            f"{m['mAR_0.25']:.4f}" for m in result["val"]))
+
+            # ---- the same from files with more loader threads ----
+            per_step.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            result_8 = train_cli.main([
+                CONFIG, "--work-dir", os.path.join(tmp, "work8"),
+                "--max-steps", str(RUNTIME_MAX_STEPS), "--no-validate",
+                "--options", *opts,
+                f"data.workers_per_gpu={RUNTIME_WORKERS}"])
+            rate_8, wait_8 = report_run(
+                f"train ({RUNTIME_WORKERS} loader threads)", result_8,
+                per_step, names, clock, torch.cuda.max_memory_allocated(),
+                card)
+            log(f"[runtime] steps/s from files: {rate_1:.3f} with "
+                f"{cfg.data['workers_per_gpu']} loader thread (wait "
+                f"{wait_1:.3f} s a step), {rate_8:.3f} with "
+                f"{RUNTIME_WORKERS} (wait {wait_8:.3f} s); measured on "
+                f"{card}")
+
+            # ---- resume from the first epoch's checkpoint, one step ----
+            per_step.clear()
+            ckpt_1 = result["checkpoints"][0]
+            resumed = train_cli.main([
+                CONFIG, "--work-dir", os.path.join(tmp, "resume"),
+                "--resume-from", ckpt_1, "--max-steps",
+                str(result["steps_per_epoch"] + 1), "--no-validate",
+                "--options", *opts])
+            step = resumed["history"]
+            want = result["history"][result["steps_per_epoch"]]
+            log(f"[runtime] resumed from {os.path.basename(ckpt_1)} "
+                f"(step {result['steps_per_epoch']}): start epoch "
+                f"{resumed['start_epoch'] + 1}, took step "
+                f"{[h['step'] for h in step]} at lr "
+                f"{[h['lr'] for h in step]} (the first run's step "
+                f"{want['step']}: lr {want['lr']}); loss "
+                f"{step[0]['loss']:.5g}; launches {per_step}")
+            if ([h["step"] for h in step] != [want["step"]]
+                    or step[0]["lr"] != want["lr"]
+                    or per_step != [[1, 1, 1, 1]]):
+                raise SystemExit("the resumed run did not continue the "
+                                 "step count and the schedule")
+        finally:
+            api.init_trainer = original_init
+            clock.restore()
+
+        # ---- test: mAP and NVS from the second checkpoint ----
+        ckpt_2 = result["checkpoints"][1]
+        timers = {}
+        models = []
+
+        def timed(owner, name, key):
+            fn = getattr(owner, name)
+
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                timers[key] = timers.get(key, 0.0) + (time.perf_counter()
+                                                      - t0)
+                if key == "init_detector":
+                    models.append(out)
+                return out
+
+            setattr(owner, name, wrapper)
+            return owner, name, fn
+
+        saved = [timed(api, "init_detector", "init_detector"),
+                 timed(api, "run_eval", "run_eval"),
+                 timed(api, "single_scene_test", "eval_step + NMS"),
+                 timed(api, "run_nvs_eval", "run_nvs_eval"),
+                 timed(NerfDet, "render_full", "render_full")]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in every:
+            fn.launches = 0
+        try:
+            metrics = test_cli.main([CONFIG, ckpt_2, "--eval", "mAP", "nvs",
+                                     "--options", *opts])
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+        launches = [fn.launches for fn in every]
+        peak = torch.cuda.max_memory_allocated()
+        pipe = cfg.data["test"]["pipeline"][0]
+        pad = [t for t in pipe["transforms"] if t["type"] == "Pad"][0]["size"]
+        rays = ((pad[0] - 2 * pipe["margin"]) * (pad[1] - 2 * pipe["margin"]))
+        chunks = -(-rays // cfg.model["N_rand"])
+        n_scenes = 1
+        sources = pipe["n_images"] - pipe["nerf_target_views"]
+        log(f"[runtime] tools/test --eval mAP nvs from "
+            f"{os.path.basename(ckpt_2)}: launches fused_mean_cov "
+            f"{launches[0]} ({n_scenes} scene), streaming_sample_mean_var "
+            f"{launches[2]} ({pipe['nerf_target_views']} target view of "
+            f"{pad[0] - 2 * pipe['margin']}x{pad[1] - 2 * pipe['margin']} = "
+            f"{rays} rays in chunks of {cfg.model['N_rand']}: {chunks} "
+            f"expected), backward kernels {launches[1]} / {launches[3]}, "
+            f"furthest_point_sample {launches[4]}")
+        if launches != [n_scenes, 0, chunks * pipe["nerf_target_views"],
+                        0, 0]:
+            raise SystemExit(f"the test CLI launched {launches}")
+        keys = sorted(k for k in metrics if k.startswith(
+            ("mAP", "mAR", "psnr", "ssim", "rmse")))
+        if not all(math.isfinite(metrics[k]) for k in keys):
+            raise SystemExit(f"non-finite test metrics {metrics}")
+        per_class = sorted(k for k in metrics if "_AP_0.25" in k)
+        log("[runtime] test mAP/mAR table: "
+            + ", ".join(f"{k} {metrics[k]:.4f}" for k in keys))
+        log("[runtime] test AP_0.25 by class (the val scene's GT and "
+            "detected classes): " + ", ".join(
+                f"{k[:-8]} {metrics[k]:.4f}/{metrics[k[:-8] + '_rec_0.25']:.4f}"
+                for k in per_class))
+        data_s = timers["run_eval"] - timers["eval_step + NMS"]
+        log(f"[runtime] tools/test timings (first calls): init_detector "
+            f"{timers['init_detector']:.2f} s; run_eval "
+            f"{n_scenes / timers['run_eval']:.3f} scenes/s "
+            f"({timers['run_eval']:.3f} s a scene of {sources} source "
+            f"views: {data_s:.3f} s loading it from files with its rgb "
+            f"sums, {timers['eval_step + NMS']:.3f} s eval_step + NMS); "
+            f"run_nvs_eval {1 / timers['run_nvs_eval']:.3f} views/s "
+            f"({timers['run_nvs_eval']:.3f} s a view, render_full "
+            f"{timers['render_full']:.3f} s); peak memory "
+            f"{peak / 2**30:.2f} GiB")
+
+        # warm: the same model and scene once more
+        model = models[0]
+        ds = build_dataset(cfg.data["test"], test_mode=True,
+                           rgb_stats_spec=rgb_stats_spec_from_config(cfg))
+        t0 = time.perf_counter()
+        scene = ds[0]
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        api.single_scene_test(model, scene, cfg.test_cfg["score_thr"],
+                              cfg.test_cfg["iou_thr"],
+                              cfg.test_cfg["nms_pre"])
+        torch.cuda.synchronize()
+        det_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        api.run_nvs_eval(model, ds, chunk=cfg.model["N_rand"],
+                         progress=False)
+        nvs_s = time.perf_counter() - t0
+        log(f"[runtime] warm: a val scene of {sources} source views loads "
+            f"in {load_s:.3f} s; eval_step + NMS {det_s * 1e3:.2f} ms "
+            f"({1 / det_s:.3f} scenes/s on the card, "
+            f"{1 / (load_s + det_s):.3f} from files); run_nvs_eval "
+            f"{1 / nvs_s:.3f} views/s ({nvs_s:.3f} s, loading included); "
+            f"measured on {card}")
+        del model, models, ds
+    log(f"[runtime] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main():
     import numpy as np
     import torch
@@ -1702,6 +2098,11 @@ def main():
     # ---- 8. the fifth path: joint detection + NVS training ---------------
     torch.cuda.empty_cache()
     k2_bwd_launches = joint_train_path(api, voxel, pointnet, render, card)
+    log(f"[done] phases 1-8 in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 9. the runtime from files: train, resume, test -----------------
+    torch.cuda.empty_cache()
+    runtime = runtime_path(api, voxel, pointnet, render, card)
 
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
@@ -1785,7 +2186,11 @@ def main():
         "library_of": "index_add_ of the weighted tap rows into the flat "
                       "feature map: the scatter alone",
     }]}
-    log(f"[done] phases 1-8 in {time.perf_counter() - t_start:.1f} s")
+    for entry, n in zip(record["kernels"], (runtime[0], runtime[4],
+                                            runtime[2], runtime[1],
+                                            runtime[3])):
+        entry["runtime_launches"] = n  # phase 9's first training run
+    log(f"[done] phases 1-9 in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

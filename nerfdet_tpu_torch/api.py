@@ -1,13 +1,15 @@
-"""Entry points: detection and novel-view rendering, and detection
-training.
+"""Entry points: detection and novel-view rendering, their evaluation,
+and detection training.
 
 Port of ``nerfdet_tpu/api.py`` (``init_detector``,
 ``scene_meta_from_config``, ``single_scene_test``,
-``detections_from_candidates``, ``run_nvs_eval``) and of the eval step
-of ``nerfdet_tpu/train/step.py:make_eval_step``. The port's eval step
-runs the graph the parity tests and the benchmark run: the nerf_density
-modulation is on (the JAX ``make_eval_step`` defaults to
-``with_rays=False``, which skips it).
+``detections_from_candidates``, ``inference_detector``, ``run_eval``,
+``run_nvs_eval``) and of the eval step of
+``nerfdet_tpu/train/step.py:make_eval_step``. The port's eval step runs
+the graph the parity tests and the benchmark run: the nerf_density
+modulation is on, as in the original NeRF-Det's ``simple_test`` (the JAX
+``make_eval_step`` defaults to ``with_rays=False``, which skips it, and
+the JAX ``tools/test.py`` keeps that default).
 
 For VoteNet, ``points_eval_step`` and ``single_cloud_test`` are the
 per-scene forward + decode and host tail of
@@ -23,6 +25,9 @@ config, and the scenes with their host ray stream on the device.
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -31,6 +36,7 @@ import torch
 from .config import Config
 from .core.nms import aligned_3d_nms
 from .core.nvs_metrics import aggregate_nvs, evaluate_rendering
+from .data.dataset import build_dataset
 from .data.ray_stats import RAY_STREAM_KEYS, prepare_rays
 from .data.rgb_stats import host_rgb_stats
 from .device import resolve_device
@@ -42,6 +48,7 @@ from .nn.vote_head import vote_head_get_bboxes
 from .train.optim import (Optimizer, build_lr_schedule_from_config,
                           build_optimizer)
 from .train.step import make_train_step
+from .utils.checkpoint import load_checkpoint
 from .utils.weight_convert import load_reference_state_dict
 
 
@@ -66,8 +73,10 @@ def init_detector(config, checkpoint: Optional[str] = None,
                   device="cuda", seed: int = 0) -> torch.nn.Module:
     """Build the detector (NeRF-Det or VoteNet) from a config file or
     object, in eval mode on ``device``. Weights are random from ``seed``
-    unless ``checkpoint`` names a reference NeRF-Det ``.pth``
-    state_dict. Raises if ``device`` is CUDA and there is none."""
+    unless ``checkpoint`` names a NeRF-Det ``.pth``: one the port's train
+    CLI wrote (``utils/checkpoint.save_checkpoint``, the model's
+    state_dict under ``"model"``) or a reference state_dict. Raises if
+    ``device`` is CUDA and there is none."""
     dev = resolve_device(device)
     if isinstance(config, str):
         config = Config.fromfile(config)
@@ -78,8 +87,11 @@ def init_detector(config, checkpoint: Optional[str] = None,
             raise NotImplementedError(
                 f"reference checkpoints of {type(model).__name__} are not "
                 f"ported yet")
-        obj = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        load_reference_state_dict(model, obj.get("state_dict", obj))
+        obj = load_checkpoint(checkpoint)
+        if "model" in obj and "optimizer" in obj:  # the port's own
+            model.load_state_dict(obj["model"], strict=True)
+        else:
+            load_reference_state_dict(model, obj.get("state_dict", obj))
     return model.to(dev).eval()
 
 
@@ -274,8 +286,8 @@ def single_cloud_test(model: VoteNet, points, nms_thr: float = 0.25,
 
 @torch.inference_mode()
 def run_nvs_eval(model: NerfDet, dataset, chunk: int = 2048,
-                 out_dir: Optional[str] = None, progress: bool = True
-                 ) -> Dict:
+                 out_dir: Optional[str] = None, progress: bool = True,
+                 logger=None) -> Dict:
     """Novel-view-synthesis evaluation: render every target view of
     every scene with ``render_full``, score PSNR / SSIM / RMSE, and
     optionally dump comparison PNGs under ``out_dir``.
@@ -283,8 +295,9 @@ def run_nvs_eval(model: NerfDet, dataset, chunk: int = 2048,
     ``dataset`` needs ``len``, ``dataset[i]`` (a numpy scene with
     ``ray_o``/``ray_d`` (T, R, 3) or (R, 3), ``gt_rgb`` and optionally
     ``gt_depth``) and ``dataset.pipeline.pad_size`` / ``.margin``, which
-    give the target views' (h, w). Returns the metrics averaged over
-    scenes."""
+    give the target views' (h, w); the port's test-mode
+    ``ScanNetMultiViewDataset`` is one. Returns the metrics averaged over
+    scenes (also to ``logger`` where given)."""
     h = dataset.pipeline.pad_size[0] - 2 * dataset.pipeline.margin
     w = dataset.pipeline.pad_size[1] - 2 * dataset.pipeline.margin
     per_scene = {}
@@ -304,4 +317,79 @@ def run_nvs_eval(model: NerfDet, dataset, chunk: int = 2048,
             m = per_scene[f"scene_{i}"]
             print(f"[nvs] scene {i}: psnr={m['psnr']:.2f} "
                   f"ssim={m['ssim']:.3f}", flush=True)
-    return aggregate_nvs(per_scene)
+    agg = aggregate_nvs(per_scene)
+    if logger is not None:
+        logger.info("NVS: " + " ".join(
+            f"{k}: {v:.4f}" for k, v in agg.items()))
+    return agg
+
+
+def inference_detector(model: NerfDet, info: Dict, config) -> Dict:
+    """Detection on ONE raw scene described by ``info`` (``img_paths``,
+    ``extrinsics`` world->cam, ``c2w``, ``intrinsic`` at the images'
+    size), replaying the config's test pipeline with ``RandomState(0)``;
+    the origin is (0, 0, 0.5). Returns ``single_scene_test``'s dict."""
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    ds = build_dataset(dict(config.data["test"]), test_mode=True)
+    scene = ds.pipeline(info, np.random.RandomState(0))
+    scene["origin"] = np.array([0.0, 0.0, 0.5], np.float32)
+    test_cfg = config.test_cfg
+    return single_scene_test(model, scene,
+                             score_thr=test_cfg.get("score_thr", 0.01),
+                             iou_thr=test_cfg.get("iou_thr", 0.25),
+                             nms_pre=test_cfg.get("nms_pre", 1000))
+
+
+def run_eval(model: NerfDet, dataset, test_cfg: Dict, logger=None,
+             progress: bool = True, rank: int = 0, world: int = 1,
+             partial_dir: Optional[str] = None) -> Dict:
+    """The detection eval loop: every scene of ``dataset`` through
+    ``single_scene_test`` (the eval step with the density modulation on,
+    as the original's ``simple_test``; the JAX ``run_eval`` defaults to
+    an eval step without it), then ``dataset.evaluate`` (mAP / mAR).
+
+    With ``world > 1`` the process evaluates scenes ``rank::world`` and
+    writes them to ``partial_dir``; rank 0 waits for every part, merges
+    them and scores (the others return {})."""
+    n = len(dataset)
+    local: List = []
+    for i in range(rank, n, world):
+        scene = dataset[i]
+        local.append((i, single_scene_test(
+            model, scene, score_thr=test_cfg.get("score_thr", 0.01),
+            iou_thr=test_cfg.get("iou_thr", test_cfg.get("nms_thr", 0.25)),
+            nms_pre=test_cfg.get("nms_pre", 1000))))
+        if progress and len(local) % 10 == 0:
+            print(f"[eval] rank {rank}: {len(local)}/"
+                  f"{(n - rank + world - 1) // world}", flush=True)
+
+    if world == 1:
+        return dataset.evaluate([r for _, r in local], logger=logger)
+
+    if partial_dir is None:
+        raise ValueError("sharded eval needs partial_dir")
+    os.makedirs(partial_dir, exist_ok=True)
+    # write-to-temp + atomic rename: readers never see a partial pickle
+    path_r = f"{partial_dir}/part_{rank}.pkl"
+    tmp = f"{path_r}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(local, f)
+    os.replace(tmp, path_r)
+    if rank != 0:
+        return {}
+    merged: Dict[int, Dict] = {}
+    timeout_s = 600.0
+    for r in range(world):
+        path = f"{partial_dir}/part_{r}.pkl"
+        deadline = time.monotonic() + timeout_s
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"sharded eval: rank {r} shard {path} missing after "
+                    f"{timeout_s:.0f}s; did that process die?")
+            time.sleep(1.0)
+        with open(path, "rb") as f:
+            for i, res in pickle.load(f):
+                merged[i] = res
+    return dataset.evaluate([merged[i] for i in range(n)], logger=logger)

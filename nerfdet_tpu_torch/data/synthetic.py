@@ -1,8 +1,9 @@
 """Synthetic ScanNet-like scenes (numpy only).
 
-A copy of ``make_synthetic_scene`` of ``nerfdet_tpu/data/synthetic.py``
-and of the image helpers it uses from ``nerfdet_tpu/data/pipeline.py``,
-so the port has a scene without JAX. Colored axis-aligned boxes on a
+A copy of ``make_synthetic_scene`` and ``write_synthetic_scannet`` of
+``nerfdet_tpu/data/synthetic.py``, so the port has scenes without JAX
+(the image helpers come from ``data/pipeline.py``, as the original's
+do). Colored axis-aligned boxes on a
 checkered floor are ray-cast into posed pinhole views. The random
 stream is consumed exactly as the original does, so every key (the
 detection keys imgs, denorm_images, intrinsic, extrinsics, origin,
@@ -14,58 +15,29 @@ arguments.
 box surfaces on a floor as ``write_synthetic_scannet`` builds them,
 given the height column of ``load_points`` and resampled to a static
 count as ``sample_points`` does (``nerfdet_tpu/data/pipeline.py``).
+
+``write_synthetic_scannet`` puts such scenes on disk in ScanNet's
+layout (``posed_images/`` + ``scannet_infos_{split}.pkl`` + the points
+``.bin``) from the same random stream as the original, with the views
+written as PNG (the original writes JPEG; the port reads PNG without
+``cv2`` or ``PIL``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import multiprocessing
+import os
+import pickle
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .pipeline import (get_dtu_raydir, imdenormalize, imnormalize,
+                       imwrite_png, pad_gt)
 
 # img_norm_cfg of the NeRF-Det configs (RGB)
 IMG_MEAN = (123.675, 116.28, 103.53)
 IMG_STD = (58.395, 57.12, 57.375)
-
-
-def imnormalize(img: np.ndarray, mean, std) -> np.ndarray:
-    """(img - mean) / std in float32, RGB."""
-    img = img.astype(np.float32)
-    return (img - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
-
-
-def imdenormalize(img: np.ndarray, mean, std) -> np.ndarray:
-    """Invert :func:`imnormalize` to a uint8-quantized [0, 1] float."""
-    x = img * np.asarray(std, np.float32) + np.asarray(mean, np.float32)
-    return np.clip(x, 0, 255).astype(np.uint8).astype(np.float32) / 255.0
-
-
-def get_dtu_raydir(pixelcoords, intrinsic, rot):
-    """Pixel grid -> world-space ray directions (+0.5 pixel centers)."""
-    x = (pixelcoords[..., 0] + 0.5 - intrinsic[0, 2]) / intrinsic[0, 0]
-    y = (pixelcoords[..., 1] + 0.5 - intrinsic[1, 2]) / intrinsic[1, 1]
-    z = np.ones_like(x)
-    dirs = np.stack([x, y, z], axis=-1) @ rot.T
-    return dirs.astype(np.float32)
-
-
-def pad_gt(gt_boxes: np.ndarray, gt_labels: np.ndarray, max_gt: int):
-    """Pad ground truth to a static (max_gt, 7) + mask."""
-    g = min(len(gt_boxes), max_gt)
-    boxes = np.zeros((max_gt, 7), np.float32)
-    # degenerate padding boxes far outside the scene so they never match
-    boxes[:, :3] = 1e4
-    boxes[:, 3:6] = 1e-3
-    labels = np.zeros((max_gt,), np.int32)
-    mask = np.zeros((max_gt,), bool)
-    if g:
-        gt_boxes = np.asarray(gt_boxes, np.float32)
-        if gt_boxes.shape[-1] == 6:
-            gt_boxes = np.concatenate(
-                [gt_boxes, np.zeros_like(gt_boxes[:, :1])], axis=-1)
-        boxes[:g] = gt_boxes[:g]
-        labels[:g] = np.asarray(gt_labels, np.int64)[:g]
-        mask[:g] = True
-    return boxes, labels, mask
 
 
 def _look_at(cam_pos, target, up=(0.0, 0.0, 1.0)):
@@ -280,3 +252,102 @@ def make_synthetic_cloud(seed: int = 0,
                          axis=-1).astype(np.float32)
     sel = rng.choice(pts.shape[0], n_points, replace=False)
     return dict(points=pts[sel], gt_boxes=boxes, gt_labels=labels)
+
+
+def _write_view(job) -> None:
+    """Render one view and write it as a PNG (a process pool's task)."""
+    boxes, colors, c2w, intr, hw, path = job
+    rgb, _ = _render_view(boxes, colors, c2w, intr, hw)
+    imwrite_png(path, (rgb * 255).astype(np.uint8))
+
+
+def write_synthetic_scannet(root: str, n_scenes: int = 2,
+                            n_images: int = 10,
+                            hw: Tuple[int, int] = (96, 128),
+                            n_boxes: int = 3, seed: int = 0,
+                            splits: Sequence[str] = ("train", "val"),
+                            workers: int = 1) -> str:
+    """Write synthetic scenes in ScanNet's on-disk layout under ``root``:
+    ``posed_images/scene####_00/#####.png`` (``n_images`` views of
+    ``hw`` on a circle around the boxes), ``points/scene####_00.bin``
+    ((N, 6) float32 xyz + rgb) and ``scannet_infos_{split}.pkl`` with the
+    reference info schema (img_paths, extrinsics c2w, intrinsics at
+    ``hw``, pts_path, annos with gravity-centered boxes), ``n_scenes``
+    per split. The views are rendered in ``workers`` processes; the
+    random stream does not depend on it. Returns ``root``."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    f = 0.9 * w
+    intr = np.array([[f, 0, w / 2, 0], [0, f, h / 2, 0],
+                     [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+    jobs = []
+    scene_idx = 0
+    for split in splits:
+        infos = []
+        for _ in range(n_scenes):
+            scene = f"scene{scene_idx:04d}_00"
+            scene_idx += 1
+            os.makedirs(os.path.join(root, "posed_images", scene),
+                        exist_ok=True)
+            boxes, labels = make_scene_geometry(rng, n_boxes)
+            colors = _PALETTE[rng.randint(0, len(_PALETTE), len(boxes))]
+            img_paths, poses = [], []
+            for i in range(n_images):
+                ang = 2 * np.pi * i / n_images
+                pos = np.array([3.6 * np.cos(ang), 3.6 * np.sin(ang), 1.7],
+                               np.float32)
+                c2w = _look_at(pos, LOOK_AT)
+                rel = os.path.join("posed_images", scene, f"{i:05d}.png")
+                jobs.append((boxes, colors, c2w, intr, hw,
+                             os.path.join(root, rel)))
+                img_paths.append(rel)
+                poses.append(c2w.astype(np.float32))
+            # point-cloud modality: box-surface + floor samples in the
+            # real ETL's (N, 6) float32 xyz+rgb .bin layout
+            os.makedirs(os.path.join(root, "points"), exist_ok=True)
+            cloud = []
+            for b, col in zip(boxes, colors):
+                n = 400
+                local = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+                face = rng.randint(0, 3, n)
+                sign = rng.randint(0, 2, n) * 2 - 1
+                local[np.arange(n), face] = 0.48 * sign
+                xyz = local * b[3:6] + [b[0], b[1], b[2] + b[5] / 2]
+                rgb = np.broadcast_to(col, (n, 3)).astype(np.float32)
+                cloud.append(np.concatenate([xyz, rgb], -1))
+            floor = rng.uniform([-4, -4, 0], [4, 4, 0.03],
+                                (800, 3)).astype(np.float32)
+            cloud.append(np.concatenate(
+                [floor, np.full((800, 3), 0.5, np.float32)], -1))
+            cloud = np.concatenate(cloud).astype(np.float32)
+            pts_rel = os.path.join("points", f"{scene}.bin")
+            cloud.tofile(os.path.join(root, pts_rel))
+
+            # gravity-centered GT, reference info schema
+            gt = boxes[:, :6].copy()
+            gt[:, 2] += boxes[:, 5] / 2.0
+            infos.append(dict(
+                img_paths=img_paths,
+                extrinsics=poses,
+                intrinsics=intr,
+                pts_path=pts_rel,
+                annos=dict(
+                    gt_num=len(gt),
+                    gt_boxes_upright_depth=gt.astype(np.float32),
+                    axis_align_matrix=np.eye(4, dtype=np.float32),
+                    **{"class": labels},
+                ),
+            ))
+        with open(os.path.join(root, f"scannet_infos_{split}.pkl"),
+                  "wb") as fp:
+            pickle.dump(infos, fp)
+    if workers > 1 and len(jobs) > 1:
+        # spawned, not forked: the caller may hold a CUDA context and
+        # BLAS threads
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            pool.map(_write_view, jobs, chunksize=1)
+    else:
+        for job in jobs:
+            _write_view(job)
+    return root

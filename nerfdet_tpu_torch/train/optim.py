@@ -186,6 +186,15 @@ class Optimizer:
         self.count += 1
         return norm
 
+    def state_dict(self) -> dict:
+        """AdamW's moments and step counts, the groups' rates, and
+        ``count`` (the updates taken, where the schedule resumes)."""
+        return {"adamw": self.adamw.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
+
 
 def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict,
                     grad_clip: Optional[dict] = None,
