@@ -74,6 +74,25 @@ Phases, each reported on its own lines:
    metrics, ``run_eval`` scenes/s at 100 source views, ``run_nvs_eval``
    views/s, peak memory and the phase's wall time.
 
+10. NeRF-Det-R101* (``nerfdet_res101_2x_low_res_depth_sp.py``: R101 +
+    FPN(256), depth maps gating every (voxel, view) pair to +-0.2 m of
+    the sensed depth, the density volume's rgb stream summed on the card
+    by the rgb-stream kernel), random weights, synthetic scenes with
+    depth at the intrinsic scaled to ``ori_shape``: the rgb-stream kernel
+    bitwise against its plain version at 48 and 100 views, K1 and K1's
+    backward at the depth-gated indices, the share of pairs the gate
+    keeps in each stream; ``eval_step`` + host NMS at 100 views (K1 and
+    the rgb stream once; kernels vs plain through the graph; stage times
+    with the gate and the rgb kernel broken out; scenes/s); joint
+    training with ``loss_depth`` at 48 views and 2048 rays (2 + 5 steps,
+    every kernel of the path once a step; stage times, steps/s, peak
+    memory); ``tools/train.main`` for 3 steps and ``tools/test.main
+    --eval mAP nvs`` on a dataset written with ``.npy`` depth at 484x648
+    (steps/s from files, the loader's depth load + resize a scene); one
+    ``eval_step`` of ``nerfdet_res101_2x_orign_res_depth_sp.py`` at
+    478x640 (51 views from those files) with the rgb kernel held to its
+    plain version there too.
+
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
 ``ori_shape``), in the main path's form (no s2 cotangent), with the
@@ -1203,9 +1222,10 @@ def timed_steps(tr, batch, counters, iters=5):
             torch.cuda.max_memory_allocated())
 
 
-def step_stage_times(tr, batch, iters=3):
+def step_stage_times(tr, batch, iters=3, **loss_kw):
     """CUDA-event times (ms, mean of ``iters``) of one train step's
-    stages: the forward and loss, the backward, the optimizer."""
+    stages: the forward and loss (``loss_kw`` to ``scene_loss_terms``),
+    the backward, the optimizer."""
     import torch
 
     from nerfdet_tpu_torch.train.step import (reduce_loss_terms,
@@ -1216,7 +1236,8 @@ def step_stage_times(tr, batch, iters=3):
     for _ in range(iters):
         tr.optimizer.zero_grad()
         ev[0].record()
-        loss, _ = reduce_loss_terms([scene_loss_terms(tr.model, b)
+        loss, _ = reduce_loss_terms([scene_loss_terms(tr.model, b,
+                                                      **loss_kw)
                                      for b in batch])
         ev[1].record()
         loss.backward()
@@ -1854,6 +1875,426 @@ def runtime_path(api, voxel, pointnet, render, card):
     return totals
 
 
+# phase 10: NeRF-Det-R101* (depth_sp): the depth gate and the rgb stream
+DEPTH_CONFIG = "configs/nerfdet/nerfdet_res101_2x_low_res_depth_sp.py"
+ORIGIN_RES_CONFIG = "configs/nerfdet/nerfdet_res101_2x_orign_res_depth_sp.py"
+DEPTH_VIEWS = 100  # the test pipeline's source views
+DEPTH_TRAIN_VIEWS = 48  # the config's train_pipeline_overrides
+DEPTH_CLI_STEPS = 3
+
+
+def depth_scene(model, seed, n_views):
+    """A seeded 4-box scene with depth maps, every ray of its target view
+    and the intrinsic scaled to ``ori_shape`` (without the scale the
+    voxels' camera depths and the sensed depth disagree)."""
+    import numpy as np
+
+    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
+
+    meta = model.meta
+    h, w = meta.img_shape
+    scene = make_synthetic_scene(seed=seed, n_views=n_views, n_targets=1,
+                                 hw=(h, w), pad_hw=meta.pad_shape,
+                                 n_rand=(h - 2 * MARGIN) * (w - 2 * MARGIN),
+                                 n_boxes=4, max_gt=8, margin=MARGIN,
+                                 with_depth=True)
+    scene["intrinsic"] = scene["intrinsic"].copy()
+    scene["intrinsic"][:2] *= np.float32(meta.ori_shape[0] / h)
+    return scene
+
+
+def gated_streams(voxel, model, scene, dev):
+    """Both streams' pixel indices as ``build_volume`` computes them for a
+    scene with depth: the features' at the stride-4 maps, the rgb
+    stream's at the images, each gated by the depth map. Returns {name:
+    (pix, the share of (voxel, view) pairs in the image, the share the
+    gate keeps, the inputs of its ``depth_gate``)}."""
+    import torch
+
+    meta = model.meta
+    h, w = meta.img_shape
+    stride = 4
+    points = voxel.get_points(model.n_voxels, model.voxel_size,
+                              scene["origin"], dev).reshape(-1, 3)
+    depth = torch.as_tensor(scene["depth"], device=dev)
+    out = {}
+    for name, ratio, (bh, bw), width in (
+            ("features", meta.ori_shape[0] / (h / stride),
+             (h // stride, w // stride), meta.pad_shape[1] // stride),
+            ("rgb", meta.ori_shape[0] / h, (h, w), meta.pad_shape[1])):
+        proj = voxel.compute_projection(scene["intrinsic"],
+                                        scene["extrinsics"], ratio, dev)
+        x, y, z, valid = voxel.project_points(points, proj, bh, bw)
+        args = (z, x, y, valid, depth, bh, bw, model.voxel_size[-1])
+        kept = voxel.depth_gate(*args)
+        out[name] = (voxel.pixel_index(x, y, kept, width).contiguous(),
+                     float(valid.float().mean()), float(kept.float().mean()),
+                     args)
+    return out
+
+
+def check_rgb(voxel, images, pix, label):
+    """The rgb stream's kernel (the uncounted launch) against its plain
+    version, bitwise; its time, the plain version's and the bound: the
+    indices read once, 12 bytes a kept pair and the two (N, 3) outputs
+    written once over the HBM rate, against 9 operations a kept pair
+    over the fp32 rate."""
+    import torch
+
+    got = voxel._rgb_launch(images, pix)
+    want = voxel.rgb_carry_plain(images, pix)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise SystemExit(f"the rgb stream ({label}) differs from its plain "
+                         f"version")
+    ms = cuda_time_ms(lambda: voxel._rgb_launch(images, pix), 50)
+    plain_ms = cuda_time_ms(lambda: voxel.rgb_carry_plain(images, pix), 3,
+                            warmup=1)
+    kept = int((pix >= 0).sum())
+    nbytes = 4 * pix.numel() + 12 * kept + 24 * pix.shape[1]
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, 9 * kept / FP32_PEAK * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    v, hh, ww, _ = images.shape
+    log(f"[kernel] fused_mean_cov_rgb {label}: V={v} images {hh}x{ww}x3 "
+        f"N={pix.shape[1]}; {kept} kept pairs ({kept / pix.numel():.4f}): "
+        f"s1e, s2e bitwise equal to the plain version, max_abs_err=0 "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+        f"({bound_by}; {nbytes} B, {9 * kept} FLOP) library_ms=n/a (no "
+        f"one PyTorch call gathers and sums the views' pixels)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                kept_pairs=kept)
+
+
+def depth_path(api, voxel, pointnet, render, card):
+    """Phase 10: NeRF-Det-R101* (``nerfdet_res101_2x_low_res_depth_sp``)
+    at full width: the kernels at the depth-gated indices, inference at
+    100 views, joint training with ``loss_depth`` at 48 views, the train
+    and test CLIs from files with depth maps, and one ``eval_step`` of
+    the original-resolution config. Returns the record's numbers."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.config import Config
+    from nerfdet_tpu_torch.data import dataset as dataset_mod
+    from nerfdet_tpu_torch.data import pipeline as pipeline_mod
+    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.data.dataset import build_dataset
+    from nerfdet_tpu_torch.data.synthetic import write_synthetic_scannet
+    from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
+    from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.tools import train as train_cli
+
+    t_phase = time.perf_counter()
+    dev = api.resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    names = ("fused_mean_cov", "fused_mean_cov_backward", "fused_mean_cov_rgb",
+             "streaming_sample_mean_var",
+             "streaming_sample_mean_var_backward", "furthest_point_sample")
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                voxel.rgb_carry, render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward,
+                pointnet.furthest_point_sample)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return [fn.launches for fn in counters]
+
+    # ---- the model and the scenes ----
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(DEPTH_CONFIG)
+    model = api.init_detector(cfg, device="cuda", seed=SEED)
+    meta = model.meta
+    scene = depth_scene(model, SEED + 2, DEPTH_VIEWS)
+    # the training scene: 48 of the 100 views, the same target view
+    keep = slice(0, 2 * DEPTH_TRAIN_VIEWS, 2)
+    scene48 = dict(scene, **{k: scene[k][keep] for k in (
+        "imgs", "denorm_images", "extrinsics", "depth")})
+    log(f"[depth] {DEPTH_CONFIG}: {len(model.backbone.layer3)} blocks in "
+        f"layer3 (ResNet-101), {sum(p.numel() for p in model.parameters())}"
+        f" parameters, depth_supervise {cfg.model['depth_supervise']}, "
+        f"use_depth {cfg.input_modality['use_depth']}; scene {DEPTH_VIEWS} "
+        f"views {meta.img_shape} padded {meta.pad_shape} with depth maps, "
+        f"the training scene {DEPTH_TRAIN_VIEWS} of them: "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(model.backbone.layer3) != 23:
+        raise SystemExit("the depth_sp R101 config did not build ResNet-101")
+
+    # ---- 10.1 the kernels at the depth-gated indices ----
+    rgb = {}
+    streams = {}
+    for label, sc in ((f"{DEPTH_TRAIN_VIEWS} views", scene48),
+                      (f"{DEPTH_VIEWS} views", scene)):
+        st = gated_streams(voxel, model, sc, dev)
+        streams[label] = st
+        for name, (_, seen, kept, _) in st.items():
+            log(f"[depth] gate, {label}, {name} stream: {seen:.4f} of the "
+                f"(voxel, view) pairs in the image, {kept:.4f} kept "
+                f"within +-{model.voxel_size[-1]} m of the sensed depth")
+        images = torch.as_tensor(sc["denorm_images"], device=dev)
+        rgb[label] = check_rgb(voxel, images, st["rgb"][0], label)
+        del images
+    pix48 = streams[f"{DEPTH_TRAIN_VIEWS} views"]["features"][0]
+    hw = (meta.pad_shape[0] // 4, meta.pad_shape[1] // 4)
+    k1 = check_fusion(voxel, [(f"float32 mapped, depth-gated, "
+                               f"{DEPTH_TRAIN_VIEWS} views", pix48,
+                               torch.float32, True)], hw, gen)
+    k1 = next(iter(k1.values()))
+    k1_bwd = check_fusion_backward(voxel, pix48, hw, gen,
+                                   f"phase 10's depth-gated pix, "
+                                   f"{DEPTH_TRAIN_VIEWS} views")
+
+    # ---- 10.2 inference at 100 views ----
+    nms_pre, iou_thr = cfg.test_cfg["nms_pre"], cfg.test_cfg["iou_thr"]
+    batch = api.device_batch(model, scene)
+    if "rgb_s1" in batch or "depth" not in batch:
+        raise SystemExit("a scene with depth must take the in-scan stream")
+    zero()
+    out = api.eval_step(model, batch, nms_pre)
+    det = api.detections_from_candidates(
+        out["boxes"].cpu().numpy(), out["scores"].cpu().numpy(), SCORE_THR,
+        iou_thr)
+    launches = counts()
+    log(f"[depth] eval_step at {DEPTH_VIEWS} views -> "
+        f"{tuple(out['boxes'].shape)} candidates, NMS kept "
+        f"{len(det['labels_3d'])}; launches "
+        + ", ".join(f"{n} {c}" for n, c in zip(names, launches)))
+    if launches != [1, 0, 1, 0, 0, 0]:
+        raise SystemExit(f"the R101* inference path launched {launches}: "
+                         f"expected K1 and the rgb stream once")
+    path_launches = launches[2]
+    if not (torch.isfinite(out["boxes"]).all()
+            and torch.isfinite(out["scores"]).all()):
+        raise SystemExit("non-finite candidates")
+    with torch.inference_mode():
+        head_k, valid_k, _ = model(batch)
+        saved = voxel.fusion_carry, voxel.rgb_carry
+        voxel.fusion_carry = voxel.fusion_carry_plain
+        voxel.rgb_carry = voxel.rgb_carry_plain
+        try:
+            head_p, valid_p, _ = model(batch)
+        finally:
+            voxel.fusion_carry, voxel.rgb_carry = saved
+    torch.cuda.synchronize()
+    diff = max(float((a - b).abs().max()) for hk, hp in zip(head_k, head_p)
+               for a, b in zip(hk, hp))
+    scale = max(float(b.abs().max()) for hp in head_p for b in hp)
+    observed = float((valid_k > 0).float().mean())
+    log(f"[depth] kernels vs plain (K1 and the rgb stream) through the whole "
+        f"graph: view counts equal {torch.equal(valid_k, valid_p)}, head "
+        f"outputs max |diff| {diff:.3e} (max |out| {scale:.3e}, tol 1e-4 "
+        f"relative); {observed:.4f} of the voxels observed")
+    if not torch.equal(valid_k, valid_p) or diff > 1e-4 * max(scale, 1.0):
+        raise SystemExit("kernel and plain R101* graphs disagree")
+    with torch.inference_mode():
+        feats = model.extract_2d(batch["imgs"])
+        vol_args = (feats, batch["intrinsic"], batch["extrinsics"],
+                    batch["origin"])
+        vol_kw = dict(denorm_images=batch["denorm_images"],
+                      depth=batch["depth"])
+        vol = model.build_volume(*vol_args, **vol_kw)
+        heads = model.detect(vol["det_volume"])
+        mlvl = model.mlvl_points(batch["origin"])
+        st = streams[f"{DEPTH_VIEWS} views"]
+        stages = {
+            "extract_2d (ResNet-101 + FPN)": lambda: model.extract_2d(
+                batch["imgs"]),
+            "build_volume (projection, gate, K1, rgb stream, density)":
+                lambda: model.build_volume(*vol_args, **vol_kw),
+            "  of it the depth gate (both streams)": lambda: [
+                voxel.depth_gate(*st[k][3]) for k in ("features", "rgb")],
+            "  of it the rgb stream kernel": lambda: voxel._rgb_launch(
+                batch["denorm_images"], st["rgb"][0]),
+            "detect (3D neck + head)": lambda: model.detect(
+                vol["det_volume"]),
+            "get_candidate_bboxes": lambda: get_candidate_bboxes(
+                heads, vol["valid"], mlvl, nms_pre, model.n_classes),
+        }
+        for name, fn in stages.items():
+            log(f"[stage] R101* {DEPTH_VIEWS} views {name}: "
+                f"{cuda_time_ms(fn, 3, warmup=1):.3f} ms")
+    del feats, vol, heads
+    iters = 5
+    for _ in range(2):
+        api.eval_step(model, batch, nms_pre)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = api.eval_step(model, batch, nms_pre)
+        det = api.detections_from_candidates(
+            out["boxes"].cpu().numpy(), out["scores"].cpu().numpy(),
+            cfg.test_cfg["score_thr"], iou_thr)
+    dt = (time.perf_counter() - t0) / iters
+    log(f"[depth] inference: {1 / dt:.3f} scenes/s ({dt * 1e3:.2f} ms a "
+        f"scene: eval_step + host NMS at {DEPTH_VIEWS} views with depth), "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"measured on {card}")
+    del model, batch, out
+    torch.cuda.empty_cache()
+
+    # ---- 10.3 joint training with loss_depth at 48 views ----
+    t0 = time.perf_counter()
+    tr = api.init_trainer(cfg, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    prepared = ray_stats.prepare_rays(
+        scene48, np.random.RandomState(SEED), tr.model.n_rand,
+        tr.model.near_far_range, tr.model.n_samples, meta.ori_shape,
+        meta.img_shape)
+    tbatch = api.train_batch(tr.model, [prepared])
+    log(f"[depth] init_trainer + the host ray stream ({tr.model.n_rand} "
+        f"rays with depths): {time.perf_counter() - t0:.1f} s")
+    hist, dt, launches, peak = timed_steps(tr, tbatch, counters)
+    last = {k: float(v) for k, v in hist[-1].items()}
+    log(f"[depth] train, 5 steps: launches "
+        + ", ".join(f"{n} {c}" for n, c in zip(names, launches))
+        + "; last step " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                     last.items()))
+    if launches != [5, 5, 5, 5, 5, 0]:
+        raise SystemExit(f"the R101* training path launched {launches}")
+    for m in hist:
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            raise SystemExit(f"non-finite train metrics {m}")
+    if not (last.get("loss_depth", 0.0) > 0 and last["n_pos"] > 0):
+        raise SystemExit("no depth loss or no positive voxels")
+    for k, ms in step_stage_times(tr, tbatch, depth_supervise=True).items():
+        log(f"[stage] R101* train {k}: {ms:.3f} ms")
+    log(f"[depth] train: {1 / dt:.3f} steps/s ({dt * 1e3:.2f} ms a step: "
+        f"Trainer.step, one scene of {DEPTH_TRAIN_VIEWS} views and "
+        f"{tr.model.n_rand} rays, loss_depth on, host clock after 2 "
+        f"warm-up steps), peak memory {peak / 2**30:.2f} GiB; measured on "
+        f"{card}")
+    del tr, tbatch, prepared
+    torch.cuda.empty_cache()
+
+    # ---- 10.4 the CLIs from files; 10.5 the original resolution ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_depth_") as tmp:
+        t0 = time.perf_counter()
+        train_root = write_synthetic_scannet(
+            os.path.join(tmp, "train"), n_scenes=1,
+            n_images=RUNTIME_TRAIN_VIEWS, hw=RUNTIME_HW, seed=SEED + 3,
+            splits=("train",), workers=8, with_depth=True)
+        val_root = write_synthetic_scannet(
+            os.path.join(tmp, "val"), n_scenes=1, n_images=RUNTIME_VAL_VIEWS,
+            hw=RUNTIME_HW, seed=SEED + 4, splits=("val",), workers=8,
+            with_depth=True)
+        opts = runtime_options(cfg, train_root, val_root)
+        log(f"[depth] wrote a ScanNet-layout dataset with depth maps (.npy) "
+            f"at {RUNTIME_HW[0]}x{RUNTIME_HW[1]}: {RUNTIME_TRAIN_VIEWS} + "
+            f"{RUNTIME_VAL_VIEWS} views in 8 processes: "
+            f"{time.perf_counter() - t0:.1f} s")
+        clock = HostClock()
+        clock.wrap(pipeline_mod, "load_depth", "depth")
+        clock.wrap(dataset_mod.ScanNetMultiViewDataset, "__getitem__",
+                   "scene")
+        per_step = []
+        original_init = counted_trainers(api, counters, per_step)
+        try:
+            zero()
+            t0 = time.perf_counter()
+            result = train_cli.main([
+                DEPTH_CONFIG, "--work-dir", os.path.join(tmp, "work"),
+                "--max-steps", str(DEPTH_CLI_STEPS), "--no-validate",
+                "--options", *opts])
+            train_s = time.perf_counter() - t0
+            cli_launches = counts()
+        finally:
+            api.init_trainer = original_init
+            clock.restore()
+        hist = result["history"]
+        for h, n in zip(hist, per_step):
+            log(f"[depth] tools/train step {h['step']}: waited "
+                f"{h['data_s']:.3f} s on the loader, step {h['step_s']:.3f}"
+                f" s; launches {n}; loss {h['loss']:.5g}, loss_nvs "
+                f"{h.get('loss_nvs', float('nan')):.5g}, loss_depth "
+                f"{h.get('loss_depth', float('nan')):.5g}")
+            if not (h.get("loss_depth", 0.0) > 0 and all(
+                    math.isfinite(h[k]) for k in h if k.startswith("loss"))):
+                raise SystemExit(f"tools/train step without a finite depth "
+                                 f"loss: {h}")
+        if per_step != [[1, 1, 1, 1, 1, 0]] * DEPTH_CLI_STEPS:
+            raise SystemExit(f"tools/train launches a step {per_step}")
+        n_scenes, split = clock.take()
+        timed = hist[1:]
+        rate = len(timed) / sum(h["data_s"] + h["step_s"] for h in timed)
+        log(f"[depth] tools/train from files ({cfg.data['workers_per_gpu']} "
+            f"loader thread): {rate:.3f} steps/s over steps 2-"
+            f"{DEPTH_CLI_STEPS} (loader wait + step); a scene in the loader "
+            f"{split.get('scene', 0.0):.3f} s, of it the depth maps' load + "
+            f"resize {split.get('depth', 0.0):.3f} s ({n_scenes} scenes); "
+            f"the run {train_s:.1f} s; measured on {card}")
+
+        ckpt = result["checkpoints"][0]
+        zero()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([DEPTH_CONFIG, ckpt, "--eval", "mAP", "nvs",
+                                 "--options", *opts])
+        test_s = time.perf_counter() - t0
+        launches = counts()
+        pipe = cfg.data["test"]["pipeline"][0]
+        pad = [t for t in pipe["transforms"] if t["type"] == "Pad"][0]["size"]
+        chunks = -(-((pad[0] - 2 * pipe["margin"])
+                     * (pad[1] - 2 * pipe["margin"])) // cfg.model["N_rand"])
+        log(f"[depth] tools/test --eval mAP nvs on one val scene: "
+            f"{test_s:.1f} s; launches "
+            + ", ".join(f"{n} {c}" for n, c in zip(names, launches))
+            + "; " + ", ".join(f"{k} {metrics[k]:.4f}" for k in (
+                "mAP_0.25", "mAR_0.25", "psnr", "ssim", "rmse")))
+        if launches != [1, 0, 1, chunks * pipe["nerf_target_views"], 0, 0]:
+            raise SystemExit(f"the test CLI launched {launches}")
+        if not all(math.isfinite(v) for k, v in metrics.items()
+                   if k.startswith(("mAP", "mAR", "psnr", "ssim", "rmse"))):
+            raise SystemExit(f"non-finite test metrics {metrics}")
+
+        # 10.5: one eval_step of the original-resolution config
+        cfg_o = Config.fromfile(ORIGIN_RES_CONFIG)
+        cfg_o.merge_from_options(opts)
+        model = api.init_detector(cfg_o, device="cuda", seed=SEED)
+        t0 = time.perf_counter()
+        scene_o = build_dataset(cfg_o.data["test"], test_mode=True,
+                                use_depth=True)[0]
+        load_s = time.perf_counter() - t0
+        batch = api.device_batch(model, scene_o)
+        st = gated_streams(voxel, model, scene_o, dev)
+        zero()
+        out = api.eval_step(model, batch, cfg_o.test_cfg["nms_pre"])
+        torch.cuda.synchronize()
+        launches = counts()
+        if launches != [1, 0, 1, 0, 0, 0] or not (
+                torch.isfinite(out["boxes"]).all()
+                and torch.isfinite(out["scores"]).all()):
+            raise SystemExit(f"the original-resolution eval_step launched "
+                             f"{launches} or gave non-finite candidates")
+        eval_ms = cuda_time_ms(lambda: api.eval_step(
+            model, batch, cfg_o.test_cfg["nms_pre"]), 3, warmup=1)
+        v_o = batch["imgs"].shape[0]
+        log(f"[depth] {ORIGIN_RES_CONFIG}: a val scene of {v_o} views at "
+            f"{model.meta.img_shape} padded {model.meta.pad_shape} loaded "
+            f"from files in {load_s:.3f} s; eval_step -> "
+            f"{tuple(out['boxes'].shape)} candidates, launches "
+            + ", ".join(f"{n} {c}" for n, c in zip(names, launches))
+            + f"; gate keeps {st['features'][2]:.4f} (features, maps "
+            f"{batch['imgs'].shape[1] // 4}x{batch['imgs'].shape[2] // 4})"
+            f" / {st['rgb'][2]:.4f} (rgb) of the pairs; eval_step "
+            f"{eval_ms:.2f} ms; measured on {card}")
+        rgb_o = check_rgb(voxel, batch["denorm_images"], st["rgb"][0],
+                          f"original resolution, {v_o} views")
+        del model, batch, out
+        torch.cuda.empty_cache()
+    log(f"[depth] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(rgb=rgb, rgb_orig=rgb_o, k1=k1, k1_bwd=k1_bwd,
+                launches=path_launches, runtime_launches=cli_launches[2],
+                kept={label: {k: v[2] for k, v in st_.items()}
+                      for label, st_ in streams.items()})
+
+
 def main():
     import numpy as np
     import torch
@@ -2103,6 +2544,11 @@ def main():
     # ---- 9. the runtime from files: train, resume, test -----------------
     torch.cuda.empty_cache()
     runtime = runtime_path(api, voxel, pointnet, render, card)
+    log(f"[done] phases 1-9 in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 10. NeRF-Det-R101* (depth_sp): the depth gate, the rgb stream --
+    torch.cuda.empty_cache()
+    depth = depth_path(api, voxel, pointnet, render, card)
 
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
@@ -2190,7 +2636,37 @@ def main():
                                             runtime[2], runtime[1],
                                             runtime[3])):
         entry["runtime_launches"] = n  # phase 9's first training run
-    log(f"[done] phases 1-9 in {time.perf_counter() - t_start:.1f} s")
+    gated = f"{DEPTH_TRAIN_VIEWS} views"
+    rgb_main = depth["rgb"][f"{DEPTH_VIEWS} views"]
+    record["kernels"][0]["depth_gated"] = {k: depth["k1"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "phase_a_ms", "phase_b_ms")}
+    record["kernels"][3]["depth_gated"] = {k: depth["k1_bwd"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "index_ms", "pass1_ms", "pass2_ms", "pass3_ms")}
+    record["kernels"].append({
+        "name": "fused_mean_cov_rgb",
+        "route": "cuda",
+        "source": "nerfdet_tpu_torch/csrc/fused_mean_cov.cu",
+        "replaces": "nerfdet_tpu/ops/voxel.py:383",
+        "launches": depth["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in list(
+            depth["rgb"].values()) + [depth["rgb_orig"]]),
+        "ms": rgb_main["ms"],
+        "plain_ms": rgb_main["plain_ms"],
+        "bound_ms": rgb_main["bound_ms"],
+        "bound_by": rgb_main["bound_by"],
+        "library_ms": None,
+        "library_of": "none: no one PyTorch call gathers the views' pixels "
+                      "and sums them",
+        "at_48_views": {k: depth["rgb"][gated][k] for k in (
+            "ms", "plain_ms", "bound_ms", "kept_pairs")},
+        "original_resolution": {k: depth["rgb_orig"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "kept_pairs")},
+        "kept_share": depth["kept"],
+        "runtime_launches": depth["runtime_launches"],  # phase 10's CLI run
+    })
+    log(f"[done] phases 1-10 in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

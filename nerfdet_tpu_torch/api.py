@@ -115,15 +115,22 @@ def render_batch(model: NerfDet, scene: Dict) -> Dict:
 
 
 def device_batch(model: NerfDet, scene: Dict) -> Dict:
-    """The eval step's detection inputs for one scene: images on the
-    model's device; the small geometry arrays stay on the host (the
-    projection is computed there); the host rgb sums of the density
-    path are computed here when the scene does not carry them. Merged
-    with ``render_batch``, the forward also renders the scene's rays."""
+    """The eval step's detection inputs for one scene: images and, where
+    the scene has them, its depth maps on the model's device; the small
+    geometry arrays stay on the host (the projection is computed there).
+    The density path's rgb stream: for a scene with depth maps the
+    denormalized images go to the device (the stream is gated there),
+    else the host rgb sums, computed here when the scene does not carry
+    them. Merged with ``render_batch``, the forward also renders the
+    scene's rays."""
     dev = _device_of(model)
     batch = {k: scene[k] for k in ("intrinsic", "extrinsics", "origin")}
     batch["imgs"] = _to_device(scene["imgs"], dev)
-    if model.nerf_density:
+    if "depth" in scene:
+        batch["depth"] = _to_device(scene["depth"], dev)
+    if model.nerf_density and "depth" in scene:
+        batch["denorm_images"] = _to_device(scene["denorm_images"], dev)
+    elif model.nerf_density:
         if "rgb_s1" in scene:
             s1, s2 = scene["rgb_s1"], scene["rgb_s2"]
         else:
@@ -324,14 +331,17 @@ def run_nvs_eval(model: NerfDet, dataset, chunk: int = 2048,
     return agg
 
 
-def inference_detector(model: NerfDet, info: Dict, config) -> Dict:
+def inference_detector(model: NerfDet, info: Dict, config,
+                       use_depth: bool = False) -> Dict:
     """Detection on ONE raw scene described by ``info`` (``img_paths``,
     ``extrinsics`` world->cam, ``c2w``, ``intrinsic`` at the images'
-    size), replaying the config's test pipeline with ``RandomState(0)``;
-    the origin is (0, 0, 0.5). Returns ``single_scene_test``'s dict."""
+    size), replaying the config's test pipeline with ``RandomState(0)``
+    (with ``use_depth`` reading each view's depth map); the origin is
+    (0, 0, 0.5). Returns ``single_scene_test``'s dict."""
     if isinstance(config, str):
         config = Config.fromfile(config)
-    ds = build_dataset(dict(config.data["test"]), test_mode=True)
+    ds = build_dataset(dict(config.data["test"]), test_mode=True,
+                       use_depth=use_depth)
     scene = ds.pipeline(info, np.random.RandomState(0))
     scene["origin"] = np.array([0.0, 0.0, 0.5], np.float32)
     test_cfg = config.test_cfg
@@ -347,7 +357,9 @@ def run_eval(model: NerfDet, dataset, test_cfg: Dict, logger=None,
     """The detection eval loop: every scene of ``dataset`` through
     ``single_scene_test`` (the eval step with the density modulation on,
     as the original's ``simple_test``; the JAX ``run_eval`` defaults to
-    an eval step without it), then ``dataset.evaluate`` (mAP / mAR).
+    an eval step without it), then ``dataset.evaluate`` (mAP / mAR). A
+    dataset built with ``use_depth`` gives each scene its depth maps,
+    which gate the fusion, as in the JAX loop.
 
     With ``world > 1`` the process evaluates scenes ``rank::world`` and
     writes them to ``partial_dir``; rank 0 waits for every part, merges

@@ -53,7 +53,9 @@ class ScanNetMultiViewDataset:
         seed: seed of the stream that gives each train-mode scene its
             own ``RandomState`` seed, one draw a ``__getitem__`` call.
         rgb_stats_spec: ``(n_voxels, voxel_size, "float32")``: ship the
-            density volume's host rgb sums (``rgb_s1``, ``rgb_s2``).
+            density volume's host rgb sums (``rgb_s1``, ``rgb_s2``),
+            except for a scene with ``depth`` (the pipeline's
+            ``use_depth``), whose rgb stream the device gates by depth.
         ray_stats_spec: ``(near_far, n_samples, "float32")``: in train
             mode, ship the rays' stratified depths and rgb sums
             (``z_vals``, ``ray_s1u``, ``ray_s2u``, ``ray_s1m``,
@@ -191,7 +193,10 @@ class ScanNetMultiViewDataset:
             sample["ray_o"] = sample.pop("lightpos")
             sample["ray_d"] = sample.pop("raydirs")
             sample["gt_rgb"] = sample.pop("gt_images")
-        if self.rgb_stats_spec is not None:
+            if "gt_depths" in sample:
+                sample["gt_depth"] = sample.pop("gt_depths")
+        # a depth-gated scene sums its rgb stream on the device
+        if self.rgb_stats_spec is not None and "depth" not in sample:
             n_vox, vsz, cdtype = self.rgb_stats_spec
             s1, s2 = host_rgb_stats(
                 sample["denorm_images"], sample["intrinsic"],

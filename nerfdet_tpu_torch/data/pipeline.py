@@ -10,18 +10,24 @@ a scene equals the original's bit for bit.
 The machine the port runs on need not have ``cv2`` or ``PIL``, so two
 image functions are the port's own:
 
-* ``imresize`` is OpenCV's ``INTER_LINEAR`` resize of uint8 images (what
-  mmcv's ``imresize`` calls) in numpy: 11-bit fixed-point coefficients
+* ``imresize`` is OpenCV's ``INTER_LINEAR`` resize (what mmcv's
+  ``imresize`` calls, and what the JAX pipeline calls on the float32
+  depth maps) in numpy. Of uint8 images: 11-bit fixed-point coefficients
   ``saturate_cast<short>((1 - f) * 2048)`` computed from float32
   offsets, borders clamped in x and the rows clipped in y, the
   horizontal integer sums, then OpenCV's vectorized vertical pass
   ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)``, rounded by
-  ``(v + 2) >> 2``. It equals ``cv2.resize`` bit for bit on the shapes
-  the tests hold it to.
+  ``(v + 2) >> 2``. Of float32 (H, W) maps: what OpenCV's IPP HAL (on by
+  default in the OpenCV wheels) computes, float64 offsets and fractions
+  f (borders clamped on both axes), then per axis, x first, the fused
+  multiply-add ``fma(S1 - S0, float32(f), S0)``, emulated in float64. It
+  equals ``cv2.resize`` bit for bit on the shapes the tests hold it to.
 * ``imread`` decodes PNG itself (``zlib`` and numpy: 8-bit gray, gray +
-  alpha, RGB and RGBA, not interlaced, all five row filters) and leaves
-  every other format (JPEG) to ``cv2`` or ``PIL`` where one is installed,
-  raising otherwise.
+  alpha, RGB and RGBA and 16-bit gray, not interlaced, all five row
+  filters) and leaves every other format (JPEG) to ``cv2`` or ``PIL``
+  where one is installed, raising otherwise. ``read_depth`` reads a
+  depth map as the JAX pipeline does: ``.npy`` metres, else a 16-bit
+  PNG of millimetres.
 
 ``png_encode`` / ``imwrite_png`` write the PNGs the synthetic dataset
 writer produces (filter 0 on every row).
@@ -37,7 +43,8 @@ from typing import Dict, Tuple
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# channels of each 8-bit PNG color type the decoder reads
+# channels of each PNG color type the decoder reads (8-bit; gray also
+# 16-bit)
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _COEF_SCALE = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE (11 bits)
 
@@ -91,8 +98,9 @@ def _unfilter_sequential(kind: int, cur: bytearray, prior: bytes,
 
 
 def png_decode(data: bytes) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced PNG to uint8 (H, W, C), C the
-    color type's channels (gray 1, gray + alpha 2, RGB 3, RGBA 4)."""
+    """Decode a non-interlaced PNG to (H, W, C), C the color type's
+    channels (gray 1, gray + alpha 2, RGB 3, RGBA 4): uint8 for 8-bit
+    data, uint16 for 16-bit gray (big-endian samples)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, header = 8, [], None
@@ -112,35 +120,40 @@ def png_decode(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+    if (ctype not in _PNG_CHANNELS or interlace
+            or depth not in ((8, 16) if ctype == 0 else (8,))):
         raise ValueError(
             f"PNG bit depth {depth}, color type {ctype}, interlace "
-            f"{interlace}: only 8-bit gray / gray+alpha / RGB / RGBA "
-            f"without interlace are decoded")
+            f"{interlace}: only 8-bit gray / gray+alpha / RGB / RGBA and "
+            f"16-bit gray without interlace are decoded")
     channels = _PNG_CHANNELS[ctype]
-    stride = w * channels
+    bpp = channels * depth // 8  # the filters work on bytes, bpp apart
+    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     raw = raw[:h * (stride + 1)].reshape(h, stride + 1)
     if not raw[:, 0].any():  # filter 0 on every row (the port's writer)
-        return raw[:, 1:].reshape(h, w, channels).copy()
-    out = np.empty((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, row = raw[y, 0], raw[y, 1:]
-        if kind == 0:
-            out[y] = row
-        elif kind == 1:  # Sub: a running sum per channel, mod 256
-            out[y] = np.cumsum(row.reshape(w, channels), axis=0,
-                               dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            out[y] = row + prior
-        elif kind in (3, 4):
-            cur = bytearray(row.tobytes())
-            _unfilter_sequential(int(kind), cur, prior.tobytes(), channels)
-            out[y] = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"PNG row {y}: unknown filter {kind}")
-        prior = out[y]
+        out = raw[:, 1:].copy()
+    else:
+        out = np.empty((h, stride), np.uint8)
+        prior = np.zeros(stride, np.uint8)
+        for y in range(h):
+            kind, row = raw[y, 0], raw[y, 1:]
+            if kind == 0:
+                out[y] = row
+            elif kind == 1:  # Sub: a running sum per byte of a pixel
+                out[y] = np.cumsum(row.reshape(w, bpp), axis=0,
+                                   dtype=np.uint8).reshape(-1)
+            elif kind == 2:  # Up
+                out[y] = row + prior
+            elif kind in (3, 4):
+                cur = bytearray(row.tobytes())
+                _unfilter_sequential(int(kind), cur, prior.tobytes(), bpp)
+                out[y] = np.frombuffer(bytes(cur), np.uint8)
+            else:
+                raise ValueError(f"PNG row {y}: unknown filter {kind}")
+            prior = out[y]
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w, channels)
     return out.reshape(h, w, channels)
 
 
@@ -158,6 +171,9 @@ def imread(path: str) -> np.ndarray:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
         img = png_decode(data)
+        if img.dtype != np.uint8:
+            raise ValueError(f"{path}: a 16-bit PNG is a depth map "
+                             f"(read_depth), not an image")
         if img.shape[2] <= 2:  # gray (+ alpha)
             return np.repeat(img[..., :1], 3, axis=2)
         return np.ascontiguousarray(img[..., :3])
@@ -178,6 +194,26 @@ def imread(path: str) -> np.ndarray:
             f"decode it (JPEG needs one of them)") from None
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def read_depth(img_path: str) -> np.ndarray:
+    """The depth map of the view ``img_path``, float32 (H, W) metres:
+    ``<stem>.npy`` where it exists, else ``<stem>.png``, 16-bit
+    millimetres (ScanNet's sensor depth), as the JAX pipeline reads
+    them."""
+    base = os.path.splitext(img_path)[0]
+    if os.path.exists(base + ".npy"):
+        return np.load(base + ".npy").astype(np.float32)
+    with open(base + ".png", "rb") as f:
+        d = png_decode(f.read())
+    if d.dtype != np.uint16 or d.shape[2] != 1:
+        raise ValueError(f"{base}.png: a depth map is a 16-bit gray PNG")
+    return d[..., 0].astype(np.float32) / 1000.0
+
+
+def load_depth(img_path: str, size_hw: Tuple[int, int]) -> np.ndarray:
+    """``read_depth`` resized to (h, w) = ``size_hw``."""
+    return imresize(read_depth(img_path), (size_hw[1], size_hw[0]))
 
 
 def _resize_taps(dst: int, src: int, clamp: bool):
@@ -201,16 +237,44 @@ def _resize_taps(dst: int, src: int, clamp: bool):
             w0.astype(np.int32), w1.astype(np.int32))
 
 
+def _float_taps(dst: int, src: int):
+    """The IPP HAL's INTER_LINEAR taps along one axis: the two source
+    indices and the float32 fraction, from float64 offsets ``(d + 0.5) *
+    src / dst - 0.5`` clamped to the map at both ends."""
+    f = (np.arange(dst, dtype=np.float64) + 0.5) * (src / dst) - 0.5
+    s = np.floor(f).astype(np.int64)
+    f = f - s
+    f[s < 0] = 0
+    s[s < 0] = 0
+    f[s >= src - 1] = 0
+    s[s >= src - 1] = src - 1
+    return s, np.minimum(s + 1, src - 1), f.astype(np.float32)
+
+
+def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    float32 product is exact in float64."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
 def imresize(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of a uint8 (H, W) or (H, W, C) image to (w, h):
-    ``cv2.resize(img, size_wh, interpolation=cv2.INTER_LINEAR)``, bit for
-    bit. A same-size image is returned as a copy, as OpenCV does."""
+    """Bilinear resize of a uint8 (H, W) or (H, W, C) image, or of a
+    float32 (H, W) map, to (w, h): ``cv2.resize(img, size_wh,
+    interpolation=cv2.INTER_LINEAR)``, bit for bit. A same-size image is
+    returned as a copy, as OpenCV does."""
     w, h = int(size_wh[0]), int(size_wh[1])
     src_h, src_w = img.shape[:2]
-    if img.dtype != np.uint8:
-        raise TypeError(f"imresize takes uint8 images, got {img.dtype}")
+    if not (img.dtype == np.uint8
+            or (img.dtype == np.float32 and img.ndim == 2)):
+        raise TypeError(f"imresize takes uint8 images or float32 (H, W) "
+                        f"maps, got {img.dtype} {img.shape}")
     if (src_h, src_w) == (h, w):
         return img.copy()
+    if img.dtype == np.float32:
+        x0, x1, fx = _float_taps(w, src_w)
+        y0, y1, fy = _float_taps(h, src_h)
+        rows = _fma32(img[:, x1] - img[:, x0], fx[None], img[:, x0])
+        return _fma32(rows[y1] - rows[y0], fy[:, None], rows[y0])
     x0, x1, a0, a1 = _resize_taps(w, src_w, clamp=True)
     y0, y1, b0, b1 = _resize_taps(h, src_h, clamp=False)
     src = img.reshape(src_h, src_w, -1).astype(np.int32)
@@ -292,7 +356,10 @@ class MultiViewPipeline:
         loading: 'random' (train) or 'stride' (test).
         nerf_target_views: held-out views rendered by the NeRF branch.
         sample_freq: stride for loading='stride'.
-        use_depth: per-view depth maps, not ported (ROADMAP §1 item 2).
+        use_depth: load each view's depth map (``read_depth``) resized
+            to its ``img_shape``: the sources' ``depth`` (V, h, w) and
+            the target rays' ``gt_depths`` (T, R), read from the map
+            padded to ``pad_size``.
     """
 
     def __init__(self, n_images: int = 50,
@@ -306,10 +373,6 @@ class MultiViewPipeline:
                  nerf_target_views: int = 10,
                  sample_freq: int = 3,
                  use_depth: bool = False):
-        if use_depth:
-            raise NotImplementedError(
-                "use_depth (the depth_sp configs' depth maps) is not ported "
-                "yet: ROADMAP §1 item 2")
         self.n_images = n_images
         self.img_scale = img_scale
         self.pad_size = pad_size
@@ -341,8 +404,9 @@ class MultiViewPipeline:
             rng: numpy RandomState driving all sampling.
 
         Returns a dict of stacked arrays: imgs, denorm_images, extrinsics,
-        intrinsic, ori_shape, img_shape, depth_range and, with target
-        views, raydirs / lightpos / gt_images (T, R, 3) and nerf_size.
+        intrinsic, ori_shape, img_shape, depth_range (with ``use_depth``
+        depth) and, with target views, raydirs / lightpos / gt_images
+        (T, R, 3), nerf_size (with ``use_depth`` gt_depths (T, R)).
         """
         n_all = len(info["img_paths"])
         if self.loading == "random":
@@ -359,7 +423,7 @@ class MultiViewPipeline:
             target_id = ids[: max(self.nerf_target_views, 1)] \
                 if self.nerf_target_views != 0 else np.array([], np.int64)
 
-        imgs, denorms, extrinsics = [], [], []
+        imgs, denorms, extrinsics, depths = [], [], [], []
         ori_shape = img_shape = None
         for i in ids:
             norm, denorm, ori_shape, img_shape = self._load_one(
@@ -367,6 +431,8 @@ class MultiViewPipeline:
             imgs.append(norm)
             denorms.append(denorm)
             extrinsics.append(info["extrinsics"][i])
+            if self.use_depth:
+                depths.append(load_depth(info["img_paths"][i], img_shape))
 
         ratio = ori_shape[0] / img_shape[0]
         out = dict(
@@ -378,6 +444,8 @@ class MultiViewPipeline:
             img_shape=np.asarray(img_shape, np.int32),
             depth_range=self.depth_range,
         )
+        if self.use_depth:
+            out["depth"] = np.stack(depths)
 
         if self.nerf_target_views > 0:
             intr = np.asarray(info["intrinsic"], np.float32).copy()
@@ -390,22 +458,31 @@ class MultiViewPipeline:
                           dtype=np.float32),
             )
             pixelcoords = np.stack((px, py), axis=-1)
-            raydirs, lightpos, gt_rgbs = [], [], []
+            raydirs, lightpos, gt_rgbs, gt_depths = [], [], [], []
             for i in target_id:
                 c2w = np.asarray(info["c2w"][i], np.float32)
                 raydir = get_dtu_raydir(pixelcoords, intr, c2w[:3, :3])
                 raydirs.append(raydir.reshape(-1, 3))
                 lightpos.append(
                     np.broadcast_to(c2w[:3, 3], raydir.reshape(-1, 3).shape))
-                _, denorm_t, _, _ = self._load_one(info["img_paths"][i])
+                _, denorm_t, _, timg_shape = self._load_one(
+                    info["img_paths"][i])
                 gt = denorm_t[py.astype(np.int32), px.astype(np.int32)]
                 gt_rgbs.append(gt.reshape(-1, 3))
+                if self.use_depth:
+                    d = impad(load_depth(info["img_paths"][i], timg_shape),
+                              self.pad_size)
+                    gt_depths.append(
+                        d[py.astype(np.int32), px.astype(np.int32)]
+                        .reshape(-1))
             out["raydirs"] = np.stack(raydirs)      # (T, R, 3)
             out["lightpos"] = np.stack(lightpos)    # (T, R, 3)
             out["gt_images"] = np.stack(gt_rgbs)    # (T, R, 3)
             out["nerf_size"] = np.asarray(
                 [height - 2 * self.margin, width - 2 * self.margin],
                 np.int32)
+            if gt_depths:
+                out["gt_depths"] = np.stack(gt_depths)  # (T, R)
         return out
 
 

@@ -9,7 +9,7 @@ stream is consumed exactly as the original does, so every key (the
 detection keys imgs, denorm_images, intrinsic, extrinsics, origin,
 gt_boxes, gt_labels, gt_mask and the render targets ray_o, ray_d,
 gt_rgb, gt_depth) is bitwise equal to the original's for the same
-arguments.
+arguments (and the source views' ``depth`` where asked).
 
 ``make_synthetic_cloud`` is the point-cloud counterpart for VoteNet:
 box surfaces on a floor as ``write_synthetic_scannet`` builds them,
@@ -135,6 +135,7 @@ def make_synthetic_scene(
     n_boxes: int = 3,
     max_gt: int = 8,
     margin: int = 2,
+    with_depth: bool = False,
 ) -> Dict[str, np.ndarray]:
     """One synthetic scene: source views, boxes and target-view rays.
 
@@ -146,7 +147,9 @@ def make_synthetic_scene(
     pixel grids of the ``n_targets`` target views, inside ``margin``:
     ray_o, ray_d (n_rand, 3), gt_rgb (n_rand, 3) uint8-quantized and
     gt_depth (n_rand,). With ``n_rand`` at least the grid's size the
-    rays are all of them, in random order.
+    rays are all of them, in random order. ``with_depth`` adds the
+    source views' camera depth (V, h, w), unpadded, 0 where no surface
+    is hit.
     """
     rng = np.random.RandomState(seed)
     h, w = hw
@@ -166,9 +169,9 @@ def make_synthetic_scene(
                         rng.uniform(1.2, 2.2)], np.float32)
         views.append(_look_at(pos, LOOK_AT))
 
-    imgs, denorms, extr = [], [], []
+    imgs, denorms, extr, depths = [], [], [], []
     for c2w in views[:n_views]:
-        rgb, _ = _render_view(boxes, colors, c2w, intr, hw)
+        rgb, depth = _render_view(boxes, colors, c2w, intr, hw)
         norm = imnormalize(rgb * 255.0, IMG_MEAN, IMG_STD)
         denorm = imdenormalize(norm, IMG_MEAN, IMG_STD)
         pad = np.zeros((ph, pw, 3), np.float32)
@@ -178,6 +181,7 @@ def make_synthetic_scene(
         imgs.append(pad)
         denorms.append(padd)
         extr.append(np.linalg.inv(c2w).astype(np.float32))
+        depths.append(depth)
 
     out = dict(
         imgs=np.stack(imgs),
@@ -186,6 +190,8 @@ def make_synthetic_scene(
         extrinsics=np.stack(extr),
         origin=np.array([0.0, 0.0, 0.5], np.float32),
     )
+    if with_depth:
+        out["depth"] = np.stack(depths)
 
     # target-view rays
     ray_o, ray_d, gt_rgb, gt_depth = [], [], [], []
@@ -255,10 +261,13 @@ def make_synthetic_cloud(seed: int = 0,
 
 
 def _write_view(job) -> None:
-    """Render one view and write it as a PNG (a process pool's task)."""
-    boxes, colors, c2w, intr, hw, path = job
-    rgb, _ = _render_view(boxes, colors, c2w, intr, hw)
+    """Render one view and write it as a PNG, and its depth as ``.npy``
+    beside it where asked (a process pool's task)."""
+    boxes, colors, c2w, intr, hw, path, with_depth = job
+    rgb, depth = _render_view(boxes, colors, c2w, intr, hw)
     imwrite_png(path, (rgb * 255).astype(np.uint8))
+    if with_depth:
+        np.save(os.path.splitext(path)[0] + ".npy", depth)
 
 
 def write_synthetic_scannet(root: str, n_scenes: int = 2,
@@ -266,15 +275,20 @@ def write_synthetic_scannet(root: str, n_scenes: int = 2,
                             hw: Tuple[int, int] = (96, 128),
                             n_boxes: int = 3, seed: int = 0,
                             splits: Sequence[str] = ("train", "val"),
-                            workers: int = 1) -> str:
+                            workers: int = 1,
+                            with_depth: bool = False) -> str:
     """Write synthetic scenes in ScanNet's on-disk layout under ``root``:
     ``posed_images/scene####_00/#####.png`` (``n_images`` views of
     ``hw`` on a circle around the boxes), ``points/scene####_00.bin``
     ((N, 6) float32 xyz + rgb) and ``scannet_infos_{split}.pkl`` with the
     reference info schema (img_paths, extrinsics c2w, intrinsics at
     ``hw``, pts_path, annos with gravity-centered boxes), ``n_scenes``
-    per split. The views are rendered in ``workers`` processes; the
-    random stream does not depend on it. Returns ``root``."""
+    per split. ``with_depth`` writes each view's camera depth beside it
+    as ``#####.npy`` (float32 metres, 0 where no surface is hit; the
+    original writes a 16-bit millimetre PNG, which here would take the
+    view's own name; both pipelines read the ``.npy`` first). The views
+    are rendered in ``workers`` processes; the random stream does not
+    depend on it. Returns ``root``."""
     os.makedirs(root, exist_ok=True)
     rng = np.random.RandomState(seed)
     h, w = hw
@@ -300,7 +314,7 @@ def write_synthetic_scannet(root: str, n_scenes: int = 2,
                 c2w = _look_at(pos, LOOK_AT)
                 rel = os.path.join("posed_images", scene, f"{i:05d}.png")
                 jobs.append((boxes, colors, c2w, intr, hw,
-                             os.path.join(root, rel)))
+                             os.path.join(root, rel), with_depth))
                 img_paths.append(rel)
                 poses.append(c2w.astype(np.float32))
             # point-cloud modality: box-surface + floor samples in the

@@ -3,8 +3,10 @@ inference and joint training.
 
 Port of ``nerfdet_tpu/models/nerfdet.py``. Detection: ResNet + FPN over
 the views, projection and view-streaming mean/variance fusion (K1) with
-the nerf_density global volume, the density MLP's alpha modulation, the
-3D neck and the head. Rendering (image mode, evenly spaced samples):
+the nerf_density global volume (its rgb stream the host's sums or, for a
+scene with a depth map, gathered by the rgb-stream kernel), the density
+MLP's alpha modulation, the 3D neck and the head. A scene's depth map
+(the depth_sp configs) gates every (voxel, view) pair by depth. Rendering (image mode, evenly spaced samples):
 the ``mapping`` of the cropped stride-4 maps, the view-streaming ray
 sampler (K2), the NeRF MLP and alpha compositing, in ray chunks. Public
 methods take and return channels-last tensors without a batch
@@ -126,13 +128,17 @@ class NerfDet(nn.Module):
         return self.neck(feats, num_outs=1)[0].permute(0, 2, 3, 1)
 
     def build_volume(self, features, intrinsic, extrinsics, origin,
-                     rgb_stats=None) -> Dict:
+                     rgb_stats=None, denorm_images=None,
+                     depth=None) -> Dict:
         """Project, fuse and density-modulate the volume.
 
-        ``rgb_stats`` are the host rgb sums
-        (``data/rgb_stats.host_rgb_stats``) the density path needs.
-        Returns det_volume (nx, ny, nz, C) and valid (nx, ny, nz), the
-        observing-view counts.
+        ``depth`` (V, H, W), where given, gates every (voxel, view) pair
+        by the sensed depth. The density path's rgb stream comes from the
+        host rgb sums ``rgb_stats`` (``data/rgb_stats.host_rgb_stats``)
+        where they are given and the scene has no depth, else from the
+        (V, Hp, Wp, 3) ``denorm_images`` on the device (``rgb_carry``), as
+        the JAX model chooses. Returns det_volume (nx, ny, nz, C) and valid
+        (nx, ny, nz), the observing-view counts.
         """
         dev = features.device
         h_img, w_img = self.meta.img_shape
@@ -142,23 +148,32 @@ class NerfDet(nn.Module):
         pts_flat = get_points(self.n_voxels, self.voxel_size, origin,
                               dev).reshape(-1, 3)
         feat_hw = (h_img // stride, w_img // stride)
+        gate = dict(depth=depth, voxel_size_z=self.voxel_size[-1],
+                    image_hw=feat_hw)
 
         if self.nerf_density:
-            if rgb_stats is None:
-                raise NotImplementedError(
-                    "the in-scan rgb stream is not yet ported; pass the "
-                    "host rgb sums (rgb_s1, rgb_s2)")
             lin = self.mapping[0]
+            if rgb_stats is not None and depth is None:
+                rgb = dict(precomputed_extra=rgb_stats)
+            elif denorm_images is None:
+                raise ValueError("the density path needs the host rgb sums "
+                                 "or, with a depth map, denorm_images")
+            else:
+                rgb = dict(extra_features=denorm_images,
+                           extra_projection=compute_projection(
+                               intrinsic, extrinsics,
+                               self.meta.ori_shape[0] / h_img, dev),
+                           extra_image_hw=(h_img, w_img))
             mean, _, count, g_mean, g_cov = fused_mean_cov(
-                features, pts_flat, projection, image_hw=feat_hw,
+                features, pts_flat, projection,
                 mapped_kernel=lin.weight.t(), mapped_bias=lin.bias,
-                precomputed_extra=rgb_stats)
+                **gate, **rgb)
             density = self.nerf_mlp.query_density(
                 pts_flat, torch.cat([g_mean, g_cov], dim=-1))
             det_volume = (1.0 - torch.exp(-density)) * mean
         else:
-            det_volume, _, count = fused_mean_cov(
-                features, pts_flat, projection, image_hw=feat_hw)
+            det_volume, _, count = fused_mean_cov(features, pts_flat,
+                                                  projection, **gate)
         observed = count[:, None] > 0
         det_volume = torch.where(observed, det_volume,
                                  torch.zeros_like(det_volume))
@@ -243,8 +258,10 @@ class NerfDet(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """One scene: ``batch`` holds imgs (V, Hp, Wp, 3), intrinsic
         (4, 4), extrinsics (V, 4, 4), origin (3,), for the density path
-        rgb_s1/rgb_s2 (N, 3), and optionally a ray bundle ray_o/ray_d
-        (R, 3) with denorm_images (V, Hp, Wp, 3) or the host ray stream
+        rgb_s1/rgb_s2 (N, 3) or denorm_images (V, Hp, Wp, 3), optionally
+        the depth maps depth (V, H, W) (the rgb stream then comes from
+        denorm_images, see ``build_volume``), and optionally a ray bundle
+        ray_o/ray_d (R, 3) with denorm_images or the host ray stream
         (``data/ray_stats.RAY_STREAM_KEYS``: z_vals and the rgb sums).
         Returns (head_outs, valid, render_out), render_out None without
         rays. The rays' samples are evenly spaced in eval mode and, in
@@ -254,7 +271,9 @@ class NerfDet(nn.Module):
                      if "rgb_s1" in batch else None)
         vol = self.build_volume(features, batch["intrinsic"],
                                 batch["extrinsics"], batch["origin"],
-                                rgb_stats=rgb_stats)
+                                rgb_stats=rgb_stats,
+                                denorm_images=batch.get("denorm_images"),
+                                depth=batch.get("depth"))
         render_out = None
         if "ray_o" in batch:
             host = (tuple(batch[k] for k in ("ray_s1u", "ray_s2u",

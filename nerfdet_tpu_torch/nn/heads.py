@@ -13,11 +13,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..core.boxes import volume_of_boxes
+from ..ops.resize import resize_axes
 from . import losses
 
 
@@ -60,27 +60,6 @@ def bbox_pred_to_bbox(points, bbox_pred):
     ], dim=-1)
 
 
-def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in, out) float32 weights of ``jax.image.resize(..., "trilinear")``
-    along one axis, antialiased: when downsampling, the triangle filter
-    widens by in/out (a low-pass filter), unlike ``F.interpolate``."""
-    f32 = np.float32
-    scale = out_size / in_size
-    inv_scale = 1.0 / scale
-    kernel_scale = f32(max(inv_scale, 1.0))
-    sample_f = ((np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale)
-                - f32(0.0 * inv_scale) - f32(0.5))
-    x = np.abs(sample_f[None, :]
-               - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    weights = np.maximum(f32(0), f32(1) - np.abs(x))
-    total = weights.sum(axis=0, keepdims=True, dtype=f32)
-    weights = np.where(
-        np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-        weights / np.where(total != 0, total, f32(1)), f32(0))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], weights, f32(0)).astype(f32)
-
-
 def resize_valid(valid: torch.Tensor, shape) -> torch.Tensor:
     """Resize the (nx, ny, nz) view-count volume and threshold it.
 
@@ -88,14 +67,7 @@ def resize_valid(valid: torch.Tensor, shape) -> torch.Tensor:
     "trilinear")`` (antialias on) followed by ``round(r) > 0``. An axis
     whose size is unchanged is left as it is.
     """
-    r = valid.float()
-    for axis, out in enumerate(shape):
-        if r.shape[axis] == out:
-            continue
-        w = torch.from_numpy(_resize_weights(r.shape[axis], out)).to(
-            r.device)
-        r = torch.movedim(torch.tensordot(r, w, dims=([axis], [0])), -1,
-                          axis)
+    r = resize_axes(valid.float(), enumerate(shape))
     return torch.round(r) > 0
 
 

@@ -14,6 +14,13 @@ sums the cotangents of the voxels that share a pixel (found by a counting
 sort by hand, ``csrc/counting_sort.cuh``) and maps them back once per
 pixel, as phase A maps forward.
 
+The depth_sp configs gate every (voxel, view) pair by the sensed depth
+(``depth_gate``, plain torch, as JAX computes it outside the scan) and
+sum the rgb stream of the density volume on the device, at the images'
+own projection: the hand-written kernel ``rgb_carry`` (a third entry
+point of ``csrc/fused_mean_cov.cu``), launched apart from K1 and taking
+no gradient.
+
 Exactness: geometry is float32 with explicitly ordered multiply-adds
 (no TF32, no library-chosen order) and ``torch.round`` (half to even,
 as ``jnp.round``): voxel centers often project to exact half-pixel
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .resize import resize_axes
 
 
 def _host(x) -> np.ndarray:
@@ -101,6 +109,29 @@ def pixel_index(x, y, valid, map_width: int) -> torch.Tensor:
     -1 where the view does not see the voxel; (V, N) int32."""
     return torch.where(valid, y * map_width + x,
                        torch.full_like(x, -1)).to(torch.int32)
+
+
+def resize_depth(depth: torch.Tensor, height: int,
+                 width: int) -> torch.Tensor:
+    """(V, H, W) -> (V, height, width) float32, as ``jax.image.resize(
+    depth, (V, height, width), "bilinear")``: antialiased triangle weights
+    (``ops.resize``), the height first, an axis of unchanged
+    size left alone (the sums' order differs from JAX's einsum: within
+    1e-6 at the tests' shapes)."""
+    return resize_axes(depth.float(), ((1, height), (2, width)))
+
+
+def depth_gate(z, x, y, valid, depth, height: int, width: int,
+               voxel_size_z: float) -> torch.Tensor:
+    """``valid`` (V, N) restricted to the voxels within +-voxel_size_z of
+    the sensed depth: ``depth`` (V, H, W) is resized to the map's extent
+    (``resize_depth``), read at the clipped pixel (x, y), and a voxel's
+    camera depth z must lie in (d - voxel_size_z, d + voxel_size_z)."""
+    v = depth.shape[0]
+    flat = resize_depth(depth, height, width).reshape(v, height * width)
+    idx = y.clamp(0, height - 1) * width + x.clamp(0, width - 1)
+    d = torch.gather(flat, 1, idx.long())
+    return valid & (z > d - voxel_size_z) & (z < d + voxel_size_z)
 
 
 def fusion_carry_plain(features, pix, mapped_kernel=None, mapped_bias=None):
@@ -449,6 +480,62 @@ def _carry_launch(features, pix, mapped, mapped_bias):
     return s1, s2, count, s2m
 
 
+def rgb_carry_plain(images, pix):
+    """Plain PyTorch version of the in-scan rgb stream (same signature and
+    results as ``rgb_carry``): ``images`` (V, H, W, 3) float32 gathered
+    at ``pix`` (V, N) int32 (-1 where the view does not see the voxel, or
+    the depth gate drops it); returns (s1e, s2e), (N, 3) float32 sums and
+    squared sums accumulated over views in view order."""
+    s1, s2, _, _ = fusion_carry_plain(images, pix)
+    return s1, s2
+
+
+def rgb_carry(images, pix):
+    """The in-scan rgb stream of the density volume (see
+    ``rgb_carry_plain``). It takes no gradient (the images are inputs),
+    and refuses images that require one. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel
+    (``csrc/fused_mean_cov.cu``, ``fused_mean_cov_rgb``), or raises where
+    it does not take the input."""
+    if images.requires_grad:
+        raise ValueError("the rgb stream takes no gradient: pass images "
+                         "that do not require one")
+    if images.device.type == "cpu":
+        return rgb_carry_plain(images, pix)
+    out = _rgb_launch(images, pix)
+    rgb_carry.launches += 1
+    return out
+
+
+rgb_carry.launches = 0
+
+
+def _rgb_launch(images, pix):
+    """Check and launch the rgb stream's kernel; returns (s1e, s2e). The
+    launch is not counted."""
+    dev = images.device
+    if (images.device.type != "cuda" or images.dtype != torch.float32
+            or images.dim() != 4 or images.shape[3] != 3
+            or not images.is_contiguous()):
+        raise ValueError("the rgb stream takes contiguous (V, H, W, 3) "
+                         "float32 images on the card")
+    v, h, w, _ = images.shape
+    n = pix.shape[1] if pix.dim() == 2 else -1
+    if (pix.dtype != torch.int32 or pix.shape != (v, n)
+            or not pix.is_contiguous() or pix.device != dev):
+        raise ValueError("pix must be a contiguous (V, N) int32 tensor on "
+                         "the images' device")
+    s1 = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    s2 = torch.empty_like(s1)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = _lib().fused_mean_cov_rgb(*_ptrs(images, pix, s1, s2), v,
+                                        h * w, n, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_mean_cov rgb stream launch failed: "
+                           f"cudaError {err}")
+    return s1, s2
+
+
 def _contiguous_f32(t, shape, name, dev):
     if (t.dtype != torch.float32 or tuple(t.shape) != shape
             or t.device != dev):
@@ -585,6 +672,8 @@ def _lib():
         lib.fused_mean_cov_mapped_rows.argtypes = [
             p, i, p, p, p, i, i, i, ctypes.c_longlong, p]
         lib.fused_mean_cov_mapped_rows.restype = ctypes.c_int
+        lib.fused_mean_cov_rgb.argtypes = [p] * 4 + [i] * 3 + [p]
+        lib.fused_mean_cov_rgb.restype = ctypes.c_int
     return lib
 
 
@@ -599,9 +688,12 @@ def _stats(s1, s2, count, n_views):
 
 def fused_mean_cov(features, points, projection,
                    depth=None,
+                   voxel_size_z: Optional[float] = None,
                    invalid_fill=None,
                    extra_features=None,
+                   extra_projection=None,
                    image_hw: Optional[Tuple[int, int]] = None,
+                   extra_image_hw: Optional[Tuple[int, int]] = None,
                    mapped_kernel=None,
                    mapped_bias=None,
                    precomputed_extra=None):
@@ -615,12 +707,21 @@ def fused_mean_cov(features, points, projection,
     Args:
         features: (V, H, W, C) per-view maps.
         points: (N, 3) voxel centers; projection: (V, 3, 4).
+        depth/voxel_size_z: the sensed depth (V, H', W'): a view sees a
+            voxel only within +-voxel_size_z of it (``depth_gate``), in
+            both streams.
         image_hw: validity bounds when smaller than the (padded) maps.
-        mapped_kernel/mapped_bias/precomputed_extra: the nerf_density
-            global volume. The mapped stream ``x_v @ W + b`` (an
-            invalid view contributes the bias) has its sum recovered as
-            ``s1 @ W + V*b``, its squared sum accumulated by K1; the
-            rgb stream arrives as host sums ``(s1e, s2e)``
+        extra_features/extra_projection/extra_image_hw: the rgb stream of
+            the global volume, (V, H2, W2, 3) images gathered at their own
+            projection and bounds and gated by their own validity, while
+            the count comes from the features; summed on the device
+            (``rgb_carry``).
+        mapped_kernel/mapped_bias: the nerf_density global volume. The
+            mapped stream ``x_v @ W + b`` (an invalid view contributes
+            the bias) has its sum recovered as ``s1 @ W + V*b``, its
+            squared sum accumulated by K1; the rgb stream is
+            ``extra_features`` or arrives as host sums
+            ``precomputed_extra = (s1e, s2e)``
             (``data/rgb_stats.host_rgb_stats``).
 
     Returns (mean, cov, count), or (mean, cov, count, g_mean, g_cov)
@@ -629,22 +730,34 @@ def fused_mean_cov(features, points, projection,
     kernel and bias: the carry through K1's backward, ``s1m`` and the
     statistics through torch autograd.
     """
-    if depth is not None:
-        raise NotImplementedError(
-            "depth_gate belongs to the depth_sp configs, not yet ported")
-    if extra_features is not None:
-        raise NotImplementedError(
-            "the in-scan rgb stream belongs to the depth_sp configs, not "
-            "yet ported; pass precomputed_extra")
     if invalid_fill is not None:
         raise NotImplementedError("invalid_fill is not yet ported")
-    if (mapped_kernel is None) != (precomputed_extra is None):
-        raise ValueError("the mapped stream needs precomputed_extra and "
-                         "vice versa")
+    if extra_features is not None and precomputed_extra is not None:
+        raise ValueError("the rgb stream is extra_features or "
+                         "precomputed_extra, not both")
+    if (mapped_kernel is None) != (extra_features is None
+                                   and precomputed_extra is None):
+        raise ValueError("the nerf_density global volume takes the mapped "
+                         "stream and the rgb stream together")
     v, fh, fw, _ = features.shape
     h, w = image_hw if image_hw is not None else (fh, fw)
-    x, y, _, valid = project_points(points, projection, h, w)
+    x, y, z, valid = project_points(points, projection, h, w)
+    if depth is not None:
+        valid = depth_gate(z, x, y, valid, depth, h, w, voxel_size_z)
     pix = pixel_index(x, y, valid, fw)
+    rgb = None
+    if extra_features is not None:
+        feh, few = extra_features.shape[1:3]
+        he, we = extra_image_hw if extra_image_hw is not None else (feh,
+                                                                    few)
+        xe, ye, ze, valide = project_points(points, extra_projection, he, we)
+        if depth is not None:
+            valide = depth_gate(ze, xe, ye, valide, depth, he, we,
+                                voxel_size_z)
+        rgb = rgb_carry(extra_features.float().contiguous(),
+                        pixel_index(xe, ye, valide, few))
+    elif precomputed_extra is not None:
+        rgb = (precomputed_extra[0].float(), precomputed_extra[1].float())
     w_map = b_map = None
     if mapped_kernel is not None:
         w_map = mapped_kernel.float().contiguous()
@@ -656,8 +769,7 @@ def fused_mean_cov(features, points, projection,
         return mean, cov, count
     s1m = s1 @ w_map + v * b_map
     mean_m, cov_m = _stats(s1m, s2m, count, v)
-    mean_e, cov_e = _stats(precomputed_extra[0].float(),
-                           precomputed_extra[1].float(), count, v)
+    mean_e, cov_e = _stats(*rgb, count, v)
     g_mean = torch.cat([mean_e, mean_m], dim=-1)
     g_cov = torch.cat([cov_e, cov_m], dim=-1)
     return mean, cov, count, g_mean, g_cov

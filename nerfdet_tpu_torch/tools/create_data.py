@@ -6,7 +6,9 @@
 
 The counterpart of ``tools/create_data.py synthetic`` of the JAX
 package (``data/synthetic.write_synthetic_scannet``: PNG views,
-``points/*.bin`` and ``scannet_infos_{split}.pkl``), without depth maps.
+``points/*.bin`` and ``scannet_infos_{split}.pkl``), with each view's
+depth map beside it as ``.npy`` in metres, as the JAX tool always writes
+depth (a pipeline without ``use_depth`` never reads it).
 The converters of real datasets are not ported; the info files the JAX
 package's ScanNet converter writes are plain pickles the port reads.
 """
@@ -43,7 +45,7 @@ def main(argv=None) -> str:
     root = write_synthetic_scannet(
         args.root_path, n_scenes=args.n_scenes, n_images=args.n_images,
         hw=tuple(args.hw), seed=args.seed, splits=tuple(args.splits),
-        workers=args.workers)
+        workers=args.workers, with_depth=True)
     print(f"[synthetic] wrote {args.n_scenes} scene(s) x {args.n_images} "
           f"views of {args.hw[0]}x{args.hw[1]} for {list(args.splits)} -> "
           f"{root} in {time.perf_counter() - t0:.1f} s")

@@ -14,7 +14,9 @@ rays) for ``nvs``, and the same JSON printed last (the ``mAP*``,
 density modulation on, as the original's ``simple_test`` (the JAX tool
 runs its eval step's default, without it). It runs on the card unless
 ``--device cpu`` is given, and raises where there is no card.
-``--mesh-views`` > 1 and ``--distributed`` are not ported yet.
+The depth maps are read where ``input_modality.use_depth`` asks (the
+depth_sp configs), as in the JAX tool. ``--mesh-views`` > 1 and
+``--distributed`` are not ported yet.
 """
 
 from __future__ import annotations

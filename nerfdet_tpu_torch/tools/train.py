@@ -14,7 +14,10 @@ with the loader's steps per epoch, ``--load-from`` (weights) and
 at epoch step // steps_per_epoch), a checkpoint every epoch
 (``W/ckpts/ckpt_{epoch}.pth``, ``checkpoint_config.max_keep_ckpts``)
 and validation through ``api.run_eval`` after it unless
-``--no-validate``. ``--profile-steps N`` writes a ``torch.profiler``
+``--no-validate``. The depth_sp configs' depth maps are read where
+``model.depth_supervise`` or ``input_modality.use_depth`` asks for them
+(the child configs set only these; the base's data dicts keep
+``use_depth=False``, as in the JAX tool). ``--profile-steps N`` writes a ``torch.profiler``
 trace of N steps from step 10 to ``W/trace/trace.json``. It runs on
 the card unless ``--device cpu`` is given, and raises where there is no
 card.

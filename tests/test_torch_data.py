@@ -351,8 +351,10 @@ def test_repeat_dataset_len_and_refusals(written):
     assert len(tdataset.build_dataset(cfg["dataset"])) == 1
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
         tdataset.build_dataset(dict(cfg["dataset"], type="ScanNetDataset"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        tdataset.build_dataset(cfg, use_depth=True)
+    # the depth_sp configs' depth maps are read (``test_torch_depth_data``
+    # holds their scenes to JAX's)
+    depth = tdataset.build_dataset(cfg, use_depth=True)
+    assert len(depth) == 6 and depth.pipeline.use_depth
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
         tdataset.rgb_stats_spec_from_config(JaxConfig.fromfile(FLAGSHIP),
                                             bf16=True)

@@ -123,13 +123,31 @@ def test_fused_mean_cov_matches_jax(dtype, mapped):
 
 
 def test_unported_forms_raise():
-    feats, points, proj, *_ = _scene()
+    """``invalid_fill`` and the rgb stream without the mapped one (the
+    JAX function's concatenated form, which no model runs) are not
+    ported; the depth gate and the in-scan rgb stream are held to JAX in
+    ``test_torch_depth.py``. The rgb stream comes one way at a time, and
+    the global volume takes both streams."""
+    feats, points, proj, w_map, b_map, rgb = _scene()[:6]
     args = (torch.from_numpy(feats), torch.from_numpy(points),
             torch.from_numpy(proj))
-    with pytest.raises(NotImplementedError, match="depth_sp"):
-        tvox.fused_mean_cov(*args, depth=torch.zeros(3, 31, 40))
-    with pytest.raises(NotImplementedError, match="depth_sp"):
-        tvox.fused_mean_cov(*args, extra_features=torch.zeros(3, 31, 40, 3))
+    with pytest.raises(NotImplementedError, match="invalid_fill"):
+        tvox.fused_mean_cov(*args, invalid_fill=torch.zeros(64))
+    images = torch.zeros(3, 31, 40, 3)
+    host = tuple(torch.from_numpy(r) for r in rgb)
+    mapped = dict(mapped_kernel=torch.from_numpy(w_map),
+                  mapped_bias=torch.from_numpy(b_map))
+    with pytest.raises(ValueError, match="not both"):
+        tvox.fused_mean_cov(*args, extra_features=images,
+                            extra_projection=args[2], precomputed_extra=host,
+                            **mapped)
+    with pytest.raises(ValueError, match="together"):
+        tvox.fused_mean_cov(*args, **mapped)
+    with pytest.raises(ValueError, match="together"):
+        tvox.fused_mean_cov(*args, precomputed_extra=host)
+    with pytest.raises(ValueError, match="together"):
+        tvox.fused_mean_cov(*args, extra_features=images,
+                            extra_projection=args[2])
 
 
 def _blind(proj, view):

@@ -327,6 +327,57 @@ def test_fusion_carry_refuses_bfloat16_maps_under_grad(dev):
         assert voxel.fusion_carry(feats, pix)[0].dtype == torch.float32
 
 
+def _rgb_case(dev, case, v):
+    """The rgb stream's inputs: (V, 240, 320, 3) images and the pixel
+    indices of a 40x40x16 volume at the images' projection, with a
+    depth-gate-like shell dropping most pairs; view 1 sees nothing; in
+    "all gated" no pair is kept; "ragged N" has 7 x 9 x 5 voxels."""
+    gen = torch.Generator(device=dev).manual_seed(v)
+    intrinsic, extr = _cameras(np.random.RandomState(v), v)
+    nvox = (7, 9, 5) if case == "ragged N" else (40, 40, 16)
+    points = voxel.get_points(nvox, (0.16, 0.16, 0.2), (0, 0, 0.5),
+                              dev).reshape(-1, 3)
+    proj = voxel.compute_projection(intrinsic, extr, 1.0, dev)
+    x, y, z, valid = voxel.project_points(points, proj, 239, 320)
+    shell = (z - 3.5).abs() < 0.2  # a +-0.2 m shell, as the gate keeps
+    pix = voxel.pixel_index(x, y, valid & shell, 320)
+    pix[1] = -1
+    if case == "all gated":
+        pix.fill_(-1)
+    images = torch.rand((v, 240, 320, 3), generator=gen, device=dev)
+    return images, pix.contiguous()
+
+
+@pytest.mark.parametrize("case", ["shell", "ragged N", "all gated"])
+@pytest.mark.parametrize("v", [3, 48, 100])
+def test_rgb_carry_matches_plain_bitwise(dev, v, case):
+    images, pix = _rgb_case(dev, case, v)
+    kept = int((pix >= 0).sum())
+    assert (kept == 0) == (case == "all gated")
+    before = voxel.rgb_carry.launches
+    s1, s2 = voxel.rgb_carry(images, pix)
+    torch.cuda.synchronize()
+    assert voxel.rgb_carry.launches == before + 1
+    p1, p2 = voxel.rgb_carry_plain(images, pix)
+    assert torch.equal(s1, p1) and torch.equal(s2, p2)
+    if case == "all gated":
+        assert not bool(s1.any()) and not bool(s2.any())
+
+
+def test_rgb_carry_rejects_what_it_cannot_take(dev):
+    images, pix = _rgb_case(dev, "ragged N", 3)
+    with pytest.raises(ValueError, match="float32"):
+        voxel.rgb_carry(images.double(), pix)
+    with pytest.raises(ValueError, match="float32"):
+        voxel.rgb_carry(images[..., :2].contiguous(), pix)
+    with pytest.raises(ValueError, match="int32"):
+        voxel.rgb_carry(images, pix.long())
+    with pytest.raises(ValueError, match="int32"):
+        voxel.rgb_carry(images, pix[:2].contiguous())
+    with pytest.raises(ValueError, match="no gradient"):
+        voxel.rgb_carry(images.clone().requires_grad_(), pix)
+
+
 def _cloud(dev, n, c, seed, dup=False):
     """A room-sized cloud (8 x 8 x 3 m), or half of one repeated."""
     rng = np.random.RandomState(seed)

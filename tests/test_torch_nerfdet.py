@@ -156,8 +156,20 @@ def test_density_modulation_is_on(toy):
 
 
 def test_density_needs_host_rgb_stats(toy):
+    """The density path's rgb stream: the host sums or, without them,
+    the in-scan stream over denorm_images (``rgb_carry``, the depth_sp
+    configs' path), which gives the same head outputs (only the order of
+    the sums differs); with neither it raises."""
     _, _, model, scene = toy
     batch = api.device_batch(model, scene)
-    del batch["rgb_s1"], batch["rgb_s2"]
-    with pytest.raises(NotImplementedError, match="rgb"):
-        model(batch)
+    with torch.inference_mode():
+        host, valid_h, _ = model(batch)
+        del batch["rgb_s1"], batch["rgb_s2"]
+        with pytest.raises(ValueError, match="rgb"):
+            model(batch)
+        batch["denorm_images"] = torch.from_numpy(scene["denorm_images"])
+        scan, valid_s, _ = model(batch)
+    assert torch.equal(valid_h, valid_s)
+    for a, b in zip(host, scan):
+        for x, y in zip(a, b):
+            assert float((x - y).abs().max()) <= 1e-5
