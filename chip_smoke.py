@@ -93,6 +93,24 @@ Phases, each reported on its own lines:
     478x640 (51 views from those files) with the rgb kernel held to its
     plain version there too.
 
+11. bfloat16 compute (``compute_dtype=bfloat16``, the JAX package's
+    ``--bf16`` path, parameters and optimizer float32): the bf16 kernel
+    forms against their plain versions at the path's shapes (K1's
+    forward on maps that need a gradient, K1's backward at phase 8's
+    indices within 2 bfloat16 ulps, K2's eval form at one render chunk
+    and its training form bitwise, K2's backward bitwise, the rgb stream
+    on bfloat16 images bitwise), each with its time, bound and plain
+    time; then at full width NeRF-Det-R50 ``eval_step`` + host NMS (K1
+    once; stage times beside phase 4's float32 ones; scenes/s), one view
+    through ``run_nvs_eval`` (K2 33 times; the render's stages and the
+    MLP's TFLOP/s; views/s), the joint ``Trainer.step`` at 2048 rays
+    (2 + 5 steps, K1's and K2's forward and backward once a step; stage
+    times, steps/s, peak memory); NeRF-Det-R101* at 50 views (one
+    ``eval_step`` and, at 48 views, one train step with ``loss_depth``,
+    each through the rgb stream on bfloat16 images); ``tools/train
+    --bf16`` for 2 steps on phase 9's files (a checkpoint of float32
+    weights and a validation), then ``tools/test`` on it.
+
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
 ``ori_shape``), in the main path's form (no s2 cotangent), with the
@@ -116,6 +134,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -268,15 +287,18 @@ def check_fusion(voxel, cases, hw, gen):
     return results
 
 
-def fusion_backward_bound(pix, hw, c, m, with_g2):
+def fusion_backward_bound(pix, hw, c, m, with_g2, elt=4):
     """Least time of K1's backward on these inputs. Bytes: each referenced
-    pixel row of the maps and of phase A's mapped rows read once, the
-    whole d-features map written once, the cotangents g1 (g2), gm, the
-    indices, counts, W, b read once and dW, db written once. Operations:
-    per valid (voxel, view) pair, C adds for G1 (2C with g2) and M for
-    GM; per referenced row, 2M for dY, 2CM for dY @ W^T, C for the sum
-    (3C more with g2), 2CM for dW and M for db; 2M per voxel for the
-    unseen views' bias term. Also returns the referenced rows."""
+    pixel row of the maps (``elt`` bytes an element) and of phase A's
+    mapped rows read once, the whole d-features map written once (``elt``
+    again), the cotangents g1 (g2), gm, the indices, counts, W, b read
+    once and dW, db written once. Operations: per valid (voxel, view)
+    pair, C adds for G1 (2C with g2) and M for GM; per referenced row, 2M
+    for dY, 2CM for dY @ W^T, C for the sum (3C more with g2), 2CM for
+    dW and M for db; 2M per voxel for the unseen views' bias term. On
+    bfloat16 maps (``elt`` 2) each pair rounds its own cotangent, so dY @
+    W^T (2CM) and the sum (C) run per valid pair, not per row. Also
+    returns the referenced rows."""
     import torch
 
     v, n = pix.shape
@@ -284,30 +306,49 @@ def fusion_backward_bound(pix, hw, c, m, with_g2):
     rows = sum(int(torch.unique(p[k]).numel()) for p, k in zip(pix, valid))
     n_valid = int(valid.sum())
     g = 2 if with_g2 else 1
-    nbytes = 4 * (rows * (c + m) + v * hw * c + g * n * c + n * m
-                  + pix.numel() + n + 2 * (c * m + m))
-    ops = (n_valid * (g * c + m) + rows * (2 * m + 4 * c * m + c + m
-                                           + (3 * c if with_g2 else 0))
+    nbytes = (4 * (rows * m + g * n * c + n * m + pix.numel() + n
+                   + 2 * (c * m + m)) + elt * (rows * c + v * hw * c))
+    per_pair = elt == 2
+    ops = (n_valid * (g * c + m + (2 * c * m + c if per_pair else 0))
+           + rows * (2 * m + (2 if per_pair else 4) * c * m
+                     + (0 if per_pair else c) + m
+                     + (3 * c if with_g2 else 0))
            + 2 * n * m)
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, ops, rows)
 
 
-def check_fusion_backward(voxel, pix, hw, gen, label):
+def bf16_ulps(got, want):
+    """max |got - want| in bfloat16 ulps of max |want| (2^-7 of the power
+    of two at or below it), and the share of elements that differ."""
+    import math
+
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 1.0
+    return (float((got.float() - want.float()).abs().max()) / ulp,
+            float((got != want).float().mean()))
+
+
+def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None):
     """K1's backward kernel vs ``fusion_carry_backward_plain`` at the main
-    path's form (C = 256, M = 32, f32 maps, cotangents of s1 and s2m, none
-    of s2): d features within 1e-5 x max, dW and db within 1e-4 x max,
-    two runs bitwise equal. Times the kernel, its passes (the index
-    preparation, pass 1, 2 and 3, each on the last one's outputs), the
-    plain version and ``torch.mm`` on the two products it contains (dY @
-    W^T and x^T dY over the referenced rows)."""
+    path's form (C = 256, M = 32, cotangents of s1 and s2m, none of s2):
+    two runs bitwise equal; on float32 maps d features within 1e-5 x max,
+    on bfloat16 maps (``dtype``) within 2 bfloat16 ulps of the largest
+    at under 1% of the elements (each pair's product with W^T sums its M
+    terms in another order); dW and db within 1e-4 x max. Times the
+    kernel, its passes (the index preparation, pass 1, 2 and 3, each on
+    the last one's outputs), the plain version and ``torch.mm`` on the
+    two products it contains (dY @ W^T and x^T dY over the referenced
+    rows)."""
     import torch
 
     dev = pix.device
     v, n = pix.shape
     c, m = 256, 32
-    feats = torch.randn((v,) + hw + (c,), generator=gen, device=dev)
+    dtype = dtype or torch.float32
+    feats = torch.randn((v,) + hw + (c,), generator=gen,
+                        device=dev).to(dtype)
     w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
     b = torch.randn((m,), generator=gen, device=dev)
     g1 = torch.randn((n, c), generator=gen, device=dev)
@@ -321,8 +362,12 @@ def check_fusion_backward(voxel, pix, hw, gen, label):
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise SystemExit("K1 backward: two runs differ")
-    errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
-    rels = [e / max(float(y.abs().max()), 1e-30) for e, y in zip(errs, want)]
+    errs = [float((x.float() - y.float()).abs().max())
+            for x, y in zip(got, want)]
+    rels = [e / max(float(y.float().abs().max()), 1e-30)
+            for e, y in zip(errs, want)]
+    bf16 = dtype == torch.bfloat16
+    ulps, share = bf16_ulps(got[0], want[0]) if bf16 else (0.0, 0.0)
     ms = cuda_time_ms(lambda: voxel.fusion_carry_backward(*args), 20)
     n_pix = hw[0] * hw[1]
     order, off, rows, n_rows = voxel.pixel_order(pix, n_pix)
@@ -342,17 +387,20 @@ def check_fusion_backward(voxel, pix, hw, gen, label):
     keys = torch.where(pix >= 0, pix.long() + torch.arange(
         v, device=dev)[:, None] * n_pix, -1).flatten()
     ref = torch.unique(keys[keys >= 0])
-    x_r = feats.reshape(-1, c)[ref]
+    x_r = feats.reshape(-1, c)[ref].float()
     dy_r = torch.randn((ref.numel(), m), generator=gen, device=dev)
     wt = w.t().contiguous()
     library_ms = cuda_time_ms(
         lambda: (torch.mm(dy_r, wt), torch.mm(x_r.t(), dy_r)), 20)
     bound_ms, bound_by, nbytes, ops, n_ref = fusion_backward_bound(
-        pix, n_pix, c, m, False)
-    log(f"[kernel] fused_mean_cov_backward float32 mapped, no s2 cotangent, "
+        pix, n_pix, c, m, False, feats.element_size())
+    tol = (f"{ulps:.2f} bfloat16 ulps at {share:.4f} of the elements, tol 2 "
+           f"at under 0.01" if bf16 else "tol 1e-5")
+    log(f"[kernel] fused_mean_cov_backward {str(dtype)[6:]} mapped, no s2 "
+        f"cotangent, "
         f"{label}: V={v} map={hw[0]}x{hw[1]} C={c} N={n} M={m}; {n_ref} "
         f"referenced rows: two runs bitwise equal; max_abs_err d features "
-        f"{errs[0]:.3e} (rel {rels[0]:.3e}, tol 1e-5), dW {errs[1]:.3e} "
+        f"{errs[0]:.3e} (rel {rels[0]:.3e}, {tol}), dW {errs[1]:.3e} "
         f"(rel {rels[1]:.3e}, tol 1e-4), db {errs[2]:.3e} (rel "
         f"{rels[2]:.3e}, tol 1e-4) ms={ms:.4f} (index preparation "
         f"{passes['index_ms']:.4f}, pass 1 {passes['pass1_ms']:.4f}, pass 2 "
@@ -360,7 +408,8 @@ def check_fusion_backward(voxel, pix, hw, gen, label):
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.mm: "
         f"dY @ W^T and x^T dY over the referenced rows) "
         f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, {ops} FLOP)")
-    if rels[0] > 1e-5 or rels[1] > 1e-4 or rels[2] > 1e-4:
+    if ((ulps > 2 or share >= 0.01) if bf16 else rels[0] > 1e-5) \
+            or rels[1] > 1e-4 or rels[2] > 1e-4:
         raise SystemExit("K1 backward disagrees with its plain version")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -629,8 +678,9 @@ def ray_bound(pts, images, feats):
     2 for the denominator and the mask."""
     n = pts.numel() // 3
     v, c = images.shape[0], 3 + feats.shape[-1]
-    nbytes = (pts.numel() + images.numel() + feats.numel() + v * 16
-              + n * 2 * c) * 4 + n
+    nbytes = ((pts.numel() + v * 16 + n * 2 * c) * 4 + n
+              + images.numel() * images.element_size()
+              + feats.numel() * feats.element_size())
     ops = n * v * (20 + 2 * 14 + 12 * c + 1) + n * (10 * c + 2)
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -663,13 +713,18 @@ def check_k2(render, cases, img_hw):
         rel_err = abs_err / max(float(want[0].abs().max()), 1e-30)
         n_pts = got[1].numel()
         line = (f"[kernel] streaming_sample_mean_var {name}: "
-                f"V={images.shape[0]} N={n_pts} C={cs}: pixel_mask and "
+                f"V={images.shape[0]} N={n_pts} C={cs} "
+                f"{str(feats.dtype)[6:]}: pixel_mask and "
                 f"unseen count equal (pixel_mask share "
                 f"{float(got[1].float().mean()):.4f}, unseen "
                 f"{unseen[0]} of {n_pts}); globalfeat max_abs_err="
                 f"{abs_err:.3e} max_rel_err={rel_err:.3e} (tol: mask exact, "
                 f"rel 1e-5); bitwise equal "
                 f"{all(torch.equal(g, p) for g, p in zip(got, want))}")
+        if feats.dtype == torch.bfloat16 and not all(
+                torch.equal(g, p) for g, p in zip(got, want)):
+            raise SystemExit(f"K2 {name}: bfloat16 maps and images, not "
+                             f"bitwise equal to the plain version")
         result = dict(max_abs_err=abs_err, mask=got[1], unseen=unseen[0])
         if chunk_gf is None:
             chunk_gf = got[0]
@@ -685,7 +740,7 @@ def check_k2(render, cases, img_hw):
                      f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, "
                      f"{ops} FLOP)")
             result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
+                          bound_by=bound_by, library_ms=None)
         log(line)
         if rel_err > 1e-5:
             raise SystemExit(f"K2 {name} disagrees: rel {rel_err:.3e}")
@@ -700,8 +755,8 @@ def k2_train_bound(pts, feats, n_host):
     the operations of ``ray_bound`` without the rgb taps and the count."""
     n = pts.numel() // 3
     v, c = feats.shape[0], feats.shape[-1]
-    nbytes = (pts.numel() + feats.numel() + v * 16 + n * n_host
-              + n * 2 * (3 + c)) * 4 + n
+    nbytes = ((pts.numel() + v * 16 + n * n_host + n * 2 * (3 + c)) * 4 + n
+              + feats.numel() * feats.element_size())
     ops = n * v * (20 + 14 + 12 * c) + n * (10 * (3 + c) + 2)
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -755,8 +810,8 @@ def k2_backward_bound(pts, feats, kept):
     n = pts.numel() // 3
     v, fh, fw, c = feats.shape
     pairs = n * v
-    nbytes = (2 * v * fh * fw * c + 2 * n * 2 * c + n * c + n + 3 * n
-              + 16 * v) * 4 + 8 * pairs + 8 * kept
+    nbytes = ((2 * n * 2 * c + n * c + n + 3 * n + 16 * v) * 4 + 8 * pairs
+              + 8 * kept + 2 * v * fh * fw * c * feats.element_size())
     ops = kept * (20 * c + 40) + 15 * n * c
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -779,7 +834,9 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     torch.cuda.synchronize()
     fwd_err = float((got[0] - want[0]).abs().max())
     fwd_rel = fwd_err / max(float(want[0].abs().max()), 1e-30)
-    if not torch.equal(got[1], want[1]) or fwd_rel > 1e-5:
+    bf16 = feats.dtype == torch.bfloat16
+    if (not torch.equal(got[1], want[1]) or fwd_rel > 1e-5
+            or (bf16 and fwd_err > 0)):
         raise SystemExit(f"K2's training form disagrees with its plain "
                          f"version (rel {fwd_rel:.3e})")
     ms = cuda_time_ms(lambda: render.streaming_sample_mean_var(*args), 10)
@@ -788,7 +845,8 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     bound_ms, bound_by, nbytes, ops = k2_train_bound(pts, feats, 10)
     n_pts = got[1].numel()
     log(f"[kernel] streaming_sample_mean_var training form (host rgb): "
-        f"V={feats.shape[0]} N={n_pts} C={feats.shape[-1]}: pixel_mask "
+        f"V={feats.shape[0]} N={n_pts} C={feats.shape[-1]} "
+        f"{str(feats.dtype)[6:]}: pixel_mask "
         f"equal (share {float(got[1].float().mean()):.4f}); globalfeat "
         f"max_abs_err={fwd_err:.3e} max_rel_err={fwd_rel:.3e} (tol: mask "
         f"exact, rel 1e-5); bitwise equal "
@@ -807,8 +865,11 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     torch.cuda.synchronize()
     if not torch.equal(d, again):
         raise SystemExit("K2 backward: two runs differ")
-    err = float((d - want).abs().max())
-    rel = err / max(float(want.abs().max()), 1e-30)
+    err = float((d.float() - want.float()).abs().max())
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    if bf16 and err > 0:
+        raise SystemExit("K2 backward on bfloat16 maps is not bitwise equal "
+                         "to its plain version")
     b_ms = cuda_time_ms(
         lambda: render.streaming_sample_mean_var_backward(*bargs), 10)
     b_plain_ms = cuda_time_ms(
@@ -834,19 +895,22 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     del keys, coef, order, off, packed
     idx, rows, kept = k2_scatter_rows(render, *bargs)
     flat = torch.zeros((feats.numel() // feats.shape[-1], feats.shape[-1]),
-                       device=feats.device)
+                       dtype=feats.dtype, device=feats.device)
+    rows = rows.to(feats.dtype)
     library_ms = cuda_time_ms(lambda: flat.index_add_(0, idx, rows), 5)
     n_rows = idx.numel()
     del idx, rows, flat
     b_bound, b_by, b_bytes, b_ops = k2_backward_bound(pts, feats, kept)
     pairs = n_pts * feats.shape[0]
     unseen = int((cnt == 0).sum())
-    log(f"[kernel] streaming_sample_mean_var_backward: V={feats.shape[0]} "
+    log(f"[kernel] streaming_sample_mean_var_backward {str(feats.dtype)[6:]}"
+        f": V={feats.shape[0]} "
         f"N={n_pts} C={feats.shape[-1]}; {pairs} (point, view) pairs, "
         f"{kept} with a non-zero tap weight ({kept / pairs:.4f}), {unseen} "
         f"points seen by no view: two runs bitwise equal; d featmaps "
         f"max_abs_err={err:.3e} (rel {rel:.3e} of max "
-        f"{float(want.abs().max()):.3e}, tol 1e-5); {held} of "
+        f"{float(want.float().abs().max()):.3e}, tol "
+        f"{'0: bitwise' if bf16 else '1e-5'}); {held} of "
         f"{feats.numel() // feats.shape[-1]} windows hold a pair, the "
         f"longest {longest} ms={b_ms:.4f} (pass 0 {passes['pass0_ms']:.4f}, "
         f"index preparation {passes['index_ms']:.4f}, pass 1 "
@@ -1381,15 +1445,16 @@ def train_scene(model, seed):
 
 
 def host_ray_stream(ray_stats, model, scene):
-    """``prepare_rays`` at the model's N_rand, near/far and samples from
-    a seeded RandomState, and its host-clock seconds."""
+    """``prepare_rays`` at the model's N_rand, near/far, samples and
+    compute dtype from a seeded RandomState, and its host-clock
+    seconds."""
     import numpy as np
 
     t0 = time.perf_counter()
     out = ray_stats.prepare_rays(
         scene, np.random.RandomState(SEED), model.n_rand,
         model.near_far_range, model.n_samples, model.meta.ori_shape,
-        model.meta.img_shape)
+        model.meta.img_shape, model.compute_dtype)
     return out, time.perf_counter() - t0
 
 
@@ -1623,12 +1688,13 @@ def report_run(tag, result, per_step, names, clock, peak, card):
     return len(timed) / total, wait
 
 
-def runtime_path(api, voxel, pointnet, render, card):
+def runtime_path(api, voxel, pointnet, render, card, tmp):
     """Phase 9: the flagship trained and evaluated from a ScanNet-layout
-    dataset on disk through the port's CLIs, in process. Returns the
-    kernels' launches in the first training run."""
+    dataset on disk (written under ``tmp``, which phase 11 reads again)
+    through the port's CLIs, in process. Returns the kernels' launches in
+    the first training run and the ``--options`` that point the config at
+    the dataset."""
     import math
-    import tempfile
 
     import torch
 
@@ -1651,228 +1717,227 @@ def runtime_path(api, voxel, pointnet, render, card):
                 render.streaming_sample_mean_var_backward)
     every = counters + (pointnet.furthest_point_sample,)
     cfg = Config.fromfile(CONFIG)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
-        # ---- data on disk ----
-        t0 = time.perf_counter()
-        train_root = write_synthetic_scannet(
-            os.path.join(tmp, "train"), n_scenes=1,
-            n_images=RUNTIME_TRAIN_VIEWS, hw=RUNTIME_HW, seed=SEED,
-            splits=("train",), workers=8)
-        val_root = write_synthetic_scannet(
-            os.path.join(tmp, "val"), n_scenes=1,
-            n_images=RUNTIME_VAL_VIEWS, hw=RUNTIME_HW, seed=SEED + 1,
-            splits=("val",), workers=8)
-        log(f"[runtime] wrote a ScanNet-layout dataset (one train scene of "
-            f"{RUNTIME_TRAIN_VIEWS} views, one val scene of "
-            f"{RUNTIME_VAL_VIEWS}, PNG at {RUNTIME_HW[0]}x{RUNTIME_HW[1]}, "
-            f"8 processes): {time.perf_counter() - t0:.1f} s")
-        opts = runtime_options(cfg, train_root, val_root)
-        cfg.merge_from_options(opts)
-        meta = api.scene_meta_from_config(cfg)
-        log(f"[runtime] config {CONFIG} with --options ori_shape="
-            f"{meta.ori_shape}: img_shape {meta.img_shape}, pad "
-            f"{meta.pad_shape}, workers_per_gpu "
-            f"{cfg.data['workers_per_gpu']}")
+    # ---- data on disk ----
+    t0 = time.perf_counter()
+    train_root = write_synthetic_scannet(
+        os.path.join(tmp, "train"), n_scenes=1,
+        n_images=RUNTIME_TRAIN_VIEWS, hw=RUNTIME_HW, seed=SEED,
+        splits=("train",), workers=8)
+    val_root = write_synthetic_scannet(
+        os.path.join(tmp, "val"), n_scenes=1,
+        n_images=RUNTIME_VAL_VIEWS, hw=RUNTIME_HW, seed=SEED + 1,
+        splits=("val",), workers=8)
+    log(f"[runtime] wrote a ScanNet-layout dataset (one train scene of "
+        f"{RUNTIME_TRAIN_VIEWS} views, one val scene of "
+        f"{RUNTIME_VAL_VIEWS}, PNG at {RUNTIME_HW[0]}x{RUNTIME_HW[1]}, "
+        f"8 processes): {time.perf_counter() - t0:.1f} s")
+    opts = runtime_options(cfg, train_root, val_root)
+    cfg.merge_from_options(opts)
+    meta = api.scene_meta_from_config(cfg)
+    log(f"[runtime] config {CONFIG} with --options ori_shape="
+        f"{meta.ori_shape}: img_shape {meta.img_shape}, pad "
+        f"{meta.pad_shape}, workers_per_gpu "
+        f"{cfg.data['workers_per_gpu']}")
 
-        clock = HostClock()
-        clock.wrap(pipeline_mod, "imread", "decode")
-        clock.wrap(pipeline_mod, "imresize", "resize")
-        clock.wrap(dataset_mod, "host_rgb_stats", "rgb sums")
-        clock.wrap(dataset_mod, "host_sample_z", "ray stream")
-        clock.wrap(dataset_mod, "host_ray_rgb_stats", "ray stream")
-        clock.wrap(dataset_mod.ScanNetMultiViewDataset, "__getitem__",
-                   "scene")
-        per_step = []
-        original_init = counted_trainers(api, counters, per_step)
-        try:
-            # ---- train, the config's loader threads, with validation ----
-            work = os.path.join(tmp, "work")
-            args = [CONFIG, "--work-dir", work, "--max-steps",
-                    str(RUNTIME_MAX_STEPS), "--options", *opts]
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in every:
-                fn.launches = 0
-            t0 = time.perf_counter()
-            result = train_cli.main(args)
-            train_s = time.perf_counter() - t0
-            totals = [fn.launches for fn in every]
-            peak = torch.cuda.max_memory_allocated()
-            log(f"[runtime] tools/train: {len(result['history'])} steps, "
-                f"{result['steps_per_epoch']} an epoch, checkpoints "
-                f"{[os.path.basename(p) for p in result['checkpoints']]}, "
-                f"{len(result['val'])} validations: {train_s:.1f} s")
-            rate_1, wait_1 = report_run(
-                f"train ({cfg.data['workers_per_gpu']} loader thread)",
-                result, per_step, names, clock, peak, card)
-            if per_step != [[1, 1, 1, 1]] * RUNTIME_MAX_STEPS:
-                raise SystemExit(f"launches a step {per_step}, expected "
-                                 f"each kernel once a step")
-            n_val = len(result["val"])
-            if totals != [RUNTIME_MAX_STEPS + n_val, RUNTIME_MAX_STEPS,
-                          RUNTIME_MAX_STEPS, RUNTIME_MAX_STEPS, 0]:
-                raise SystemExit(f"run launches {totals}: expected K1 once "
-                                 f"a step and a validation scene, the "
-                                 f"backwards and K2 once a step, K3 never")
-            ckpts = [os.path.basename(p) for p in result["checkpoints"]]
-            if ckpts != ["ckpt_1.pth", "ckpt_2.pth"] or n_val != 2:
-                raise SystemExit(f"checkpoints {ckpts}, {n_val} validations")
-            for m in result["val"]:
-                if not all(math.isfinite(v) for v in m.values()):
-                    raise SystemExit(f"non-finite validation {m}")
-            log(f"[runtime] validation after each epoch (run_eval, "
-                f"{cfg.model['nerf_density'] and 'density on'}): "
-                + "; ".join(f"mAP_0.25 {m['mAP_0.25']:.4f} mAR_0.25 "
-                            f"{m['mAR_0.25']:.4f}" for m in result["val"]))
-
-            # ---- the same from files with more loader threads ----
-            per_step.clear()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            result_8 = train_cli.main([
-                CONFIG, "--work-dir", os.path.join(tmp, "work8"),
-                "--max-steps", str(RUNTIME_MAX_STEPS), "--no-validate",
-                "--options", *opts,
-                f"data.workers_per_gpu={RUNTIME_WORKERS}"])
-            rate_8, wait_8 = report_run(
-                f"train ({RUNTIME_WORKERS} loader threads)", result_8,
-                per_step, names, clock, torch.cuda.max_memory_allocated(),
-                card)
-            log(f"[runtime] steps/s from files: {rate_1:.3f} with "
-                f"{cfg.data['workers_per_gpu']} loader thread (wait "
-                f"{wait_1:.3f} s a step), {rate_8:.3f} with "
-                f"{RUNTIME_WORKERS} (wait {wait_8:.3f} s); measured on "
-                f"{card}")
-
-            # ---- resume from the first epoch's checkpoint, one step ----
-            per_step.clear()
-            ckpt_1 = result["checkpoints"][0]
-            resumed = train_cli.main([
-                CONFIG, "--work-dir", os.path.join(tmp, "resume"),
-                "--resume-from", ckpt_1, "--max-steps",
-                str(result["steps_per_epoch"] + 1), "--no-validate",
-                "--options", *opts])
-            step = resumed["history"]
-            want = result["history"][result["steps_per_epoch"]]
-            log(f"[runtime] resumed from {os.path.basename(ckpt_1)} "
-                f"(step {result['steps_per_epoch']}): start epoch "
-                f"{resumed['start_epoch'] + 1}, took step "
-                f"{[h['step'] for h in step]} at lr "
-                f"{[h['lr'] for h in step]} (the first run's step "
-                f"{want['step']}: lr {want['lr']}); loss "
-                f"{step[0]['loss']:.5g}; launches {per_step}")
-            if ([h["step"] for h in step] != [want["step"]]
-                    or step[0]["lr"] != want["lr"]
-                    or per_step != [[1, 1, 1, 1]]):
-                raise SystemExit("the resumed run did not continue the "
-                                 "step count and the schedule")
-        finally:
-            api.init_trainer = original_init
-            clock.restore()
-
-        # ---- test: mAP and NVS from the second checkpoint ----
-        ckpt_2 = result["checkpoints"][1]
-        timers = {}
-        models = []
-
-        def timed(owner, name, key):
-            fn = getattr(owner, name)
-
-            def wrapper(*args, **kwargs):
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                timers[key] = timers.get(key, 0.0) + (time.perf_counter()
-                                                      - t0)
-                if key == "init_detector":
-                    models.append(out)
-                return out
-
-            setattr(owner, name, wrapper)
-            return owner, name, fn
-
-        saved = [timed(api, "init_detector", "init_detector"),
-                 timed(api, "run_eval", "run_eval"),
-                 timed(api, "single_scene_test", "eval_step + NMS"),
-                 timed(api, "run_nvs_eval", "run_nvs_eval"),
-                 timed(NerfDet, "render_full", "render_full")]
+    clock = HostClock()
+    clock.wrap(pipeline_mod, "imread", "decode")
+    clock.wrap(pipeline_mod, "imresize", "resize")
+    clock.wrap(dataset_mod, "host_rgb_stats", "rgb sums")
+    clock.wrap(dataset_mod, "host_sample_z", "ray stream")
+    clock.wrap(dataset_mod, "host_ray_rgb_stats", "ray stream")
+    clock.wrap(dataset_mod.ScanNetMultiViewDataset, "__getitem__",
+               "scene")
+    per_step = []
+    original_init = counted_trainers(api, counters, per_step)
+    try:
+        # ---- train, the config's loader threads, with validation ----
+        work = os.path.join(tmp, "work")
+        args = [CONFIG, "--work-dir", work, "--max-steps",
+                str(RUNTIME_MAX_STEPS), "--options", *opts]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for fn in every:
             fn.launches = 0
-        try:
-            metrics = test_cli.main([CONFIG, ckpt_2, "--eval", "mAP", "nvs",
-                                     "--options", *opts])
-        finally:
-            for owner, name, fn in saved:
-                setattr(owner, name, fn)
-        launches = [fn.launches for fn in every]
+        t0 = time.perf_counter()
+        result = train_cli.main(args)
+        train_s = time.perf_counter() - t0
+        totals = [fn.launches for fn in every]
         peak = torch.cuda.max_memory_allocated()
-        pipe = cfg.data["test"]["pipeline"][0]
-        pad = [t for t in pipe["transforms"] if t["type"] == "Pad"][0]["size"]
-        rays = ((pad[0] - 2 * pipe["margin"]) * (pad[1] - 2 * pipe["margin"]))
-        chunks = -(-rays // cfg.model["N_rand"])
-        n_scenes = 1
-        sources = pipe["n_images"] - pipe["nerf_target_views"]
-        log(f"[runtime] tools/test --eval mAP nvs from "
-            f"{os.path.basename(ckpt_2)}: launches fused_mean_cov "
-            f"{launches[0]} ({n_scenes} scene), streaming_sample_mean_var "
-            f"{launches[2]} ({pipe['nerf_target_views']} target view of "
-            f"{pad[0] - 2 * pipe['margin']}x{pad[1] - 2 * pipe['margin']} = "
-            f"{rays} rays in chunks of {cfg.model['N_rand']}: {chunks} "
-            f"expected), backward kernels {launches[1]} / {launches[3]}, "
-            f"furthest_point_sample {launches[4]}")
-        if launches != [n_scenes, 0, chunks * pipe["nerf_target_views"],
-                        0, 0]:
-            raise SystemExit(f"the test CLI launched {launches}")
-        keys = sorted(k for k in metrics if k.startswith(
-            ("mAP", "mAR", "psnr", "ssim", "rmse")))
-        if not all(math.isfinite(metrics[k]) for k in keys):
-            raise SystemExit(f"non-finite test metrics {metrics}")
-        per_class = sorted(k for k in metrics if "_AP_0.25" in k)
-        log("[runtime] test mAP/mAR table: "
-            + ", ".join(f"{k} {metrics[k]:.4f}" for k in keys))
-        log("[runtime] test AP_0.25 by class (the val scene's GT and "
-            "detected classes): " + ", ".join(
-                f"{k[:-8]} {metrics[k]:.4f}/{metrics[k[:-8] + '_rec_0.25']:.4f}"
-                for k in per_class))
-        data_s = timers["run_eval"] - timers["eval_step + NMS"]
-        log(f"[runtime] tools/test timings (first calls): init_detector "
-            f"{timers['init_detector']:.2f} s; run_eval "
-            f"{n_scenes / timers['run_eval']:.3f} scenes/s "
-            f"({timers['run_eval']:.3f} s a scene of {sources} source "
-            f"views: {data_s:.3f} s loading it from files with its rgb "
-            f"sums, {timers['eval_step + NMS']:.3f} s eval_step + NMS); "
-            f"run_nvs_eval {1 / timers['run_nvs_eval']:.3f} views/s "
-            f"({timers['run_nvs_eval']:.3f} s a view, render_full "
-            f"{timers['render_full']:.3f} s); peak memory "
-            f"{peak / 2**30:.2f} GiB")
+        log(f"[runtime] tools/train: {len(result['history'])} steps, "
+            f"{result['steps_per_epoch']} an epoch, checkpoints "
+            f"{[os.path.basename(p) for p in result['checkpoints']]}, "
+            f"{len(result['val'])} validations: {train_s:.1f} s")
+        rate_1, wait_1 = report_run(
+            f"train ({cfg.data['workers_per_gpu']} loader thread)",
+            result, per_step, names, clock, peak, card)
+        if per_step != [[1, 1, 1, 1]] * RUNTIME_MAX_STEPS:
+            raise SystemExit(f"launches a step {per_step}, expected "
+                             f"each kernel once a step")
+        n_val = len(result["val"])
+        if totals != [RUNTIME_MAX_STEPS + n_val, RUNTIME_MAX_STEPS,
+                      RUNTIME_MAX_STEPS, RUNTIME_MAX_STEPS, 0]:
+            raise SystemExit(f"run launches {totals}: expected K1 once "
+                             f"a step and a validation scene, the "
+                             f"backwards and K2 once a step, K3 never")
+        ckpts = [os.path.basename(p) for p in result["checkpoints"]]
+        if ckpts != ["ckpt_1.pth", "ckpt_2.pth"] or n_val != 2:
+            raise SystemExit(f"checkpoints {ckpts}, {n_val} validations")
+        for m in result["val"]:
+            if not all(math.isfinite(v) for v in m.values()):
+                raise SystemExit(f"non-finite validation {m}")
+        log(f"[runtime] validation after each epoch (run_eval, "
+            f"{cfg.model['nerf_density'] and 'density on'}): "
+            + "; ".join(f"mAP_0.25 {m['mAP_0.25']:.4f} mAR_0.25 "
+                        f"{m['mAR_0.25']:.4f}" for m in result["val"]))
 
-        # warm: the same model and scene once more
-        model = models[0]
-        ds = build_dataset(cfg.data["test"], test_mode=True,
-                           rgb_stats_spec=rgb_stats_spec_from_config(cfg))
-        t0 = time.perf_counter()
-        scene = ds[0]
-        load_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        api.single_scene_test(model, scene, cfg.test_cfg["score_thr"],
-                              cfg.test_cfg["iou_thr"],
-                              cfg.test_cfg["nms_pre"])
-        torch.cuda.synchronize()
-        det_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        api.run_nvs_eval(model, ds, chunk=cfg.model["N_rand"],
-                         progress=False)
-        nvs_s = time.perf_counter() - t0
-        log(f"[runtime] warm: a val scene of {sources} source views loads "
-            f"in {load_s:.3f} s; eval_step + NMS {det_s * 1e3:.2f} ms "
-            f"({1 / det_s:.3f} scenes/s on the card, "
-            f"{1 / (load_s + det_s):.3f} from files); run_nvs_eval "
-            f"{1 / nvs_s:.3f} views/s ({nvs_s:.3f} s, loading included); "
-            f"measured on {card}")
-        del model, models, ds
+        # ---- the same from files with more loader threads ----
+        per_step.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        result_8 = train_cli.main([
+            CONFIG, "--work-dir", os.path.join(tmp, "work8"),
+            "--max-steps", str(RUNTIME_MAX_STEPS), "--no-validate",
+            "--options", *opts,
+            f"data.workers_per_gpu={RUNTIME_WORKERS}"])
+        rate_8, wait_8 = report_run(
+            f"train ({RUNTIME_WORKERS} loader threads)", result_8,
+            per_step, names, clock, torch.cuda.max_memory_allocated(),
+            card)
+        log(f"[runtime] steps/s from files: {rate_1:.3f} with "
+            f"{cfg.data['workers_per_gpu']} loader thread (wait "
+            f"{wait_1:.3f} s a step), {rate_8:.3f} with "
+            f"{RUNTIME_WORKERS} (wait {wait_8:.3f} s); measured on "
+            f"{card}")
+
+        # ---- resume from the first epoch's checkpoint, one step ----
+        per_step.clear()
+        ckpt_1 = result["checkpoints"][0]
+        resumed = train_cli.main([
+            CONFIG, "--work-dir", os.path.join(tmp, "resume"),
+            "--resume-from", ckpt_1, "--max-steps",
+            str(result["steps_per_epoch"] + 1), "--no-validate",
+            "--options", *opts])
+        step = resumed["history"]
+        want = result["history"][result["steps_per_epoch"]]
+        log(f"[runtime] resumed from {os.path.basename(ckpt_1)} "
+            f"(step {result['steps_per_epoch']}): start epoch "
+            f"{resumed['start_epoch'] + 1}, took step "
+            f"{[h['step'] for h in step]} at lr "
+            f"{[h['lr'] for h in step]} (the first run's step "
+            f"{want['step']}: lr {want['lr']}); loss "
+            f"{step[0]['loss']:.5g}; launches {per_step}")
+        if ([h["step"] for h in step] != [want["step"]]
+                or step[0]["lr"] != want["lr"]
+                or per_step != [[1, 1, 1, 1]]):
+            raise SystemExit("the resumed run did not continue the "
+                             "step count and the schedule")
+    finally:
+        api.init_trainer = original_init
+        clock.restore()
+
+    # ---- test: mAP and NVS from the second checkpoint ----
+    ckpt_2 = result["checkpoints"][1]
+    timers = {}
+    models = []
+
+    def timed(owner, name, key):
+        fn = getattr(owner, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            timers[key] = timers.get(key, 0.0) + (time.perf_counter()
+                                                  - t0)
+            if key == "init_detector":
+                models.append(out)
+            return out
+
+        setattr(owner, name, wrapper)
+        return owner, name, fn
+
+    saved = [timed(api, "init_detector", "init_detector"),
+             timed(api, "run_eval", "run_eval"),
+             timed(api, "single_scene_test", "eval_step + NMS"),
+             timed(api, "run_nvs_eval", "run_nvs_eval"),
+             timed(NerfDet, "render_full", "render_full")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in every:
+        fn.launches = 0
+    try:
+        metrics = test_cli.main([CONFIG, ckpt_2, "--eval", "mAP", "nvs",
+                                 "--options", *opts])
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    launches = [fn.launches for fn in every]
+    peak = torch.cuda.max_memory_allocated()
+    pipe = cfg.data["test"]["pipeline"][0]
+    pad = [t for t in pipe["transforms"] if t["type"] == "Pad"][0]["size"]
+    rays = ((pad[0] - 2 * pipe["margin"]) * (pad[1] - 2 * pipe["margin"]))
+    chunks = -(-rays // cfg.model["N_rand"])
+    n_scenes = 1
+    sources = pipe["n_images"] - pipe["nerf_target_views"]
+    log(f"[runtime] tools/test --eval mAP nvs from "
+        f"{os.path.basename(ckpt_2)}: launches fused_mean_cov "
+        f"{launches[0]} ({n_scenes} scene), streaming_sample_mean_var "
+        f"{launches[2]} ({pipe['nerf_target_views']} target view of "
+        f"{pad[0] - 2 * pipe['margin']}x{pad[1] - 2 * pipe['margin']} = "
+        f"{rays} rays in chunks of {cfg.model['N_rand']}: {chunks} "
+        f"expected), backward kernels {launches[1]} / {launches[3]}, "
+        f"furthest_point_sample {launches[4]}")
+    if launches != [n_scenes, 0, chunks * pipe["nerf_target_views"],
+                    0, 0]:
+        raise SystemExit(f"the test CLI launched {launches}")
+    keys = sorted(k for k in metrics if k.startswith(
+        ("mAP", "mAR", "psnr", "ssim", "rmse")))
+    if not all(math.isfinite(metrics[k]) for k in keys):
+        raise SystemExit(f"non-finite test metrics {metrics}")
+    per_class = sorted(k for k in metrics if "_AP_0.25" in k)
+    log("[runtime] test mAP/mAR table: "
+        + ", ".join(f"{k} {metrics[k]:.4f}" for k in keys))
+    log("[runtime] test AP_0.25 by class (the val scene's GT and "
+        "detected classes): " + ", ".join(
+            f"{k[:-8]} {metrics[k]:.4f}/{metrics[k[:-8] + '_rec_0.25']:.4f}"
+            for k in per_class))
+    data_s = timers["run_eval"] - timers["eval_step + NMS"]
+    log(f"[runtime] tools/test timings (first calls): init_detector "
+        f"{timers['init_detector']:.2f} s; run_eval "
+        f"{n_scenes / timers['run_eval']:.3f} scenes/s "
+        f"({timers['run_eval']:.3f} s a scene of {sources} source "
+        f"views: {data_s:.3f} s loading it from files with its rgb "
+        f"sums, {timers['eval_step + NMS']:.3f} s eval_step + NMS); "
+        f"run_nvs_eval {1 / timers['run_nvs_eval']:.3f} views/s "
+        f"({timers['run_nvs_eval']:.3f} s a view, render_full "
+        f"{timers['render_full']:.3f} s); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    # warm: the same model and scene once more
+    model = models[0]
+    ds = build_dataset(cfg.data["test"], test_mode=True,
+                       rgb_stats_spec=rgb_stats_spec_from_config(cfg))
+    t0 = time.perf_counter()
+    scene = ds[0]
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    api.single_scene_test(model, scene, cfg.test_cfg["score_thr"],
+                          cfg.test_cfg["iou_thr"],
+                          cfg.test_cfg["nms_pre"])
+    torch.cuda.synchronize()
+    det_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    api.run_nvs_eval(model, ds, chunk=cfg.model["N_rand"],
+                     progress=False)
+    nvs_s = time.perf_counter() - t0
+    log(f"[runtime] warm: a val scene of {sources} source views loads "
+        f"in {load_s:.3f} s; eval_step + NMS {det_s * 1e3:.2f} ms "
+        f"({1 / det_s:.3f} scenes/s on the card, "
+        f"{1 / (load_s + det_s):.3f} from files); run_nvs_eval "
+        f"{1 / nvs_s:.3f} views/s ({nvs_s:.3f} s, loading included); "
+        f"measured on {card}")
+    del model, models, ds
     log(f"[runtime] phase 9 in {time.perf_counter() - t_phase:.1f} s")
-    return totals
+    return totals, opts
 
 
 # phase 10: NeRF-Det-R101* (depth_sp): the depth gate and the rgb stream
@@ -1936,9 +2001,9 @@ def gated_streams(voxel, model, scene, dev):
 def check_rgb(voxel, images, pix, label):
     """The rgb stream's kernel (the uncounted launch) against its plain
     version, bitwise; its time, the plain version's and the bound: the
-    indices read once, 12 bytes a kept pair and the two (N, 3) outputs
-    written once over the HBM rate, against 9 operations a kept pair
-    over the fp32 rate."""
+    indices read once, a kept pair's pixel (12 bytes, 6 in bfloat16) and
+    the two (N, 3) outputs written once over the HBM rate, against 9
+    operations a kept pair over the fp32 rate."""
     import torch
 
     got = voxel._rgb_launch(images, pix)
@@ -1951,12 +2016,14 @@ def check_rgb(voxel, images, pix, label):
     plain_ms = cuda_time_ms(lambda: voxel.rgb_carry_plain(images, pix), 3,
                             warmup=1)
     kept = int((pix >= 0).sum())
-    nbytes = 4 * pix.numel() + 12 * kept + 24 * pix.shape[1]
+    nbytes = (4 * pix.numel() + 3 * images.element_size() * kept
+              + 24 * pix.shape[1])
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, 9 * kept / FP32_PEAK * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     v, hh, ww, _ = images.shape
     log(f"[kernel] fused_mean_cov_rgb {label}: V={v} images {hh}x{ww}x3 "
+        f"{str(images.dtype)[6:]} "
         f"N={pix.shape[1]}; {kept} kept pairs ({kept / pix.numel():.4f}): "
         f"s1e, s2e bitwise equal to the plain version, max_abs_err=0 "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
@@ -2295,6 +2362,371 @@ def depth_path(api, voxel, pointnet, render, card):
                       for label, st_ in streams.items()})
 
 
+# phase 11: bfloat16 compute (the JAX package's --bf16 path)
+BF16_DEPTH_VIEWS = 50  # R101*'s bf16 inference: half phase 10's 100 views
+BF16_CLI_STEPS = 2
+
+
+def check_fusion_grad(voxel, pix, hw, gen):
+    """K1's forward on bfloat16 maps that need a gradient (the training
+    path's form: phase A's rows saved for the backward) against its plain
+    version: count, s1 and s2 bitwise, s2m within 1e-5 relative; its time
+    with autograd recording, the plain version's and the bound."""
+    import torch
+
+    dev = pix.device
+    v, (fh, fw), c, m = pix.shape[0], hw, 256, 32
+    feats = torch.randn((v, fh, fw, c), generator=gen,
+                        device=dev).bfloat16().requires_grad_()
+    w = (torch.randn((c, m), generator=gen, device=dev)
+         / c ** 0.5).requires_grad_()
+    b = torch.randn((m,), generator=gen, device=dev).requires_grad_()
+    got = voxel.fusion_carry(feats, pix, w, b)
+    with torch.no_grad():
+        want = voxel.fusion_carry_plain(feats, pix, w, b)
+    torch.cuda.synchronize()
+    if not got[0].requires_grad or not all(
+            torch.equal(g, p) for g, p in zip(got[:3], want[:3])):
+        raise SystemExit("K1 under grad on bfloat16 maps: no graph, or "
+                         "count, s1 or s2 differs from the plain version")
+    err = float((got[3].detach() - want[3]).abs().max())
+    rel = err / max(float(want[3].abs().max()), 1e-30)
+    ms = cuda_time_ms(lambda: voxel.fusion_carry(feats, pix, w, b), 20)
+    with torch.no_grad():
+        plain_ms = cuda_time_ms(
+            lambda: voxel.fusion_carry_plain(feats, pix, w, b), 5)
+    bound_ms, bound_by, nbytes, ops, n_valid, rows = fusion_bound(pix, c, m,
+                                                                  2)
+    log(f"[kernel] fused_mean_cov bfloat16 mapped, under grad: V={v} "
+        f"map={fh}x{fw} C={c} N={pix.shape[1]} M={m}; {n_valid} valid "
+        f"pairs, {rows} referenced rows: count, s1, s2 bitwise equal, s2m "
+        f"max_rel_err={rel:.3e} (tol 1e-5) ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, "
+        f"{ops} FLOP)")
+    if rel > 1e-5:
+        raise SystemExit(f"K1 under grad disagrees: rel {rel:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def bf16_path(api, voxel, pointnet, render, card, pix_scaled, nvs,
+              runtime_opts, f32_detection):
+    """Phase 11: the bfloat16 compute path (``compute_dtype=bfloat16``,
+    the JAX package's ``--bf16``): the bf16 kernel forms against their
+    plain versions at the path's shapes, then NeRF-Det-R50 detection, the
+    render of one view and the joint train step at full width,
+    NeRF-Det-R101* (depth_sp) inference and one train step through the
+    rgb stream on bfloat16 images, and ``tools/train --bf16`` then
+    ``tools/test`` on phase 9's files. Returns the record's numbers."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.config import Config
+    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
+    from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
+    from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.tools import train as train_cli
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    dev = api.resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    names = ("fused_mean_cov", "fused_mean_cov_backward",
+             "fused_mean_cov_rgb", "streaming_sample_mean_var",
+             "streaming_sample_mean_var_backward", "furthest_point_sample")
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                voxel.rgb_carry, render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward,
+                pointnet.furthest_point_sample)
+    launches = {n: 0 for n in names}  # this phase's paths, summed
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def read(label):
+        got = [fn.launches for fn in counters]
+        for n, k in zip(names, got):
+            launches[n] += k
+        log(f"[bf16] {label}: launches "
+            + ", ".join(f"{n} {k}" for n, k in zip(names, got)))
+        return got
+
+    # ---- 11.1 the bf16 kernel forms against their plain versions ----
+    t0 = time.perf_counter()
+    model = api.init_detector(CONFIG, device="cuda", seed=SEED,
+                              compute_dtype=bf16)
+    meta = model.meta
+    h, w = meta.img_shape
+    hw = (meta.pad_shape[0] // 4, meta.pad_shape[1] // 4)
+    log(f"[bf16] init_detector({CONFIG}, compute_dtype=bfloat16): "
+        f"{time.perf_counter() - t0:.1f} s")
+    k1 = check_fusion_grad(voxel, pix_scaled, hw, gen)
+    k1_bwd = check_fusion_backward(
+        voxel, pix_scaled, hw, gen,
+        "phase 8's pix (intrinsic scaled to ori_shape)", bf16)
+    item = nvs[0]
+    rbatch = api.render_batch(model, item)
+    with torch.inference_mode():
+        fmaps = model.render_featmaps(model.extract_2d(rbatch["imgs"]))
+    rays = render.sample_along_camera_ray(
+        rbatch["ray_o"].reshape(-1, 3)[:CHUNK],
+        rbatch["ray_d"].reshape(-1, 3)[:CHUNK], *model.near_far_range,
+        model.n_samples)[0]
+    proj = model.render_projection(item["intrinsic"], item["extrinsics"],
+                                   dev)
+    images = rbatch["denorm_images"].to(bf16)
+    k2 = check_k2(render, [("render chunk, bfloat16", rays.contiguous(),
+                            images, fmaps.contiguous(), proj, True)],
+                  (h, w))["render chunk, bfloat16"]
+    del fmaps, rays, images
+    tscene, _ = host_ray_stream(ray_stats, model,
+                                train_scene(model, SEED + 1))
+    with torch.no_grad():
+        tfeats = model.render_featmaps(model.extract_2d(
+            torch.as_tensor(tscene["imgs"], device=dev))).contiguous()
+    ray_t = {k: torch.as_tensor(tscene[k], device=dev) for k in (
+        "ray_o", "ray_d") + ray_stats.RAY_STREAM_KEYS}
+    k2_train, k2_bwd = check_k2_training(
+        render, render.points_at(ray_t["ray_o"], ray_t["ray_d"],
+                                 ray_t["z_vals"]),
+        model.render_projection(tscene["intrinsic"], tscene["extrinsics"],
+                                dev), (h, w), tfeats,
+        tuple(ray_t[k] for k in ray_stats.RAY_STREAM_KEYS[1:]), gen)
+    del tscene, tfeats, ray_t
+    log(f"[bf16] 11.1 kernels in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11.2 R50 detection at bf16 ----
+    scene = make_synthetic_scene(seed=SEED, n_views=N_VIEWS, n_targets=1,
+                                 hw=(h, w), pad_hw=meta.pad_shape,
+                                 n_rand=(h - 2 * MARGIN) * (w - 2 * MARGIN),
+                                 n_boxes=4, max_gt=8, margin=MARGIN)
+    batch = api.device_batch(model, scene)
+    test_cfg = Config.fromfile(CONFIG).test_cfg
+    nms_pre, iou_thr = test_cfg["nms_pre"], test_cfg["iou_thr"]
+    zero()
+    out = api.eval_step(model, batch, nms_pre)
+    det = api.detections_from_candidates(
+        out["boxes"].float().cpu().numpy(), out["scores"].float().cpu()
+        .numpy(), SCORE_THR, iou_thr)
+    got = read(f"eval_step at bfloat16 -> {tuple(out['boxes'].shape)} "
+               f"candidates ({str(out['scores'].dtype)[6:]} scores), NMS "
+               f"kept {len(det['labels_3d'])}")
+    if got != [1, 0, 0, 0, 0, 0]:
+        raise SystemExit(f"the bf16 detection path launched {got}")
+    if not (torch.isfinite(out["boxes"]).all()
+            and torch.isfinite(out["scores"]).all()):
+        raise SystemExit("non-finite bf16 candidates")
+    with torch.inference_mode():
+        feats = model.extract_2d(batch["imgs"])
+        rgb = (batch["rgb_s1"], batch["rgb_s2"])
+        vol = model.build_volume(feats, batch["intrinsic"],
+                                 batch["extrinsics"], batch["origin"], rgb)
+        heads = model.detect(vol["det_volume"])
+        mlvl = model.mlvl_points(batch["origin"])
+        stages = {
+            "extract_2d (ResNet-50 + FPN)": lambda: model.extract_2d(
+                batch["imgs"]),
+            "build_volume (projection + K1 + density)":
+                lambda: model.build_volume(
+                    feats, batch["intrinsic"], batch["extrinsics"],
+                    batch["origin"], rgb),
+            "detect (3D neck + head)": lambda: model.detect(
+                vol["det_volume"]),
+            "get_candidate_bboxes": lambda: get_candidate_bboxes(
+                heads, vol["valid"], mlvl, nms_pre, model.n_classes),
+        }
+        for name, fn in stages.items():
+            ms = cuda_time_ms(fn, 3, warmup=1)
+            log(f"[stage] bf16 {name}: {ms:.3f} ms (float32, phase 4: "
+                f"{f32_detection[name]:.3f} ms)")
+    del feats, vol, heads
+    iters = 5
+    for _ in range(2):
+        api.eval_step(model, batch, nms_pre)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = api.eval_step(model, batch, nms_pre)
+        det = api.detections_from_candidates(
+            out["boxes"].float().cpu().numpy(),
+            out["scores"].float().cpu().numpy(), test_cfg["score_thr"],
+            iou_thr)
+    dt = (time.perf_counter() - t0) / iters
+    log(f"[bf16] detection: {1 / dt:.3f} scenes/s ({dt * 1e3:.2f} ms a "
+        f"scene: eval_step + host NMS; float32, phase 4: "
+        f"{f32_detection['scenes/s']:.3f} scenes/s), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; measured on "
+        f"{card}")
+    del batch, out
+
+    # ---- 11.3 the render of one view at bf16 ----
+    n_rays = item["ray_o"].shape[1]
+    expect = math.ceil(n_rays / CHUNK)
+    zero()
+    metrics = api.run_nvs_eval(model, nvs, chunk=CHUNK, progress=False)
+    got = read(f"run_nvs_eval at bfloat16, one view of {n_rays} rays: psnr "
+               f"{metrics['psnr']:.4f} ssim {metrics['ssim']:.4f}")
+    if got != [0, 0, 0, expect, 0, 0]:
+        raise SystemExit(f"the bf16 render launched {got}, expected K2 "
+                         f"{expect} times")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise SystemExit(f"non-finite bf16 NVS metrics {metrics}")
+    with torch.inference_mode():
+        rgb_out, depth_out = model.render_full(rbatch, CHUNK)
+    near, far = model.near_far_range
+    if not (torch.isfinite(rgb_out).all() and torch.isfinite(depth_out).all()
+            and float(rgb_out.min()) >= 0 and float(rgb_out.max()) <= 1
+            and near <= float(depth_out.min())
+            and float(depth_out.max()) <= far):
+        raise SystemExit("bf16 render_full outputs non-finite or out of "
+                         "range")
+    stages, _, _ = render_stage_times(model, render, rbatch, n_rays)
+    mlp_flop = 2 * expect * CHUNK * model.n_samples * sum(
+        m.in_features * m.out_features for m in model.nerf_mlp.modules()
+        if isinstance(m, torch.nn.Linear))
+    for label, ms in stages.items():
+        extra = ""
+        if label == "NeRF MLP":
+            extra = (f" ({mlp_flop / 1e9:.1f} GFLOP bf16, "
+                     f"{mlp_flop / ms / 1e9:.2f} TFLOP/s)")
+        log(f"[stage] bf16 render {label}: {ms:.3f} ms{extra}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(3):
+            model.render_full(rbatch, CHUNK)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    log(f"[bf16] render: {1 / dt:.3f} views/s ({dt * 1e3:.2f} ms a view: "
+        f"render_full, {n_rays} rays); measured on {card}")
+    del model, rbatch, rgb_out, depth_out
+    torch.cuda.empty_cache()
+
+    # ---- 11.4 the joint train step at bf16 ----
+    t0 = time.perf_counter()
+    tr = api.init_trainer(CONFIG, device="cuda", seed=SEED,
+                          steps_per_epoch=1000, compute_dtype=bf16)
+    prepared, host_s = host_ray_stream(ray_stats, tr.model,
+                                       train_scene(tr.model, SEED + 1))
+    tbatch = api.train_batch(tr.model, [prepared])
+    log(f"[bf16] init_trainer(compute_dtype=bfloat16) + the bfloat16 host "
+        f"ray stream ({host_s:.2f} s on the host): "
+        f"{time.perf_counter() - t0:.1f} s")
+    hist, dt, got, peak = timed_steps(tr, tbatch, counters)
+    last = {k: float(v) for k, v in hist[-1].items()}
+    for n, k in zip(names, got):
+        launches[n] += k
+    log(f"[bf16] joint train, 5 steps: launches "
+        + ", ".join(f"{n} {k}" for n, k in zip(names, got))
+        + "; last step " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                     last.items()))
+    if got != [5, 5, 0, 5, 5, 0]:
+        raise SystemExit(f"the bf16 joint training path launched {got}")
+    for m in hist:
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            raise SystemExit(f"non-finite bf16 train metrics {m}")
+    if not (last["n_pos"] > 0 and "loss_nvs" in last):
+        raise SystemExit("no positive voxels or no NVS loss at bf16")
+    if any(p.dtype != torch.float32 for p in tr.model.parameters()):
+        raise SystemExit("a parameter left float32")
+    for k, ms in step_stage_times(tr, tbatch).items():
+        log(f"[stage] bf16 joint train {k}: {ms:.3f} ms")
+    log(f"[bf16] joint train: {1 / dt:.3f} steps/s ({dt * 1e3:.2f} ms a "
+        f"step: Trainer.step, one scene of {N_VIEWS} views and "
+        f"{tr.model.n_rand} rays, host clock after 2 warm-up steps), peak "
+        f"memory {peak / 2**30:.2f} GiB; measured on {card}")
+    del tr, tbatch, prepared
+    torch.cuda.empty_cache()
+
+    # ---- 11.5 R101* (depth_sp) at bf16: the rgb stream on bf16 images ----
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(DEPTH_CONFIG)
+    model = api.init_detector(cfg, device="cuda", seed=SEED,
+                              compute_dtype=bf16)
+    scene = depth_scene(model, SEED + 2, BF16_DEPTH_VIEWS)
+    streams = gated_streams(voxel, model, scene, dev)
+    rgb_check = check_rgb(
+        voxel, torch.as_tensor(scene["denorm_images"], device=dev).to(bf16),
+        streams["rgb"][0], f"{BF16_DEPTH_VIEWS} views, bfloat16 images")
+    batch = api.device_batch(model, scene)
+    zero()
+    out = api.eval_step(model, batch, cfg.test_cfg["nms_pre"])
+    got = read(f"R101* eval_step at bfloat16, {BF16_DEPTH_VIEWS} views "
+               f"with depth -> {tuple(out['boxes'].shape)} candidates")
+    if got != [1, 0, 1, 0, 0, 0]:
+        raise SystemExit(f"the bf16 R101* inference launched {got}")
+    if not (torch.isfinite(out["boxes"]).all()
+            and torch.isfinite(out["scores"]).all()):
+        raise SystemExit("non-finite bf16 R101* candidates")
+    del model, batch, out
+    torch.cuda.empty_cache()
+    tr = api.init_trainer(cfg, device="cuda", seed=SEED,
+                          steps_per_epoch=1000, compute_dtype=bf16)
+    scene48 = depth_scene(tr.model, SEED + 3, DEPTH_TRAIN_VIEWS)
+    prepared, _ = host_ray_stream(ray_stats, tr.model, scene48)
+    tbatch = api.train_batch(tr.model, [prepared])
+    zero()
+    m = {k: float(v) for k, v in tr.step(tbatch).items()}
+    torch.cuda.synchronize()
+    got = read(f"R101* train step at bfloat16, {DEPTH_TRAIN_VIEWS} views, "
+               f"loss_depth on: " + ", ".join(f"{k} {v:.6g}"
+                                              for k, v in m.items()))
+    if got != [1, 1, 1, 1, 1, 0]:
+        raise SystemExit(f"the bf16 R101* train step launched {got}")
+    if not (all(math.isfinite(v) for v in m.values())
+            and m.get("loss_depth", 0.0) > 0):
+        raise SystemExit(f"bf16 R101* train step: {m}")
+    log(f"[bf16] 11.5 R101* in {time.perf_counter() - t0:.1f} s")
+    del tr, tbatch, prepared, scene48
+    torch.cuda.empty_cache()
+
+    # ---- 11.6 tools/train --bf16, then tools/test, on phase 9's files ----
+    t0 = time.perf_counter()
+    work = os.path.join(os.path.dirname(runtime_opts[0].split("=", 1)[1]
+                                        .rstrip("/")), "work_bf16")
+    zero()
+    result = train_cli.main([CONFIG, "--bf16", "--work-dir", work,
+                             "--max-steps", str(BF16_CLI_STEPS), "--options",
+                             *runtime_opts])
+    got = read(f"tools/train --bf16, {BF16_CLI_STEPS} steps and a "
+               f"validation")
+    hist = result["history"]
+    for hs in hist:
+        log(f"[bf16] tools/train --bf16 step {hs['step']}: loss "
+            f"{hs['loss']:.5g} loss_nvs {hs.get('loss_nvs', float('nan')):.5g}"
+            f" grad_norm {hs['grad_norm']:.5g}, step {hs['step_s']:.3f} s")
+    if (len(hist) != BF16_CLI_STEPS or not result["checkpoints"]
+            or got[1] != BF16_CLI_STEPS or got[4] != BF16_CLI_STEPS
+            or not all(math.isfinite(hs[k]) for hs in hist for k in hs
+                       if k.startswith(("loss", "grad")))):
+        raise SystemExit(f"tools/train --bf16: {len(hist)} steps, "
+                         f"launches {got}")
+    ckpt = result["checkpoints"][-1]
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    if any(v.is_floating_point() and v.dtype != torch.float32
+           for v in saved["model"].values()):
+        raise SystemExit("a bf16 run saved a non-float32 weight")
+    zero()
+    metrics = test_cli.main([CONFIG, ckpt, "--eval", "mAP", "--options",
+                             *runtime_opts])
+    got = read(f"tools/test on {os.path.basename(ckpt)} (float32, as the "
+               f"JAX tool): " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                          metrics.items()))
+    if got[0] < 1 or not all(math.isfinite(v) for v in metrics.values()):
+        raise SystemExit(f"tools/test after --bf16: {metrics}, {got}")
+    log(f"[bf16] 11.6 CLIs in {time.perf_counter() - t0:.1f} s")
+    log(f"[bf16] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(k1=k1, k1_bwd=k1_bwd, k2=k2, k2_train=k2_train,
+                k2_bwd=k2_bwd, rgb=rgb_check, launches=launches)
+
+
+
+
 def main():
     import numpy as np
     import torch
@@ -2387,10 +2819,12 @@ def main():
         ("bfloat16", pix, bf16, False), ("bfloat16 mapped", pix, bf16, True),
         ("float32 mapped, intrinsic scaled to ori_shape",
          pixel_indices(intrinsic), f32, True)], (fh, fw), gen)
+    f32_detection = {}  # phase 4's times, beside phase 11's
     fusion_bwd = check_fusion_backward(voxel, pix, (fh, fw), gen,
                                        "phase 4/7's pix")
+    pix_scaled = pixel_indices(intrinsic)
     fusion_bwd_scaled = check_fusion_backward(
-        voxel, pixel_indices(intrinsic), (fh, fw), gen,
+        voxel, pix_scaled, (fh, fw), gen,
         "phase 8's pix (intrinsic scaled to ori_shape)")
     path_names = ["sa0", "sa1", "sa2", "sa3", "vote_aggregation"]
     half = torch.rand((N_POINTS // 2, 3), generator=gen, device=dev) * 8
@@ -2503,7 +2937,8 @@ def main():
                 heads, vol["valid"], mlvl, nms_pre, model.n_classes),
         }
         for name, fn in stages.items():
-            log(f"[stage] {name}: {cuda_time_ms(fn, 3, warmup=1):.3f} ms")
+            f32_detection[name] = cuda_time_ms(fn, 3, warmup=1)
+            log(f"[stage] {name}: {f32_detection[name]:.3f} ms")
 
     # throughput: host clock over eval_step + candidate copy + host NMS
     # at the config's thresholds
@@ -2518,6 +2953,7 @@ def main():
             out["boxes"].cpu().numpy(), out["scores"].cpu().numpy(),
             test_cfg["score_thr"], iou_thr)
     dt = time.perf_counter() - t0
+    f32_detection["scenes/s"] = iters / dt
     log(f"[path] {iters / dt:.3f} scenes/s ({dt / iters * 1e3:.2f} ms per "
         f"scene: eval_step + host NMS at score_thr "
         f"{test_cfg['score_thr']}, {len(det['labels_3d'])} boxes kept; "
@@ -2543,12 +2979,21 @@ def main():
 
     # ---- 9. the runtime from files: train, resume, test -----------------
     torch.cuda.empty_cache()
-    runtime = runtime_path(api, voxel, pointnet, render, card)
+    files = tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_")
+    runtime, runtime_opts = runtime_path(api, voxel, pointnet, render, card,
+                                         files.name)
     log(f"[done] phases 1-9 in {time.perf_counter() - t_start:.1f} s")
 
     # ---- 10. NeRF-Det-R101* (depth_sp): the depth gate, the rgb stream --
     torch.cuda.empty_cache()
     depth = depth_path(api, voxel, pointnet, render, card)
+    log(f"[done] phases 1-10 in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 11. bfloat16 compute (the JAX --bf16 path) ----------------------
+    torch.cuda.empty_cache()
+    low = bf16_path(api, voxel, pointnet, render, card, pix_scaled, nvs,
+                    runtime_opts, f32_detection)
+    files.cleanup()
 
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
@@ -2666,7 +3111,33 @@ def main():
         "kept_share": depth["kept"],
         "runtime_launches": depth["runtime_launches"],  # phase 10's CLI run
     })
-    log(f"[done] phases 1-10 in {time.perf_counter() - t_start:.1f} s")
+    for name, form, source, replaces in (
+            ("fused_mean_cov_bf16", low["k1"], "fused_mean_cov.cu",
+             "nerfdet_tpu/ops/voxel.py:370"),
+            ("fused_mean_cov_backward_bf16", low["k1_bwd"],
+             "fused_mean_cov_backward.cu", "nerfdet_tpu/ops/voxel.py:370"),
+            ("fused_mean_cov_rgb_bf16", low["rgb"], "fused_mean_cov.cu",
+             "nerfdet_tpu/ops/voxel.py:383"),
+            ("streaming_sample_mean_var_bf16", low["k2"],
+             "streaming_sample_mean_var.cu", "nerfdet_tpu/ops/render.py:162"),
+            ("streaming_sample_mean_var_backward_bf16", low["k2_bwd"],
+             "streaming_sample_mean_var_backward.cu",
+             "nerfdet_tpu/ops/render.py:162")):
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"nerfdet_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": low["launches"][name[:-len("_bf16")]],
+            **{k: form[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by",
+                                    "library_ms")}})
+    record["kernels"][-4]["library_of"] = (
+        "torch.mm on dY @ W^T and x^T dY over the referenced rows")
+    record["kernels"][-2]["training_form"] = low["k2_train"]
+    record["kernels"][-1]["library_of"] = (
+        "index_add_ of the weighted tap rows (bfloat16) into the flat "
+        "feature map: the scatter alone")
+    log(f"[done] phases 1-11 in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

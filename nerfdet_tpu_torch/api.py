@@ -70,17 +70,21 @@ def scene_meta_from_config(config) -> SceneMeta:
 
 
 def init_detector(config, checkpoint: Optional[str] = None,
-                  device="cuda", seed: int = 0) -> torch.nn.Module:
+                  device="cuda", seed: int = 0,
+                  compute_dtype=None) -> torch.nn.Module:
     """Build the detector (NeRF-Det or VoteNet) from a config file or
     object, in eval mode on ``device``. Weights are random from ``seed``
     unless ``checkpoint`` names a NeRF-Det ``.pth``: one the port's train
     CLI wrote (``utils/checkpoint.save_checkpoint``, the model's
-    state_dict under ``"model"``) or a reference state_dict. Raises if
-    ``device`` is CUDA and there is none."""
+    state_dict under ``"model"``) or a reference state_dict. NeRF-Det
+    computes in ``compute_dtype`` (float32 where None; bfloat16 is the
+    JAX package's ``--bf16`` path), its parameters float32 either way.
+    Raises if ``device`` is CUDA and there is none."""
     dev = resolve_device(device)
     if isinstance(config, str):
         config = Config.fromfile(config)
-    model = build_model(config.model, meta=scene_meta_from_config(config))
+    model = build_model(config.model, meta=scene_meta_from_config(config),
+                        compute_dtype=compute_dtype or torch.float32)
     model.init_weights(torch.Generator().manual_seed(seed))
     if checkpoint is not None:
         if not isinstance(model, NerfDet):
@@ -120,9 +124,9 @@ def device_batch(model: NerfDet, scene: Dict) -> Dict:
     geometry arrays stay on the host (the projection is computed there).
     The density path's rgb stream: for a scene with depth maps the
     denormalized images go to the device (the stream is gated there),
-    else the host rgb sums, computed here when the scene does not carry
-    them. Merged with ``render_batch``, the forward also renders the
-    scene's rays."""
+    else the host rgb sums, computed here (at the model's compute dtype)
+    when the scene does not carry them. Merged with ``render_batch``, the
+    forward also renders the scene's rays."""
     dev = _device_of(model)
     batch = {k: scene[k] for k in ("intrinsic", "extrinsics", "origin")}
     batch["imgs"] = _to_device(scene["imgs"], dev)
@@ -137,7 +141,8 @@ def device_batch(model: NerfDet, scene: Dict) -> Dict:
             s1, s2 = host_rgb_stats(
                 scene["denorm_images"], scene["intrinsic"],
                 scene["extrinsics"], scene["origin"], model.n_voxels,
-                model.voxel_size, model.meta.ori_shape, model.meta.img_shape)
+                model.voxel_size, model.meta.ori_shape, model.meta.img_shape,
+                compute_dtype=model.compute_dtype)
         batch["rgb_s1"] = _to_device(s1, dev)
         batch["rgb_s2"] = _to_device(s2, dev)
     return batch
@@ -151,7 +156,7 @@ def train_batch(model: NerfDet, scenes: List[Dict],
     (G,) int64 and gt_mask (G,) bool. A scene with rays (ray_o, ray_d,
     gt_rgb, optionally gt_depth) also brings them and their host ray
     stream (``data/ray_stats.prepare_rays`` at the model's N_rand,
-    near/far and samples, drawn from ``rng``, a fresh unseeded
+    near/far, samples and compute dtype, drawn from ``rng``, a fresh unseeded
     ``RandomState`` if None, where the scene carries no stream yet)."""
     dev = _device_of(model)
     out = []
@@ -168,7 +173,8 @@ def train_batch(model: NerfDet, scenes: List[Dict],
                     scene, rng if rng is not None else
                     np.random.RandomState(), model.n_rand,
                     model.near_far_range, model.n_samples,
-                    model.meta.ori_shape, model.meta.img_shape)
+                    model.meta.ori_shape, model.meta.img_shape,
+                    model.compute_dtype)
             keys = ("ray_o", "ray_d", "gt_rgb") + RAY_STREAM_KEYS + (
                 ("gt_depth",) if "gt_depth" in scene else ())
             batch.update((k, _to_device(scene[k], dev)) for k in keys)
@@ -188,7 +194,8 @@ class Trainer:
 
 
 def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
-                 seed: int = 0, steps_per_epoch: int = 1) -> Trainer:
+                 seed: int = 0, steps_per_epoch: int = 1,
+                 compute_dtype=None) -> Trainer:
     """Joint detection + NVS training from a NeRF-Det config, as
     ``tools/train.py`` of the JAX package trains it: the model as
     ``init_detector`` builds it, in train mode; AdamW, gradient clipping
@@ -197,10 +204,12 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
     ``steps_per_epoch`` steps); the step's losses from ``config.model``:
     ``rgb_supervision`` (default True: the NVS loss on the batch's rays),
     ``depth_supervise`` (default False) and ``use_nerf_mask`` (default
-    True). Runs on the card unless ``device="cpu"``."""
+    True). The model computes in ``compute_dtype`` (``init_detector``);
+    the gradients, the optimizer state and the parameters stay float32.
+    Runs on the card unless ``device="cpu"``."""
     if isinstance(config, str):
         config = Config.fromfile(config)
-    model = init_detector(config, checkpoint, device, seed)
+    model = init_detector(config, checkpoint, device, seed, compute_dtype)
     if not isinstance(model, NerfDet):
         raise NotImplementedError(
             f"training {type(model).__name__} is not ported yet")
@@ -224,7 +233,8 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
 def eval_step(model: NerfDet, batch: Dict, nms_pre: int = 1000) -> Dict:
     """Single-scene inference on the device: candidate boxes (M, 6) and
     scores (M, n_classes), density modulation on; with a ray bundle in
-    ``batch`` also its render_rgb (R, 3) and render_depth (R,)."""
+    ``batch`` also its render_rgb (R, 3) and render_depth (R,). The
+    scores and render_rgb are in the model's compute dtype."""
     head_outs, valid, render_out = model(batch)
     boxes, scores = get_candidate_bboxes(
         head_outs, valid, model.mlvl_points(batch["origin"]), nms_pre,
@@ -264,8 +274,8 @@ def single_scene_test(model: NerfDet, scene: Dict, score_thr: float = 0.01,
                       iou_thr: float = 0.25, nms_pre: int = 1000) -> Dict:
     """Device path + host NMS for one scene (numpy scene dict)."""
     out = eval_step(model, device_batch(model, scene), nms_pre)
-    return detections_from_candidates(out["boxes"].cpu().numpy(),
-                                      out["scores"].cpu().numpy(),
+    return detections_from_candidates(out["boxes"].float().cpu().numpy(),
+                                      out["scores"].float().cpu().numpy(),
                                       score_thr, iou_thr)
 
 
@@ -312,8 +322,8 @@ def run_nvs_eval(model: NerfDet, dataset, chunk: int = 2048,
         scene = dataset[i]
         rgb, depth = model.render_full(render_batch(model, scene), chunk)
         t = scene["ray_o"].shape[0] if scene["ray_o"].ndim == 3 else 1
-        rgb = rgb.cpu().numpy().reshape(t, h, w, 3)
-        depth = depth.cpu().numpy().reshape(t, h, w)
+        rgb = rgb.float().cpu().numpy().reshape(t, h, w, 3)
+        depth = depth.float().cpu().numpy().reshape(t, h, w)
         gt_rgb = np.asarray(scene["gt_rgb"]).reshape(t, h, w, 3)
         gt_depth = (np.asarray(scene["gt_depth"]).reshape(t, h, w)
                     if "gt_depth" in scene else None)

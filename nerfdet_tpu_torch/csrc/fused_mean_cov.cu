@@ -60,7 +60,11 @@
 // volume, about 0.004 ms at 3.35 TB/s when the depth gate keeps a few
 // percent of the pairs. The sums use separately rounded multiply and add
 // in view order (a dropped pair adds nothing, as the plain version's zero
-// row does), so s1e and s2e equal the plain version bit for bit.
+// row does), so s1e and s2e equal the plain version bit for bit. The
+// images may be bfloat16 (the bf16 compute path, which rounds them to
+// bfloat16 before the scan): a pixel is then 6 bytes, widened to float
+// exactly, and the sums are the same float32 sums; the least traffic
+// falls with it (5.9 MB, 0.0018 ms at 50 views), latency still bounds it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,8 +139,9 @@ __device__ __forceinline__ void store(float* p, const float* x) {
 constexpr int kThreadsRgb = 64;
 constexpr int kAheadRgb = 8;  // views whose pixels a thread has in flight
 
+template <typename T>
 __global__ void __launch_bounds__(kThreadsRgb)
-    rgb_kernel(const float* __restrict__ images, const int* __restrict__ pix,
+    rgb_kernel(const T* __restrict__ images, const int* __restrict__ pix,
                float* __restrict__ s1, float* __restrict__ s2, int n_views,
                int hw, int n_vox) {
   const int n = blockIdx.x * kThreadsRgb + threadIdx.x;
@@ -152,10 +157,13 @@ __global__ void __launch_bounds__(kThreadsRgb)
                  : -1;
 #pragma unroll
     for (int k = 0; k < kAheadRgb; ++k) {
-      const float* px = images + (static_cast<size_t>(v0 + k) * hw +
-                                  (p[k] < 0 ? 0 : p[k])) * 3;
+      const T* px = images + (static_cast<size_t>(v0 + k) * hw +
+                              (p[k] < 0 ? 0 : p[k])) * 3;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) x[k][c] = p[k] < 0 ? 0.f : __ldg(px + c);
+      for (int c = 0; c < 3; ++c) {
+        x[k][c] = 0.f;
+        if (p[k] >= 0) load<1>(px + c, &x[k][c]);
+      }
     }
 #pragma unroll
     for (int k = 0; k < kAheadRgb; ++k) {
@@ -575,17 +583,25 @@ extern "C" int fused_mean_cov_carry(const void* feats, int feats_bf16,
   return static_cast<int>(err);
 }
 
-// The rgb stream. images (V, hw, 3) float32, pix (V, N) int32 (-1 where the
-// pair is dropped), s1 and s2 (N, 3) float32, all contiguous; the caller
-// checks shapes. Returns the cudaError_t of the launch.
-extern "C" int fused_mean_cov_rgb(const float* images, const int* pix,
-                                  float* s1, float* s2, int n_views, int hw,
-                                  int n_vox, void* stream) {
+// The rgb stream. images (V, hw, 3) float32, or bfloat16 where images_bf16
+// is set; pix (V, N) int32 (-1 where the pair is dropped), s1 and s2 (N, 3)
+// float32, all contiguous; the caller checks shapes. Returns the
+// cudaError_t of the launch.
+extern "C" int fused_mean_cov_rgb(const void* images, int images_bf16,
+                                  const int* pix, float* s1, float* s2,
+                                  int n_views, int hw, int n_vox,
+                                  void* stream) {
   if (n_views < 0 || hw < 0 || n_vox < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_vox == 0) return 0;
   const int blocks = (n_vox + kThreadsRgb - 1) / kThreadsRgb;
-  rgb_kernel<<<blocks, kThreadsRgb, 0, static_cast<cudaStream_t>(stream)>>>(
-      images, pix, s1, s2, n_views, hw, n_vox);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (images_bf16)
+    rgb_kernel<uint16_t><<<blocks, kThreadsRgb, 0, s>>>(
+        static_cast<const uint16_t*>(images), pix, s1, s2, n_views, hw,
+        n_vox);
+  else
+    rgb_kernel<float><<<blocks, kThreadsRgb, 0, s>>>(
+        static_cast<const float*>(images), pix, s1, s2, n_views, hw, n_vox);
   return static_cast<int>(cudaGetLastError());
 }

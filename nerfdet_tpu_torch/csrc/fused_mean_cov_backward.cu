@@ -66,11 +66,28 @@
 // referenced rows in ascending (view, pixel) order, then the ranges in
 // order (the design before summed fixed ranges of all rows).
 //
-// Inputs: f32 maps (the forward's bf16 maps take no gradient), C in {32,
-// 64, 128, 256, 512, 1024}, 1 <= M <= 32.
+// bfloat16 maps (the bf16 compute path): d features is bfloat16 and rounds
+// as XLA's CPU backend runs JAX's transpose of the scan (the plain version,
+// ops/voxel.py: _pair_cotangents_bf16, follows it): each (voxel, view)
+// pair's float32 cotangent of its row, ((2 x g2) + g1) + (2 y gm) @ W^T in
+// JAX's order, is rounded to bfloat16 and added to its pixel in ascending
+// voxel order, each sum rounded (__float2bfloat16_rn, to nearest even).
+// So pass 1 (pixel_bf16_kernel) does per pair what the float32 pass does
+// per pixel: the product with W^T once a pair. dY, dW and db are as for
+// float32 maps; pass 2 widens the staged rows of bfloat16 maps exactly.
+// That makes the bfloat16 form bound by operations: at phase 8's indices
+// (0.72 M valid pairs, 203 K referenced rows) 15.6 GFLOP, 11.8 of them
+// the pairs' 2 C M products, against 288 MB (0.23 ms at 67 TFLOP/s);
+// pass 1 walks them in float32 FMAs, dm[m] by shuffle, a pair at a time.
+//
+// Inputs: float32 or bfloat16 maps, C in {32, 64, 128, 256, 512, 1024},
+// 1 <= M <= 32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "counting_sort.cuh"
 
@@ -99,6 +116,48 @@ __device__ __forceinline__ void load(const float* p, float* x) {
     x[1] = v.y;
   } else {
     x[0] = __ldg(p);
+  }
+}
+
+// bfloat16 is carried as its 16 bits; widening to float is exact.
+template <int kW>
+__device__ __forceinline__ void load(const uint16_t* p, float* x) {
+  if constexpr (kW == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = __uint_as_float(v.x << 16);
+    x[1] = __uint_as_float(v.x & 0xffff0000u);
+    x[2] = __uint_as_float(v.y << 16);
+    x[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else if constexpr (kW == 2) {
+    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
+    x[0] = __uint_as_float(v << 16);
+    x[1] = __uint_as_float(v & 0xffff0000u);
+  } else {
+    x[0] = __uint_as_float(
+        static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+        << 16);
+  }
+}
+
+// x rounded to bfloat16, to nearest even, as a float.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Floats that hold bfloat16 values, stored as their 16 bits.
+template <int kW>
+__device__ __forceinline__ void store(uint16_t* p, const float* x) {
+  unsigned short b[kW];
+#pragma unroll
+  for (int e = 0; e < kW; ++e)
+    b[e] = static_cast<unsigned short>(__float_as_uint(x[e]) >> 16);
+  if constexpr (kW == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(b[0] | (unsigned)b[1] << 16, b[2] | (unsigned)b[3] << 16);
+  } else if constexpr (kW == 2) {
+    *reinterpret_cast<unsigned*>(p) = b[0] | (unsigned)b[1] << 16;
+  } else {
+    p[0] = b[0];
   }
 }
 
@@ -250,6 +309,114 @@ __global__ void __launch_bounds__(kThreads, (kG2 || kCpl > 8) ? 1 : 3)
   }
 }
 
+// The pass on bfloat16 maps: the same walk (a warp a pixel row, lane l
+// channels (j * 32 + l) * kW + e), but each pair's cotangent is rounded and
+// added on its own, so the product with W^T runs once a pair, dm[m] handed
+// out by shuffle. GM and dY are as in pixel_kernel.
+template <int kCpl, int kW, bool kG2>
+__global__ void __launch_bounds__(kThreads, 1)
+    pixel_bf16_kernel(const uint16_t* __restrict__ feats,
+                      const int* __restrict__ order,
+                      const int* __restrict__ off,
+                      const float* __restrict__ g1,
+                      const float* __restrict__ g2,
+                      const float* __restrict__ gm,
+                      const float* __restrict__ mapped,
+                      const float* __restrict__ w,
+                      uint16_t* __restrict__ dfeat, float* __restrict__ dy,
+                      int n_views, int hw, int n_vox, int n_map) {
+  extern __shared__ __align__(16) float wt_s[];
+  constexpr int kC = 32 * kCpl;
+  constexpr int kPass = kCpl / kW;
+  const int lane = threadIdx.x & 31;
+  const bool with_m = mapped != nullptr;
+  if (with_m) {
+    for (int i = threadIdx.x; i < kC * n_map; i += kThreads) {
+      const int c = i / n_map, m = i % n_map;
+      wt_s[m * kC + c] = w[i];
+    }
+    __syncthreads();
+  }
+  const long long rows = (long long)n_views * hw;
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       r < rows; r += warps) {
+    const int v = (int)(r / hw), p = (int)(r % hw);
+    const int* offv = off + (size_t)v * (hw + 1);
+    const int beg = __ldg(offv + p), end = __ldg(offv + p + 1);
+    float acc[kCpl];
+#pragma unroll
+    for (int c = 0; c < kCpl; ++c) acc[c] = 0.f;
+    if (beg < end) {
+      float y = 0.f, am = 0.f;
+      if (with_m && lane < n_map)
+        y = __ldg(mapped + (size_t)r * n_map + lane);
+      float x2[kCpl];  // 2 x, for the s2 cotangent
+      if constexpr (kG2) {
+        const uint16_t* xr = feats + (size_t)r * kC + lane * kW;
+#pragma unroll
+        for (int j = 0; j < kPass; ++j) load<kW>(xr + j * 32 * kW, &x2[j * kW]);
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c) x2[c] = __fmul_rn(2.f, x2[c]);
+      }
+      const int* ordv = order + (size_t)v * n_vox;
+      for (int i0 = beg; i0 < end; i0 += 32) {
+        const int cnt = min(32, end - i0);
+        const int mine = lane < cnt ? __ldg(ordv + i0 + lane) : 0;
+        for (int k = 0; k < cnt; ++k) {
+          const int n = __shfl_sync(0xffffffffu, mine, k);
+          float d[kCpl];
+          const float* row1 = g1 + (size_t)n * kC + lane * kW;
+#pragma unroll
+          for (int j = 0; j < kPass; ++j)
+            load<kW>(row1 + j * 32 * kW, &d[j * kW]);
+          if constexpr (kG2) {  // (2 x g2) + g1
+            float t2[kCpl];
+            const float* row2 = g2 + (size_t)n * kC + lane * kW;
+#pragma unroll
+            for (int j = 0; j < kPass; ++j)
+              load<kW>(row2 + j * 32 * kW, &t2[j * kW]);
+#pragma unroll
+            for (int c = 0; c < kCpl; ++c)
+              d[c] = __fadd_rn(__fmul_rn(x2[c], t2[c]), d[c]);
+          }
+          if (with_m) {  // + (2 y gm) @ W^T
+            float dmv = 0.f;
+            if (lane < n_map) {
+              const float g = __ldg(gm + (size_t)n * n_map + lane);
+              am = __fadd_rn(am, g);
+              dmv = __fmul_rn(__fmul_rn(2.f, y), g);
+            }
+            float prod[kCpl];
+#pragma unroll
+            for (int c = 0; c < kCpl; ++c) prod[c] = 0.f;
+            for (int m = 0; m < n_map; ++m) {
+              const float dm = __shfl_sync(0xffffffffu, dmv, m);
+              const float* wm = wt_s + m * kC + lane * kW;
+#pragma unroll
+              for (int j = 0; j < kPass; ++j)
+#pragma unroll
+                for (int e = 0; e < kW; ++e)
+                  prod[j * kW + e] =
+                      fmaf(dm, wm[j * 32 * kW + e], prod[j * kW + e]);
+            }
+#pragma unroll
+            for (int c = 0; c < kCpl; ++c) d[c] = __fadd_rn(d[c], prod[c]);
+          }
+#pragma unroll
+          for (int c = 0; c < kCpl; ++c)
+            acc[c] = bf16r(__fadd_rn(acc[c], bf16r(d[c])));
+        }
+      }
+      if (with_m && lane < n_map)
+        dy[(size_t)r * n_map + lane] = __fmul_rn(__fmul_rn(2.f, y), am);
+    }  // else no voxel maps here: acc holds zeros
+    uint16_t* out = dfeat + (size_t)r * kC + lane * kW;
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) store<kW>(out + j * 32 * kW, &acc[j * kW]);
+  }
+}
+
 // ---- pass 2: per-block partial sums of dW and db -------------------------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -279,10 +446,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // + e, e < 4, against mapped outputs 8 (t / (kTile / 4)) + k, k < 8. The
 // block's referenced rows are [g_beg, g_end) of the views' compacted lists
 // in order; pre (V + 1) in dynamic shared memory holds where each view's
-// list starts. kVec: the rows of x and dY are 16-byte aligned.
-template <int kTile, bool kVec>
+// list starts. kVec: the rows of x and dY are 16-byte aligned (x 8-byte
+// aligned where T is bfloat16, whose rows are widened into the stage by
+// plain loads, not cp.async).
+template <int kTile, bool kVec, typename T>
 __global__ void __launch_bounds__(kTile)
-    weight_kernel(const float* __restrict__ feats,
+    weight_kernel(const T* __restrict__ feats,
                   const float* __restrict__ dy, const int* __restrict__ rows,
                   const int* __restrict__ n_rows,
                   const float* __restrict__ gm,
@@ -327,7 +496,15 @@ __global__ void __launch_bounds__(kTile)
     for (int q = tid; q < kRows * kChunks; q += kTile) {
       const int s = q / kChunks, k = q % kChunks;
       const int r = s < n_s ? at_s[s0 + s] : -1;
-      if (kVec) {
+      if constexpr (std::is_same<T, uint16_t>::value) {
+        constexpr int kE = kVec ? 4 : 1;
+        float v[kE];
+#pragma unroll
+        for (int e = 0; e < kE; ++e) v[e] = 0.f;
+        if (r >= 0) load<kE>(feats + (size_t)r * channels + c0 + kE * k, v);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) x_s[buf][s][kE * k + e] = v[e];
+      } else if (kVec) {
         float* dst = &x_s[buf][s][4 * k];
         if (r >= 0)
           cp_async16(dst, feats + (size_t)r * channels + c0 + 4 * k);
@@ -512,13 +689,28 @@ __global__ void reduce_kernel(const float* __restrict__ part_w,
   }
 }
 
-template <int kCpl, int kW, bool kG2>
-cudaError_t launch_pixel(const float* feats, const int* order, const int* off,
+template <typename T>
+struct PixelKernel;
+
+template <>
+struct PixelKernel<float> {
+  template <int kCpl, int kW, bool kG2>
+  static constexpr auto get() { return pixel_kernel<kCpl, kW, kG2>; }
+};
+
+template <>
+struct PixelKernel<uint16_t> {
+  template <int kCpl, int kW, bool kG2>
+  static constexpr auto get() { return pixel_bf16_kernel<kCpl, kW, kG2>; }
+};
+
+template <int kCpl, int kW, bool kG2, typename T>
+cudaError_t launch_pixel(const T* feats, const int* order, const int* off,
                          const float* g1, const float* g2, const float* gm,
-                         const float* mapped, const float* w, float* dfeat,
+                         const float* mapped, const float* w, T* dfeat,
                          float* dy, int n_views, int hw, int n_vox, int n_map,
                          cudaStream_t s) {
-  auto kernel = pixel_kernel<kCpl, kW, kG2>;
+  auto kernel = PixelKernel<T>::template get<kCpl, kW, kG2>();
   const size_t smem =
       mapped != nullptr ? (size_t)32 * kCpl * n_map * sizeof(float) : 0;
   cudaError_t err = csort::fit_smem((const void*)kernel, smem);
@@ -541,10 +733,10 @@ cudaError_t launch_pixel(const float* feats, const int* order, const int* off,
   return cudaGetLastError();
 }
 
-template <int kCpl, int kW>
-cudaError_t pixel_by_g2(const float* feats, const int* order, const int* off,
+template <int kCpl, int kW, typename T>
+cudaError_t pixel_by_g2(const T* feats, const int* order, const int* off,
                         const float* g1, const float* g2, const float* gm,
-                        const float* mapped, const float* w, float* dfeat,
+                        const float* mapped, const float* w, T* dfeat,
                         float* dy, int n_views, int hw, int n_vox, int n_map,
                         cudaStream_t s) {
   return g2 != nullptr
@@ -556,11 +748,11 @@ cudaError_t pixel_by_g2(const float* feats, const int* order, const int* off,
                                              hw, n_vox, n_map, s);
 }
 
-template <int kCpl>
-cudaError_t pixel_by_width(bool vec, const float* feats, const int* order,
+template <int kCpl, typename T>
+cudaError_t pixel_by_width(bool vec, const T* feats, const int* order,
                            const int* off, const float* g1, const float* g2,
                            const float* gm, const float* mapped,
-                           const float* w, float* dfeat, float* dy,
+                           const float* w, T* dfeat, float* dy,
                            int n_views, int hw, int n_vox, int n_map,
                            cudaStream_t s) {
   constexpr int kVec = kCpl < 4 ? kCpl : 4;
@@ -571,13 +763,13 @@ cudaError_t pixel_by_width(bool vec, const float* feats, const int* order,
                                     dfeat, dy, n_views, hw, n_vox, n_map, s);
 }
 
-template <int kTile, bool kVec>
-cudaError_t launch_weight(const float* feats, const float* dy,
+template <int kTile, bool kVec, typename T>
+cudaError_t launch_weight(const T* feats, const float* dy,
                           const int* rows, const int* n_rows, const float* gm,
                           const float* count, float* part_w, float* part_b,
                           float* part_i, int n_views, int hw, int channels,
                           int n_vox, int n_map, cudaStream_t s) {
-  auto kernel = weight_kernel<kTile, kVec>;
+  auto kernel = weight_kernel<kTile, kVec, T>;
   const size_t smem = sizeof(float) * kStages * kRows * (kTile + kMaxMap) +
                       (size_t)(n_views + 1) * sizeof(int);
   cudaError_t err = csort::fit_smem((const void*)kernel, smem);
@@ -589,8 +781,8 @@ cudaError_t launch_weight(const float* feats, const float* dy,
   return cudaGetLastError();
 }
 
-template <int kTile>
-cudaError_t weight_by_alignment(bool vec, const float* feats,
+template <int kTile, typename T>
+cudaError_t weight_by_alignment(bool vec, const T* feats,
                                 const float* dy, const int* rows,
                                 const int* n_rows, const float* gm,
                                 const float* count, float* part_w,
@@ -641,17 +833,18 @@ extern "C" int fused_mean_cov_backward_order(const int* pix, int* hist,
       0, 1, 1, 0, static_cast<cudaStream_t>(stream)));
 }
 
-// Pass 1. feats (V, HW, C) f32; order and off from the index preparation;
-// g1 (N, C); g2 (N, C) or null; dfeat (V, HW, C) out. With the mapped
-// stream: gm (N, M), mapped (V, HW, M) (phase A's rows), w (C, M); dy (V,
-// HW, M) out at the referenced rows. Without it, those are null.
-// Everything contiguous; C in {32, ..., 1024}, 1 <= M <= 32. Returns the
-// first cudaError_t of the set-up and the launch.
+// Pass 1. feats (V, HW, C) float32, or bfloat16 where bf16 is set; order
+// and off from the index preparation; g1 (N, C); g2 (N, C) or null; dfeat
+// (V, HW, C) out, in the maps' dtype. With the mapped stream: gm (N, M),
+// mapped (V, HW, M) (phase A's rows), w (C, M); dy (V, HW, M) out at the
+// referenced rows. Without it, those are null. Everything contiguous; C in
+// {32, ..., 1024}, 1 <= M <= 32. Returns the first cudaError_t of the
+// set-up and the launch.
 extern "C" int fused_mean_cov_backward_pixels(
-    const float* feats, const int* order, const int* off, const float* g1,
+    const void* feats, const int* order, const int* off, const float* g1,
     const float* g2, const float* gm, const float* mapped, const float* w,
-    float* dfeat, float* dy, int n_views, int hw, int channels, int n_vox,
-    int n_map, void* stream) {
+    void* dfeat, float* dy, int n_views, int hw, int channels, int n_vox,
+    int n_map, int bf16, void* stream) {
   if (mapped != nullptr && (n_map < 1 || n_map > kMaxMap || gm == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!k1_width(channels)) return static_cast<int>(cudaErrorInvalidValue);
@@ -660,57 +853,81 @@ extern "C" int fused_mean_cov_backward_pixels(
   const bool vec = aligned16(feats) && aligned16(g1) && aligned16(g2) &&
                    aligned16(dfeat);
   cudaError_t err = cudaSuccess;
-#define K1B_PIXEL(CPL)                                                        \
-  err = pixel_by_width<CPL>(vec, feats, order, off, g1, g2, gm, mapped, w,   \
-                            dfeat, dy, n_views, hw, n_vox, n_map, s);        \
+#define K1B_PIXEL(CPL, T)                                                    \
+  err = pixel_by_width<CPL>(vec, static_cast<const T*>(feats), order, off,  \
+                            g1, g2, gm, mapped, w, static_cast<T*>(dfeat),  \
+                            dy, n_views, hw, n_vox, n_map, s);              \
   break
-  switch (channels) {
-    case 32: K1B_PIXEL(1);
-    case 64: K1B_PIXEL(2);
-    case 128: K1B_PIXEL(4);
-    case 256: K1B_PIXEL(8);
-    case 512: K1B_PIXEL(16);
-    case 1024: K1B_PIXEL(32);
+#define K1B_WIDTHS(T)         \
+  switch (channels) {         \
+    case 32: K1B_PIXEL(1, T);   \
+    case 64: K1B_PIXEL(2, T);   \
+    case 128: K1B_PIXEL(4, T);  \
+    case 256: K1B_PIXEL(8, T);  \
+    case 512: K1B_PIXEL(16, T); \
+    case 1024: K1B_PIXEL(32, T); \
   }
+  if (bf16) {
+    K1B_WIDTHS(uint16_t)
+  } else {
+    K1B_WIDTHS(float)
+  }
+#undef K1B_WIDTHS
 #undef K1B_PIXEL
   return static_cast<int>(err);
 }
 
-// Pass 2. feats (V, HW, C); dy from pass 1; rows and n_rows from the index
-// preparation; gm (N, M); count (N,); part_w (kParts, C, M), part_b and
-// part_i (kParts, M) out.
+namespace {
+
+template <typename T>
+cudaError_t weights_by_width(bool vec, const T* feats, const float* dy,
+                             const int* rows, const int* n_rows,
+                             const float* gm, const float* count,
+                             float* part_w, float* part_b, float* part_i,
+                             int n_views, int hw, int channels, int n_vox,
+                             int n_map, cudaStream_t s) {
+  switch (channels) {
+    case 32:
+      return weight_by_alignment<32>(vec, feats, dy, rows, n_rows, gm, count,
+                                     part_w, part_b, part_i, n_views, hw,
+                                     channels, n_vox, n_map, s);
+    case 64:
+      return weight_by_alignment<64>(vec, feats, dy, rows, n_rows, gm, count,
+                                     part_w, part_b, part_i, n_views, hw,
+                                     channels, n_vox, n_map, s);
+    case 128:
+      return weight_by_alignment<128>(vec, feats, dy, rows, n_rows, gm,
+                                      count, part_w, part_b, part_i, n_views,
+                                      hw, channels, n_vox, n_map, s);
+    default:  // 256 and up: tiles of 256 channels
+      return weight_by_alignment<kTileMax>(vec, feats, dy, rows, n_rows, gm,
+                                           count, part_w, part_b, part_i,
+                                           n_views, hw, channels, n_vox,
+                                           n_map, s);
+  }
+}
+
+}  // namespace
+
+// Pass 2. feats (V, HW, C), float32 or (bf16 set) bfloat16; dy from pass
+// 1; rows and n_rows from the index preparation; gm (N, M); count (N,);
+// part_w (kParts, C, M), part_b and part_i (kParts, M) out.
 extern "C" int fused_mean_cov_backward_weights(
-    const float* feats, const float* dy, const int* rows, const int* n_rows,
+    const void* feats, const float* dy, const int* rows, const int* n_rows,
     const float* gm, const float* count, float* part_w, float* part_b,
     float* part_i, int n_views, int hw, int channels, int n_vox, int n_map,
-    void* stream) {
+    int bf16, void* stream) {
   if (n_map < 1 || n_map > kMaxMap || !k1_width(channels))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(feats) && aligned16(dy) && n_map % 4 == 0;
-  cudaError_t err;
-  switch (channels) {
-    case 32:
-      err = weight_by_alignment<32>(vec, feats, dy, rows, n_rows, gm, count,
-                                    part_w, part_b, part_i, n_views, hw,
-                                    channels, n_vox, n_map, s);
-      break;
-    case 64:
-      err = weight_by_alignment<64>(vec, feats, dy, rows, n_rows, gm, count,
-                                    part_w, part_b, part_i, n_views, hw,
-                                    channels, n_vox, n_map, s);
-      break;
-    case 128:
-      err = weight_by_alignment<128>(vec, feats, dy, rows, n_rows, gm, count,
-                                     part_w, part_b, part_i, n_views, hw,
-                                     channels, n_vox, n_map, s);
-      break;
-    default:  // 256 and up: tiles of 256 channels
-      err = weight_by_alignment<kTileMax>(vec, feats, dy, rows, n_rows, gm,
-                                          count, part_w, part_b, part_i,
-                                          n_views, hw, channels, n_vox,
-                                          n_map, s);
-  }
+  const cudaError_t err =
+      bf16 ? weights_by_width(vec, static_cast<const uint16_t*>(feats), dy,
+                              rows, n_rows, gm, count, part_w, part_b,
+                              part_i, n_views, hw, channels, n_vox, n_map, s)
+           : weights_by_width(vec, static_cast<const float*>(feats), dy,
+                              rows, n_rows, gm, count, part_w, part_b,
+                              part_i, n_views, hw, channels, n_vox, n_map, s);
   return static_cast<int>(err);
 }
 

@@ -64,9 +64,23 @@
 // K2's backward (csrc/streaming_sample_mean_var_backward.cu) needs beside
 // globalfeat: the feature channels' unmasked sums s1u (N, C) and, in the
 // eval form, its count (N, 1).
+//
+// bfloat16 (kBf, the bf16 compute path of the JAX package): the feature
+// maps and the images are bfloat16, read as their 16 bits and widened to
+// float exactly (a 16-byte tap load becomes an 8-byte one). The taps round
+// as JAX's grid_sample_2d_packed on bfloat16 maps: a feature tap rounds its
+// four weights to bfloat16 (exact products, then the same float sums) and
+// its sum to bfloat16; an rgb tap keeps float weights and rounds only its
+// sum. Both with __float2bfloat16_rn, to nearest even. The sums and the
+// epilogue stay float32, so the kernel still equals its plain version bit
+// for bit. The bound is the float32 form's (operations, 3.1 GFLOP a
+// chunk); the bytes fall from 0.12 to 0.08 GB and were never the limit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -120,6 +134,15 @@ __device__ __forceinline__ int weights(float px, float py, int height,
   return (x0 + 1 < width ? 1 : 0) | (y0 + 1 < height ? 2 : 0);
 }
 
+// x rounded to bfloat16, to nearest even, as a float.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float4 bf16r(float4 w) {
+  return make_float4(bf16r(w.x), bf16r(w.y), bf16r(w.z), bf16r(w.w));
+}
+
 // ((t0 * w.x + t1 * w.y) + t2 * w.z) + t3 * w.w
 __device__ __forceinline__ float blend(float t0, float t1, float t2,
                                        float t3, float4 w) {
@@ -141,6 +164,29 @@ __device__ __forceinline__ void load(const float* p, float (&t)[kVec]) {
   } else {
     t[0] = __ldg(p);
   }
+}
+
+// bfloat16: kVec channels at p (8-byte aligned when kVec == 4).
+__device__ __forceinline__ float widen(unsigned short u) {
+  return __uint_as_float(static_cast<unsigned>(u) << 16);
+}
+
+template <int kVec>
+__device__ __forceinline__ void load(const uint16_t* p, float (&t)[kVec]) {
+  if constexpr (kVec == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    t[0] = __uint_as_float(v.x << 16);
+    t[1] = __uint_as_float(v.x & 0xffff0000u);
+    t[2] = __uint_as_float(v.y << 16);
+    t[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else {
+    t[0] = widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const uint16_t* p) {
+  return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 template <int kVec>
@@ -169,10 +215,14 @@ struct HostRgb {
   const float* cnt;  // (N,)
 };
 
-template <int kVec, bool kHost>
+template <int kVec, bool kHost, bool kBf>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
-    const float* __restrict__ pts, const float* __restrict__ imgs,
-    const float* __restrict__ feats, const float* __restrict__ proj,
+    const float* __restrict__ pts,
+    const typename std::conditional<kBf, uint16_t, float>::type* __restrict__
+        imgs,
+    const typename std::conditional<kBf, uint16_t, float>::type* __restrict__
+        feats,
+    const float* __restrict__ proj,
     HostRgb host, float* __restrict__ gf, uint8_t* __restrict__ mask,
     float* __restrict__ s1u_out, float* __restrict__ cnt_out, int n,
     int n_views, int ih, int iw, int fh, int fw, int c, float h1, float w1,
@@ -216,6 +266,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
       t.flags |= weights(__fmul_rn(px, fsx), __fmul_rn(py, fsy), fh, fw,
                          &t.wf, &t.feat_idx) << 2 |
                  (m ? kMask : 0);
+      if constexpr (kBf) t.wf = bf16r(t.wf);
     }
     taps[buf][tv][tp] = t;
   };
@@ -253,15 +304,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
       const int v = v0 + k;
       if (!kHost && has_rgb) {
         const Tap& tr = tk[rp];
-        const float* base = imgs + v * img_view + rc;
+        const auto* base = imgs + v * img_view + rc;
         const int i0 = tr.img_idx;
         const bool x1 = tr.flags & kImgX1, y1 = tr.flags & kImgY1;
-        const float t00 = __ldg(base + (size_t)i0 * 3);
-        const float t01 = x1 ? __ldg(base + (size_t)(i0 + 1) * 3) : 0.f;
-        const float t10 = y1 ? __ldg(base + (size_t)(i0 + iw) * 3) : 0.f;
+        const float t00 = load1(base + (size_t)i0 * 3);
+        const float t01 = x1 ? load1(base + (size_t)(i0 + 1) * 3) : 0.f;
+        const float t10 = y1 ? load1(base + (size_t)(i0 + iw) * 3) : 0.f;
         const float t11 =
-            x1 && y1 ? __ldg(base + (size_t)(i0 + iw + 1) * 3) : 0.f;
-        const float f = blend(t00, t01, t10, t11, tr.wi);
+            x1 && y1 ? load1(base + (size_t)(i0 + iw + 1) * 3) : 0.f;
+        float f = blend(t00, t01, t10, t11, tr.wi);
+        if constexpr (kBf) f = bf16r(f);
         const float m = tr.flags & kMask ? 1.f : 0.f;
         r1 = __fadd_rn(r1, f);
         r2 = __fadd_rn(r2, __fmul_rn(f, f));
@@ -270,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
       if (!kHost && s < kRun)
         count = __fadd_rn(count, tk[s].flags & kMask ? 1.f : 0.f);
       if (has_ch) {
-        const float* fv = feats + v * feat_view + ch;
+        const auto* fv = feats + v * feat_view + ch;
         float t00[kVec], t01[kVec], t10[kVec], t11[kVec];
         int prev = -1;
 #pragma unroll
@@ -294,7 +346,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
           const float m = fl & kMask ? 1.f : 0.f;
 #pragma unroll
           for (int e = 0; e < kVec; ++e) {
-            const float f = blend(t00[e], t01[e], t10[e], t11[e], w);
+            float f = blend(t00[e], t01[e], t10[e], t11[e], w);
+            if constexpr (kBf) f = bf16r(f);
             f1[p][e] = __fadd_rn(f1[p][e], f);
             f2[p][e] = __fadd_rn(f2[p][e], __fmul_rn(f, f));
             fm[p][e] = __fadd_rn(fm[p][e], __fmul_rn(f, m));
@@ -361,15 +414,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
   }
 }
 
-template <int kVec, bool kHost>
-void launch(int blocks, cudaStream_t s, const float* pts, const float* imgs,
-            const float* feats, const float* proj, HostRgb host, float* gf,
+template <int kVec, bool kHost, bool kBf>
+void launch(int blocks, cudaStream_t s, const float* pts, const void* imgs,
+            const void* feats, const float* proj, HostRgb host, float* gf,
             uint8_t* mask, float* s1u_out, float* cnt_out, int n,
             int n_views, int ih, int iw, int fh, int fw, int c, int h, int w,
             float sx, float sy, float fsx, float fsy) {
-  k2_kernel<kVec, kHost><<<blocks, kThreads, 0, s>>>(
-      pts, imgs, feats, proj, host, gf, mask, s1u_out, cnt_out, n, n_views,
-      ih, iw, fh, fw, c, (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
+  using T = typename std::conditional<kBf, uint16_t, float>::type;
+  k2_kernel<kVec, kHost, kBf><<<blocks, kThreads, 0, s>>>(
+      pts, static_cast<const T*>(imgs), static_cast<const T*>(feats), proj,
+      host, gf, mask, s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c,
+      (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
 }
 
 }  // namespace
@@ -382,16 +437,17 @@ void launch(int blocks, cudaStream_t s, const float* pts, const float* imgs,
 // (the feature channels' unmasked sums) and cnt_out (N,) (the eval form's
 // count), all contiguous. (h, w) is the image size the projection lives
 // in; sx, sy, fsx, fsy scale its pixels into the images and the feature
-// maps. Feature taps load 16 bytes at a time where C % 4 == 0 and feats
-// is 16-byte aligned, 4 bytes otherwise. The caller checks shapes.
-// Returns the cudaError_t of the launch.
+// maps. With bf16 set, feats and imgs are bfloat16 (the rest float32).
+// Feature taps load 4 channels at a time where C % 4 == 0 and feats is so
+// aligned (16 bytes of float, 8 of bfloat16), one otherwise. The caller
+// checks shapes. Returns the cudaError_t of the launch.
 extern "C" int streaming_sample_mean_var(
-    const float* pts, const float* imgs, const float* feats,
+    const float* pts, const void* imgs, const void* feats,
     const float* proj, const float* host_s1u, const float* host_s2u,
     const float* host_s1m, const float* host_cnt, float* gf, uint8_t* mask,
     float* s1u_out, float* cnt_out, int n, int n_views, int ih, int iw,
     int fh, int fw, int c, int h, int w, float sx, float sy, float fsx,
-    float fsy, void* stream) {
+    float fsy, int bf16, void* stream) {
   const int blocks = (n + kTile - 1) / kTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HostRgb host = {host_s1u, host_s2u, host_s1m, host_cnt};
@@ -399,16 +455,23 @@ extern "C" int streaming_sample_mean_var(
   if (with_host && (host_s1u == nullptr || host_s2u == nullptr ||
                     host_s1m == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 =
-      c % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
-#define K2_LAUNCH(VEC, HOST)                                                \
-  launch<VEC, HOST>(blocks, s, pts, imgs, feats, proj, host, gf, mask,     \
-                    s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c, h, w, \
-                    sx, sy, fsx, fsy)
-  if (vec4 && with_host) K2_LAUNCH(4, true);
-  else if (vec4) K2_LAUNCH(4, false);
-  else if (with_host) K2_LAUNCH(1, true);
-  else K2_LAUNCH(1, false);
+  const bool vec4 = c % 4 == 0 && reinterpret_cast<uintptr_t>(feats) %
+                                      (bf16 ? 8 : 16) == 0;
+#define K2_LAUNCH(VEC, HOST, BF)                                            \
+  launch<VEC, HOST, BF>(blocks, s, pts, imgs, feats, proj, host, gf, mask, \
+                        s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c, h, \
+                        w, sx, sy, fsx, fsy)
+#define K2_BY_FORM(BF)                      \
+  if (vec4 && with_host) K2_LAUNCH(4, true, BF);  \
+  else if (vec4) K2_LAUNCH(4, false, BF);   \
+  else if (with_host) K2_LAUNCH(1, true, BF);    \
+  else K2_LAUNCH(1, false, BF)
+  if (bf16) {
+    K2_BY_FORM(true);
+  } else {
+    K2_BY_FORM(false);
+  }
+#undef K2_BY_FORM
 #undef K2_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

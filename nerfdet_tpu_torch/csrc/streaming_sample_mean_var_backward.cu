@@ -75,7 +75,22 @@
 // Summation order: per window, its pairs in ascending point order; then
 // the fixed unpack: the order of the design before this one, whose df
 // added its terms as JAX does.
+//
+// bfloat16 maps (the bf16 compute path): the result rounds as XLA's CPU
+// backend runs JAX's transpose of the bfloat16 taps, which the plain
+// version (ops/render.py: _backward_plain_bf16) follows. Pass 0 writes the
+// rows (d s1m, d s1u, d s2u), and per pair df = (d s1u + (2 f) d s2u) + m
+// d s1m in JAX's order, f the forward's bfloat16 sample; df is rounded to
+// bfloat16, each tap's df w_k (w_k the forward's bfloat16 weight) too, and
+// each window's four sums are rounded after every add, in point order.
+// Pass 2 adds a texel's four windows in the order of the transpose of
+// pack_bilinear, tap 10, 11, 01, 00, rounding each sum, and writes
+// bfloat16. All roundings __float2bfloat16_rn, to nearest even. The maps
+// and their gradient move half the bytes (the least traffic 202 MB at
+// the training path's shape, 0.060 ms); pass 1 still gathers the same
+// cotangent rows, and each pair now also rounds six values.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,6 +119,23 @@ __device__ __forceinline__ int window(float p, int size, float* w0,
   *w0 = fmaxf(0.f, __fsub_rn(1.f, fabsf(r)));
   *w1 = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(r, 1.f))));
   return (int)s;
+}
+
+// x rounded to bfloat16, to nearest even, as a float.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A float that holds a bfloat16 value, as its 16 bits.
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return static_cast<unsigned short>(__float_as_uint(x) >> 16);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const uint16_t* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+      << 16);
 }
 
 // One (point, view): the feature window's start texel, its tap weights
@@ -156,7 +188,9 @@ __global__ void __launch_bounds__(kThreads)
   keys[p] = zero ? n_views * hw : v * hw + q.idx;
 }
 
-// Thread t of the grid: point t / C, channel t % C.
+// Thread t of the grid: point t / C, channel t % C. Rows (d s1u + d s1m,
+// d s1u, d s2u), or with kBf (d s1m, d s1u, d s2u).
+template <bool kBf>
 __global__ void __launch_bounds__(kThreads)
     coef_kernel(const float* __restrict__ g, const float* __restrict__ gf,
                 const float* __restrict__ s1u, const float* __restrict__ cnt,
@@ -177,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
       __fdiv_rn(__fadd_rn(g_mean, __fdiv_rn(__fmul_rn(g_var, slope), d)), d);
   const float d_s1u = __fdiv_rn(__fmul_rn(__fmul_rn(-2.f, mean), g_var), d);
   float* out = coef + (size_t)i * 3 * c + ch;
-  out[0] = __fadd_rn(d_s1u, d_s1m);  // a pair the view sees
+  out[0] = kBf ? d_s1m : __fadd_rn(d_s1u, d_s1m);  // a pair the view sees
   out[c] = d_s1u;                    // one it does not
   out[2 * c] = __fdiv_rn(g_var, d);  // d s2u
 }
@@ -186,10 +220,13 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kDepth = 8;  // pairs whose cotangent rows are loaded ahead
 
+template <bool kBf>
 __global__ void __launch_bounds__(kThreads)
     window_kernel(const float* __restrict__ pts,
                   const float* __restrict__ proj,
-                  const float* __restrict__ feats,
+                  const typename std::conditional<kBf, uint16_t,
+                                                  float>::type* __restrict__
+                      feats,
                   const float* __restrict__ coef,
                   const int* __restrict__ order, const int* __restrict__ off,
                   float* __restrict__ packed, int n, int n_views, int fh,
@@ -210,13 +247,13 @@ __global__ void __launch_bounds__(kThreads)
   // the window's four taps of channel `lane`, zero past the edges
   const int y0 = idx / fw, x0 = idx - y0 * fw;
   const bool x1 = x0 + 1 < fw, y1 = y0 + 1 < fh;
-  const float* fv = feats + (size_t)v * hw * c + lane;
+  const auto* fv = feats + (size_t)v * hw * c + lane;
   float t00 = 0.f, t01 = 0.f, t10 = 0.f, t11 = 0.f;
   if (has_ch) {
-    t00 = __ldg(fv + (size_t)idx * c);
-    if (x1) t01 = __ldg(fv + (size_t)(idx + 1) * c);
-    if (y1) t10 = __ldg(fv + (size_t)(idx + fw) * c);
-    if (x1 && y1) t11 = __ldg(fv + (size_t)(idx + fw + 1) * c);
+    t00 = load1(fv + (size_t)idx * c);
+    if (x1) t01 = load1(fv + (size_t)(idx + 1) * c);
+    if (y1) t10 = load1(fv + (size_t)(idx + fw) * c);
+    if (x1 && y1) t11 = load1(fv + (size_t)(idx + fw + 1) * c);
   }
   for (int j0 = beg; j0 < end; j0 += 32) {
     const int cnt = min(32, end - j0);
@@ -231,19 +268,29 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < 3; ++k) pt[k] = __ldg(pts + (size_t)i * 3 + k);
       const Pair q = project(pv, pt, h1, w1, fh, fw, fsx, fsy);
       wq = q.w;
+      if constexpr (kBf)  // the forward's bfloat16 feature weights
+        wq = make_float4(bf16r(wq.x), bf16r(wq.y), bf16r(wq.z), bf16r(wq.w));
       mq = q.m ? 1.f : 0.f;
     }
     for (int k0 = 0; k0 < cnt; k0 += kDepth) {
-      float da[kDepth], d2[kDepth];
+      // kBf: da the d s1u row, dm the d s1m row where the view sees the
+      // point; otherwise da the row this pair reads and dm unused
+      float da[kDepth], d2[kDepth], dm[kBf ? kDepth : 1];
 #pragma unroll
       for (int u = 0; u < kDepth; ++u) {
         const int k = (k0 + u) & 31;
         const int ik = __shfl_sync(0xffffffffu, i, k);
         const float m = __shfl_sync(0xffffffffu, mq, k);
         da[u] = d2[u] = 0.f;
+        if constexpr (kBf) dm[u] = 0.f;
         if (has_ch && k0 + u < cnt) {
           const float* cf = coef + (size_t)ik * 3 * c + lane;
-          da[u] = __ldg(cf + (m != 0.f ? 0 : c));
+          if constexpr (kBf) {
+            da[u] = __ldg(cf + c);
+            if (m != 0.f) dm[u] = __ldg(cf);
+          } else {
+            da[u] = __ldg(cf + (m != 0.f ? 0 : c));
+          }
           d2[u] = __ldg(cf + 2 * c);
         }
       }
@@ -260,11 +307,24 @@ __global__ void __launch_bounds__(kThreads)
         f = __fadd_rn(f, __fmul_rn(t01, w01));
         f = __fadd_rn(f, __fmul_rn(t10, w10));
         f = __fadd_rn(f, __fmul_rn(t11, w11));
-        const float df = __fadd_rn(da[u], __fmul_rn(__fmul_rn(2.f, f), d2[u]));
-        a00 = __fadd_rn(a00, __fmul_rn(df, w00));
-        a01 = __fadd_rn(a01, __fmul_rn(df, w01));
-        a10 = __fadd_rn(a10, __fmul_rn(df, w10));
-        a11 = __fadd_rn(a11, __fmul_rn(df, w11));
+        if constexpr (kBf) {
+          f = bf16r(f);
+          float df = __fadd_rn(da[u], __fmul_rn(__fmul_rn(2.f, f), d2[u]));
+          if (__shfl_sync(0xffffffffu, mq, k) != 0.f)
+            df = __fadd_rn(df, dm[u]);
+          df = bf16r(df);
+          a00 = bf16r(__fadd_rn(a00, bf16r(__fmul_rn(df, w00))));
+          a01 = bf16r(__fadd_rn(a01, bf16r(__fmul_rn(df, w01))));
+          a10 = bf16r(__fadd_rn(a10, bf16r(__fmul_rn(df, w10))));
+          a11 = bf16r(__fadd_rn(a11, bf16r(__fmul_rn(df, w11))));
+        } else {
+          const float df =
+              __fadd_rn(da[u], __fmul_rn(__fmul_rn(2.f, f), d2[u]));
+          a00 = __fadd_rn(a00, __fmul_rn(df, w00));
+          a01 = __fadd_rn(a01, __fmul_rn(df, w01));
+          a10 = __fadd_rn(a10, __fmul_rn(df, w10));
+          a11 = __fadd_rn(a11, __fmul_rn(df, w11));
+        }
       }
     }
   }
@@ -319,6 +379,52 @@ __global__ void __launch_bounds__(kThreads)
     out[0] = s[0];
 }
 
+// The bfloat16 unpack: thread t, texel t / (C / kW), channels kW (t % (C /
+// kW)) + e; the windows in the order (y-1, x).10, (y-1, x-1).11, (y,
+// x-1).01, (y, x).00, each sum rounded; an empty window adds nothing
+// (its taps are +0, and rounding a bfloat16 value leaves it).
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+    unpack_bf16_kernel(const float* __restrict__ packed,
+                       const int* __restrict__ off,
+                       uint16_t* __restrict__ d_feats, int n_views, int fh,
+                       int fw, int c) {
+  using Vec = typename std::conditional<kW == 4, float4, float>::type;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int hw = fh * fw, groups = c / kW;
+  if (t >= (long long)n_views * hw * groups) return;
+  const int ch = (int)(t % groups) * kW;
+  const int texel = (int)(t / groups);
+  const int v = texel / hw, idx = texel - v * hw;
+  const int y = idx / fw, x = idx - y * fw;
+  const float* pv = packed + (size_t)v * hw * 4 * c + ch;
+  const int* ov = off + (size_t)v * hw;
+  const size_t stride = 4 * (size_t)c;
+  float s[kW];
+#pragma unroll
+  for (int e = 0; e < kW; ++e) s[e] = 0.f;
+  auto add = [&](int k, int j) {
+    if (__ldg(ov + k + 1) == __ldg(ov + k)) return;
+    const Vec q = __ldg(
+        reinterpret_cast<const Vec*>(pv + (size_t)k * stride + j * c));
+    const float* qa = reinterpret_cast<const float*>(&q);
+#pragma unroll
+    for (int e = 0; e < kW; ++e) s[e] = bf16r(__fadd_rn(s[e], qa[e]));
+  };
+  if (y > 0) add(idx - fw, 2);
+  if (x > 0 && y > 0) add(idx - fw - 1, 3);
+  if (x > 0) add(idx - 1, 1);
+  add(idx, 0);
+  uint16_t* out = d_feats + (size_t)texel * c + ch;
+  if constexpr (kW == 4) {
+    *reinterpret_cast<uint2*>(out) = make_uint2(
+        bf16_bits(s[0]) | (unsigned)bf16_bits(s[1]) << 16,
+        bf16_bits(s[2]) | (unsigned)bf16_bits(s[3]) << 16);
+  } else {
+    out[0] = bf16_bits(s[0]);
+  }
+}
+
 int blocks_for(long long threads) {
   return (int)((threads + kThreads - 1) / kThreads);
 }
@@ -327,15 +433,16 @@ int blocks_for(long long threads) {
 
 // Pass 0. pts (N, 3); proj (V, 4, 4); g and globalfeat (N, 2(3 + C)); s1u
 // (N, C), the feature channels' unmasked sums; cnt (N,), the count the
-// forward's statistics used; outputs keys (V, N) int32 and coef (N, 3, C).
-// (h, w) is the image size the projection lives in, fsx, fsy scale its
-// pixels into the (FH, FW) maps. Everything contiguous, 1 <= C <= 32, V N
-// < 2^31. Returns the first cudaError_t of the launches.
+// forward's statistics used; outputs keys (V, N) int32 and coef (N, 3, C),
+// its rows laid out for bfloat16 maps where bf16 is set. (h, w) is the
+// image size the projection lives in, fsx, fsy scale its pixels into the
+// (FH, FW) maps. Everything contiguous, 1 <= C <= 32, V N < 2^31. Returns
+// the first cudaError_t of the launches.
 extern "C" int streaming_sample_mean_var_backward_keys(
     const float* pts, const float* proj, const float* g, const float* gf,
     const float* s1u, const float* cnt, int* keys, float* coef, int n,
     int n_views, int fh, int fw, int c, int h, int w, float fsx, float fsy,
-    void* stream) {
+    int bf16, void* stream) {
   if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || n_views == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -344,8 +451,12 @@ extern "C" int streaming_sample_mean_var_backward_keys(
       fsx, fsy);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  coef_kernel<<<blocks_for((long long)n * c), kThreads, 0, s>>>(
-      g, gf, s1u, cnt, coef, n, n_views, c);
+  if (bf16)
+    coef_kernel<true><<<blocks_for((long long)n * c), kThreads, 0, s>>>(
+        g, gf, s1u, cnt, coef, n, n_views, c);
+  else
+    coef_kernel<false><<<blocks_for((long long)n * c), kThreads, 0, s>>>(
+        g, gf, s1u, cnt, coef, n, n_views, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,37 +479,57 @@ extern "C" int streaming_sample_mean_var_backward_order(
       -hw, 0, 0, n, static_cast<cudaStream_t>(stream)));
 }
 
-// Pass 1: feats (V, FH, FW, C); coef from pass 0; order and off from the
-// index preparation; packed (V FH FW, 4, C), of which it writes the windows
-// that hold a pair.
+// Pass 1: feats (V, FH, FW, C), float32 or (bf16 set) bfloat16; coef from
+// pass 0; order and off from the index preparation; packed (V FH FW, 4, C)
+// float32, of which it writes the windows that hold a pair.
 extern "C" int streaming_sample_mean_var_backward_windows(
-    const float* pts, const float* proj, const float* feats,
+    const float* pts, const float* proj, const void* feats,
     const float* coef, const int* order, const int* off, float* packed, int n,
     int n_views, int fh, int fw, int c, int h, int w, float fsx, float fsy,
-    void* stream) {
+    int bf16, void* stream) {
   if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
   const long long windows = (long long)n_views * fh * fw;
   if (windows == 0 || n == 0) return 0;
-  window_kernel<<<(int)((windows + kWarps - 1) / kWarps), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      pts, proj, feats, coef, order, off, packed, n, n_views, fh, fw, c,
-      (float)(h - 1), (float)(w - 1), fsx, fsy);
+  const int blocks = (int)((windows + kWarps - 1) / kWarps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    window_kernel<true><<<blocks, kThreads, 0, s>>>(
+        pts, proj, static_cast<const uint16_t*>(feats), coef, order, off,
+        packed, n, n_views, fh, fw, c, (float)(h - 1), (float)(w - 1), fsx,
+        fsy);
+  else
+    window_kernel<false><<<blocks, kThreads, 0, s>>>(
+        pts, proj, static_cast<const float*>(feats), coef, order, off,
+        packed, n, n_views, fh, fw, c, (float)(h - 1), (float)(w - 1), fsx,
+        fsy);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass 2: d_feats (V, FH, FW, C) out from packed and off.
+// Pass 2: d_feats (V, FH, FW, C) out from packed and off, float32 or (bf16
+// set) bfloat16.
 extern "C" int streaming_sample_mean_var_backward_unpack(
-    const float* packed, const int* off, float* d_feats, int n_views, int fh,
-    int fw, int c, void* stream) {
+    const float* packed, const int* off, void* d_feats, int n_views, int fh,
+    int fw, int c, int bf16, void* stream) {
   if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
   const long long windows = (long long)n_views * fh * fw;
   if (windows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    uint16_t* out = static_cast<uint16_t*>(d_feats);
+    if (c % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0)
+      unpack_bf16_kernel<4><<<blocks_for(windows * (c / 4)), kThreads, 0,
+                              s>>>(packed, off, out, n_views, fh, fw, c);
+    else
+      unpack_bf16_kernel<1><<<blocks_for(windows * c), kThreads, 0, s>>>(
+          packed, off, out, n_views, fh, fw, c);
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* d_out = static_cast<float*>(d_feats);
   if (c % 4 == 0)
     unpack_kernel<4><<<blocks_for(windows * (c / 4)), kThreads, 0, s>>>(
-        packed, off, d_feats, n_views, fh, fw, c);
+        packed, off, d_out, n_views, fh, fw, c);
   else
     unpack_kernel<1><<<blocks_for(windows * c), kThreads, 0, s>>>(
-        packed, off, d_feats, n_views, fh, fw, c);
+        packed, off, d_out, n_views, fh, fw, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -235,40 +235,33 @@ class ScanNetMultiViewDataset:
             logger=logger)
 
 
-def _refuse_bf16(bf16: bool, what: str) -> None:
-    if bf16:
-        raise NotImplementedError(
-            f"bfloat16 {what} are not ported yet: the compute_dtype item "
-            f"of ROADMAP §1 item 2")
-
-
 def rgb_stats_spec_from_config(cfg, use_depth: bool = False,
                                bf16: bool = False):
-    """``(n_voxels, voxel_size, "float32")`` for a nerf_density NerfDet
+    """``(n_voxels, voxel_size, compute_dtype)`` for a nerf_density NerfDet
     config whose fusion runs without a depth gate (the flagship path),
-    else None."""
-    _refuse_bf16(bf16, "host rgb sums")
+    else None; ``compute_dtype`` is "bfloat16" with ``bf16``, else
+    "float32"."""
     model = cfg.get("model", {}) if hasattr(cfg, "get") else {}
     if model.get("type") != "nerfdet":  # the config registry key
         return None
     if not model.get("nerf_density", False) or use_depth:
         return None
     return (tuple(model["n_voxels"]), tuple(model["voxel_size"]),
-            "float32")
+            "bfloat16" if bf16 else "float32")
 
 
 def ray_stats_spec_from_config(cfg, bf16: bool = False):
-    """``(near_far, n_samples, "float32")`` for an image-mode NerfDet
+    """``(near_far, n_samples, compute_dtype)`` for an image-mode NerfDet
     config (the per-sample source-view colors are parameter-free), else
-    None."""
-    _refuse_bf16(bf16, "host ray streams")
+    None; ``compute_dtype`` as in ``rgb_stats_spec_from_config``."""
     model = cfg.get("model", {}) if hasattr(cfg, "get") else {}
     if model.get("type") != "nerfdet":
         return None
     if model.get("nerf_mode", "image") != "image":
         return None
     return (tuple(model.get("near_far_range", (0.2, 8.0))),
-            int(model.get("N_samples", 64)), "float32")
+            int(model.get("N_samples", 64)),
+            "bfloat16" if bf16 else "float32")
 
 
 def build_dataset(data_cfg: Dict, test_mode: bool = False,

@@ -1,7 +1,7 @@
 """Host-side ray stream of the render branch's training path (numpy).
 
 A copy of ``host_sample_z`` and ``host_ray_rgb_stats`` of
-``nerfdet_tpu/ops/render.py`` (float32 only) and of the ray part of
+``nerfdet_tpu/ops/render.py`` (float32 and bfloat16) and of the ray part of
 ``ScanNetMultiViewDataset.__getitem__`` (``nerfdet_tpu/data/dataset.py``:
 ``subsample_rays``, then the host stream). The stratified depths and
 the per-sample rgb sums over the source views depend on the ray geometry
@@ -11,7 +11,9 @@ them and K2 samples only the feature maps on the device.
 Exactness: the same numpy float32 operations in the same order as the
 originals, the views summed one after another (numpy's axis sum is
 pairwise), so z and the four sums equal the originals bit for bit for
-the same ``np.random.RandomState``.
+the same ``np.random.RandomState``. The bfloat16 stream rounds the images
+and each tap sum to bfloat16 (round to nearest even, through torch, as
+``ml_dtypes`` rounds in the original).
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from .rgb_stats import _round_bf16
 
 
 def host_sample_z(rng: np.random.RandomState, n_rays: int, near: float,
@@ -49,14 +54,11 @@ def host_ray_rgb_stats(denorm_images, intrinsic, extrinsics, ray_o, ray_d,
     point (inside ``img_shape`` and in front), ``s1m += f`` and ``cnt +=
     1``. Returns (s1u, s2u, s1m) (R, S, 3) and cnt (R, S, 1), float32.
 
-    Only float32 is ported: the bfloat16 stream belongs to the
-    ``compute_dtype`` item of ROADMAP §1 (the NeRF-Det config surface).
+    ``compute_dtype`` "bfloat16" (the JAX ``--bf16`` path) rounds the
+    images to bfloat16 before the float32 taps and each tap sum f after
+    them, as K2's eval form samples bfloat16 images.
     """
-    if compute_dtype not in (np.float32, "float32"):
-        raise NotImplementedError(
-            f"host_ray_rgb_stats takes compute_dtype float32 only, got "
-            f"{compute_dtype!r}; bfloat16 is the compute_dtype item of "
-            f"ROADMAP §1")
+    bf16 = _is_bf16(compute_dtype)
     h, w = int(img_shape[0]), int(img_shape[1])
     ratio = np.float32(ori_shape[0]) / np.float32(h)
     intr = np.asarray(intrinsic, np.float32)
@@ -81,6 +83,8 @@ def host_ray_rgb_stats(denorm_images, intrinsic, extrinsics, ray_o, ray_d,
     mask = (inbound & in_front).astype(np.float32)  # (V, R*S)
 
     imgs = np.asarray(denorm_images, np.float32)
+    if bf16:
+        imgs = _round_bf16(imgs)
     v, ih, iw, _ = imgs.shape
     sx = np.float32((iw - 1.0) / (w - 1.0))
     sy = np.float32((ih - 1.0) / (h - 1.0))
@@ -112,6 +116,8 @@ def host_ray_rgb_stats(denorm_images, intrinsic, extrinsics, ray_o, ray_d,
              + fv[lin + 1] * (wy0[vi] * wx1[vi])[:, None]
              + fv[lin + (iw + 1)] * (wy1[vi] * wx0[vi])[:, None]
              + fv[lin + (iw + 2)] * (wy1[vi] * wx1[vi])[:, None])
+        if bf16:
+            f = _round_bf16(f)
         m = mask[vi][:, None]
         s1u += f
         s2u += f * f
@@ -121,13 +127,23 @@ def host_ray_rgb_stats(denorm_images, intrinsic, extrinsics, ray_o, ray_d,
             s1m.reshape(r, s, 3), cnt.reshape(r, s, 1))
 
 
+def _is_bf16(compute_dtype) -> bool:
+    """float32 or bfloat16 (by name or torch dtype); anything else raises."""
+    if compute_dtype in (np.float32, "float32", torch.float32):
+        return False
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return True
+    raise TypeError(f"the host ray stream takes float32 or bfloat16, got "
+                    f"{compute_dtype!r}")
+
+
 RAY_STREAM_KEYS = ("z_vals", "ray_s1u", "ray_s2u", "ray_s1m", "ray_cnt")
 
 
 def prepare_rays(scene: Dict, rng: np.random.RandomState, n_rand: int,
                  near_far: Sequence[float], n_samples: int,
-                 ori_shape: Tuple[int, int], img_shape: Tuple[int, int]
-                 ) -> Dict:
+                 ori_shape: Tuple[int, int], img_shape: Tuple[int, int],
+                 compute_dtype="float32") -> Dict:
     """A training scene's rays and their host stream, as the JAX data
     pipeline ships them: ``scene`` carries ray_o, ray_d, gt_rgb (and
     optionally gt_depth), flat (R, ...) or per target view (T, R', ...).
@@ -136,7 +152,8 @@ def prepare_rays(scene: Dict, rng: np.random.RandomState, n_rand: int,
     enough remain), then draws the stratified depths and sums the rgb
     stream, all from ``rng`` in that order. Returns a new dict with the
     rays and ``RAY_STREAM_KEYS`` (z_vals (R, S), ray_s1u / ray_s2u /
-    ray_s1m (R, S, 3), ray_cnt (R, S, 1))."""
+    ray_s1m (R, S, 3), ray_cnt (R, S, 1)); ``compute_dtype`` is the
+    stream's (``host_ray_rgb_stats``)."""
     out = dict(scene)
     rays = {k: np.asarray(scene[k]) for k in ("ray_o", "ray_d", "gt_rgb")}
     rays = {k: a.reshape(-1, 3) for k, a in rays.items()}
@@ -155,6 +172,7 @@ def prepare_rays(scene: Dict, rng: np.random.RandomState, n_rand: int,
                            near_far[1], n_samples)
     stats = host_ray_rgb_stats(
         scene["denorm_images"], scene["intrinsic"], scene["extrinsics"],
-        rays["ray_o"], rays["ray_d"], z_vals, ori_shape, img_shape)
+        rays["ray_o"], rays["ray_d"], z_vals, ori_shape, img_shape,
+        compute_dtype)
     out.update(zip(RAY_STREAM_KEYS, (z_vals,) + stats))
     return out

@@ -8,13 +8,15 @@ not read: that is a download; weights come from a seed or a checkpoint.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .nerfdet import NerfDet, SceneMeta
 from .votenet import SCANNET_MEAN_SIZES, VoteNet
 
 
-def _build_nerfdet(cfg: dict, meta: SceneMeta = None) -> NerfDet:
+def _build_nerfdet(cfg: dict, meta: SceneMeta = None,
+                   compute_dtype=torch.float32) -> NerfDet:
     backbone = cfg["backbone"]
     if backbone.get("type", "ResNet") != "ResNet":
         raise NotImplementedError("only the ResNet backbone is ported")
@@ -42,12 +44,16 @@ def _build_nerfdet(cfg: dict, meta: SceneMeta = None) -> NerfDet:
         squeeze_scale=cfg.get("squeeze_scale", 4),
         nerf_density=cfg.get("nerf_density", False),
         meta=meta or SceneMeta(),
+        compute_dtype=compute_dtype,
     )
 
 
-def _build_votenet(cfg: dict, meta: SceneMeta = None) -> VoteNet:
+def _build_votenet(cfg: dict, meta: SceneMeta = None,
+                   compute_dtype=torch.float32) -> VoteNet:
     """Point-cloud VoteNet; ``meta`` is not used. The IoU loss weight
-    belongs to training and is not read."""
+    belongs to training and is not read. It computes in float32 only."""
+    if compute_dtype != torch.float32:
+        raise NotImplementedError("VoteNet computes in float32 only")
     head = cfg.get("bbox_head", {})
     coder = head.get("bbox_coder", {})
     return VoteNet(
@@ -64,10 +70,14 @@ def _build_votenet(cfg: dict, meta: SceneMeta = None) -> VoteNet:
 _BUILDERS = {"nerfdet": _build_nerfdet, "VoteNet": _build_votenet}
 
 
-def build_model(cfg: dict, meta: SceneMeta = None) -> nn.Module:
+def build_model(cfg: dict, meta: SceneMeta = None,
+                compute_dtype=torch.float32) -> nn.Module:
+    """The model of ``cfg`` computing in ``compute_dtype`` (float32, or
+    bfloat16 for NeRF-Det: the JAX package's ``--bf16`` path); its
+    parameters are float32 either way."""
     builder = _BUILDERS.get(cfg["type"])
     if builder is None:
         raise NotImplementedError(
             f"model type {cfg['type']!r} is not ported; ported: "
             f"{sorted(_BUILDERS)}")
-    return builder(cfg, meta)
+    return builder(cfg, meta, compute_dtype)

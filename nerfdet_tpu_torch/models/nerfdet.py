@@ -18,6 +18,17 @@ stratified depths (``z_vals``) with K2 in its training form (the host
 rgb sums), or, without ``z_vals``, at depths jittered on the device. The
 gradient reaches the FPN and ``mapping`` through K1's backward and
 through K2's.
+
+``compute_dtype`` is the JAX model's: at bfloat16 every module computes
+in bfloat16 with float32 parameters (``nn/compute.py``), the feature maps
+reach K1 and K2 in bfloat16 (K1's mapped stream keeps the float32
+``mapping`` parameters, as JAX reads them raw), the images are rounded
+to bfloat16 where the device samples them, and the casts sit where the
+JAX model puts them: the density query's points and global volume, the
+radiance field's points, view directions and features. The volume the
+3D neck reads is float32 (bfloat16 alpha times the float32 mean), the
+head's outputs and the rendered rgb bfloat16, the rendered depth and the
+losses float32, as JAX's type promotion gives them.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..nn.compute import linear
 from ..nn.fpn import FPN
 from ..nn.heads import ScanNetImVoxelHeadV2
 from ..nn.neck3d import FastIndoorImVoxelNeck
@@ -64,8 +76,13 @@ class NerfDet(nn.Module):
                  near_far_range: Tuple[float, float] = (0.2, 8.0),
                  n_samples: int = 64, n_rand: int = 2048,
                  squeeze_scale: int = 4, nerf_density: bool = True,
-                 meta: SceneMeta = SceneMeta()):
+                 meta: SceneMeta = SceneMeta(),
+                 compute_dtype=torch.float32):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"compute_dtype must be float32 or bfloat16, "
+                            f"got {compute_dtype}")
+        self.compute_dtype = dt = compute_dtype
         self.n_classes = n_classes
         self.n_scales = n_scales
         self.head_limit = head_limit
@@ -78,18 +95,19 @@ class NerfDet(nn.Module):
         self.nerf_density = nerf_density
         self.meta = meta
         self.backbone = ResNet(depth=backbone_depth,
-                               out_indices=tuple(range(len(fpn_in_channels))))
-        self.neck = FPN(fpn_in_channels, fpn_out_channels)
+                               out_indices=tuple(range(len(fpn_in_channels))),
+                               dtype=dt)
+        self.neck = FPN(fpn_in_channels, fpn_out_channels, dt)
         self.neck_3d = FastIndoorImVoxelNeck(
-            fpn_out_channels, neck3d_out_channels, neck3d_n_blocks)
+            fpn_out_channels, neck3d_out_channels, neck3d_n_blocks, dt)
         self.bbox_head = ScanNetImVoxelHeadV2(
-            n_classes, neck3d_out_channels, head_n_reg_outs, n_scales)
+            n_classes, neck3d_out_channels, head_n_reg_outs, n_scales, dt)
         nerf_feature_dim = fpn_out_channels // squeeze_scale
         # rgb mean + var add 3 + 3 to the global volume's width
         self.nerf_mlp = VanillaNeRFRadianceField(
             net_depth=4, net_width=256, skip_layer=3,
             feature_dim=nerf_feature_dim + 6, net_depth_condition=1,
-            net_width_condition=128)
+            net_width_condition=128, dtype=dt)
         self.mapping = nn.Sequential(
             nn.Linear(fpn_out_channels, nerf_feature_dim // 2))
 
@@ -159,7 +177,8 @@ class NerfDet(nn.Module):
                 raise ValueError("the density path needs the host rgb sums "
                                  "or, with a depth map, denorm_images")
             else:
-                rgb = dict(extra_features=denorm_images,
+                rgb = dict(extra_features=denorm_images.to(
+                               self.compute_dtype),
                            extra_projection=compute_projection(
                                intrinsic, extrinsics,
                                self.meta.ori_shape[0] / h_img, dev),
@@ -199,7 +218,8 @@ class NerfDet(nn.Module):
         stride = self.meta.pad_shape[1] // features.shape[2]
         fh = self.meta.img_shape[0] // stride
         fw = self.meta.img_shape[1] // stride
-        return self.mapping(features[:, :fh, :fw])
+        return linear(self.mapping[0], features[:, :fh, :fw],
+                      self.compute_dtype)
 
     def render_projection(self, intrinsic, extrinsics, device):
         """(V, 4, 4) ``K4 @ pose`` with the intrinsic scaled from
@@ -209,6 +229,8 @@ class NerfDet(nn.Module):
 
     def _render_chunk(self, ray_o, ray_d, imgs_denorm, proj, featmaps,
                       **kw):
+        if imgs_denorm is not None:
+            imgs_denorm = imgs_denorm.to(self.compute_dtype)
         return render_ops.render_rays_chunk(
             ray_o, ray_d, self.nerf_mlp, near_far=self.near_far_range,
             n_samples=self.n_samples, images=imgs_denorm, proj=proj,
@@ -248,7 +270,7 @@ class NerfDet(nn.Module):
             ray_d = torch.cat([ray_d, ray_d[:pad]])
         proj = self.render_projection(batch["intrinsic"], batch["extrinsics"],
                                       ray_o.device)
-        images = batch["denorm_images"]
+        images = batch["denorm_images"].to(self.compute_dtype)
         outs = render_ops.render_rays_full(
             ray_o, ray_d, chunk, lambda ro, rd: self._render_chunk(
                 ro, rd, images, proj, featmaps))

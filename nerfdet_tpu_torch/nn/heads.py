@@ -6,7 +6,10 @@ Port of ``nerfdet_tpu/nn/heads.py`` for the non-yawed V2 head:
 ``bbox_pred_to_bbox``, ``resize_valid``, ``get_candidate_bboxes``,
 ``compute_centerness``, ``get_targets`` and ``head_loss_sums``. Module
 names follow the reference state_dict (``centerness_conv``,
-``reg_conv``, ``cls_conv``, ``scales.{i}.scale``).
+``reg_conv``, ``cls_conv``, ``scales.{i}.scale``). The head's ``dtype``
+is flax's compute dtype (``nn/compute.py``): at bfloat16 its outputs are
+bfloat16, and the losses and the decode widen them where JAX's type
+promotion does (a bfloat16 array meeting a float32 one).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch import nn
 from ..core.boxes import volume_of_boxes
 from ..ops.resize import resize_axes
 from . import losses
+from .compute import conv3x3x3
 
 
 class _Scale(nn.Module):
@@ -29,8 +33,10 @@ class _Scale(nn.Module):
 
 class ScanNetImVoxelHeadV2(nn.Module):
     def __init__(self, n_classes: int = 18, n_channels: int = 128,
-                 n_reg_outs: int = 6, n_scales: int = 3):
+                 n_reg_outs: int = 6, n_scales: int = 3,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         if n_reg_outs != 6:
             raise NotImplementedError(
                 "the yawed (n_reg_outs=7) head is not yet ported")
@@ -43,9 +49,11 @@ class ScanNetImVoxelHeadV2(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]):
         """Per scale (centerness, exp(scale * reg), cls), NCDHW."""
-        return [(self.centerness_conv(x),
-                 torch.exp(self.scales[i].scale * self.reg_conv(x)),
-                 self.cls_conv(x)) for i, x in enumerate(xs)]
+        dt = self.dtype
+        return [(conv3x3x3(self.centerness_conv, x, dt),
+                 torch.exp(self.scales[i].scale.to(dt)
+                           * conv3x3x3(self.reg_conv, x, dt)),
+                 conv3x3x3(self.cls_conv, x, dt)) for i, x in enumerate(xs)]
 
 
 def bbox_pred_to_bbox(points, bbox_pred):

@@ -39,8 +39,8 @@ def sigmoid_focal_loss(logits, labels, weight=None, gamma: float = 2.0,
     n_classes = logits.shape[-1]
     fg = (labels >= 0) & (labels < n_classes)
     one_hot = F.one_hot(torch.where(fg, labels, torch.zeros_like(labels))
-                        .long(), n_classes).to(logits.dtype)
-    one_hot = one_hot * fg[..., None].to(logits.dtype)
+                        .long(), n_classes).to(torch.float32)
+    one_hot = one_hot * fg[..., None].to(torch.float32)
     p = torch.sigmoid(logits)
     ce = _bce_with_logits(logits, one_hot)
     p_t = p * one_hot + (1 - p) * (1 - one_hot)

@@ -7,7 +7,10 @@ layer concatenates the trunk input back after its ReLU. Module names
 follow the reference state_dict (``mlp.base.hidden_layers.{i}``,
 ``mlp.sigma_layer.output_layer``, ...). Detection runs
 ``query_density``; rendering runs the full forward, whose rgb head is
-conditioned on the encoded view direction.
+conditioned on the encoded view direction. ``dtype`` is flax's compute
+dtype (``nn/compute.py``): at bfloat16 the field casts its inputs, as
+the JAX model does at each call, and every layer, encoding and
+activation runs in bfloat16.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .compute import linear
 
 
 def sinusoidal_encode(x, min_deg: int, max_deg: int,
@@ -28,7 +33,9 @@ def sinusoidal_encode(x, min_deg: int, max_deg: int,
                           dtype=x.dtype, device=x.device)
     xb = (x[..., None, :] * scales[:, None]).reshape(
         x.shape[:-1] + ((max_deg - min_deg) * x.shape[-1],))
-    latent = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
+    # pi / 2 in x's dtype, as JAX rounds its weak scalar (nn/compute.py)
+    half_pi = torch.tensor(0.5 * math.pi, dtype=x.dtype, device=x.device)
+    latent = torch.sin(torch.cat([xb, xb + half_pi], dim=-1))
     if use_identity:
         latent = torch.cat([x, latent], dim=-1)
     return latent
@@ -44,9 +51,10 @@ class MLP(nn.Module):
 
     def __init__(self, in_dim: int, output_dim: Optional[int] = None,
                  net_depth: int = 8, net_width: int = 256,
-                 skip_layer: Optional[int] = 4):
+                 skip_layer: Optional[int] = 4, dtype=torch.float32):
         super().__init__()
         self.skip_layer = skip_layer
+        self.dtype = dtype
         layers = []
         width = in_dim
         for i in range(net_depth):
@@ -62,12 +70,12 @@ class MLP(nn.Module):
     def forward(self, x):
         inputs = x
         for i, layer in enumerate(self.hidden_layers):
-            x = torch.relu(layer(x))
+            x = torch.relu(linear(layer, x, self.dtype))
             if (self.skip_layer is not None and i % self.skip_layer == 0
                     and i > 0):
                 x = torch.cat([x, inputs], dim=-1)
         if self.output_layer is not None:
-            x = self.output_layer(x)
+            x = linear(self.output_layer, x, self.dtype)
         return x
 
 
@@ -77,14 +85,16 @@ class NerfMLP(nn.Module):
     def __init__(self, in_dim: int, condition_dim: int, net_depth: int = 8,
                  net_width: int = 256, skip_layer: Optional[int] = 4,
                  net_depth_condition: int = 1,
-                 net_width_condition: int = 128):
+                 net_width_condition: int = 128, dtype=torch.float32):
         super().__init__()
-        self.base = MLP(in_dim, None, net_depth, net_width, skip_layer)
+        self.base = MLP(in_dim, None, net_depth, net_width, skip_layer,
+                        dtype)
         trunk = self.base.out_dim
-        self.sigma_layer = MLP(trunk, 1, 0)
-        self.bottleneck_layer = MLP(trunk, net_width, 0)
+        self.sigma_layer = MLP(trunk, 1, 0, dtype=dtype)
+        self.bottleneck_layer = MLP(trunk, net_width, 0, dtype=dtype)
         self.rgb_layer = MLP(net_width + condition_dim, 3,
-                             net_depth_condition, net_width_condition, None)
+                             net_depth_condition, net_width_condition, None,
+                             dtype)
 
     def query_density(self, x, features=None):
         if features is not None:
@@ -113,20 +123,25 @@ class VanillaNeRFRadianceField(nn.Module):
     def __init__(self, net_depth: int = 8, net_width: int = 256,
                  skip_layer: Optional[int] = 4, feature_dim: int = 0,
                  net_depth_condition: int = 1,
-                 net_width_condition: int = 128):
+                 net_width_condition: int = 128, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.mlp = NerfMLP(
             encoded_dim(3, 0, 10) + feature_dim, encoded_dim(3, 0, 4),
             net_depth, net_width, skip_layer, net_depth_condition,
-            net_width_condition)
+            net_width_condition, dtype)
 
     def query_density(self, x, features=None):
-        x = sinusoidal_encode(x, 0, 10)
+        x = sinusoidal_encode(x.to(self.dtype), 0, 10)
+        if features is not None:
+            features = features.to(self.dtype)
         return torch.relu(self.mlp.query_density(x, features))
 
     def forward(self, x, condition, features):
         """(sigmoid(rgb), relu(sigma)) at points ``x`` (..., 3) with
         view directions ``condition`` (R, 3) and ``features`` (..., F)."""
-        rgb, sigma = self.mlp(sinusoidal_encode(x, 0, 10),
-                              sinusoidal_encode(condition, 0, 4), features)
+        dt = self.dtype
+        rgb, sigma = self.mlp(sinusoidal_encode(x.to(dt), 0, 10),
+                              sinusoidal_encode(condition.to(dt), 0, 4),
+                              features.to(dt))
         return torch.sigmoid(rgb), torch.relu(sigma)

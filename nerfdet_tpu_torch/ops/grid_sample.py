@@ -4,12 +4,20 @@ Port of ``pack_bilinear`` and ``grid_sample_2d_packed`` of
 ``nerfdet_tpu/ops/grid_sample.py``. Coordinates are unnormalized pixel
 coordinates (``align_corners=True``). The plain version of K2
 (``ops/render.ray_view_carry_plain``) is built on these two functions.
+
+On a bfloat16 map the taps follow JAX's two forms: the feature taps
+(its native-dtype einsum) round the four weights to bfloat16, sum the
+exact products in float32 and round the sum to bfloat16 (XLA's CPU
+backend computes a bfloat16 dot in float32 and rounds once); the rgb
+taps (``f32_taps``) keep the weights in float32 and round only the sum.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .bf16 import bf16_round
 
 
 def pack_bilinear(image: torch.Tensor) -> torch.Tensor:
@@ -38,13 +46,16 @@ def _window(p: torch.Tensor, size: int):
 
 
 def grid_sample_2d_packed(packed: torch.Tensor, px: torch.Tensor,
-                          py: torch.Tensor) -> torch.Tensor:
+                          py: torch.Tensor,
+                          f32_taps: bool = False) -> torch.Tensor:
     """Bilinear sample of a :func:`pack_bilinear`-packed (H, W, 4C) map
-    at float pixel coordinates (...,) -> (..., C), float32 taps.
+    at float pixel coordinates (...,) -> (..., C), as float32.
 
     Equals zero-padded ``grid_sample`` with ``align_corners=True``. The
     four taps are summed in the fixed order ((t00 + t01) + t10) + t11,
-    each product and sum rounded on its own, as K2 does."""
+    each product and sum rounded on its own, as K2 does. A bfloat16 map
+    rounds the weights to bfloat16 unless ``f32_taps``, and the sum to
+    bfloat16 either way (see the module docstring)."""
     h, w, c4 = packed.shape
     c = c4 // 4
     sx, wx0, wx1 = _window(px, w)
@@ -53,7 +64,10 @@ def grid_sample_2d_packed(packed: torch.Tensor, px: torch.Tensor,
     rows = packed.reshape(h * w, c4).index_select(0, lin).reshape(
         px.shape + (4, c)).float()
     wgt = (wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1)
+    bf16 = packed.dtype == torch.bfloat16
+    if bf16 and not f32_taps:
+        wgt = tuple(bf16_round(wk) for wk in wgt)
     out = rows[..., 0, :] * wgt[0][..., None]
     for k in (1, 2, 3):
         out = out + rows[..., k, :] * wgt[k][..., None]
-    return out
+    return bf16_round(out) if bf16 else out

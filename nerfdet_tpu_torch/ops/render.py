@@ -20,6 +20,16 @@ separately rounded operations, every scalar is a float32 value, and the
 bilinear taps add in a fixed order (``ops/grid_sample.py``). The plain
 version and K2 follow the same order, so the view masks (a hard
 threshold on the projected pixel) agree between them bit for bit.
+
+bfloat16 (the JAX ``--bf16`` path): the feature maps and images may be
+bfloat16 (both, in the eval form). The taps round as JAX's (see
+``ops/grid_sample.py``: bfloat16 weights for the features, float32 ones
+for the rgb, each tap sum rounded to bfloat16); the sums stay float32.
+The backward then rounds as XLA's CPU backend runs JAX's transpose
+(``ops/bf16.py``): each (point, view)'s float32 cotangent df to
+bfloat16, each tap's ``df * w`` to bfloat16, the window sums in point
+order and the four windows of a texel in the order tap 2, 3, 1, 0, each
+add rounded to bfloat16.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .bf16 import bf16_round, scatter_add_bf16
 from .grid_sample import _window, grid_sample_2d_packed, pack_bilinear
 from .voxel import _SMEM_OPTIN, _host, _ptrs, _stream
 
@@ -116,10 +127,11 @@ def ray_view_carry_plain(pts, images, featmaps, proj, img_hw):
 
     Args:
         pts: (R, S, 3) float32 sample points.
-        images: (V, IH, IW, 3) float32 denormalized views (padded), or
-            None for the feature channels alone (the training form, whose
-            rgb sums come from the host).
-        featmaps: (V, FH, FW, C) float32 mapped feature maps (cropped).
+        images: (V, IH, IW, 3) float32 or bfloat16 denormalized views
+            (padded), or None for the feature channels alone (the
+            training form, whose rgb sums come from the host).
+        featmaps: (V, FH, FW, C) float32 or bfloat16 mapped feature maps
+            (cropped).
         proj: (V, 4, 4) float32 ``K4 @ pose`` (``view_projection``).
         img_hw: (h, w) the projection's image size.
 
@@ -147,7 +159,7 @@ def ray_view_carry_plain(pts, images, featmaps, proj, img_hw):
             ih, iw = images.shape[1:3]
             f = torch.cat([grid_sample_2d_packed(
                 pack_bilinear(images[i]), px * _scale(iw, w),
-                py * _scale(ih, h)), f], dim=-1)
+                py * _scale(ih, h), f32_taps=True), f], dim=-1)
         s1u = s1u + f
         s2u = s2u + f * f
         s1m = s1m + f * m
@@ -215,8 +227,9 @@ def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps,
     training form takes ``precomputed_rgb``, the host rgb sums and count
     (``data/ray_stats.host_ray_rgb_stats``), samples only the feature
     maps and takes the count from the host (``images`` is then unused).
-    Differentiable in ``featmaps`` (float32 only), in both forms; the
-    points, images, projections and host sums take no gradient.
+    Differentiable in ``featmaps`` (float32 or bfloat16, the gradient in
+    their dtype), in both forms; the points, images, projections and host
+    sums take no gradient.
 
     A CPU tensor takes the plain version forward and
     ``streaming_sample_mean_var_backward_plain`` backward. A CUDA tensor
@@ -224,14 +237,12 @@ def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps,
     (``streaming_sample_mean_var_backward``), or raises where a kernel
     does not take the input.
     """
+    if featmaps.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K2 takes float32 or bfloat16 maps, got "
+                        f"{featmaps.dtype}")
     if not (torch.is_grad_enabled() and featmaps.requires_grad):
         return _k2_forward(pts, images, proj, img_hw, featmaps,
                            precomputed_rgb, False)[:2]
-    if featmaps.dtype != torch.float32:
-        raise TypeError(
-            f"K2's backward takes float32 maps, got {featmaps.dtype}; a "
-            f"bfloat16 training path is the compute_dtype item of ROADMAP "
-            f"§1 (the NeRF-Det config surface)")
     host = tuple(precomputed_rgb) if precomputed_rgb is not None else ()
     return _StreamingSampleMeanVar.apply(pts, images, proj, img_hw,
                                          featmaps, *host)
@@ -315,8 +326,13 @@ def streaming_sample_mean_var_backward_plain(pts, proj, img_hw, featmaps, g,
     and m the view's mask, ``df = d s1u + 2 f d s2u + m d s1m``, and
     ``df * w_k`` goes to each tap k of the point's window
     (``index_add_``, in point order), a tap past the right or bottom edge
-    dropped (the transpose of ``pack_bilinear``'s zero pad).
+    dropped (the transpose of ``pack_bilinear``'s zero pad). On bfloat16
+    maps the result is bfloat16, rounded as the module docstring says
+    (``_backward_plain_bf16``).
     """
+    if featmaps.dtype == torch.bfloat16:
+        return _backward_plain_bf16(pts, proj, img_hw, featmaps, g,
+                                    globalfeat, s1u, cnt)
     v, fh, fw, c = featmaps.shape
     h, w = img_hw
     xyz = pts.reshape(-1, 3)
@@ -338,6 +354,45 @@ def streaming_sample_mean_var_backward_plain(pts, proj, img_hw, featmaps, g,
             lin = ((y0 + dy) * fw + x0 + dx)[keep]
             out[i].index_add_(0, lin, (df * wk[:, None])[keep])
     return out.reshape(v, fh, fw, c)
+
+
+def _backward_plain_bf16(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
+                         cnt):
+    """``streaming_sample_mean_var_backward_plain`` on bfloat16 maps: per
+    (point, view) df in float32 as there, rounded to bfloat16; each tap's
+    ``df * w_k`` (w_k the forward's bfloat16 weight) rounded and added
+    to its window in point order (``scatter_add_bf16``; a pair whose four
+    weights are 0 adds zeros and is left out); then each texel the sum
+    of its four windows' taps in the order 2, 3, 1, 0 (the transpose of
+    ``pack_bilinear``), each add rounded."""
+    v, fh, fw, c = featmaps.shape
+    xyz = pts.reshape(-1, 3)
+    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    fsx, fsy = _scale(fw, img_hw[1]), _scale(fh, img_hw[0])
+    out = torch.zeros((v, fh, fw, c), dtype=torch.float32,
+                      device=featmaps.device)
+    for i in range(v):
+        px, py, m = _view_pixels(xyz, proj[i:i + 1], img_hw)
+        px, py = px * fsx, py * fsy
+        f = grid_sample_2d_packed(pack_bilinear(featmaps[i]), px, py)
+        df = bf16_round((d_s1u + (2.0 * f) * d_s2u) + m * d_s1m)
+        sx, wx0, wx1 = _window(px, fw)
+        sy, wy0, wy1 = _window(py, fh)
+        wgt = [bf16_round(wk) for wk in (wy0 * wx0, wy0 * wx1, wy1 * wx0,
+                                         wy1 * wx1)]
+        kept = (wgt[0] != 0) | (wgt[1] != 0) | (wgt[2] != 0) | (wgt[3] != 0)
+        rows = torch.cat([df * wk[:, None] for wk in wgt], dim=-1)[kept]
+        lin = (sy.long() * fw + sx.long())[kept]
+        win = scatter_add_bf16(fh * fw, lin, rows).reshape(fh, fw, 4, c)
+        pad = torch.zeros((fh + 1, fw + 1, 4, c), dtype=torch.float32,
+                          device=featmaps.device)
+        pad[1:, 1:] = win
+        taps = (pad[1:, 1:, 0], pad[1:, :-1, 1], pad[:-1, 1:, 2],
+                pad[:-1, :-1, 3])
+        acc = bf16_round(taps[2] + taps[3])
+        acc = bf16_round(acc + taps[1])
+        out[i] = bf16_round(acc + taps[0])
+    return out.to(torch.bfloat16)
 
 
 def streaming_sample_mean_var_backward(pts, proj, img_hw, featmaps, g,
@@ -369,12 +424,18 @@ def _check_k2(pts, images, proj, featmaps, host):
     form, where ``host`` holds the four host sums)."""
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}")
+    if featmaps.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K2 takes float32 or bfloat16 maps, got "
+                        f"{featmaps.dtype}")
+    if images is not None and images.dtype != featmaps.dtype:
+        raise TypeError(f"K2 takes images of the maps' dtype "
+                        f"{featmaps.dtype}, got {images.dtype}")
     named = [("pts", pts), ("featmaps", featmaps), ("proj", proj)]
     named += [("images", images)] if images is not None else []
     named += list(zip(("s1u", "s2u", "s1m", "cnt"), host or ()))
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"K2 takes float32 only; {name} is {t.dtype}")
+        if t.dtype != torch.float32 and name not in ("featmaps", "images"):
+            raise TypeError(f"K2 takes float32 {name}, got {t.dtype}")
         if t.device != pts.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {pts.device}")
     r, s, _ = pts.shape
@@ -433,7 +494,7 @@ def _k2_launch(pts, images, proj, img_hw, featmaps, precomputed_rgb=None,
             gf.data_ptr(),
             mask.data_ptr(), ptr(s1u),
             ptr(cnt if host is None else None), n, v, ih, iw, fh, fw, c,
-            h, w, sx, sy, _scale(fw, w), _scale(fh, h),
+            h, w, sx, sy, _scale(fw, w), _scale(fh, h), _bf16(featmaps),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var kernel launch "
@@ -446,7 +507,7 @@ def _lib():
     fn = lib.streaming_sample_mean_var
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 12 + [i] * 9 + [f] * 4 + [p]
+        fn.argtypes = [p] * 12 + [i] * 9 + [f] * 4 + [i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -458,10 +519,8 @@ def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     (``_window_order_launch``, a counting sort by hand) lists each
     window's kept pairs in point order; pass 1 (``_window_sums``) sums
     each window's pairs, pass 2 (``_unpack``) unpacks the windows into
-    texels. The launch is not counted."""
-    if featmaps.dtype != torch.float32:
-        raise TypeError(f"K2's backward takes float32 maps, got "
-                        f"{featmaps.dtype}")
+    texels. On bfloat16 maps every pass rounds as
+    ``_backward_plain_bf16`` does. The launch is not counted."""
     _check_k2(pts, None, proj, featmaps, None)
     r, s, _ = pts.shape
     v, fh, fw, c = featmaps.shape
@@ -490,7 +549,9 @@ def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
 
 def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     """K2's backward pass 0 on checked, contiguous inputs: the pairs'
-    keys (V, N) int32 and the points' cotangents coef (N, 3, C)."""
+    keys (V, N) int32 and the points' cotangents coef (N, 3, C): rows (d
+    s1u + d s1m, d s1u, d s2u) on float32 maps, (d s1m, d s1u, d s2u) on
+    bfloat16 ones, whose df adds its terms in JAX's order."""
     r, s, _ = pts.shape
     v, fh, fw, c = featmaps.shape
     n, dev = r * s, pts.device
@@ -500,7 +561,7 @@ def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
         err = _backward_lib().streaming_sample_mean_var_backward_keys(
             *_ptrs(pts, proj, g, globalfeat, s1u, cnt, keys, coef), n, v,
             fh, fw, c, *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
-            _stream(dev))
+            _bf16(featmaps), _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 0 "
                            f"launch failed: cudaError {err}")
@@ -531,9 +592,10 @@ def _window_order_launch(keys, hw: int):
 
 
 def _window_sums(pts, proj, img_hw, featmaps, coef, order, off):
-    """K2's backward pass 1: packed (V FH FW, 4, C), each window's four
-    taps' sums over its pairs in point order; a window that holds no pair
-    is left unwritten."""
+    """K2's backward pass 1: packed (V FH FW, 4, C) float32, each window's
+    four taps' sums over its pairs in point order (bfloat16 values, each
+    add rounded, on bfloat16 maps); a window that holds no pair is left
+    unwritten."""
     v, fh, fw, c = featmaps.shape
     n, dev = coef.shape[0], pts.device
     packed = torch.empty((v * fh * fw, 4, c), dtype=torch.float32,
@@ -542,7 +604,7 @@ def _window_sums(pts, proj, img_hw, featmaps, coef, order, off):
         err = _backward_lib().streaming_sample_mean_var_backward_windows(
             *_ptrs(pts, proj, featmaps, coef, order, off, packed), n, v, fh,
             fw, c, *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
-            _stream(dev))
+            _bf16(featmaps), _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 1 "
                            f"launch failed: cudaError {err}")
@@ -550,17 +612,23 @@ def _window_sums(pts, proj, img_hw, featmaps, coef, order, off):
 
 
 def _unpack(packed, off, featmaps):
-    """K2's backward pass 2: d featmaps from the packed windows."""
+    """K2's backward pass 2: d featmaps, in the maps' dtype, from the
+    packed windows."""
     v, fh, fw, c = featmaps.shape
     dev = featmaps.device
     d_feats = torch.empty_like(featmaps)
     with torch.cuda.device(dev):  # the launch acts on the current device
         err = _backward_lib().streaming_sample_mean_var_backward_unpack(
-            *_ptrs(packed, off, d_feats), v, fh, fw, c, _stream(dev))
+            *_ptrs(packed, off, d_feats), v, fh, fw, c, _bf16(featmaps),
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 2 "
                            f"launch failed: cudaError {err}")
     return d_feats
+
+
+def _bf16(featmaps) -> int:
+    return int(featmaps.dtype == torch.bfloat16)
 
 
 def window_order_plain(keys, n_windows: int):
@@ -594,7 +662,7 @@ def _backward_lib():
     keys = lib.streaming_sample_mean_var_backward_keys
     if keys.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        keys.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [p]
+        keys.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [i, p]
         keys.restype = ctypes.c_int
         lib.streaming_sample_mean_var_backward_tile.argtypes = []
         lib.streaming_sample_mean_var_backward_tile.restype = ctypes.c_int
@@ -602,10 +670,10 @@ def _backward_lib():
         order.argtypes = [p] * 5 + [i] * 3 + [p]
         order.restype = ctypes.c_int
         windows = lib.streaming_sample_mean_var_backward_windows
-        windows.argtypes = [p] * 7 + [i] * 7 + [f] * 2 + [p]
+        windows.argtypes = [p] * 7 + [i] * 7 + [f] * 2 + [i, p]
         windows.restype = ctypes.c_int
         unpack = lib.streaming_sample_mean_var_backward_unpack
-        unpack.argtypes = [p] * 3 + [i] * 4 + [p]
+        unpack.argtypes = [p] * 3 + [i] * 5 + [p]
         unpack.restype = ctypes.c_int
     return lib
 

@@ -21,6 +21,13 @@ own projection: the hand-written kernel ``rgb_carry`` (a third entry
 point of ``csrc/fused_mean_cov.cu``), launched apart from K1 and taking
 no gradient.
 
+bfloat16 (the JAX ``--bf16`` path): the maps, and the rgb stream's
+images, may be bfloat16; the rows are widened to float32 exactly and the
+sums stay float32, as JAX gathers them. The backward then rounds as
+XLA's CPU backend runs JAX's transpose of the scan (``ops/bf16.py``):
+each (voxel, view)'s float32 cotangent of its row to bfloat16, added to
+its pixel in voxel order with each sum rounded. dW and db stay float32.
+
 Exactness: geometry is float32 with explicitly ordered multiply-adds
 (no TF32, no library-chosen order) and ``torch.round`` (half to even,
 as ``jnp.round``): voxel centers often project to exact half-pixel
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .bf16 import scatter_add_bf16
 from .resize import resize_axes
 
 
@@ -204,14 +212,12 @@ def fusion_carry(features, pix, mapped_kernel=None, mapped_bias=None):
     kernel (phase A, the mapped rows, where the mapped stream is given;
     then phase B, the carry) and, for the gradient, K1's backward kernel
     (``fusion_carry_backward``), or raises where a kernel does not take
-    the input. Maps that need a gradient must be float32.
+    the input. The maps are float32 or bfloat16, the gradient in their
+    dtype.
     """
-    if (torch.is_grad_enabled() and features.requires_grad
-            and features.dtype != torch.float32):
-        raise TypeError(
-            f"K1's backward takes float32 maps, got {features.dtype}; a "
-            f"bfloat16 training path is the compute_dtype item of ROADMAP "
-            f"§1 (the NeRF-Det config surface)")
+    if features.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K1 takes float32 or bfloat16 maps, got "
+                        f"{features.dtype}")
     return _FusionCarry.apply(features, pix, mapped_kernel, mapped_bias)
 
 
@@ -270,13 +276,16 @@ def fusion_carry_backward_plain(features, pix, count, g1=None, g2=None,
         db = sum_(v, p) dY + 2 b sum_n (V - count[n]) gm[n]
 
     (an unseen view's mapped value is b). A None g1/g2/gm contributes
-    nothing; dW and db are None without the mapped stream or gm.
+    nothing; dW and db are None without the mapped stream or gm. On
+    bfloat16 maps d features is bfloat16 and sums its pairs one by one
+    (``_pair_cotangents_bf16``); dW and db are as above.
     """
     v, h, w, c = features.shape
     x = features.float().reshape(v, h * w, c)
+    per_pixel = features.dtype != torch.bfloat16
     d = torch.zeros_like(x)
     with_m = mapped_kernel is not None and gm is not None
-    d_w = d_b = None
+    d_w = d_b = y = None
     if with_m:
         wm = mapped_kernel.float()
         y = mapped if mapped is not None else mapped_rows_plain(
@@ -287,21 +296,53 @@ def fusion_carry_backward_plain(features, pix, count, g1=None, g2=None,
     for i in range(v):
         n = torch.nonzero(pix[i] >= 0)[:, 0]
         p = pix[i, n].long()
-        if g1 is not None:
+        if g1 is not None and per_pixel:
             d[i].index_add_(0, p, g1[n].float())
-        if g2 is not None:
+        if g2 is not None and per_pixel:
             g2_sum = torch.zeros_like(x[i]).index_add_(0, p, g2[n].float())
             d[i] += 2.0 * x[i] * g2_sum
         if with_m:
             gm_sum = torch.zeros_like(y[i]).index_add_(0, p, gm[n].float())
             dy = 2.0 * y[i] * gm_sum
-            d[i] += dy @ wm.t()
+            if per_pixel:
+                d[i] += dy @ wm.t()
             d_w += x[i].t() @ dy
             d_b += dy.sum(0)
     if with_m:
         d_b += 2.0 * mapped_bias.float() * ((v - count)[:, None]
                                             * gm.float()).sum(0)
+    if not per_pixel:
+        d = _pair_cotangents_bf16(x, pix, g1, g2, gm if with_m else None,
+                                  mapped_kernel, y).to(torch.bfloat16)
     return d.reshape(v, h, w, c), d_w, d_b
+
+
+def _pair_cotangents_bf16(x, pix, g1, g2, gm, mapped_kernel, y):
+    """d features (V, H*W, C) float32 holding bfloat16 values: per view,
+    each (voxel n, pixel p) pair's float32 cotangent of its row, in the
+    order JAX's transpose adds its terms,
+
+        ((2 x[p] g2[n]) + g1[n]) + (2 y[p] gm[n]) @ W^T,
+
+    rounded to bfloat16 and added to pixel p in ascending voxel order,
+    each sum rounded (``scatter_add_bf16``). ``x`` (V, H*W, C) and ``y``
+    (V, H*W, M) are the rows and their mapped values, float32."""
+    v, hw, c = x.shape
+    d = torch.zeros_like(x)
+    for i in range(v):
+        n = torch.nonzero(pix[i] >= 0)[:, 0]
+        p = pix[i, n].long()
+        pair = torch.zeros((n.shape[0], c), dtype=torch.float32,
+                           device=x.device)
+        if g1 is not None:
+            pair = g1[n].float()
+        if g2 is not None:
+            pair = (2.0 * x[i, p]) * g2[n].float() + pair
+        if gm is not None:
+            pair = pair + ((2.0 * y[i, p]) * gm[n].float()
+                           ) @ mapped_kernel.float().t()
+        d[i] = scatter_add_bf16(hw, p, pair)
+    return d
 
 
 def fusion_carry_backward(features, pix, count, g1=None, g2=None, gm=None,
@@ -482,7 +523,8 @@ def _carry_launch(features, pix, mapped, mapped_bias):
 
 def rgb_carry_plain(images, pix):
     """Plain PyTorch version of the in-scan rgb stream (same signature and
-    results as ``rgb_carry``): ``images`` (V, H, W, 3) float32 gathered
+    results as ``rgb_carry``): ``images`` (V, H, W, 3) float32 or
+    bfloat16 gathered
     at ``pix`` (V, N) int32 (-1 where the view does not see the voxel, or
     the depth gate drops it); returns (s1e, s2e), (N, 3) float32 sums and
     squared sums accumulated over views in view order."""
@@ -500,6 +542,9 @@ def rgb_carry(images, pix):
     if images.requires_grad:
         raise ValueError("the rgb stream takes no gradient: pass images "
                          "that do not require one")
+    if images.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the rgb stream takes float32 or bfloat16 "
+                        f"images, got {images.dtype}")
     if images.device.type == "cpu":
         return rgb_carry_plain(images, pix)
     out = _rgb_launch(images, pix)
@@ -514,11 +559,10 @@ def _rgb_launch(images, pix):
     """Check and launch the rgb stream's kernel; returns (s1e, s2e). The
     launch is not counted."""
     dev = images.device
-    if (images.device.type != "cuda" or images.dtype != torch.float32
-            or images.dim() != 4 or images.shape[3] != 3
-            or not images.is_contiguous()):
+    if (images.device.type != "cuda" or images.dim() != 4
+            or images.shape[3] != 3 or not images.is_contiguous()):
         raise ValueError("the rgb stream takes contiguous (V, H, W, 3) "
-                         "float32 images on the card")
+                         "images on the card")
     v, h, w, _ = images.shape
     n = pix.shape[1] if pix.dim() == 2 else -1
     if (pix.dtype != torch.int32 or pix.shape != (v, n)
@@ -528,8 +572,9 @@ def _rgb_launch(images, pix):
     s1 = torch.empty((n, 3), dtype=torch.float32, device=dev)
     s2 = torch.empty_like(s1)
     with torch.cuda.device(dev):  # the launch acts on the current device
-        err = _lib().fused_mean_cov_rgb(*_ptrs(images, pix, s1, s2), v,
-                                        h * w, n, _stream(dev))
+        err = _lib().fused_mean_cov_rgb(
+            images.data_ptr(), int(images.dtype == torch.bfloat16),
+            *_ptrs(pix, s1, s2), v, h * w, n, _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_mean_cov rgb stream launch failed: "
                            f"cudaError {err}")
@@ -548,11 +593,9 @@ def _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
     """Check and launch K1's backward; returns (d features, dW or None,
     db or None): the index preparation (``pixel_order``), pass 1
     (``_pixel_sums``), and with the mapped stream passes 2 and 3
-    (``_weight_parts``, ``_weight_reduce``). The launch is not counted."""
+    (``_weight_parts``, ``_weight_reduce``). On bfloat16 maps pass 1
+    rounds as ``_pair_cotangents_bf16`` does. The launch is not counted."""
     _check_maps(features)
-    if features.dtype != torch.float32:
-        raise TypeError(f"K1's backward takes float32 maps, got "
-                        f"{features.dtype}")
     v, h, w, c = features.shape
     n = pix.shape[1] if pix.dim() == 2 else -1
     dev = features.device
@@ -596,7 +639,7 @@ def _pixel_sums(features, order, off, g1, g2, gm=None, mapped=None, w=None):
     with torch.cuda.device(dev):  # the attribute and launch act on it
         err = _backward_lib().fused_mean_cov_backward_pixels(
             *_ptrs(features, order, off, g1, g2, gm, mapped, w, d_feats, dy),
-            v, h * wd, c, n, m, _stream(dev))
+            v, h * wd, c, n, m, _bf16(features), _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_mean_cov backward pass 1 launch failed: "
                            f"cudaError {err}")
@@ -618,7 +661,7 @@ def _weight_parts(features, dy, rows, n_rows, gm, count):
     with torch.cuda.device(dev):  # the attribute and launch act on it
         err = lib.fused_mean_cov_backward_weights(
             *_ptrs(features, dy, rows, n_rows, gm, count, part_w, part_b,
-                   part_i), v, h * w, c, n, m, _stream(dev))
+                   part_i), v, h * w, c, n, m, _bf16(features), _stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_mean_cov backward pass 2 launch failed: "
                            f"cudaError {err}")
@@ -641,12 +684,16 @@ def _weight_reduce(part_w, part_b, part_i, mapped_bias):
     return d_w, d_b
 
 
+def _bf16(features) -> int:
+    return int(features.dtype == torch.bfloat16)
+
+
 def _backward_lib():
     lib = cuda_build.load("fused_mean_cov_backward")
     fn = lib.fused_mean_cov_backward_pixels
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 5 + [p]
+        fn.argtypes = [p] * 10 + [i] * 6 + [p]
         fn.restype = ctypes.c_int
         for name in ("parts", "tile"):
             f = getattr(lib, f"fused_mean_cov_backward_{name}")
@@ -655,7 +702,7 @@ def _backward_lib():
         lib.fused_mean_cov_backward_order.argtypes = [p] * 7 + [i] * 3 + [p]
         lib.fused_mean_cov_backward_order.restype = ctypes.c_int
         lib.fused_mean_cov_backward_weights.argtypes = (
-            [p] * 9 + [i] * 5 + [p])
+            [p] * 9 + [i] * 6 + [p])
         lib.fused_mean_cov_backward_weights.restype = ctypes.c_int
         lib.fused_mean_cov_backward_reduce.argtypes = [p] * 6 + [i] * 2 + [p]
         lib.fused_mean_cov_backward_reduce.restype = ctypes.c_int
@@ -672,7 +719,7 @@ def _lib():
         lib.fused_mean_cov_mapped_rows.argtypes = [
             p, i, p, p, p, i, i, i, ctypes.c_longlong, p]
         lib.fused_mean_cov_mapped_rows.restype = ctypes.c_int
-        lib.fused_mean_cov_rgb.argtypes = [p] * 4 + [i] * 3 + [p]
+        lib.fused_mean_cov_rgb.argtypes = [p, i] + [p] * 3 + [i] * 3 + [p]
         lib.fused_mean_cov_rgb.restype = ctypes.c_int
     return lib
 
@@ -726,7 +773,8 @@ def fused_mean_cov(features, points, projection,
 
     Returns (mean, cov, count), or (mean, cov, count, g_mean, g_cov)
     with the mapped stream, g_* channels ordered [rgb, mapped]. The
-    outputs are differentiable in ``features`` (float32), the mapped
+    outputs are differentiable in ``features`` (float32 or bfloat16;
+    ``extra_features`` may be bfloat16 too), the mapped
     kernel and bias: the carry through K1's backward, ``s1m`` and the
     statistics through torch autograd.
     """
@@ -754,7 +802,7 @@ def fused_mean_cov(features, points, projection,
         if depth is not None:
             valide = depth_gate(ze, xe, ye, valide, depth, he, we,
                                 voxel_size_z)
-        rgb = rgb_carry(extra_features.float().contiguous(),
+        rgb = rgb_carry(extra_features.contiguous(),
                         pixel_index(xe, ye, valide, few))
     elif precomputed_extra is not None:
         rgb = (precomputed_extra[0].float(), precomputed_extra[1].float())

@@ -18,14 +18,16 @@ and validation through ``api.run_eval`` after it unless
 ``model.depth_supervise`` or ``input_modality.use_depth`` asks for them
 (the child configs set only these; the base's data dicts keep
 ``use_depth=False``, as in the JAX tool). ``--profile-steps N`` writes a ``torch.profiler``
-trace of N steps from step 10 to ``W/trace/trace.json``. It runs on
-the card unless ``--device cpu`` is given, and raises where there is no
-card.
+trace of N steps from step 10 to ``W/trace/trace.json``. ``--bf16``
+(or a config's ``bf16``, or any ``fp16``) computes in bfloat16, as the
+JAX tool's: the model at ``compute_dtype=bfloat16`` and the host rgb
+sums and ray stream rounded as its specs say; the parameters, the
+optimizer state and the checkpoints stay float32. It runs on the card
+unless ``--device cpu`` is given, and raises where there is no card.
 
 Not ported, refused with the ROADMAP item that brings them: multi-card
 training (``--distributed``), the 2-D data x views sharding
-(``--mesh-views``), bfloat16 compute (``--bf16``, a config's ``bf16`` or
-``fp16``), and the point-cloud and ImVoxelNet models.
+(``--mesh-views``), and the point-cloud and ImVoxelNet models.
 
 ``main(argv)`` returns what the run did (work dir, checkpoints, every
 step's metrics with its seconds waiting on the loader and in the step,
@@ -38,6 +40,8 @@ import argparse
 import os
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 from .. import api
 from ..config import Config
@@ -74,7 +78,9 @@ def parse_args(argv=None):
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--distributed", action="store_true",
                    help="not ported yet")
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (parameters and optimizer stay "
+                        "float32)")
     p.add_argument("--mesh-views", type=int, default=1,
                    help="not ported yet beyond 1")
     p.add_argument("--options", nargs="+", default=[],
@@ -89,10 +95,6 @@ def refuse_unported(args, cfg) -> None:
             "multi-card training (--distributed: DDP over NCCL) and the 2-D "
             "data x views sharding (--mesh-views) are not ported yet: "
             "ROADMAP §1 item 1")
-    if args.bf16 or cfg.get("bf16") or cfg.get("fp16") is not None:
-        raise NotImplementedError(
-            "bfloat16 compute (--bf16, bf16 / fp16 in the config) is not "
-            "ported yet: the compute_dtype item of ROADMAP §1 item 2")
     if cfg.model["type"] != "nerfdet":
         raise NotImplementedError(
             f"training {cfg.model['type']} (the point-cloud and ImVoxelNet "
@@ -100,8 +102,6 @@ def refuse_unported(args, cfg) -> None:
 
 
 def _profiler(device) -> "object":
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -128,8 +128,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     # ---- data ---------------------------------------------------------
     use_depth = cfg.model.get("depth_supervise", False) or cfg.get(
         "input_modality", {}).get("use_depth", False)
-    stats_spec = rgb_stats_spec_from_config(cfg, use_depth=use_depth)
-    ray_spec = ray_stats_spec_from_config(cfg)
+    # a config's fp16 = dict(loss_scale=...) maps to bfloat16 compute
+    use_bf16 = bool(args.bf16 or cfg.get("bf16")
+                    or cfg.get("fp16") is not None)
+    stats_spec = rgb_stats_spec_from_config(cfg, use_depth=use_depth,
+                                            bf16=use_bf16)
+    ray_spec = ray_stats_spec_from_config(cfg, bf16=use_bf16)
     dataset = build_dataset(cfg.data["train"], use_depth=use_depth,
                             n_rand=cfg.model.get("N_rand", 2048),
                             rgb_stats_spec=stats_spec,
@@ -145,12 +149,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     logger.info(
         f"{len(dataset)} samples, batch {batch_size}, {loader.num_workers} "
         f"loader threads, {steps_per_epoch} steps/epoch, {total_epochs} "
-        f"epochs, device {device}")
+        f"epochs, device {device}, "
+        f"{'bfloat16' if use_bf16 else 'float32'} compute")
 
     # ---- model & optimizer -------------------------------------------
     load_from = args.load_from or cfg.get("load_from")
-    tr = api.init_trainer(cfg, checkpoint=load_from, device=device,
-                          seed=args.seed, steps_per_epoch=steps_per_epoch)
+    tr = api.init_trainer(
+        cfg, checkpoint=load_from, device=device, seed=args.seed,
+        steps_per_epoch=steps_per_epoch,
+        compute_dtype=torch.bfloat16 if use_bf16 else torch.float32)
     if load_from:
         logger.info(f"loaded weights from {load_from}")
     start_epoch = 0

@@ -355,9 +355,14 @@ def test_repeat_dataset_len_and_refusals(written):
     # holds their scenes to JAX's)
     depth = tdataset.build_dataset(cfg, use_depth=True)
     assert len(depth) == 6 and depth.pipeline.use_depth
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        tdataset.rgb_stats_spec_from_config(JaxConfig.fromfile(FLAGSHIP),
-                                            bf16=True)
+    # the bfloat16 specs (the --bf16 path) are the JAX package's
+    flag = JaxConfig.fromfile(FLAGSHIP)
+    assert tdataset.rgb_stats_spec_from_config(flag, bf16=True) == \
+        jdataset.rgb_stats_spec_from_config(flag, bf16=True)
+    assert tdataset.ray_stats_spec_from_config(flag, bf16=True) == \
+        jdataset.ray_stats_spec_from_config(flag, bf16=True)
+    assert tdataset.ray_stats_spec_from_config(flag, bf16=True)[2] == \
+        "bfloat16"
 
 
 # ---------------------------------------------------------------------

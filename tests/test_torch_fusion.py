@@ -307,8 +307,8 @@ def test_backward_plain_equals_autograd_through_plain(mapped, with_g2):
 def test_fusion_carry_function_wiring():
     """The autograd Function on the CPU: count takes no gradient, a
     missing mapped stream gives no gradient to W and b, the backward
-    counter does not move (the plain version runs), and float32 is the
-    only dtype that may need a gradient."""
+    counter does not move (the plain version runs), bfloat16 maps take a
+    bfloat16 gradient, and float16 maps are refused."""
     feats, _, _, w_map, b_map, _, pix = _shared_pixel_scene(8)
     f = torch.tensor(feats, requires_grad=True)
     before = tvox.fusion_carry_backward.launches
@@ -319,8 +319,12 @@ def test_fusion_carry_function_wiring():
         f.detach(), pix, count, torch.ones_like(s1))[0]
     assert torch.equal(f.grad, want)
     assert tvox.fusion_carry_backward.launches == before
-    with pytest.raises(TypeError, match="compute_dtype"):
-        tvox.fusion_carry(f.detach().bfloat16().requires_grad_(), pix)
+    fb = f.detach().bfloat16().requires_grad_()
+    tvox.fusion_carry(fb, pix)[0].sum().backward()
+    assert fb.grad.dtype == torch.bfloat16
+    assert tvox.fusion_carry_backward.launches == before
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tvox.fusion_carry(f.detach().half().requires_grad_(), pix)
     with torch.no_grad():
         out = tvox.fusion_carry(f.bfloat16(), pix, torch.from_numpy(w_map),
                                 torch.from_numpy(b_map))

@@ -318,13 +318,80 @@ def test_fusion_carry_gradient_is_the_kernels(dev, mapped):
     assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
 
 
-def test_fusion_carry_refuses_bfloat16_maps_under_grad(dev):
+def test_fusion_carry_refuses_float16_maps(dev):
+    """float32 and bfloat16 maps take K1 and its backward; any other
+    dtype is refused, with or without a gradient."""
     pix = _pix(dev, v=2)
-    feats = torch.randn((2, 60, 80, 64), device=dev).bfloat16()
-    with pytest.raises(TypeError, match="compute_dtype"):
+    feats = torch.randn((2, 60, 80, 64), device=dev).half()
+    with pytest.raises(TypeError, match="bfloat16"):
         voxel.fusion_carry(feats.requires_grad_(), pix)
-    with torch.no_grad():
-        assert voxel.fusion_carry(feats, pix)[0].dtype == torch.float32
+    with torch.no_grad(), pytest.raises(TypeError, match="bfloat16"):
+        voxel.fusion_carry(feats, pix)
+
+
+def test_fusion_carry_takes_bfloat16_maps_under_grad(dev):
+    """bfloat16 maps that need a gradient take K1's forward and, through
+    autograd, its backward kernel (one counted launch each), and the
+    gradient is bfloat16."""
+    feats, pix, _, g1, _, gm, w, b = _backward_case(dev, "scene", 256, True,
+                                                    False, seed=1)
+    f = feats.bfloat16().requires_grad_()
+    before = (voxel.fusion_carry.launches,
+              voxel.fusion_carry_backward.launches)
+    s1, _, _, s2m = voxel.fusion_carry(f, pix, w, b)
+    ((s1 * g1).sum() + (s2m * gm).sum()).backward()
+    torch.cuda.synchronize()
+    assert (voxel.fusion_carry.launches,
+            voxel.fusion_carry_backward.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert f.grad.dtype == torch.bfloat16 and float(f.grad.abs().max()) > 0
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in bfloat16 ulps of the largest |want| (2^-7 of the
+    power of two at or below it)."""
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 1.0
+    return float((got.float() - want.float()).abs().max()) / ulp
+
+
+@pytest.mark.parametrize("case", ["scene", "blind view",
+                                  "64 voxels on one pixel", "single view"])
+@pytest.mark.parametrize("with_g2", [False, True])
+@pytest.mark.parametrize("mapped", [False, True])
+@pytest.mark.parametrize("c", [32, 256])
+def test_fusion_backward_bf16_matches_plain(dev, c, mapped, with_g2, case):
+    """K1's backward on bfloat16 maps against its plain version: bit for
+    bit without the mapped stream; with it, each pair's product with W^T
+    sums its M terms in another order (a sequential fma here, a matmul in
+    the plain version), which can move a pair's cotangent across a
+    bfloat16 rounding boundary: within 2 bfloat16 ulps of the largest
+    d feature, at under 1% of the elements. dW and db as float32 maps'
+    (1e-4 x max). Bitwise the same on a second run."""
+    feats, pix, count, g1, g2, gm, w, b = _backward_case(
+        dev, case, c, mapped, with_g2)
+    feats = feats.bfloat16()
+    rows = voxel.mapped_rows_plain(feats, w, b) if mapped else None
+    before = voxel.fusion_carry_backward.launches
+    got = voxel.fusion_carry_backward(feats, pix, count, g1, g2, gm, w, b,
+                                      rows)
+    want = voxel.fusion_carry_backward_plain(feats, pix, count, g1, g2, gm,
+                                             w, b, rows)
+    torch.cuda.synchronize()
+    assert voxel.fusion_carry_backward.launches == before + 1
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == feats.shape
+    if mapped:
+        assert _bf16_ulps(got[0], want[0]) <= 2
+        assert float((got[0] != want[0]).float().mean()) < 0.01
+    else:
+        assert torch.equal(got[0], want[0])
+    assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
+    if case == "blind view":
+        assert float(got[0][2].float().abs().max()) == 0.0
+    again = voxel.fusion_carry_backward(feats, pix, count, g1, g2, gm, w, b,
+                                        rows)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 def _rgb_case(dev, case, v):
@@ -348,10 +415,12 @@ def _rgb_case(dev, case, v):
     return images, pix.contiguous()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["shell", "ragged N", "all gated"])
 @pytest.mark.parametrize("v", [3, 48, 100])
-def test_rgb_carry_matches_plain_bitwise(dev, v, case):
+def test_rgb_carry_matches_plain_bitwise(dev, v, case, dtype):
     images, pix = _rgb_case(dev, case, v)
+    images = images.to(dtype)
     kept = int((pix >= 0).sum())
     assert (kept == 0) == (case == "all gated")
     before = voxel.rgb_carry.launches
@@ -366,9 +435,11 @@ def test_rgb_carry_matches_plain_bitwise(dev, v, case):
 
 def test_rgb_carry_rejects_what_it_cannot_take(dev):
     images, pix = _rgb_case(dev, "ragged N", 3)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         voxel.rgb_carry(images.double(), pix)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        voxel.rgb_carry(images.half(), pix)
+    with pytest.raises(ValueError, match="images"):
         voxel.rgb_carry(images[..., :2].contiguous(), pix)
     with pytest.raises(ValueError, match="int32"):
         voxel.rgb_carry(images, pix.long())
@@ -475,9 +546,10 @@ def _ray_inputs(dev, v, r, s, c, seed=0):
     (4, 33, 3, 32),  # R * S = 99, not a multiple of the 64-point tile
     (6, 50, 13, 30),  # C % 4 != 0: one channel a lane
 ])
-def test_streaming_sample_mean_var_matches_plain(dev, v, r, s, c):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streaming_sample_mean_var_matches_plain(dev, v, r, s, c, dtype):
     pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=v + r)
-    args = (pts, images, proj, (239, 320), feats)
+    args = (pts, images.to(dtype), proj, (239, 320), feats.to(dtype))
     before = render.streaming_sample_mean_var.launches
     got = render.streaming_sample_mean_var(*args)
     want = render.streaming_sample_mean_var_plain(*args)
@@ -486,9 +558,11 @@ def test_streaming_sample_mean_var_matches_plain(dev, v, r, s, c):
     assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
     assert got[1].dtype == torch.bool
     # the mask exact; globalfeat follows the plain version's rounding
-    # (tolerance 1e-5 relative)
+    # (tolerance 1e-5 relative; bfloat16 maps, bit for bit)
     assert torch.equal(got[1], want[1])
     assert _rel(got[0], want[0]) <= 1e-5
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[0], want[0])
     if r >= 8:
         cnt = render.ray_view_carry_plain(pts, images, feats, proj,
                                           (239, 320))[3]
@@ -534,16 +608,18 @@ def _host_rgb(pts, images, proj):
     return tuple(t[..., :3].contiguous() for t in carry[:3]) + (carry[3],)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("v,r,s,c", [
     (50, 2048, 64, 32),  # the training path's shape
     (3, 37, 5, 8), (7, 64, 64, 32), (6, 50, 13, 30),
 ])
 def test_streaming_sample_mean_var_training_form_matches_plain(dev, v, r, s,
-                                                               c):
+                                                               c, dtype):
     """K2 with the host rgb sums (the training form) against its plain
     version: the mask exact, globalfeat 1e-5 relative, and under grad the
     feature channels' s1u and the host count as the carry has them."""
     pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=v + s)
+    images, feats = images.to(dtype), feats.to(dtype)
     host = _host_rgb(pts, images, proj)
     args = (pts, None, proj, (239, 320), feats, host)
     before = render.streaming_sample_mean_var.launches
@@ -556,6 +632,8 @@ def test_streaming_sample_mean_var_training_form_matches_plain(dev, v, r, s,
     assert torch.equal(got[1], want[1])
     assert _rel(got[0], want[0]) <= 1e-5
     assert _rel(got[2], carry[0]) <= 1e-5
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], carry[0])
     assert got[3] is host[3]
     # the eval form under grad writes its own count
     ev = render._k2_launch(pts, images, proj, (239, 320), feats,
@@ -565,7 +643,7 @@ def test_streaming_sample_mean_var_training_form_matches_plain(dev, v, r, s,
         pts, images, feats, proj, (239, 320))[3])
 
 
-def _backward_inputs(dev, case, v, r, s, c, seed):
+def _backward_inputs(dev, case, v, r, s, c, seed, dtype=torch.float32):
     """K2's backward inputs: the forward's globalfeat, s1u and count at
     ``_ray_inputs`` points and a random cotangent. "border": every point
     pushed to the maps' edge band, where windows clamp and weights are
@@ -583,6 +661,7 @@ def _backward_inputs(dev, case, v, r, s, c, seed):
     elif case == "behind":
         pts = pts + torch.tensor([0.0, 0.0, 60.0], device=dev)
     host = _host_rgb(pts, images, proj)
+    feats = feats.to(dtype)
     gf, _, s1u, cnt = render._k2_launch(pts, None, proj, (239, 320), feats,
                                         host, for_grad=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -604,6 +683,32 @@ def _k2_backward_cases():
             for case in ("scene", "border", "interior", "one point",
                          "behind") for shape in shapes
             if not (case == "one point" and shape[1] * shape[2] > 10 ** 5)]
+
+
+@pytest.mark.parametrize("case", ["scene", "border", "interior", "behind"])
+@pytest.mark.parametrize("v,r,s,c", [(50, 2048, 64, 32), (5, 300, 16, 8),
+                                     (6, 50, 13, 30), (1, 64, 16, 32)])
+def test_streaming_sample_mean_var_backward_bf16_matches_plain(dev, case, v,
+                                                               r, s, c):
+    """K2's backward on bfloat16 maps against its plain version, which
+    rounds as JAX's transpose does: the same cotangents in the same
+    order, so bit for bit, and bitwise the same on a second run."""
+    pts, proj, feats, g, gf, s1u, cnt = _backward_inputs(
+        dev, case, v, r, s, c, seed=v + r + c, dtype=torch.bfloat16)
+    before = render.streaming_sample_mean_var_backward.launches
+    got = render.streaming_sample_mean_var_backward(
+        pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    want = render.streaming_sample_mean_var_backward_plain(
+        pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    torch.cuda.synchronize()
+    assert render.streaming_sample_mean_var_backward.launches == before + 1
+    assert got.shape == feats.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    if case != "behind":
+        assert float(want.float().abs().max()) > 0
+    again = render.streaming_sample_mean_var_backward(
+        pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("case,v,r,s,c", _k2_backward_cases())
@@ -660,13 +765,13 @@ def test_streaming_sample_mean_var_backward_refuses_what_it_cannot_take(dev):
         dev, "scene", 2, 16, 4, 32, seed=0)
     bwd = render.streaming_sample_mean_var_backward
     args = (pts, proj, (239, 320))
-    with pytest.raises(TypeError, match="compute_dtype"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         render.streaming_sample_mean_var(
             pts, None, proj, (239, 320),
-            feats.bfloat16().requires_grad_(), _host_rgb(
+            feats.half().requires_grad_(), _host_rgb(
                 pts, torch.rand((2, 240, 320, 3), device=dev), proj))
     with pytest.raises(TypeError, match="float32"):
-        bwd(*args, feats.bfloat16(), g, gf, s1u, cnt)
+        bwd(*args, feats.half(), g, gf, s1u, cnt)
     wide = torch.cat([feats, feats[..., :1]], -1)
     with pytest.raises(ValueError, match="feature channels"):
         bwd(*args, wide, g, gf, s1u, cnt)

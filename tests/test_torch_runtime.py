@@ -311,6 +311,29 @@ def test_train_then_test_cli_on_cpu(smoke_root, tmp_path):
         assert torch.equal(v, saved["model"][k]), k
 
 
+def test_train_cli_bf16_on_cpu(smoke_root, tmp_path, monkeypatch):
+    """``--bf16`` trains at ``compute_dtype=bfloat16`` with the bf16 host
+    streams, and keeps float32 weights in its checkpoint."""
+    seen = {}
+    init = api.init_trainer
+
+    def spy(*args, **kwargs):
+        seen.update(kwargs)
+        return init(*args, **kwargs)
+
+    monkeypatch.setattr(api, "init_trainer", spy)
+    result = train_cli.main([SMOKE, "--bf16", "--work-dir",
+                             str(tmp_path / "w"), "--max-steps", "1",
+                             "--no-validate", "--device", "cpu",
+                             "--options", *_options(smoke_root)])
+    assert seen["compute_dtype"] == torch.bfloat16
+    (step,) = result["history"]
+    assert all(np.isfinite(step[k]) for k in step if k.startswith("loss"))
+    saved = load_checkpoint(result["checkpoints"][0])
+    assert all(v.dtype == torch.float32 for v in saved["model"].values()
+               if v.is_floating_point())
+
+
 def test_clis_need_cuda_unless_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
@@ -320,7 +343,7 @@ def test_clis_need_cuda_unless_cpu(tmp_path):
         test_cli.main([SMOKE, str(tmp_path / "ckpt_1.pth")])
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1"):
         train_cli.main([SMOKE, "--distributed", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        train_cli.main([SMOKE, "--bf16", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # bfloat16 too
+        train_cli.main([SMOKE, "--bf16", "--work-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1"):
         test_cli.main([SMOKE, "x.pth", "--mesh-views", "2"])

@@ -130,12 +130,14 @@ def test_host_ray_rgb_stats_is_jaxs_bit_for_bit():
     assert cnt.min() == 0 and cnt.max() == 3  # unseen and fully seen
 
 
-def test_host_ray_rgb_stats_refuses_bfloat16():
+def test_host_ray_rgb_stats_refuses_float16():
+    """float32 and bfloat16 streams only (``tests/test_torch_bf16.py``
+    holds the bfloat16 one to JAX's)."""
     scene = _raw_scene(1)
     z = np.ones((N_RAND, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         ray_stats.host_ray_rgb_stats(*_stream_args(scene, z),
-                                     compute_dtype="bfloat16")
+                                     compute_dtype="float16")
 
 
 def test_prepare_rays_is_the_jax_data_path_bit_for_bit():
@@ -320,12 +322,14 @@ def test_window_order_lists_each_windows_pairs_in_point_order():
                                   np.arange(v * n))
 
 
-def test_k2_refuses_bfloat16_maps_under_grad():
+def test_k2_refuses_float16_maps_under_grad():
+    """float32 and bfloat16 maps only (``tests/test_torch_bf16.py`` holds
+    the bfloat16 forms and their gradient to JAX's)."""
     pts, scene, feats, host = _k2_case("rays")
-    f = torch.from_numpy(feats).bfloat16().requires_grad_()
+    f = torch.from_numpy(feats).half().requires_grad_()
     proj = trender.view_projection(scene["intrinsic"], scene["extrinsics"],
                                    RATIO)
-    with pytest.raises(TypeError, match="compute_dtype"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         trender.streaming_sample_mean_var(
             torch.from_numpy(pts), None, proj, IMG, f,
             tuple(torch.from_numpy(h) for h in host))
