@@ -7,8 +7,9 @@ Phases, each reported on its own lines:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the TF32 flags as the port sets them (off);
 2. build of every CUDA kernel of the path from ``nerfdet_tpu_torch/csrc``
-   (one nvcc per source, started together), with the compiler's
-   register / shared-memory report;
+   (one nvcc per source) and of the JPEG decoder's host source (the
+   host compiler), all started together, with the compiler's register /
+   shared-memory report;
 3. each kernel against its plain PyTorch version on the card at the
    shapes the main path gives it, with its time, the plain version's
    time and the least time the card could take (bound); K1's two phases'
@@ -111,6 +112,14 @@ Phases, each reported on its own lines:
     --bf16`` for 2 steps on phase 9's files (a checkpoint of float32
     weights and a validation), then ``tools/test`` on it.
 
+12. JPEG: the JAX writer's views committed under ``tests/data/torch_jpeg``
+    (8 of one scene at 484x648, one at 968x1296) decoded by the port's
+    own decoder (``data/jpeg.py``; the machine has no cv2) to the SHA-256
+    of ``cv2.imread``'s RGB output recorded beside them, with the host
+    ms a view at both sizes; then ``tools/test --eval mAP`` from phase
+    9's ``ckpt_2`` on a val scene laid out from the 484x648 views
+    (``run_eval`` through the loader, every view a JPEG decode, K1 once).
+
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
 ``ori_shape``), in the main path's form (no s2 cotangent), with the
@@ -122,10 +131,14 @@ equal), with the times of its passes (pass 0, the index preparation,
 passes 1 and 2) and ``index_add_`` of the weighted tap rows as its
 yardstick.
 
+K2 is held bit for bit to its plain version in both forms and both
+dtypes (phases 3 and 11).
+
 Each path runs with every launch count set to 0 just before it and
 read just after; phase 9 also counts each train step's launches.
 
-The second-to-last line is the kernels' JSON record, the last
+The JPEG decoder's record (host code, not a kernel) is a ``[jpeg]`` line
+of its own. The second-to-last line is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result; so does a machine without CUDA.
 """
@@ -689,9 +702,10 @@ def ray_bound(pts, images, feats):
 
 def check_k2(render, cases, img_hw):
     """The fused K2 vs its plain version (the carry, then the epilogue)
-    on the card: pixel_mask and the unseen count exact, globalfeat within
-    1e-5 relative. The unseen count is read from each side's own output:
-    a point no view counts has s1m = 0, so every mean is exactly 0.
+    on the card: pixel_mask, the unseen count and globalfeat bit for bit
+    (the errors are printed). The unseen count is read from each side's
+    own output: a point no view counts has s1m = 0, so every mean is
+    exactly 0.
     ``cases``: (name, pts, images, featmaps, proj, timed); the first is
     the timed render chunk, and each later case of its shape records
     whether its globalfeat equals the chunk's (``same_as_chunk``)."""
@@ -704,6 +718,7 @@ def check_k2(render, cases, img_hw):
         want = render.streaming_sample_mean_var_plain(*args)
         torch.cuda.synchronize()
         cs = got[0].shape[-1] // 2
+        bitwise = all(torch.equal(g, p) for g, p in zip(got, want))
         unseen = [int((g[0][..., :cs] == 0).all(-1).sum()) for g in
                   (got, want)]
         if not torch.equal(got[1], want[1]) or unseen[0] != unseen[1]:
@@ -718,13 +733,8 @@ def check_k2(render, cases, img_hw):
                 f"unseen count equal (pixel_mask share "
                 f"{float(got[1].float().mean()):.4f}, unseen "
                 f"{unseen[0]} of {n_pts}); globalfeat max_abs_err="
-                f"{abs_err:.3e} max_rel_err={rel_err:.3e} (tol: mask exact, "
-                f"rel 1e-5); bitwise equal "
-                f"{all(torch.equal(g, p) for g, p in zip(got, want))}")
-        if feats.dtype == torch.bfloat16 and not all(
-                torch.equal(g, p) for g, p in zip(got, want)):
-            raise SystemExit(f"K2 {name}: bfloat16 maps and images, not "
-                             f"bitwise equal to the plain version")
+                f"{abs_err:.3e} max_rel_err={rel_err:.3e} (tol: bitwise); "
+                f"bitwise equal {bitwise}")
         result = dict(max_abs_err=abs_err, mask=got[1], unseen=unseen[0])
         if chunk_gf is None:
             chunk_gf = got[0]
@@ -742,8 +752,9 @@ def check_k2(render, cases, img_hw):
             result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
         log(line)
-        if rel_err > 1e-5:
-            raise SystemExit(f"K2 {name} disagrees: rel {rel_err:.3e}")
+        if not bitwise:
+            raise SystemExit(f"K2 {name}: not bitwise equal to the plain "
+                             f"version (rel {rel_err:.3e})")
         results[name] = result
     return results
 
@@ -820,8 +831,8 @@ def k2_backward_bound(pts, feats, kept):
 
 def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     """K2's training form (host rgb sums) against its plain version at the
-    training path's shape (pixel_mask exact, globalfeat within 1e-5
-    relative), then K2's backward against
+    training path's shape (pixel_mask and globalfeat bit for bit), then
+    K2's backward against
     ``streaming_sample_mean_var_backward_plain`` on a random cotangent
     (within 1e-5 x max, two runs bitwise equal), with times, bounds and
     ``index_add_`` of the weighted tap rows into the flat feature map as
@@ -835,10 +846,9 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     fwd_err = float((got[0] - want[0]).abs().max())
     fwd_rel = fwd_err / max(float(want[0].abs().max()), 1e-30)
     bf16 = feats.dtype == torch.bfloat16
-    if (not torch.equal(got[1], want[1]) or fwd_rel > 1e-5
-            or (bf16 and fwd_err > 0)):
-        raise SystemExit(f"K2's training form disagrees with its plain "
-                         f"version (rel {fwd_rel:.3e})")
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise SystemExit(f"K2's training form is not bitwise equal to its "
+                         f"plain version (rel {fwd_rel:.3e})")
     ms = cuda_time_ms(lambda: render.streaming_sample_mean_var(*args), 10)
     plain_ms = cuda_time_ms(
         lambda: render.streaming_sample_mean_var_plain(*args), 2, warmup=1)
@@ -848,9 +858,8 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
         f"V={feats.shape[0]} N={n_pts} C={feats.shape[-1]} "
         f"{str(feats.dtype)[6:]}: pixel_mask "
         f"equal (share {float(got[1].float().mean()):.4f}); globalfeat "
-        f"max_abs_err={fwd_err:.3e} max_rel_err={fwd_rel:.3e} (tol: mask "
-        f"exact, rel 1e-5); bitwise equal "
-        f"{all(torch.equal(a, b) for a, b in zip(got, want))} ms={ms:.4f} "
+        f"max_abs_err={fwd_err:.3e} max_rel_err={fwd_rel:.3e} (tol: "
+        f"bitwise); bitwise equal True ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
         f"{nbytes} B, {ops} FLOP)")
     train_form = dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
@@ -2727,6 +2736,142 @@ def bf16_path(api, voxel, pointnet, render, card, pix_scaled, nvs,
 
 
 
+# phase 12: JPEG views read by the port's own decoder
+JPEG_FIXTURES = os.path.join("tests", "data", "torch_jpeg")
+JPEG_REPEATS = 5  # decodes of each view for its host time
+
+
+def jpeg_scene(meta, root):
+    """Lay the fixtures' 484x648 scene out in ScanNet's layout under
+    ``root``: ``posed_images/scene0000_00/#####.jpg`` and the infos (the
+    JAX writer's schema) as both splits. Returns ``root``."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    scene = meta["scene"]
+    sdir = os.path.join(root, "posed_images", "scene0000_00")
+    os.makedirs(sdir, exist_ok=True)
+    paths, poses = [], []
+    for i, view in enumerate(scene["views"]):
+        rel = os.path.join("posed_images", "scene0000_00", f"{i:05d}.jpg")
+        shutil.copy(os.path.join(JPEG_FIXTURES, view["file"]),
+                    os.path.join(root, rel))
+        paths.append(rel)
+        poses.append(np.asarray(view["extrinsic"], np.float32))
+    boxes = np.asarray(scene["gt_boxes_upright_depth"], np.float32)
+    info = dict(img_paths=paths, extrinsics=poses,
+                intrinsics=np.asarray(scene["intrinsic"], np.float32),
+                annos=dict(gt_num=len(boxes), gt_boxes_upright_depth=boxes,
+                           axis_align_matrix=np.eye(4, dtype=np.float32),
+                           **{"class": np.asarray(scene["labels"],
+                                                  np.int64)}))
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"scannet_infos_{split}.pkl"),
+                  "wb") as f:
+            pickle.dump([info], f)
+    return root
+
+
+def jpeg_path(api, voxel, pointnet, render, card, ckpt, tmp):
+    """Phase 12: the JAX writer's JPEG views (``tests/data/torch_jpeg``)
+    decoded by the port (no cv2: the card's machine has none) to the
+    SHA-256 of ``cv2.imread``'s output recorded beside them, the host
+    time a view at 484x648 and 968x1296, then ``tools/test --eval mAP``
+    from phase 9's checkpoint ``ckpt`` on a val scene laid out from them
+    (``run_eval`` through the loader, K1 once). Returns the decoder's
+    record."""
+    import hashlib
+    import math
+    import statistics
+
+    from nerfdet_tpu_torch.config import Config
+    from nerfdet_tpu_torch.data import jpeg, pipeline
+    from nerfdet_tpu_torch.tools import test as test_cli
+
+    t_phase = time.perf_counter()
+    if not os.path.exists(ckpt):
+        raise SystemExit(f"phase 9 left no checkpoint {ckpt}")
+    with open(os.path.join(JPEG_FIXTURES, "meta.json")) as f:
+        meta = json.load(f)
+    record = {"name": "jpeg_decode", "route": "host C++ (entropy) + numpy",
+              "source": "nerfdet_tpu_torch/data/jpeg.py, "
+                        "nerfdet_tpu_torch/csrc/jpeg_entropy.cpp",
+              "replaces": "cv2.imread in nerfdet_tpu/data/pipeline.py:36"}
+    for tag, part in meta.items():
+        times = []
+        for view in part["views"]:
+            path = os.path.join(JPEG_FIXTURES, view["file"])
+            rgb = pipeline.imread(path)
+            digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+            if (rgb.shape != tuple(part["hw"]) + (3,)
+                    or digest != view["sha256"]):
+                raise SystemExit(f"{view['file']} decodes to {rgb.shape}, "
+                                 f"sha256 {digest}, not cv2.imread's "
+                                 f"{view['sha256']}")
+            with open(path, "rb") as f:
+                data = f.read()
+            for _ in range(JPEG_REPEATS):
+                t0 = time.perf_counter()
+                jpeg.decode(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+        hw = "x".join(map(str, part["hw"]))
+        record[f"host_ms_{hw}"] = statistics.median(times)
+        log(f"[jpeg] {len(part['views'])} views at {hw}: decoded to "
+            f"cv2.imread's SHA-256 (bitwise); host ms a view: median "
+            f"{statistics.median(times):.2f}, min {min(times):.2f}, max "
+            f"{max(times):.2f} ({JPEG_REPEATS} decodes each, one thread)")
+
+    cfg = Config.fromfile(CONFIG)
+    root = jpeg_scene(meta, os.path.join(tmp, "jpeg_scene"))
+    every = (voxel.fusion_carry, voxel.fusion_carry_backward,
+             render.streaming_sample_mean_var,
+             render.streaming_sample_mean_var_backward,
+             pointnet.furthest_point_sample)
+    decoded = []
+    decode = jpeg.decode
+
+    def counted(data):
+        decoded.append(len(data))
+        return decode(data)
+
+    jpeg.decode = counted
+    for fn in every:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        metrics = test_cli.main([CONFIG, ckpt, "--eval", "mAP",
+                                 "--options",
+                                 *runtime_options(cfg, root, root)])
+    finally:
+        jpeg.decode = decode
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in every]
+    pipe = cfg.data["test"]["pipeline"][0]
+    n_views = len(meta["scene"]["views"])
+    log(f"[jpeg] tools/test --eval mAP from {os.path.basename(ckpt)} on "
+        f"the fixtures' val scene ({n_views} JPEG views at 484x648; the "
+        f"pipeline draws {pipe['n_images']} and keeps the distinct ones): "
+        f"{len(decoded)} JPEG decodes, launches fused_mean_cov "
+        f"{launches[0]}, backward "
+        f"kernels {launches[1]} / {launches[3]}, streaming_sample_mean_var "
+        f"{launches[2]}, furthest_point_sample {launches[4]}; "
+        f"{wall:.2f} s; measured on {card}")
+    if launches != [1, 0, 0, 0, 0] or len(decoded) != n_views:
+        raise SystemExit(f"tools/test on JPEG views launched {launches} "
+                         f"after {len(decoded)} JPEG decodes")
+    keys = sorted(k for k in metrics if k.startswith(("mAP", "mAR")))
+    if not keys or not all(math.isfinite(metrics[k]) for k in keys):
+        raise SystemExit(f"non-finite or missing metrics {metrics}")
+    log("[jpeg] mAP/mAR: " + ", ".join(f"{k} {metrics[k]:.4f}"
+                                       for k in keys))
+    record.update(views=sum(len(p["views"]) for p in meta.values()),
+                  test_launches_k1=launches[0], test_s=wall)
+    log(f"[jpeg] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -2739,7 +2884,7 @@ def main():
     os.chdir(root)
     from nerfdet_tpu_torch import api
     from nerfdet_tpu_torch.config import Config
-    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.data import jpeg, ray_stats
     from nerfdet_tpu_torch.data.synthetic import (make_synthetic_cloud,
                                                   make_synthetic_scene)
     from nerfdet_tpu_torch.device import resolve_device
@@ -2759,11 +2904,12 @@ def main():
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build()
-    log(f"[build] {len(cuda_build.KERNELS)} CUDA sources in "
-        f"{time.perf_counter() - t0:.1f} s")
+    cuda_build.build(cuda_build.KERNELS + (jpeg.LIBRARY,))
+    log(f"[build] {len(cuda_build.KERNELS)} CUDA sources and the JPEG "
+        f"decoder's host source in {time.perf_counter() - t0:.1f} s")
     for name, (secs, msgs) in cuda_build.BUILD_LOG.items():
-        log(f"[build] {name}.cu: nvcc {secs:.1f} s")
+        log(f"[build] {os.path.basename(cuda_build._source(name))}: "
+            f"{secs:.1f} s")
         for line in msgs.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
@@ -2993,6 +3139,13 @@ def main():
     torch.cuda.empty_cache()
     low = bf16_path(api, voxel, pointnet, render, card, pix_scaled, nvs,
                     runtime_opts, f32_detection)
+    log(f"[done] phases 1-11 in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 12. JPEG views read by the port's own decoder --------------------
+    torch.cuda.empty_cache()
+    decoder = jpeg_path(api, voxel, pointnet, render, card,
+                        os.path.join(files.name, "work", "ckpts",
+                                     "ckpt_2.pth"), files.name)
     files.cleanup()
 
     main = fusion["float32 mapped"]
@@ -3137,7 +3290,8 @@ def main():
     record["kernels"][-1]["library_of"] = (
         "index_add_ of the weighted tap rows (bfloat16) into the flat "
         "feature map: the scatter alone")
-    log(f"[done] phases 1-11 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] phases 1-12 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[jpeg] {json.dumps(decoder)}")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""Time K2's backward and K1's backward of one checkout on the card, pass
-by pass, for comparing two designs of them in one call.
+"""Time K2's forward, K2's backward and K1's backward of one checkout on
+the card, the backwards pass by pass, for comparing two designs of them
+in one call.
 
-    python3 kernel_ab.py [CHECKOUT] [--save OUT.pt] [--profile]
+    python3 kernel_ab.py [CHECKOUT] [--save OUT.pt] [--profile] [--forward]
     python3 kernel_ab.py --compare A.pt B.pt
+    python3 kernel_ab.py --ablate
 
 Imports ``nerfdet_tpu_torch`` from CHECKOUT (default: this file's
 directory), building its kernels there, and makes the inputs of
@@ -10,15 +12,25 @@ directory), building its kernels there, and makes the inputs of
 full width with random weights, phase 4's pixel indices (the intrinsic as
 the synthetic scene gives it) and phase 8's (scaled to ``ori_shape``),
 and phase 8's training batch (2048 rays x 64 samples over 50 views of
-59x80x32 mapped maps). With CUDA events it times K2's backward (whole;
+59x80x32 mapped maps). With CUDA events it times K2's forward in both
+forms and both dtypes (``_k2_launch``: the eval form at phase 6's first
+render chunk, the training form with the host rgb sums at phase 8's
+batch under grad, each on float32 maps and on the same maps in
+bfloat16), K2's backward (whole;
 pass 0, the index preparation, passes 1 and 2) and K1's backward at
 both pixel indices (whole; the index preparation, passes 1, 2 and 3),
 C = 256, M = 32 and no s2 cotangent as on the training path. A design without a pass's own entry point reports what
 the whole leaves after the passes it has ("rest"). With ``--save`` it
 writes the backwards' outputs, which ``--compare`` holds bit for bit
 against another checkout's. With ``--profile`` it also prints each
-backward's device time by kernel (``torch.profiler``, 5 calls). Prints
-one line of times and the card. Run
+backward's device time by kernel (``torch.profiler``, 5 calls). With
+``--forward`` it times K2's forward alone. Prints one line of times and
+the card. ``--ablate`` builds this checkout's K2 four more times with
+its gathers replaced by values made from the address (no feature-map
+loads; no image loads; neither) or without the integer widening of its
+bfloat16 texels, each computing garbage with the same floating-point
+arithmetic, and times K2's forward with each: what the gathers and the
+widening cost. Run
 two checkouts in turns (A B B A) in one call: calls may land on cards of
 other power limits.
 """
@@ -74,6 +86,115 @@ def k2_times(render, bargs, out):
     return t
 
 
+def k2_forward_times(render, eval_args, train_args, out):
+    """K2's forward: the eval form and the training form (host rgb sums,
+    s1u written for the backward), on float32 maps and in bfloat16."""
+    import torch
+
+    t = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        pts, images, proj, hw, feats = eval_args
+        args = (pts, images.to(dtype), proj, hw, feats.to(dtype))
+        t[f"k2_eval_{tag}"] = timed(lambda: render._k2_launch(*args))
+        out[f"k2_eval_{tag}"] = list(render._k2_launch(*args)[:2])
+        pts, proj, hw, feats, host = train_args
+        args = (pts, None, proj, hw, feats.to(dtype), host)
+        t[f"k2_train_{tag}"] = timed(lambda: render._k2_launch(
+            *args, for_grad=True))
+        out[f"k2_train_{tag}"] = list(render._k2_launch(
+            *args, for_grad=True)[:3])
+    torch.cuda.synchronize()
+    return t
+
+
+# K2's gathers and what --ablate puts in their place (the same arithmetic
+# on a value made from the address, no memory read), and the widening of
+# bfloat16 texels (integer instructions) and what replaces it (the raw
+# word, negated for the low channel: a modifier of the floating-point
+# instruction that reads it, so no instruction, and no two channels equal)
+K2_GATHERS = {
+    "features": (
+        "const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));",
+        "const uint4 q = make_uint4((uint32_t)(uintptr_t)p, 0x3f803f80u, "
+        "0x3f803f80u, (uint32_t)(uintptr_t)p >> 3);"),
+    "images": (
+        "return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));",
+        "return __uint_as_float(((uint32_t)(uintptr_t)p & 0xffffu) << 16);"),
+    "widening": (
+        "return __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u\n"
+        "                                 : w[e >> 1] << 16);",
+        "return e & 1 ? __uint_as_float(w[e >> 1])\n"
+        "             : -__uint_as_float(w[e >> 1]);"),
+}
+
+
+def ablate():
+    """K2's forward on bfloat16 maps (the 16-byte lane form) with its
+    feature gathers, its image gathers, both, or its texel widening
+    replaced (K2_GATHERS),
+    each built from this checkout's source into its own library and
+    timed in place of the real one; the real one first and last."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    (render, _), _, _, (eval_args, train_args) = inputs(HERE)
+    from nerfdet_tpu_torch.ops import cuda_build
+
+    with open(os.path.join(cuda_build.CSRC,
+                           "streaming_sample_mean_var.cu")) as f:
+        source = f.read()
+    variants = {"without feature loads": ["features"],
+                "without image loads": ["images"],
+                "without either": ["features", "images"],
+                "without the widening": ["widening"]}
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "ablate")
+    os.makedirs(out_dir, exist_ok=True)
+    libs, jobs = {"real": render._lib()}, {}
+    for i, (name, gathers) in enumerate(variants.items()):
+        src = source
+        for g in gathers:
+            old, new = K2_GATHERS[g]
+            if old not in src:
+                raise SystemExit(f"kernel_ab --ablate: the {g} code is "
+                                 f"not in the source")
+            src = src.replace(old, new)
+        path = os.path.join(out_dir, f"k2_{i}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        jobs[name] = (subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             path[:-3] + ".so", path], stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT), path[:-3] + ".so")
+    for name, (proc, so) in jobs.items():
+        if proc.wait() != 0:
+            raise SystemExit(f"kernel_ab --ablate: {name} did not build")
+        lib = ctypes.CDLL(so)
+        lib.streaming_sample_mean_var.argtypes = (
+            libs["real"].streaming_sample_mean_var.argtypes)
+        lib.streaming_sample_mean_var.restype = ctypes.c_int
+        libs[name] = lib
+    real_lib = render._lib
+    pts, images, proj, hw, feats = eval_args
+    bf = torch.bfloat16
+    eval_bf = (pts, images.to(bf), proj, hw, feats.to(bf))
+    pts, proj, hw, feats, host = train_args
+    train_bf = (pts, None, proj, hw, feats.to(bf), host)
+    try:
+        for name in list(libs) + ["real"]:
+            render._lib = lambda lib=libs[name]: lib
+            e = timed(lambda: render._k2_launch(*eval_bf))
+            t = timed(lambda: render._k2_launch(*train_bf, for_grad=True))
+            print(f"[kernel_ab] ablate K2 bf16 {name}: eval form {e:.4f} ms, "
+                  f"training form {t:.4f} ms", flush=True)
+    finally:
+        render._lib = real_lib
+    return 0
+
+
 def k1_times(voxel, tag, feats, pix, w, b, g1, gm, out):
     """K1's backward, pass by pass where the design has them."""
     import torch
@@ -103,7 +224,8 @@ def k1_times(voxel, tag, feats, pix, w, b, g1, gm, out):
 def inputs(root):
     """The checkout's modules and the A/B's inputs, from their seeds: for
     K1 the maps, W, b and cotangents with each intrinsic's ``pix``; for
-    K2 its backward's arguments at phase 8's training batch."""
+    K2 its backward's arguments at phase 8's training batch, and its
+    forward's in both forms."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -122,10 +244,10 @@ def inputs(root):
     dev = torch.device("cuda")
     cuda_build.build([k for k in cuda_build.KERNELS if "mean" in k])
     for name, (_, log) in cuda_build.BUILD_LOG.items():
-        if "backward" in name:
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[ptxas] {name}: {line.strip()}")
+        for line in log.splitlines():
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                print(f"[ptxas] {name}: {line.strip()}")
 
     model = api.init_detector(smoke.CONFIG, device="cuda", seed=smoke.SEED)
     meta = model.meta
@@ -174,7 +296,13 @@ def inputs(root):
                                         host, for_grad=True)
     g = torch.randn(gf.shape, generator=gen, device=dev)
     k2 = (pts, proj, (h, w), tfeats, g, gf, s1u, cnt)
-    return (render, voxel), k1, k2
+    nvs = smoke.nvs_dataset(dict(scene, intrinsic=scaled),
+                            scene["intrinsic"], (h, w))
+    _, epts, eimgs, efeats, eproj, _ = smoke.ray_cases(
+        model, nvs[0], api.render_batch(model, nvs[0]), (h, w))[0]
+    k2_fwd = ((epts, eimgs, eproj, (h, w), efeats),
+              (pts, proj, (h, w), tfeats, host))
+    return (render, voxel), k1, k2, k2_fwd
 
 
 def profile(name, fn, iters=5):
@@ -197,15 +325,16 @@ def profile(name, fn, iters=5):
                   f"{e.key[:100]}", flush=True)
 
 
-def run(root, save, with_profile):
+def run(root, save, with_profile, forward_only):
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    (render, voxel), k1, bargs = inputs(root)
+    (render, voxel), k1, bargs, k2_fwd = inputs(root)
     out, t = {}, {}
-    for tag, pix in k1["pix"].items():
+    t.update(k2_forward_times(render, *k2_fwd, out))
+    for tag, pix in ({} if forward_only else k1["pix"]).items():
         t.update(k1_times(voxel, tag, k1["feats"], pix, k1["w"], k1["b"],
                           k1["g1"], k1["gm"], out))
         if with_profile:
@@ -216,8 +345,9 @@ def run(root, save, with_profile):
             profile(f"K1 backward {tag}",
                     lambda: voxel.fusion_carry_backward(*args))
     del k1
-    t.update(k2_times(render, bargs, out))
-    if with_profile:
+    if not forward_only:
+        t.update(k2_times(render, bargs, out))
+    if with_profile and not forward_only:
         profile("K2 backward",
                 lambda: render.streaming_sample_mean_var_backward(*bargs))
     if save:
@@ -242,7 +372,8 @@ def compare(a, b):
         xs = x[k] if isinstance(x[k], list) else [x[k]]
         ys = y[k] if isinstance(y[k], list) else [y[k]]
         same = [torch.equal(p, q) for p, q in zip(xs, ys)]
-        diff = [float((p - q).abs().max() / q.abs().max().clamp_min(1e-30))
+        diff = [float((p.float() - q.float()).abs().max()
+                      / q.float().abs().max().clamp_min(1e-30))
                 for p, q in zip(xs, ys)]
         print(f"[kernel_ab] {k}: bitwise equal {same}, max rel diff "
               f"{['%.3e' % d for d in diff]}", flush=True)
@@ -252,15 +383,18 @@ def compare(a, b):
 def main(argv):
     if argv[:1] == ["--compare"]:
         return compare(argv[1], argv[2])
+    if argv[:1] == ["--ablate"]:
+        return ablate()
     save = None
     if "--save" in argv:
         i = argv.index("--save")
         save = argv[i + 1]
         argv = argv[:i] + argv[i + 2:]
     with_profile = "--profile" in argv
-    argv = [a for a in argv if a != "--profile"]
+    forward_only = "--forward" in argv
+    argv = [a for a in argv if a not in ("--profile", "--forward")]
     return run(os.path.abspath(argv[0] if argv else HERE), save,
-               with_profile)
+               with_profile, forward_only)
 
 
 if __name__ == "__main__":

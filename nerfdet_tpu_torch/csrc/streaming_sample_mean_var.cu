@@ -31,7 +31,10 @@
 // 67 TFLOP/s of fp32 CUDA cores, against ~0.03 ms to read the maps once
 // and write globalfeat. What it waits on is issuing the gathers and the
 // separately rounded tap arithmetic: 4 taps x 35 channels a pair, ~3.7 GB
-// from L1/L2 a chunk.
+// from L1/L2 a chunk (bfloat16: half the bytes). With every gather
+// replaced by arithmetic on the address (kernel_ab.py --ablate) the
+// bfloat16 eval form keeps ~70% of its time: the projection of each
+// pair, the widening of each texel and the sums are the larger part.
 //
 // Design: a block owns a tile of 64 consecutive points and loops over
 // all views inside the kernel. Each (point, view) is projected once, by
@@ -39,21 +42,43 @@
 // in shared memory: both windows' start pixels, tap weights, edge flags
 // and the mask. The table is double-buffered: a round projects the next
 // four views while it accumulates the current four, one barrier a round.
-// Each warp owns 8 consecutive points. With C % 4 == 0 (the path's 32) a
-// lane loads 4 channels of a tap with one 16-byte load, 8 lanes cover a
-// point and a warp 4 points an instruction; each group of 8 lanes
-// accumulates 2 consecutive points (kVec = 4). Otherwise lane c takes
-// channel c of all 8 points (kVec = 1). A point whose feature window is
-// that of the group's previous point reuses its four taps from
-// registers instead of loading them again; the test reads the tap table,
-// so it is uniform over the lanes that share the point. Lanes 3p + k take
-// rgb channel k of the group's point p, lanes p its count. The statistics are computed in the lanes
-// that hold the sums; nothing but the maps, the points, globalfeat and
-// the mask touches device memory.
+// Each warp owns 8 consecutive points. A lane loads kVec channels of a
+// tap with one load of 16 bytes where the maps allow it: 4 float32
+// channels (kVec = 4: 8 lanes a point, a warp 4 points an instruction,
+// each group of 8 lanes accumulating 2 consecutive points), or 8
+// bfloat16 channels (kVec = 8: 4 lanes a point, a warp 8 points an
+// instruction, a group its one point). That needs C % kVec == 0 and
+// 16-byte aligned maps; bfloat16 maps that are only 8-byte aligned, or
+// whose C is 4 (mod 8), load 4 channels in 8 bytes (kVec = 4), and any
+// other C one channel a lane (kVec = 1: lane c takes channel c of all 8
+// points). The shape picks the form; each is the same template. Texels
+// stay packed in registers until their channel's arithmetic. A point
+// whose feature window is that of the group's previous point reuses its
+// four taps from registers instead of loading them again; the test reads
+// the tap table, so it is uniform over the lanes that share the point.
+// Lanes 3p + k take rgb channel k of the group's point p, lanes p its
+// count. The statistics are computed in the lanes that hold the sums;
+// nothing but the maps, the points, globalfeat and the mask touches
+// device memory.
 //
-// Every product and sum is rounded on its own, in the order of the plain
-// PyTorch version (ray_view_carry_plain, then sample_stats), and the
-// exponential is expf, so the kernel equals it bit for bit.
+// Every sum is rounded on its own, in the order of the plain PyTorch
+// version (ray_view_carry_plain, then sample_stats), and the exponential
+// is expf, so the kernel equals it bit for bit. Where a product is exact
+// in float32, its multiply and the add after it are one fused
+// multiply-add, which then rounds exactly as the two did:
+//
+//   fmaf(a, b, s) = round(s + a b) = round(s + round(a b)) when a b is a
+//   float32 value.
+//
+// That holds for f m (m is 0 or 1) in s1m, in both dtypes. At bfloat16 it
+// also holds for each feature tap's t w (the texel and the weight both
+// bfloat16: 8-bit significands, so their product has at most 16
+// significant bits, within float32's 24) and for f f in s2u (f rounded to
+// bfloat16 first). The one exception is a product below float32's normal
+// range (|a b| < 2^-126), which the separate multiply rounds to a
+// subnormal first: there the fused form can differ in the last bit.
+// float32 feature taps and s2u, and the rgb taps (float32 weights, as
+// JAX's f32_taps) keep their separately rounded products.
 //
 // Two forms, one template (kHost): the eval form samples the images' rgb
 // in the kernel; the training form (the precomputed_rgb branch of the
@@ -65,16 +90,17 @@
 // globalfeat: the feature channels' unmasked sums s1u (N, C) and, in the
 // eval form, its count (N, 1).
 //
-// bfloat16 (kBf, the bf16 compute path of the JAX package): the feature
-// maps and the images are bfloat16, read as their 16 bits and widened to
-// float exactly (a 16-byte tap load becomes an 8-byte one). The taps round
-// as JAX's grid_sample_2d_packed on bfloat16 maps: a feature tap rounds its
-// four weights to bfloat16 (exact products, then the same float sums) and
-// its sum to bfloat16; an rgb tap keeps float weights and rounds only its
-// sum. Both with __float2bfloat16_rn, to nearest even. The sums and the
-// epilogue stay float32, so the kernel still equals its plain version bit
-// for bit. The bound is the float32 form's (operations, 3.1 GFLOP a
-// chunk); the bytes fall from 0.12 to 0.08 GB and were never the limit.
+// bfloat16 (kBf, the bf16 compute path of the JAX package): the feature maps
+// and the images are bfloat16, read as their 16 bits and widened to float
+// exactly (a 16-byte tap load holds 8 channels). The taps round as JAX's
+// grid_sample_2d_packed on bfloat16 maps: a feature tap rounds its four
+// weights to bfloat16 (exact products, fused with the float sums as above)
+// and its sum to bfloat16; an rgb tap keeps float weights and rounds only
+// its sum. Both to nearest even (two channels' sums in one conversion,
+// __floats2bfloat162_rn). The sums and the epilogue stay float32, so the
+// kernel still equals its plain version bit for bit. The bound is the
+// float32 form's (operations, 3.1 GFLOP a chunk); the bytes fall from 0.12
+// to 0.08 GB and were never the limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,8 +115,14 @@ constexpr int kWarps = 8;                 // warps per block
 constexpr int kThreads = 32 * kWarps;     // 256
 constexpr int kTile = kPts * kWarps;      // 64 points per block
 constexpr int kViews = kThreads / kTile;  // views projected per round
-// three blocks an SM: at most 85 registers a thread
-constexpr int kMinBlocks = 3;
+// Blocks an SM the compiler must fit (registers a thread: 85 for 3, 64
+// for 4). Four for the training forms of the 16-byte lane mappings, which
+// run faster so (the float32 one despite a few spilled registers), three
+// elsewhere: the eval forms hold the rgb sums too and lose at 64.
+template <int kVec, bool kHost, bool kBf>
+constexpr int min_blocks() {
+  return kHost && kVec == (kBf ? 8 : 4) ? 4 : 3;
+}
 
 constexpr int kImgX1 = 1, kImgY1 = 2, kFeatX1 = 4, kFeatY1 = 8, kMask = 16;
 
@@ -143,7 +175,8 @@ __device__ __forceinline__ float4 bf16r(float4 w) {
   return make_float4(bf16r(w.x), bf16r(w.y), bf16r(w.z), bf16r(w.w));
 }
 
-// ((t0 * w.x + t1 * w.y) + t2 * w.z) + t3 * w.w
+// ((t0 * w.x + t1 * w.y) + t2 * w.z) + t3 * w.w, every product and sum
+// rounded on its own
 __device__ __forceinline__ float blend(float t0, float t1, float t2,
                                        float t3, float4 w) {
   float f = __fmul_rn(t0, w.x);
@@ -152,37 +185,78 @@ __device__ __forceinline__ float blend(float t0, float t1, float t2,
   return __fadd_rn(f, __fmul_rn(t3, w.w));
 }
 
-// kVec channels at p (16-byte aligned when kVec == 4).
-template <int kVec>
-__device__ __forceinline__ void load(const float* p, float (&t)[kVec]) {
-  if constexpr (kVec == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    t[0] = v.x;
-    t[1] = v.y;
-    t[2] = v.z;
-    t[3] = v.w;
-  } else {
-    t[0] = __ldg(p);
-  }
+// blend where every product is exact (bfloat16 texels and weights): the
+// same value with each multiply and add fused
+__device__ __forceinline__ float blend_exact(float t0, float t1, float t2,
+                                             float t3, float4 w) {
+  float f = __fmul_rn(t0, w.x);
+  f = __fmaf_rn(t1, w.y, f);
+  f = __fmaf_rn(t2, w.z, f);
+  return __fmaf_rn(t3, w.w, f);
 }
 
-// bfloat16: kVec channels at p (8-byte aligned when kVec == 4).
 __device__ __forceinline__ float widen(unsigned short u) {
   return __uint_as_float(static_cast<unsigned>(u) << 16);
 }
 
+// kVec channels of one tap, as loaded: float32 values, or bfloat16 pairs
+// in 32-bit words (channel 2k in the low half of word k), widened to
+// float exactly where they are read.
+template <typename T, int kVec>
+struct Texels;
+
 template <int kVec>
-__device__ __forceinline__ void load(const uint16_t* p, float (&t)[kVec]) {
-  if constexpr (kVec == 4) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    t[0] = __uint_as_float(v.x << 16);
-    t[1] = __uint_as_float(v.x & 0xffff0000u);
-    t[2] = __uint_as_float(v.y << 16);
-    t[3] = __uint_as_float(v.y & 0xffff0000u);
-  } else {
-    t[0] = widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+struct Texels<float, kVec> {
+  float v[kVec];
+  __device__ __forceinline__ void load(const float* p) {  // 16-byte aligned
+    if constexpr (kVec == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else {
+      v[0] = __ldg(p);
+    }
   }
-}
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = 0.f;
+  }
+  __device__ __forceinline__ float operator[](int e) const { return v[e]; }
+};
+
+template <int kVec>
+struct Texels<uint16_t, kVec> {
+  static constexpr int kWords = (kVec + 1) / 2;
+  uint32_t w[kWords];  // kVec == 1: the channel in the high half
+  __device__ __forceinline__ void load(const uint16_t* p) {
+    if constexpr (kVec == 8) {  // 16-byte aligned
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = q.x;
+      w[1] = q.y;
+      w[2] = q.z;
+      w[3] = q.w;
+    } else if constexpr (kVec == 4) {  // 8-byte aligned
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = q.x;
+      w[1] = q.y;
+    } else {
+      w[0] = static_cast<uint32_t>(
+                 __ldg(reinterpret_cast<const unsigned short*>(p)))
+             << 16;
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = 0u;
+  }
+  __device__ __forceinline__ float operator[](int e) const {
+    if constexpr (kVec == 1) return __uint_as_float(w[0]);
+    return __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u
+                                 : w[e >> 1] << 16);
+  }
+};
 
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load1(const uint16_t* p) {
@@ -215,18 +289,20 @@ struct HostRgb {
   const float* cnt;  // (N,)
 };
 
+template <bool kBf>
+using Elem = typename std::conditional<kBf, uint16_t, float>::type;
+
 template <int kVec, bool kHost, bool kBf>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
-    const float* __restrict__ pts,
-    const typename std::conditional<kBf, uint16_t, float>::type* __restrict__
-        imgs,
-    const typename std::conditional<kBf, uint16_t, float>::type* __restrict__
-        feats,
+__global__ void __launch_bounds__(kThreads,
+                                  min_blocks<kVec, kHost, kBf>()) k2_kernel(
+    const float* __restrict__ pts, const Elem<kBf>* __restrict__ imgs,
+    const Elem<kBf>* __restrict__ feats,
     const float* __restrict__ proj,
     HostRgb host, float* __restrict__ gf, uint8_t* __restrict__ mask,
     float* __restrict__ s1u_out, float* __restrict__ cnt_out, int n,
     int n_views, int ih, int iw, int fh, int fw, int c, float h1, float w1,
     float sx, float sy, float fsx, float fsy) {
+  using T = Elem<kBf>;
   constexpr int kGroup = 32 / kVec;          // lanes per point
   constexpr int kRun = kPts / kVec;          // points per lane group
   __shared__ Tap taps[2][kViews][kTile];
@@ -292,6 +368,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
   float r1 = 0.f, r2 = 0.f, rm = 0.f, count = 0.f;
   const size_t img_view = (size_t)ih * iw * 3;
   const size_t feat_view = (size_t)fh * fw * c;
+  const int img_row = iw * 3;  // a row of the image, a row of the map
+  const int feat_row = fw * c;
 
   project(0, 0);
   __syncthreads();
@@ -304,53 +382,72 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) k2_kernel(
       const int v = v0 + k;
       if (!kHost && has_rgb) {
         const Tap& tr = tk[rp];
-        const auto* base = imgs + v * img_view + rc;
-        const int i0 = tr.img_idx;
+        const T* q = imgs + v * img_view + rc + (size_t)tr.img_idx * 3;
         const bool x1 = tr.flags & kImgX1, y1 = tr.flags & kImgY1;
-        const float t00 = load1(base + (size_t)i0 * 3);
-        const float t01 = x1 ? load1(base + (size_t)(i0 + 1) * 3) : 0.f;
-        const float t10 = y1 ? load1(base + (size_t)(i0 + iw) * 3) : 0.f;
-        const float t11 =
-            x1 && y1 ? load1(base + (size_t)(i0 + iw + 1) * 3) : 0.f;
+        const float t00 = load1(q);
+        const float t01 = x1 ? load1(q + 3) : 0.f;
+        const float t10 = y1 ? load1(q + img_row) : 0.f;
+        const float t11 = x1 && y1 ? load1(q + img_row + 3) : 0.f;
         float f = blend(t00, t01, t10, t11, tr.wi);
         if constexpr (kBf) f = bf16r(f);
         const float m = tr.flags & kMask ? 1.f : 0.f;
         r1 = __fadd_rn(r1, f);
-        r2 = __fadd_rn(r2, __fmul_rn(f, f));
-        rm = __fadd_rn(rm, __fmul_rn(f, m));
+        r2 = kBf ? __fmaf_rn(f, f, r2) : __fadd_rn(r2, __fmul_rn(f, f));
+        rm = __fmaf_rn(f, m, rm);
       }
       if (!kHost && s < kRun)
         count = __fadd_rn(count, tk[s].flags & kMask ? 1.f : 0.f);
       if (has_ch) {
         const auto* fv = feats + v * feat_view + ch;
-        float t00[kVec], t01[kVec], t10[kVec], t11[kVec];
+        Texels<T, kVec> t00, t01, t10, t11;
         int prev = -1;
 #pragma unroll
         for (int p = 0; p < kRun; ++p) {
-          const int idx = tk[p].feat_idx;
-          const int fl = tk[p].flags;
+          const int4 head = *reinterpret_cast<const int4*>(&tk[p]);
+          const int idx = head.y;  // feat_idx
+          const int fl = head.z;   // flags
           const float4 w = tk[p].wf;
           // the edge flags follow from the window's start pixel, so the
           // index alone says whether the taps are those of point p - 1
           if (idx != prev) {
-            load<kVec>(fv + (size_t)idx * c, t00);
-            if (fl & kFeatX1) load<kVec>(fv + (size_t)(idx + 1) * c, t01);
-            else zero(t01);
-            if (fl & kFeatY1) load<kVec>(fv + (size_t)(idx + fw) * c, t10);
-            else zero(t10);
-            if ((fl & kFeatX1) && (fl & kFeatY1))
-              load<kVec>(fv + (size_t)(idx + fw + 1) * c, t11);
-            else zero(t11);
+            const T* q = fv + (size_t)idx * c;
+            t00.load(q);
+            if (fl & kFeatX1) t01.load(q + c);
+            else t01.zero();
+            if (fl & kFeatY1) t10.load(q + feat_row);
+            else t10.zero();
+            if ((fl & kFeatX1) && (fl & kFeatY1)) t11.load(q + feat_row + c);
+            else t11.zero();
           }
           prev = idx;
           const float m = fl & kMask ? 1.f : 0.f;
+          constexpr int kStep = kBf && kVec > 1 ? 2 : 1;
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            float f = blend(t00[e], t01[e], t10[e], t11[e], w);
-            if constexpr (kBf) f = bf16r(f);
-            f1[p][e] = __fadd_rn(f1[p][e], f);
-            f2[p][e] = __fadd_rn(f2[p][e], __fmul_rn(f, f));
-            fm[p][e] = __fadd_rn(fm[p][e], __fmul_rn(f, m));
+          for (int e = 0; e < kVec; e += kStep) {
+            float f[kStep];
+            if constexpr (kBf) {
+              f[0] = blend_exact(t00[e], t01[e], t10[e], t11[e], w);
+              if constexpr (kStep == 2) {  // two sums rounded at once
+                const __nv_bfloat162 r = __floats2bfloat162_rn(
+                    f[0],
+                    blend_exact(t00[e + 1], t01[e + 1], t10[e + 1],
+                                t11[e + 1], w));
+                f[0] = __low2float(r);
+                f[1] = __high2float(r);
+              } else {
+                f[0] = bf16r(f[0]);
+              }
+            } else {
+              f[0] = blend(t00[e], t01[e], t10[e], t11[e], w);
+            }
+#pragma unroll
+            for (int j = 0; j < kStep; ++j) {
+              f1[p][e + j] = __fadd_rn(f1[p][e + j], f[j]);
+              f2[p][e + j] = kBf ? __fmaf_rn(f[j], f[j], f2[p][e + j])
+                                 : __fadd_rn(f2[p][e + j],
+                                             __fmul_rn(f[j], f[j]));
+              fm[p][e + j] = __fmaf_rn(f[j], m, fm[p][e + j]);
+            }
           }
         }
       }
@@ -420,7 +517,7 @@ void launch(int blocks, cudaStream_t s, const float* pts, const void* imgs,
             uint8_t* mask, float* s1u_out, float* cnt_out, int n,
             int n_views, int ih, int iw, int fh, int fw, int c, int h, int w,
             float sx, float sy, float fsx, float fsy) {
-  using T = typename std::conditional<kBf, uint16_t, float>::type;
+  using T = Elem<kBf>;
   k2_kernel<kVec, kHost, kBf><<<blocks, kThreads, 0, s>>>(
       pts, static_cast<const T*>(imgs), static_cast<const T*>(feats), proj,
       host, gf, mask, s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c,
@@ -438,9 +535,10 @@ void launch(int blocks, cudaStream_t s, const float* pts, const void* imgs,
 // count), all contiguous. (h, w) is the image size the projection lives
 // in; sx, sy, fsx, fsy scale its pixels into the images and the feature
 // maps. With bf16 set, feats and imgs are bfloat16 (the rest float32).
-// Feature taps load 4 channels at a time where C % 4 == 0 and feats is so
-// aligned (16 bytes of float, 8 of bfloat16), one otherwise. The caller
-// checks shapes. Returns the cudaError_t of the launch.
+// Feature taps load 16 bytes a lane where C and the maps' alignment allow
+// it (4 float32 channels, 8 bfloat16), 8 bytes (4 bfloat16 channels)
+// where only that fits, one channel otherwise. The caller checks shapes.
+// Returns the cudaError_t of the launch.
 extern "C" int streaming_sample_mean_var(
     const float* pts, const void* imgs, const void* feats,
     const float* proj, const float* host_s1u, const float* host_s2u,
@@ -455,23 +553,24 @@ extern "C" int streaming_sample_mean_var(
   if (with_host && (host_s1u == nullptr || host_s2u == nullptr ||
                     host_s1m == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 = c % 4 == 0 && reinterpret_cast<uintptr_t>(feats) %
-                                      (bf16 ? 8 : 16) == 0;
-#define K2_LAUNCH(VEC, HOST, BF)                                            \
-  launch<VEC, HOST, BF>(blocks, s, pts, imgs, feats, proj, host, gf, mask, \
-                        s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c, h, \
-                        w, sx, sy, fsx, fsy)
-#define K2_BY_FORM(BF)                      \
-  if (vec4 && with_host) K2_LAUNCH(4, true, BF);  \
-  else if (vec4) K2_LAUNCH(4, false, BF);   \
-  else if (with_host) K2_LAUNCH(1, true, BF);    \
-  else K2_LAUNCH(1, false, BF)
+  const uintptr_t align = reinterpret_cast<uintptr_t>(feats);
+#define K2_LAUNCH(VEC, BF)                                                  \
+  if (with_host)                                                            \
+    launch<VEC, true, BF>(blocks, s, pts, imgs, feats, proj, host, gf,      \
+                          mask, s1u_out, cnt_out, n, n_views, ih, iw, fh,   \
+                          fw, c, h, w, sx, sy, fsx, fsy);                   \
+  else                                                                      \
+    launch<VEC, false, BF>(blocks, s, pts, imgs, feats, proj, host, gf,     \
+                           mask, s1u_out, cnt_out, n, n_views, ih, iw, fh,  \
+                           fw, c, h, w, sx, sy, fsx, fsy)
   if (bf16) {
-    K2_BY_FORM(true);
+    if (c % 8 == 0 && align % 16 == 0) K2_LAUNCH(8, true);
+    else if (c % 4 == 0 && align % 8 == 0) K2_LAUNCH(4, true);
+    else K2_LAUNCH(1, true);
   } else {
-    K2_BY_FORM(false);
+    if (c % 4 == 0 && align % 16 == 0) K2_LAUNCH(4, false);
+    else K2_LAUNCH(1, false);
   }
-#undef K2_BY_FORM
 #undef K2_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,10 +24,12 @@ image functions are the port's own:
   equals ``cv2.resize`` bit for bit on the shapes the tests hold it to.
 * ``imread`` decodes PNG itself (``zlib`` and numpy: 8-bit gray, gray +
   alpha, RGB and RGBA and 16-bit gray, not interlaced, all five row
-  filters) and leaves every other format (JPEG) to ``cv2`` or ``PIL``
-  where one is installed, raising otherwise. ``read_depth`` reads a
-  depth map as the JAX pipeline does: ``.npy`` metres, else a 16-bit
-  PNG of millimetres.
+  filters) and JPEG with the port's own decoder (``data/jpeg.py``,
+  bit for bit libjpeg-turbo's), and leaves every other format to
+  ``cv2`` or ``PIL`` where one is installed, raising otherwise. A JPEG
+  the decoder refuses raises: it never goes to ``cv2``. ``read_depth``
+  reads a depth map as the JAX pipeline does: ``.npy`` metres, else a
+  16-bit PNG of millimetres.
 
 ``png_encode`` / ``imwrite_png`` write the PNGs the synthetic dataset
 writer produces (filter 0 on every row).
@@ -41,6 +43,8 @@ import zlib
 from typing import Dict, Tuple
 
 import numpy as np
+
+from . import jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # channels of each PNG color type the decoder reads (8-bit; gray also
@@ -164,7 +168,8 @@ def png_decode(data: bytes) -> np.ndarray:
 def imread(path: str) -> np.ndarray:
     """Read an image file to RGB uint8 (H, W, 3), as ``cv2.imread(path,
     IMREAD_COLOR)`` followed by BGR -> RGB: gray is replicated, alpha
-    dropped. PNG is decoded here; other formats need ``cv2`` or ``PIL``."""
+    dropped. PNG is decoded here and JPEG by ``data/jpeg.py``; other
+    formats need ``cv2`` or ``PIL``."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
@@ -177,6 +182,8 @@ def imread(path: str) -> np.ndarray:
         if img.shape[2] <= 2:  # gray (+ alpha)
             return np.repeat(img[..., :1], 3, axis=2)
         return np.ascontiguousarray(img[..., :3])
+    if data[:2] == b"\xff\xd8":  # SOI
+        return jpeg.decode(data)
     try:
         import cv2
     except ImportError:
@@ -190,8 +197,8 @@ def imread(path: str) -> np.ndarray:
         from PIL import Image
     except ImportError:
         raise RuntimeError(
-            f"{path} is not a PNG, and neither cv2 nor PIL is installed to "
-            f"decode it (JPEG needs one of them)") from None
+            f"{path} is neither a PNG nor a JPEG, and neither cv2 nor PIL "
+            f"is installed to decode it") from None
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
 

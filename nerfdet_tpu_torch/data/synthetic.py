@@ -19,7 +19,7 @@ count as ``sample_points`` does (``nerfdet_tpu/data/pipeline.py``).
 ``write_synthetic_scannet`` puts such scenes on disk in ScanNet's
 layout (``posed_images/`` + ``scannet_infos_{split}.pkl`` + the points
 ``.bin``) from the same random stream as the original, with the views
-written as PNG (the original writes JPEG; the port reads PNG without
+written as PNG (the original writes JPEG; the port reads both without
 ``cv2`` or ``PIL``).
 """
 

@@ -2,8 +2,9 @@
 
 * PNG: the port's codec round-trips, and its ``imread`` equals
   ``cv2.imread`` (BGR -> RGB) bit for bit on files with every row
-  filter, on files OpenCV wrote and on gray / RGBA files; other formats
-  go to cv2 and raise without a decoder.
+  filter, on files OpenCV wrote and on gray / RGBA files; JPEG goes to
+  the port's decoder (``tests/test_torch_jpeg.py``), other formats to
+  cv2, and raise without a decoder.
 * ``imresize`` equals ``cv2.resize(INTER_LINEAR)`` bit for bit at
   968x1296 -> 320x239, 484x648 -> 320x239, the smoke config's 240x320 ->
   80x60 and on random shapes (tolerance: none; a same-size image comes
@@ -137,15 +138,23 @@ def test_imread_opencv_written_png(gray, tmp_path):
 
 
 def test_imread_jpeg_needs_a_decoder(tmp_path, monkeypatch):
+    """JPEG goes through the port's own decoder (``data/jpeg.py``), with
+    or without cv2; a format neither of the port's decoders reads (BMP)
+    needs cv2 or PIL and raises without them."""
     img = np.random.RandomState(0).randint(0, 256, (16, 24, 3)).astype(
         np.uint8)
     path = str(tmp_path / "a.jpg")
     cv2.imwrite(path, img)
-    np.testing.assert_array_equal(tpipeline.imread(path), _cv2_rgb(path))
+    bmp = str(tmp_path / "a.bmp")
+    cv2.imwrite(bmp, img)
+    want = _cv2_rgb(path)
+    np.testing.assert_array_equal(tpipeline.imread(path), want)
+    np.testing.assert_array_equal(tpipeline.imread(bmp), _cv2_rgb(bmp))
     monkeypatch.setitem(sys.modules, "cv2", None)
     monkeypatch.setitem(sys.modules, "PIL", None)
+    np.testing.assert_array_equal(tpipeline.imread(path), want)
     with pytest.raises(RuntimeError, match="neither cv2 nor PIL"):
-        tpipeline.imread(path)
+        tpipeline.imread(bmp)
     with pytest.raises(FileNotFoundError):
         tpipeline.imread(str(tmp_path / "absent.png"))
 

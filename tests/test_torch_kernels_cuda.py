@@ -585,6 +585,46 @@ def test_streaming_sample_mean_var_takes_an_unaligned_map(dev):
     assert _rel(got[0], want[0]) <= 1e-5
 
 
+def _offset(t, elements):
+    """A contiguous copy of ``t`` starting ``elements`` elements past an
+    allocation's (512-byte aligned) start."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 512 == elements * t.element_size()
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("c", [3, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["eval", "training"])
+def test_streaming_sample_mean_var_lane_forms_bitwise(dev, form, dtype, c,
+                                                      offset):
+    """Every lane mapping of K2 (16-byte loads: 4 float32 or 8 bfloat16
+    channels a lane; 8-byte loads of 4 bfloat16; one channel a lane) in
+    both forms, bit for bit against the plain twins: globalfeat, the
+    mask, and under grad s1u and the count. N = 37 x 5 = 185 points, not
+    a multiple of the 64-point tile; maps offset by 0, 1 or 4 elements
+    from a 16-byte boundary, so the shape and the alignment pick the
+    form."""
+    pts, images, feats, proj = _ray_inputs(dev, 7, 37, 5, c, seed=c)
+    images = images.to(dtype)
+    feats = _offset(feats.to(dtype), offset)
+    host = _host_rgb(pts, images, proj) if form == "training" else None
+    args = (pts, None if host else images, proj, (239, 320), feats, host)
+    got = render._k2_launch(*args, for_grad=True)
+    want = render.streaming_sample_mean_var_plain(*args)
+    carry = render.ray_view_carry_plain(pts, None if host else images,
+                                        feats, proj, (239, 320))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], carry[0][..., -c:])
+    want_cnt = host[3] if host else carry[3]
+    assert torch.equal(got[3], want_cnt)
+    assert float(want[1].float().mean()) > 0
+
+
 def test_streaming_sample_mean_var_rejects_what_it_cannot_take(dev):
     pts, images, feats, proj = _ray_inputs(dev, 2, 16, 4, 32)
     fused = render.streaming_sample_mean_var
@@ -950,3 +990,26 @@ def test_entry_device_turns_tf32_off(dev):
     assert resolve_device("cuda").type == "cuda"
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_jpeg_fixtures_decode_to_their_hashes(dev):
+    """The JAX writer's JPEG views under ``tests/data/torch_jpeg`` decode
+    to the SHA-256 of ``cv2.imread``'s RGB output recorded beside them,
+    on the card's machine (no cv2, the decoder's entropy stage built with
+    its host compiler)."""
+    import hashlib
+    import json
+    import os
+
+    from nerfdet_tpu_torch.data import pipeline
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_jpeg")
+    with open(os.path.join(root, "meta.json")) as f:
+        meta = json.load(f)
+    for part in meta.values():
+        for view in part["views"]:
+            rgb = pipeline.imread(os.path.join(root, view["file"]))
+            assert rgb.shape == tuple(part["hw"]) + (3,)
+            assert hashlib.sha256(rgb.tobytes()).hexdigest() == \
+                view["sha256"], view["file"]
