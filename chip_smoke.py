@@ -97,11 +97,16 @@ Phases, each reported on its own lines:
 11. bfloat16 compute (``compute_dtype=bfloat16``, the JAX package's
     ``--bf16`` path, parameters and optimizer float32): the bf16 kernel
     forms against their plain versions at the path's shapes (K1's
-    forward on maps that need a gradient, K1's backward at phase 8's
-    indices within 2 bfloat16 ulps, K2's eval form at one render chunk
-    and its training form bitwise, K2's backward bitwise, the rgb stream
-    on bfloat16 images bitwise), each with its time, bound and plain
-    time; then at full width NeRF-Det-R50 ``eval_step`` + host NMS (K1
+    forward on maps that need a gradient, with ``torch.addmm`` on phase
+    A's work beside it; K1's backward at phase 8's indices within 2
+    bfloat16 ulps, and bitwise on integer inputs whose pair products are
+    exact in any order, with the times of its passes; K2's eval form at
+    one render chunk and its training form bitwise; K2's backward
+    bitwise, with the times of its passes: pass 0, the index preparation,
+    pass 1a (each kept pair's df at its slot), pass 1b (the windows'
+    sums), pass 2; the rgb stream on bfloat16 images bitwise), each with
+    its time, bound and plain time; then at full width NeRF-Det-R50
+    ``eval_step`` + host NMS (K1
     once; stage times beside phase 4's float32 ones; scenes/s), one view
     through ``run_nvs_eval`` (K2 33 times; the render's stages and the
     MLP's TFLOP/s; views/s), the joint ``Trainer.step`` at 2048 rays
@@ -884,24 +889,40 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     b_plain_ms = cuda_time_ms(
         lambda: render.streaming_sample_mean_var_backward_plain(*bargs), 2,
         warmup=1)
-    # its passes, each on the last one's outputs: pass 0 (keys and
-    # cotangents), the index preparation (the counting sort), pass 1 (the
-    # windows' sums), pass 2 (the unpack)
+    # its passes, each on the last one's outputs: pass 0 (keys and, on
+    # float32 maps, cotangents), the index preparation (the counting sort;
+    # on bfloat16 maps each kept pair's slot), on float32 maps pass 1 (the
+    # windows' sums), on bfloat16 maps pass 1a (each kept pair's df at its
+    # slot) and pass 1b (the windows' sums), pass 2 (the unpack)
     keys, coef = render._backward_keys(*bargs)
     n_win = feats.shape[1] * feats.shape[2]
-    order, off = render._window_order_launch(keys, n_win)
-    packed = render._window_sums(pts, proj, img_hw, feats, coef, order, off)
-    passes = {
-        "pass0_ms": cuda_time_ms(lambda: render._backward_keys(*bargs), 10),
-        "index_ms": cuda_time_ms(
-            lambda: render._window_order_launch(keys, n_win), 10),
-        "pass1_ms": cuda_time_ms(lambda: render._window_sums(
-            pts, proj, img_hw, feats, coef, order, off), 10),
-        "pass2_ms": cuda_time_ms(lambda: render._unpack(packed, off, feats),
-                                 10)}
+    passes = {"pass0_ms": cuda_time_ms(lambda: render._backward_keys(*bargs),
+                                       10)}
+    if bf16:
+        rank, off = render._window_rank_launch(keys, n_win)
+        df, wts = render._pair_df(*bargs, rank)
+        packed = render._window_sums_bf16(df, wts, off, feats)
+        passes["index_ms"] = cuda_time_ms(
+            lambda: render._window_rank_launch(keys, n_win), 10)
+        passes["pass1a_ms"] = cuda_time_ms(
+            lambda: render._pair_df(*bargs, rank), 10)
+        passes["pass1b_ms"] = cuda_time_ms(
+            lambda: render._window_sums_bf16(df, wts, off, feats), 10)
+        del rank, df, wts
+    else:
+        order, off = render._window_order_launch(keys, n_win)
+        packed = render._window_sums(pts, proj, img_hw, feats, coef, order,
+                                     off)
+        passes["index_ms"] = cuda_time_ms(
+            lambda: render._window_order_launch(keys, n_win), 10)
+        passes["pass1_ms"] = cuda_time_ms(lambda: render._window_sums(
+            pts, proj, img_hw, feats, coef, order, off), 10)
+        del order
+    passes["pass2_ms"] = cuda_time_ms(lambda: render._unpack(packed, off,
+                                                              feats), 10)
     held = int(((off[1:] - off[:-1]) > 0).sum())
     longest = int((off[1:] - off[:-1]).max())
-    del keys, coef, order, off, packed
+    del keys, coef, off, packed
     idx, rows, kept = k2_scatter_rows(render, *bargs)
     flat = torch.zeros((feats.numel() // feats.shape[-1], feats.shape[-1]),
                        dtype=feats.dtype, device=feats.device)
@@ -921,9 +942,10 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
         f"{float(want.float().abs().max()):.3e}, tol "
         f"{'0: bitwise' if bf16 else '1e-5'}); {held} of "
         f"{feats.numel() // feats.shape[-1]} windows hold a pair, the "
-        f"longest {longest} ms={b_ms:.4f} (pass 0 {passes['pass0_ms']:.4f}, "
-        f"index preparation {passes['index_ms']:.4f}, pass 1 "
-        f"{passes['pass1_ms']:.4f}, pass 2 {passes['pass2_ms']:.4f}) "
+        f"longest {longest} ms={b_ms:.4f} ("
+        + ", ".join(f"{'index preparation' if k == 'index_ms' else 'pass '}"
+                    f"{'' if k == 'index_ms' else k[4:-3]} {v:.4f}"
+                    for k, v in passes.items()) + ") "
         f"plain_ms={b_plain_ms:.4f} library_ms={library_ms:.4f} "
         f"(index_add_ of {n_rows} weighted tap rows into the flat map) "
         f"bound_ms={b_bound:.4f} ({b_by}; {b_bytes} B, {b_ops} FLOP)")
@@ -2404,18 +2426,62 @@ def check_fusion_grad(voxel, pix, hw, gen):
     with torch.no_grad():
         plain_ms = cuda_time_ms(
             lambda: voxel.fusion_carry_plain(feats, pix, w, b), 5)
+        # phase A's work in one call: the rows widened (exactly, outside
+        # the timing) @ W + b
+        flat, wd, bd = feats.float().reshape(-1, c), w.detach(), b.detach()
+        library_ms = cuda_time_ms(lambda: torch.addmm(bd, flat, wd), 20)
+        del flat
     bound_ms, bound_by, nbytes, ops, n_valid, rows = fusion_bound(pix, c, m,
                                                                   2)
     log(f"[kernel] fused_mean_cov bfloat16 mapped, under grad: V={v} "
         f"map={fh}x{fw} C={c} N={pix.shape[1]} M={m}; {n_valid} valid "
         f"pairs, {rows} referenced rows: count, s1, s2 bitwise equal, s2m "
         f"max_rel_err={rel:.3e} (tol 1e-5) ms={ms:.4f} plain_ms="
-        f"{plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, "
-        f"{ops} FLOP)")
+        f"{plain_ms:.4f} library_ms={library_ms:.4f} (torch.addmm on the "
+        f"widened rows: phase A's work) bound_ms={bound_ms:.4f} "
+        f"({bound_by}; {nbytes} B, {ops} FLOP)")
     if rel > 1e-5:
         raise SystemExit(f"K1 under grad disagrees: rel {rel:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_fusion_backward_exact(voxel, pix, hw, gen):
+    """K1's backward on bfloat16 maps at the main path's form, on small
+    integer maps, W, mapped rows and cotangents, whose pair products and
+    sums are exact in float32 in any order: d features bit for bit equal
+    to the plain version (on random inputs the kernel's fma chain and the
+    plain version's matmul may round a pair's product apart), dW and db
+    within 1e-4 x max."""
+    import torch
+
+    dev = pix.device
+    v, n = pix.shape
+    c, m = 256, 32
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=dev).float()
+
+    feats = ints((v,) + hw + (c,), -4, 5).bfloat16()
+    w, b = ints((c, m), -4, 5), ints((m,), -4, 5)
+    g1, gm = ints((n, c), -8, 9), ints((n, m), -8, 9)
+    mapped = ints((v, hw[0] * hw[1], m), -8, 9)
+    count = (pix >= 0).float().sum(0)
+    args = (feats, pix, count, g1, None, gm, w, b, mapped)
+    got = voxel.fusion_carry_backward(*args)
+    want = voxel.fusion_carry_backward_plain(*args)
+    torch.cuda.synchronize()
+    rels = [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            for x, y in zip(got[1:], want[1:])]
+    same = torch.equal(got[0], want[0])
+    log(f"[kernel] fused_mean_cov_backward bfloat16 mapped, exact integer "
+        f"inputs, phase 8's pix: V={v} C={c} N={n} M={m}: d features "
+        f"bitwise equal {same} (tol: bitwise), dW rel {rels[0]:.3e}, db rel "
+        f"{rels[1]:.3e} (tol 1e-4)")
+    if not same or max(rels) > 1e-4:
+        raise SystemExit("K1 backward on bfloat16 maps is not bitwise equal "
+                         "to its plain version on exact inputs")
 
 
 def bf16_path(api, voxel, pointnet, render, card, pix_scaled, nvs,
@@ -2477,6 +2543,7 @@ def bf16_path(api, voxel, pointnet, render, card, pix_scaled, nvs,
     k1_bwd = check_fusion_backward(
         voxel, pix_scaled, hw, gen,
         "phase 8's pix (intrinsic scaled to ori_shape)", bf16)
+    check_fusion_backward_exact(voxel, pix_scaled, hw, gen)
     item = nvs[0]
     rbatch = api.render_batch(model, item)
     with torch.inference_mode():
@@ -3284,12 +3351,19 @@ def main():
             **{k: form[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by",
                                     "library_ms")}})
+    record["kernels"][-5]["library_of"] = (
+        "phase A: torch.addmm(b, features.float().reshape(-1, C), W) on "
+        "the widened rows")
     record["kernels"][-4]["library_of"] = (
         "torch.mm on dY @ W^T and x^T dY over the referenced rows")
+    record["kernels"][-4].update({k: low["k1_bwd"][k] for k in (
+        "index_ms", "pass1_ms", "pass2_ms", "pass3_ms")})
     record["kernels"][-2]["training_form"] = low["k2_train"]
     record["kernels"][-1]["library_of"] = (
         "index_add_ of the weighted tap rows (bfloat16) into the flat "
         "feature map: the scatter alone")
+    record["kernels"][-1].update({k: v for k, v in low["k2_bwd"].items()
+                                  if k.startswith(("pass", "index"))})
     log(f"[done] phases 1-12 in {time.perf_counter() - t_start:.1f} s")
     log(f"[jpeg] {json.dumps(decoder)}")
     log(card)

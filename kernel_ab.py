@@ -5,6 +5,7 @@ in one call.
     python3 kernel_ab.py [CHECKOUT] [--save OUT.pt] [--profile] [--forward]
     python3 kernel_ab.py --compare A.pt B.pt
     python3 kernel_ab.py --ablate
+    python3 kernel_ab.py --ablate-backward
 
 Imports ``nerfdet_tpu_torch`` from CHECKOUT (default: this file's
 directory), building its kernels there, and makes the inputs of
@@ -16,21 +17,29 @@ and phase 8's training batch (2048 rays x 64 samples over 50 views of
 forms and both dtypes (``_k2_launch``: the eval form at phase 6's first
 render chunk, the training form with the host rgb sums at phase 8's
 batch under grad, each on float32 maps and on the same maps in
-bfloat16), K2's backward (whole;
-pass 0, the index preparation, passes 1 and 2) and K1's backward at
-both pixel indices (whole; the index preparation, passes 1, 2 and 3),
-C = 256, M = 32 and no s2 cotangent as on the training path. A design without a pass's own entry point reports what
-the whole leaves after the passes it has ("rest"). With ``--save`` it
-writes the backwards' outputs, which ``--compare`` holds bit for bit
-against another checkout's. With ``--profile`` it also prints each
-backward's device time by kernel (``torch.profiler``, 5 calls). With
-``--forward`` it times K2's forward alone. Prints one line of times and
-the card. ``--ablate`` builds this checkout's K2 four more times with
-its gathers replaced by values made from the address (no feature-map
-loads; no image loads; neither) or without the integer widening of its
-bfloat16 texels, each computing garbage with the same floating-point
-arithmetic, and times K2's forward with each: what the gathers and the
-widening cost. Run
+bfloat16), K2's backward on float32 maps and on the same maps in
+bfloat16 (whole; pass 0, the index preparation and each later pass: on
+float32 maps passes 1 and 2; on bfloat16 maps passes 1 and 2 in the
+window-walk design, passes 1a, 1b and 2 in the slot design) and K1's
+backward at both pixel indices on float32 maps and on the same maps in
+bfloat16 (whole; the index preparation, passes 1, 2 and 3), C = 256, M =
+32 and no s2 cotangent as on the training path. A design without a pass's own
+entry point reports what the whole leaves after the passes it has
+("rest"). With ``--save`` it writes the backwards' outputs in both
+dtypes, which ``--compare`` holds bit for bit against another
+checkout's. With ``--profile`` it also prints each backward's device
+time by kernel (``torch.profiler``, 5 calls). With ``--forward`` it
+times K2's forward alone. Prints one line of times and the card.
+``--ablate`` builds this checkout's K2 four more times with its gathers
+replaced by values made from the address (no feature-map loads; no
+image loads; neither) or without the integer widening of its bfloat16
+texels, each computing garbage with the same floating-point arithmetic,
+and times K2's forward with each: what the gathers and the widening
+cost. ``--ablate-backward`` prints the skew of the bfloat16 backwards'
+work (pairs a K1 row and batch of rows, pairs a K2 window) and times
+K1's pass 1 and K2's passes 1a and 1b on bfloat16 maps with a cost
+removed in turn by a text edit of the source (``BWD_VARIANTS``: K1's
+batches of adjacent rows, loads, copies, the bfloat16 roundings). Run
 two checkouts in turns (A B B A) in one call: calls may land on cards of
 other power limits.
 """
@@ -59,30 +68,45 @@ def timed(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def k2_times(render, bargs, out):
-    """K2's backward, pass by pass where the design has them."""
+def k2_times(render, bargs, out, tag=""):
+    """K2's backward, pass by pass where the design has them (``tag``
+    "_bf16" on bfloat16 maps)."""
     hw_img, feats = bargs[2], bargs[3]
     n_win = feats.shape[1] * feats.shape[2]
-    t = {"k2_bwd": timed(lambda: render.streaming_sample_mean_var_backward(
-        *bargs), 10)}
-    out["k2_bwd"] = render.streaming_sample_mean_var_backward(*bargs)
+    t = {f"k2{tag}_bwd": timed(
+        lambda: render.streaming_sample_mean_var_backward(*bargs), 10)}
+    out[f"k2{tag}_bwd"] = render.streaming_sample_mean_var_backward(*bargs)
     keys, coef = render._backward_keys(*bargs)
-    t["k2_pass0"] = timed(lambda: render._backward_keys(*bargs), 10)
-    if hasattr(render, "_window_sums"):
+    t[f"k2{tag}_pass0"] = timed(lambda: render._backward_keys(*bargs), 10)
+    if tag and hasattr(render, "_pair_df"):  # the slot design's passes
+        rank, off = render._window_rank_launch(keys, n_win)
+        t[f"k2{tag}_index"] = timed(
+            lambda: render._window_rank_launch(keys, n_win), 10)
+        t[f"k2{tag}_pass1a"] = timed(
+            lambda: render._pair_df(*bargs, rank), 10)
+        df, wts = render._pair_df(*bargs, rank)
+        t[f"k2{tag}_pass1b"] = timed(
+            lambda: render._window_sums_bf16(df, wts, off, feats), 10)
+        packed = render._window_sums_bf16(df, wts, off, feats)
+        t[f"k2{tag}_pass2"] = timed(lambda: render._unpack(packed, off,
+                                                           feats), 10)
+    elif hasattr(render, "_window_sums"):
         order, off = render._window_order_launch(keys, n_win)
-        t["k2_index"] = timed(lambda: render._window_order_launch(keys,
-                                                                  n_win), 10)
+        t[f"k2{tag}_index"] = timed(
+            lambda: render._window_order_launch(keys, n_win), 10)
         pts, proj = bargs[0], bargs[1]
-        t["k2_pass1"] = timed(lambda: render._window_sums(
+        t[f"k2{tag}_pass1"] = timed(lambda: render._window_sums(
             pts, proj, hw_img, feats, coef, order, off), 10)
         packed = render._window_sums(pts, proj, hw_img, feats, coef, order,
                                      off)
-        t["k2_pass2"] = timed(lambda: render._unpack(packed, off, feats), 10)
+        t[f"k2{tag}_pass2"] = timed(lambda: render._unpack(packed, off,
+                                                           feats), 10)
     else:
         keys2 = keys.reshape(-1)
-        t["k2_index"] = timed(lambda: render.window_order(
+        t[f"k2{tag}_index"] = timed(lambda: render.window_order(
             keys2, feats.shape[0] * n_win), 10)
-        t["k2_rest"] = t["k2_bwd"] - t["k2_pass0"] - t["k2_index"]
+        t[f"k2{tag}_rest"] = (t[f"k2{tag}_bwd"] - t[f"k2{tag}_pass0"]
+                              - t[f"k2{tag}_index"])
     return t
 
 
@@ -195,8 +219,161 @@ def ablate():
     return 0
 
 
+# The bfloat16 backwards' costs, each removed by a text edit of this
+# checkout's source (the same floating-point work on values made from the
+# address where a load goes, or no rounding): (library, variant, [(old,
+# new), ...]). The first K1 variant restores the batches of 32 adjacent
+# pixel rows the interleaved batches replaced.
+BWD_VARIANTS = [
+    ("fused_mean_cov_backward", "pass 1 on batches of adjacent rows", [
+        ("    const long long r = bt + lane * batches;",
+         "    const long long r = bt * 32 + lane;"),
+        ("      uint16_t* out = dfeat + (size_t)(bt + k * batches) * kC + "
+         "lane * kW;",
+         "      uint16_t* out = dfeat + (size_t)(bt * 32 + k) * kC + "
+         "lane * kW;"),
+        ("        ring_r[k] = (int)(bt + i * batches);",
+         "        ring_r[k] = (int)(bt * 32 + i);")]),
+    ("fused_mean_cov_backward", "pass 1 without bf16 roundings", [
+        ("  return __bfloat162float(__float2bfloat16_rn(x));",
+         "  return x;"),
+        ("  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);\n"
+         "  const unsigned u = *reinterpret_cast<const unsigned*>(&h);\n"
+         "  a = __uint_as_float(u << 16);  // a in the low half\n"
+         "  b = __uint_as_float(u & 0xffff0000u);", "")]),
+    ("streaming_sample_mean_var_backward", "pass 1a without its tap loads", [
+        ("      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));",
+         "      const uint4 q = make_uint4((unsigned)(size_t)p, 0x3f803f80u, "
+         "0x3f803f80u, (unsigned)(size_t)p >> 3);")]),
+    ("streaming_sample_mean_var_backward", "pass 1b without its df copies", [
+        ("          cp_async16(dst + (b - lo), src + b);",
+         "          if (b < 0) cp_async16(dst + (b - lo), src + b);")]),
+    ("streaming_sample_mean_var_backward", "passes 1a, 1b without bf16 "
+     "roundings", [
+        ("  return __bfloat162float(__float2bfloat16_rn(x));",
+         "  return x;"),
+        ("  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);\n"
+         "  const unsigned u = *reinterpret_cast<const unsigned*>(&h);\n"
+         "  a = __uint_as_float(u << 16);  // a in the low half\n"
+         "  b = __uint_as_float(u & 0xffff0000u);", ""),
+        ("      const __nv_bfloat162 h = __floats2bfloat162_rn(x[e], "
+         "x[e + 1]);\n      x[e] = __low2float(h);\n"
+         "      x[e + 1] = __high2float(h);", "")]),
+]
+
+
+def ablate_backward():
+    """The skew of the bfloat16 backwards' work at the A/B's inputs (K1:
+    pairs a pixel row and a batch of 32 rows, adjacent or interleaved;
+    K2: pairs a window), then K1's pass 1 and K2's passes 1a and 1b with
+    each of BWD_VARIANTS built from this checkout's source into its own
+    library and timed in place of the real one (the real one first and
+    last)."""
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    (render, voxel), k1, k2, _ = inputs(HERE)
+    from nerfdet_tpu_torch.ops import cuda_build
+
+    feats = k1["feats"].bfloat16()
+    mapped = voxel.mapped_rows_plain(feats, k1["w"], k1["b"])
+    hw = feats.shape[1] * feats.shape[2]
+    k1_args = {}
+    for tag, pix in k1["pix"].items():
+        order, off, _, _ = voxel.pixel_order(pix, hw)
+        cnt = (off[:, 1:] - off[:, :-1]).flatten()
+        k1_args[tag] = (feats, order, off, k1["g1"], None, k1["gm"], mapped,
+                        k1["w"])
+        pad = torch.nn.functional.pad(cnt, (0, -cnt.numel() % 32))
+        adjacent = pad.reshape(-1, 32).sum(1)
+        inter = pad.reshape(32, -1).sum(0)
+        print(f"[kernel_ab] K1 {tag}: {int(cnt.sum())} pairs, "
+              f"{int((cnt > 0).sum())} referenced rows, at most "
+              f"{int(cnt.max())} pairs a row; a batch of 32 rows: mean "
+              f"{float(adjacent.float().mean()):.1f} pairs, at most "
+              f"{int(adjacent.max())} adjacent, {int(inter.max())} "
+              f"interleaved", flush=True)
+    bargs = k2["_bf16"]
+    v, fh, fw, _ = bargs[3].shape
+    keys, _ = render._backward_keys(*bargs)
+    rank, off = render._window_rank_launch(keys, fh * fw)
+    df, wts = render._pair_df(*bargs, rank)
+    length = (off[1:] - off[:-1]).float()
+    held = length[length > 0]
+    print(f"[kernel_ab] K2: {int(off[-1])} kept pairs in {held.numel()} of "
+          f"{length.numel()} windows: mean {float(held.mean()):.1f}, p99 "
+          f"{float(held.quantile(0.99)):.0f}, at most {int(length.max())} "
+          f"a window", flush=True)
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "ablate_backward")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = []
+    for i, (name, label, subs) in enumerate(BWD_VARIANTS):
+        with open(os.path.join(cuda_build.CSRC, f"{name}.cu")) as f:
+            src = f.read()
+        for old, new in subs:
+            if old not in src:
+                raise SystemExit(f"kernel_ab --ablate-backward: {label}: "
+                                 f"the code is not in the source")
+            src = src.replace(old, new)
+        path = os.path.join(out_dir, f"{i}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        so = path[:-3] + ".so"
+        jobs.append((name, label, so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             cuda_build.CSRC, "-o", so, path],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)))
+    real = {"fused_mean_cov_backward": voxel._backward_lib(),
+            "streaming_sample_mean_var_backward": render._backward_lib()}
+    runs = [(name, "real", real[name]) for name in real]
+    for name, label, so, proc in jobs:
+        if proc.wait() != 0:
+            raise SystemExit(f"kernel_ab --ablate-backward: {label} did not "
+                             f"build")
+        lib = ctypes.CDLL(so)
+        for attr in ("pixels", "parts", "tile", "order", "weights", "reduce",
+                     "keys", "rank", "windows", "pairs", "windows_bf16",
+                     "unpack"):
+            fname = f"{name}_{attr}"
+            try:
+                ref = getattr(real[name], fname)
+            except AttributeError:
+                continue
+            getattr(lib, fname).argtypes = ref.argtypes
+            getattr(lib, fname).restype = ref.restype
+        runs.append((name, label, lib))
+    runs += [(name, "real", real[name]) for name in real]
+    modules = {"fused_mean_cov_backward": voxel,
+               "streaming_sample_mean_var_backward": render}
+    for name, label, lib in runs:
+        module = modules[name]
+        keep = module._backward_lib
+        module._backward_lib = lambda lib=lib: lib
+        try:
+            if module is voxel:
+                times = ", ".join(
+                    f"{tag} {timed(lambda: voxel._pixel_sums(*a)):.4f}"
+                    for tag, a in k1_args.items())
+                print(f"[kernel_ab] ablate K1 bf16 pass 1, {label}: "
+                      f"{times} ms", flush=True)
+            else:
+                t1a = timed(lambda: render._pair_df(*bargs, rank), 10)
+                t1b = timed(lambda: render._window_sums_bf16(
+                    df, wts, off, bargs[3]), 10)
+                print(f"[kernel_ab] ablate K2 bf16, {label}: pass 1a "
+                      f"{t1a:.4f} ms, pass 1b {t1b:.4f} ms", flush=True)
+        finally:
+            module._backward_lib = keep
+    return 0
+
+
 def k1_times(voxel, tag, feats, pix, w, b, g1, gm, out):
-    """K1's backward, pass by pass where the design has them."""
+    """K1's backward, pass by pass where the design has them (``tag``
+    ends in "_bf16" on bfloat16 maps)."""
     import torch
 
     count = (pix >= 0).float().sum(0)
@@ -224,7 +401,8 @@ def k1_times(voxel, tag, feats, pix, w, b, g1, gm, out):
 def inputs(root):
     """The checkout's modules and the A/B's inputs, from their seeds: for
     K1 the maps, W, b and cotangents with each intrinsic's ``pix``; for
-    K2 its backward's arguments at phase 8's training batch, and its
+    K2 its backward's arguments at phase 8's training batch on float32
+    maps and on the same maps in bfloat16 (keys "" and "_bf16"), and its
     forward's in both forms."""
     sys.path.insert(0, root)
     import numpy as np
@@ -295,7 +473,11 @@ def inputs(root):
     gf, _, s1u, cnt = render._k2_launch(pts, None, proj, (h, w), tfeats,
                                         host, for_grad=True)
     g = torch.randn(gf.shape, generator=gen, device=dev)
-    k2 = (pts, proj, (h, w), tfeats, g, gf, s1u, cnt)
+    k2 = {"": (pts, proj, (h, w), tfeats, g, gf, s1u, cnt)}
+    bfeats = tfeats.bfloat16()
+    gf, _, s1u, cnt = render._k2_launch(pts, None, proj, (h, w), bfeats,
+                                        host, for_grad=True)
+    k2["_bf16"] = (pts, proj, (h, w), bfeats, g, gf, s1u, cnt)
     nvs = smoke.nvs_dataset(dict(scene, intrinsic=scaled),
                             scene["intrinsic"], (h, w))
     _, epts, eimgs, efeats, eproj, _ = smoke.ray_cases(
@@ -331,25 +513,27 @@ def run(root, save, with_profile, forward_only):
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    (render, voxel), k1, bargs, k2_fwd = inputs(root)
+    (render, voxel), k1, k2, k2_fwd = inputs(root)
     out, t = {}, {}
     t.update(k2_forward_times(render, *k2_fwd, out))
-    for tag, pix in ({} if forward_only else k1["pix"]).items():
-        t.update(k1_times(voxel, tag, k1["feats"], pix, k1["w"], k1["b"],
-                          k1["g1"], k1["gm"], out))
-        if with_profile:
-            count = (pix >= 0).float().sum(0)
-            args = (k1["feats"], pix, count, k1["g1"], None, k1["gm"],
-                    k1["w"], k1["b"], voxel.mapped_rows_plain(
-                        k1["feats"], k1["w"], k1["b"]))
-            profile(f"K1 backward {tag}",
-                    lambda: voxel.fusion_carry_backward(*args))
+    for dtag, feats in (("", k1["feats"]), ("_bf16", k1["feats"].bfloat16())):
+        for tag, pix in ({} if forward_only else k1["pix"]).items():
+            t.update(k1_times(voxel, tag + dtag, feats, pix, k1["w"],
+                              k1["b"], k1["g1"], k1["gm"], out))
+            if with_profile:
+                count = (pix >= 0).float().sum(0)
+                args = (feats, pix, count, k1["g1"], None, k1["gm"],
+                        k1["w"], k1["b"], voxel.mapped_rows_plain(
+                            feats, k1["w"], k1["b"]))
+                profile(f"K1 backward {tag}{dtag}",
+                        lambda: voxel.fusion_carry_backward(*args))
     del k1
-    if not forward_only:
-        t.update(k2_times(render, bargs, out))
-    if with_profile and not forward_only:
-        profile("K2 backward",
-                lambda: render.streaming_sample_mean_var_backward(*bargs))
+    for dtag, bargs in ({} if forward_only else k2).items():
+        t.update(k2_times(render, bargs, out, dtag))
+        if with_profile:
+            profile(f"K2 backward{dtag}",
+                    lambda: render.streaming_sample_mean_var_backward(
+                        *bargs))
     if save:
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
         torch.save({k: v if isinstance(v, torch.Tensor) else list(v)
@@ -385,6 +569,8 @@ def main(argv):
         return compare(argv[1], argv[2])
     if argv[:1] == ["--ablate"]:
         return ablate()
+    if argv[:1] == ["--ablate-backward"]:
+        return ablate_backward()
     save = None
     if "--save" in argv:
         i = argv.index("--save")

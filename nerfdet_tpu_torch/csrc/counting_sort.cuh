@@ -21,7 +21,8 @@
 //   warps' parts before its own. A warp walks its part 32 items a round in
 //   item order; the lanes of one bin (found by a ballot a bit of the bin)
 //   take consecutive places in lane order, the bin's last lane advances
-//   its cursor.
+//   its cursor. It writes each kept item at its place (`order`), or its
+//   place at the item (`rank`, the inverse), or both.
 //
 // Two layouts:
 // - global (K2): positions run over all views, viewbase + the view's scan;
@@ -32,10 +33,10 @@
 //   the items K1 sorts first), so off[v, nb - 1] = N. The non-empty bins
 //   b >= 1 come out as rows b - 1 (V, nb - 1), -1 past the view's count.
 //
-// The bytes are the keys read three times, the kept items' indices
-// written once and the histograms (4 V J nb bytes) written, read twice and
-// rewritten. Every loop over global memory loads kAhead values before it
-// uses the first.
+// The bytes are the keys read three times, the kept items' indices (or
+// places) written once and the histograms (4 V J nb bytes) written, read
+// twice and rewritten. Every loop over global memory loads kAhead values
+// before it uses the first.
 
 #pragma once
 
@@ -204,12 +205,12 @@ __global__ void __launch_bounds__(kScanThreads)
 }
 
 // Up to kPlaceWarps warps a block, warp w placing the w-th of as many
-// equal parts of the tile. `order` gets v item_step + i for kept item i of
-// view v.
+// equal parts of the tile. For kept item i of view v, item = v item_step +
+// i: `order[place] = item` and `rank[item] = place`, each where not null.
 __global__ void __launch_bounds__(32 * kPlaceWarps)
     place_kernel(const int* __restrict__ keys, const int* __restrict__ base,
-                 int* __restrict__ order, int n, int nb, int key_step,
-                 int key_bias, int item_step) {
+                 int* __restrict__ order, int* __restrict__ rank, int n,
+                 int nb, int key_step, int key_bias, int item_step) {
   extern __shared__ int cur[];  // a warp's nb cursors after another's
   const int v = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -293,7 +294,9 @@ __global__ void __launch_bounds__(32 * kPlaceWarps)
       if (keep) at = mine[bin[k]] + __popc(peers[k] & below);
       __syncwarp();
       if (keep) {
-        order[at] = v * item_step + i0 + 32 * k + lane;
+        const int item = v * item_step + i0 + 32 * k + lane;
+        if (order != nullptr) order[at] = item;
+        if (rank != nullptr) rank[item] = at;
         if (lane == 31 - __clz(peers[k])) mine[bin[k]] = at + 1;
       }
       __syncwarp();
@@ -319,9 +322,11 @@ inline cudaError_t fit_smem(const void* kernel, size_t bytes) {
 }
 
 // The three launches. hist (V, J, nb) and tile_kept (V, J) are scratch;
-// hist holds the tiles' bases after. rows / n_rows may be null.
+// hist holds the tiles' bases after. order / rank, rows / n_rows may be
+// null.
 inline cudaError_t sort(const int* keys, int* hist, int* tile_kept,
-                        int* order, int* off, int* rows, int* n_rows,
+                        int* order, int* rank, int* off, int* rows,
+                        int* n_rows,
                         int n_views, int n, int nb, int key_step,
                         int key_bias, int per_view, int item_step,
                         cudaStream_t s) {
@@ -347,7 +352,7 @@ inline cudaError_t sort(const int* keys, int* hist, int* tile_kept,
       hist, tile_kept, off, rows, n_rows, n_views, tiles, n, nb, per_view);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   place_kernel<<<grid, 32 * warps, (size_t)warps * nb * 4, s>>>(
-      keys, hist, order, n, nb, key_step, key_bias, item_step);
+      keys, hist, order, rank, n, nb, key_step, key_bias, item_step);
   return cudaGetLastError();
 }
 

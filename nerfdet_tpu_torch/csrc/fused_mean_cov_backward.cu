@@ -74,11 +74,13 @@
 // voxel order, each sum rounded (__float2bfloat16_rn, to nearest even).
 // So pass 1 (pixel_bf16_kernel) does per pair what the float32 pass does
 // per pixel: the product with W^T once a pair. dY, dW and db are as for
-// float32 maps; pass 2 widens the staged rows of bfloat16 maps exactly.
+// float32 maps; pass 2 stages the rows of bfloat16 maps as they are, by
+// cp.async, and widens them (exactly) where it reads them.
 // That makes the bfloat16 form bound by operations: at phase 8's indices
 // (0.72 M valid pairs, 203 K referenced rows) 15.6 GFLOP, 11.8 of them
-// the pairs' 2 C M products, against 288 MB (0.23 ms at 67 TFLOP/s);
-// pass 1 walks them in float32 FMAs, dm[m] by shuffle, a pair at a time.
+// the pairs' 2 C M products, against 288 MB (0.23 ms at 67 TFLOP/s).
+// Pass 1 runs the products in float32 FMAs on groups of kP pairs that
+// share each read of W^T (see pixel_bf16_kernel).
 //
 // Inputs: float32 or bfloat16 maps, C in {32, 64, 128, 256, 512, 1024},
 // 1 <= M <= 32.
@@ -142,6 +144,15 @@ __device__ __forceinline__ void load(const uint16_t* p, float* x) {
 // x rounded to bfloat16, to nearest even, as a float.
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a and b rounded to bfloat16, to nearest even, as floats: one
+// conversion for the two.
+__device__ __forceinline__ void bf16r2(float& a, float& b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const unsigned u = *reinterpret_cast<const unsigned*>(&h);
+  a = __uint_as_float(u << 16);  // a in the low half
+  b = __uint_as_float(u & 0xffff0000u);
 }
 
 // Floats that hold bfloat16 values, stored as their 16 bits.
@@ -309,10 +320,38 @@ __global__ void __launch_bounds__(kThreads, (kG2 || kCpl > 8) ? 1 : 3)
   }
 }
 
-// The pass on bfloat16 maps: the same walk (a warp a pixel row, lane l
-// channels (j * 32 + l) * kW + e), but each pair's cotangent is rounded and
-// added on its own, so the product with W^T runs once a pair, dm[m] handed
-// out by shuffle. GM and dY are as in pixel_kernel.
+// The pass on bfloat16 maps. Each pair's cotangent is rounded and added on
+// its own, so the product with W^T runs once a pair, not once a row; the
+// pairs go through it kP at a time, so that each W^T value read from
+// shared memory serves kP pairs' FMAs (one pair at a time, the reads of
+// W^T bound the pass, not its FMAs).
+//
+// Warp w walks batches of 32 pixel rows, w, w + warps, ...: lane i takes
+// row b + i B of batch b (B batches; interleaved, so that a batch samples
+// the whole map: the rows with many pairs lie together, and batches of
+// adjacent rows left a few warps most of the pairs), a row without a
+// voxel is written zeros at once, and the batch's pairs, in row then
+// voxel order, are appended to
+// the warp's ring of (voxel, row) in shared memory, 32 at a time (lane k
+// finds pair q's row by a binary search over the lanes' inclusive
+// counts). Whenever the ring holds kP pairs, a group leaves it, across
+// row and batch boundaries alike:
+//   - its g1 rows are loaded (lane l channels (j * 32 + l) * kW + e, as
+//     pixel_kernel), then lane m < M loads each pair's gm[m] and its row's
+//     mapped value y[m] and puts dm = (2 y) gm into the warp's slot dm_s[m]
+//     [p] in shared memory;
+//   - the product: for m = 0 .. M - 1 the lane reads its channels of W^T
+//     row m once and dm_s[m][0 .. kP) as broadcasts, and adds kP x kCpl
+//     FMAs, each pair's channel the same fmaf chain in ascending m as
+//     before, so each pair's product keeps its bits;
+//   - the pairs are then added in order: a pair of a new row first writes
+//     the row before it (d features and dY) and starts the new one; each
+//     pair's ((2 x g2) + g1) + product is rounded and added, the sum
+//     rounded, and lane m sums gm for dY.
+// So each row's voxels add in ascending voxel order, as before, and the
+// d features are the design before this one's bit for bit. kP is 8 up to
+// 8 channels a lane (the FMAs of a group, 64 a lane for each m, then
+// outnumber its shared-memory wavefronts, 10), fewer above (registers).
 template <int kCpl, int kW, bool kG2>
 __global__ void __launch_bounds__(kThreads, 1)
     pixel_bf16_kernel(const uint16_t* __restrict__ feats,
@@ -325,10 +364,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const float* __restrict__ w,
                       uint16_t* __restrict__ dfeat, float* __restrict__ dy,
                       int n_views, int hw, int n_vox, int n_map) {
-  extern __shared__ __align__(16) float wt_s[];
   constexpr int kC = 32 * kCpl;
   constexpr int kPass = kCpl / kW;
-  const int lane = threadIdx.x & 31;
+  constexpr int kP = kCpl <= 8 ? 8 : 64 / kCpl;  // pairs a group
+  constexpr int kRing = 64;  // a group and a batch's 32 pairs fit
+  extern __shared__ __align__(16) float wt_s[];
+  __shared__ __align__(16) float dm_all[kWarps][kMaxMap][kP];
+  __shared__ int ring_all[kWarps][2][kRing];  // voxel, row
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const bool with_m = mapped != nullptr;
   if (with_m) {
     for (int i = threadIdx.x; i < kC * n_map; i += kThreads) {
@@ -337,84 +380,200 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
   }
-  const long long rows = (long long)n_views * hw;
-  const long long warps = (long long)gridDim.x * kWarps;
-  for (long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       r < rows; r += warps) {
-    const int v = (int)(r / hw), p = (int)(r % hw);
-    const int* offv = off + (size_t)v * (hw + 1);
-    const int beg = __ldg(offv + p), end = __ldg(offv + p + 1);
-    float acc[kCpl];
+  float(*dm_s)[kP] = dm_all[wid];
+  int* ring_n = ring_all[wid][0];
+  int* ring_r = ring_all[wid][1];
+  int head = 0, len = 0;  // the ring's pairs, the same over the warp
+
+  // the open row: its sum, lane m's gm sum and mapped value, and 2 x
+  int cur = -1;
+  float acc[kCpl], am = 0.f, ycur = 0.f, x2[kG2 ? kCpl : 1];
 #pragma unroll
-    for (int c = 0; c < kCpl; ++c) acc[c] = 0.f;
-    if (beg < end) {
-      float y = 0.f, am = 0.f;
-      if (with_m && lane < n_map)
-        y = __ldg(mapped + (size_t)r * n_map + lane);
-      float x2[kCpl];  // 2 x, for the s2 cotangent
-      if constexpr (kG2) {
-        const uint16_t* xr = feats + (size_t)r * kC + lane * kW;
-#pragma unroll
-        for (int j = 0; j < kPass; ++j) load<kW>(xr + j * 32 * kW, &x2[j * kW]);
-#pragma unroll
-        for (int c = 0; c < kCpl; ++c) x2[c] = __fmul_rn(2.f, x2[c]);
-      }
-      const int* ordv = order + (size_t)v * n_vox;
-      for (int i0 = beg; i0 < end; i0 += 32) {
-        const int cnt = min(32, end - i0);
-        const int mine = lane < cnt ? __ldg(ordv + i0 + lane) : 0;
-        for (int k = 0; k < cnt; ++k) {
-          const int n = __shfl_sync(0xffffffffu, mine, k);
-          float d[kCpl];
-          const float* row1 = g1 + (size_t)n * kC + lane * kW;
-#pragma unroll
-          for (int j = 0; j < kPass; ++j)
-            load<kW>(row1 + j * 32 * kW, &d[j * kW]);
-          if constexpr (kG2) {  // (2 x g2) + g1
-            float t2[kCpl];
-            const float* row2 = g2 + (size_t)n * kC + lane * kW;
-#pragma unroll
-            for (int j = 0; j < kPass; ++j)
-              load<kW>(row2 + j * 32 * kW, &t2[j * kW]);
-#pragma unroll
-            for (int c = 0; c < kCpl; ++c)
-              d[c] = __fadd_rn(__fmul_rn(x2[c], t2[c]), d[c]);
-          }
-          if (with_m) {  // + (2 y gm) @ W^T
-            float dmv = 0.f;
-            if (lane < n_map) {
-              const float g = __ldg(gm + (size_t)n * n_map + lane);
-              am = __fadd_rn(am, g);
-              dmv = __fmul_rn(__fmul_rn(2.f, y), g);
-            }
-            float prod[kCpl];
-#pragma unroll
-            for (int c = 0; c < kCpl; ++c) prod[c] = 0.f;
-            for (int m = 0; m < n_map; ++m) {
-              const float dm = __shfl_sync(0xffffffffu, dmv, m);
-              const float* wm = wt_s + m * kC + lane * kW;
-#pragma unroll
-              for (int j = 0; j < kPass; ++j)
-#pragma unroll
-                for (int e = 0; e < kW; ++e)
-                  prod[j * kW + e] =
-                      fmaf(dm, wm[j * 32 * kW + e], prod[j * kW + e]);
-            }
-#pragma unroll
-            for (int c = 0; c < kCpl; ++c) d[c] = __fadd_rn(d[c], prod[c]);
-          }
-#pragma unroll
-          for (int c = 0; c < kCpl; ++c)
-            acc[c] = bf16r(__fadd_rn(acc[c], bf16r(d[c])));
-        }
-      }
-      if (with_m && lane < n_map)
-        dy[(size_t)r * n_map + lane] = __fmul_rn(__fmul_rn(2.f, y), am);
-    }  // else no voxel maps here: acc holds zeros
-    uint16_t* out = dfeat + (size_t)r * kC + lane * kW;
+  for (int c = 0; c < kCpl; ++c) acc[c] = 0.f;
+  auto finish = [&]() {
+    if (cur < 0) return;
+    uint16_t* out = dfeat + (size_t)cur * kC + lane * kW;
 #pragma unroll
     for (int j = 0; j < kPass; ++j) store<kW>(out + j * 32 * kW, &acc[j * kW]);
+    if (with_m && lane < n_map)
+      dy[(size_t)cur * n_map + lane] = __fmul_rn(__fmul_rn(2.f, ycur), am);
+  };
+
+  // the np <= kP pairs at the ring's head, in order
+  auto group = [&](int np) {
+    int gn[kP], gr[kP];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      gn[p] = p < np ? ring_n[(head + p) & (kRing - 1)] : 0;
+      gr[p] = p < np ? ring_r[(head + p) & (kRing - 1)] : -1;
+    }
+    float t1[kP][kCpl];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if (p >= np) break;  // uniform over the warp
+      const float* row1 = g1 + (size_t)gn[p] * kC + lane * kW;
+#pragma unroll
+      for (int j = 0; j < kPass; ++j)
+        load<kW>(row1 + j * 32 * kW, &t1[p][j * kW]);
+    }
+    float gq[kP], yq[kP], prod[kP][kCpl];
+    if (with_m) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        gq[p] = yq[p] = 0.f;
+        if (p < np && lane < n_map) {
+          gq[p] = __ldg(gm + (size_t)gn[p] * n_map + lane);
+          yq[p] = __ldg(mapped + (size_t)gr[p] * n_map + lane);
+        }
+      }
+      if (lane < n_map) {
+#pragma unroll
+        for (int p = 0; p < kP; ++p)
+          dm_s[lane][p] = __fmul_rn(__fmul_rn(2.f, yq[p]), gq[p]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c) prod[p][c] = 0.f;
+#pragma unroll 4  // the next m's shared-memory reads go out early
+      for (int m = 0; m < n_map; ++m) {
+        float wv[kCpl], dv[kP];
+        const float* wm = wt_s + m * kC + lane * kW;
+#pragma unroll
+        for (int j = 0; j < kPass; ++j)
+#pragma unroll
+          for (int e = 0; e < kW; ++e) wv[j * kW + e] = wm[j * 32 * kW + e];
+        if constexpr (kP % 4 == 0) {
+#pragma unroll
+          for (int p = 0; p < kP; p += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(&dm_s[m][p]);
+            dv[p] = q.x;
+            dv[p + 1] = q.y;
+            dv[p + 2] = q.z;
+            dv[p + 3] = q.w;
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < kP; ++p) dv[p] = dm_s[m][p];
+        }
+#pragma unroll
+        for (int p = 0; p < kP; ++p)
+#pragma unroll
+          for (int c = 0; c < kCpl; ++c)
+            prod[p][c] = fmaf(dv[p], wv[c], prod[p][c]);
+      }
+      __syncwarp();  // before the slots are written again
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if (p >= np) break;  // uniform over the warp
+      if (gr[p] != cur) {
+        finish();
+        cur = gr[p];
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c) acc[c] = 0.f;
+        am = 0.f;
+        if (with_m) ycur = yq[p];
+        if constexpr (kG2) {
+          const uint16_t* xr = feats + (size_t)cur * kC + lane * kW;
+#pragma unroll
+          for (int j = 0; j < kPass; ++j)
+            load<kW>(xr + j * 32 * kW, &x2[j * kW]);
+#pragma unroll
+          for (int c = 0; c < kCpl; ++c) x2[c] = __fmul_rn(2.f, x2[c]);
+        }
+      }
+      float d[kCpl];
+#pragma unroll
+      for (int c = 0; c < kCpl; ++c) d[c] = t1[p][c];
+      if constexpr (kG2) {  // (2 x g2) + g1
+        float t2[kCpl];
+        const float* row2 = g2 + (size_t)gn[p] * kC + lane * kW;
+#pragma unroll
+        for (int j = 0; j < kPass; ++j)
+          load<kW>(row2 + j * 32 * kW, &t2[j * kW]);
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c)
+          d[c] = __fadd_rn(__fmul_rn(x2[c], t2[c]), d[c]);
+      }
+      if (with_m) {  // + (2 y gm) @ W^T
+#pragma unroll
+        for (int c = 0; c < kCpl; ++c) d[c] = __fadd_rn(d[c], prod[p][c]);
+        if (lane < n_map) am = __fadd_rn(am, gq[p]);
+      }
+      // each pair's cotangent rounded, then each sum, two values a
+      // conversion (kCpl is 1 or even)
+      if constexpr (kCpl == 1) {
+        acc[0] = bf16r(__fadd_rn(acc[0], bf16r(d[0])));
+      } else {
+#pragma unroll
+        for (int c = 0; c < kCpl; c += 2) {
+          bf16r2(d[c], d[c + 1]);
+          acc[c] = __fadd_rn(acc[c], d[c]);
+          acc[c + 1] = __fadd_rn(acc[c + 1], d[c + 1]);
+          bf16r2(acc[c], acc[c + 1]);
+        }
+      }
+    }
+    head += np;
+    len -= np;
+  };
+
+  const long long rows = (long long)n_views * hw;
+  const long long batches = (rows + 31) / 32;
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long bt = (long long)blockIdx.x * kWarps + wid; bt < batches;
+       bt += warps) {
+    const long long r = bt + lane * batches;
+    int cnt = 0, base = 0;
+    if (r < rows) {
+      const int v = (int)(r / hw), p = (int)(r % hw);
+      const int* offv = off + (size_t)v * (hw + 1);
+      const int beg = __ldg(offv + p);
+      cnt = __ldg(offv + p + 1) - beg;
+      base = v * n_vox + beg;  // where the row's voxels start in order
+    }
+    // rows without a voxel: zeros
+    unsigned empty = __ballot_sync(0xffffffffu, r < rows && cnt == 0);
+    while (empty) {
+      const int k = __ffs(empty) - 1;
+      empty &= empty - 1;
+      const float zero[kW] = {};
+      uint16_t* out = dfeat + (size_t)(bt + k * batches) * kC + lane * kW;
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) store<kW>(out + j * 32 * kW, zero);
+    }
+    int inc = cnt;  // inclusive count over the lanes
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += y;
+    }
+    const int total = __shfl_sync(0xffffffffu, inc, 31);
+    // pair q's place in order is base_i + q, i its row's lane
+    const int start = base - (inc - cnt);
+    for (int q0 = 0; q0 < total; q0 += 32) {
+      const int q = q0 + lane;
+      int i = 0;  // the lanes whose inclusive count is <= q
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1) {
+        const int t = __shfl_sync(0xffffffffu, inc, i + step - 1);
+        if (t <= q) i += step;
+      }
+      const int at = __shfl_sync(0xffffffffu, start, i & 31) + q;
+      if (q < total) {
+        const int k = (head + len + lane) & (kRing - 1);
+        ring_n[k] = __ldg(order + at);
+        ring_r[k] = (int)(bt + i * batches);
+      }
+      __syncwarp();
+      len += min(32, total - q0);
+      while (len >= kP) group(kP);
+    }
   }
+  if (len > 0) group(len);
+  finish();
 }
 
 // ---- pass 2: per-block partial sums of dW and db -------------------------
@@ -422,6 +581,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }
@@ -447,8 +613,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // block's referenced rows are [g_beg, g_end) of the views' compacted lists
 // in order; pre (V + 1) in dynamic shared memory holds where each view's
 // list starts. kVec: the rows of x and dY are 16-byte aligned (x 8-byte
-// aligned where T is bfloat16, whose rows are widened into the stage by
-// plain loads, not cp.async).
+// aligned where T is bfloat16). Rows of bfloat16 maps are staged as they
+// are, by cp.async where aligned, and widened where they are read.
 template <int kTile, bool kVec, typename T>
 __global__ void __launch_bounds__(kTile)
     weight_kernel(const T* __restrict__ feats,
@@ -462,8 +628,11 @@ __global__ void __launch_bounds__(kTile)
   // dynamic shared memory: kStages buffers of kRows rows of x, then of
   // dY, then pre (V + 1)
   extern __shared__ __align__(16) float stage_s[];
+  constexpr bool kBf = std::is_same<T, uint16_t>::value;
   float(*x_s)[kRows][kTile] =
       reinterpret_cast<float(*)[kRows][kTile]>(stage_s);
+  uint16_t(*xb_s)[kRows][kTile] =  // the same buffers, for bfloat16 rows
+      reinterpret_cast<uint16_t(*)[kRows][kTile]>(stage_s);
   float(*dy_s)[kRows][kMaxMap] = reinterpret_cast<float(*)[kRows][kMaxMap]>(
       stage_s + kStages * kRows * kTile);
   int* pre = reinterpret_cast<int*>(stage_s + kStages * kRows *
@@ -496,14 +665,17 @@ __global__ void __launch_bounds__(kTile)
     for (int q = tid; q < kRows * kChunks; q += kTile) {
       const int s = q / kChunks, k = q % kChunks;
       const int r = s < n_s ? at_s[s0 + s] : -1;
-      if constexpr (std::is_same<T, uint16_t>::value) {
-        constexpr int kE = kVec ? 4 : 1;
-        float v[kE];
-#pragma unroll
-        for (int e = 0; e < kE; ++e) v[e] = 0.f;
-        if (r >= 0) load<kE>(feats + (size_t)r * channels + c0 + kE * k, v);
-#pragma unroll
-        for (int e = 0; e < kE; ++e) x_s[buf][s][kE * k + e] = v[e];
+      if constexpr (kBf) {
+        if (kVec) {
+          uint16_t* dst = &xb_s[buf][s][4 * k];
+          if (r >= 0)
+            cp_async8(dst, feats + (size_t)r * channels + c0 + 4 * k);
+          else
+            *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+        } else {
+          xb_s[buf][s][k] =
+              r >= 0 ? feats[(size_t)r * channels + c0 + k] : uint16_t(0);
+        }
       } else if (kVec) {
         float* dst = &x_s[buf][s][4 * k];
         if (r >= 0)
@@ -580,13 +752,26 @@ __global__ void __launch_bounds__(kTile)
       __syncthreads();
       const int n_s = min(kRows, n_idx - s0);
       for (int s = 0; s < n_s; ++s) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(&x_s[buf][s][4 * cg]);
+        float xs[4];
+        if constexpr (kBf) {
+          const uint2 x =
+              *reinterpret_cast<const uint2*>(&xb_s[buf][s][4 * cg]);
+          xs[0] = __uint_as_float(x.x << 16);
+          xs[1] = __uint_as_float(x.x & 0xffff0000u);
+          xs[2] = __uint_as_float(x.y << 16);
+          xs[3] = __uint_as_float(x.y & 0xffff0000u);
+        } else {
+          const float4 x =
+              *reinterpret_cast<const float4*>(&x_s[buf][s][4 * cg]);
+          xs[0] = x.x;
+          xs[1] = x.y;
+          xs[2] = x.z;
+          xs[3] = x.w;
+        }
         const float4 d0 =
             *reinterpret_cast<const float4*>(&dy_s[buf][s][8 * mg]);
         const float4 d1 =
             *reinterpret_cast<const float4*>(&dy_s[buf][s][8 * mg + 4]);
-        const float xs[4] = {x.x, x.y, x.z, x.w};
         const float ds[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -829,8 +1014,8 @@ extern "C" int fused_mean_cov_backward_order(const int* pix, int* hist,
                                              int n_views, int n_vox, int hw,
                                              void* stream) {
   return static_cast<int>(csort::sort(
-      pix, hist, tile_kept, order, off, rows, n_rows, n_views, n_vox, hw + 1,
-      0, 1, 1, 0, static_cast<cudaStream_t>(stream)));
+      pix, hist, tile_kept, order, nullptr, off, rows, n_rows, n_views,
+      n_vox, hw + 1, 0, 1, 1, 0, static_cast<cudaStream_t>(stream)));
 }
 
 // Pass 1. feats (V, HW, C) float32, or bfloat16 where bf16 is set; order

@@ -367,32 +367,53 @@ def _backward_plain_bf16(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
     ``pack_bilinear``), each add rounded."""
     v, fh, fw, c = featmaps.shape
     xyz = pts.reshape(-1, 3)
-    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt, v)
-    fsx, fsy = _scale(fw, img_hw[1]), _scale(fh, img_hw[0])
-    out = torch.zeros((v, fh, fw, c), dtype=torch.float32,
+    cot = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    win = torch.empty((v, fh, fw, 4, c), dtype=torch.float32,
                       device=featmaps.device)
     for i in range(v):
-        px, py, m = _view_pixels(xyz, proj[i:i + 1], img_hw)
-        px, py = px * fsx, py * fsy
-        f = grid_sample_2d_packed(pack_bilinear(featmaps[i]), px, py)
-        df = bf16_round((d_s1u + (2.0 * f) * d_s2u) + m * d_s1m)
-        sx, wx0, wx1 = _window(px, fw)
-        sy, wy0, wy1 = _window(py, fh)
-        wgt = [bf16_round(wk) for wk in (wy0 * wx0, wy0 * wx1, wy1 * wx0,
-                                         wy1 * wx1)]
-        kept = (wgt[0] != 0) | (wgt[1] != 0) | (wgt[2] != 0) | (wgt[3] != 0)
-        rows = torch.cat([df * wk[:, None] for wk in wgt], dim=-1)[kept]
-        lin = (sy.long() * fw + sx.long())[kept]
-        win = scatter_add_bf16(fh * fw, lin, rows).reshape(fh, fw, 4, c)
-        pad = torch.zeros((fh + 1, fw + 1, 4, c), dtype=torch.float32,
-                          device=featmaps.device)
-        pad[1:, 1:] = win
-        taps = (pad[1:, 1:, 0], pad[1:, :-1, 1], pad[:-1, 1:, 2],
-                pad[:-1, :-1, 3])
-        acc = bf16_round(taps[2] + taps[3])
-        acc = bf16_round(acc + taps[1])
-        out[i] = bf16_round(acc + taps[0])
-    return out.to(torch.bfloat16)
+        df, wgt, lin, kept = _view_pairs_bf16(xyz, proj[i:i + 1], img_hw,
+                                              featmaps[i], *cot)
+        rows = (df[:, None, :] * wgt[:, :, None]).reshape(-1, 4 * c)
+        win[i] = scatter_add_bf16(fh * fw, lin[kept],
+                                  rows[kept]).reshape(fh, fw, 4, c)
+    return _texels(win, torch.bfloat16)
+
+
+def _view_pairs_bf16(xyz, proj_v, img_hw, feat_v, d_s1u, d_s2u, d_s1m):
+    """One view's (point, view) pairs on bfloat16 maps: df (N, C) float32
+    holding bfloat16 values, ``bf16((d s1u + (2 f) d s2u) + m d s1m)``
+    with f the forward's bfloat16 sample and m the view's mask; the four
+    bfloat16 tap weights (N, 4) as float32 (00, 01, 10, 11); the window's
+    start texel (N,) int64; and the pairs kept (N,), a weight non-zero."""
+    fh, fw = feat_v.shape[:2]
+    px, py, m = _view_pixels(xyz, proj_v, img_hw)
+    px, py = px * _scale(fw, img_hw[1]), py * _scale(fh, img_hw[0])
+    f = grid_sample_2d_packed(pack_bilinear(feat_v), px, py)
+    df = bf16_round((d_s1u + (2.0 * f) * d_s2u) + m * d_s1m)
+    sx, wx0, wx1 = _window(px, fw)
+    sy, wy0, wy1 = _window(py, fh)
+    wgt = bf16_round(torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0,
+                                  wy1 * wx1], -1))
+    return df, wgt, sy.long() * fw + sx.long(), (wgt != 0).any(-1)
+
+
+def _texels(win, dtype):
+    """d featmaps (V, FH, FW, C) in ``dtype`` from the windows' tap sums
+    ``win`` (V, FH, FW, 4, C) float32: each texel the sum of the four
+    windows that hold it, a tap past the right or bottom edge dropped (the
+    transpose of ``pack_bilinear``'s zero pad); in the order 00, 01, 10,
+    11 for float32, in the order 10, 11, 01, 00 for bfloat16 with each
+    add rounded."""
+    v, fh, fw, _, c = win.shape
+    pad = torch.zeros((v, fh + 1, fw + 1, 4, c), dtype=torch.float32,
+                      device=win.device)
+    pad[:, 1:, 1:] = win
+    t00, t01 = pad[:, 1:, 1:, 0], pad[:, 1:, :-1, 1]
+    t10, t11 = pad[:, :-1, 1:, 2], pad[:, :-1, :-1, 3]
+    if dtype == torch.bfloat16:
+        acc = bf16_round(bf16_round(t10 + t11) + t01)
+        return bf16_round(acc + t00).to(torch.bfloat16)
+    return ((t00 + t01) + t10) + t11
 
 
 def streaming_sample_mean_var_backward(pts, proj, img_hw, featmaps, g,
@@ -519,8 +540,12 @@ def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     (``_window_order_launch``, a counting sort by hand) lists each
     window's kept pairs in point order; pass 1 (``_window_sums``) sums
     each window's pairs, pass 2 (``_unpack``) unpacks the windows into
-    texels. On bfloat16 maps every pass rounds as
-    ``_backward_plain_bf16`` does. The launch is not counted."""
+    texels. On bfloat16 maps, rounding as ``_backward_plain_bf16`` does:
+    pass 0 writes only the keys; the index preparation
+    (``_window_rank_launch``) gives each kept pair's slot in that order;
+    pass 1a (``_pair_df``) forms each kept pair's df once, at its slot;
+    pass 1b (``_window_sums_bf16``) sums each window's slots; pass 2 as
+    above. The launch is not counted."""
     _check_k2(pts, None, proj, featmaps, None)
     r, s, _ = pts.shape
     v, fh, fw, c = featmaps.shape
@@ -539,39 +564,50 @@ def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
                          f"shared memory: at most {_SMEM_OPTIN // 4 - 1}")
     if n == 0:
         return torch.zeros_like(featmaps)
-    keys, coef = _backward_keys(pts, proj, img_hw, featmaps, g.contiguous(),
-                                globalfeat.contiguous(), s1u.contiguous(),
-                                cnt.contiguous())
-    order, off = _window_order_launch(keys, fh * fw)
-    packed = _window_sums(pts, proj, img_hw, featmaps, coef, order, off)
+    g, globalfeat, s1u, cnt = (t.contiguous() for t in (g, globalfeat, s1u,
+                                                          cnt))
+    keys, coef = _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat,
+                                s1u, cnt)
+    if featmaps.dtype == torch.bfloat16:
+        rank, off = _window_rank_launch(keys, fh * fw)
+        df, wts = _pair_df(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
+                           cnt, rank)
+        packed = _window_sums_bf16(df, wts, off, featmaps)
+    else:
+        order, off = _window_order_launch(keys, fh * fw)
+        packed = _window_sums(pts, proj, img_hw, featmaps, coef, order, off)
     return _unpack(packed, off, featmaps)
 
 
 def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     """K2's backward pass 0 on checked, contiguous inputs: the pairs'
-    keys (V, N) int32 and the points' cotangents coef (N, 3, C): rows (d
-    s1u + d s1m, d s1u, d s2u) on float32 maps, (d s1m, d s1u, d s2u) on
-    bfloat16 ones, whose df adds its terms in JAX's order."""
+    keys (V, N) int32 and, on float32 maps, the points' cotangents coef
+    (N, 3, C), rows (d s1u + d s1m, d s1u, d s2u); None on bfloat16
+    maps, whose pass 1a forms them (``backward_keys_plain`` is the
+    twin)."""
     r, s, _ = pts.shape
     v, fh, fw, c = featmaps.shape
     n, dev = r * s, pts.device
     keys = torch.empty((v, n), dtype=torch.int32, device=dev)
-    coef = torch.empty((n, 3, c), dtype=torch.float32, device=dev)
+    coef = (None if featmaps.dtype == torch.bfloat16 else
+            torch.empty((n, 3, c), dtype=torch.float32, device=dev))
     with torch.cuda.device(dev):  # the launches act on the current device
         err = _backward_lib().streaming_sample_mean_var_backward_keys(
             *_ptrs(pts, proj, g, globalfeat, s1u, cnt, keys, coef), n, v,
             fh, fw, c, *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
-            _bf16(featmaps), _stream(dev))
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 0 "
                            f"launch failed: cudaError {err}")
     return keys, coef
 
 
-def _window_order_launch(keys, hw: int):
+def _window_order_launch(keys, hw: int, rank: bool = False):
     """K2's backward index preparation on the card, a stable counting
     sort of each view's pairs by window: ``window_order``'s (order, off),
-    ``order``'s entries past ``off[-1]`` unspecified."""
+    ``order``'s entries past ``off[-1]`` unspecified; with ``rank``
+    ``window_rank``'s (rank, off) instead, the dropped pairs' entries
+    unspecified."""
     v, n = keys.shape
     dev = keys.device
     lib = _backward_lib()
@@ -580,22 +616,73 @@ def _window_order_launch(keys, hw: int):
         raise ValueError("K2's backward indexes its tiles' bins in int32")
     hist = torch.empty((v, tiles, hw), dtype=torch.int32, device=dev)
     kept = torch.empty((v, tiles), dtype=torch.int32, device=dev)
-    order = torch.empty((v * n,), dtype=torch.int32, device=dev)
+    out = torch.empty((v * n,), dtype=torch.int32, device=dev)
     off = torch.empty((v * hw + 1,), dtype=torch.int32, device=dev)
+    sort = (lib.streaming_sample_mean_var_backward_rank if rank else
+            lib.streaming_sample_mean_var_backward_order)
     with torch.cuda.device(dev):  # the launches act on the current device
-        err = lib.streaming_sample_mean_var_backward_order(
-            *_ptrs(keys, hist, kept, order, off), n, v, hw, _stream(dev))
+        err = sort(*_ptrs(keys, hist, kept, out, off), n, v, hw,
+                   _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward index "
                            f"preparation failed: cudaError {err}")
-    return order, off
+    return out, off
+
+
+def _window_rank_launch(keys, hw: int):
+    """K2's backward index preparation for bfloat16 maps on the card:
+    ``window_rank``'s (rank, off), the dropped pairs' ranks
+    unspecified."""
+    return _window_order_launch(keys, hw, rank=True)
+
+
+def _pair_df(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt, rank):
+    """K2's backward pass 1a on bfloat16 maps, on checked, contiguous
+    inputs: each kept pair's df and four tap weights at its slot
+    ``rank[v N + n]``, df (V N, C) and wts (V N, 4) bfloat16, the slots
+    past the kept pairs unwritten (``pair_df_plain`` is the twin)."""
+    r, s, _ = pts.shape
+    v, fh, fw, c = featmaps.shape
+    n, dev = r * s, pts.device
+    # 8 values past the last slot: pass 1b copies whole 16-byte chunks
+    df = torch.empty((v * n * c + 8,), dtype=torch.bfloat16,
+                     device=dev)[:v * n * c].view(v * n, c)
+    wts = torch.empty((v * n, 4), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = _backward_lib().streaming_sample_mean_var_backward_pairs(
+            *_ptrs(pts, proj, featmaps, g, globalfeat, s1u, cnt, rank, df,
+                   wts), n, v, fh, fw, c, *img_hw, _scale(fw, img_hw[1]),
+            _scale(fh, img_hw[0]), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var backward pass 1a "
+                           f"launch failed: cudaError {err}")
+    return df, wts
+
+
+def _window_sums_bf16(df, wts, off, featmaps):
+    """K2's backward pass 1b on bfloat16 maps: packed (V FH FW, 4, C)
+    bfloat16, each window's four taps' sums over its slots in order, each
+    tap and each add rounded; a window that holds no pair is left
+    unwritten (``window_sums_bf16_plain`` is the twin). ``df`` is
+    ``_pair_df``'s: its storage holds 8 values past its last slot."""
+    v, fh, fw, c = featmaps.shape
+    dev = featmaps.device
+    packed = torch.empty((v * fh * fw, 4, c), dtype=torch.bfloat16,
+                         device=dev)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = _backward_lib().streaming_sample_mean_var_backward_windows_bf16(
+            *_ptrs(df, wts, off, packed), v * fh * fw, c, df.shape[0],
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var backward pass 1b "
+                           f"launch failed: cudaError {err}")
+    return packed
 
 
 def _window_sums(pts, proj, img_hw, featmaps, coef, order, off):
-    """K2's backward pass 1: packed (V FH FW, 4, C) float32, each window's
-    four taps' sums over its pairs in point order (bfloat16 values, each
-    add rounded, on bfloat16 maps); a window that holds no pair is left
-    unwritten."""
+    """K2's backward pass 1 on float32 maps: packed (V FH FW, 4, C)
+    float32, each window's four taps' sums over its pairs in point order;
+    a window that holds no pair is left unwritten."""
     v, fh, fw, c = featmaps.shape
     n, dev = coef.shape[0], pts.device
     packed = torch.empty((v * fh * fw, 4, c), dtype=torch.float32,
@@ -604,7 +691,7 @@ def _window_sums(pts, proj, img_hw, featmaps, coef, order, off):
         err = _backward_lib().streaming_sample_mean_var_backward_windows(
             *_ptrs(pts, proj, featmaps, coef, order, off, packed), n, v, fh,
             fw, c, *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
-            _bf16(featmaps), _stream(dev))
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 1 "
                            f"launch failed: cudaError {err}")
@@ -613,7 +700,8 @@ def _window_sums(pts, proj, img_hw, featmaps, coef, order, off):
 
 def _unpack(packed, off, featmaps):
     """K2's backward pass 2: d featmaps, in the maps' dtype, from the
-    packed windows."""
+    packed windows (in the maps' dtype too; ``unpack_plain`` is the
+    twin)."""
     v, fh, fw, c = featmaps.shape
     dev = featmaps.device
     d_feats = torch.empty_like(featmaps)
@@ -657,21 +745,129 @@ def window_order(keys, n_windows: int):
                                 n_windows // keys.shape[0])
 
 
+def window_rank_plain(keys, n_windows: int):
+    """Plain version of K2's backward index preparation for bfloat16 maps
+    (same signature as ``window_rank``): ``rank`` (V N) int32, the slot
+    of each kept pair in ``window_order_plain``'s order (its inverse), -1
+    for a dropped pair, and ``off`` as there."""
+    order, off = window_order_plain(keys, n_windows)
+    kept = int(off[-1])
+    rank = torch.full((order.numel(),), -1, dtype=torch.int32,
+                      device=keys.device)
+    rank[order[:kept].long()] = torch.arange(kept, dtype=torch.int32,
+                                             device=keys.device)
+    return rank, off
+
+
+def window_rank(keys, n_windows: int):
+    """Each kept pair's slot in K2's backward window order from the
+    pairs' keys (V, N): (rank, off) as ``window_rank_plain`` gives them,
+    except that on the card a dropped pair's rank is unspecified. A CPU
+    tensor takes the plain version; a CUDA tensor the counting sort of
+    ``csrc/counting_sort.cuh``."""
+    if keys.device.type == "cpu":
+        return window_rank_plain(keys, n_windows)
+    return _window_rank_launch(keys.contiguous(),
+                               n_windows // keys.shape[0])
+
+
+@torch.no_grad()
+def backward_keys_plain(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
+                        cnt):
+    """Plain twin of ``_backward_keys``: each (point n, view v) pair's
+    key (V, N) int32, v FH FW + its feature window's start texel, or V FH
+    FW where its four tap weights are 0; and on float32 maps the points'
+    cotangents (N, 3, C), rows (d s1u + d s1m, d s1u, d s2u), None on
+    bfloat16 maps."""
+    v, fh, fw, c = featmaps.shape
+    xyz = pts.reshape(-1, 3)
+    keys = []
+    for i in range(v):
+        px, py, _ = _view_pixels(xyz, proj[i:i + 1], img_hw)
+        sx, wx0, wx1 = _window(px * _scale(fw, img_hw[1]), fw)
+        sy, wy0, wy1 = _window(py * _scale(fh, img_hw[0]), fh)
+        zero = ((wy0 * wx0 == 0) & (wy0 * wx1 == 0) & (wy1 * wx0 == 0)
+                & (wy1 * wx1 == 0))
+        keys.append(torch.where(zero, v * fh * fw, i * fh * fw
+                                + sy.long() * fw + sx.long()))
+    keys = torch.stack(keys).to(torch.int32)
+    if featmaps.dtype == torch.bfloat16:
+        return keys, None
+    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    return keys, torch.stack([d_s1u + d_s1m, d_s1u, d_s2u], 1)
+
+
+@torch.no_grad()
+def pair_df_plain(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt,
+                  rank):
+    """Plain twin of ``_pair_df``: (df (V N, C), wts (V N, 4)), bfloat16,
+    each kept pair's df and tap weights (``_view_pairs_bf16``) at its
+    slot ``rank[v N + n]``, zeros past the kept pairs."""
+    v, fh, fw, c = featmaps.shape
+    xyz = pts.reshape(-1, 3)
+    n = xyz.shape[0]
+    cot = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    df = torch.zeros((v * n, c), dtype=torch.float32, device=pts.device)
+    wts = torch.zeros((v * n, 4), dtype=torch.float32, device=pts.device)
+    for i in range(v):
+        d, wgt, _, kept = _view_pairs_bf16(xyz, proj[i:i + 1], img_hw,
+                                           featmaps[i], *cot)
+        slot = rank[i * n:(i + 1) * n][kept].long()
+        df[slot], wts[slot] = d[kept], wgt[kept]
+    return df.to(torch.bfloat16), wts.to(torch.bfloat16)
+
+
+@torch.no_grad()
+def window_sums_bf16_plain(df, wts, off, featmaps):
+    """Plain twin of ``_window_sums_bf16``: packed (V FH FW, 4, C)
+    bfloat16, window k the sums of ``df[j] * wts[j, tap]`` over its slots
+    j in [off[k], off[k + 1]) in order, each product and each add rounded
+    to bfloat16 (``scatter_add_bf16``); zeros where a window holds no
+    pair."""
+    c = featmaps.shape[-1]
+    n_win = off.numel() - 1
+    kept = int(off[-1])
+    win = torch.repeat_interleave(torch.arange(n_win, device=off.device),
+                                  (off[1:] - off[:-1]).long())
+    rows = (df[:kept].float()[:, None, :]
+            * wts[:kept].float()[:, :, None]).reshape(kept, 4 * c)
+    return scatter_add_bf16(n_win, win, rows).reshape(
+        n_win, 4, c).to(torch.bfloat16)
+
+
+@torch.no_grad()
+def unpack_plain(packed, off, featmaps):
+    """Plain twin of ``_unpack``: d featmaps in the maps' dtype from the
+    packed windows (V FH FW, 4, C), reading only the windows that hold a
+    pair (``_texels``' order)."""
+    v, fh, fw, c = featmaps.shape
+    held = (off[1:] > off[:-1])[:, None, None]
+    win = torch.where(held, packed.float(), 0.0)
+    return _texels(win.reshape(v, fh, fw, 4, c), featmaps.dtype)
+
+
 def _backward_lib():
     lib = cuda_build.load("streaming_sample_mean_var_backward")
     keys = lib.streaming_sample_mean_var_backward_keys
     if keys.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        keys.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [i, p]
+        keys.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [p]
         keys.restype = ctypes.c_int
         lib.streaming_sample_mean_var_backward_tile.argtypes = []
         lib.streaming_sample_mean_var_backward_tile.restype = ctypes.c_int
-        order = lib.streaming_sample_mean_var_backward_order
-        order.argtypes = [p] * 5 + [i] * 3 + [p]
-        order.restype = ctypes.c_int
+        for name in ("order", "rank"):
+            sort = getattr(lib, f"streaming_sample_mean_var_backward_{name}")
+            sort.argtypes = [p] * 5 + [i] * 3 + [p]
+            sort.restype = ctypes.c_int
         windows = lib.streaming_sample_mean_var_backward_windows
-        windows.argtypes = [p] * 7 + [i] * 7 + [f] * 2 + [i, p]
+        windows.argtypes = [p] * 7 + [i] * 7 + [f] * 2 + [p]
         windows.restype = ctypes.c_int
+        pairs = lib.streaming_sample_mean_var_backward_pairs
+        pairs.argtypes = [p] * 10 + [i] * 7 + [f] * 2 + [p]
+        pairs.restype = ctypes.c_int
+        windows_bf16 = lib.streaming_sample_mean_var_backward_windows_bf16
+        windows_bf16.argtypes = [p] * 4 + [i] * 3 + [p]
+        windows_bf16.restype = ctypes.c_int
         unpack = lib.streaming_sample_mean_var_backward_unpack
         unpack.argtypes = [p] * 3 + [i] * 5 + [p]
         unpack.restype = ctypes.c_int

@@ -332,17 +332,26 @@ def _pair_cotangents_bf16(x, pix, g1, g2, gm, mapped_kernel, y):
     for i in range(v):
         n = torch.nonzero(pix[i] >= 0)[:, 0]
         p = pix[i, n].long()
-        pair = torch.zeros((n.shape[0], c), dtype=torch.float32,
-                           device=x.device)
-        if g1 is not None:
-            pair = g1[n].float()
-        if g2 is not None:
-            pair = (2.0 * x[i, p]) * g2[n].float() + pair
-        if gm is not None:
-            pair = pair + ((2.0 * y[i, p]) * gm[n].float()
-                           ) @ mapped_kernel.float().t()
-        d[i] = scatter_add_bf16(hw, p, pair)
+        d[i] = scatter_add_bf16(hw, p, _pair_rows(
+            x[i], None if y is None else y[i], n, p, g1, g2, gm,
+            mapped_kernel))
     return d
+
+
+def _pair_rows(x, y, n, p, g1, g2, gm, mapped_kernel):
+    """One view's float32 cotangents of its pairs' rows (K, C), voxel n[k]
+    at pixel p[k]: ``((2 x[p] g2[n]) + g1[n]) + (2 y[p] gm[n]) @ W^T`` in
+    JAX's order, a None cotangent contributing nothing."""
+    pair = torch.zeros((n.shape[0], x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+    if g1 is not None:
+        pair = g1[n].float()
+    if g2 is not None:
+        pair = (2.0 * x[p]) * g2[n].float() + pair
+    if gm is not None:
+        pair = pair + ((2.0 * y[p]) * gm[n].float()
+                       ) @ mapped_kernel.float().t()
+    return pair
 
 
 def fusion_carry_backward(features, pix, count, g1=None, g2=None, gm=None,
@@ -629,7 +638,8 @@ def _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
 
 def _pixel_sums(features, order, off, g1, g2, gm=None, mapped=None, w=None):
     """K1's backward pass 1 on checked inputs: d features and, with the
-    mapped stream, dY (V, H*W, M) at the referenced rows (else None)."""
+    mapped stream, dY (V, H*W, M) at the referenced rows (else None);
+    ``pixel_sums_plain`` is the twin."""
     v, h, wd, c = features.shape
     n, dev = g1.shape[0], features.device
     m = 0 if mapped is None else mapped.shape[-1]
@@ -644,6 +654,47 @@ def _pixel_sums(features, order, off, g1, g2, gm=None, mapped=None, w=None):
         raise RuntimeError(f"fused_mean_cov backward pass 1 launch failed: "
                            f"cudaError {err}")
     return d_feats, dy
+
+
+@torch.no_grad()
+def pixel_sums_plain(features, order, off, g1, g2, gm=None, mapped=None,
+                     w=None):
+    """Plain twin of ``_pixel_sums`` (K1's backward pass 1): from
+    ``pixel_order``'s ``order`` and ``off``, d features in the maps'
+    dtype and, with the mapped stream, dY (V, H*W, M) = 2 y GM at the
+    referenced rows (zeros elsewhere; the card leaves them unwritten),
+    GM the sum of gm over a row's voxels in ascending order. d features:
+    on float32 maps each row's G1 + 2 x G2 + dY @ W^T; on bfloat16 maps
+    each pair's cotangent (``_pair_rows``) rounded and added in voxel
+    order, each sum rounded (``_pair_cotangents_bf16``)."""
+    v, h, wd, c = features.shape
+    hw = h * wd
+    x = features.float().reshape(v, hw, c)
+    d = torch.zeros_like(x)
+    dy = None if mapped is None else torch.zeros_like(mapped)
+    for i in range(v):
+        p = torch.repeat_interleave(torch.arange(hw, device=x.device),
+                                    (off[i, 1:] - off[i, :-1]).long())
+        n = order[i, int(off[i, 0]):int(off[i, -1])].long()
+        held = torch.zeros(hw, dtype=torch.bool, device=x.device)
+        held[p] = True
+        if mapped is not None:
+            g_sum = torch.zeros_like(mapped[i]).index_add_(0, p, gm[n])
+            dy[i] = torch.where(held[:, None], (2.0 * mapped[i]) * g_sum,
+                                0.0)
+        if features.dtype == torch.bfloat16:
+            d[i] = scatter_add_bf16(hw, p, _pair_rows(
+                x[i], None if mapped is None else mapped[i], n, p, g1, g2,
+                gm, w))
+            continue
+        d[i].index_add_(0, p, g1[n])
+        if g2 is not None:
+            g2_sum = torch.zeros_like(x[i]).index_add_(0, p, g2[n])
+            d[i] += 2.0 * x[i] * g2_sum
+        if mapped is not None:
+            d[i] += dy[i] @ w.t()
+        d[i] = torch.where(held[:, None], d[i], 0.0)
+    return d.reshape(features.shape).to(features.dtype), dy
 
 
 def _weight_parts(features, dy, rows, n_rows, gm, count):

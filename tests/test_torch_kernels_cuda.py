@@ -394,6 +394,66 @@ def test_fusion_backward_bf16_matches_plain(dev, c, mapped, with_g2, case):
         assert (x is None and y is None) or torch.equal(x, y)
 
 
+@pytest.mark.parametrize("case", ["scene", "100 voxels on one pixel",
+                                  "3 voxels a pixel", "unaligned map"])
+@pytest.mark.parametrize("with_g2", [False, True])
+@pytest.mark.parametrize("c", [32, 256, 1024])
+def test_fusion_backward_bf16_pair_groups_are_bitwise(dev, c, with_g2,
+                                                      case):
+    """K1's backward on bfloat16 maps with the mapped stream, on small
+    integer inputs whose products and sums are exact in float32 in any
+    order: d features bit for bit equal to the plain version. Pass 1
+    takes the pairs a group at a time across rows: here groups straddle
+    rows of 3 pairs, a row holds more pairs than a group and than a warp
+    loads at once (100), and the maps start off a 16-byte boundary. dW
+    and db as float32 maps' (1e-4 x max)."""
+    pix = _pix(dev)
+    if case == "100 voxels on one pixel":
+        pix[:, :100] = 1234
+    elif case == "3 voxels a pixel":
+        pix[:, :1500] = torch.arange(1500, device=dev,
+                                     dtype=torch.int32) // 3 + 100
+    gen = torch.Generator(device=dev).manual_seed(c)
+    v, n, m = pix.shape[0], pix.shape[1], 32
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=dev).float()
+
+    feats = ints((v, 60, 80, c), -4, 5).bfloat16()
+    if case == "unaligned map":
+        feats = _unaligned(feats)
+    w, b = ints((c, m), -4, 5), ints((m,), -4, 5)
+    g1 = ints((n, c), -8, 9)
+    g2 = ints((n, c), -8, 9) if with_g2 else None
+    gm, mapped = ints((n, m), -8, 9), ints((v, 60 * 80, m), -8, 9)
+    count = (pix >= 0).float().sum(0)
+    args = (feats, pix, count, g1, g2, gm, w, b, mapped)
+    got = voxel.fusion_carry_backward(*args)
+    want = voxel.fusion_carry_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and torch.equal(got[0], want[0])
+    assert float(want[0].float().abs().max()) > 0
+    assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
+
+
+@pytest.mark.parametrize("with_g2", [False, True])
+@pytest.mark.parametrize("case", ["scene", "blind view",
+                                  "100 voxels on one pixel"])
+def test_fusion_backward_bf16_pass1_matches_its_twin(dev, case, with_g2):
+    """K1's backward pass 1 on bfloat16 maps without the mapped stream
+    (no product, so no order of its terms to differ) against
+    ``pixel_sums_plain`` from the same index preparation: bit for bit."""
+    feats, pix, _, g1, g2, _, _, _ = _backward_case(dev, case, 256, False,
+                                                    with_g2)
+    feats = feats.bfloat16()
+    order, off, _, _ = voxel.pixel_order(pix, 4800)
+    got, dy = voxel._pixel_sums(feats, order, off, g1, g2)
+    want, _ = voxel.pixel_sums_plain(feats, order, off, g1, g2)
+    torch.cuda.synchronize()
+    assert dy is None and torch.equal(got, want)
+
+
 def _rgb_case(dev, case, v):
     """The rgb stream's inputs: (V, 240, 320, 3) images and the pixel
     indices of a 40x40x16 volume at the images' projection, with a
@@ -749,6 +809,61 @@ def test_streaming_sample_mean_var_backward_bf16_matches_plain(dev, case, v,
     again = render.streaming_sample_mean_var_backward(
         pts, proj, (239, 320), feats, g, gf, s1u, cnt)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case,v,r,s,c", [
+    ("scene", 50, 2048, 64, 32),  # the training path's shape
+    ("scene", 5, 300, 16, 8), ("border", 6, 50, 13, 30),
+    ("interior", 5, 300, 16, 32), ("behind", 2, 64, 16, 32),
+    ("one point", 4, 33, 3, 32), ("one point", 3, 40, 16, 1),
+    ("unaligned map", 5, 100, 16, 32),
+])
+def test_streaming_sample_mean_var_backward_bf16_passes_match_twins(
+        dev, case, v, r, s, c):
+    """Each pass of K2's backward on bfloat16 maps against its plain twin
+    on the same inputs, bit for bit: pass 0's keys (no cotangent rows),
+    the index preparation's ``off`` and every kept pair's rank, pass 1a's
+    df and weights at the kept slots, pass 1b's windows that hold a pair,
+    pass 2's texels, and the whole against the plain backward. "one
+    point" puts every pair of a view in one window (more than 32 pairs);
+    "unaligned map" starts the maps off a 16-byte boundary."""
+    pts, proj, feats, g, gf, s1u, cnt = _backward_inputs(
+        dev, "scene" if case == "unaligned map" else case, v, r, s, c,
+        seed=v + r + c, dtype=torch.bfloat16)
+    if case == "unaligned map":
+        feats = _unaligned(feats)
+    args = (pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    n_win = v * feats.shape[1] * feats.shape[2]
+    keys, coef = render._backward_keys(*args)
+    want_keys, want_coef = render.backward_keys_plain(*args)
+    assert coef is None and want_coef is None
+    assert torch.equal(keys, want_keys)
+    rank, off = render.window_rank(keys, n_win)
+    want_rank, want_off = render.window_rank_plain(keys, n_win)
+    kept = int(want_off[-1])
+    sel = want_rank >= 0
+    assert torch.equal(off, want_off) and torch.equal(rank[sel],
+                                                      want_rank[sel])
+    df, wts = render._pair_df(*args, rank)
+    want_df, want_wts = render.pair_df_plain(*args, want_rank)
+    assert torch.equal(df[:kept], want_df[:kept])
+    assert torch.equal(wts[:kept], want_wts[:kept])
+    packed = render._window_sums_bf16(df, wts, off, feats)
+    want_packed = render.window_sums_bf16_plain(df, wts, off, feats)
+    held = off[1:] > off[:-1]
+    assert packed.dtype == torch.bfloat16
+    assert torch.equal(packed[held], want_packed[held])
+    got = render._unpack(packed, off, feats)
+    assert torch.equal(got, render.unpack_plain(packed, off, feats))
+    whole = render.streaming_sample_mean_var_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, got)
+    assert torch.equal(got, render.streaming_sample_mean_var_backward_plain(
+        *args))
+    if case == "one point":
+        assert int((off[1:] - off[:-1]).max()) > 32
+    if case != "behind":
+        assert kept > 0 and float(got.float().abs().max()) > 0
 
 
 @pytest.mark.parametrize("case,v,r,s,c", _k2_backward_cases())
