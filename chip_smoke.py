@@ -80,7 +80,10 @@ Phases, each reported on its own lines:
     the sensed depth, the density volume's rgb stream summed on the card
     by the rgb-stream kernel), random weights, synthetic scenes with
     depth at the intrinsic scaled to ``ori_shape``: the rgb-stream kernel
-    bitwise against its plain version at 48 and 100 views, K1 and K1's
+    bitwise against its plain version at 48 and 100 views (its time, the
+    wrapper back to back, and beside it its device time from a full queue,
+    ``queued_time_ms``: the kernel is shorter than its wrapper's host
+    work), K1 and K1's
     backward at the depth-gated indices, the share of pairs the gate
     keeps in each stream; ``eval_step`` + host NMS at 100 views (K1 and
     the rgb stream once; kernels vs plain through the graph; stage times
@@ -97,8 +100,11 @@ Phases, each reported on its own lines:
 11. bfloat16 compute (``compute_dtype=bfloat16``, the JAX package's
     ``--bf16`` path, parameters and optimizer float32): the bf16 kernel
     forms against their plain versions at the path's shapes (K1's
-    forward on maps that need a gradient, with ``torch.addmm`` on phase
-    A's work beside it; K1's backward at phase 8's indices within 2
+    forward on maps that need a gradient, phase A (on the tensor cores)
+    and phase B timed apart, with ``torch.addmm`` on phase A's work and
+    a cuBLAS bf16 GEMM of the rows by W's three bf16 pieces beside it,
+    its bound with the product at the bf16 tensor-core rate and at the
+    fp32 rate; K1's backward at phase 8's indices within 2
     bfloat16 ulps, and bitwise on integer inputs whose pair products are
     exact in any order, with the times of its passes; K2's eval form at
     one render chunk and its training form bitwise; K2's backward
@@ -165,6 +171,7 @@ MARGIN = 10  # ray-grid margin of the config's pipeline
 CHUNK = 2048  # rays per render chunk, one K2 launch each
 SEED = 0
 FP32_PEAK = 67e12  # H100 SXM, fp32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12  # H100 SXM, bf16 dense on the tensor cores, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM, bytes/s
 # the random weights keep the focal prior, so scores sit near
 # sigmoid(-4.6) * sigmoid(centerness) ~ 0.005, under the config's 0.01:
@@ -199,15 +206,49 @@ def cuda_time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def queued_time_ms(fn, iters=100):
+    """Device ms a call of ``fn`` with the host out of the way: a sleep
+    kernel holds the card while the host enqueues ``iters`` calls, and
+    the events time them back to back from the full queue. For kernels
+    shorter than their wrapper's host work (checks, allocation, the
+    ctypes call), which ``cuda_time_ms`` would measure instead. The sleep
+    doubles until it outlasts the enqueue."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters
+        cycles *= 2
+
+
 def fusion_bound(pix, c, m, elt):
     """Least time of K1 on these inputs: bytes (each referenced feature
     row, the indices, W/b and the outputs, once) over HBM rate against
-    the operations these inputs need over the fp32 rate. Operations: 3 a
-    valid (voxel, view) pair and channel for s1 and s2; with the mapped
-    stream, the product of each referenced pixel row once (2·rows·C·M:
-    the mapped value depends on the pixel, not the voxel) and 3 a pair
-    and mapped channel for the square and its sum. Also returns the
-    valid pairs and the referenced rows."""
+    the operations these inputs need over the peak rate of their type.
+    Operations: 3 a valid (voxel, view) pair and channel for s1 and s2;
+    with the mapped stream, the product of each referenced pixel row once
+    (2·rows·C·M: the mapped value depends on the pixel, not the voxel) and
+    3 a pair and mapped channel for the square and its sum. On float32
+    maps all of them at the fp32 rate. On bfloat16 maps (``elt`` 2) the
+    product is W's three bfloat16 pieces on the tensor cores (3 x
+    2·rows·C·M at the bf16 dense rate, the rest at the fp32 rate, the two
+    units in parallel); ``fp32_bound_ms`` keeps the count of every
+    operation at the fp32 rate beside it. Returns a dict with the valid
+    pairs and the referenced rows."""
     import torch
 
     n = pix.shape[1]
@@ -216,24 +257,56 @@ def fusion_bound(pix, c, m, elt):
     n_valid = int(valid.sum())
     nbytes = rows * c * elt + pix.numel() * 4 + (2 * n * c + n) * 4
     ops = 3 * n_valid * c
+    product = 0
     if m:
         nbytes += (c * m + m + n * m) * 4
-        ops += 2 * rows * c * m + 3 * pix.numel() * m
-    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", nbytes, ops, n_valid, rows)
+        product = 2 * rows * c * m
+        ops += 3 * pix.numel() * m
+    t_bytes = nbytes / HBM_RATE * 1e3
+    t_fp32 = (ops + product) / FP32_PEAK * 1e3
+    out = dict(bytes=nbytes, ops=ops + product, n_valid=n_valid, rows=rows)
+    if elt == 2 and m:
+        t_ops = max(ops / FP32_PEAK * 1e3, 3 * product / BF16_PEAK * 1e3)
+        out.update(fp32_bound_ms=max(t_bytes, t_fp32),
+                   fp32_bound_by="bytes" if t_bytes >= t_fp32
+                   else "operations", tc_flop=3 * product)
+    else:
+        t_ops = t_fp32
+    out.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def mapped_rows_bound(feats, m):
     """Least time of K1's phase A: the maps read once and the mapped rows
-    written once, against 2·C·M operations a pixel row."""
+    written once, against 2·C·M operations a pixel row at the fp32 rate;
+    on bfloat16 maps against 3 x 2·C·M at the bf16 dense tensor-core rate
+    (W's three pieces), with the fp32-rate count beside it. Returns
+    (bound_ms, bound_by, fp32 bound_ms or None)."""
     v, fh, fw, c = feats.shape
     rows = v * fh * fw
     nbytes = feats.numel() * feats.element_size() + (rows * m + c * m
                                                      + m) * 4
     ops = 2 * rows * c * m
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    fp32 = max(t_bytes, t_ops)
+    if feats.element_size() == 2:
+        t_ops = 3 * ops / BF16_PEAK * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return (max(t_bytes, t_ops), by,
+            fp32 if feats.element_size() == 2 else None)
+
+
+def bound_text(bound):
+    """A fusion_bound as text: the bound, what bounds it, the bytes and
+    operations, and on bfloat16 maps the fp32-rate count beside it."""
+    text = (f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}; "
+            f"{bound['bytes']} B, {bound['ops']} FLOP")
+    if "fp32_bound_ms" in bound:
+        text += (f", the product's {bound['tc_flop']} on the bf16 tensor "
+                 f"cores; every operation at the fp32 rate: bound_ms="
+                 f"{bound['fp32_bound_ms']:.4f}, {bound['fp32_bound_by']}")
+    return text + ")"
 
 
 def check_fusion(voxel, cases, hw, gen):
@@ -276,22 +349,24 @@ def check_fusion(voxel, cases, hw, gen):
         b_ms = cuda_time_ms(lambda: voxel._carry_launch(feats, pix, rows_p,
                                                         bm), 20)
         del rows_p
-        bound_ms, bound_by, nbytes, ops, n_valid, rows = fusion_bound(
-            pix, c, m if mapped else 0, feats.element_size())
+        bound = fusion_bound(pix, c, m if mapped else 0,
+                             feats.element_size())
         result = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=bound_ms, bound_by=bound_by, phase_a_ms=a_ms,
-                      phase_b_ms=b_ms, library_ms=None)
+                      bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                      phase_a_ms=a_ms, phase_b_ms=b_ms, library_ms=None)
         line = (f"[kernel] fused_mean_cov {name}: V={v} map={fh}x{fw} C={c} "
-                f"N={pix.shape[1]} M={m if mapped else 0}; {n_valid} valid "
-                f"pairs ({n_valid / pix.numel():.4f}), {rows} referenced "
-                f"rows: count, s1, s2 bitwise equal, max_abs_err="
+                f"N={pix.shape[1]} M={m if mapped else 0}; "
+                f"{bound['n_valid']} valid pairs "
+                f"({bound['n_valid'] / pix.numel():.4f}), {bound['rows']} "
+                f"referenced rows: count, s1, s2 bitwise equal, max_abs_err="
                 f"{abs_err:.3e} s2m max_rel_err={rel_err:.3e} (tol: s2m rel "
                 f"1e-5) ms={ms:.4f} (phase A {a_ms:.4f}, phase B "
-                f"{b_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms="
-                f"{bound_ms:.4f} ({bound_by}; {nbytes} B, {ops} FLOP)")
+                f"{b_ms:.4f}) plain_ms={plain_ms:.4f} {bound_text(bound)}")
         if mapped:
-            a_bound, a_by = mapped_rows_bound(feats, m)
+            a_bound, a_by, a_fp32 = mapped_rows_bound(feats, m)
             line += f"; phase A bound_ms={a_bound:.4f} ({a_by})"
+            if a_fp32 is not None:
+                line += f", at the fp32 rate {a_fp32:.4f}"
         if mapped and dtype == torch.float32:
             flat = feats.reshape(-1, c)
             result["library_ms"] = cuda_time_ms(
@@ -2031,7 +2106,10 @@ def gated_streams(voxel, model, scene, dev):
 
 def check_rgb(voxel, images, pix, label):
     """The rgb stream's kernel (the uncounted launch) against its plain
-    version, bitwise; its time, the plain version's and the bound: the
+    version, bitwise; its time (``ms``: the wrapper back to back), its
+    device time beside it (``device_ms``, from ``queued_time_ms``: the
+    kernel is shorter than its wrapper's host work), the plain version's
+    time and the bound: the
     indices read once, a kept pair's pixel (12 bytes, 6 in bfloat16) and
     the two (N, 3) outputs written once over the HBM rate, against 9
     operations a kept pair over the fp32 rate."""
@@ -2044,6 +2122,7 @@ def check_rgb(voxel, images, pix, label):
         raise SystemExit(f"the rgb stream ({label}) differs from its plain "
                          f"version")
     ms = cuda_time_ms(lambda: voxel._rgb_launch(images, pix), 50)
+    device_ms = queued_time_ms(lambda: voxel._rgb_launch(images, pix))
     plain_ms = cuda_time_ms(lambda: voxel.rgb_carry_plain(images, pix), 3,
                             warmup=1)
     kept = int((pix >= 0).sum())
@@ -2057,12 +2136,13 @@ def check_rgb(voxel, images, pix, label):
         f"{str(images.dtype)[6:]} "
         f"N={pix.shape[1]}; {kept} kept pairs ({kept / pix.numel():.4f}): "
         f"s1e, s2e bitwise equal to the plain version, max_abs_err=0 "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+        f"ms={ms:.4f} (the wrapper back to back; device_ms={device_ms:.4f}, "
+        f"from a full queue) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
         f"({bound_by}; {nbytes} B, {9 * kept} FLOP) library_ms=n/a (no "
         f"one PyTorch call gathers and sums the views' pixels)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                kept_pairs=kept)
+                kept_pairs=kept, device_ms=device_ms)
 
 
 def depth_path(api, voxel, pointnet, render, card):
@@ -2402,7 +2482,13 @@ def check_fusion_grad(voxel, pix, hw, gen):
     """K1's forward on bfloat16 maps that need a gradient (the training
     path's form: phase A's rows saved for the backward) against its plain
     version: count, s1 and s2 bitwise, s2m within 1e-5 relative; its time
-    with autograd recording, the plain version's and the bound."""
+    with autograd recording and its phases' apart (the uncounted launches
+    ``_mapped_rows_launch`` on the tensor cores and ``_carry_launch``),
+    the plain version's, the bound (the product at the bf16 tensor-core
+    rate, and every operation at the fp32 rate beside it) and, beside
+    phase A, two one-call yardsticks of its work: ``torch.addmm`` on the
+    widened rows, and a cuBLAS bf16 GEMM of the rows by W's three pieces
+    side by side (C x 3M, bf16 out)."""
     import torch
 
     dev = pix.device
@@ -2415,6 +2501,7 @@ def check_fusion_grad(voxel, pix, hw, gen):
     got = voxel.fusion_carry(feats, pix, w, b)
     with torch.no_grad():
         want = voxel.fusion_carry_plain(feats, pix, w, b)
+        rows_want = voxel.mapped_rows_plain(feats, w, b)
     torch.cuda.synchronize()
     if not got[0].requires_grad or not all(
             torch.equal(g, p) for g, p in zip(got[:3], want[:3])):
@@ -2426,24 +2513,44 @@ def check_fusion_grad(voxel, pix, hw, gen):
     with torch.no_grad():
         plain_ms = cuda_time_ms(
             lambda: voxel.fusion_carry_plain(feats, pix, w, b), 5)
+        fd, wd, bd = feats.detach(), w.detach(), b.detach()
+        rows_p = voxel._mapped_rows_launch(fd, wd, bd)
+        rows_rel = float((rows_p - rows_want).abs().max()) / max(
+            float(rows_want.abs().max()), 1e-30)
+        a_ms = cuda_time_ms(lambda: voxel._mapped_rows_launch(fd, wd, bd),
+                            20)
+        b_ms = cuda_time_ms(lambda: voxel._carry_launch(fd, pix, rows_p, bd),
+                            20)
+        del rows_p, rows_want
         # phase A's work in one call: the rows widened (exactly, outside
-        # the timing) @ W + b
-        flat, wd, bd = feats.float().reshape(-1, c), w.detach(), b.detach()
+        # the timing) @ W + b; and the bf16 GEMM on W's pieces
+        flat, x16 = fd.float().reshape(-1, c), fd.reshape(-1, c)
         library_ms = cuda_time_ms(lambda: torch.addmm(bd, flat, wd), 20)
         del flat
-    bound_ms, bound_by, nbytes, ops, n_valid, rows = fusion_bound(pix, c, m,
-                                                                  2)
+        pieces = torch.cat(voxel.split_bf16x3_plain(wd), dim=1)
+        gemm_ms = cuda_time_ms(lambda: torch.mm(x16, pieces), 20)
+    bound = fusion_bound(pix, c, m, 2)
+    a_bound, a_by, a_fp32 = mapped_rows_bound(feats, m)
     log(f"[kernel] fused_mean_cov bfloat16 mapped, under grad: V={v} "
-        f"map={fh}x{fw} C={c} N={pix.shape[1]} M={m}; {n_valid} valid "
-        f"pairs, {rows} referenced rows: count, s1, s2 bitwise equal, s2m "
-        f"max_rel_err={rel:.3e} (tol 1e-5) ms={ms:.4f} plain_ms="
+        f"map={fh}x{fw} C={c} N={pix.shape[1]} M={m}; {bound['n_valid']} "
+        f"valid pairs, {bound['rows']} referenced rows: count, s1, s2 "
+        f"bitwise equal, s2m max_rel_err={rel:.3e}, phase A's rows "
+        f"max_rel_err={rows_rel:.3e} (tol 1e-5) ms={ms:.4f} (phase A "
+        f"{a_ms:.4f} on the tensor cores, bound_ms={a_bound:.4f} ({a_by}), "
+        f"at the fp32 rate {a_fp32:.4f}; phase B {b_ms:.4f}) plain_ms="
         f"{plain_ms:.4f} library_ms={library_ms:.4f} (torch.addmm on the "
-        f"widened rows: phase A's work) bound_ms={bound_ms:.4f} "
-        f"({bound_by}; {nbytes} B, {ops} FLOP)")
-    if rel > 1e-5:
-        raise SystemExit(f"K1 under grad disagrees: rel {rel:.3e}")
+        f"widened rows: phase A's work), bf16 GEMM {gemm_ms:.4f} (torch.mm "
+        f"of the bf16 rows by W's three pieces, C x {3 * m}, bf16 out) "
+        f"{bound_text(bound)}")
+    if rel > 1e-5 or rows_rel > 1e-5:
+        raise SystemExit(f"K1 under grad disagrees: s2m rel {rel:.3e}, "
+                         f"rows rel {rows_rel:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                library_ms=library_ms, phase_a_ms=a_ms, phase_b_ms=b_ms,
+                bf16_gemm_ms=gemm_ms,
+                bounds={"phase_a_ms": a_bound,
+                        "fp32_rate_ms": bound["fp32_bound_ms"]})
 
 
 def check_fusion_backward_exact(voxel, pix, hw, gen):
@@ -3318,6 +3425,7 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in list(
             depth["rgb"].values()) + [depth["rgb_orig"]]),
         "ms": rgb_main["ms"],
+        "device_ms": rgb_main["device_ms"],
         "plain_ms": rgb_main["plain_ms"],
         "bound_ms": rgb_main["bound_ms"],
         "bound_by": rgb_main["bound_by"],
@@ -3325,9 +3433,9 @@ def main():
         "library_of": "none: no one PyTorch call gathers the views' pixels "
                       "and sums them",
         "at_48_views": {k: depth["rgb"][gated][k] for k in (
-            "ms", "plain_ms", "bound_ms", "kept_pairs")},
+            "ms", "device_ms", "plain_ms", "bound_ms", "kept_pairs")},
         "original_resolution": {k: depth["rgb_orig"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "kept_pairs")},
+            "ms", "device_ms", "plain_ms", "bound_ms", "kept_pairs")},
         "kept_share": depth["kept"],
         "runtime_launches": depth["runtime_launches"],  # phase 10's CLI run
     })
@@ -3354,10 +3462,13 @@ def main():
     record["kernels"][-5]["library_of"] = (
         "phase A: torch.addmm(b, features.float().reshape(-1, C), W) on "
         "the widened rows")
+    record["kernels"][-5].update({k: low["k1"][k] for k in (
+        "phase_a_ms", "phase_b_ms", "bf16_gemm_ms", "bounds")})
     record["kernels"][-4]["library_of"] = (
         "torch.mm on dY @ W^T and x^T dY over the referenced rows")
     record["kernels"][-4].update({k: low["k1_bwd"][k] for k in (
         "index_ms", "pass1_ms", "pass2_ms", "pass3_ms")})
+    record["kernels"][-3]["device_ms"] = low["rgb"]["device_ms"]
     record["kernels"][-2]["training_form"] = low["k2_train"]
     record["kernels"][-1]["library_of"] = (
         "index_add_ of the weighted tap rows (bfloat16) into the flat "

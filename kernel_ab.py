@@ -3,9 +3,11 @@ the card, the backwards pass by pass, for comparing two designs of them
 in one call.
 
     python3 kernel_ab.py [CHECKOUT] [--save OUT.pt] [--profile] [--forward]
+    python3 kernel_ab.py [CHECKOUT] --fusion [--save OUT.pt]
     python3 kernel_ab.py --compare A.pt B.pt
     python3 kernel_ab.py --ablate
     python3 kernel_ab.py --ablate-backward
+    python3 kernel_ab.py --ablate-fusion
 
 Imports ``nerfdet_tpu_torch`` from CHECKOUT (default: this file's
 directory), building its kernels there, and makes the inputs of
@@ -27,9 +29,23 @@ bfloat16 (whole; the index preparation, passes 1, 2 and 3), C = 256, M =
 entry point reports what the whole leaves after the passes it has
 ("rest"). With ``--save`` it writes the backwards' outputs in both
 dtypes, which ``--compare`` holds bit for bit against another
-checkout's. With ``--profile`` it also prints each backward's device
+checkout's (phase A's rows and s2m within 1e-5 relative: their C-long dot
+products may run in another order; it exits 1 where a key misses). With ``--profile`` it also prints each backward's device
 time by kernel (``torch.profiler``, 5 calls). With ``--forward`` it
-times K2's forward alone. Prints one line of times and the card.
+times K2's forward alone. With ``--fusion`` it times K1's forward and
+the rgb stream instead: K1 on bfloat16 maps in the training path's form
+(maps, W and b requiring a gradient) at phase 8's indices and without a
+gradient at phase 4's, and on float32 maps at phase 4's (phase 3's form),
+each whole, phase A (``_mapped_rows_launch``) and phase B
+(``_carry_launch``) apart; the rgb stream (``_rgb_launch``) at phase 10's
+depth-gated indices, 100 views of float32 images and 50 of bfloat16
+(R101*'s scenes), its device time from a full queue
+(``chip_smoke.queued_time_ms``: the kernel is shorter than its wrapper's
+host work) beside the wrapper's back to back; ``--save`` then writes
+count, s1, s2, s2m, phase A's rows, s1e and s2e. ``--ablate-fusion``
+times phase A, phase B and the rgb stream with each of FUSION_VARIANTS
+(text edits of ``csrc/fused_mean_cov.cu``: ring stages, group depths,
+loads) built into a library of its own. Prints one line of times and the card.
 ``--ablate`` builds this checkout's K2 four more times with its gathers
 replaced by values made from the address (no feature-map loads; no
 image loads; neither) or without the integer widening of its bfloat16
@@ -152,55 +168,73 @@ K2_GATHERS = {
 }
 
 
+def build_variants(flag, variants, real, entries):
+    """Build each of ``variants`` ((label, source, [(old, new), ...]):
+    exact-text edits of ``csrc/<source>.cu``) into a library of its own,
+    every nvcc started at once, and type each function of ``entries``
+    that the real library ``real[source]`` has as the real one is typed.
+    Returns [(label, source, library)] in the order given."""
+    import ctypes
+
+    from nerfdet_tpu_torch.ops import cuda_build
+
+    out_dir = os.path.join(cuda_build.BUILD_DIR, flag.lstrip("-"))
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = []
+    for i, (label, source, edits) in enumerate(variants):
+        with open(os.path.join(cuda_build.CSRC, f"{source}.cu")) as f:
+            src = f.read()
+        for old, new in edits:
+            if old not in src:
+                raise SystemExit(f"kernel_ab {flag}: {label}: the code is "
+                                 f"not in the source")
+            src = src.replace(old, new)
+        path = os.path.join(out_dir, f"{i}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        so = path[:-3] + ".so"
+        jobs.append((label, source, so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             cuda_build.CSRC, "-o", so, path],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)))
+    built = []
+    for label, source, so, proc in jobs:
+        if proc.wait() != 0:
+            raise SystemExit(f"kernel_ab {flag}: {label} did not build")
+        lib = ctypes.CDLL(so)
+        for name in entries:
+            try:
+                ref = getattr(real[source], name)
+            except AttributeError:
+                continue
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        built.append((label, source, lib))
+    return built
+
+
 def ablate():
     """K2's forward on bfloat16 maps (the 16-byte lane form) with its
     feature gathers, its image gathers, both, or its texel widening
     replaced (K2_GATHERS),
     each built from this checkout's source into its own library and
     timed in place of the real one; the real one first and last."""
-    import ctypes
-
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     (render, _), _, _, (eval_args, train_args) = inputs(HERE)
-    from nerfdet_tpu_torch.ops import cuda_build
-
-    with open(os.path.join(cuda_build.CSRC,
-                           "streaming_sample_mean_var.cu")) as f:
-        source = f.read()
     variants = {"without feature loads": ["features"],
                 "without image loads": ["images"],
                 "without either": ["features", "images"],
                 "without the widening": ["widening"]}
-    out_dir = os.path.join(cuda_build.BUILD_DIR, "ablate")
-    os.makedirs(out_dir, exist_ok=True)
-    libs, jobs = {"real": render._lib()}, {}
-    for i, (name, gathers) in enumerate(variants.items()):
-        src = source
-        for g in gathers:
-            old, new = K2_GATHERS[g]
-            if old not in src:
-                raise SystemExit(f"kernel_ab --ablate: the {g} code is "
-                                 f"not in the source")
-            src = src.replace(old, new)
-        path = os.path.join(out_dir, f"k2_{i}.cu")
-        with open(path, "w") as f:
-            f.write(src)
-        jobs[name] = (subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-             path[:-3] + ".so", path], stdout=subprocess.DEVNULL,
-            stderr=subprocess.STDOUT), path[:-3] + ".so")
-    for name, (proc, so) in jobs.items():
-        if proc.wait() != 0:
-            raise SystemExit(f"kernel_ab --ablate: {name} did not build")
-        lib = ctypes.CDLL(so)
-        lib.streaming_sample_mean_var.argtypes = (
-            libs["real"].streaming_sample_mean_var.argtypes)
-        lib.streaming_sample_mean_var.restype = ctypes.c_int
-        libs[name] = lib
+    source = "streaming_sample_mean_var"
+    libs = {"real": render._lib()}
+    libs.update((label, lib) for label, _, lib in build_variants(
+        "--ablate", [(label, source, [K2_GATHERS[g] for g in gathers])
+                     for label, gathers in variants.items()],
+        {source: libs["real"]}, [source]))
     real_lib = render._lib
     pts, images, proj, hw, feats = eval_args
     bf = torch.bfloat16
@@ -269,16 +303,12 @@ def ablate_backward():
     each of BWD_VARIANTS built from this checkout's source into its own
     library and timed in place of the real one (the real one first and
     last)."""
-    import ctypes
-
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     (render, voxel), k1, k2, _ = inputs(HERE)
-    from nerfdet_tpu_torch.ops import cuda_build
-
     feats = k1["feats"].bfloat16()
     mapped = voxel.mapped_rows_plain(feats, k1["w"], k1["b"])
     hw = feats.shape[1] * feats.shape[2]
@@ -308,44 +338,15 @@ def ablate_backward():
           f"{length.numel()} windows: mean {float(held.mean()):.1f}, p99 "
           f"{float(held.quantile(0.99)):.0f}, at most {int(length.max())} "
           f"a window", flush=True)
-    out_dir = os.path.join(cuda_build.BUILD_DIR, "ablate_backward")
-    os.makedirs(out_dir, exist_ok=True)
-    jobs = []
-    for i, (name, label, subs) in enumerate(BWD_VARIANTS):
-        with open(os.path.join(cuda_build.CSRC, f"{name}.cu")) as f:
-            src = f.read()
-        for old, new in subs:
-            if old not in src:
-                raise SystemExit(f"kernel_ab --ablate-backward: {label}: "
-                                 f"the code is not in the source")
-            src = src.replace(old, new)
-        path = os.path.join(out_dir, f"{i}.cu")
-        with open(path, "w") as f:
-            f.write(src)
-        so = path[:-3] + ".so"
-        jobs.append((name, label, so, subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-             cuda_build.CSRC, "-o", so, path],
-            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)))
     real = {"fused_mean_cov_backward": voxel._backward_lib(),
             "streaming_sample_mean_var_backward": render._backward_lib()}
     runs = [(name, "real", real[name]) for name in real]
-    for name, label, so, proc in jobs:
-        if proc.wait() != 0:
-            raise SystemExit(f"kernel_ab --ablate-backward: {label} did not "
-                             f"build")
-        lib = ctypes.CDLL(so)
-        for attr in ("pixels", "parts", "tile", "order", "weights", "reduce",
-                     "keys", "rank", "windows", "pairs", "windows_bf16",
-                     "unpack"):
-            fname = f"{name}_{attr}"
-            try:
-                ref = getattr(real[name], fname)
-            except AttributeError:
-                continue
-            getattr(lib, fname).argtypes = ref.argtypes
-            getattr(lib, fname).restype = ref.restype
-        runs.append((name, label, lib))
+    runs += [(name, label, lib) for label, name, lib in build_variants(
+        "--ablate-backward", [(label, name, subs)
+                              for name, label, subs in BWD_VARIANTS],
+        real, [f"{name}_{attr}" for name in real for attr in (
+            "pixels", "parts", "tile", "order", "weights", "reduce", "keys",
+            "rank", "windows", "pairs", "windows_bf16", "unpack")])]
     runs += [(name, "real", real[name]) for name in real]
     modules = {"fused_mean_cov_backward": voxel,
                "streaming_sample_mean_var_backward": render}
@@ -368,6 +369,116 @@ def ablate_backward():
                       f"{t1a:.4f} ms, pass 1b {t1b:.4f} ms", flush=True)
         finally:
             module._backward_lib = keep
+    return 0
+
+
+# K1's forward and the rgb stream with one design choice changed by a
+# text edit of this checkout's source: (label, [(old, new), ...]).
+FUSION_VARIANTS = [
+    ("phase A ring of 6 stages", [
+        ("constexpr int kStagesTc = 4;", "constexpr int kStagesTc = 6;")]),
+    ("phase A without its mma", [
+        ("          mma_bf16(acc[mi][0], a[ks][mi], bq[0], bq[1]);\n"
+         "          mma_bf16(acc[mi][1], a[ks][mi], bq[2], bq[3]);", "")]),
+    ("phase A without its stores", [
+        ("              *reinterpret_cast<float2*>(o) = make_float2(y0, y1);",
+         "              if (y0 == 12345.f)\n"
+         "                *reinterpret_cast<float2*>(o) = make_float2(y0, y1);"
+         )]),
+    ("phase B bf16 groups of 8 views", [
+        ("return sizeof(T) == 4 ? 1 : 32 / (cpl > 8 ? cpl : 8);",
+         "return sizeof(T) == 4 ? 1 : 64 / (cpl > 8 ? cpl : 8);")]),
+    ("phase B bf16 groups of 16 views", [
+        ("return sizeof(T) == 4 ? 1 : 32 / (cpl > 8 ? cpl : 8);",
+         "return sizeof(T) == 4 ? 1 : 128 / (cpl > 8 ? cpl : 8);")]),
+    ("phase B f32 groups of 4 views", [
+        ("return sizeof(T) == 4 ? 1 : 32 / (cpl > 8 ? cpl : 8);",
+         "return 32 / (cpl > 8 ? cpl : 8);")]),
+    ("rgb with the next pass's indices in flight", [
+        ("  float acc = 0.f;\n"
+         "  for (int v0 = 0; v0 < n_views; v0 += kViewsRgb) {",
+         "  float acc = 0.f;\n  int p[kAheadRgb], q[kAheadRgb];\n"
+         "  for (int k = 0; k < kAheadRgb; ++k) {\n"
+         "    const int v = warp + kWarpsRgb * k;\n"
+         "    q[k] = v < n_views && n < n_vox\n"
+         "               ? __ldg(pix + static_cast<size_t>(v) * n_vox + n)\n"
+         "               : -1;\n  }\n"
+         "  for (int v0 = 0; v0 < n_views; v0 += kViewsRgb) {"),
+        ("    int p[kAheadRgb];\n#pragma unroll\n"
+         "    for (int k = 0; k < kAheadRgb; ++k) {\n"
+         "      const int v = v0 + warp + kWarpsRgb * k;\n"
+         "      p[k] = v < n_views",
+         "#pragma unroll\n    for (int k = 0; k < kAheadRgb; ++k) "
+         "p[k] = q[k];\n#pragma unroll\n"
+         "    for (int k = 0; k < kAheadRgb; ++k) {\n"
+         "      const int v = v0 + kViewsRgb + warp + kWarpsRgb * k;\n"
+         "      q[k] = v < n_views")]),
+    ("phase B without mapped loads", [
+        ("              y[i][k] = __ldg(mapped + ((size_t)v * hw + p[i][k]) "
+         "* n_map +\n                              lane);",
+         "              y[i][k] = __int_as_float(p[i][k] | lane);")]),
+]
+
+
+def ablate_fusion():
+    """Phase A on bfloat16 maps, phase B (bfloat16 at phase 8's and phase
+    4's indices, float32 at phase 4's) and the rgb stream (device time,
+    100 views f32, 50 bf16) with each of FUSION_VARIANTS built from this
+    checkout's source into its own library and timed in place of the
+    real one (the real one first and last)."""
+    import torch
+
+    from nerfdet_tpu_torch import api
+    from nerfdet_tpu_torch.ops import cuda_build, voxel
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smoke = _smoke()
+    dev = torch.device("cuda")
+    _build(cuda_build, ["fused_mean_cov"])
+    _, _, _, k1, _ = k1_inputs(smoke, api, voxel, dev)
+    depth = api.init_detector(smoke.DEPTH_CONFIG, device="cuda",
+                              seed=smoke.SEED)
+    rgb = {}
+    for tag, views, dtype in (("f32_100", smoke.DEPTH_VIEWS, torch.float32),
+                              ("bf16_50", smoke.BF16_DEPTH_VIEWS,
+                               torch.bfloat16)):
+        scene = smoke.depth_scene(depth, smoke.SEED + 2, views)
+        rgb[tag] = (torch.as_tensor(scene["denorm_images"],
+                                    device=dev).to(dtype),
+                    smoke.gated_streams(voxel, depth, scene, dev)["rgb"][0])
+    real = voxel._lib()
+    runs = [("real", real)]
+    runs += [(label, lib) for label, _, lib in build_variants(
+        "--ablate-fusion", [(label, "fused_mean_cov", edits)
+                            for label, edits in FUSION_VARIANTS],
+        {"fused_mean_cov": real}, [f"fused_mean_cov_{name}" for name in (
+            "mapped_rows", "mapped_rows_smem", "carry", "rgb")])]
+    runs.append(("real", real))
+    w, b = k1["w"], k1["b"]
+    bf = k1["feats"].bfloat16()
+    keep_lib = voxel._lib
+    for label, lib in runs:
+        voxel._lib = lambda lib=lib: lib
+        try:
+            t = {"A bf16": timed(lambda: voxel._mapped_rows_launch(bf, w, b))}
+            for dtag, feats in (("bf16", bf), ("f32", k1["feats"])):
+                rows = voxel._mapped_rows_launch(feats, w, b)
+                for where, pix in k1["pix"].items():
+                    if dtag == "f32" and where == "phase8":
+                        continue
+                    t[f"B {dtag} {where}"] = timed(
+                        lambda: voxel._carry_launch(feats, pix, rows, b))
+                del rows
+            for tag, (images, pix) in rgb.items():
+                t[f"rgb {tag}"] = smoke.queued_time_ms(
+                    lambda: voxel._rgb_launch(images, pix))
+        finally:
+            voxel._lib = keep_lib
+        print(f"[kernel_ab] ablate fusion, {label}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + " ms", flush=True)
+    print(f"[kernel_ab] ablate fusion on {_card()}", flush=True)
     return 0
 
 
@@ -398,34 +509,32 @@ def k1_times(voxel, tag, feats, pix, w, b, g1, gm, out):
     return t
 
 
-def inputs(root):
-    """The checkout's modules and the A/B's inputs, from their seeds: for
-    K1 the maps, W, b and cotangents with each intrinsic's ``pix``; for
-    K2 its backward's arguments at phase 8's training batch on float32
-    maps and on the same maps in bfloat16 (keys "" and "_bf16"), and its
-    forward's in both forms."""
-    sys.path.insert(0, root)
-    import numpy as np
-    import torch
-
-    from nerfdet_tpu_torch import api
-    from nerfdet_tpu_torch.data import ray_stats
-    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
-    from nerfdet_tpu_torch.ops import cuda_build, render, voxel
-
+def _smoke():
     spec = importlib.util.spec_from_file_location(
         "smoke", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    cuda_build.build([k for k in cuda_build.KERNELS if "mean" in k])
+    return smoke
+
+
+def _build(cuda_build, names):
+    cuda_build.build(names)
     for name, (_, log) in cuda_build.BUILD_LOG.items():
         for line in log.splitlines():
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print(f"[ptxas] {name}: {line.strip()}")
+
+
+def k1_inputs(smoke, api, voxel, dev):
+    """The R50 model, phase 4's scene, its intrinsic scaled to
+    ``ori_shape``, K1's inputs from their seeds (the maps, W, b and
+    cotangents with each intrinsic's ``pix``) and the generator, which
+    the caller draws on."""
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
 
     model = api.init_detector(smoke.CONFIG, device="cuda", seed=smoke.SEED)
     meta = model.meta
@@ -457,6 +566,30 @@ def inputs(root):
         x, y, _, valid = voxel.project_points(points, proj, h // stride,
                                               w // stride)
         k1["pix"][tag] = voxel.pixel_index(x, y, valid, fw).contiguous()
+    return model, scene, scaled, k1, gen
+
+
+def inputs(root):
+    """The checkout's modules and the A/B's inputs, from their seeds: for
+    K1 the maps, W, b and cotangents with each intrinsic's ``pix``; for
+    K2 its backward's arguments at phase 8's training batch on float32
+    maps and on the same maps in bfloat16 (keys "" and "_bf16"), and its
+    forward's in both forms."""
+    sys.path.insert(0, root)
+    import torch
+
+    from nerfdet_tpu_torch import api
+    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.ops import cuda_build, render, voxel
+
+    smoke = _smoke()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    _build(cuda_build, [k for k in cuda_build.KERNELS if "mean" in k])
+    model, scene, scaled, k1, gen = k1_inputs(smoke, api, voxel, dev)
+    meta = model.meta
+    h, w = meta.img_shape
 
     tscene, _ = smoke.host_ray_stream(ray_stats, model,
                                       smoke.train_scene(model,
@@ -485,6 +618,78 @@ def inputs(root):
     k2_fwd = ((epts, eimgs, eproj, (h, w), efeats),
               (pts, proj, (h, w), tfeats, host))
     return (render, voxel), k1, k2, k2_fwd
+
+
+def fusion(root, save):
+    """K1's forward and the rgb stream of one checkout (``--fusion``)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from nerfdet_tpu_torch import api
+    from nerfdet_tpu_torch.ops import cuda_build, voxel
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smoke = _smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    _build(cuda_build, ["fused_mean_cov"])
+    _, _, _, k1, _ = k1_inputs(smoke, api, voxel, dev)
+    out, t = {}, {}
+    w, b = k1["w"], k1["b"]
+    forms = (("k1_bf16_grad_phase8", torch.bfloat16, "phase8", True),
+             ("k1_bf16_phase4", torch.bfloat16, "phase4", False),
+             ("k1_f32_phase4", torch.float32, "phase4", False))
+    for tag, dtype, where, grad in forms:
+        feats, pix = k1["feats"].to(dtype), k1["pix"][where]
+        args = ((feats.requires_grad_(), pix, w.clone().requires_grad_(),
+                 b.clone().requires_grad_()) if grad else (feats, pix, w, b))
+        with torch.set_grad_enabled(grad):
+            t[tag] = timed(lambda: voxel.fusion_carry(*args))
+        with torch.no_grad():
+            got = voxel.fusion_carry(*args)
+            fd = feats.detach()
+            rows = voxel._mapped_rows_launch(fd, w, b)
+            t[f"{tag}_A"] = timed(lambda: voxel._mapped_rows_launch(fd, w, b))
+            t[f"{tag}_B"] = timed(lambda: voxel._carry_launch(fd, pix, rows,
+                                                             b))
+        for name, x in zip(("s1", "s2", "count", "s2m", "rows"),
+                           list(got) + [rows]):
+            out[f"{tag}_{name}"] = x.detach()
+        del feats, args, got, rows
+    del k1
+    torch.cuda.empty_cache()
+    depth = api.init_detector(smoke.DEPTH_CONFIG, device="cuda",
+                              seed=smoke.SEED)
+    for tag, views, dtype in (("rgb_f32_100", smoke.DEPTH_VIEWS,
+                               torch.float32),
+                              ("rgb_bf16_50", smoke.BF16_DEPTH_VIEWS,
+                               torch.bfloat16)):
+        scene = smoke.depth_scene(depth, smoke.SEED + 2, views)
+        pix = smoke.gated_streams(voxel, depth, scene, dev)["rgb"][0]
+        images = torch.as_tensor(scene["denorm_images"], device=dev).to(dtype)
+        t[tag] = smoke.queued_time_ms(lambda: voxel._rgb_launch(images, pix))
+        t[f"{tag}_wrapper"] = timed(lambda: voxel._rgb_launch(images, pix),
+                                    50)
+        out[f"{tag}_s1e"], out[f"{tag}_s2e"] = voxel._rgb_launch(images, pix)
+        print(f"[kernel_ab] {tag}: {int((pix >= 0).sum())} kept pairs of "
+              f"{pix.numel()}", flush=True)
+    torch.cuda.synchronize()
+    if save:
+        os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
+        torch.save(out, save)
+    print(f"[kernel_ab] {root} --fusion: " + " ".join(
+        f"{k}={v:.4f}" for k, v in t.items())
+        + f" ({time.strftime('%H:%M:%S')}; {_card()})", flush=True)
+    return 0
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
 
 
 def profile(name, fn, iters=5):
@@ -538,20 +743,22 @@ def run(root, save, with_profile, forward_only):
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
         torch.save({k: v if isinstance(v, torch.Tensor) else list(v)
                     for k, v in out.items()}, save)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
     print(f"[kernel_ab] {root}: " + " ".join(f"{k}={v:.4f}"
                                              for k, v in t.items())
-          + f" ({time.strftime('%H:%M:%S')}; {card})", flush=True)
+          + f" ({time.strftime('%H:%M:%S')}; {_card()})", flush=True)
     return 0
+
+
+# outputs held within 1e-5 relative, not bit for bit: phase A's rows and
+# s2m (their C-long dot products may run in another order)
+CLOSE = ("_rows", "_s2m")
 
 
 def compare(a, b):
     import torch
 
     x, y = torch.load(a), torch.load(b)
+    missed = []
     for k in sorted(x):
         xs = x[k] if isinstance(x[k], list) else [x[k]]
         ys = y[k] if isinstance(y[k], list) else [y[k]]
@@ -559,9 +766,16 @@ def compare(a, b):
         diff = [float((p.float() - q.float()).abs().max()
                       / q.float().abs().max().clamp_min(1e-30))
                 for p, q in zip(xs, ys)]
+        ok = max(diff) <= 1e-5 if k.endswith(CLOSE) else all(same)
+        if not ok:
+            missed.append(k)
         print(f"[kernel_ab] {k}: bitwise equal {same}, max rel diff "
-              f"{['%.3e' % d for d in diff]}", flush=True)
-    return 0
+              f"{['%.3e' % d for d in diff]}"
+              f"{'' if ok else ' MISSES its bar'}", flush=True)
+    print(f"[kernel_ab] compare: {len(x) - len(missed)} of {len(x)} keys "
+          f"within their bars (bitwise; {', '.join(CLOSE)} 1e-5 relative)",
+          flush=True)
+    return 1 if missed else 0
 
 
 def main(argv):
@@ -571,6 +785,8 @@ def main(argv):
         return ablate()
     if argv[:1] == ["--ablate-backward"]:
         return ablate_backward()
+    if argv[:1] == ["--ablate-fusion"]:
+        return ablate_fusion()
     save = None
     if "--save" in argv:
         i = argv.index("--save")
@@ -578,7 +794,11 @@ def main(argv):
         argv = argv[:i] + argv[i + 2:]
     with_profile = "--profile" in argv
     forward_only = "--forward" in argv
-    argv = [a for a in argv if a not in ("--profile", "--forward")]
+    with_fusion = "--fusion" in argv
+    argv = [a for a in argv if a not in ("--profile", "--forward",
+                                         "--fusion")]
+    if with_fusion:
+        return fusion(os.path.abspath(argv[0] if argv else HERE), save)
     return run(os.path.abspath(argv[0] if argv else HERE), save,
                with_profile, forward_only)
 

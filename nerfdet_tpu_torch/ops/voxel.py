@@ -7,7 +7,9 @@ observing-view counts and the squared sums of the mapped stream) is the
 hand-written CUDA kernel K1 (``csrc/fused_mean_cov.cu``), in two phases:
 A maps every pixel of every view once (``mapped_rows_plain``), B walks
 the views for each voxel and gathers its rows and their mapped values.
-The epilogue (mean and exp(-variance)) is plain torch. The carry is
+On bfloat16 maps phase A runs on the tensor cores, W split exactly into
+three bfloat16 pieces (``split_bf16x3_plain``). The epilogue (mean and
+exp(-variance)) is plain torch. The carry is
 differentiable: its backward is the hand-written kernel
 ``csrc/fused_mean_cov_backward.cu`` (``fusion_carry_backward``), which
 sums the cotangents of the voxels that share a pixel (found by a counting
@@ -191,15 +193,36 @@ K1_MAX_MAP = 32  # mapped outputs: lane m of a warp owns output m
 
 
 def fusion_smem_bytes(c: int, itemsize: int) -> int:
-    """Shared memory of one K1 block for C channels of ``itemsize``-byte
-    maps, in bytes. Phase A holds W zero-padded to 32 columns and b, then
-    a ring of 4 stages of 128 rows x 32 channels, a row padded to 36
-    floats or 40 bfloat16 (the layout in ``csrc/fused_mean_cov.cu``);
-    phase B holds none: its warps own their voxels. The launch passes
-    this size to phase A, whose launcher refuses more than the device
-    lets a block opt into."""
-    pitch = 36 if itemsize == 4 else 40
-    return 4 * (c * K1_MAX_MAP + K1_MAX_MAP) + 4 * 128 * pitch * itemsize
+    """Shared memory of one K1 phase A block for C channels of
+    ``itemsize``-byte maps, in bytes (the layouts in
+    ``csrc/fused_mean_cov.cu``). float32 maps: W zero-padded to 32 columns
+    and b, then a ring of 4 stages of 128 rows x 32 channels, a row padded
+    to 36 floats. bfloat16 maps: b, W's three bfloat16 pieces transposed
+    (32 rows of C + 8), then a ring of 128 rows x 32 channels, a row padded
+    to 40 elements, of 4 stages (3 at C = 1024, where 4 would not fit).
+    Phase B holds none: its warps own their voxels. The C launcher sizes
+    its blocks itself (``fused_mean_cov_mapped_rows_smem``) and refuses
+    more than the device lets a block opt into; this states the same
+    layout for the tests, and a card test holds the two equal."""
+    if itemsize == 4:
+        return 4 * (c * K1_MAX_MAP + K1_MAX_MAP) + 4 * 128 * 36 * 4
+    stages = 3 if c >= 1024 else 4
+    return (4 * K1_MAX_MAP + 2 * 3 * K1_MAX_MAP * (c + 8)
+            + 2 * stages * 128 * 40)
+
+
+def split_bf16x3_plain(w):
+    """W (float32) as three bfloat16 pieces (hi, mid, lo) with hi + mid +
+    lo == W exactly, as K1's phase A splits W for the tensor cores on
+    bfloat16 maps: hi = rn(W), mid = rn(W - hi), lo = rn(W - hi - mid),
+    each difference exact in float32 (for |W| above 2^-110, where lo is a
+    normal bfloat16). The tests' reference of the kernel's split."""
+    w = w.float()
+    hi = w.bfloat16()
+    rest = w - hi.float()
+    mid = rest.bfloat16()
+    lo = (rest - mid.float()).bfloat16()
+    return hi, mid, lo
 
 
 def fusion_carry(features, pix, mapped_kernel=None, mapped_bias=None):
@@ -487,8 +510,7 @@ def _mapped_rows_launch(features, mapped_kernel, mapped_bias):
         err = lib.fused_mean_cov_mapped_rows(
             features.data_ptr(), int(features.dtype == torch.bfloat16),
             mapped_kernel.data_ptr(), mapped_bias.data_ptr(), out.data_ptr(),
-            v * h * w, c, m, fusion_smem_bytes(c, features.element_size()),
-            torch.cuda.current_stream(dev).cuda_stream)
+            v * h * w, c, m, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mean_cov phase A launch failed: "
                            f"cudaError {err}")
@@ -767,9 +789,11 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.fused_mean_cov_mapped_rows.argtypes = [
-            p, i, p, p, p, i, i, i, ctypes.c_longlong, p]
+        lib.fused_mean_cov_mapped_rows.argtypes = [p, i, p, p, p, i, i, i,
+                                                   p]
         lib.fused_mean_cov_mapped_rows.restype = ctypes.c_int
+        lib.fused_mean_cov_mapped_rows_smem.argtypes = [i, i]
+        lib.fused_mean_cov_mapped_rows_smem.restype = ctypes.c_longlong
         lib.fused_mean_cov_rgb.argtypes = [p, i] + [p] * 3 + [i] * 3 + [p]
         lib.fused_mean_cov_rgb.restype = ctypes.c_int
     return lib

@@ -220,6 +220,16 @@ def test_k1_main_path_holds_two_blocks_an_sm():
     assert 2 * (tvox.fusion_smem_bytes(256, 4) + 1024) <= 228 * 1024
 
 
+def test_k1_bf16_phase_a_holds_two_blocks_an_sm_and_every_width():
+    """On bfloat16 maps phase A holds W's three bfloat16 pieces beside its
+    ring: at the main path's C = 256 two blocks share an SM's 228 KB, and
+    every width K1 takes fits a block (the ring has 3 stages at C =
+    1024)."""
+    assert 2 * (tvox.fusion_smem_bytes(256, 2) + 1024) <= 228 * 1024
+    assert max(tvox.fusion_smem_bytes(c, 2)
+               for c in tvox.K1_CHANNELS) <= 232448
+
+
 def _shared_pixel_scene(seed, c=32, m=8):
     """The card tests' scene at C channels, M mapped outputs and 3 views;
     its pixel indices put several voxels on one pixel of each view."""

@@ -136,6 +136,96 @@ def test_mapped_rows_match_plain(dev, dtype, c, m, hw, aligned):
     assert _rel(got, want) <= 1e-5
 
 
+def _w_case(case, c, m, gen, dev):
+    """The mapped stream's W for a phase A case: seeded (std 1/sqrt(C)),
+    or entries of random sign within 10% of 1e4 or of 1e-6."""
+    w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
+    for tag, scale in (("1e4", 1e4), ("1e-6", 1e-6)):
+        if case.endswith(tag):
+            mag = 1 + 0.1 * torch.rand((c, m), generator=gen, device=dev)
+            w = torch.sign(w) * mag * scale
+    return w
+
+
+@pytest.mark.parametrize("case", ["seeded", "unaligned", "W near 1e4",
+                                  "W near 1e-6"])
+@pytest.mark.parametrize("m", [1, 7, 8, 31, 32])
+@pytest.mark.parametrize("c", voxel.K1_CHANNELS)
+def test_mapped_rows_bf16_tensor_cores_match_plain(dev, c, m, case):
+    """K1's phase A on bfloat16 maps (W split into three bfloat16 pieces,
+    mma.sync on the tensor cores) at every width it takes: P and the
+    carry's s2m within 1e-5 relative of the plain version, count, s1 and
+    s2 bitwise. 3 views of 59x81 (14,337 rows, no multiple of the
+    128-row tile); "unaligned" maps one element off 16 bytes are staged
+    without cp.async."""
+    gen = torch.Generator(device=dev).manual_seed(c * 100 + m)
+    feats = torch.randn((3, 59, 81, c), generator=gen,
+                        device=dev).bfloat16()
+    if case == "unaligned":
+        feats = _unaligned(feats)
+    w = _w_case(case, c, m, gen, dev)
+    b = torch.randn((m,), generator=gen, device=dev)
+    got = voxel._mapped_rows_launch(feats, w, b)
+    want = voxel.mapped_rows_plain(feats, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (3, 59 * 81, m)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-5
+    pix = _pix(dev, v=3, nvox=(7, 9, 5), fh=59, fw=81)
+    got = voxel.fusion_carry(feats, pix, w, b)
+    want = voxel.fusion_carry_plain(feats, pix, w, b)
+    torch.cuda.synchronize()
+    for g, p in zip(got[:3], want[:3]):
+        assert torch.equal(g, p)
+    assert _rel(got[3], want[3]) <= 1e-5
+
+
+def _exact_bf16x3_case(dev, c, m, seed):
+    """Phase A inputs whose product is exact in float32 in any order, and
+    whose W has three nonzero bfloat16 pieces: rows of bfloat16 maps with
+    at most 3 entries of +-1, W = +-(h +- 3 * 2^-10 +- 2^-18) with h in
+    {1.25, 1.5, 1.75} (hi = h, mid = +-3 * 2^-10, lo = +-2^-18) and b in
+    {-0.5, 0, 0.5}: every partial sum lies below 2^3 on a grid of 2^-18."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = 3 * 59 * 81
+    flat = torch.zeros((rows, c), device=dev)
+    idx = torch.randint(0, c, (rows, 3), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (rows, 3), generator=gen, device=dev) * 2 - 1
+    flat.scatter_(1, idx, sign.float())
+    feats = flat.reshape(3, 59, 81, c).bfloat16()
+
+    def pm(*shape):
+        return (torch.randint(0, 2, shape, generator=gen, device=dev)
+                * 2 - 1).float()
+
+    h = 1.25 + 0.25 * torch.randint(0, 3, (c, m), generator=gen, device=dev)
+    w = pm(c, m) * (h + pm(c, m) * 3 * 2.0 ** -10 + pm(c, m) * 2.0 ** -18)
+    b = 0.5 * torch.randint(-1, 2, (m,), generator=gen, device=dev).float()
+    return feats, w, b
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("m", [7, 32])
+@pytest.mark.parametrize("c", voxel.K1_CHANNELS)
+def test_mapped_rows_bf16_three_pieces_are_exact(dev, c, m, aligned):
+    """Phase A on bfloat16 maps at exact inputs (``_exact_bf16x3_case``):
+    P bit for bit the plain version's. The product by W's first two
+    pieces alone differs from it, so a kernel that lost the third piece
+    (or any) on its way to the tensor cores would fail."""
+    feats, w, b = _exact_bf16x3_case(dev, c, m, seed=c + m)
+    if not aligned:
+        feats = _unaligned(feats)
+    pieces = voxel.split_bf16x3_plain(w)
+    assert all(bool((p != 0).all()) for p in pieces)
+    got = voxel._mapped_rows_launch(feats, w, b)
+    want = voxel.mapped_rows_plain(feats, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    x = feats.double().reshape(3, -1, c)
+    two = (x @ (pieces[0].double() + pieces[1].double()) + b.double())
+    assert not torch.equal(two.float(), want)
+
+
 def test_fusion_carry_rejects_what_it_cannot_take(dev):
     pix = _pix(dev, v=2)
     with pytest.raises(ValueError, match="C % 32"):
@@ -172,21 +262,31 @@ def test_fusion_carry_refuses_a_bfloat16_mapped_kernel(dev):
 
 def test_mapped_rows_launcher_refuses_more_shared_memory_than_the_card_has(
         dev):
-    c, m = 64, 32
-    feats = torch.randn((2, 6, 10, c), device=dev)
-    w = torch.randn((c, m), device=dev)
-    b = torch.randn((m,), device=dev)
-    out = torch.zeros((2, 60, m), device=dev)
-    lib = voxel._lib()
-    # 1 MiB a block is above any card's opt-in shared memory
-    for smem, refused in ((1 << 20, True),
-                          (voxel.fusion_smem_bytes(c, 4), False)):
+    """The launcher sizes phase A's blocks itself: at C = 2048 a float32
+    block would need more shared memory than any card lets a block opt
+    into, and is refused; at C = 64 it launches."""
+    m, lib = 32, voxel._lib()
+    for c, refused in ((2048, True), (64, False)):
+        feats = torch.randn((2, 6, 10, c), device=dev)
+        w = torch.randn((c, m), device=dev)
+        b = torch.randn((m,), device=dev)
+        out = torch.zeros((2, 60, m), device=dev)
         err = lib.fused_mean_cov_mapped_rows(
             feats.data_ptr(), 0, w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            120, c, m, smem, torch.cuda.current_stream(dev).cuda_stream)
+            120, c, m, torch.cuda.current_stream(dev).cuda_stream)
         assert (err != 0) == refused
     torch.cuda.synchronize()
     assert _rel(out, voxel.mapped_rows_plain(feats, w, b)) <= 1e-5
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("c", voxel.K1_CHANNELS)
+def test_mapped_rows_smem_is_what_fusion_smem_bytes_states(dev, c,
+                                                           itemsize):
+    """The shared memory the launcher gives a phase A block is the layout
+    ``fusion_smem_bytes`` states for the CPU tests."""
+    got = voxel._lib().fused_mean_cov_mapped_rows_smem(int(itemsize == 2), c)
+    assert got == voxel.fusion_smem_bytes(c, itemsize)
 
 
 def _k1_pix(dev, case):
@@ -468,7 +568,7 @@ def _rgb_case(dev, case, v):
     x, y, z, valid = voxel.project_points(points, proj, 239, 320)
     shell = (z - 3.5).abs() < 0.2  # a +-0.2 m shell, as the gate keeps
     pix = voxel.pixel_index(x, y, valid & shell, 320)
-    pix[1] = -1
+    pix[1:2] = -1
     if case == "all gated":
         pix.fill_(-1)
     images = torch.rand((v, 240, 320, 3), generator=gen, device=dev)
@@ -491,6 +591,32 @@ def test_rgb_carry_matches_plain_bitwise(dev, v, case, dtype):
     assert torch.equal(s1, p1) and torch.equal(s2, p2)
     if case == "all gated":
         assert not bool(s1.any()) and not bool(s2.any())
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged N", "none kept", "all kept"])
+@pytest.mark.parametrize("v", [1, 31, 32, 33, 100, 110])
+def test_rgb_carry_any_views_bitwise(dev, v, case, dtype, aligned):
+    """The rgb stream's tiles (32 voxels a block, 64 views a pass) at view
+    counts around a warp's and a pass's, N = 315 (no multiple of the
+    tile), with no pair kept or every pair kept, on images aligned or one
+    element off 16 bytes: bitwise equal to the plain version."""
+    images, pix = _rgb_case(dev, "ragged N", v)
+    if case == "none kept":
+        pix.fill_(-1)
+    elif case == "all kept":
+        gen = torch.Generator(device=dev).manual_seed(v)
+        pix = torch.randint(0, 240 * 320, pix.shape, generator=gen,
+                            device=dev, dtype=torch.int32)
+    images = images.to(dtype)
+    if not aligned:
+        images = _unaligned(images)
+    s1, s2 = voxel.rgb_carry(images, pix)
+    p1, p2 = voxel.rgb_carry_plain(images, pix)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, p1) and torch.equal(s2, p2)
+    assert bool((pix >= 0).any()) == (case != "none kept")
 
 
 def test_rgb_carry_rejects_what_it_cannot_take(dev):
