@@ -131,6 +131,23 @@ Phases, each reported on its own lines:
     9's ``ckpt_2`` on a val scene laid out from the 484x648 views
     (``run_eval`` through the loader, every view a JPEG decode, K1 once).
 
+13. data parallel, one process a card (``parallel/dist.py``), each
+    child started from a launcher file written to the run's temporary
+    directory (cuDNN deterministic, then ``ddp_child``): 13.1
+    ``tools/train --distributed`` under ``torchrun`` at world 1 (NCCL)
+    for 3 steps on phase 9's files against the same run without
+    ``--distributed`` (loss terms and grad_norm within 1e-6 relative,
+    each step launching K1, K1's backward, K2's training form and K2's
+    backward once; steps/s of both, the all-reduces' ms a step by CUDA
+    events); 13.2 phase 8's joint step over two ranks on this card over
+    gloo (CUDA tensors), one scene a rank, against one process stepping
+    both scenes (loss terms and grad_norm 1e-5 relative, every parameter
+    and running statistic within 1e-6 of its tensor's max, the ranks'
+    parameters bitwise equal; the step's ms) and, where the machine has
+    two cards, over NCCL a card a rank; 13.3 ``tools/test --distributed``
+    at world 2 (gloo, this card) on phase 9's val scene listed twice,
+    its mAP dict equal to world 1's.
+
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
 ``ori_shape``), in the main path's form (no s2 cotangent), with the
@@ -146,7 +163,8 @@ K2 is held bit for bit to its plain version in both forms and both
 dtypes (phases 3 and 11).
 
 Each path runs with every launch count set to 0 just before it and
-read just after; phase 9 also counts each train step's launches.
+read just after; phases 9 and 13 also count each train step's launches
+(phase 13 in its child processes, whose counts start at 0).
 
 The JPEG decoder's record (host code, not a kernel) is a ``[jpeg]`` line
 of its own. The second-to-last line is the kernels' JSON record, the last
@@ -156,6 +174,7 @@ prints no result; so does a machine without CUDA.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3046,6 +3065,408 @@ def jpeg_path(api, voxel, pointnet, render, card, ckpt, tmp):
     return record
 
 
+# phase 13: multi-card training and evaluation, one process a card
+DDP_STEPS = 3  # 13.1's steps through the train CLI
+DDP_TIMED = 3  # 13.2's timed steps after the compared one
+DDP_TIMEOUT = 300  # seconds a child run of phase 13 may take
+LAUNCHER = """\
+# a child run of chip_smoke.py phase 13: python3 <this> MODE OUT [ARGS]
+import sys
+
+import torch
+
+torch.backends.cudnn.deterministic = True
+sys.path.insert(0, {root!r})
+import chip_smoke  # noqa: E402
+
+chip_smoke.ddp_child(sys.argv[1:])
+"""
+
+
+def ddp_child(argv):
+    """A child process of phase 13, started through its launcher file:
+    ``MODE OUT [ARGS]``. ``train`` and ``test`` call the CLI's ``main``
+    with ARGS; ``step`` takes one joint train step of phase 8's model on
+    its rank's scene (``SEED + 1 + rank``) and times ``DDP_TIMED`` more.
+    ``--gloo-on-one-card`` in ARGS first joins the process group over
+    gloo, every rank on ``cuda:0`` (NCCL refuses two ranks on one card).
+    Every train step's kernel launches and every reduction over the
+    group (CUDA events around it) are recorded; rank 0 writes the record
+    to OUT (JSON; ``step`` writes OUT.rank<r>.pt on every rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from nerfdet_tpu_torch import api
+    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.ops import render, voxel
+    from nerfdet_tpu_torch.parallel import dist as pdist
+    from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.tools import train as train_cli
+
+    mode, out, args = argv[0], argv[1], list(argv[2:])
+    own_group = "--gloo-on-one-card" in args
+    if own_group:
+        args.remove("--gloo-on-one-card")
+        os.environ["LOCAL_RANK"] = "0"
+        dist.init_process_group("gloo", init_method="env://")
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward)
+    per_step, reduces = [], []
+    original_init = counted_trainers(api, counters, per_step)
+    original_reduce = pdist.all_reduce_mean_
+
+    def reduce(tensors, group=None):
+        if group is None:
+            return original_reduce(tensors, group)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        original_reduce(tensors, group)
+        ev[1].record()
+        reduces.append((len(per_step), len(tensors), sum(
+            t.numel() * t.element_size() for t in tensors), ev))
+
+    pdist.all_reduce_mean_ = reduce
+    record = {"mode": mode}
+
+    def counted():
+        torch.cuda.synchronize()
+        record["per_step"] = per_step
+        record["reduces"] = [(s, n, b, ev[0].elapsed_time(ev[1]))
+                             for s, n, b, ev in reduces]
+        return record
+    try:
+        if mode == "train":
+            result = train_cli.main(args)
+            record["history"] = result["history"]
+        elif mode == "test":
+            for fn in counters:
+                fn.launches = 0
+            record["metrics"] = test_cli.main(args)
+            record["launches"] = [fn.launches for fn in counters]
+        else:
+            with pdist.process_group("cuda") as (dev, group):
+                tr = api.init_trainer(CONFIG, device=dev, seed=SEED,
+                                      steps_per_epoch=1000,
+                                      process_group=group)
+                rank = pdist.rank(group)
+                scene, _ = host_ray_stream(
+                    ray_stats, tr.model, train_scene(tr.model,
+                                                     SEED + 1 + rank))
+                batch = api.train_batch(tr.model, [scene])
+                metrics = tr.step(batch)
+                state = {k: v.to("cpu", copy=True) for k, v in
+                         tr.model.state_dict().items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DDP_TIMED):
+                    tr.step(batch)
+                torch.cuda.synchronize()
+                record.update(
+                    metrics={k: float(v) for k, v in metrics.items()},
+                    step_s=(time.perf_counter() - t0) / DDP_TIMED,
+                    device=str(dev), backend=dist.get_backend(group),
+                    world=pdist.world(group))
+                torch.save(dict(counted(), state=state),
+                           f"{out}.rank{rank}.pt")
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if mode != "step" and rank == 0:
+            with open(out, "w") as f:
+                json.dump(counted(), f)
+    finally:
+        api.init_trainer = original_init
+        pdist.all_reduce_mean_ = original_reduce
+        if own_group:
+            dist.destroy_process_group()
+
+
+def start_children(commands, logs):
+    """Start ``commands``, (argv, extra environment) pairs, each in a
+    session of its own, its output to a file under ``logs``."""
+    started = []
+    for c, extra in commands:
+        path = os.path.join(logs, f"child_{time.monotonic_ns()}.log")
+        with open(path, "w") as f:
+            started.append((c, path, subprocess.Popen(
+                c, env=dict(os.environ, **extra), stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True)))
+    return started
+
+
+def wait_children(started):
+    """Wait for ``start_children``'s processes; kill every one and fail
+    after ``DDP_TIMEOUT``; fail if one exits non-zero."""
+    deadline = time.monotonic() + DDP_TIMEOUT
+    try:
+        for _, _, p in started:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for _, _, p in started:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    for c, path, p in started:
+        if p.returncode != 0:
+            with open(path) as f:
+                log(f.read()[-4000:])
+            raise SystemExit(f"phase 13: {c[:6]} exited {p.returncode}")
+
+
+def run_children(commands, logs):
+    """``start_children``, then ``wait_children``."""
+    wait_children(start_children(commands, logs))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def reduce_ms(record):
+    """(ms of the step's reductions, ms and bytes of its gradients'
+    reduction) a step, over the steps after the first."""
+    steps = {}
+    for s, n, b, ms in record["reduces"]:
+        steps.setdefault(s, []).append((n, b, ms))
+    later = [v for s, v in sorted(steps.items()) if s > 0] or list(
+        steps.values())
+    total = sum(sum(ms for _, _, ms in v) for v in later) / len(later)
+    grads = [max(v, key=lambda r: r[1]) for v in later]
+    return (total, sum(g[2] for g in grads) / len(grads), grads[0][0],
+            grads[0][1])
+
+
+def ddp_path(api, ray_stats, card, tmp, runtime_opts):
+    """Phase 13: data-parallel training and evaluation, one process a
+    card. 13.1: ``tools/train --distributed`` under torchrun at world 1
+    (NCCL) against the same run without ``--distributed``, on phase 9's
+    files; 13.2: the R50 joint step over two ranks on this card (gloo,
+    CUDA tensors), one scene a rank, against one process stepping both
+    (and over NCCL, a card a rank, where the machine has two); 13.3:
+    ``tools/test --distributed`` at world 2 (gloo, this card) against
+    world 1 on phase 9's val scene, twice, and ``ckpt_2``. Returns the
+    numbers of the record."""
+    import pickle
+
+    import torch
+
+    from nerfdet_tpu_torch.tools import test as test_cli
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    launcher = os.path.join(tmp, "ddp_launcher.py")
+    with open(launcher, "w") as f:
+        f.write(LAUNCHER.format(root=root))
+    py, torchrun = sys.executable, [sys.executable, "-m",
+                                    "torch.distributed.run",
+                                    "--standalone"]
+    names = ("fused_mean_cov", "fused_mean_cov_backward",
+             "streaming_sample_mean_var",
+             "streaming_sample_mean_var_backward")
+    out = {}
+
+    # ---- 13.1 the train CLI at world 1: NCCL against no group ----
+    runs = {}
+    for tag, cmd in (
+            ("--distributed (torchrun, NCCL, world 1)",
+             torchrun + ["--nproc_per_node", "1", launcher]),
+            ("without --distributed", [py, launcher])):
+        path = os.path.join(tmp, f"ddp_train_{len(runs)}.json")
+        args = [CONFIG, "--work-dir", os.path.join(tmp, f"ddp_{len(runs)}"),
+                "--max-steps", str(DDP_STEPS), "--no-validate", "--options",
+                *runtime_opts]
+        if not runs:
+            args.insert(1, "--distributed")
+        t0 = time.perf_counter()
+        run_children([(cmd + ["train", path] + args, {})], tmp)
+        with open(path) as f:
+            runs[tag] = json.load(f)
+        runs[tag]["wall_s"] = time.perf_counter() - t0
+    for i in range(len(runs)):  # their checkpoints: 1.26 GB each
+        shutil.rmtree(os.path.join(tmp, f"ddp_{i}"))
+    (dtag, d), (ptag, p) = runs.items()
+    worst = 0.0
+    for hd, hp in zip(d["history"], p["history"]):
+        for k in ("loss", "loss_cls", "loss_bbox", "loss_centerness",
+                  "loss_nvs", "n_pos", "grad_norm"):
+            worst = max(worst, abs(hd[k] - hp[k]) / max(abs(hp[k]), 1e-30))
+    for tag, r in runs.items():
+        h = r["history"]
+        log(f"[ddp] 13.1 tools/train {tag}: {len(h)} steps, launches a step "
+            f"{r['per_step']} ({', '.join(names)}); losses "
+            + "; ".join(f"{x['loss']:.6f}/{x['grad_norm']:.6f}" for x in h)
+            + f" (loss/grad_norm); child wall {r['wall_s']:.1f} s")
+        if r["per_step"] != [[1, 1, 1, 1]] * DDP_STEPS:
+            raise SystemExit(f"13.1 {tag}: launches {r['per_step']}, "
+                             f"expected each kernel once a step")
+    step_rate = {tag: (len(r["history"]) - 1) / sum(
+        x["step_s"] for x in r["history"][1:]) for tag, r in runs.items()}
+    file_rate = {tag: (len(r["history"]) - 1) / sum(
+        x["step_s"] + x["data_s"] for x in r["history"][1:])
+        for tag, r in runs.items()}
+    total_ms, grad_ms, n_grads, grad_bytes = reduce_ms(d)
+    log(f"[ddp] 13.1 per-step loss terms and grad_norm: max rel diff "
+        f"{worst:.3e} (tol 1e-6; bitwise {worst == 0.0})")
+    if worst > 1e-6:
+        raise SystemExit("13.1: --distributed at world 1 and the run "
+                         "without it disagree")
+    log(f"[ddp] 13.1 steps/s (steps 2-{DDP_STEPS}, Trainer.step with "
+        f"train_batch on the host clock): {step_rate[dtag]:.3f} "
+        f"--distributed, {step_rate[ptag]:.3f} without; from files (loader "
+        f"wait included) {file_rate[dtag]:.3f} / {file_rate[ptag]:.3f}; "
+        f"all-reduces {total_ms:.3f} ms a step, of them the gradients' "
+        f"{grad_ms:.3f} ms ({n_grads} tensors, {grad_bytes} bytes float32, "
+        f"one flat buffer); CUDA events; measured on {card}")
+    out.update(world1_steps_s=step_rate[dtag], plain_steps_s=step_rate[ptag],
+               world1_files_steps_s=file_rate[dtag],
+               plain_files_steps_s=file_rate[ptag],
+               allreduce_ms=total_ms, grad_allreduce_ms=grad_ms,
+               grad_tensors=n_grads, grad_bytes=grad_bytes,
+               world1_max_rel=worst,
+               launches=dict(zip(names, map(sum, zip(*d["per_step"])))))
+
+    # ---- 13.3 tools/test --distributed at world 2 against world 1: its
+    # two ranks run beside 13.2's one-process step ----
+    val_root = [o.split("=", 1)[1] for o in runtime_opts
+                if o.startswith("data.test.data_root=")][0].rstrip("/")
+    with open(os.path.join(val_root, "scannet_infos_val.pkl"), "rb") as f:
+        infos = pickle.load(f)
+    twice = os.path.join(val_root, "scannet_infos_val_twice.pkl")
+    with open(twice, "wb") as f:
+        pickle.dump(infos * 2, f)  # a scene for each rank
+    opts = [o for o in runtime_opts if not o.startswith(
+        "data.test.ann_file=")] + [f"data.test.ann_file={twice}"]
+    ckpt = os.path.join(tmp, "work", "ckpts", "ckpt_2.pth")
+    args = [CONFIG, ckpt, "--eval", "mAP", "--options", *opts]
+    path = os.path.join(tmp, "ddp_test.json")
+    t3 = time.perf_counter()
+    test_children = start_children(
+        [(torchrun + ["--nproc_per_node", "2", launcher, "test", path,
+                      "--gloo-on-one-card", args[0], args[1],
+                      "--distributed"] + args[2:], {})], tmp)
+
+    # ---- 13.2 the joint step over two ranks against one process ----
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr = api.init_trainer(CONFIG, device="cuda", seed=SEED,
+                              steps_per_epoch=1000)
+        scenes = [host_ray_stream(ray_stats, tr.model,
+                                  train_scene(tr.model, SEED + 1 + r))[0]
+                  for r in (0, 1)]
+        n_params = sum(1 for _ in tr.model.parameters())
+        one = {k: float(v) for k, v in tr.step(api.train_batch(
+            tr.model, scenes)).items()}
+        want = {k: v.to("cpu", copy=True)
+                for k, v in tr.model.state_dict().items()}
+        # the gradients the update read, and each parameter's rate
+        grads = {n: p.grad.to("cpu", copy=True)
+                 for n, p in tr.model.named_parameters()}
+        rate = {n: tr.optimizer.schedule(0) * (
+            tr.optimizer.lr_mult if n.startswith("backbone.") else 1.0)
+            for n in grads}
+        del tr, scenes
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    log(f"[ddp] 13.2 one process, two scenes of {N_VIEWS} views and 2048 "
+        f"rays: " + ", ".join(f"{k} {v:.6g}" for k, v in one.items())
+        + f"; {n_params} parameter tensors")
+    wait_children(test_children)
+    wall = time.perf_counter() - t3
+    with open(path) as f:
+        two = json.load(f)
+    t0 = time.perf_counter()
+    world1 = json.loads(json.dumps(test_cli.main(args)))
+    wall1 = time.perf_counter() - t0
+    keys = sorted(k for k in world1 if k.startswith(("mAP", "mAR")))
+    log(f"[ddp] 13.3 tools/test --distributed, two ranks on this card over "
+        f"gloo, {len(infos) * 2} val scenes: rank 0's launches "
+        f"{two['launches']} (K1 once a scene of its share); "
+        + ", ".join(f"{k} {two['metrics'][k]:.6f}" for k in keys)
+        + f"; equal to world 1's dict: {two['metrics'] == world1} (child "
+        f"wall {wall:.1f} s, world 1 in process {wall1:.1f} s)")
+    out["test_metrics_equal"] = two["metrics"] == world1
+    if two["metrics"] != world1 or two["launches"] != [len(infos), 0, 0,
+                                                       0]:
+        raise SystemExit("13.3: the sharded test CLI's metrics are not "
+                         "world 1's")
+
+    # ---- 13.2 the step over ranks ----
+    backends = [("gloo", "two ranks on this card over gloo (CUDA tensors)")]
+    if torch.cuda.device_count() > 1:
+        backends.append(("nccl", "two ranks over NCCL, a card a rank"))
+    for backend, what in backends:
+        port = free_port()
+        base = os.path.join(tmp, f"ddp_step_{backend}")
+        extra = ["--gloo-on-one-card"] if backend == "gloo" else []
+        t0 = time.perf_counter()
+        run_children([([py, launcher, "step", base] + extra, dict(
+            RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+            MASTER_ADDR="localhost", MASTER_PORT=str(port)))
+            for r in (0, 1)], tmp)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(f"{base}.rank{r}.pt") for r in (0, 1)]
+        loss_rel = max(abs(r["metrics"][k] - v) / max(abs(v), 1e-30)
+                       for r in ranks for k, v in one.items())
+        stats = [k for k in want if k.endswith(("running_mean",
+                                                "running_var"))]
+        s_err = max(float((r["state"][k] - want[k]).abs().max()) / max(
+            float(want[k].abs().max()), 1e-30) for r in ranks for k in stats)
+        # the parameters: within 1e-6 of the tensor's max where the
+        # gradient is signal (|g| >= 1e-3 of its tensor's max); elsewhere
+        # within 2 lr mult + 1e-6, AdamW's first step being ~lr sign(g),
+        # and the sign of a gradient at its rounding noise noise
+        p_err, p_noise, beyond = 0.0, 0.0, 0
+        for r in ranks:
+            for n, g in grads.items():
+                d = (r["state"][n].double() - want[n].double()).abs()
+                top = max(float(want[n].abs().max()), 1e-30)
+                strong = g.abs() >= 1e-3 * float(g.abs().max())
+                if bool(strong.any()):
+                    p_err = max(p_err, float(d[strong].max()) / top)
+                p_noise = max(p_noise, (float(d.max()) - 1e-6)
+                              / (2 * rate[n]))
+                beyond += int((d > 1e-6 * top).sum())
+        n_elems = sum(g.numel() for g in grads.values())
+        same = all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])
+                   for k in want)
+        total_ms, grad_ms, n_grads, grad_bytes = reduce_ms(ranks[0])
+        log(f"[ddp] 13.2 {what} ({ranks[0]['backend']}, "
+            f"{[r['device'] for r in ranks]}), one scene a rank: loss terms "
+            f"and grad_norm max rel diff {loss_rel:.3e} (tol 1e-5); "
+            f"parameters where the gradient is signal: max diff / tensor "
+            f"max {p_err:.3e} (tol 1e-6), elsewhere max diff {p_noise:.3e} "
+            f"x 2 lr mult (+1e-6; tol 1); {beyond} of 2 x {n_elems} "
+            f"elements beyond 1e-6 of their tensor's max; running "
+            f"statistics {s_err:.3e} (tol 1e-6); the ranks' parameters "
+            f"bitwise equal: {same}; launches a step "
+            f"{ranks[0]['per_step']}")
+        log(f"[ddp] 13.2 {what}: {ranks[0]['step_s'] * 1e3:.2f} ms a step "
+            f"(mean of {DDP_TIMED} after the compared one, host clock), "
+            f"all-reduces {total_ms:.3f} ms a step, the gradients' "
+            f"{grad_ms:.3f} ms ({n_grads} tensors, {grad_bytes} bytes); "
+            f"child wall {wall:.1f} s; measured on {card}")
+        if (loss_rel > 1e-5 or p_err > 1e-6 or p_noise > 1 or s_err > 1e-6
+                or not same or ranks[0]["per_step"][0] != [1, 1, 1, 1]):
+            raise SystemExit(f"13.2 {what}: the step over ranks is not "
+                             f"the one-process step")
+        out[f"{backend}_step_ms"] = ranks[0]["step_s"] * 1e3
+        out[f"{backend}_allreduce_ms"] = total_ms
+        out[f"{backend}_grad_allreduce_ms"] = grad_ms
+        out[f"{backend}_max_rel"] = max(loss_rel, p_err, s_err)
+        out[f"{backend}_elements_beyond_1e-6"] = beyond
+    if torch.cuda.device_count() < 2:
+        log(f"[ddp] NCCL at world > 1 was not run on this machine "
+            f"({torch.cuda.device_count()} card)")
+
+    log(f"[ddp] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3320,6 +3741,11 @@ def main():
     decoder = jpeg_path(api, voxel, pointnet, render, card,
                         os.path.join(files.name, "work", "ckpts",
                                      "ckpt_2.pth"), files.name)
+    log(f"[done] phases 1-12 in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 13. data parallel: one process a card, NCCL / gloo -------------
+    torch.cuda.empty_cache()
+    ddp = ddp_path(api, ray_stats, card, files.name, runtime_opts)
     files.cleanup()
 
     main = fusion["float32 mapped"]
@@ -3475,7 +3901,10 @@ def main():
         "feature map: the scatter alone")
     record["kernels"][-1].update({k: v for k, v in low["k2_bwd"].items()
                                   if k.startswith(("pass", "index"))})
-    log(f"[done] phases 1-12 in {time.perf_counter() - t_start:.1f} s")
+    for entry in record["kernels"]:  # phase 13.1's run with --distributed
+        entry["ddp_launches"] = ddp["launches"].get(entry["name"], 0)
+    log(f"[done] phases 1-13 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[ddp] {json.dumps({k: v for k, v in ddp.items() if k != 'launches'})}")
     log(f"[jpeg] {json.dumps(decoder)}")
     log(card)
     log(json.dumps(record))

@@ -25,9 +25,6 @@ config, and the scenes with their host ray stream on the device.
 from __future__ import annotations
 
 import dataclasses
-import os
-import pickle
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -45,6 +42,7 @@ from .models.nerfdet import NerfDet, SceneMeta
 from .models.votenet import VoteNet, votenet_nms
 from .nn.heads import get_candidate_bboxes
 from .nn.vote_head import vote_head_get_bboxes
+from .parallel import dist as pdist
 from .train.optim import (Optimizer, build_lr_schedule_from_config,
                           build_optimizer)
 from .train.step import make_train_step
@@ -195,7 +193,7 @@ class Trainer:
 
 def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
                  seed: int = 0, steps_per_epoch: int = 1,
-                 compute_dtype=None) -> Trainer:
+                 compute_dtype=None, process_group=None) -> Trainer:
     """Joint detection + NVS training from a NeRF-Det config, as
     ``tools/train.py`` of the JAX package trains it: the model as
     ``init_detector`` builds it, in train mode; AdamW, gradient clipping
@@ -206,7 +204,10 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
     ``depth_supervise`` (default False) and ``use_nerf_mask`` (default
     True). The model computes in ``compute_dtype`` (``init_detector``);
     the gradients, the optimizer state and the parameters stay float32.
-    Runs on the card unless ``device="cpu"``."""
+    Runs on the card unless ``device="cpu"``. With a ``process_group``
+    (``parallel/dist.py``) the step is data parallel over its ranks
+    (``train/step.py``): every rank builds the same model from the same
+    ``seed`` and ``checkpoint`` and steps its own scenes."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = init_detector(config, checkpoint, device, seed, compute_dtype)
@@ -225,7 +226,8 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
         model, optimizer,
         depth_supervise=config.model.get("depth_supervise", False),
         use_nerf_mask=config.model.get("use_nerf_mask", True),
-        rgb_supervision=config.model.get("rgb_supervision", True))
+        rgb_supervision=config.model.get("rgb_supervision", True),
+        process_group=process_group)
     return Trainer(model, optimizer, step)
 
 
@@ -362,8 +364,7 @@ def inference_detector(model: NerfDet, info: Dict, config,
 
 
 def run_eval(model: NerfDet, dataset, test_cfg: Dict, logger=None,
-             progress: bool = True, rank: int = 0, world: int = 1,
-             partial_dir: Optional[str] = None) -> Dict:
+             progress: bool = True, process_group=None) -> Dict:
     """The detection eval loop: every scene of ``dataset`` through
     ``single_scene_test`` (the eval step with the density modulation on,
     as the original's ``simple_test``; the JAX ``run_eval`` defaults to
@@ -371,9 +372,10 @@ def run_eval(model: NerfDet, dataset, test_cfg: Dict, logger=None,
     dataset built with ``use_depth`` gives each scene its depth maps,
     which gate the fusion, as in the JAX loop.
 
-    With ``world > 1`` the process evaluates scenes ``rank::world`` and
-    writes them to ``partial_dir``; rank 0 waits for every part, merges
-    them and scores (the others return {})."""
+    With a ``process_group`` of W ranks, rank r evaluates scenes
+    ``r::W``; rank 0 gathers every rank's detections through the group,
+    scores them in scene order and returns the metrics, the others {}."""
+    rank, world = pdist.rank(process_group), pdist.world(process_group)
     n = len(dataset)
     local: List = []
     for i in range(rank, n, world):
@@ -385,33 +387,8 @@ def run_eval(model: NerfDet, dataset, test_cfg: Dict, logger=None,
         if progress and len(local) % 10 == 0:
             print(f"[eval] rank {rank}: {len(local)}/"
                   f"{(n - rank + world - 1) // world}", flush=True)
-
-    if world == 1:
-        return dataset.evaluate([r for _, r in local], logger=logger)
-
-    if partial_dir is None:
-        raise ValueError("sharded eval needs partial_dir")
-    os.makedirs(partial_dir, exist_ok=True)
-    # write-to-temp + atomic rename: readers never see a partial pickle
-    path_r = f"{partial_dir}/part_{rank}.pkl"
-    tmp = f"{path_r}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        pickle.dump(local, f)
-    os.replace(tmp, path_r)
-    if rank != 0:
+    parts = pdist.gather_to_rank0(local, process_group)
+    if parts is None:
         return {}
-    merged: Dict[int, Dict] = {}
-    timeout_s = 600.0
-    for r in range(world):
-        path = f"{partial_dir}/part_{r}.pkl"
-        deadline = time.monotonic() + timeout_s
-        while not os.path.exists(path):
-            if time.monotonic() > deadline:
-                raise RuntimeError(
-                    f"sharded eval: rank {r} shard {path} missing after "
-                    f"{timeout_s:.0f}s; did that process die?")
-            time.sleep(1.0)
-        with open(path, "rb") as f:
-            for i, res in pickle.load(f):
-                merged[i] = res
+    merged = dict(r for part in parts for r in part)
     return dataset.evaluate([merged[i] for i in range(n)], logger=logger)

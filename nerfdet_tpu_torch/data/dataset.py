@@ -150,6 +150,12 @@ class ScanNetMultiViewDataset:
 
     # ------------------------------------------------------------------
 
+    def skip_seeds(self, n: int) -> None:
+        """Step the train-mode seed stream past ``n`` scenes loaded by
+        other ranks (``data/loader.py``)."""
+        if not self.test_mode:
+            self._rng.randint(0, 2 ** 31 - 1, size=n)
+
     def __getitem__(self, index: int) -> Dict:
         rng = np.random.RandomState(
             self._rng.randint(0, 2 ** 31 - 1) if not self.test_mode

@@ -4,6 +4,8 @@
         configs/nerfdet/nerfdet_res50_2x_low_res.py W/ckpts/ckpt_12.pth \
         --eval mAP nvs [--out metrics.json] [--show-dir renders] \
         [--max-scenes N] [--device cuda|cpu] [--options key=value ...]
+    torchrun --nproc_per_node 4 -m nerfdet_tpu_torch.tools.test \
+        <config> <checkpoint> --eval mAP --distributed
 
 The NeRF-Det branch of ``tools/test.py`` of the JAX package: the test
 dataset with its host rgb sums, the checkpoint (the port's own or a
@@ -15,20 +17,25 @@ density modulation on, as the original's ``simple_test`` (the JAX tool
 runs its eval step's default, without it). It runs on the card unless
 ``--device cpu`` is given, and raises where there is no card.
 The depth maps are read where ``input_modality.use_depth`` asks (the
-depth_sp configs), as in the JAX tool. ``--mesh-views`` > 1 and
-``--distributed`` are not ported yet.
+depth_sp configs), as in the JAX tool. ``--distributed`` (the train
+CLI's process group and flags) shards ``mAP`` over the ranks, rank 0
+scoring every rank's detections; ``nvs`` runs on rank 0 alone, and rank
+0 alone prints. ``--mesh-views`` > 1 is not ported yet (ROADMAP §1 item
+1.4).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 from typing import Dict, List, Optional
 
 from .. import api
 from ..config import Config
 from ..data.dataset import build_dataset, rgb_stats_spec_from_config
 from ..device import resolve_device
+from ..parallel import dist as pdist
 from ..utils.logging import get_root_logger
 
 PRINTED = ("mAP", "mAR", "psnr", "ssim", "rmse")
@@ -49,17 +56,22 @@ def parse_args(argv=None):
     p.add_argument("--mesh-views", type=int, default=1,
                    help="not ported yet beyond 1")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported yet")
+                   help="shard mAP over processes, one a card (torchrun, "
+                        "or the three flags below)")
+    p.add_argument("--coordinator", default=None,
+                   help="distributed: rank 0's host:port")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--options", nargs="+", default=[])
     return p.parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
-    if args.distributed or args.mesh_views > 1:
+    if args.mesh_views > 1:
         raise NotImplementedError(
-            "multi-card evaluation (--distributed) and the views-sharded "
-            "eval (--mesh-views) are not ported yet: ROADMAP §1 item 1")
+            "the views-sharded eval (--mesh-views) is not ported yet: "
+            "ROADMAP §1 item 1.4")
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_options(args.options)
@@ -67,8 +79,20 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         raise NotImplementedError(
             f"evaluating {cfg.model['type']} from the CLI is not ported "
             f"yet: ROADMAP §1 item 3")
-    device = resolve_device(args.device)
-    logger = get_root_logger()
+    if not args.distributed:
+        return evaluate(args, cfg, resolve_device(args.device), None)
+    with pdist.process_group(args.device, args.coordinator,
+                             args.num_processes, args.process_id) as (
+                                 device, group):
+        return evaluate(args, cfg, device, group)
+
+
+def evaluate(args, cfg, device, group) -> Dict:
+    """The run of ``main`` on ``device``, ``mAP`` sharded over ``group``
+    where one is given; the metrics on rank 0, {} on the others."""
+    rank = pdist.rank(group)
+    logger = get_root_logger(
+        log_level=logging.INFO if rank == 0 else logging.WARNING)
 
     use_depth = cfg.get("input_modality", {}).get("use_depth", False)
     dataset = build_dataset(cfg.data["test"], test_mode=True,
@@ -82,7 +106,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     metrics = {}
     if "mAP" in args.eval:
         metrics.update(api.run_eval(model, dataset, dict(cfg.test_cfg),
-                                    logger=logger))
+                                    logger=logger, process_group=group))
+    if rank != 0:
+        return metrics
     if "nvs" in args.eval:
         metrics.update(api.run_nvs_eval(
             model, dataset, chunk=cfg.model.get("N_rand", 2048),

@@ -4,11 +4,13 @@
         configs/nerfdet/nerfdet_res50_2x_low_res.py --work-dir W \
         [--resume-from W/ckpts/ckpt_1.pth] [--max-steps N] \
         [--device cuda|cpu] [--options key=value ...]
+    torchrun --nproc_per_node 4 -m nerfdet_tpu_torch.tools.train \
+        configs/nerfdet/nerfdet_res50_2x_low_res.py --distributed ...
 
 The NeRF-Det branch of ``tools/train.py`` of the JAX package: the
 config and its ``--options``, the train dataset with the host rgb sums
 and ray stream (``data/dataset.py``), ``BatchLoader`` with
-``workers_per_gpu`` threads a scene of the batch, ``api.init_trainer``
+``workers_per_gpu`` threads, ``api.init_trainer``
 with the loader's steps per epoch, ``--load-from`` (weights) and
 ``--resume-from`` (weights, optimizer state and step; training resumes
 at epoch step // steps_per_epoch), a checkpoint every epoch
@@ -25,18 +27,32 @@ sums and ray stream rounded as its specs say; the parameters, the
 optimizer state and the checkpoints stay float32. It runs on the card
 unless ``--device cpu`` is given, and raises where there is no card.
 
-Not ported, refused with the ROADMAP item that brings them: multi-card
-training (``--distributed``), the 2-D data x views sharding
-(``--mesh-views``), and the point-cloud and ImVoxelNet models.
+``--distributed`` trains data parallel, one process a card
+(``torchrun``'s environment, or ``--coordinator host:port
+--num-processes N --process-id i`` as the JAX tool takes them; NCCL on
+the cards, gloo with ``--device cpu``): ``--batch-size`` is the global
+scenes a step (default one a rank), split evenly over the ranks, each
+rank loading its share of every global batch with ``workers_per_gpu``
+threads; the step is the JAX step on the global batch
+(``train/step.py``). Every rank loads ``--load-from`` /
+``--resume-from``; rank 0 alone logs, writes the checkpoints and the
+trace, and the others wait for each checkpoint; validation is sharded
+over the ranks (``api.run_eval``).
+
+Not ported, refused with the ROADMAP item that brings them: the 2-D data
+x views sharding (``--mesh-views``), and the point-cloud and ImVoxelNet
+models.
 
 ``main(argv)`` returns what the run did (work dir, checkpoints, every
 step's metrics with its seconds waiting on the loader and in the step,
-the validation metrics), for callers in the same process.
+the validation metrics; on a rank other than 0 no checkpoints and no
+validation metrics), for callers in the same process.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 from typing import Dict, List, Optional
@@ -49,6 +65,7 @@ from ..data.dataset import (build_dataset, ray_stats_spec_from_config,
                             rgb_stats_spec_from_config)
 from ..data.loader import BatchLoader
 from ..device import resolve_device
+from ..parallel import dist as pdist
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger, collect_env, get_root_logger
 
@@ -68,7 +85,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--total-epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None,
-                   help="scenes a step (default 1, one card)")
+                   help="global scenes a step (default one a process)")
     p.add_argument("--max-steps", type=int, default=None,
                    help="stop after this many steps in all")
     p.add_argument("--profile-steps", type=int, default=0,
@@ -77,7 +94,12 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported yet")
+                   help="data parallel, one process a card (torchrun, "
+                        "or the three flags below)")
+    p.add_argument("--coordinator", default=None,
+                   help="distributed: rank 0's host:port")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (parameters and optimizer stay "
                         "float32)")
@@ -90,11 +112,10 @@ def parse_args(argv=None):
 
 def refuse_unported(args, cfg) -> None:
     """Raise for what the port cannot train yet, naming its ROADMAP item."""
-    if args.distributed or args.mesh_views > 1:
+    if args.mesh_views > 1:
         raise NotImplementedError(
-            "multi-card training (--distributed: DDP over NCCL) and the 2-D "
-            "data x views sharding (--mesh-views) are not ported yet: "
-            "ROADMAP §1 item 1")
+            "the 2-D data x views sharding (--mesh-views) is not ported "
+            "yet: ROADMAP §1 item 1.4")
     if cfg.model["type"] != "nerfdet":
         raise NotImplementedError(
             f"training {cfg.model['type']} (the point-cloud and ImVoxelNet "
@@ -114,16 +135,29 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.options:
         cfg.merge_from_options(args.options)
     refuse_unported(args, cfg)
-    device = resolve_device(args.device)
+    if not args.distributed:
+        return train(args, cfg, resolve_device(args.device), None)
+    with pdist.process_group(args.device, args.coordinator,
+                             args.num_processes, args.process_id) as (
+                                 device, group):
+        return train(args, cfg, device, group)
 
+
+def train(args, cfg, device, group) -> Dict:
+    """The run of ``main`` on ``device``, data parallel over ``group``
+    where one is given."""
+    rank, world = pdist.rank(group), pdist.world(group)
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
-    os.makedirs(work_dir, exist_ok=True)
-    timestamp = time.strftime("%Y%m%d_%H%M%S")
-    logger = get_root_logger(os.path.join(work_dir, f"{timestamp}.log"))
-    logger.info("Environment:\n" + "\n".join(
-        f"  {k}: {v}" for k, v in collect_env().items()))
-    logger.info(f"Config: {args.config}")
+    if rank == 0:
+        os.makedirs(work_dir, exist_ok=True)
+        timestamp = time.strftime("%Y%m%d_%H%M%S")
+        logger = get_root_logger(os.path.join(work_dir, f"{timestamp}.log"))
+        logger.info("Environment:\n" + "\n".join(
+            f"  {k}: {v}" for k, v in collect_env().items()))
+        logger.info(f"Config: {args.config}")
+    else:
+        logger = get_root_logger(log_level=logging.WARNING)
 
     # ---- data ---------------------------------------------------------
     use_depth = cfg.model.get("depth_supervise", False) or cfg.get(
@@ -138,26 +172,30 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                             n_rand=cfg.model.get("N_rand", 2048),
                             rgb_stats_spec=stats_spec,
                             ray_stats_spec=ray_spec)
-    batch_size = args.batch_size or 1
+    batch_size = args.batch_size or world
+    if batch_size % world:
+        raise ValueError(f"--batch-size {batch_size} does not split over "
+                         f"{world} processes")
     loader = BatchLoader(
-        dataset, batch_size=batch_size, shuffle=True,
-        num_workers=cfg.data.get("workers_per_gpu", 1) * batch_size,
-        seed=args.seed)
+        dataset, batch_size=batch_size // world, shuffle=True,
+        num_workers=cfg.data.get("workers_per_gpu", 1), seed=args.seed,
+        rank=rank, world=world)
     steps_per_epoch = len(loader)
     total_epochs = args.total_epochs or cfg.get("total_epochs", 12)
     cfg.merge_from_options({"total_epochs": total_epochs})
     logger.info(
-        f"{len(dataset)} samples, batch {batch_size}, {loader.num_workers} "
-        f"loader threads, {steps_per_epoch} steps/epoch, {total_epochs} "
-        f"epochs, device {device}, "
-        f"{'bfloat16' if use_bf16 else 'float32'} compute")
+        f"{len(dataset)} samples, batch {batch_size} over {world} "
+        f"process(es), {loader.num_workers} loader threads a process, "
+        f"{steps_per_epoch} steps/epoch, {total_epochs} epochs, device "
+        f"{device}, {'bfloat16' if use_bf16 else 'float32'} compute")
 
     # ---- model & optimizer -------------------------------------------
     load_from = args.load_from or cfg.get("load_from")
     tr = api.init_trainer(
         cfg, checkpoint=load_from, device=device, seed=args.seed,
         steps_per_epoch=steps_per_epoch,
-        compute_dtype=torch.bfloat16 if use_bf16 else torch.float32)
+        compute_dtype=torch.bfloat16 if use_bf16 else torch.float32,
+        process_group=group)
     if load_from:
         logger.info(f"loaded weights from {load_from}")
     start_epoch = 0
@@ -172,7 +210,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     mlog = MetricsLogger(work_dir, logger,
                          interval=cfg.get("log_config", {}).get(
-                             "interval", 50))
+                             "interval", 50)) if rank == 0 else None
     val_dataset = None
     if not args.no_validate:
         val_dataset = build_dataset(cfg.data["val"], test_mode=True,
@@ -189,7 +227,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         for it, scenes in enumerate(loader):
             t_got = time.perf_counter()
             gstep_pre = tr.optimizer.count
-            if args.profile_steps and gstep_pre == PROFILE_START:
+            if (args.profile_steps and gstep_pre == PROFILE_START
+                    and rank == 0):
                 prof = _profiler(device)
                 prof.__enter__()
             metrics = tr.step(api.train_batch(tr.model, scenes))
@@ -204,7 +243,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 prof = None
                 logger.info(f"profiler trace written to {work_dir}/trace")
             lr = float(tr.optimizer.schedule(gstep))
-            mlog.update(gstep, epoch + 1, values, lr=lr)
+            if mlog is not None:
+                mlog.update(gstep, epoch + 1, values, lr=lr)
             t_done = time.perf_counter()
             result["history"].append(dict(
                 step=gstep + 1, epoch=epoch + 1, lr=lr,
@@ -214,29 +254,34 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 done = True
                 break
 
-        payload = dict(model=tr.model.state_dict(),
-                       optimizer=tr.optimizer.state_dict(),
-                       step=tr.optimizer.count, epoch=epoch + 1)
-        path = save_checkpoint(
-            os.path.join(work_dir, "ckpts"), epoch + 1, payload,
-            meta=dict(epoch=epoch + 1, config=args.config),
-            max_keep=cfg.get("checkpoint_config", {}).get(
-                "max_keep_ckpts", -1))
-        result["checkpoints"].append(path)
-        logger.info(f"saved checkpoint {path}")
+        if rank == 0:
+            payload = dict(model=tr.model.state_dict(),
+                           optimizer=tr.optimizer.state_dict(),
+                           step=tr.optimizer.count, epoch=epoch + 1)
+            path = save_checkpoint(
+                os.path.join(work_dir, "ckpts"), epoch + 1, payload,
+                meta=dict(epoch=epoch + 1, config=args.config),
+                max_keep=cfg.get("checkpoint_config", {}).get(
+                    "max_keep_ckpts", -1))
+            result["checkpoints"].append(path)
+            logger.info(f"saved checkpoint {path}")
+        pdist.barrier(group)
 
         if val_dataset is not None:
             tr.model.eval()
             metrics = api.run_eval(tr.model, val_dataset,
-                                   dict(cfg.test_cfg), logger=logger)
+                                   dict(cfg.test_cfg), logger=logger,
+                                   process_group=group)
             tr.model.train()
-            mlog.log_eval(tr.optimizer.count, metrics)
-            result["val"].append(metrics)
+            if mlog is not None:
+                mlog.log_eval(tr.optimizer.count, metrics)
+                result["val"].append(metrics)
         if done:
             break
     if prof is not None:  # the run ended inside the traced steps
         prof.__exit__(None, None, None)
-    mlog.close()
+    if mlog is not None:
+        mlog.close()
     logger.info("training complete")
     return result
 

@@ -132,10 +132,12 @@ class Optimizer:
     clipping in front and the schedule's rate set before each update.
     Frozen parameters are in no group, so they never change.
 
-    ``step()`` reads the parameters' ``.grad`` (None counts as zero),
-    clips in place and updates; it returns the global norm of all the
-    gradients before clipping, frozen ones included (the step's
-    ``grad_norm``)."""
+    ``step()`` reads the parameters' ``.grad`` (``grads()``: None counts
+    as zero), clips in place and updates; it returns the global norm of
+    all the gradients before clipping, frozen ones included (the step's
+    ``grad_norm``). A data-parallel step reduces ``grads()`` over the
+    ranks in between, so the norm, the clip and the update read the
+    reduced gradients and every rank's AdamW state stays the same."""
 
     def __init__(self, model: torch.nn.Module, optimizer_cfg: dict,
                  grad_clip: Optional[dict] = None,
@@ -169,11 +171,17 @@ class Optimizer:
             p.grad = None
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def grads(self) -> List[torch.Tensor]:
+        """Every parameter's ``.grad``, in the parameters' order, zeros
+        where there was none (optax sees zeros, and still decays)."""
         for p in self.params:
-            if p.grad is None:  # optax sees zeros (and still decays)
+            if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
+        return [p.grad for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        grads = self.grads()
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         if self.max_norm is not None:
             keep = norm < self.max_norm

@@ -22,6 +22,14 @@ scenes of a batch:
 The scenes' graphs are all kept until the one backward (the cross-scene
 n_pos is known only after every forward); one scene a step, as the
 configs' ``samples_per_gpu=1``, keeps one.
+
+Over a process group (one process a card, ``parallel/dist.py``) the
+step is the JAX step on the global batch of every rank's scenes: n_pos
+is the mean over all of them (an all-reduce before the loss is formed),
+each rank's backward takes its scenes' share of the loss, and the
+gradients (missing ones as zeros), the running statistics and the
+metrics are then averaged over the ranks, in one flat buffer each, before
+the clip. A rank's scenes are as many as every other's.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 
 from ..models.nerfdet import NerfDet
 from ..nn.heads import head_loss_sums
+from ..parallel import dist as pdist
 from .optim import Optimizer
 
 
@@ -63,12 +72,21 @@ def scene_loss_terms(model: NerfDet, scene: Dict,
     return terms
 
 
-def reduce_loss_terms(terms: Sequence[Dict[str, torch.Tensor]]):
-    """The global loss and metrics from the per-scene sums."""
+def reduce_loss_terms(terms: Sequence[Dict[str, torch.Tensor]],
+                      group=None):
+    """The global loss and metrics from the per-scene sums. With a
+    process ``group`` the positives are averaged over every rank's
+    scenes, the loss returned is this rank's share (its scenes' mean,
+    whose gradients the ranks then average) and the metrics are the
+    global ones."""
     def mean(key):
         return torch.stack([t[key] for t in terms]).mean()
 
-    n_pos = torch.clamp(mean("n_pos"), min=1.0)
+    n_pos_mean = mean("n_pos")
+    if group is not None:
+        n_pos_mean = n_pos_mean.detach().clone()
+        pdist.all_reduce_mean_([n_pos_mean], group)
+    n_pos = torch.clamp(n_pos_mean, min=1.0)
     loss_centerness = mean("centerness_sum") / n_pos
     loss_cls = mean("cls_sum") / n_pos
     loss_bbox = torch.stack([
@@ -76,12 +94,17 @@ def reduce_loss_terms(terms: Sequence[Dict[str, torch.Tensor]]):
         for t in terms]).mean()
     loss = loss_centerness + loss_cls + loss_bbox
     metrics = dict(loss_centerness=loss_centerness, loss_cls=loss_cls,
-                   loss_bbox=loss_bbox, n_pos=mean("n_pos"))
+                   loss_bbox=loss_bbox, n_pos=n_pos_mean)
     for key in ("loss_nvs", "loss_depth"):
         if key in terms[0]:
             metrics[key] = mean(key)
             loss = loss + metrics[key]
     metrics["loss"] = loss
+    if group is not None:
+        local = [k for k in metrics if k != "n_pos"]
+        values = [metrics[k].detach().clone() for k in local]
+        pdist.all_reduce_mean_(values, group)
+        metrics.update(zip(local, values))
     return loss, metrics
 
 
@@ -93,7 +116,8 @@ def _running_stats(model) -> List[torch.Tensor]:
 def make_train_step(model: NerfDet, optimizer: Optimizer,
                     depth_supervise: bool = False,
                     use_nerf_mask: bool = True,
-                    rgb_supervision: bool = True
+                    rgb_supervision: bool = True,
+                    process_group=None
                     ) -> Callable[[List[Dict]], Dict[str, torch.Tensor]]:
     """The train step: ``step(scenes)`` runs a forward per scene, one
     backward and one update of ``optimizer``, and returns the metrics
@@ -102,7 +126,10 @@ def make_train_step(model: NerfDet, optimizer: Optimizer,
     ``rgb_supervision`` / ``depth_supervise`` ask for them) as 0-d
     tensors on the model's device. ``scenes`` are ``api.train_batch``
     dicts. The model is put in train mode. The defaults are the JAX
-    step's."""
+    step's. With a ``process_group`` every rank calls ``step`` on its own
+    scenes, as many on each, and takes the step of the global batch
+    (the module docstring); the model and the optimizer must start the
+    same on every rank."""
 
     def step(scenes: List[Dict]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -123,8 +150,10 @@ def make_train_step(model: NerfDet, optimizer: Optimizer,
         with torch.no_grad():
             for s, u in zip(stats, updated):
                 s.copy_(u / len(scenes))
-        loss, metrics = reduce_loss_terms(terms)
+        pdist.all_reduce_mean_(stats, process_group)
+        loss, metrics = reduce_loss_terms(terms, process_group)
         loss.backward()
+        pdist.all_reduce_mean_(optimizer.grads(), process_group)
         metrics["grad_norm"] = optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -69,6 +69,7 @@ from nerfdet_tpu_torch.utils.weight_convert import from_jax_variables
 
 from nerfdet_tpu.models.nerfdet import NerfDet as JaxNerfDet
 from nerfdet_tpu.models.nerfdet import SceneMeta as JaxSceneMeta
+from tests.test_torch_session_cache import computed_once
 from tests.test_torch_train import OPTIMIZER, _capture, _port_tree
 from tests.test_torch_train_nvs import (FPN_OUT, IMG, JAX_KEYS, MAX_NORM,
                                         NEAR_FAR, NECK3D_OUT, N_CLS, N_RAND,
@@ -173,13 +174,16 @@ def _port_model():
         compute_dtype=torch.bfloat16)
 
 
-@pytest.fixture(scope="module")
-def toy():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    scenes = {bf: [_scene(s, bf) for s in SCENE_SEEDS] for bf in (0, 1)}
+def _jax_models():
     jm = {0: _jax_model()}
     jm[1] = jm[0].clone(compute_dtype=BF16)
+    return jm
+
+
+def _jax_reference(scenes):
+    """The weights, JAX's joint step on both scenes and its eval of scene
+    0, each at float32 and at bfloat16."""
+    jm = _jax_models()
     init = {k: jnp.asarray(scenes[0][0][k]) for k in JAX_KEYS}
     variables = jax.jit(lambda k: jm[0].init(k, init, train=False))(
         jax.random.PRNGKey(0))
@@ -187,7 +191,6 @@ def toy():
     variables = {"params": _perturb(dict(variables["params"]), rng),
                  "batch_stats": _perturb(dict(variables["batch_stats"]),
                                          rng)}
-    start = from_jax_variables(variables)
 
     # one joint train step on both scenes
     steps = {}
@@ -229,7 +232,19 @@ def toy():
             v, b, train=False, with_rays=True), variables, batch,
             exact=bool(bf))
         _release()
-    del variables
+    return dict(variables=variables, steps=steps, evals=evals)
+
+
+@pytest.fixture(scope="module")
+def toy(tmp_path_factory):
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    scenes = {bf: [_scene(s, bf) for s in SCENE_SEEDS] for bf in (0, 1)}
+    ref = computed_once(tmp_path_factory, "torch_bf16_slice_jax",
+                        lambda: _jax_reference(scenes))
+    steps, evals = ref["steps"], ref["evals"]
+    start = from_jax_variables(ref["variables"])
+    del ref
 
     # the port: the same eval, then the same step
     model = _port_model()
@@ -250,7 +265,8 @@ def toy():
              for n, p in model.named_parameters()}
     labels = toptim.param_labels(model)
     del opt
-    yield dict(jm=jm, evals=evals, port_eval=port_eval, points=points,
+    yield dict(jm=_jax_models(), evals=evals, port_eval=port_eval,
+               points=points,
                steps=steps, start=start,
                port_step=dict(metrics={k: float(v) for k, v in
                                        metrics.items()},

@@ -55,6 +55,7 @@ from nerfdet_tpu_torch.train.step import make_train_step
 from nerfdet_tpu_torch.utils.weight_convert import from_jax_variables
 
 from tests.test_torch_nerfdet import _perturb
+from tests.test_torch_session_cache import computed_once
 from tests.test_torch_train import OPTIMIZER, _port_tree, _ReluMargin, _rel
 
 ORI, IMG, PAD = (128, 160), (31, 40), (32, 40)
@@ -347,7 +348,7 @@ STEP_KEYS = ("imgs", "denorm_images", "intrinsic", "extrinsics", "origin",
 
 
 @pytest.fixture(scope="module")
-def step():
+def step(tmp_path_factory):
     """JAX's loss terms and gradients of one depth_sp scene (its
     ``scene_loss_terms`` and ``reduce_loss_terms``, as its train step
     runs them on a batch of one, compiled: the seeds keep every 3D-neck
@@ -357,6 +358,27 @@ def step():
     scene = ray_stats.prepare_rays(
         _scene(STEP_SEED, n_rand=N_RAND), np.random.RandomState(STEP_RAYS),
         N_RAND, NEAR_FAR, N_SAMPLES, ORI, IMG)
+    ref = computed_once(tmp_path_factory, "torch_depth_jax_step",
+                        lambda: _jax_step(scene))
+
+    model = _port_model(50)
+    start = from_jax_variables(ref["variables"])
+    model.load_state_dict(start, strict=True)
+    port_step = make_train_step(
+        model, toptim.build_optimizer(model, OPTIMIZER), depth_supervise=True)
+    tbatch = api.train_batch(model, [scene])
+    port_metrics = port_step(tbatch)
+    port_grads = {n: (torch.zeros_like(p) if p.grad is None
+                      else p.grad.clone())
+                  for n, p in model.named_parameters()}
+    return dict(batch=tbatch[0], start=start,
+                jax=(ref["metrics"], ref["grads"]),
+                port=(port_metrics, port_grads))
+
+
+def _jax_step(scene):
+    """The weights and JAX's loss terms and gradients of ``scene`` (once
+    per test run: ``computed_once``)."""
     jmodel = _jax_model(50)
     variables = _variables(jmodel, scene, STEP_PERTURB)
     scene_j = {k: jnp.asarray(scene[k]) for k in STEP_KEYS}
@@ -376,21 +398,9 @@ def step():
     metrics, grads = grads_of(variables["params"])
     zero_stats = jax.tree_util.tree_map(np.zeros_like,
                                         variables["batch_stats"])
-
-    model = _port_model(50)
-    start = from_jax_variables(variables)
-    model.load_state_dict(start, strict=True)
-    port_step = make_train_step(
-        model, toptim.build_optimizer(model, OPTIMIZER), depth_supervise=True)
-    tbatch = api.train_batch(model, [scene])
-    port_metrics = port_step(tbatch)
-    port_grads = {n: (torch.zeros_like(p) if p.grad is None
-                      else p.grad.clone())
-                  for n, p in model.named_parameters()}
-    return dict(batch=tbatch[0], start=start,
-                jax=({k: np.asarray(v) for k, v in metrics.items()},
-                     _port_tree(grads, zero_stats)),
-                port=(port_metrics, port_grads))
+    return dict(variables=variables,
+                metrics={k: np.asarray(v) for k, v in metrics.items()},
+                grads=_port_tree(grads, zero_stats))
 
 
 def test_depth_sp_step_loss_terms_match_jax(step):

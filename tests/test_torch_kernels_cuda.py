@@ -1254,3 +1254,154 @@ def test_jpeg_fixtures_decode_to_their_hashes(dev):
             assert rgb.shape == tuple(part["hw"]) + (3,)
             assert hashlib.sha256(rgb.tobytes()).hexdigest() == \
                 view["sha256"], view["file"]
+
+
+# ---------------------------------------------------------------------
+# data parallel on the card (``parallel/dist.py``): the toy joint step
+# of ``tests/test_torch_ddp.py``, random weights, ``loss_depth`` on
+# ---------------------------------------------------------------------
+
+DDP_TIMEOUT = 300.0
+
+
+def _ddp_toy(dev):
+    from nerfdet_tpu_torch.models.nerfdet import NerfDet, SceneMeta
+
+    model = NerfDet(
+        fpn_out_channels=64, neck3d_out_channels=16,
+        neck3d_n_blocks=(1, 1, 1), n_classes=5, n_scales=3,
+        n_voxels=(8, 8, 4), voxel_size=(0.8, 0.8, 0.8), n_samples=16,
+        n_rand=24, near_far_range=(0.2, 8.0), nerf_density=True,
+        meta=SceneMeta(ori_shape=(128, 160), img_shape=(31, 40),
+                       pad_shape=(32, 40)))
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+def _ddp_scene(seed):
+    from nerfdet_tpu_torch.data.ray_stats import prepare_rays
+    from nerfdet_tpu_torch.data.rgb_stats import host_rgb_stats
+    from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
+
+    s = make_synthetic_scene(seed=seed, n_views=3, n_targets=1, hw=(31, 40),
+                             pad_hw=(32, 40), n_rand=24, n_boxes=2, max_gt=4,
+                             margin=2)
+    s["intrinsic"] = s["intrinsic"].copy()
+    s["intrinsic"][:2] *= np.float32(128 / 31)
+    s1, s2 = host_rgb_stats(s["denorm_images"], s["intrinsic"],
+                            s["extrinsics"], s["origin"], (8, 8, 4),
+                            (0.8, 0.8, 0.8), (128, 160), (31, 40))
+    return prepare_rays(dict(s, rgb_s1=s1, rgb_s2=s2),
+                        np.random.RandomState(11 + seed), 24, (0.2, 8.0), 16,
+                        (128, 160), (31, 40))
+
+
+def _ddp_step(dev, seeds, group=None):
+    """One joint step of the toy on the scenes of ``seeds``: metrics, the
+    gradients the update read, the state after it, on the host."""
+    from nerfdet_tpu_torch import api
+    from nerfdet_tpu_torch.device import resolve_device
+    from nerfdet_tpu_torch.train.optim import build_optimizer
+    from nerfdet_tpu_torch.train.step import make_train_step
+
+    dev = resolve_device(dev)  # TF32 off, as every entry point sets it
+    torch.backends.cudnn.deterministic = True
+    model = _ddp_toy(dev)
+    opt = build_optimizer(model, dict(type="AdamW", lr=2e-4,
+                                      weight_decay=1e-4),
+                          grad_clip=dict(max_norm=35.0))
+    step = make_train_step(model, opt, depth_supervise=True,
+                           process_group=group)
+    metrics = step(api.train_batch(model, [_ddp_scene(s) for s in seeds]))
+    return dict(metrics={k: v.cpu() for k, v in metrics.items()},
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+                state={k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def _ddp_rank(rank, world, port, backend, out):
+    import os
+
+    import torch.distributed as dist
+
+    from nerfdet_tpu_torch.parallel import dist as pdist
+
+    if backend == "gloo":  # every rank on the one card
+        os.environ["LOCAL_RANK"] = "0"
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank)
+    with pdist.process_group("cuda", f"localhost:{port}", world, rank) as (
+            dev, group):
+        got = _ddp_step(dev, [3 + rank], group)
+        if world == 1:
+            got = dict(group=got, none=_ddp_step(dev, [3]))
+    if backend == "gloo":
+        dist.destroy_process_group()
+    torch.save(got, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _ddp_spawn(world, backend, out):
+    import socket
+    import time
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_ddp_rank, args=(r, world, port, backend,
+                                                 str(out)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DDP_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    assert not alive, f"ranks still running after {DDP_TIMEOUT} s, killed"
+    assert [p.exitcode for p in procs] == [0] * world
+    return [torch.load(out / f"rank{r}.pt") for r in range(world)]
+
+
+def test_ddp_nccl_group_of_one_is_bitwise_no_group(dev, tmp_path):
+    """NCCL at world 1: the step of a group of one is the step of no
+    group, bit for bit, K1, K2 and their backwards on the card."""
+    (got,) = _ddp_spawn(1, "nccl", tmp_path)
+    for part in ("metrics", "grads", "state"):
+        assert set(got["group"][part]) == set(got["none"][part])
+        for k, v in got["none"][part].items():
+            assert torch.equal(got["group"][part][k], v), (part, k)
+
+
+def test_ddp_two_gloo_ranks_on_the_card_match_one_process(dev, tmp_path):
+    """Two ranks on the one card over gloo (CUDA tensors), a scene each,
+    against one process stepping both: loss terms and grad_norm within
+    1e-6 relative, every gradient within 1e-6 of its tensor's max, the
+    running statistics within 1e-6 and the parameters within 1e-6 where
+    the gradient is signal (``tests/test_torch_ddp.py``'s rule), the
+    ranks' parameters bitwise equal."""
+    ranks = _ddp_spawn(2, "gloo", tmp_path)
+    one = _ddp_step(dev, [3, 4])
+    for r in ranks:
+        for k, v in one["metrics"].items():
+            assert abs(float(r["metrics"][k]) - float(v)) <= 1e-6 * max(
+                abs(float(v)), 1e-30), k
+        for n, g in one["grads"].items():
+            assert _rel(r["grads"][n], g) <= 1e-6, n
+        for k, v in one["state"].items():
+            err = (r["state"][k].double() - v.double()).abs()
+            if k not in one["grads"]:
+                assert float(err.max()) <= 1e-6 * max(
+                    float(v.abs().max()), 1.0), k
+                continue
+            g = one["grads"][k].abs()
+            strong = g >= 1e-3 * float(g.max())
+            if bool(strong.any()):
+                assert float(err[strong].max()) <= 1e-6, k
+            assert float(err.max()) <= 2 * 2e-4 + 1e-6, k
+    for k, v in ranks[0]["state"].items():
+        assert torch.equal(v, ranks[1]["state"][k]), k
+    assert float(one["metrics"]["loss_depth"]) > 0

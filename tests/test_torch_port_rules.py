@@ -6,6 +6,8 @@ points never fall back to the CPU unasked."""
 import ast
 import glob
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -263,6 +265,34 @@ def test_entry_points_need_cuda_unless_cpu():
     model = init_detector(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
     assert not model.training
+
+
+def test_process_group_needs_cuda_unless_cpu(monkeypatch):
+    """The data-parallel entry joins no group and falls back to no CPU
+    where a card is asked for and absent."""
+    from nerfdet_tpu_torch.parallel import dist as pdist
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with pdist.process_group("cuda"):
+            pass
+    assert not torch.distributed.is_initialized()
+
+
+def test_ranks_module_imports_no_jax():
+    """The data-parallel test's ranks import its module in fresh
+    processes (spawn): the port's modules and nothing of JAX."""
+    code = ("import sys; sys.path.insert(0, 'tests'); import test_torch_ddp; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); assert not bad, bad; "
+            "assert 'nerfdet_tpu_torch.parallel.dist' in sys.modules")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr[-2000:]
 
 
 def test_init_detector_loads_reference_checkpoint(tmp_path):

@@ -31,8 +31,11 @@ Tolerances, each for its reason:
   (|g| + eps), whose sign is noise where g is;
 * frozen parameters bitwise unchanged; parameter labels equal.
 
-The JAX side runs once, in a module fixture; its raw gradients are read
-from an identity transform chained in front of the optimizer.
+The JAX side runs once per test run, with the joint toy's of
+``tests/test_torch_train_nvs.py`` (``jax_step_references``: the first
+pytest-xdist worker to need it computes it, the others load it); its raw
+gradients are read from an identity transform chained in front of the
+optimizer.
 """
 
 import copy
@@ -64,6 +67,7 @@ from nerfdet_tpu_torch.train.step import make_train_step
 from nerfdet_tpu_torch.utils.weight_convert import from_jax_variables
 
 from tests.test_torch_nerfdet import _perturb
+from tests.test_torch_session_cache import computed_once
 
 ORI, IMG, PAD = (128, 160), (31, 40), (32, 40)
 N_VOX, VOX = (8, 8, 4), (0.8, 0.8, 0.8)
@@ -124,25 +128,33 @@ def _port_step(model, start, scenes, max_norm):
     return metrics, grads, copy.deepcopy(model.state_dict())
 
 
-@pytest.fixture(scope="module")
-def toy():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    jmodel = JaxNerfDet(
+def _jax_model():
+    return JaxNerfDet(
         backbone_depth=50, fpn_out_channels=FPN_OUT,
         neck3d_out_channels=NECK3D_OUT, neck3d_n_blocks=(1, 1, 1),
         n_classes=N_CLS, n_scales=N_SCALES, n_voxels=N_VOX,
         voxel_size=VOX, n_samples=16, n_rand=8, nerf_density=True,
         meta=JaxSceneMeta(ori_shape=ORI, img_shape=IMG, pad_shape=PAD))
-    init_scene = _scene(0)  # with rays: the tree holds the render head
-    variables = jax.jit(lambda k: jmodel.init(
-        k, {k2: jnp.asarray(v) for k2, v in init_scene.items()},
-        train=False))(jax.random.PRNGKey(0))
-    rng = np.random.RandomState(PERTURB_SEED)
-    variables = {"params": _perturb(dict(variables["params"]), rng),
-                 "batch_stats": _perturb(dict(variables["batch_stats"]),
-                                         rng)}
-    scenes = [_scene(s) for s in SCENE_SEEDS]
+
+
+def toy_variables(tmp_path_factory):
+    """The toy's perturbed JAX variables, once per test run
+    (``tests/test_torch_ddp.py`` trains from them too)."""
+    def compute():
+        init_scene = _scene(0)  # with rays: the tree holds the render head
+        variables = jax.jit(lambda k: _jax_model().init(
+            k, {k2: jnp.asarray(v) for k2, v in init_scene.items()},
+            train=False))(jax.random.PRNGKey(0))
+        rng = np.random.RandomState(PERTURB_SEED)
+        return {"params": _perturb(dict(variables["params"]), rng),
+                "batch_stats": _perturb(dict(variables["batch_stats"]),
+                                        rng)}
+    return computed_once(tmp_path_factory, "torch_train_variables", compute)
+
+
+def _jax_reference(variables, scenes):
+    """JAX's step on the toy, op by op, and what the tests read of it."""
+    jmodel = _jax_model()
     batch = {k: np.stack([s[k] for s in scenes]) for k in JAX_KEYS}
 
     params = variables["params"]
@@ -160,21 +172,33 @@ def toy():
     free, _ = tx_free.update(raw, tx_free.init(params), params)
     zero_stats = jax.tree_util.tree_map(np.zeros_like,
                                         variables["batch_stats"])
-    jax_out = dict(
+    return dict(
         metrics={k: np.asarray(v) for k, v in metrics.items()},
         grads=_port_tree(clipped, zero_stats),
         params={MAX_NORM: _port_tree(new.params, new.batch_stats),
                 None: _port_tree(optax.apply_updates(params, free),
                                  zero_stats)},
         labels=joptim.param_labels(params),
-        stats=_port_tree(params, new.batch_stats))
+        stats={k: v for k, v in _port_tree(params, new.batch_stats).items()
+               if k.endswith(("running_mean", "running_var"))})
+
+
+@pytest.fixture(scope="module")
+def toy(tmp_path_factory):
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    from tests.test_torch_train_nvs import jax_step_references
+
+    variables = toy_variables(tmp_path_factory)
+    scenes = [_scene(s) for s in SCENE_SEEDS]
+    jax_out = jax_step_references(tmp_path_factory)["detection"]
 
     model = _port_model()
     start = from_jax_variables(variables)
     port = {norm: _port_step(model, start, scenes, norm or 1e30)
             for norm in (MAX_NORM, None)}
-    yield dict(jmodel=jmodel, variables=variables, scenes=scenes,
-               model=model, start=start, jax=jax_out, port=port)
+    yield dict(variables=variables, scenes=scenes, model=model,
+               start=start, jax=jax_out, port=port)
     torch.set_num_threads(n_threads)
 
 
@@ -467,7 +491,8 @@ def test_init_trainer_reads_the_loss_switches_from_the_config(
     monkeypatch.setattr(api, "make_train_step", spy)
     tr = api.init_trainer(cfg, device="cpu")
     assert seen == dict(rgb_supervision=rgb_supervision is not False,
-                        depth_supervise=False, use_nerf_mask=False)
+                        depth_supervise=False, use_nerf_mask=False,
+                        process_group=None)
     assert tr.model.n_rand == 2048 and tr.model.n_samples == 64
 
 

@@ -32,7 +32,8 @@ Held against JAX, on the CPU, in float32:
 
 The intrinsic is given at ``ori_shape``, so the rays' samples and the
 voxels project where the images are. The file takes ~4 minutes on 2
-threads, most of it JAX's op-by-op step.
+threads, most of it JAX's op-by-op step, which runs once per test run
+(``computed_once``).
 """
 
 import copy
@@ -64,6 +65,8 @@ from nerfdet_tpu_torch.utils.weight_convert import from_jax_variables
 
 from tests.test_torch_nerfdet import _perturb
 from tests.test_torch_render import _edge_points, _jax_intrinsics
+from tests.test_torch_session_cache import computed_once
+import tests.test_torch_train as det
 from tests.test_torch_train import (OPTIMIZER, _capture, _port_tree,
                                     _ReluMargin, _rel)
 
@@ -370,17 +373,25 @@ def _jax_model():
         meta=JaxSceneMeta(ori_shape=ORI, img_shape=IMG, pad_shape=PAD))
 
 
-@pytest.fixture(scope="module")
-def toy():
+def toy_variables(tmp_path_factory, scenes):
+    """The toy's perturbed JAX variables, once per test run
+    (``tests/test_torch_ddp.py`` trains from them too)."""
+    def compute():
+        init = {k: jnp.asarray(scenes[0][k]) for k in JAX_KEYS}
+        variables = jax.jit(lambda k: _jax_model().init(
+            k, init, train=False))(jax.random.PRNGKey(0))
+        rng = np.random.RandomState(PERTURB_SEED)
+        return {"params": _perturb(dict(variables["params"]), rng),
+                "batch_stats": _perturb(dict(variables["batch_stats"]),
+                                        rng)}
+    return computed_once(tmp_path_factory, "torch_train_nvs_variables",
+                         compute)
+
+
+def _jax_reference(variables, scenes):
+    """JAX's joint step on the toy, op by op, and what the tests read of
+    it."""
     jmodel = _jax_model()
-    scenes = [_scene(s) for s in SCENE_SEEDS]
-    init = {k: jnp.asarray(scenes[0][k]) for k in JAX_KEYS}
-    variables = jax.jit(lambda k: jmodel.init(k, init, train=False))(
-        jax.random.PRNGKey(0))
-    rng = np.random.RandomState(PERTURB_SEED)
-    variables = {"params": _perturb(dict(variables["params"]), rng),
-                 "batch_stats": _perturb(dict(variables["batch_stats"]),
-                                         rng)}
     batch = {k: np.stack([s[k] for s in scenes]) for k in JAX_KEYS}
     params = variables["params"]
     tx = optax.chain(_capture(), joptim.build_optimizer(
@@ -393,9 +404,49 @@ def toy():
     clipped, _ = clip.update(new.opt_state[0], clip.init(new.opt_state[0]))
     zero_stats = jax.tree_util.tree_map(np.zeros_like,
                                         variables["batch_stats"])
-    jax_out = dict(metrics={k: np.asarray(v) for k, v in metrics.items()},
-                   grads=_port_tree(clipped, zero_stats),
-                   params=_port_tree(new.params, new.batch_stats))
+    return dict(metrics={k: np.asarray(v) for k, v in metrics.items()},
+                grads=_port_tree(clipped, zero_stats),
+                params=_port_tree(new.params, new.batch_stats))
+
+
+def _jax_loss_depth(variables, scenes, use_nerf_mask):
+    """Both scenes' terms with ``depth_supervise``, JAX's ``vmap``ped as
+    its step maps them (op by op, so its primitives are the step's)."""
+    batch = {k: jnp.asarray(np.stack([s[k] for s in scenes]))
+             for k in JAX_KEYS}
+    with jax.disable_jit():
+        want, _ = jax.vmap(lambda scene: jax_scene_terms(
+            _jax_model(), variables["params"], variables["batch_stats"],
+            scene, None, depth_supervise=True,
+            use_nerf_mask=use_nerf_mask))(batch)
+    return want
+
+
+def jax_step_references(tmp_path_factory):
+    """JAX's op-by-op steps of this file's toy and of
+    ``tests/test_torch_train.py``'s, and this toy's depth terms: once per
+    test run, in one process. Op by op, JAX compiles each primitive at
+    each shape once a process, which is most of the time: ~220 s for the
+    first toy's step alone, ~40 s more for the second's."""
+    def compute():
+        det_scenes = [det._scene(s) for s in det.SCENE_SEEDS]
+        scenes = [_scene(s) for s in SCENE_SEEDS]
+        variables = toy_variables(tmp_path_factory, scenes)
+        return dict(
+            detection=det._jax_reference(det.toy_variables(tmp_path_factory),
+                                         det_scenes),
+            joint=_jax_reference(variables, scenes),
+            loss_depth={m: _jax_loss_depth(variables, scenes, m)
+                        for m in (True, False)})
+    return computed_once(tmp_path_factory, "torch_train_jax_steps", compute)
+
+
+@pytest.fixture(scope="module")
+def toy(tmp_path_factory):
+    scenes = [_scene(s) for s in SCENE_SEEDS]
+    variables = toy_variables(tmp_path_factory, scenes)
+    refs = jax_step_references(tmp_path_factory)
+    jax_out = refs["joint"]
 
     model = _port_model()
     start = from_jax_variables(variables)
@@ -406,7 +457,7 @@ def toy():
                                                                 scenes))
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
              for n, p in model.named_parameters()}
-    yield dict(jmodel=jmodel, variables=variables, scenes=scenes,
+    yield dict(loss_depth=refs["loss_depth"], scenes=scenes,
                start=start, jax=jax_out,
                port=(port_metrics, grads, copy.deepcopy(model.state_dict())),
                labels=toptim.param_labels(model))
@@ -516,16 +567,9 @@ def test_train_forward_without_z_vals_jitters_on_the_device(toy):
 
 @pytest.mark.parametrize("use_nerf_mask", [True, False])
 def test_loss_depth_matches_jax(toy, use_nerf_mask):
-    """Both scenes' terms with ``depth_supervise``, JAX's ``vmap``ped as
-    its step maps them (op by op, so its primitives are the step's)."""
-    batch = {k: jnp.asarray(np.stack([s[k] for s in toy["scenes"]]))
-             for k in JAX_KEYS}
-    variables = toy["variables"]
-    with jax.disable_jit():
-        want, _ = jax.vmap(lambda scene: jax_scene_terms(
-            toy["jmodel"], variables["params"], variables["batch_stats"],
-            scene, None, depth_supervise=True,
-            use_nerf_mask=use_nerf_mask))(batch)
+    """Both scenes' terms with ``depth_supervise`` against JAX's
+    (``_jax_loss_depth``)."""
+    want = toy["loss_depth"][use_nerf_mask]
     model = _port_model()
     model.load_state_dict(toy["start"])
     model.train()

@@ -34,6 +34,7 @@ from nerfdet_tpu_torch.models.builder import build_model
 from nerfdet_tpu_torch.nn.vote_head import vote_head_get_bboxes
 from nerfdet_tpu_torch.utils.weight_convert import from_jax_variables
 
+from tests.test_torch_session_cache import computed_once
 from tests.test_votenet import synthetic_cloud
 
 CFG = dict(
@@ -66,15 +67,19 @@ def _perturb(tree, rng):
 
 
 @pytest.fixture(scope="module")
-def toy():
+def toy(tmp_path_factory):
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     cloud = synthetic_cloud()[0]
     jmodel = jax_build(CFG)
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(cloud))
-    variables = _perturb(jax.tree_util.tree_map(np.asarray,
-                                                dict(variables)),
-                         np.random.RandomState(0))
+
+    def init():  # once per test run
+        variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(cloud))
+        return _perturb(jax.tree_util.tree_map(np.asarray, dict(variables)),
+                        np.random.RandomState(0))
+
+    variables = computed_once(tmp_path_factory, "torch_votenet_variables",
+                              init)
     model = build_model(CFG).eval()
     model.load_state_dict(from_jax_variables(variables), strict=True)
     yield jmodel, variables, model, cloud
