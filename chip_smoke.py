@@ -148,6 +148,28 @@ Phases, each reported on its own lines:
     at world 2 (gloo, this card) on phase 9's val scene listed twice,
     its mAP dict equal to world 1's.
 
+14. the 2-D data x views sharding (``--mesh-views 2``), two gloo ranks on
+    this card, one views group, each child through phase 13's launcher
+    file: K2's sums form (a rank's raw sums, no epilogue) in both forms
+    at a rank's half of phase 8's batch (25 views) bitwise against its
+    plain version, with its time and bound; 14.1 phase 8's joint step at
+    ``--mesh-views 2`` (25 views and 1024 rays a rank) against one
+    process (loss terms 1e-4 relative, grad_norm 1e-3, the ranks'
+    parameters bitwise equal; each rank launching K1, K1's backward,
+    K2's sums form and K2's backward once a step; the step's ms and the
+    all-reduces'); 14.2 R101*'s ``eval_step`` at 100 views with the views
+    sharded (the depth gate and the rgb stream on each rank's half)
+    against one process (head outputs and the candidates' sorted scores
+    1e-4 of their max, the view counts exact); 14.3 ``tools/test
+    --distributed --mesh-views 2`` on phase 13.3's files, its metrics
+    within 1e-6 of world 1's.
+
+15. ``tools/benchmark`` (``nerfdet_tpu_torch.tools.benchmark.main``) on
+    the flagship at its defaults: detection scenes/s in float32 and
+    bfloat16, ``--nvs`` rays/s, ``--train`` ms/step (bfloat16); and
+    detection again with the synthetic intrinsic scaled to
+    ``ori_shape``, the tool's own functions timing it.
+
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
 ``ori_shape``), in the main path's form (no s2 cotangent), with the
@@ -164,7 +186,7 @@ dtypes (phases 3 and 11).
 
 Each path runs with every launch count set to 0 just before it and
 read just after; phases 9 and 13 also count each train step's launches
-(phase 13 in its child processes, whose counts start at 0).
+(phases 13 and 14 in their child processes, whose counts start at 0).
 
 The JPEG decoder's record (host code, not a kernel) is a ``[jpeg]`` line
 of its own. The second-to-last line is the kernels' JSON record, the last
@@ -3112,28 +3134,36 @@ def ddp_child(argv):
     counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
                 render.streaming_sample_mean_var,
                 render.streaming_sample_mean_var_backward)
+    if mode in ("step2d", "eval2d"):  # phase 14: and K2's sums form
+        counters += (render.streaming_sample_sums, voxel.rgb_carry)
     per_step, reduces = [], []
     original_init = counted_trainers(api, counters, per_step)
-    original_reduce = pdist.all_reduce_mean_
+    originals = {name: getattr(pdist, name) for name in (
+        "all_reduce_mean_", "all_reduce_sum_")}
 
-    def reduce(tensors, group=None):
-        if group is None:
-            return original_reduce(tensors, group)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        original_reduce(tensors, group)
-        ev[1].record()
-        reduces.append((len(per_step), len(tensors), sum(
-            t.numel() * t.element_size() for t in tensors), ev))
+    def timed_reduce(name, original):
+        def reduce(tensors, group=None):
+            if group is None:
+                return original(tensors, group)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            original(tensors, group)
+            ev[1].record()
+            reduces.append((len(per_step), len(tensors), sum(
+                t.numel() * t.element_size() for t in tensors), ev, name))
+        return reduce
 
-    pdist.all_reduce_mean_ = reduce
+    for name, fn in originals.items():
+        setattr(pdist, name, timed_reduce(name, fn))
     record = {"mode": mode}
 
     def counted():
         torch.cuda.synchronize()
         record["per_step"] = per_step
-        record["reduces"] = [(s, n, b, ev[0].elapsed_time(ev[1]))
-                             for s, n, b, ev in reduces]
+        for key, kind in (("reduces", "all_reduce_mean_"),
+                          ("sum_reduces", "all_reduce_sum_")):
+            record[key] = [(s, n, b, ev[0].elapsed_time(ev[1]))
+                           for s, n, b, ev, k in reduces if k == kind]
         return record
     try:
         if mode == "train":
@@ -3144,6 +3174,8 @@ def ddp_child(argv):
                 fn.launches = 0
             record["metrics"] = test_cli.main(args)
             record["launches"] = [fn.launches for fn in counters]
+        elif mode in ("step2d", "eval2d"):
+            mesh_child(mode, out, api, counters, per_step, counted)
         else:
             with pdist.process_group("cuda") as (dev, group):
                 tr = api.init_trainer(CONFIG, device=dev, seed=SEED,
@@ -3170,12 +3202,13 @@ def ddp_child(argv):
                 torch.save(dict(counted(), state=state),
                            f"{out}.rank{rank}.pt")
         rank = dist.get_rank() if dist.is_initialized() else 0
-        if mode != "step" and rank == 0:
+        if mode in ("train", "test") and rank == 0:
             with open(out, "w") as f:
                 json.dump(counted(), f)
     finally:
         api.init_trainer = original_init
-        pdist.all_reduce_mean_ = original_reduce
+        for name, fn in originals.items():
+            setattr(pdist, name, fn)
         if own_group:
             dist.destroy_process_group()
 
@@ -3390,6 +3423,7 @@ def ddp_path(api, ray_stats, card, tmp, runtime_opts):
         + f"; equal to world 1's dict: {two['metrics'] == world1} (child "
         f"wall {wall:.1f} s, world 1 in process {wall1:.1f} s)")
     out["test_metrics_equal"] = two["metrics"] == world1
+    out["_test_args"], out["_world1"] = args, world1  # phase 14.3's
     if two["metrics"] != world1 or two["launches"] != [len(infos), 0, 0,
                                                        0]:
         raise SystemExit("13.3: the sharded test CLI's metrics are not "
@@ -3464,6 +3498,359 @@ def ddp_path(api, ray_stats, card, tmp, runtime_opts):
             f"({torch.cuda.device_count()} card)")
 
     log(f"[ddp] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase 14: the 2-D data x views sharding, two gloo ranks on this card
+MESH_VIEWS = 2  # ranks a scene (--mesh-views)
+MESH_TIMED = 3  # 14.1's and 14.2's timed calls after the compared one
+
+
+def mesh_child(mode, out, api, counters, per_step, counted):
+    """A rank of phase 14 (``ddp_child``'s process group of two gloo
+    ranks on this card, one views group): ``step2d`` takes phase 8's joint
+    step at ``--mesh-views 2`` on the scene in OUT.scene.npz (host ray
+    stream included) and times ``MESH_TIMED`` more; ``eval2d`` runs R101*'s
+    ``eval_step`` with the views of the scene in OUT.scene.npz sharded, and
+    times ``MESH_TIMED`` more. Each rank writes OUT.rank<r>.pt: the
+    metrics or the candidates, the launches of ``counters`` (a step's, or
+    the first eval's), the reductions, the seconds a call and, after the
+    steps, the SHA-256 of its parameters."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.config import Config
+    from nerfdet_tpu_torch.parallel import dist as pdist
+
+    with np.load(f"{out}.scene.npz") as f:
+        scene = {k: f[k] for k in f}
+    with pdist.process_group("cuda") as (dev, group):
+        rank = pdist.rank(group)
+        if mode == "step2d":
+            tr = api.init_trainer(CONFIG, device=dev, seed=SEED,
+                                  steps_per_epoch=1000, process_group=group,
+                                  mesh_views=MESH_VIEWS)
+            batch = api.train_batch(tr.model, [scene],
+                                    view_group=tr.view_group)
+            first = tr.step(batch)
+            call = lambda: tr.step(batch)  # noqa: E731
+            rec = dict(metrics={k: float(v) for k, v in first.items()})
+        else:
+            views, _ = pdist.mesh_groups(MESH_VIEWS, group)
+            model = api.init_detector(DEPTH_CONFIG, device=dev, seed=SEED)
+            nms_pre = Config.fromfile(DEPTH_CONFIG).test_cfg["nms_pre"]
+            for fn in counters:
+                fn.launches = 0
+            batch = api.device_batch(model, scene, view_group=views)
+            got = api.eval_step(model, batch, nms_pre, view_group=views)
+            per_step.append([fn.launches for fn in counters])
+            call = lambda: api.eval_step(  # noqa: E731
+                model, batch, nms_pre, view_group=views)
+            with torch.inference_mode():
+                heads, valid, _ = model(batch, view_group=views)
+            rec = dict(scores=got["scores"].cpu(), valid=valid.cpu(),
+                       heads=[t.cpu() for level in heads for t in level])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED):
+            call()
+        torch.cuda.synchronize()
+        rec["call_s"] = (time.perf_counter() - t0) / MESH_TIMED
+        if mode == "step2d":
+            h = hashlib.sha256()
+            for v in tr.model.state_dict().values():
+                h.update(v.cpu().numpy().tobytes())
+            rec["state_sha256"] = h.hexdigest()
+        rec.update(device=str(dev), world=pdist.world(group))
+        torch.save(dict(counted(), **rec), f"{out}.rank{rank}.pt")
+
+
+def k2_sums_bound(pts, feats, images=None):
+    """Least time of K2's sums form: bytes (points, projections, feature
+    maps and, in the eval form, the images read once; the three sums of
+    3 + C channels and the count, or of the C feature channels, written
+    once) over HBM rate against the operations of ``ray_bound``'s (eval
+    form) or ``k2_train_bound``'s (training form) carry, without the
+    epilogue."""
+    n = pts.numel() // 3
+    v, c = feats.shape[0], feats.shape[-1]
+    cso = c + (3 if images is not None else 0)
+    nbytes = ((pts.numel() + v * 16 + n * 3 * cso
+               + (n if images is not None else 0)) * 4
+              + feats.numel() * feats.element_size()
+              + (images.numel() * images.element_size()
+                 if images is not None else 0))
+    per_pair = (20 + 2 * 14 + 12 * cso + 1 if images is not None
+                else 20 + 14 + 12 * c)
+    ops = n * v * per_pair
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def check_k2_sums(render, pts, images, proj, img_hw, feats):
+    """K2's sums form (a rank's views of a sharded scene) against its plain
+    version in both forms, bit for bit, with its time, the plain version's
+    and its bound. Returns {form: record}."""
+    import torch
+
+    out = {}
+    for form, host in (("training", True), ("eval", False)):
+        args = (pts, images, proj, img_hw, feats, host)
+        got = render.streaming_sample_sums(*args)
+        want = render.streaming_sample_sums_plain(*args)
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(got, want) if b is not None]
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        bitwise = all(torch.equal(a, b) for a, b in pairs)
+        ms = cuda_time_ms(lambda: render.streaming_sample_sums(*args), 10)
+        plain_ms = cuda_time_ms(
+            lambda: render.streaming_sample_sums_plain(*args), 2, warmup=1)
+        bound_ms, bound_by, nbytes, ops = k2_sums_bound(
+            pts, feats, None if host else images)
+        log(f"[kernel] streaming_sample_mean_var sums form, {form}: "
+            f"V={feats.shape[0]} (this rank's half) N={pts.numel() // 3} "
+            f"C={feats.shape[-1]} {str(feats.dtype)[6:]}: s1u, s2u, s1m"
+            f"{', cnt' if not host else ''} max_abs_err={err:.3e} (tol: "
+            f"bitwise); bitwise equal {bitwise} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+            f"{nbytes} B, {ops} FLOP)")
+        if not bitwise:
+            raise SystemExit(f"K2's sums form ({form}) is not bitwise equal "
+                             f"to its plain version")
+        out[form] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+    return out
+
+
+def mesh_path(api, render, ray_stats, card, tmp, ddp):
+    """Phase 14: the 2-D data x views sharding (``--mesh-views 2``) on two
+    gloo ranks of this card (NCCL refuses two ranks on one device), one
+    views group. 14.0: K2's sums form at the rank's half of phase 8's
+    batch, against its plain version; 14.1: phase 8's joint step at
+    ``--mesh-views 2`` against one process (loss terms 1e-4 relative,
+    grad_norm 1e-3, the ranks' parameters bitwise equal; K1, K1's
+    backward, K2's sums form and K2's backward once a step on each rank;
+    the step's ms and the all-reduces'); 14.2: R101*'s ``eval_step`` at
+    100 views with the views sharded (the depth gate and the rgb stream
+    on each rank's half) against one process (head outputs and the
+    candidates' sorted scores 1e-4 of their max, view counts exact);
+    14.3: ``tools/test --distributed --mesh-views 2`` on phase 13.3's
+    files against its world 1 metrics. Returns the numbers of the
+    record."""
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    launcher = os.path.join(tmp, "ddp_launcher.py")
+    py = sys.executable
+    out = {}
+    names = ("fused_mean_cov", "fused_mean_cov_backward",
+             "streaming_sample_mean_var",
+             "streaming_sample_mean_var_backward",
+             "streaming_sample_mean_var_sums", "fused_mean_cov_rgb")
+
+    def ranks_of(mode, base):
+        port = free_port()
+        t0 = time.perf_counter()
+        run_children([([py, launcher, mode, base, "--gloo-on-one-card"],
+                       dict(RANK=str(r), LOCAL_RANK=str(r),
+                            WORLD_SIZE=str(MESH_VIEWS),
+                            MASTER_ADDR="localhost", MASTER_PORT=str(port)))
+                      for r in range(MESH_VIEWS)], tmp)
+        wall = time.perf_counter() - t0
+        return [torch.load(f"{base}.rank{r}.pt") for r in range(
+            MESH_VIEWS)], wall
+
+    # ---- 14.0 K2's sums form at a rank's half of phase 8's batch ----
+    torch.cuda.empty_cache()
+    model = api.init_detector(CONFIG, device="cuda", seed=SEED)
+    scene, _ = host_ray_stream(ray_stats, model, train_scene(model,
+                                                             SEED + 1))
+    half = N_VIEWS // MESH_VIEWS
+    h, w = model.meta.img_shape
+    with torch.no_grad():
+        feats = model.render_featmaps(model.extract_2d(torch.as_tensor(
+            scene["imgs"][:half], device="cuda")))
+    ray = {k: torch.as_tensor(scene[k], device="cuda")
+           for k in ("ray_o", "ray_d", "z_vals")}
+    pts = render.points_at(ray["ray_o"], ray["ray_d"], ray["z_vals"])
+    proj = model.render_projection(scene["intrinsic"],
+                                   scene["extrinsics"][:half], "cuda")
+    images = torch.as_tensor(scene["denorm_images"][:half], device="cuda")
+    out["sums"] = check_k2_sums(render, pts, images, proj, (h, w), feats)
+    del model, feats, pts, proj, images, ray
+    torch.cuda.empty_cache()
+
+    # ---- 14.1 the joint step at --mesh-views 2 against one process ----
+    base = os.path.join(tmp, "mesh_step")
+    np.savez(f"{base}.scene.npz", **scene)
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr = api.init_trainer(CONFIG, device="cuda", seed=SEED,
+                              steps_per_epoch=1000)
+        one = {k: float(v) for k, v in tr.step(api.train_batch(
+            tr.model, [scene])).items()}
+        del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    ranks, wall = ranks_of("step2d", base)
+    rels = {k: max(abs(r["metrics"][k] - v) / max(abs(v), 1e-30)
+                   for r in ranks) for k, v in one.items()}
+    rel = max(v for k, v in rels.items() if k != "grad_norm")
+    same = len({r["state_sha256"] for r in ranks}) == 1
+    means_ms, _, _, _ = reduce_ms(ranks[0])
+    sums_ms = sum(ms for s_, _, _, ms in ranks[0]["sum_reduces"]
+                  if s_ > 0) / MESH_TIMED  # the steps after the first
+    total_ms = means_ms + sums_ms
+    per_step = ranks[0]["per_step"]
+    log(f"[mesh] 14.1 the joint step at --mesh-views {MESH_VIEWS}, two ranks "
+        f"on this card over gloo (CUDA tensors), {half} of {N_VIEWS} views "
+        f"and 1024 of 2048 rays a rank, against one process: rel diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+        + f" (tol: the loss terms 1e-4, grad_norm 1e-3); the ranks' "
+        f"parameters bitwise equal: {same}; launches a step {per_step} "
+        f"({', '.join(names)})")
+    log(f"[mesh] 14.1 {ranks[0]['call_s'] * 1e3:.2f} ms a step (mean of "
+        f"{MESH_TIMED} after the compared one, host clock), all-reduces "
+        f"{total_ms:.3f} ms a step, of them the view sums' (forward and "
+        f"backward: K1's, K2's, the NVS loss's) {sums_ms:.3f} ms; "
+        f"child wall {wall:.1f} s; measured on {card}")
+    if (rel > 1e-4 or rels["grad_norm"] > 1e-3 or not same
+            or per_step != [[1, 1, 0, 1, 1, 0]] * (1 + MESH_TIMED)):
+        raise SystemExit("14.1: the step at --mesh-views 2 is not the "
+                         "one-process step")
+    out.update(step_ms=ranks[0]["call_s"] * 1e3, allreduce_ms=total_ms,
+               view_sums_ms=sums_ms, step_max_rel=rel,
+               grad_norm_rel=rels["grad_norm"],
+               launches=dict(zip(names, map(sum, zip(*per_step)))))
+
+    # ---- 14.2 R101*'s eval_step at 100 views, the views sharded ----
+    model = api.init_detector(DEPTH_CONFIG, device="cuda", seed=SEED)
+    dscene = depth_scene(model, SEED + 3, DEPTH_VIEWS)
+    base = os.path.join(tmp, "mesh_eval")
+    np.savez(f"{base}.scene.npz", **dscene)
+    nms_pre = Config.fromfile(DEPTH_CONFIG).test_cfg["nms_pre"]
+    batch = api.device_batch(model, dscene)
+    want = api.eval_step(model, batch, nms_pre)
+    with torch.inference_mode():
+        heads, valid, _ = model(batch)
+    want_heads = [t.cpu() for level in heads for t in level]
+    del model, batch, heads
+    torch.cuda.empty_cache()
+    ranks, wall = ranks_of("eval2d", base)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    # the head's outputs (as phase 4 compares them) and the candidates'
+    # scores in descending order: the random weights' near-equal scores
+    # take their top-k in an order a rounding can swap
+    head_err = max(rel(a, b) for r in ranks
+                   for a, b in zip(r["heads"], want_heads))
+    score_err = max(rel(r["scores"].max(-1).values.sort().values,
+                        want["scores"].cpu().max(-1).values.sort().values)
+                    for r in ranks)
+    same_valid = all(torch.equal(r["valid"], valid.cpu()) for r in ranks)
+    err = max(head_err, score_err)
+    log(f"[mesh] 14.2 R101* eval_step at {DEPTH_VIEWS} views (depth gate, "
+        f"rgb stream on the card), {DEPTH_VIEWS // MESH_VIEWS} a rank, "
+        f"against one process: head outputs max diff {head_err:.3e} of "
+        f"their max, candidates' sorted scores {score_err:.3e} (tol 1e-4); "
+        f"view counts equal {same_valid}; rank 0's launches "
+        f"{ranks[0]['per_step'][0]}; {ranks[0]['call_s'] * 1e3:.2f} ms a "
+        f"scene (mean of {MESH_TIMED}, host clock); child wall {wall:.1f} "
+        f"s; measured on {card}")
+    if (err > 1e-4 or not same_valid
+            or ranks[0]["per_step"][0] != [1, 0, 0, 0, 0, 1]):
+        raise SystemExit("14.2: the views-sharded eval is not one "
+                         "process's")
+    out.update(eval_ms=ranks[0]["call_s"] * 1e3, eval_max_rel=err)
+
+    # ---- 14.3 tools/test --mesh-views 2 against world 1 ----
+    path = os.path.join(tmp, "mesh_test.json")
+    args = ddp["_test_args"]
+    torchrun = [py, "-m", "torch.distributed.run", "--standalone"]
+    t0 = time.perf_counter()
+    run_children([(torchrun + ["--nproc_per_node", str(MESH_VIEWS),
+                               launcher, "test", path, "--gloo-on-one-card",
+                               args[0], args[1], "--distributed",
+                               "--mesh-views", str(MESH_VIEWS)] + args[2:],
+                   {})], tmp)
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        two = json.load(f)
+    world1 = ddp["_world1"]
+    keys = sorted(k for k in world1 if k.startswith(("mAP", "mAR")))
+    diff = max(abs(two["metrics"][k] - world1[k]) for k in keys)
+    log(f"[mesh] 14.3 tools/test --distributed --mesh-views {MESH_VIEWS}, two "
+        f"ranks on this card over gloo, phase 13.3's two val scenes at 100 "
+        f"source views: rank 0's launches {two['launches']} (K1 once a "
+        f"scene); " + ", ".join(f"{k} {two['metrics'][k]:.6f}" for k in keys)
+        + f"; against world 1: max diff {diff:.3e} (tol 1e-6), equal "
+        f"{two['metrics'] == world1}; child wall {wall:.1f} s")
+    if diff > 1e-6 or two["launches"][0] != 2:
+        raise SystemExit("14.3: tools/test --mesh-views is not world 1")
+    out["test_metrics_max_diff"] = diff
+    log(f"[mesh] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase 15: tools/benchmark on the R50 flagship
+BENCH_RUNS = (("detection f32", ["--f32"]), ("detection bf16", []),
+              ("nvs bf16", ["--nvs"]), ("train bf16", ["--train"]))
+
+
+def bench_path(card):
+    """Phase 15: ``python -m nerfdet_tpu_torch.tools.benchmark`` (its
+    ``main``) on the flagship at its defaults (50 views, 5 warm-up and 30
+    timed iterations): detection in float32 and bfloat16, ``--nvs``
+    (16,384 rays), ``--train`` (bfloat16); then detection
+    again with the synthetic intrinsic scaled from the view to
+    ``ori_shape`` (ROADMAP §3's open question), with the tool's own
+    functions. Returns the numbers."""
+    import torch
+
+    from nerfdet_tpu_torch import api
+    from nerfdet_tpu_torch.config import Config
+    from nerfdet_tpu_torch.tools import benchmark
+
+    t_phase = time.perf_counter()
+    out = {}
+    for tag, extra in BENCH_RUNS:
+        torch.cuda.empty_cache()
+        out[tag] = benchmark.main([CONFIG] + extra)
+        log(f"[bench] {tag}: {json.dumps(out[tag])}")
+    cfg = Config.fromfile(CONFIG)
+    meta = api.scene_meta_from_config(cfg)
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        model = api.init_detector(cfg, device=dev, seed=0,
+                                  compute_dtype=dtype)
+        scene = benchmark.synthetic_scene(meta, 50, 64)
+        scene["intrinsic"] = scene["intrinsic"].copy()
+        scene["intrinsic"][:2] *= meta.ori_shape[0] / meta.img_shape[0]
+        batch = benchmark.detection_batch(model, scene)
+        fn = benchmark.detection_fn(model, cfg.test_cfg["nms_pre"])
+        batches = [dict(batch, origin=o)
+                   for o in benchmark.moved_origins(scene["origin"], 35)]
+        benchmark.time_calls(fn, [batch] + batches[:5], dev)
+        dt = benchmark.time_calls(fn, batches[5:], dev)
+        short = "f32" if dtype == torch.float32 else "bf16"
+        tag = f"detection {short} intrinsic scaled"
+        out[tag] = dict(scenes_per_s=30 / dt, ms_per_scene=dt / 30 * 1e3)
+        log(f"[bench] {tag}: {30 / dt:.3f} scenes/sec ({dt / 30 * 1e3:.1f} "
+            f"ms/scene, V=50; the tool's scene, unscaled, "
+            f"{out['detection ' + short]['scenes_per_s']:.3f}) measured on "
+            f"{card}")
+        del model
+    log(f"[bench] phase 15 in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3746,7 +4133,17 @@ def main():
     # ---- 13. data parallel: one process a card, NCCL / gloo -------------
     torch.cuda.empty_cache()
     ddp = ddp_path(api, ray_stats, card, files.name, runtime_opts)
+    log(f"[done] phases 1-13 in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 14. the 2-D data x views sharding: two ranks on this card -------
+    torch.cuda.empty_cache()
+    mesh = mesh_path(api, render, ray_stats, card, files.name, ddp)
     files.cleanup()
+    log(f"[done] phases 1-14 in {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 15. tools/benchmark on the flagship -----------------------------
+    torch.cuda.empty_cache()
+    bench = bench_path(card)
 
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
@@ -3901,10 +4298,29 @@ def main():
         "feature map: the scatter alone")
     record["kernels"][-1].update({k: v for k, v in low["k2_bwd"].items()
                                   if k.startswith(("pass", "index"))})
+    sums = mesh["sums"]["training"]
+    record["kernels"].append({
+        "name": "streaming_sample_mean_var_sums",
+        "route": "cuda",
+        "source": "nerfdet_tpu_torch/csrc/streaming_sample_mean_var.cu",
+        "replaces": "nerfdet_tpu/ops/render.py:260",
+        "launches": mesh["launches"]["streaming_sample_mean_var_sums"],
+        "max_abs_err": max(r["max_abs_err"] for r in mesh["sums"].values()),
+        **{k: sums[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "eval_form": mesh["sums"]["eval"],
+        "library_of": "none: no one PyTorch call samples the views and sums "
+                      "them",
+    })
     for entry in record["kernels"]:  # phase 13.1's run with --distributed
         entry["ddp_launches"] = ddp["launches"].get(entry["name"], 0)
-    log(f"[done] phases 1-13 in {time.perf_counter() - t_start:.1f} s")
-    log(f"[ddp] {json.dumps({k: v for k, v in ddp.items() if k != 'launches'})}")
+        # phase 14.1's rank 0, its steps at --mesh-views 2
+        entry["mesh_launches"] = mesh["launches"].get(entry["name"], 0)
+    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+    shown = {k: v for k, v in ddp.items() if k != "launches" and k[0] != "_"}
+    log(f"[ddp] {json.dumps(shown)}")
+    log(f"[mesh] {json.dumps({k: v for k, v in mesh.items() if k != 'sums'})}")
+    log(f"[bench] {json.dumps(bench)}")
     log(f"[jpeg] {json.dumps(decoder)}")
     log(card)
     log(json.dumps(record))

@@ -20,12 +20,18 @@ the JAX package sets up for one joint detection + NVS train step: the
 model in train mode, the optimizer, the schedule and the loss switches
 (``rgb_supervision``, ``depth_supervise``, ``use_nerf_mask``) from the
 config, and the scenes with their host ray stream on the device.
+
+With a views group (the 2-D data x views sharding, ``parallel/train2d``)
+``device_batch`` and ``train_batch`` send a rank only its slice of a
+scene's views, after the host streams were computed over all of them;
+``eval_step``, ``run_eval`` and the ``Trainer`` then sum the views'
+statistics over the group.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -43,6 +49,7 @@ from .models.votenet import VoteNet, votenet_nms
 from .nn.heads import get_candidate_bboxes
 from .nn.vote_head import vote_head_get_bboxes
 from .parallel import dist as pdist
+from .parallel.train2d import make_train_step_2d, shared_scene, view_shard
 from .train.optim import (Optimizer, build_lr_schedule_from_config,
                           build_optimizer)
 from .train.step import make_train_step
@@ -74,7 +81,8 @@ def init_detector(config, checkpoint: Optional[str] = None,
     object, in eval mode on ``device``. Weights are random from ``seed``
     unless ``checkpoint`` names a NeRF-Det ``.pth``: one the port's train
     CLI wrote (``utils/checkpoint.save_checkpoint``, the model's
-    state_dict under ``"model"``) or a reference state_dict. NeRF-Det
+    state_dict under ``"model"``), or ``tools/publish_model`` published,
+    or a reference state_dict. NeRF-Det
     computes in ``compute_dtype`` (float32 where None; bfloat16 is the
     JAX package's ``--bf16`` path), its parameters float32 either way.
     Raises if ``device`` is CUDA and there is none."""
@@ -90,7 +98,7 @@ def init_detector(config, checkpoint: Optional[str] = None,
                 f"reference checkpoints of {type(model).__name__} are not "
                 f"ported yet")
         obj = load_checkpoint(checkpoint)
-        if "model" in obj and "optimizer" in obj:  # the port's own
+        if "model" in obj:  # the port's own (published: no optimizer)
             model.load_state_dict(obj["model"], strict=True)
         else:
             load_reference_state_dict(model, obj.get("state_dict", obj))
@@ -116,7 +124,7 @@ def render_batch(model: NerfDet, scene: Dict) -> Dict:
     return batch
 
 
-def device_batch(model: NerfDet, scene: Dict) -> Dict:
+def device_batch(model: NerfDet, scene: Dict, view_group=None) -> Dict:
     """The eval step's detection inputs for one scene: images and, where
     the scene has them, its depth maps on the model's device; the small
     geometry arrays stay on the host (the projection is computed there).
@@ -124,30 +132,33 @@ def device_batch(model: NerfDet, scene: Dict) -> Dict:
     denormalized images go to the device (the stream is gated there),
     else the host rgb sums, computed here (at the model's compute dtype)
     when the scene does not carry them. Merged with ``render_batch``, the
-    forward also renders the scene's rays."""
+    forward also renders the scene's rays. With a ``view_group`` the
+    view-led keys are this rank's slice of the views (``view_shard``),
+    taken after the host rgb sums."""
     dev = _device_of(model)
+    host_rgb = model.nerf_density and "depth" not in scene
+    if host_rgb and "rgb_s1" not in scene:
+        scene = dict(scene, **dict(zip(("rgb_s1", "rgb_s2"), host_rgb_stats(
+            scene["denorm_images"], scene["intrinsic"], scene["extrinsics"],
+            scene["origin"], model.n_voxels, model.voxel_size,
+            model.meta.ori_shape, model.meta.img_shape,
+            compute_dtype=model.compute_dtype))))
+    scene = view_shard(scene, pdist.rank(view_group), pdist.world(view_group))
     batch = {k: scene[k] for k in ("intrinsic", "extrinsics", "origin")}
     batch["imgs"] = _to_device(scene["imgs"], dev)
     if "depth" in scene:
         batch["depth"] = _to_device(scene["depth"], dev)
-    if model.nerf_density and "depth" in scene:
-        batch["denorm_images"] = _to_device(scene["denorm_images"], dev)
+    if host_rgb:
+        batch["rgb_s1"] = _to_device(scene["rgb_s1"], dev)
+        batch["rgb_s2"] = _to_device(scene["rgb_s2"], dev)
     elif model.nerf_density:
-        if "rgb_s1" in scene:
-            s1, s2 = scene["rgb_s1"], scene["rgb_s2"]
-        else:
-            s1, s2 = host_rgb_stats(
-                scene["denorm_images"], scene["intrinsic"],
-                scene["extrinsics"], scene["origin"], model.n_voxels,
-                model.voxel_size, model.meta.ori_shape, model.meta.img_shape,
-                compute_dtype=model.compute_dtype)
-        batch["rgb_s1"] = _to_device(s1, dev)
-        batch["rgb_s2"] = _to_device(s2, dev)
+        batch["denorm_images"] = _to_device(scene["denorm_images"], dev)
     return batch
 
 
 def train_batch(model: NerfDet, scenes: List[Dict],
-                rng: Optional[np.random.RandomState] = None) -> List[Dict]:
+                rng: Optional[np.random.RandomState] = None,
+                view_group=None) -> List[Dict]:
     """The train step's inputs for a list of numpy scenes: each scene's
     ``device_batch`` (images and host rgb sums on the model's device)
     with its padded ground truth: gt_boxes (G, 7) float32, gt_labels
@@ -155,24 +166,26 @@ def train_batch(model: NerfDet, scenes: List[Dict],
     gt_rgb, optionally gt_depth) also brings them and their host ray
     stream (``data/ray_stats.prepare_rays`` at the model's N_rand,
     near/far, samples and compute dtype, drawn from ``rng``, a fresh unseeded
-    ``RandomState`` if None, where the scene carries no stream yet)."""
+    ``RandomState`` if None, where the scene carries no stream yet). With
+    a ``view_group`` the images are this rank's slice of the views
+    (``device_batch``); the rays and their stream hold every view."""
     dev = _device_of(model)
     out = []
     for scene in scenes:
-        batch = device_batch(model, scene)
+        if "ray_o" in scene and "z_vals" not in scene:
+            scene = prepare_rays(
+                scene, rng if rng is not None else
+                np.random.RandomState(), model.n_rand,
+                model.near_far_range, model.n_samples,
+                model.meta.ori_shape, model.meta.img_shape,
+                model.compute_dtype)
+        batch = device_batch(model, scene, view_group)
         batch["gt_boxes"] = _to_device(scene["gt_boxes"], dev)
         batch["gt_labels"] = torch.as_tensor(
             np.asarray(scene["gt_labels"], np.int64), device=dev)
         batch["gt_mask"] = torch.as_tensor(
             np.asarray(scene["gt_mask"], bool), device=dev)
         if "ray_o" in scene:
-            if "z_vals" not in scene:
-                scene = prepare_rays(
-                    scene, rng if rng is not None else
-                    np.random.RandomState(), model.n_rand,
-                    model.near_far_range, model.n_samples,
-                    model.meta.ori_shape, model.meta.img_shape,
-                    model.compute_dtype)
             keys = ("ray_o", "ray_d", "gt_rgb") + RAY_STREAM_KEYS + (
                 ("gt_depth",) if "gt_depth" in scene else ())
             batch.update((k, _to_device(scene[k], dev)) for k in keys)
@@ -184,16 +197,21 @@ def train_batch(model: NerfDet, scenes: List[Dict],
 class Trainer:
     """What ``init_trainer`` builds: the model (train mode), its
     optimizer (``optimizer.schedule(k)`` is the rate of update k) and the
-    train step (``step(train_batch(model, scenes))`` -> metrics)."""
+    train step (``step(train_batch(model, scenes, view_group=
+    trainer.view_group))`` -> metrics); on the 2-D grid its views and
+    data groups (None otherwise)."""
 
     model: NerfDet
     optimizer: Optimizer
     step: Callable[[List[Dict]], Dict[str, torch.Tensor]]
+    view_group: Any = None
+    data_group: Any = None
 
 
 def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
                  seed: int = 0, steps_per_epoch: int = 1,
-                 compute_dtype=None, process_group=None) -> Trainer:
+                 compute_dtype=None, process_group=None,
+                 mesh_views: int = 1) -> Trainer:
     """Joint detection + NVS training from a NeRF-Det config, as
     ``tools/train.py`` of the JAX package trains it: the model as
     ``init_detector`` builds it, in train mode; AdamW, gradient clipping
@@ -207,7 +225,9 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
     Runs on the card unless ``device="cpu"``. With a ``process_group``
     (``parallel/dist.py``) the step is data parallel over its ranks
     (``train/step.py``): every rank builds the same model from the same
-    ``seed`` and ``checkpoint`` and steps its own scenes."""
+    ``seed`` and ``checkpoint`` and steps its own scenes. ``mesh_views``
+    > 1 lays the group out as the 2-D data x views grid, ``mesh_views``
+    ranks a scene (``parallel/train2d.make_train_step_2d``)."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = init_detector(config, checkpoint, device, seed, compute_dtype)
@@ -222,22 +242,29 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
         model, dict(config.optimizer),
         grad_clip=config.get("optimizer_config", {}).get("grad_clip"),
         lr_schedule=schedule)
-    step = make_train_step(
-        model, optimizer,
+    losses = dict(
         depth_supervise=config.model.get("depth_supervise", False),
         use_nerf_mask=config.model.get("use_nerf_mask", True),
-        rgb_supervision=config.model.get("rgb_supervision", True),
-        process_group=process_group)
+        rgb_supervision=config.model.get("rgb_supervision", True))
+    if mesh_views > 1:
+        step, views, data = make_train_step_2d(
+            model, optimizer, mesh_views, process_group, **losses)
+        return Trainer(model, optimizer, step, views, data)
+    step = make_train_step(model, optimizer, process_group=process_group,
+                           **losses)
     return Trainer(model, optimizer, step)
 
 
 @torch.inference_mode()
-def eval_step(model: NerfDet, batch: Dict, nms_pre: int = 1000) -> Dict:
+def eval_step(model: NerfDet, batch: Dict, nms_pre: int = 1000,
+              view_group=None) -> Dict:
     """Single-scene inference on the device: candidate boxes (M, 6) and
     scores (M, n_classes), density modulation on; with a ray bundle in
     ``batch`` also its render_rgb (R, 3) and render_depth (R,). The
-    scores and render_rgb are in the model's compute dtype."""
-    head_outs, valid, render_out = model(batch)
+    scores and render_rgb are in the model's compute dtype. With a
+    ``view_group`` the batch holds this rank's views (``device_batch``)
+    and the outputs are the scene's, on every rank of the group."""
+    head_outs, valid, render_out = model(batch, view_group=view_group)
     boxes, scores = get_candidate_bboxes(
         head_outs, valid, model.mlvl_points(batch["origin"]), nms_pre,
         model.n_classes)
@@ -273,9 +300,12 @@ def detections_from_candidates(boxes, scores, score_thr: float = 0.01,
 
 
 def single_scene_test(model: NerfDet, scene: Dict, score_thr: float = 0.01,
-                      iou_thr: float = 0.25, nms_pre: int = 1000) -> Dict:
-    """Device path + host NMS for one scene (numpy scene dict)."""
-    out = eval_step(model, device_batch(model, scene), nms_pre)
+                      iou_thr: float = 0.25, nms_pre: int = 1000,
+                      view_group=None) -> Dict:
+    """Device path + host NMS for one scene (numpy scene dict), its views
+    sharded over ``view_group`` where given."""
+    out = eval_step(model, device_batch(model, scene, view_group), nms_pre,
+                    view_group)
     return detections_from_candidates(out["boxes"].float().cpu().numpy(),
                                       out["scores"].float().cpu().numpy(),
                                       score_thr, iou_thr)
@@ -364,7 +394,8 @@ def inference_detector(model: NerfDet, info: Dict, config,
 
 
 def run_eval(model: NerfDet, dataset, test_cfg: Dict, logger=None,
-             progress: bool = True, process_group=None) -> Dict:
+             progress: bool = True, process_group=None, view_group=None,
+             data_group=None) -> Dict:
     """The detection eval loop: every scene of ``dataset`` through
     ``single_scene_test`` (the eval step with the density modulation on,
     as the original's ``simple_test``; the JAX ``run_eval`` defaults to
@@ -374,19 +405,29 @@ def run_eval(model: NerfDet, dataset, test_cfg: Dict, logger=None,
 
     With a ``process_group`` of W ranks, rank r evaluates scenes
     ``r::W``; rank 0 gathers every rank's detections through the group,
-    scores them in scene order and returns the metrics, the others {}."""
+    scores them in scene order and returns the metrics, the others {}.
+
+    On the 2-D grid (``view_group`` and ``data_group`` of
+    ``parallel/dist.mesh_groups``; ``process_group`` unused) the scenes
+    are split so over the data groups, and each scene's views over its
+    views group: the group's first rank loads it and sends it to the
+    others (``parallel/train2d.shared_scene``)."""
+    if view_group is not None:
+        process_group = data_group
     rank, world = pdist.rank(process_group), pdist.world(process_group)
     n = len(dataset)
     local: List = []
     for i in range(rank, n, world):
-        scene = dataset[i]
+        scene = shared_scene(lambda: dataset[i], view_group)
         local.append((i, single_scene_test(
             model, scene, score_thr=test_cfg.get("score_thr", 0.01),
             iou_thr=test_cfg.get("iou_thr", test_cfg.get("nms_thr", 0.25)),
-            nms_pre=test_cfg.get("nms_pre", 1000))))
+            nms_pre=test_cfg.get("nms_pre", 1000), view_group=view_group)))
         if progress and len(local) % 10 == 0:
             print(f"[eval] rank {rank}: {len(local)}/"
                   f"{(n - rank + world - 1) // world}", flush=True)
+    if view_group is not None and pdist.rank(view_group) != 0:
+        return {}
     parts = pdist.gather_to_rank0(local, process_group)
     if parts is None:
         return {}

@@ -90,6 +90,14 @@
 // globalfeat: the feature channels' unmasked sums s1u (N, C) and, in the
 // eval form, its count (N, 1).
 //
+// The sums form (kSums), for a rank that holds only some of the views (the
+// views-sharded path of the JAX function, its psum over the views axis):
+// the same main loop, but the epilogue is left to the caller, who sums
+// the ranks' carries first. It writes the raw sums s1u, s2u, s1m (N, 3 +
+// C) with rgb first and the count (N,) in the eval form, and the feature
+// channels' s1u, s2u, s1m (N, C) alone in the training form, whose host
+// rgb sums and count already hold every view. Nothing else is written.
+//
 // bfloat16 (kBf, the bf16 compute path of the JAX package): the feature maps
 // and the images are bfloat16, read as their 16 bits and widened to float
 // exactly (a 16-byte tap load holds 8 channels). The taps round as JAX's
@@ -289,16 +297,25 @@ struct HostRgb {
   const float* cnt;  // (N,)
 };
 
+// The sums form's outputs (null in the other forms).
+struct Sums {
+  float* s1u;  // (N, 3 + C) eval form, (N, C) training form
+  float* s2u;
+  float* s1m;
+  float* cnt;  // (N,), the eval form's
+};
+
 template <bool kBf>
 using Elem = typename std::conditional<kBf, uint16_t, float>::type;
 
-template <int kVec, bool kHost, bool kBf>
+template <int kVec, bool kHost, bool kBf, bool kSums>
 __global__ void __launch_bounds__(kThreads,
                                   min_blocks<kVec, kHost, kBf>()) k2_kernel(
     const float* __restrict__ pts, const Elem<kBf>* __restrict__ imgs,
     const Elem<kBf>* __restrict__ feats,
     const float* __restrict__ proj,
-    HostRgb host, float* __restrict__ gf, uint8_t* __restrict__ mask,
+    HostRgb host, Sums sums, float* __restrict__ gf,
+    uint8_t* __restrict__ mask,
     float* __restrict__ s1u_out, float* __restrict__ cnt_out, int n,
     int n_views, int ih, int iw, int fh, int fw, int c, float h1, float w1,
     float sx, float sy, float fsx, float fsy) {
@@ -455,6 +472,36 @@ __global__ void __launch_bounds__(kThreads,
     __syncthreads();  // the next round reads buf ^ 1 and rewrites buf
   }
 
+  if constexpr (kSums) {  // the raw sums: the caller's epilogue
+    constexpr int kOff = kHost ? 0 : 3;  // the rgb channels first
+    const size_t row = (size_t)(kOff + c);
+#pragma unroll
+    for (int p = 0; p < kRun; ++p) {
+      const int np = n0 + q0 + p;
+      if (has_ch && np < n) {
+        const size_t at = (size_t)np * row + kOff + ch;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          sums.s1u[at + e] = f1[p][e];
+          sums.s2u[at + e] = f2[p][e];
+          sums.s1m[at + e] = fm[p][e];
+        }
+      }
+    }
+    if constexpr (!kHost) {
+      const int nr = n0 + q0 + rp;
+      if (has_rgb && nr < n) {
+        const size_t at = (size_t)nr * row + rc;
+        sums.s1u[at] = r1;
+        sums.s2u[at] = r2;
+        sums.s1m[at] = rm;
+      }
+      const int ns = n0 + q0 + s;
+      if (s < kRun && ns < n) sums.cnt[ns] = count;
+    }
+    return;
+  }
+
   // the epilogue, in the lanes that hold the sums; the counts come from
   // the lanes that hold them, or from the host
   const float nvf = (float)n_views;
@@ -511,16 +558,17 @@ __global__ void __launch_bounds__(kThreads,
   }
 }
 
-template <int kVec, bool kHost, bool kBf>
+template <int kVec, bool kHost, bool kBf, bool kSums = false>
 void launch(int blocks, cudaStream_t s, const float* pts, const void* imgs,
             const void* feats, const float* proj, HostRgb host, float* gf,
             uint8_t* mask, float* s1u_out, float* cnt_out, int n,
             int n_views, int ih, int iw, int fh, int fw, int c, int h, int w,
-            float sx, float sy, float fsx, float fsy) {
+            float sx, float sy, float fsx, float fsy,
+            Sums sums = {nullptr, nullptr, nullptr, nullptr}) {
   using T = Elem<kBf>;
-  k2_kernel<kVec, kHost, kBf><<<blocks, kThreads, 0, s>>>(
+  k2_kernel<kVec, kHost, kBf, kSums><<<blocks, kThreads, 0, s>>>(
       pts, static_cast<const T*>(imgs), static_cast<const T*>(feats), proj,
-      host, gf, mask, s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c,
+      host, sums, gf, mask, s1u_out, cnt_out, n, n_views, ih, iw, fh, fw, c,
       (float)(h - 1), (float)(w - 1), sx, sy, fsx, fsy);
 }
 
@@ -572,5 +620,47 @@ extern "C" int streaming_sample_mean_var(
     else K2_LAUNCH(1, false);
   }
 #undef K2_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sums form: K2's main loop over this rank's views, its raw sums out
+// and no epilogue. pts, imgs, feats, proj as above (imgs unused where
+// host is set: the training form); s1u, s2u, s1m (N, 3 + C) with cnt (N,)
+// in the eval form, (N, C) and cnt null in the training form. The lane
+// form is picked as above. Returns the cudaError_t of the launch.
+extern "C" int streaming_sample_mean_var_sums(
+    const float* pts, const void* imgs, const void* feats,
+    const float* proj, int host, float* s1u, float* s2u, float* s1m,
+    float* cnt, int n, int n_views, int ih, int iw, int fh, int fw, int c,
+    int h, int w, float sx, float sy, float fsx, float fsy, int bf16,
+    void* stream) {
+  if (s1u == nullptr || s2u == nullptr || s1m == nullptr ||
+      (!host && cnt == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + kTile - 1) / kTile;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HostRgb none = {nullptr, nullptr, nullptr, nullptr};
+  const Sums sums = {s1u, s2u, s1m, cnt};
+  const uintptr_t align = reinterpret_cast<uintptr_t>(feats);
+#define K2_SUMS(VEC, BF)                                                    \
+  if (host)                                                                 \
+    launch<VEC, true, BF, true>(blocks, s, pts, imgs, feats, proj, none,    \
+                                nullptr, nullptr, nullptr, nullptr, n,      \
+                                n_views, ih, iw, fh, fw, c, h, w, sx, sy,   \
+                                fsx, fsy, sums);                            \
+  else                                                                      \
+    launch<VEC, false, BF, true>(blocks, s, pts, imgs, feats, proj, none,   \
+                                 nullptr, nullptr, nullptr, nullptr, n,     \
+                                 n_views, ih, iw, fh, fw, c, h, w, sx, sy,  \
+                                 fsx, fsy, sums)
+  if (bf16) {
+    if (c % 8 == 0 && align % 16 == 0) K2_SUMS(8, true);
+    else if (c % 4 == 0 && align % 8 == 0) K2_SUMS(4, true);
+    else K2_SUMS(1, true);
+  } else {
+    if (c % 4 == 0 && align % 16 == 0) K2_SUMS(4, false);
+    else K2_SUMS(1, false);
+  }
+#undef K2_SUMS
   return static_cast<int>(cudaGetLastError());
 }

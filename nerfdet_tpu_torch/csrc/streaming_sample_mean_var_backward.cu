@@ -239,11 +239,13 @@ __global__ void __launch_bounds__(kThreads)
   keys[p] = zero ? n_views * hw : v * hw + q.idx;
 }
 
-// Point i's cotangents of channel ch: d s1m, d s1u, d s2u.
+// Point i's cotangents of channel ch: d s1m, d s1u, d s2u. stat_views is
+// the V of the statistics, every view of the scene: more than the views
+// of this launch's maps where the views are sharded over ranks.
 __device__ __forceinline__ void cotangents(const float* g, const float* gf,
                                            const float* s1u, const float* cnt,
-                                           int i, int ch, int n_views, int c,
-                                           float* d_s1m, float* d_s1u,
+                                           int i, int ch, int stat_views,
+                                           int c, float* d_s1m, float* d_s1u,
                                            float* d_s2u) {
   const int cs = 3 + c;
   const size_t at = (size_t)i * 2 * cs + 3 + ch;
@@ -252,7 +254,7 @@ __device__ __forceinline__ void cotangents(const float* g, const float* gf,
   const float su = __ldg(s1u + (size_t)i * c + ch);
   const float d = __fadd_rn(__ldg(cnt + i), 1e-8f);
   const float g_var = -__fmul_rn(g_e, e);
-  const float slope = __fsub_rn(__fmul_rn(2.f * (float)n_views, mean),
+  const float slope = __fsub_rn(__fmul_rn(2.f * (float)stat_views, mean),
                                 __fmul_rn(2.f, su));
   *d_s1m =
       __fdiv_rn(__fadd_rn(g_mean, __fdiv_rn(__fmul_rn(g_var, slope), d)), d);
@@ -265,12 +267,12 @@ __device__ __forceinline__ void cotangents(const float* g, const float* gf,
 __global__ void __launch_bounds__(kThreads)
     coef_kernel(const float* __restrict__ g, const float* __restrict__ gf,
                 const float* __restrict__ s1u, const float* __restrict__ cnt,
-                float* __restrict__ coef, int n, int n_views, int c) {
+                float* __restrict__ coef, int n, int stat_views, int c) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)n * c) return;
   const int i = (int)(t / c), ch = (int)(t % c);
   float d_s1m, d_s1u, d_s2u;
-  cotangents(g, gf, s1u, cnt, i, ch, n_views, c, &d_s1m, &d_s1u, &d_s2u);
+  cotangents(g, gf, s1u, cnt, i, ch, stat_views, c, &d_s1m, &d_s1u, &d_s2u);
   float* out = coef + (size_t)i * 3 * c + ch;
   out[0] = __fadd_rn(d_s1u, d_s1m);  // a pair the view sees
   out[c] = d_s1u;                    // one it does not
@@ -464,9 +466,9 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ s1u,
                      const float* __restrict__ cnt,
                      const int* __restrict__ rank, uint16_t* __restrict__ df,
-                     uint2* __restrict__ wts, int n, int n_views, int fh,
-                     int fw, int c, float h1, float w1, float fsx,
-                     float fsy) {
+                     uint2* __restrict__ wts, int n, int n_views,
+                     int stat_views, int fh, int fw, int c, float h1,
+                     float w1, float fsx, float fsy) {
   constexpr int kGroup = 32 / kVec;  // lanes a point
   constexpr int kRun = kPts / kVec;  // points a lane group
   __shared__ PairTap taps[2][kViews][kTile];
@@ -515,7 +517,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kVec; ++e) {
       d1m[p][e] = d1u[p][e] = d2u[p][e] = 0.f;
       if (has_ch && n0 + q0 + p < n)
-        cotangents(g, gf, s1u, cnt, n0 + q0 + p, ch + e, n_views, c,
+        cotangents(g, gf, s1u, cnt, n0 + q0 + p, ch + e, stat_views, c,
                    &d1m[p][e], &d1u[p][e], &d2u[p][e]);
     }
   const size_t feat_view = (size_t)fh * fw * c;
@@ -884,16 +886,17 @@ int blocks_for(long long threads) {
 
 // Pass 0. pts (N, 3); proj (V, 4, 4); g and globalfeat (N, 2(3 + C)); s1u
 // (N, C), the feature channels' unmasked sums; cnt (N,), the count the
-// forward's statistics used; outputs keys (V, N) int32 and, where coef is
-// not null (float32 maps), coef (N, 3, C). (h, w) is the image size the
+// forward's statistics used; stat_views, the V of those statistics (V
+// itself unless the views are sharded over ranks); outputs keys (V, N)
+// int32 and, where coef is not null (float32 maps), coef (N, 3, C). (h, w) is the image size the
 // projection lives in, fsx, fsy scale its pixels into the (FH, FW) maps.
 // Everything contiguous, 1 <= C <= 32, V N < 2^31. Returns the first
 // cudaError_t of the launches.
 extern "C" int streaming_sample_mean_var_backward_keys(
     const float* pts, const float* proj, const float* g, const float* gf,
     const float* s1u, const float* cnt, int* keys, float* coef, int n,
-    int n_views, int fh, int fw, int c, int h, int w, float fsx, float fsy,
-    void* stream) {
+    int n_views, int stat_views, int fh, int fw, int c, int h, int w,
+    float fsx, float fsy, void* stream) {
   if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || n_views == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -903,7 +906,7 @@ extern "C" int streaming_sample_mean_var_backward_keys(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || coef == nullptr) return static_cast<int>(err);
   coef_kernel<<<blocks_for((long long)n * c), kThreads, 0, s>>>(
-      g, gf, s1u, cnt, coef, n, n_views, c);
+      g, gf, s1u, cnt, coef, n, stat_views, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -955,14 +958,14 @@ extern "C" int streaming_sample_mean_var_backward_windows(
 }
 
 // Pass 1a on bfloat16 maps: feats (V, FH, FW, C) bfloat16; g, globalfeat,
-// s1u, cnt as pass 0 takes them; rank from the index preparation; df
+// s1u, cnt and stat_views as pass 0 takes them; rank from the index preparation; df
 // (slots, C) bfloat16 and wts (slots, 4) bfloat16 out, written at each
 // kept pair's slot (slots >= the kept pairs).
 extern "C" int streaming_sample_mean_var_backward_pairs(
     const float* pts, const float* proj, const void* feats, const float* g,
     const float* gf, const float* s1u, const float* cnt, const int* rank,
-    void* df, void* wts, int n, int n_views, int fh, int fw, int c, int h,
-    int w, float fsx, float fsy, void* stream) {
+    void* df, void* wts, int n, int n_views, int stat_views, int fh, int fw,
+    int c, int h, int w, float fsx, float fsy, void* stream) {
   if (c < 1 || c > 32) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || n_views == 0) return 0;
   const auto* f = static_cast<const uint16_t*>(feats);
@@ -975,13 +978,13 @@ extern "C" int streaming_sample_mean_var_backward_pairs(
   if (vec)
     pair_bf16_kernel<8><<<blocks, kThreads, 0, s>>>(
         pts, proj, f, g, gf, s1u, cnt, rank, static_cast<uint16_t*>(df),
-        static_cast<uint2*>(wts), n, n_views, fh, fw, c, (float)(h - 1),
-        (float)(w - 1), fsx, fsy);
+        static_cast<uint2*>(wts), n, n_views, stat_views, fh, fw, c,
+        (float)(h - 1), (float)(w - 1), fsx, fsy);
   else
     pair_bf16_kernel<1><<<blocks, kThreads, 0, s>>>(
         pts, proj, f, g, gf, s1u, cnt, rank, static_cast<uint16_t*>(df),
-        static_cast<uint2*>(wts), n, n_views, fh, fw, c, (float)(h - 1),
-        (float)(w - 1), fsx, fsy);
+        static_cast<uint2*>(wts), n, n_views, stat_views, fh, fw, c,
+        (float)(h - 1), (float)(w - 1), fsx, fsy);
   return static_cast<int>(cudaGetLastError());
 }
 

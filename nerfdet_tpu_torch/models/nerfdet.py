@@ -29,6 +29,14 @@ radiance field's points, view directions and features. The volume the
 3D neck reads is float32 (bfloat16 alpha times the float32 mean), the
 head's outputs and the rendered rgb bfloat16, the rendered depth and the
 losses float32, as JAX's type promotion gives them.
+
+Views sharded over ranks (JAX's ``view_axis``, the 2-D data x views
+sharding): with a ``view_group`` the view-led inputs (imgs,
+denorm_images, extrinsics, depth) are this rank's views, the fusion's
+and the render's view statistics are summed over the group, and the
+volume, the density modulation, the 3D neck and the head run the same on
+every rank of the group. With ``n_ray_shards`` > 1 each rank renders its
+own slice of the rays after the view statistics.
 """
 
 from __future__ import annotations
@@ -147,7 +155,7 @@ class NerfDet(nn.Module):
 
     def build_volume(self, features, intrinsic, extrinsics, origin,
                      rgb_stats=None, denorm_images=None,
-                     depth=None) -> Dict:
+                     depth=None, view_group=None) -> Dict:
         """Project, fuse and density-modulate the volume.
 
         ``depth`` (V, H, W), where given, gates every (voxel, view) pair
@@ -155,8 +163,10 @@ class NerfDet(nn.Module):
         host rgb sums ``rgb_stats`` (``data/rgb_stats.host_rgb_stats``)
         where they are given and the scene has no depth, else from the
         (V, Hp, Wp, 3) ``denorm_images`` on the device (``rgb_carry``), as
-        the JAX model chooses. Returns det_volume (nx, ny, nz, C) and valid
-        (nx, ny, nz), the observing-view counts.
+        the JAX model chooses. ``view_group``: the views are this rank's
+        share, the fusion's sums summed over the group (``fused_mean_cov``).
+        Returns det_volume (nx, ny, nz, C) and valid (nx, ny, nz), the
+        observing-view counts.
         """
         dev = features.device
         h_img, w_img = self.meta.img_shape
@@ -167,7 +177,7 @@ class NerfDet(nn.Module):
                               dev).reshape(-1, 3)
         feat_hw = (h_img // stride, w_img // stride)
         gate = dict(depth=depth, voxel_size_z=self.voxel_size[-1],
-                    image_hw=feat_hw)
+                    image_hw=feat_hw, view_group=view_group)
 
         if self.nerf_density:
             lin = self.mapping[0]
@@ -239,18 +249,23 @@ class NerfDet(nn.Module):
     def render(self, ray_o, ray_d, features, imgs_denorm, intrinsic,
                extrinsics, det: bool = True,
                generator: Optional[torch.Generator] = None, z_vals=None,
-               precomputed_rgb=None) -> Dict[str, torch.Tensor]:
+               precomputed_rgb=None, view_group=None,
+               n_ray_shards: int = 1) -> Dict[str, torch.Tensor]:
         """Render a bundle of rays (R, 3): rgb (R, 3), depth (R,) and the
         ray mask (R,). ``features`` are the stride-4 FPN maps,
         ``imgs_denorm`` the (V, Hp, Wp, 3) denormalized views (unused
         with ``precomputed_rgb``, the host rgb sums and count). The
         samples lie at ``z_vals`` (R, S) where given, else evenly spaced
-        (``det``) or jittered from ``generator``."""
+        (``det``) or jittered from ``generator``. ``view_group`` and
+        ``n_ray_shards``: ``render_ops.render_rays_chunk``'s (the outputs
+        are then this rank's R / n rays)."""
         proj = self.render_projection(intrinsic, extrinsics, ray_o.device)
         return self._render_chunk(ray_o, ray_d, imgs_denorm, proj,
                                   self.render_featmaps(features), det=det,
                                   generator=generator, z_vals=z_vals,
-                                  precomputed_rgb=precomputed_rgb)
+                                  precomputed_rgb=precomputed_rgb,
+                                  view_group=view_group,
+                                  n_ray_shards=n_ray_shards)
 
     @torch.inference_mode()
     def render_full(self, batch: Dict, chunk: int = 2048):
@@ -277,7 +292,8 @@ class NerfDet(nn.Module):
         return outs["rgb"][:n], outs["depth"][:n]
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                view_group=None, n_ray_shards: int = 1):
         """One scene: ``batch`` holds imgs (V, Hp, Wp, 3), intrinsic
         (4, 4), extrinsics (V, 4, 4), origin (3,), for the density path
         rgb_s1/rgb_s2 (N, 3) or denorm_images (V, Hp, Wp, 3), optionally
@@ -287,7 +303,11 @@ class NerfDet(nn.Module):
         (``data/ray_stats.RAY_STREAM_KEYS``: z_vals and the rgb sums).
         Returns (head_outs, valid, render_out), render_out None without
         rays. The rays' samples are evenly spaced in eval mode and, in
-        train mode without ``z_vals``, jittered from ``generator``."""
+        train mode without ``z_vals``, jittered from ``generator``.
+        ``view_group``: the view-led inputs are this rank's views of the
+        scene (the host rgb sums, the ray stream and the rays hold every
+        view and ray); ``n_ray_shards`` > 1: render_out is this rank's
+        slice of the rays (``render``)."""
         features = self.extract_2d(batch["imgs"])
         rgb_stats = ((batch["rgb_s1"], batch["rgb_s2"])
                      if "rgb_s1" in batch else None)
@@ -295,7 +315,8 @@ class NerfDet(nn.Module):
                                 batch["extrinsics"], batch["origin"],
                                 rgb_stats=rgb_stats,
                                 denorm_images=batch.get("denorm_images"),
-                                depth=batch.get("depth"))
+                                depth=batch.get("depth"),
+                                view_group=view_group)
         render_out = None
         if "ray_o" in batch:
             host = (tuple(batch[k] for k in ("ray_s1u", "ray_s2u",
@@ -306,7 +327,8 @@ class NerfDet(nn.Module):
                 batch.get("denorm_images"), batch["intrinsic"],
                 batch["extrinsics"], det=not self.training,
                 generator=generator, z_vals=batch.get("z_vals"),
-                precomputed_rgb=host)
+                precomputed_rgb=host, view_group=view_group,
+                n_ray_shards=n_ray_shards)
         return self.detect(vol["det_volume"]), vol["valid"], render_out
 
     def mlvl_points(self, origin) -> List[torch.Tensor]:

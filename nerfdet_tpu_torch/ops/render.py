@@ -30,6 +30,13 @@ The backward then rounds as XLA's CPU backend runs JAX's transpose
 bfloat16, each tap's ``df * w`` to bfloat16, the window sums in point
 order and the four windows of a texel in the order tap 2, 3, 1, 0, each
 add rounded to bfloat16.
+
+Views sharded over ranks (the JAX function's ``axis_name``, the 2-D
+data x views sharding): each rank holds some of a scene's views. K2's
+sums form (the same kernel without its epilogue) gives the rank's raw
+sums, which are summed over the views group; the epilogue then runs in
+torch at the scene's view count. K2's backward takes that view count
+apart from its maps' own (``n_views``).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import dist as pdist
 from . import cuda_build
 from .bf16 import bf16_round, scatter_add_bf16
 from .grid_sample import _window, grid_sample_2d_packed, pack_bilinear
@@ -207,21 +215,38 @@ def _carry_with_host_rgb(pts, images, proj, img_hw, featmaps,
 
 
 def streaming_sample_mean_var_plain(pts, images, proj, img_hw, featmaps,
-                                    precomputed_rgb=None):
+                                    precomputed_rgb=None, view_group=None):
     """Plain PyTorch version of K2 (same signature and results): the
     carry ``ray_view_carry_plain`` (in the training form only over the
     feature maps, the host rgb sums and count in front), then its
-    epilogue ``sample_stats``."""
+    epilogue ``sample_stats``. With a ``view_group`` the carry's sums
+    (``streaming_sample_sums_plain``) are summed over the group first and
+    the epilogue takes the scene's view count (``_global_stats``), all of
+    it differentiable by torch autograd."""
+    if view_group is not None:
+        sums = streaming_sample_sums_plain(pts, images, proj, img_hw,
+                                           featmaps, precomputed_rgb
+                                           is not None)
+        return _global_stats(sums, precomputed_rgb, view_group,
+                             featmaps)[:2]
     carry = _carry_with_host_rgb(pts, images, proj, img_hw, featmaps,
                                  precomputed_rgb)
     return sample_stats(*carry, featmaps.shape[0])
 
 
 def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps,
-                              precomputed_rgb=None):
+                              precomputed_rgb=None, view_group=None):
     """K2: per-view sampling with masked mean / exp(-var) over views.
     Returns (globalfeat (R, S, 2(3 + C)), pixel_mask (R, S)); see
     ``streaming_sample_mean_var_plain``.
+
+    ``view_group``: the process group over which the scene's views are
+    sharded (``images``, ``featmaps`` and ``proj`` hold this rank's
+    views, as many on every rank). K2's sums form then gives this rank's
+    sums, they are summed over the group and the epilogue runs at the
+    scene's view count; the results are the global ones on every rank.
+    Its backward sums the cotangent over the group and runs K2's backward
+    on this rank's maps at the scene's view count (``_ShardedK2``).
 
     Two forms: the eval form samples the images' rgb in the kernel; the
     training form takes ``precomputed_rgb``, the host rgb sums and count
@@ -240,10 +265,17 @@ def streaming_sample_mean_var(pts, images, proj, img_hw, featmaps,
     if featmaps.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K2 takes float32 or bfloat16 maps, got "
                         f"{featmaps.dtype}")
-    if not (torch.is_grad_enabled() and featmaps.requires_grad):
+    host = tuple(precomputed_rgb) if precomputed_rgb is not None else ()
+    grad = torch.is_grad_enabled() and featmaps.requires_grad
+    if view_group is not None:
+        if not grad:
+            return _sharded_stats(pts, images, proj, img_hw, featmaps,
+                                  host or None, view_group)[:2]
+        return _ShardedK2.apply(pts, images, proj, img_hw, featmaps,
+                                view_group, *host)
+    if not grad:
         return _k2_forward(pts, images, proj, img_hw, featmaps,
                            precomputed_rgb, False)[:2]
-    host = tuple(precomputed_rgb) if precomputed_rgb is not None else ()
     return _StreamingSampleMeanVar.apply(pts, images, proj, img_hw,
                                          featmaps, *host)
 
@@ -293,6 +325,138 @@ class _StreamingSampleMeanVar(torch.autograd.Function):
             len(ctx.needs_input_grad) - 5)
 
 
+def streaming_sample_sums_plain(pts, images, proj, img_hw, featmaps,
+                                host: bool = False):
+    """Plain PyTorch version of K2's sums form (same signature and
+    results as ``streaming_sample_sums``): ``ray_view_carry_plain`` over
+    the views given, (s1u, s2u, s1m) (R, S, 3 + C) and cnt (R, S, 1); with
+    ``host`` (the training form, whose rgb sums and count come from the
+    host over every view) the feature channels' (R, S, C) and cnt None."""
+    if host:
+        return ray_view_carry_plain(pts, None, featmaps, proj, img_hw)[:3] + (
+            None,)
+    return ray_view_carry_plain(pts, images, featmaps, proj, img_hw)
+
+
+def streaming_sample_sums(pts, images, proj, img_hw, featmaps,
+                          host: bool = False):
+    """K2's sums form: K2's carry over the views given, without its
+    epilogue (see ``streaming_sample_sums_plain``), for a rank that holds
+    some of a scene's views. Not differentiable (``_ShardedK2`` is).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the sums
+    form of ``csrc/streaming_sample_mean_var.cu`` (counted), or raises
+    where it does not take the input."""
+    if pts.device.type == "cpu":
+        return streaming_sample_sums_plain(pts, images, proj, img_hw,
+                                           featmaps, host)
+    out = _sums_launch(pts, images, proj, img_hw, featmaps, host)
+    streaming_sample_sums.launches += 1
+    return out
+
+
+streaming_sample_sums.launches = 0
+
+
+def _sums_launch(pts, images, proj, img_hw, featmaps, host: bool = False):
+    """Check and launch K2's sums form on the card; the launch is not
+    counted."""
+    if host:
+        images = None
+    _check_k2(pts, images, proj, featmaps, None)
+    if not host and images is None:
+        raise ValueError("K2's eval form needs the images")
+    r, s, _ = pts.shape
+    v, fh, fw, c = featmaps.shape
+    dev = pts.device
+    cso = c if host else 3 + c
+    s1u, s2u, s1m = (torch.empty((r, s, cso), dtype=torch.float32,
+                                 device=dev) for _ in range(3))
+    cnt = None if host else torch.empty((r, s, 1), dtype=torch.float32,
+                                        device=dev)
+    if r * s == 0:
+        return s1u, s2u, s1m, cnt
+    h, w = img_hw
+    ih, iw, sx, sy = _image_scales(images, img_hw)
+    with torch.cuda.device(dev):  # the launch acts on the current device
+        err = _lib().streaming_sample_mean_var_sums(
+            pts.data_ptr(), None if images is None else images.data_ptr(),
+            featmaps.data_ptr(), proj.data_ptr(), int(host),
+            *_ptrs(s1u, s2u, s1m, cnt), r * s, v, ih, iw, fh, fw, c, h, w,
+            sx, sy, _scale(fw, w), _scale(fh, h), _bf16(featmaps),
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"streaming_sample_mean_var sums launch failed: "
+                           f"cudaError {err}")
+    return s1u, s2u, s1m, cnt
+
+
+def _global_stats(sums, host, group, featmaps):
+    """A rank's sums (s1u, s2u, s1m, cnt or None in the training form)
+    on its ``featmaps`` summed over ``group`` in one all-reduce
+    (``dist.all_reduce_sum``, differentiable), the host rgb sums and
+    count (global already) in front in the training form, then
+    ``sample_stats`` at the scene's view count (as many views on every
+    rank). Returns (globalfeat, pixel_mask, s1u, cnt): s1u the feature
+    channels' global sums, cnt the global count."""
+    summed = pdist.all_reduce_sum(*(t for t in sums if t is not None),
+                                  group=group)
+    s1u, s2u, s1m = summed[:3]
+    if host is not None:
+        hs = [t.float() for t in host]
+        s1u, s2u, s1m = (torch.cat([a, b], dim=-1)
+                         for a, b in zip(hs[:3], (s1u, s2u, s1m)))
+        cnt = hs[3]
+    else:
+        cnt = summed[3]
+    gf, mask = sample_stats(s1u, s2u, s1m, cnt,
+                            featmaps.shape[0] * pdist.world(group))
+    return gf, mask, s1u[..., -featmaps.shape[-1]:], cnt
+
+
+@torch.no_grad()
+def _sharded_stats(pts, images, proj, img_hw, featmaps, host, group):
+    """The views-sharded K2 forward: this rank's sums
+    (``streaming_sample_sums``), then ``_global_stats``. Returns
+    (globalfeat, pixel_mask, s1u, cnt) as ``_k2_forward`` does with
+    ``for_grad``, every one global."""
+    sums = streaming_sample_sums(pts, images, proj, img_hw, featmaps,
+                                 host is not None)
+    gf, mask, s1u, cnt = _global_stats(sums, host, group, featmaps)
+    return gf, mask, s1u.contiguous(), cnt.contiguous()
+
+
+class _ShardedK2(torch.autograd.Function):
+    """K2 with the views sharded over a group. Forward:
+    ``_sharded_stats``. Backward: the cotangent of globalfeat summed over
+    the group (with the rays sharded after the aggregation, each rank's is
+    non-zero on its own rays only), then K2's backward on this rank's maps
+    with the global residuals and view count. The statistics' backward is
+    linear in the cotangent and its residuals are the same on every rank,
+    so this is the transpose of the sum over the group that JAX's psum
+    gives."""
+
+    @staticmethod
+    def forward(ctx, pts, images, proj, img_hw, featmaps, group, *host):
+        gf, mask, s1u, cnt = _sharded_stats(pts, images, proj, img_hw,
+                                            featmaps, host or None, group)
+        ctx.mark_non_differentiable(mask)
+        ctx.img_hw, ctx.group = img_hw, group
+        ctx.save_for_backward(pts, proj, featmaps, gf, s1u, cnt)
+        return gf, mask
+
+    @staticmethod
+    def backward(ctx, g, _):
+        pts, proj, featmaps, gf, s1u, cnt = ctx.saved_tensors
+        g = g.float().contiguous().clone()
+        pdist.all_reduce_sum_([g], ctx.group)
+        d_feats = streaming_sample_mean_var_backward(
+            pts, proj, ctx.img_hw, featmaps, g, gf, s1u, cnt,
+            n_views=featmaps.shape[0] * pdist.world(ctx.group))
+        return (None, None, None, None, d_feats, None) + (None,) * (
+            len(ctx.needs_input_grad) - 6)
+
+
 def _point_cotangents(g, gf, s1u, cnt, n_views: int):
     """The cotangents of the feature channels' sums, each (N, C): d s1u,
     d s2u and d s1m from g, the cotangent of globalfeat (N, 2(3 + C)),
@@ -317,7 +481,8 @@ def _point_cotangents(g, gf, s1u, cnt, n_views: int):
 
 @torch.no_grad()
 def streaming_sample_mean_var_backward_plain(pts, proj, img_hw, featmaps, g,
-                                             globalfeat, s1u, cnt):
+                                             globalfeat, s1u, cnt,
+                                             n_views=None):
     """Plain PyTorch version of K2's backward (same signature and result
     as ``streaming_sample_mean_var_backward``): d featmaps (V, FH, FW, C).
 
@@ -332,11 +497,12 @@ def streaming_sample_mean_var_backward_plain(pts, proj, img_hw, featmaps, g,
     """
     if featmaps.dtype == torch.bfloat16:
         return _backward_plain_bf16(pts, proj, img_hw, featmaps, g,
-                                    globalfeat, s1u, cnt)
+                                    globalfeat, s1u, cnt, n_views)
     v, fh, fw, c = featmaps.shape
     h, w = img_hw
     xyz = pts.reshape(-1, 3)
-    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt,
+                                            n_views or v)
     fsx, fsy = _scale(fw, w), _scale(fh, h)
     out = torch.zeros((v, fh * fw, c), dtype=torch.float32,
                       device=featmaps.device)
@@ -357,7 +523,7 @@ def streaming_sample_mean_var_backward_plain(pts, proj, img_hw, featmaps, g,
 
 
 def _backward_plain_bf16(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
-                         cnt):
+                         cnt, n_views=None):
     """``streaming_sample_mean_var_backward_plain`` on bfloat16 maps: per
     (point, view) df in float32 as there, rounded to bfloat16; each tap's
     ``df * w_k`` (w_k the forward's bfloat16 weight) rounded and added
@@ -367,7 +533,7 @@ def _backward_plain_bf16(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
     ``pack_bilinear``), each add rounded."""
     v, fh, fw, c = featmaps.shape
     xyz = pts.reshape(-1, 3)
-    cot = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    cot = _point_cotangents(g, globalfeat, s1u, cnt, n_views or v)
     win = torch.empty((v, fh, fw, 4, c), dtype=torch.float32,
                       device=featmaps.device)
     for i in range(v):
@@ -417,12 +583,14 @@ def _texels(win, dtype):
 
 
 def streaming_sample_mean_var_backward(pts, proj, img_hw, featmaps, g,
-                                       globalfeat, s1u, cnt):
+                                       globalfeat, s1u, cnt, n_views=None):
     """K2's backward: d featmaps (V, FH, FW, C) from g, the cotangent of
     globalfeat (R, S, 2(3 + C)), given the forward's globalfeat, the
     feature channels' unmasked sums s1u (R, S, C) and the count its
     statistics used (R, S, 1). Either form's: the backward reads only the
-    feature channels.
+    feature channels. ``n_views`` is the V of the statistics, V itself
+    where None; more where the maps are this rank's share of a scene's
+    views (``_ShardedK2``).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
     backward kernel (``csrc/streaming_sample_mean_var_backward.cu``), or
@@ -430,9 +598,9 @@ def streaming_sample_mean_var_backward(pts, proj, img_hw, featmaps, g,
     """
     if featmaps.device.type == "cpu":
         return streaming_sample_mean_var_backward_plain(
-            pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt)
+            pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt, n_views)
     out = _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
-                           cnt)
+                           cnt, n_views)
     streaming_sample_mean_var_backward.launches += 1
     return out
 
@@ -500,9 +668,7 @@ def _k2_launch(pts, images, proj, img_hw, featmaps, precomputed_rgb=None,
     if n == 0:
         return gf, mask, s1u, cnt
     h, w = img_hw
-    ih, iw = images.shape[1:3] if images is not None else (0, 0)
-    sx = _scale(iw, w) if images is not None else 0.0
-    sy = _scale(ih, h) if images is not None else 0.0
+    ih, iw, sx, sy = _image_scales(images, img_hw)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -523,6 +689,16 @@ def _k2_launch(pts, images, proj, img_hw, featmaps, precomputed_rgb=None,
     return gf, mask, s1u, cnt
 
 
+def _image_scales(images, img_hw):
+    """(IH, IW, sx, sy): the images' size and the scale of the
+    projection's pixels into them; zeros without images (the training
+    form)."""
+    if images is None:
+        return 0, 0, 0.0, 0.0
+    ih, iw = images.shape[1:3]
+    return ih, iw, _scale(iw, img_hw[1]), _scale(ih, img_hw[0])
+
+
 def _lib():
     lib = cuda_build.load("streaming_sample_mean_var")
     fn = lib.streaming_sample_mean_var
@@ -530,10 +706,14 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p] * 12 + [i] * 9 + [f] * 4 + [i, p]
         fn.restype = ctypes.c_int
+        sums = lib.streaming_sample_mean_var_sums
+        sums.argtypes = [p] * 4 + [i] + [p] * 4 + [i] * 9 + [f] * 4 + [i, p]
+        sums.restype = ctypes.c_int
     return lib
 
 
-def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
+def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt,
+                     n_views=None):
     """Check and launch K2's backward; returns d featmaps. Pass 0
     (``_backward_keys``) keys each (point, view) pair by its feature
     window and writes the points' cotangents; the index preparation
@@ -567,11 +747,11 @@ def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     g, globalfeat, s1u, cnt = (t.contiguous() for t in (g, globalfeat, s1u,
                                                           cnt))
     keys, coef = _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat,
-                                s1u, cnt)
+                                s1u, cnt, n_views)
     if featmaps.dtype == torch.bfloat16:
         rank, off = _window_rank_launch(keys, fh * fw)
         df, wts = _pair_df(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
-                           cnt, rank)
+                           cnt, rank, n_views)
         packed = _window_sums_bf16(df, wts, off, featmaps)
     else:
         order, off = _window_order_launch(keys, fh * fw)
@@ -579,12 +759,13 @@ def _backward_launch(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     return _unpack(packed, off, featmaps)
 
 
-def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
+def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt,
+                   n_views=None):
     """K2's backward pass 0 on checked, contiguous inputs: the pairs'
     keys (V, N) int32 and, on float32 maps, the points' cotangents coef
-    (N, 3, C), rows (d s1u + d s1m, d s1u, d s2u); None on bfloat16
-    maps, whose pass 1a forms them (``backward_keys_plain`` is the
-    twin)."""
+    (N, 3, C), rows (d s1u + d s1m, d s1u, d s2u), at the statistics' view
+    count ``n_views`` (V where None); None on bfloat16 maps, whose pass 1a
+    forms them (``backward_keys_plain`` is the twin)."""
     r, s, _ = pts.shape
     v, fh, fw, c = featmaps.shape
     n, dev = r * s, pts.device
@@ -594,8 +775,8 @@ def _backward_keys(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt):
     with torch.cuda.device(dev):  # the launches act on the current device
         err = _backward_lib().streaming_sample_mean_var_backward_keys(
             *_ptrs(pts, proj, g, globalfeat, s1u, cnt, keys, coef), n, v,
-            fh, fw, c, *img_hw, _scale(fw, img_hw[1]), _scale(fh, img_hw[0]),
-            _stream(dev))
+            n_views or v, fh, fw, c, *img_hw, _scale(fw, img_hw[1]),
+            _scale(fh, img_hw[0]), _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 0 "
                            f"launch failed: cudaError {err}")
@@ -636,11 +817,13 @@ def _window_rank_launch(keys, hw: int):
     return _window_order_launch(keys, hw, rank=True)
 
 
-def _pair_df(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt, rank):
+def _pair_df(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt, rank,
+             n_views=None):
     """K2's backward pass 1a on bfloat16 maps, on checked, contiguous
     inputs: each kept pair's df and four tap weights at its slot
     ``rank[v N + n]``, df (V N, C) and wts (V N, 4) bfloat16, the slots
-    past the kept pairs unwritten (``pair_df_plain`` is the twin)."""
+    past the kept pairs unwritten, the statistics at ``n_views`` (V where
+    None; ``pair_df_plain`` is the twin)."""
     r, s, _ = pts.shape
     v, fh, fw, c = featmaps.shape
     n, dev = r * s, pts.device
@@ -651,8 +834,8 @@ def _pair_df(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt, rank):
     with torch.cuda.device(dev):  # the launch acts on the current device
         err = _backward_lib().streaming_sample_mean_var_backward_pairs(
             *_ptrs(pts, proj, featmaps, g, globalfeat, s1u, cnt, rank, df,
-                   wts), n, v, fh, fw, c, *img_hw, _scale(fw, img_hw[1]),
-            _scale(fh, img_hw[0]), _stream(dev))
+                   wts), n, v, n_views or v, fh, fw, c, *img_hw,
+            _scale(fw, img_hw[1]), _scale(fh, img_hw[0]), _stream(dev))
     if err != 0:
         raise RuntimeError(f"streaming_sample_mean_var backward pass 1a "
                            f"launch failed: cudaError {err}")
@@ -773,12 +956,13 @@ def window_rank(keys, n_windows: int):
 
 @torch.no_grad()
 def backward_keys_plain(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
-                        cnt):
+                        cnt, n_views=None):
     """Plain twin of ``_backward_keys``: each (point n, view v) pair's
     key (V, N) int32, v FH FW + its feature window's start texel, or V FH
     FW where its four tap weights are 0; and on float32 maps the points'
-    cotangents (N, 3, C), rows (d s1u + d s1m, d s1u, d s2u), None on
-    bfloat16 maps."""
+    cotangents (N, 3, C), rows (d s1u + d s1m, d s1u, d s2u), at the
+    statistics' view count ``n_views`` (V where None), None on bfloat16
+    maps."""
     v, fh, fw, c = featmaps.shape
     xyz = pts.reshape(-1, 3)
     keys = []
@@ -793,20 +977,22 @@ def backward_keys_plain(pts, proj, img_hw, featmaps, g, globalfeat, s1u,
     keys = torch.stack(keys).to(torch.int32)
     if featmaps.dtype == torch.bfloat16:
         return keys, None
-    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    d_s1u, d_s2u, d_s1m = _point_cotangents(g, globalfeat, s1u, cnt,
+                                            n_views or v)
     return keys, torch.stack([d_s1u + d_s1m, d_s1u, d_s2u], 1)
 
 
 @torch.no_grad()
 def pair_df_plain(pts, proj, img_hw, featmaps, g, globalfeat, s1u, cnt,
-                  rank):
+                  rank, n_views=None):
     """Plain twin of ``_pair_df``: (df (V N, C), wts (V N, 4)), bfloat16,
     each kept pair's df and tap weights (``_view_pairs_bf16``) at its
-    slot ``rank[v N + n]``, zeros past the kept pairs."""
+    slot ``rank[v N + n]``, zeros past the kept pairs; the statistics at
+    ``n_views`` (V where None)."""
     v, fh, fw, c = featmaps.shape
     xyz = pts.reshape(-1, 3)
     n = xyz.shape[0]
-    cot = _point_cotangents(g, globalfeat, s1u, cnt, v)
+    cot = _point_cotangents(g, globalfeat, s1u, cnt, n_views or v)
     df = torch.zeros((v * n, c), dtype=torch.float32, device=pts.device)
     wts = torch.zeros((v * n, 4), dtype=torch.float32, device=pts.device)
     for i in range(v):
@@ -851,7 +1037,7 @@ def _backward_lib():
     keys = lib.streaming_sample_mean_var_backward_keys
     if keys.argtypes is None:  # pointers must not pass as 32-bit ints
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        keys.argtypes = [p] * 8 + [i] * 7 + [f] * 2 + [p]
+        keys.argtypes = [p] * 8 + [i] * 8 + [f] * 2 + [p]
         keys.restype = ctypes.c_int
         lib.streaming_sample_mean_var_backward_tile.argtypes = []
         lib.streaming_sample_mean_var_backward_tile.restype = ctypes.c_int
@@ -863,7 +1049,7 @@ def _backward_lib():
         windows.argtypes = [p] * 7 + [i] * 7 + [f] * 2 + [p]
         windows.restype = ctypes.c_int
         pairs = lib.streaming_sample_mean_var_backward_pairs
-        pairs.argtypes = [p] * 10 + [i] * 7 + [f] * 2 + [p]
+        pairs.argtypes = [p] * 10 + [i] * 8 + [f] * 2 + [p]
         pairs.restype = ctypes.c_int
         windows_bf16 = lib.streaming_sample_mean_var_backward_windows_bf16
         windows_bf16.argtypes = [p] * 4 + [i] * 3 + [p]
@@ -898,7 +1084,8 @@ def render_rays_chunk(ray_o, ray_d, mlp_fn: Callable, *,
                       near_far: Tuple[float, float], n_samples: int,
                       images, proj, img_hw, featmaps, det: bool = True,
                       generator: Optional[torch.Generator] = None,
-                      z_vals=None, precomputed_rgb=None) -> Dict:
+                      z_vals=None, precomputed_rgb=None, view_group=None,
+                      n_ray_shards: int = 1) -> Dict:
     """Render one chunk of rays in image mode.
 
     ``mlp_fn(pts, viewdirs, features) -> (rgb, sigma)`` is the radiance
@@ -906,7 +1093,14 @@ def render_rays_chunk(ray_o, ray_d, mlp_fn: Callable, *,
     stratified depths), else ``sample_along_camera_ray`` (evenly spaced
     if ``det``, else jittered from ``generator``); the view statistics
     (K2, in its training form with ``precomputed_rgb``) as the field's
-    features, then compositing (``raw2outputs``)."""
+    features, then compositing (``raw2outputs``).
+
+    ``view_group``: the images, maps and projections are this rank's
+    views of the scene, and the statistics are summed over the group
+    (``streaming_sample_mean_var``). With ``n_ray_shards`` > 1 the rank
+    then keeps its contiguous R / n slice of the rays (the rank's place
+    in the group), and the outputs are that slice's. The samples are
+    drawn for every ray first, so nothing depends on the shard count."""
     if z_vals is not None:
         pts = points_at(ray_o, ray_d, z_vals)
     else:
@@ -914,7 +1108,19 @@ def render_rays_chunk(ray_o, ray_d, mlp_fn: Callable, *,
             ray_o, ray_d, near_far[0], near_far[1], n_samples, det=det,
             generator=generator)
     globalfeat, pixel_mask = streaming_sample_mean_var(
-        pts, images, proj, img_hw, featmaps, precomputed_rgb)
+        pts, images, proj, img_hw, featmaps, precomputed_rgb, view_group)
+    if n_ray_shards > 1:
+        if view_group is None:
+            raise ValueError("sharding the rays needs the views group")
+        r = ray_d.shape[0]
+        if r % n_ray_shards:
+            raise ValueError(f"{r} rays do not split over {n_ray_shards} "
+                             f"shards")
+        part = r // n_ray_shards
+        lo = pdist.rank(view_group) * part
+        pts, z_vals, globalfeat, pixel_mask, ray_d = (
+            t[lo:lo + part] for t in (pts, z_vals, globalfeat, pixel_mask,
+                                      ray_d))
     rgb_pts, density_pts = mlp_fn(pts, ray_d, globalfeat)
     return raw2outputs(torch.cat([rgb_pts, density_pts], dim=-1), z_vals,
                        pixel_mask)

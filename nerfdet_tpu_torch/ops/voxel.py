@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import dist as pdist
 from . import cuda_build
 from .bf16 import scatter_add_bf16
 from .resize import resize_axes
@@ -818,7 +819,8 @@ def fused_mean_cov(features, points, projection,
                    extra_image_hw: Optional[Tuple[int, int]] = None,
                    mapped_kernel=None,
                    mapped_bias=None,
-                   precomputed_extra=None):
+                   precomputed_extra=None,
+                   view_group=None):
     """Streaming multi-view fusion: mean, exp(-var), valid count.
 
     mean  = sum_v x_v / (count + 1e-8), 0 where count == 0
@@ -845,6 +847,16 @@ def fused_mean_cov(features, points, projection,
             ``extra_features`` or arrives as host sums
             ``precomputed_extra = (s1e, s2e)``
             (``data/rgb_stats.host_rgb_stats``).
+        view_group: the process group over which the scene's views are
+            sharded (JAX's ``axis_name``): ``features``, ``projection``
+            and the rgb stream's images and depth hold this rank's views,
+            as many on every rank. After K1 the sums s1, s2, count, s2m
+            and the device rgb stream's s1e, s2e are summed over the group
+            (``parallel/dist.all_reduce_sum``, whose backward sums the
+            cotangents), and the statistics take the scene's view count;
+            the host rgb sums hold every view already. K1's backward keeps
+            this rank's count: its unseen-view term of db is this rank's
+            share, which the gradients' sum over the ranks completes.
 
     Returns (mean, cov, count), or (mean, cov, count, g_mean, g_cov)
     with the mapped stream, g_* channels ordered [rgb, mapped]. The
@@ -887,6 +899,17 @@ def fused_mean_cov(features, points, projection,
         b_map = mapped_bias.float().contiguous()
     s1, s2, count, s2m = fusion_carry(features.contiguous(), pix,
                                       w_map, b_map)
+    if view_group is not None:
+        device_rgb = list(rgb) if extra_features is not None else []
+        summed = pdist.all_reduce_sum(
+            s1, s2, count, *([s2m] if w_map is not None else []),
+            *device_rgb, group=view_group)
+        s1, s2, count = summed[0], summed[1], summed[2].detach()
+        if w_map is not None:
+            s2m = summed[3]
+        if device_rgb:
+            rgb = tuple(summed[-2:])
+        v = v * pdist.world(view_group)
     mean, cov = _stats(s1, s2, count, v)
     if mapped_kernel is None:
         return mean, cov, count

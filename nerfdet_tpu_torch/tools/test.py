@@ -20,8 +20,12 @@ The depth maps are read where ``input_modality.use_depth`` asks (the
 depth_sp configs), as in the JAX tool. ``--distributed`` (the train
 CLI's process group and flags) shards ``mAP`` over the ranks, rank 0
 scoring every rank's detections; ``nvs`` runs on rank 0 alone, and rank
-0 alone prints. ``--mesh-views`` > 1 is not ported yet (ROADMAP §1 item
-1.4).
+0 alone prints. ``--mesh-views N`` (with ``--distributed``) lays the
+ranks out as the 2-D data x views grid (``parallel/train2d.py``): each
+scene's views are sharded over a views group of N ranks (its first rank
+loads the scene and sends it to the others), and the scenes over the
+world / N data groups; the JAX tool shards the views alone. N must
+divide the world and the test scenes' views.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..config import Config
 from ..data.dataset import build_dataset, rgb_stats_spec_from_config
 from ..device import resolve_device
 from ..parallel import dist as pdist
+from ..parallel.train2d import check_mesh_views, pipeline_views
 from ..utils.logging import get_root_logger
 
 PRINTED = ("mAP", "mAR", "psnr", "ssim", "rmse")
@@ -54,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--mesh-views", type=int, default=1,
-                   help="not ported yet beyond 1")
+                   help="ranks a scene's views are sharded over (with "
+                        "--distributed)")
     p.add_argument("--distributed", action="store_true",
                    help="shard mAP over processes, one a card (torchrun, "
                         "or the three flags below)")
@@ -68,10 +74,6 @@ def parse_args(argv=None):
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
-    if args.mesh_views > 1:
-        raise NotImplementedError(
-            "the views-sharded eval (--mesh-views) is not ported yet: "
-            "ROADMAP §1 item 1.4")
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_options(args.options)
@@ -80,17 +82,22 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             f"evaluating {cfg.model['type']} from the CLI is not ported "
             f"yet: ROADMAP §1 item 3")
     if not args.distributed:
+        check_mesh_views(args.mesh_views, None, {})
         return evaluate(args, cfg, resolve_device(args.device), None)
     with pdist.process_group(args.device, args.coordinator,
                              args.num_processes, args.process_id) as (
                                  device, group):
+        check_mesh_views(args.mesh_views, pdist.world(group),
+                         {"test": pipeline_views(cfg.data["test"])})
         return evaluate(args, cfg, device, group)
 
 
 def evaluate(args, cfg, device, group) -> Dict:
     """The run of ``main`` on ``device``, ``mAP`` sharded over ``group``
-    where one is given; the metrics on rank 0, {} on the others."""
+    where one is given (on the 2-D grid with ``--mesh-views``); the
+    metrics on rank 0, {} on the others."""
     rank = pdist.rank(group)
+    views, data = pdist.mesh_groups(args.mesh_views, group)
     logger = get_root_logger(
         log_level=logging.INFO if rank == 0 else logging.WARNING)
 
@@ -106,7 +113,8 @@ def evaluate(args, cfg, device, group) -> Dict:
     metrics = {}
     if "mAP" in args.eval:
         metrics.update(api.run_eval(model, dataset, dict(cfg.test_cfg),
-                                    logger=logger, process_group=group))
+                                    logger=logger, process_group=group,
+                                    view_group=views, data_group=data))
     if rank != 0:
         return metrics
     if "nvs" in args.eval:

@@ -39,9 +39,17 @@ threads; the step is the JAX step on the global batch
 trace, and the others wait for each checkpoint; validation is sharded
 over the ranks (``api.run_eval``).
 
-Not ported, refused with the ROADMAP item that brings them: the 2-D data
-x views sharding (``--mesh-views``), and the point-cloud and ImVoxelNet
-models.
+``--mesh-views N`` (with ``--distributed``) lays the ranks out as the
+2-D data x views grid of the JAX tool (``parallel/train2d.py``): N ranks
+share each scene, each holding its slice of the scene's views and
+rendering its slice of the rays; ``--batch-size`` defaults to world / N
+scenes, split over the world / N data groups. The first rank of each
+views group loads the group's scenes and sends them to the others. N
+must divide the world, the train scenes' views and ``N_rand``.
+Validation is sharded over the scenes, as without it.
+
+Not ported, refused with the ROADMAP item that brings them: the
+point-cloud and ImVoxelNet models.
 
 ``main(argv)`` returns what the run did (work dir, checkpoints, every
 step's metrics with its seconds waiting on the loader and in the step,
@@ -66,6 +74,8 @@ from ..data.dataset import (build_dataset, ray_stats_spec_from_config,
 from ..data.loader import BatchLoader
 from ..device import resolve_device
 from ..parallel import dist as pdist
+from ..parallel.train2d import (check_mesh_views, pipeline_views,
+                                shared_batches)
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger, collect_env, get_root_logger
 
@@ -104,7 +114,8 @@ def parse_args(argv=None):
                    help="bfloat16 compute (parameters and optimizer stay "
                         "float32)")
     p.add_argument("--mesh-views", type=int, default=1,
-                   help="not ported yet beyond 1")
+                   help="ranks a scene on the 2-D data x views grid "
+                        "(with --distributed)")
     p.add_argument("--options", nargs="+", default=[],
                    help="config overrides key=value")
     return p.parse_args(argv)
@@ -112,10 +123,6 @@ def parse_args(argv=None):
 
 def refuse_unported(args, cfg) -> None:
     """Raise for what the port cannot train yet, naming its ROADMAP item."""
-    if args.mesh_views > 1:
-        raise NotImplementedError(
-            "the 2-D data x views sharding (--mesh-views) is not ported "
-            "yet: ROADMAP §1 item 1.4")
     if cfg.model["type"] != "nerfdet":
         raise NotImplementedError(
             f"training {cfg.model['type']} (the point-cloud and ImVoxelNet "
@@ -136,17 +143,23 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         cfg.merge_from_options(args.options)
     refuse_unported(args, cfg)
     if not args.distributed:
+        check_mesh_views(args.mesh_views, None, {})
         return train(args, cfg, resolve_device(args.device), None)
     with pdist.process_group(args.device, args.coordinator,
                              args.num_processes, args.process_id) as (
                                  device, group):
+        check_mesh_views(
+            args.mesh_views, pdist.world(group),
+            {"train": pipeline_views(cfg.data["train"])},
+            cfg.model.get("N_rand", 2048))
         return train(args, cfg, device, group)
 
 
 def train(args, cfg, device, group) -> Dict:
     """The run of ``main`` on ``device``, data parallel over ``group``
-    where one is given."""
+    where one is given (on the 2-D grid with ``--mesh-views``)."""
     rank, world = pdist.rank(group), pdist.world(group)
+    n_data = world // args.mesh_views  # scenes a global batch split over
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     if rank == 0:
@@ -172,20 +185,22 @@ def train(args, cfg, device, group) -> Dict:
                             n_rand=cfg.model.get("N_rand", 2048),
                             rgb_stats_spec=stats_spec,
                             ray_stats_spec=ray_spec)
-    batch_size = args.batch_size or world
-    if batch_size % world:
+    batch_size = args.batch_size or n_data
+    if batch_size % n_data:
         raise ValueError(f"--batch-size {batch_size} does not split over "
-                         f"{world} processes")
+                         f"{n_data} data groups of {args.mesh_views} "
+                         f"process(es)")
     loader = BatchLoader(
-        dataset, batch_size=batch_size // world, shuffle=True,
+        dataset, batch_size=batch_size // n_data, shuffle=True,
         num_workers=cfg.data.get("workers_per_gpu", 1), seed=args.seed,
-        rank=rank, world=world)
+        rank=rank // args.mesh_views, world=n_data)
     steps_per_epoch = len(loader)
     total_epochs = args.total_epochs or cfg.get("total_epochs", 12)
     cfg.merge_from_options({"total_epochs": total_epochs})
     logger.info(
         f"{len(dataset)} samples, batch {batch_size} over {world} "
-        f"process(es), {loader.num_workers} loader threads a process, "
+        f"process(es) ({n_data} data x {args.mesh_views} views), "
+        f"{loader.num_workers} loader threads a process, "
         f"{steps_per_epoch} steps/epoch, {total_epochs} epochs, device "
         f"{device}, {'bfloat16' if use_bf16 else 'float32'} compute")
 
@@ -195,7 +210,7 @@ def train(args, cfg, device, group) -> Dict:
         cfg, checkpoint=load_from, device=device, seed=args.seed,
         steps_per_epoch=steps_per_epoch,
         compute_dtype=torch.bfloat16 if use_bf16 else torch.float32,
-        process_group=group)
+        process_group=group, mesh_views=args.mesh_views)
     if load_from:
         logger.info(f"loaded weights from {load_from}")
     start_epoch = 0
@@ -224,14 +239,15 @@ def train(args, cfg, device, group) -> Dict:
     prof, done = None, False
     for epoch in range(start_epoch, total_epochs):
         t_ask = time.perf_counter()
-        for it, scenes in enumerate(loader):
+        for it, scenes in enumerate(shared_batches(loader, tr.view_group)):
             t_got = time.perf_counter()
             gstep_pre = tr.optimizer.count
             if (args.profile_steps and gstep_pre == PROFILE_START
                     and rank == 0):
                 prof = _profiler(device)
                 prof.__enter__()
-            metrics = tr.step(api.train_batch(tr.model, scenes))
+            metrics = tr.step(api.train_batch(tr.model, scenes,
+                                              view_group=tr.view_group))
             gstep = epoch * steps_per_epoch + it
             values = {k: float(v) for k, v in metrics.items()}
             if prof is not None and (gstep_pre == PROFILE_START

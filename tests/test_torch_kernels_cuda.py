@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from nerfdet_tpu_torch.device import resolve_device
 from nerfdet_tpu_torch.ops import pointnet, render, voxel
 
 pytestmark = pytest.mark.cuda
@@ -18,9 +19,11 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def dev():
+    """The card as the port takes it: ``resolve_device`` turns TF32 off,
+    so cuDNN convs and matmuls on both sides of a comparison are float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
+    return resolve_device("cuda")
 
 
 def _cameras(rng, v):
@@ -869,6 +872,54 @@ def test_streaming_sample_mean_var_training_form_matches_plain(dev, v, r, s,
         pts, images, feats, proj, (239, 320))[3])
 
 
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("v,r,s,c", [
+    (50, 2048, 64, 32),  # a render chunk's and a train step's shape
+    (7, 37, 5, 3), (7, 37, 5, 8), (4, 33, 3, 16), (25, 64, 16, 32),
+    (1, 1, 1, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["eval", "training"])
+def test_streaming_sample_sums_bitwise(dev, form, dtype, v, r, s, c, offset):
+    """K2's sums form (the views-sharded path: the rank's raw sums, no
+    epilogue) bit for bit against its plain version in every lane mapping
+    (the shape and the maps' alignment pick it): s1u, s2u, s1m over 3 + C
+    channels and the count in the eval form, over the C feature channels
+    alone in the training form (no count). One counted launch; the
+    unsharded forms' epilogue on the same sums gives their globalfeat."""
+    pts, images, feats, proj = _ray_inputs(dev, v, r, s, c, seed=v + c)
+    images = images.to(dtype)
+    feats = _offset(feats.to(dtype), offset)
+    host = form == "training"
+    args = (pts, images, proj, (239, 320), feats, host)
+    before = render.streaming_sample_sums.launches
+    got = render.streaming_sample_sums(*args)
+    want = render.streaming_sample_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert render.streaming_sample_sums.launches == before + 1
+    cs = c if host else 3 + c
+    for a, b in zip(got[:3], want[:3]):
+        assert a.shape == (r, s, cs) and torch.equal(a, b)
+    if host:
+        assert got[3] is None and want[3] is None
+    else:
+        assert torch.equal(got[3], want[3])
+        gf, mask = render.sample_stats(*got, v)
+        full = render.streaming_sample_mean_var_plain(
+            pts, images, proj, (239, 320), feats)
+        assert torch.equal(gf, full[0]) and torch.equal(mask, full[1])
+
+
+def test_streaming_sample_sums_rejects_what_it_cannot_take(dev):
+    pts, images, feats, proj = _ray_inputs(dev, 2, 16, 4, 32)
+    sums = render.streaming_sample_sums
+    with pytest.raises(TypeError, match="float32"):
+        sums(pts.double(), images, proj, (239, 320), feats)
+    with pytest.raises(ValueError, match="feature channels"):
+        sums(pts, images, proj, (239, 320), torch.cat([feats, feats], -1))
+    with pytest.raises(ValueError, match="needs the images"):
+        sums(pts, None, proj, (239, 320), feats)
+
+
 def _backward_inputs(dev, case, v, r, s, c, seed, dtype=torch.float32):
     """K2's backward inputs: the forward's globalfeat, s1u and count at
     ``_ray_inputs`` points and a random cotangent. "border": every point
@@ -1016,6 +1067,50 @@ def test_streaming_sample_mean_var_backward_matches_plain(dev, case, v, r,
     again = render.streaming_sample_mean_var_backward(
         pts, proj, (239, 320), feats, g, gf, s1u, cnt)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,v,r,s,c,n_views", [
+    ("scene", 25, 2048, 64, 32, 50),  # half the train path's views
+    ("scene", 5, 300, 16, 8, 15), ("border", 6, 50, 13, 30, 12),
+    ("interior", 3, 300, 16, 32, 7), ("behind", 2, 64, 16, 32, 4)])
+def test_streaming_sample_mean_var_backward_at_a_global_view_count(
+        dev, dtype, case, v, r, s, c, n_views):
+    """K2's backward on a rank's share of a scene's views: its loop runs
+    over the V maps given, the statistics' cotangents take the scene's
+    ``n_views`` != V. Against the plain version at the same ``n_views``:
+    float32 within 1e-5 x max (the test above), bfloat16 bit for bit, with
+    pass 0's cotangent rows and pass 1a's df their twins' bit for bit; and
+    unlike the backward at V."""
+    pts, proj, feats, g, gf, s1u, cnt = _backward_inputs(
+        dev, case, v, r, s, c, seed=v + r + c, dtype=dtype)
+    args = (pts, proj, (239, 320), feats, g, gf, s1u, cnt)
+    got = render.streaming_sample_mean_var_backward(*args, n_views=n_views)
+    want = render.streaming_sample_mean_var_backward_plain(
+        *args, n_views=n_views)
+    at_v = render.streaming_sample_mean_var_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == feats.shape and got.dtype == dtype
+    if case == "behind":
+        assert float(got.float().abs().max()) == 0.0
+        return
+    assert not torch.equal(want, at_v)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+        keys, _ = render._backward_keys(*args, n_views)
+        rank, _ = render.window_rank(keys, v * feats.shape[1]
+                                     * feats.shape[2])
+        want_rank, off = render.window_rank_plain(keys, v * feats.shape[1]
+                                                  * feats.shape[2])
+        kept = int(off[-1])
+        df, wts = render._pair_df(*args, rank, n_views)
+        want_df, _ = render.pair_df_plain(*args, want_rank, n_views)
+        assert torch.equal(df[:kept], want_df[:kept])
+    else:
+        assert _rel(got, want) <= 1e-5
+        _, coef = render._backward_keys(*args, n_views)
+        _, want_coef = render.backward_keys_plain(*args, n_views)
+        assert torch.equal(coef, want_coef)
 
 
 @pytest.mark.parametrize("form", ["training", "eval"])

@@ -20,11 +20,13 @@ against the JAX package's, and the train / test CLIs on the CPU.
   end in subprocesses with ``--device cpu`` on the smoke config:
   ``ckpt_1.pth`` written and loadable by ``init_detector``, the metrics
   JSON printed. Without ``--device cpu`` and without a card both CLIs
-  raise.
+  raise. ``--mesh-views`` raises without ``--distributed``, and where it
+  does not divide the world, a scene's views or N_rand.
 """
 
 import json
 import os
+import socket
 import subprocess
 import sys
 
@@ -51,6 +53,7 @@ from nerfdet_tpu_torch.data.dataset import (ScanNetMultiViewDataset,
 from nerfdet_tpu_torch.data.pipeline import MultiViewPipeline
 from nerfdet_tpu_torch.data.synthetic import write_synthetic_scannet
 from nerfdet_tpu_torch.models.nerfdet import NerfDet, SceneMeta
+from nerfdet_tpu_torch.parallel import train2d
 from nerfdet_tpu_torch.tools import test as test_cli
 from nerfdet_tpu_torch.tools import train as train_cli
 from nerfdet_tpu_torch.utils.checkpoint import (latest_checkpoint,
@@ -335,11 +338,33 @@ def test_clis_need_cuda_unless_cpu(tmp_path):
         train_cli.main([SMOKE, "--work-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         test_cli.main([SMOKE, str(tmp_path / "ckpt_1.pth")])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1.4"):
+    # --mesh-views shards over a process group: without one it raises
+    with pytest.raises(ValueError, match="needs --distributed"):
         train_cli.main([SMOKE, "--mesh-views", "2", "--device", "cpu"])
     with pytest.raises(RuntimeError, match="torchrun"):  # no group to join
         train_cli.main([SMOKE, "--distributed", "--device", "cpu"])
     with pytest.raises(RuntimeError, match="CUDA"):  # bfloat16 too
         train_cli.main([SMOKE, "--bf16", "--work-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1.4"):
+    with pytest.raises(ValueError, match="needs --distributed"):
         test_cli.main([SMOKE, "x.pth", "--mesh-views", "2"])
+    # and where N does not divide the world (a group of one, joined here),
+    # a scene's views (the smoke test pipeline's 4 draws, one a target)
+    # or N_rand (128)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    group = ["--distributed", "--coordinator", f"localhost:{port}",
+             "--num-processes", "1", "--process-id", "0", "--device", "cpu"]
+    with pytest.raises(ValueError, match="world of 1 processes"):
+        train_cli.main([SMOKE, "--mesh-views", "2"] + group)
+    with pytest.raises(ValueError, match="world of 1 processes"):
+        test_cli.main([SMOKE, "x.pth", "--mesh-views", "2"] + group)
+    cfg = Config.fromfile(SMOKE)
+    views = {split: train2d.pipeline_views(cfg.data[split])
+             for split in ("train", "test")}
+    assert views == {"train": 4, "test": 3}
+    with pytest.raises(ValueError, match="the 3 views a test scene"):
+        train2d.check_mesh_views(2, 2, {"test": views["test"]}, 128)
+    with pytest.raises(ValueError, match="N_rand 128"):
+        train2d.check_mesh_views(3, 3, {"test": views["test"]}, 128)
+    train2d.check_mesh_views(2, 4, {"train": views["train"]}, 128)
