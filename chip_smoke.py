@@ -350,17 +350,18 @@ def bound_text(bound):
     return text + ")"
 
 
-def check_fusion(voxel, cases, hw, gen):
+def check_fusion(voxel, cases, hw, gen, m=32):
     """K1 vs its plain version at the main path's shape: count, s1 and
     s2 bitwise equal, s2m within 1e-5 relative. ``cases``: (name, pix,
-    dtype, mapped). Each line gives K1's time, its phases' (the uncounted
-    launches ``_mapped_rows_launch`` and ``_carry_launch``), the plain
-    version's and the bound; the f32 mapped forms also time
+    dtype, mapped); ``m`` the mapped stream's width (32, or 16 where
+    ``squeeze_scale`` is 8). Each line gives K1's time, its phases' (the
+    uncounted launches ``_mapped_rows_launch`` and ``_carry_launch``),
+    the plain version's and the bound; the f32 mapped forms also time
     ``torch.addmm`` on the same maps, phase A's one-call yardstick."""
     import torch
 
     dev = cases[0][1].device
-    v, (fh, fw), c, m = cases[0][1].shape[0], hw, 256, 32
+    v, (fh, fw), c = cases[0][1].shape[0], hw, 256
     feats32 = torch.randn((v, fh, fw, c), generator=gen, device=dev)
     w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
     b = torch.randn((m,), generator=gen, device=dev)
@@ -464,9 +465,11 @@ def bf16_ulps(got, want):
             float((got != want).float().mean()))
 
 
-def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None):
+def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None,
+                          with_g2=False):
     """K1's backward kernel vs ``fusion_carry_backward_plain`` at the main
-    path's form (C = 256, M = 32, cotangents of s1 and s2m, none of s2):
+    path's form (C = 256, M = 32, cotangents of s1 and s2m, none of s2;
+    ``with_g2`` adds one of s2, the form a ``cov`` volume trains, kG2):
     two runs bitwise equal; on float32 maps d features within 1e-5 x max,
     on bfloat16 maps (``dtype``) within 2 bfloat16 ulps of the largest
     at under 1% of the elements (each pair's product with W^T sums its M
@@ -487,9 +490,10 @@ def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None):
     b = torch.randn((m,), generator=gen, device=dev)
     g1 = torch.randn((n, c), generator=gen, device=dev)
     gm = torch.randn((n, m), generator=gen, device=dev)
+    g2 = torch.randn((n, c), generator=gen, device=dev) if with_g2 else None
     count = (pix >= 0).float().sum(0)
     rows_p = voxel.mapped_rows_plain(feats, w, b)
-    args = (feats, pix, count, g1, None, gm, w, b, rows_p)
+    args = (feats, pix, count, g1, g2, gm, w, b, rows_p)
     got = voxel.fusion_carry_backward(*args)
     again = voxel.fusion_carry_backward(*args)
     want = voxel.fusion_carry_backward_plain(*args)
@@ -505,12 +509,12 @@ def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None):
     ms = cuda_time_ms(lambda: voxel.fusion_carry_backward(*args), 20)
     n_pix = hw[0] * hw[1]
     order, off, rows, n_rows = voxel.pixel_order(pix, n_pix)
-    _, dy = voxel._pixel_sums(feats, order, off, g1, None, gm, rows_p, w)
+    _, dy = voxel._pixel_sums(feats, order, off, g1, g2, gm, rows_p, w)
     parts = voxel._weight_parts(feats, dy, rows, n_rows, gm, count)
     passes = {
         "index_ms": cuda_time_ms(lambda: voxel.pixel_order(pix, n_pix), 20),
         "pass1_ms": cuda_time_ms(lambda: voxel._pixel_sums(
-            feats, order, off, g1, None, gm, rows_p, w), 20),
+            feats, order, off, g1, g2, gm, rows_p, w), 20),
         "pass2_ms": cuda_time_ms(lambda: voxel._weight_parts(
             feats, dy, rows, n_rows, gm, count), 20),
         "pass3_ms": cuda_time_ms(lambda: voxel._weight_reduce(*parts, b),
@@ -527,11 +531,11 @@ def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None):
     library_ms = cuda_time_ms(
         lambda: (torch.mm(dy_r, wt), torch.mm(x_r.t(), dy_r)), 20)
     bound_ms, bound_by, nbytes, ops, n_ref = fusion_backward_bound(
-        pix, n_pix, c, m, False, feats.element_size())
+        pix, n_pix, c, m, with_g2, feats.element_size())
     tol = (f"{ulps:.2f} bfloat16 ulps at {share:.4f} of the elements, tol 2 "
            f"at under 0.01" if bf16 else "tol 1e-5")
-    log(f"[kernel] fused_mean_cov_backward {str(dtype)[6:]} mapped, no s2 "
-        f"cotangent, "
+    form = "with the s2 cotangent (kG2)" if with_g2 else "no s2 cotangent"
+    log(f"[kernel] fused_mean_cov_backward {str(dtype)[6:]} mapped, {form}, "
         f"{label}: V={v} map={hw[0]}x{hw[1]} C={c} N={n} M={m}; {n_ref} "
         f"referenced rows: two runs bitwise equal; max_abs_err d features "
         f"{errs[0]:.3e} (rel {rels[0]:.3e}, {tol}), dW {errs[1]:.3e} "
@@ -950,17 +954,21 @@ def k2_backward_bound(pts, feats, kept):
             "operations", nbytes, ops)
 
 
-def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
-    """K2's training form (host rgb sums) against its plain version at the
-    training path's shape (pixel_mask and globalfeat bit for bit), then
-    K2's backward against
+def check_k2_training(render, pts, proj, img_hw, feats, host, gen,
+                      images=None):
+    """K2's training form (host rgb sums; with ``host`` None and
+    ``images`` its eval form, under grad as the fast_cov family trains)
+    against its plain version at the training path's shape (pixel_mask
+    and globalfeat bit for bit), then K2's backward against
     ``streaming_sample_mean_var_backward_plain`` on a random cotangent
     (within 1e-5 x max, two runs bitwise equal), with times, bounds and
     ``index_add_`` of the weighted tap rows into the flat feature map as
     the backward's yardstick (it does the scatter alone)."""
     import torch
 
-    args = (pts, None, proj, img_hw, feats, host)
+    args = (pts, images, proj, img_hw, feats, host)
+    form = "training form (host rgb)" if host is not None else (
+        "eval form under grad (the device rgb stream)")
     got = render.streaming_sample_mean_var(*args)
     want = render.streaming_sample_mean_var_plain(*args)
     torch.cuda.synchronize()
@@ -968,14 +976,16 @@ def check_k2_training(render, pts, proj, img_hw, feats, host, gen):
     fwd_rel = fwd_err / max(float(want[0].abs().max()), 1e-30)
     bf16 = feats.dtype == torch.bfloat16
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise SystemExit(f"K2's training form is not bitwise equal to its "
-                         f"plain version (rel {fwd_rel:.3e})")
+        raise SystemExit(f"K2's {form} is not bitwise equal to its plain "
+                         f"version (rel {fwd_rel:.3e})")
     ms = cuda_time_ms(lambda: render.streaming_sample_mean_var(*args), 10)
     plain_ms = cuda_time_ms(
         lambda: render.streaming_sample_mean_var_plain(*args), 2, warmup=1)
-    bound_ms, bound_by, nbytes, ops = k2_train_bound(pts, feats, 10)
+    bound_ms, bound_by, nbytes, ops = (
+        k2_train_bound(pts, feats, 10) if host is not None
+        else ray_bound(pts, images, feats))
     n_pts = got[1].numel()
-    log(f"[kernel] streaming_sample_mean_var training form (host rgb): "
+    log(f"[kernel] streaming_sample_mean_var {form}: "
         f"V={feats.shape[0]} N={n_pts} C={feats.shape[-1]} "
         f"{str(feats.dtype)[6:]}: pixel_mask "
         f"equal (share {float(got[1].float().mean()):.4f}); globalfeat "
@@ -3854,6 +3864,637 @@ def bench_path(card):
     return out
 
 
+# phase 16: the fast_cov family (NeRF-Det configs typed ImVoxelNet)
+FC = "configs/imvoxelnet/imvoxelnet_scannet_fast_cov_w_mean_volume"
+FC_EXEMPLAR = FC + "_renderrgb_image_mode_1028_rgb_depthtest.py"
+FC_SQUEEZE8 = FC + "_renderrgb_image.py"
+FC_NO_DEPTH = FC + "_renderrgb_image_mode_114_resnet50_onlyrgb.py"
+FC_SWIN = (FC + "_renderrgb_image_mode_1028_rgb_depthtest_swin_2xlonger_"
+           "largervoxel.py")
+FC_LARGEST = FC + "_1.py"
+FC_VOLUME = FC + "_renderrgb_volume_mode.py"
+FC_VIEWS = 51  # the family's test views
+FC_NVS_CHUNK = 2048
+FC_CLI_STEPS = 2
+FC_CLI_VIEWS = 60  # views of each written scene (train: 30 + 10 targets)
+FC_NAMES = ("fused_mean_cov", "fused_mean_cov_backward", "fused_mean_cov_rgb",
+            "streaming_sample_mean_var", "streaming_sample_mean_var_backward")
+
+
+def family_config(path, options=None):
+    """A family config, with ``options`` merged (the config's own keys
+    otherwise)."""
+    from nerfdet_tpu_torch.config import Config
+
+    cfg = Config.fromfile(path)
+    if options:
+        cfg.merge_from_options(options)
+    return cfg
+
+
+def family_views(cfg, which):
+    """The MultiViewPipeline's ``n_images`` of the config's ``which``
+    split."""
+    node = cfg.data[which]
+    while "dataset" in node:
+        node = node["dataset"]
+    return [t for t in node["pipeline"]
+            if t["type"] == "MultiViewPipeline"][0]["n_images"]
+
+
+def first_views(scene, n, depth=True):
+    """The scene's first ``n`` source views (the same target rays), with
+    or without its depth maps."""
+    out = dict(scene, **{k: scene[k][:n] for k in (
+        "imgs", "denorm_images", "extrinsics", "depth") if k in scene})
+    if not depth:
+        out.pop("depth", None)
+    return out
+
+
+def family_pix(voxel, model, scene, dev, gated):
+    """K1's and the rgb stream's pixel indices as ``build_volume``
+    computes them for ``scene``: the features' at the stride-4 maps, the
+    rgb stream's at the images, gated by the scene's depth where
+    ``gated``."""
+    import torch
+
+    meta = model.meta
+    h, w = meta.img_shape
+    points = voxel.get_points(model.n_voxels, model.voxel_size,
+                              scene["origin"], dev).reshape(-1, 3)
+    out = {}
+    for name, ratio, (bh, bw), width in (
+            ("features", meta.ori_shape[0] / (h / 4), (h // 4, w // 4),
+             meta.pad_shape[1] // 4),
+            ("rgb", meta.ori_shape[0] / h, (h, w), meta.pad_shape[1])):
+        proj = voxel.compute_projection(scene["intrinsic"],
+                                        scene["extrinsics"], ratio, dev)
+        x, y, z, valid = voxel.project_points(points, proj, bh, bw)
+        if gated:
+            valid = voxel.depth_gate(
+                z, x, y, valid, torch.as_tensor(scene["depth"], device=dev),
+                bh, bw, model.voxel_size[-1])
+        out[name] = voxel.pixel_index(x, y, valid, width).contiguous()
+    return out
+
+
+def family_scene(model, seed, n_views):
+    """``depth_scene`` of the model's geometry, and its target view as an
+    ``nvs_dataset`` (the intrinsic taken back to the rendered size)."""
+    import numpy as np
+
+    scene = depth_scene(model, seed, n_views)
+    h, w = model.meta.img_shape
+    k_img = scene["intrinsic"].copy()
+    k_img[:2] /= np.float32(model.meta.ori_shape[0] / h)
+    return scene, nvs_dataset(scene, k_img, (h, w))
+
+
+def family_step_grads(voxel, render, model, batch, start, plain):
+    """Loss and gradients of one train-step forward + backward (no
+    update) of ``batch`` from the state ``start``, the depths jittered
+    from a generator seeded the same each call; with ``plain`` through
+    the plain versions of K1, the rgb stream and K2 (autograd through
+    them)."""
+    import torch
+
+    from nerfdet_tpu_torch.train.step import (reduce_loss_terms,
+                                              scene_loss_terms)
+
+    saved = voxel.fusion_carry, voxel.rgb_carry, \
+        render.streaming_sample_mean_var
+    if plain:
+        voxel.fusion_carry = voxel.fusion_carry_plain
+        voxel.rgb_carry = voxel.rgb_carry_plain
+        render.streaming_sample_mean_var = \
+            render.streaming_sample_mean_var_plain
+    fpn_out = []
+
+    def keep(module, args, out):
+        out[0].retain_grad()
+        fpn_out.append(out[0])
+
+    hook = model.neck.register_forward_hook(keep)
+    try:
+        model.load_state_dict(start)
+        model.zero_grad()
+        gen = torch.Generator(next(model.parameters()).device)
+        gen.manual_seed(SEED)
+        loss, metrics = reduce_loss_terms([scene_loss_terms(
+            model, b, depth_supervise=True, generator=gen) for b in batch])
+        loss.backward()
+    finally:
+        hook.remove()
+        voxel.fusion_carry, voxel.rgb_carry, \
+            render.streaming_sample_mean_var = saved
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return float(loss.detach()), metrics, grads, fpn_out[0].grad.clone()
+
+
+def fast_cov_path(api, voxel, render, card):
+    """Phase 16: the fast_cov family (``configs/imvoxelnet/*fast_cov*``,
+    NeRF-Det typed ImVoxelNet, its data path without host streams) at full
+    width, 480x640 scenes with depth maps, random weights from ``SEED``.
+    16.0 the kernels at the family's shapes against their plain versions;
+    16.1 the exemplar (R50, cov_w_mean, density, depth): eval_step at 51
+    views, the joint Trainer.step at 30 views, one step kernels vs plain;
+    16.2 squeeze 8 (M = 16); 16.3 no depth (the ungated rgb stream); 16.4
+    Swin-T; 16.5 the 64x64x12 volume; 16.6 volume mode (nerf_density
+    off); 16.7 tools/train then tools/test on files. Returns the record's
+    numbers."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.data import ray_stats
+    from nerfdet_tpu_torch.data.synthetic import write_synthetic_scannet
+    from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
+    from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.tools import train as train_cli
+
+    t_phase = time.perf_counter()
+    dev = api.resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                voxel.rgb_carry, render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return [fn.launches for fn in counters]
+
+    def named(launches):
+        return ", ".join(f"{n} {c}" for n, c in zip(FC_NAMES, launches))
+
+    def expect(launches, want, what):
+        if launches != want:
+            raise SystemExit(f"phase 16 {what} launched {named(launches)}; "
+                             f"expected {named(want)}")
+
+    def finite_candidates(res, what):
+        if not (torch.isfinite(res["boxes"]).all()
+                and torch.isfinite(res["scores"]).all()):
+            raise SystemExit(f"phase 16 {what}: non-finite candidates")
+
+    def finite_metrics(metrics, what, need=("loss_nvs",)):
+        m = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in m.values()) or not all(
+                m.get(k, 0.0) > 0 for k in need):
+            raise SystemExit(f"phase 16 {what}: metrics {m}")
+        return m
+
+    # ---- the exemplar and the family's scene ----
+    t0 = time.perf_counter()
+    cfg = family_config(FC_EXEMPLAR)
+    model = api.init_detector(cfg, device="cuda", seed=SEED)
+    meta = model.meta
+    h, w = meta.img_shape
+    scene, nvs = family_scene(model, SEED + 16, FC_VIEWS)
+    n_train = family_views(cfg, "train")
+    log(f"[fast_cov] {FC_EXEMPLAR}: type {cfg.model['type']} -> NeRF-Det, "
+        f"volume_type {model.volume_type}, nerf_density "
+        f"{model.nerf_density}, host streams {model.host_streams}, volume "
+        f"{model.n_voxels} at {model.voxel_size}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; scene "
+        f"{FC_VIEWS} views {meta.img_shape} padded {meta.pad_shape} with "
+        f"depth maps, train {n_train} of them: "
+        f"{time.perf_counter() - t0:.1f} s")
+    if model.host_streams or model.volume_type != "cov_w_mean" \
+            or not model.nerf_density:
+        raise SystemExit("the exemplar did not build as the family's graph")
+
+    # ---- 16.0 the kernels at the family's shapes ----
+    hw = (meta.pad_shape[0] // 4, meta.pad_shape[1] // 4)
+    gated = family_pix(voxel, model, scene, dev, True)
+    ungated = family_pix(voxel, model, scene, dev, False)
+    size = f"{FC_VIEWS} views of {meta.pad_shape[0]}x{meta.pad_shape[1]}"
+    k1 = check_fusion(voxel, [
+        (f"float32 mapped, {size}, depth-gated", gated["features"], f32,
+         True),
+        (f"bfloat16 mapped, {size}, depth-gated", gated["features"], bf16,
+         True)], hw, gen)
+    k1_m16 = check_fusion(voxel, [
+        (f"float32 mapped M=16, {size}, ungated", ungated["features"], f32,
+         True),
+        (f"bfloat16 mapped M=16, {size}, ungated", ungated["features"],
+         bf16, True)], hw, gen, m=16)
+    images = torch.as_tensor(scene["denorm_images"], device=dev)
+    rgb = check_rgb(voxel, images, ungated["rgb"], f"ungated, {size}")
+    rgb_gated = check_rgb(voxel, images, gated["rgb"],
+                          f"depth-gated, {size}")
+    del images, gated, ungated
+    pix_train = family_pix(voxel, model, first_views(scene, n_train), dev,
+                           True)["features"]
+    k1_bwd = check_fusion_backward(
+        voxel, pix_train, hw, gen,
+        f"the exemplar's training pix ({n_train} views, depth-gated)",
+        with_g2=True)
+    del pix_train
+    # K2's eval form under grad at C = 16: squeeze 8's views and rays
+    cfg8 = family_config(FC_SQUEEZE8)
+    n8, r8 = family_views(cfg8, "train"), cfg8.model["N_rand"]
+    c8 = (cfg8.model["neck"]["out_channels"]
+          // cfg8.model["squeeze_scale"] // 2)
+    sc8 = first_views(scene, n8)
+    drawn = ray_stats.draw_rays(sc8, np.random.RandomState(SEED), r8)
+    ro, rd = (torch.as_tensor(drawn[k], device=dev)
+              for k in ("ray_o", "ray_d"))
+    pts, _ = render.sample_along_camera_ray(
+        ro, rd, *cfg8.model["near_far_range"], cfg8.model["N_samples"],
+        det=False, generator=gen)
+    feats8 = torch.randn((n8, h // 4, w // 4, c8), generator=gen,
+                         device=dev)
+    k2, k2_bwd = check_k2_training(
+        render, pts, model.render_projection(sc8["intrinsic"],
+                                             sc8["extrinsics"], dev),
+        (h, w), feats8, None, gen,
+        images=torch.as_tensor(sc8["denorm_images"], device=dev))
+    del pts, feats8, ro, rd, drawn
+
+    # ---- 16.1 the exemplar: eval_step at 51 views ----
+    nms_pre, iou_thr = cfg.test_cfg["nms_pre"], cfg.test_cfg["iou_thr"]
+    batch = api.device_batch(model, scene)
+    if "rgb_s1" in batch or "denorm_images" not in batch:
+        raise SystemExit("the family must sum its rgb stream on the device")
+    zero()
+    res = api.eval_step(model, batch, nms_pre)
+    det = api.detections_from_candidates(
+        res["boxes"].float().cpu().numpy(),
+        res["scores"].float().cpu().numpy(), SCORE_THR, iou_thr)
+    eval_launches = counts()
+    log(f"[fast_cov] 16.1 eval_step at {FC_VIEWS} views -> "
+        f"{tuple(res['boxes'].shape)} candidates, NMS kept "
+        f"{len(det['labels_3d'])}; launches {named(eval_launches)}")
+    expect(eval_launches, [1, 0, 1, 0, 0], "16.1 eval_step")
+    finite_candidates(res, "16.1 eval_step")
+    with torch.inference_mode():
+        head_k, valid_k, _ = model(batch)
+        saved = voxel.fusion_carry, voxel.rgb_carry
+        voxel.fusion_carry = voxel.fusion_carry_plain
+        voxel.rgb_carry = voxel.rgb_carry_plain
+        try:
+            head_p, valid_p, _ = model(batch)
+        finally:
+            voxel.fusion_carry, voxel.rgb_carry = saved
+    diff = max(float((a - b).abs().max()) for hk, hp in zip(head_k, head_p)
+               for a, b in zip(hk, hp))
+    scale = max(float(b.abs().max()) for hp in head_p for b in hp)
+    log(f"[fast_cov] 16.1 kernels vs plain (K1, the rgb stream) through the "
+        f"whole graph: view counts equal {torch.equal(valid_k, valid_p)}, "
+        f"head outputs max |diff| {diff:.3e} (max |out| {scale:.3e}, tol "
+        f"1e-4 relative); third scale {tuple(head_k[-1][0].shape[:3])}")
+    if not torch.equal(valid_k, valid_p) or diff > 1e-4 * max(scale, 1.0):
+        raise SystemExit("kernel and plain family graphs disagree")
+    del head_k, head_p
+    with torch.inference_mode():
+        feats = model.extract_2d(batch["imgs"])
+        vol_args = (feats, batch["intrinsic"], batch["extrinsics"],
+                    batch["origin"])
+        vol_kw = dict(denorm_images=batch["denorm_images"],
+                      depth=batch["depth"])
+        vol = model.build_volume(*vol_args, **vol_kw)
+        heads = model.detect(vol["det_volume"])
+        mlvl = model.mlvl_points(batch["origin"])
+        stages = {}
+        for name, fn in {
+                "extract_2d (ResNet-50 + FPN)": lambda: model.extract_2d(
+                    batch["imgs"]),
+                "build_volume (gate, K1, rgb stream, density, cov_w_mean)":
+                    lambda: model.build_volume(*vol_args, **vol_kw),
+                "detect (3D neck + head)": lambda: model.detect(
+                    vol["det_volume"]),
+                "get_candidate_bboxes": lambda: get_candidate_bboxes(
+                    heads, vol["valid"], mlvl, nms_pre, model.n_classes),
+        }.items():
+            stages[name] = cuda_time_ms(fn, 3, warmup=1)
+            log(f"[stage] fast_cov exemplar {FC_VIEWS} views {name}: "
+                f"{stages[name]:.3f} ms")
+    del feats, vol, heads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        res = api.eval_step(model, batch, nms_pre)
+        api.detections_from_candidates(
+            res["boxes"].float().cpu().numpy(),
+            res["scores"].float().cpu().numpy(), cfg.test_cfg["score_thr"],
+            iou_thr)
+    dt = (time.perf_counter() - t0) / iters
+    eval_rate = 1 / dt
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[fast_cov] 16.1 inference: {eval_rate:.3f} scenes/s "
+        f"({dt * 1e3:.2f} ms a scene: eval_step + host NMS at {FC_VIEWS} "
+        f"views with depth), peak memory {eval_peak:.2f} GiB; measured on "
+        f"{card}")
+    del model, batch, res
+    torch.cuda.empty_cache()
+
+    # ---- 16.1 the exemplar: the joint train step at 30 views ----
+    t0 = time.perf_counter()
+    tr = api.init_trainer(cfg, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    tbatch = api.train_batch(tr.model, [first_views(scene, n_train)],
+                             rng=np.random.RandomState(SEED))
+    if any(k in tbatch[0] for k in ("rgb_s1", "ray_s1u", "z_vals")):
+        raise SystemExit("the family's train batch carries host streams")
+    log(f"[fast_cov] 16.1 init_trainer, {n_train} views and "
+        f"{tr.model.n_rand} rays drawn (no host stream: depths jittered "
+        f"on the device): {time.perf_counter() - t0:.1f} s")
+    start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    loss_k, _, grads_k, fpn_k = family_step_grads(
+        voxel, render, tr.model, tbatch, start, False)
+    loss_p, _, grads_p, fpn_p = family_step_grads(
+        voxel, render, tr.model, tbatch, start, True)
+    tr.model.load_state_dict(start)
+    tr.optimizer.zero_grad()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = {n: float((grads_k[n] - grads_p[n]).norm())
+                / max(float(grads_p[n].norm()), 1e-30) for n in (
+                    "mapping.0.weight", "mapping.0.bias",
+                    "nerf_mlp.mlp.rgb_layer.output_layer.weight",
+                    "neck.lateral_convs.0.conv.weight")}
+    fpn_rel = float((fpn_k - fpn_p).norm() / fpn_p.norm())
+    log(f"[fast_cov] 16.1 kernels vs plain (K1 and its backward, the rgb "
+        f"stream, K2's eval form and its backward) for one step: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, tol 1e-5); "
+        f"gradients rel norm " + ", ".join(f"{n} {v:.3e}" for n, v in
+                                           grad_rel.items())
+        + f"; FPN output {fpn_rel:.3e} (tol 1e-4)")
+    if loss_rel > 1e-5 or fpn_rel > 1e-4 or max(grad_rel.values()) > 1e-4:
+        raise SystemExit("kernel and plain family train steps disagree")
+    del grads_k, grads_p, fpn_k, fpn_p, start
+    hist, dt, train_launches, peak = timed_steps(tr, tbatch, counters)
+    last = finite_metrics(hist[-1], "16.1 train",
+                          ("loss_nvs", "loss_depth"))
+    log(f"[fast_cov] 16.1 train, 5 steps: launches {named(train_launches)}; "
+        f"last step " + ", ".join(f"{k} {v:.6g}" for k, v in last.items()))
+    expect(train_launches, [5] * 5, "16.1 training (5 steps)")
+    train_stages = step_stage_times(tr, tbatch, depth_supervise=True)
+    for k, ms in train_stages.items():
+        log(f"[stage] fast_cov exemplar train {k}: {ms:.3f} ms")
+    train_rate = 1 / dt
+    log(f"[fast_cov] 16.1 train: {train_rate:.3f} steps/s ({dt * 1e3:.2f} "
+        f"ms a step: Trainer.step, one scene of {n_train} views at "
+        f"{meta.pad_shape[0]}x{meta.pad_shape[1]} and {tr.model.n_rand} "
+        f"rays, loss_depth on, host clock after 2 warm-up steps), peak "
+        f"memory {peak / 2**30:.2f} GiB; measured on {card}")
+    del tr, tbatch
+    torch.cuda.empty_cache()
+
+    # ---- 16.2 squeeze 8: M = 16, 40 views, 4096 rays ----
+    tr = api.init_trainer(cfg8, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    if tr.model.mapping[0].out_features != c8:
+        raise SystemExit(f"squeeze 8 built M={tr.model.mapping[0]}")
+    b8 = api.train_batch(tr.model, [sc8], rng=np.random.RandomState(SEED))
+    zero()
+    m8 = finite_metrics(tr.step(b8), "16.2 train")
+    launches8 = counts()
+    log(f"[fast_cov] 16.2 {FC_SQUEEZE8}: M={c8}, one step at {n8} views "
+        f"and {r8} rays: launches {named(launches8)}; loss {m8['loss']:.6g}"
+        f", loss_nvs {m8['loss_nvs']:.6g}")
+    expect(launches8, [1] * 5, "16.2 training")
+    model = tr.model.eval()
+    del tr, b8
+    torch.cuda.empty_cache()
+    zero()
+    t0 = time.perf_counter()
+    nvs_metrics = api.run_nvs_eval(model, nvs, chunk=FC_NVS_CHUNK,
+                                   progress=False)
+    nvs_s = time.perf_counter() - t0
+    nvs_launches = counts()
+    n_rays = (h - 2 * MARGIN) * (w - 2 * MARGIN)
+    chunks = -(-n_rays // FC_NVS_CHUNK)
+    log(f"[fast_cov] 16.2 run_nvs_eval, one {h - 2 * MARGIN}x"
+        f"{w - 2 * MARGIN} view from {FC_VIEWS} views at chunk "
+        f"{FC_NVS_CHUNK}: {nvs_s:.2f} s; launches {named(nvs_launches)}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in nvs_metrics.items()))
+    expect(nvs_launches, [0, 0, 0, chunks, 0], "16.2 run_nvs_eval")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 16.3 no depth: the ungated rgb stream ----
+    cfg3 = family_config(FC_NO_DEPTH)
+    if cfg3.model["depth_supervise"] or cfg3.input_modality["use_depth"]:
+        raise SystemExit(f"{FC_NO_DEPTH} asks for depth")
+    model = api.init_detector(cfg3, device="cuda", seed=SEED)
+    nodepth = first_views(scene, FC_VIEWS, depth=False)
+    batch = api.device_batch(model, nodepth)
+    zero()
+    res = api.eval_step(model, batch, nms_pre)
+    torch.cuda.synchronize()
+    launches3 = counts()
+    finite_candidates(res, "16.3 eval_step")
+    expect(launches3, [1, 0, 1, 0, 0], "16.3 eval_step")
+    del model, batch, res
+    tr = api.init_trainer(cfg3, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    n3 = family_views(cfg3, "train")
+    b3 = api.train_batch(tr.model, [first_views(scene, n3, depth=False)],
+                         rng=np.random.RandomState(SEED))
+    zero()
+    m3 = finite_metrics(tr.step(b3), "16.3 train")
+    train3 = counts()
+    log(f"[fast_cov] 16.3 {FC_NO_DEPTH}: eval_step at {FC_VIEWS} views "
+        f"without depth, launches {named(launches3)}; one step at {n3} "
+        f"views, launches {named(train3)}; loss {m3['loss']:.6g}, loss_nvs "
+        f"{m3['loss_nvs']:.6g}, no loss_depth {'loss_depth' not in m3}")
+    expect(train3, [1] * 5, "16.3 training")
+    del tr, b3
+    torch.cuda.empty_cache()
+
+    # ---- 16.4 Swin-T ----
+    cfg4 = family_config(FC_SWIN)
+    model = api.init_detector(cfg4, device="cuda", seed=SEED)
+    if type(model.backbone).__name__ != "SwinTransformer":
+        raise SystemExit("the Swin config did not build the Swin backbone")
+    batch = api.device_batch(model, scene)
+    zero()
+    res = api.eval_step(model, batch, nms_pre)
+    torch.cuda.synchronize()
+    launches4 = counts()
+    finite_candidates(res, "16.4 eval_step")
+    expect(launches4, [1, 0, 1, 0, 0], "16.4 eval_step")
+    with torch.inference_mode():
+        swin_ms = cuda_time_ms(lambda: model.backbone(batch["imgs"]), 3,
+                               warmup=1)
+        extract_ms = cuda_time_ms(lambda: model.extract_2d(batch["imgs"]),
+                                  3, warmup=1)
+    eval4_ms = cuda_time_ms(lambda: api.eval_step(model, batch, nms_pre), 3,
+                            warmup=1)
+    del model, batch, res
+    torch.cuda.empty_cache()
+    tr = api.init_trainer(cfg4, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    n4 = family_views(cfg4, "train")
+    b4 = api.train_batch(tr.model, [first_views(scene, n4)],
+                         rng=np.random.RandomState(SEED))
+    zero()
+    t0 = time.perf_counter()
+    m4 = finite_metrics(tr.step(b4), "16.4 train", ("loss_nvs",
+                                                    "loss_depth"))
+    torch.cuda.synchronize()
+    step4_s = time.perf_counter() - t0
+    train4 = counts()
+    log(f"[fast_cov] 16.4 {FC_SWIN}: Swin-T, volume "
+        f"{tr.model.n_voxels}; eval_step at {FC_VIEWS} views "
+        f"{eval4_ms:.2f} ms (of it the backbone {swin_ms:.2f} ms, backbone "
+        f"+ FPN {extract_ms:.2f} ms), launches {named(launches4)}; one step "
+        f"at {n4} views and {tr.model.n_rand} rays ({step4_s:.2f} s, the "
+        f"first), launches {named(train4)}; loss {m4['loss']:.6g}; "
+        f"measured on {card}")
+    expect(train4, [1] * 5, "16.4 training")
+    del tr, b4
+    torch.cuda.empty_cache()
+
+    # ---- 16.5 the largest volume: 64x64x12 ----
+    cfg5 = family_config(FC_LARGEST)
+    model = api.init_detector(cfg5, device="cuda", seed=SEED)
+    n5 = family_views(cfg5, "test")
+    batch = api.device_batch(model, first_views(
+        scene, n5, depth=cfg5.input_modality["use_depth"]))
+    zero()
+    res = api.eval_step(model, batch, nms_pre)
+    torch.cuda.synchronize()
+    launches5 = counts()
+    finite_candidates(res, "16.5 eval_step")
+    expect(launches5, [1, 0, 1, 0, 0], "16.5 eval_step")
+    with torch.inference_mode():
+        heads5, _, _ = model(batch)
+    scales5 = [tuple(t[0].shape[:3]) for t in heads5]
+    eval5_ms = cuda_time_ms(lambda: api.eval_step(model, batch, nms_pre), 3,
+                            warmup=1)
+    log(f"[fast_cov] 16.5 {FC_LARGEST}: volume {model.n_voxels} at "
+        f"{model.voxel_size}, the head's scales {scales5}; eval_step at {n5} "
+        f"views {eval5_ms:.2f} ms, launches {named(launches5)}; measured on "
+        f"{card}")
+    if scales5[-1] != tuple(n // 4 for n in model.n_voxels):
+        raise SystemExit(f"the third scale is {scales5[-1]}")
+    del model, batch, res, heads5
+    torch.cuda.empty_cache()
+
+    # ---- 16.6 volume mode (nerf_density off) ----
+    cfg6 = family_config(FC_VOLUME, {"model.nerf_density": False})
+    model = api.init_detector(cfg6, device="cuda", seed=SEED)
+    if model.nerf_mode != "volume" or hasattr(model, "mapping"):
+        raise SystemExit("the volume-mode config did not build volume mode")
+    batch = api.device_batch(model, first_views(scene, FC_VIEWS,
+                                                depth=False))
+    zero()
+    res = api.eval_step(model, batch, nms_pre)
+    torch.cuda.synchronize()
+    launches6 = counts()
+    finite_candidates(res, "16.6 eval_step")
+    expect(launches6, [1, 0, 0, 0, 0], "16.6 eval_step")
+    zero()
+    t0 = time.perf_counter()
+    vrgb, vdepth = model.render_full(api.render_batch(
+        model, first_views(nvs[0], FC_VIEWS, depth=False)), FC_NVS_CHUNK)
+    torch.cuda.synchronize()
+    render6_s = time.perf_counter() - t0
+    render6 = counts()
+    if not (torch.isfinite(vrgb).all() and torch.isfinite(vdepth).all()):
+        raise SystemExit("16.6 render_full: non-finite rgb or depth")
+    expect(render6, [1, 0, 0, 0, 0], "16.6 render_full")
+    del model, batch, res, vrgb, vdepth
+    torch.cuda.empty_cache()
+    tr = api.init_trainer(cfg6, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    n6 = family_views(cfg6, "train")
+    b6 = api.train_batch(tr.model, [first_views(scene, n6)],
+                         rng=np.random.RandomState(SEED))
+    zero()
+    m6 = finite_metrics(tr.step(b6), "16.6 train",
+                        ("loss_nvs", "loss_depth"))
+    train6 = counts()
+    map_grad = float(tr.model.mean_mapping[0].weight.grad.abs().max())
+    log(f"[fast_cov] 16.6 {FC_VOLUME} with nerf_density=False: eval_step "
+        f"launches {named(launches6)}; render_full of one "
+        f"{h - 2 * MARGIN}x{w - 2 * MARGIN} view {render6_s:.2f} s, "
+        f"launches {named(render6)}; one step at {n6} views and "
+        f"{tr.model.n_rand} rays, launches {named(train6)}; loss "
+        f"{m6['loss']:.6g}, loss_nvs {m6['loss_nvs']:.6g}, max |d "
+        f"mean_mapping| {map_grad:.3e}")
+    expect(train6, [1, 1, 0, 0, 0], "16.6 training")
+    if not map_grad > 0:
+        raise SystemExit("16.6: no gradient reached mean_mapping")
+    del tr, b6
+    torch.cuda.empty_cache()
+
+    # ---- 16.7 the CLIs from files ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fast_cov_") as tmp:
+        t0 = time.perf_counter()
+        roots = [write_synthetic_scannet(
+            os.path.join(tmp, split), n_scenes=1, n_images=FC_CLI_VIEWS,
+            hw=RUNTIME_HW, seed=SEED + 17 + i, splits=(split,), workers=8,
+            with_depth=True) for i, split in enumerate(("train", "val"))]
+        opts = runtime_options(cfg, *roots)
+        log(f"[fast_cov] 16.7 wrote 2 scenes of {FC_CLI_VIEWS} views at "
+            f"{RUNTIME_HW[0]}x{RUNTIME_HW[1]} with .npy depth: "
+            f"{time.perf_counter() - t0:.1f} s")
+        per_step = []
+        original_init = counted_trainers(api, counters, per_step)
+        try:
+            t0 = time.perf_counter()
+            result = train_cli.main([
+                FC_EXEMPLAR, "--work-dir", os.path.join(tmp, "work"),
+                "--max-steps", str(FC_CLI_STEPS), "--no-validate",
+                "--options", *opts])
+            cli_train_s = time.perf_counter() - t0
+        finally:
+            api.init_trainer = original_init
+        for hh, n in zip(result["history"], per_step):
+            log(f"[fast_cov] 16.7 tools/train step {hh['step']}: launches "
+                f"{named(n)}; loss {hh['loss']:.5g}, loss_nvs "
+                f"{hh.get('loss_nvs', float('nan')):.5g}, loss_depth "
+                f"{hh.get('loss_depth', float('nan')):.5g}")
+            finite_metrics(hh, "16.7 tools/train", ("loss_nvs",
+                                                    "loss_depth"))
+        if per_step != [[1] * 5] * FC_CLI_STEPS:
+            raise SystemExit(f"16.7 tools/train launches a step {per_step}")
+        zero()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([FC_EXEMPLAR, result["checkpoints"][0],
+                                 "--eval", "mAP", "nvs", "--options",
+                                 *opts])
+        cli_test_s = time.perf_counter() - t0
+        cli_launches = counts()
+        pipe = cfg.data["test"]["pipeline"][0]
+        pad = [t for t in pipe["transforms"] if t["type"] == "Pad"][0]["size"]
+        cli_chunks = -(-((pad[0] - 2 * pipe["margin"])
+                         * (pad[1] - 2 * pipe["margin"]))
+                       // cfg.model["N_rand"])
+        log(f"[fast_cov] 16.7 tools/train {FC_CLI_STEPS} steps "
+            f"{cli_train_s:.1f} s; tools/test --eval mAP nvs "
+            f"{cli_test_s:.1f} s, launches {named(cli_launches)}; "
+            + ", ".join(f"{k} {metrics[k]:.4f}" for k in (
+                "mAP_0.25", "mAR_0.25", "psnr", "ssim", "rmse")))
+        expect(cli_launches, [1, 0, 1, cli_chunks
+                              * pipe["nerf_target_views"], 0],
+               "16.7 tools/test")
+        if not all(math.isfinite(v) for k, v in metrics.items()
+                   if k.startswith(("mAP", "mAR", "psnr", "ssim", "rmse"))):
+            raise SystemExit(f"non-finite test metrics {metrics}")
+    wall = time.perf_counter() - t_phase
+    log(f"[fast_cov] phase 16 in {wall:.1f} s")
+    return dict(k1=k1, k1_m16=k1_m16, rgb=rgb, rgb_gated=rgb_gated,
+                k1_bwd=k1_bwd, k2=k2, k2_bwd=k2_bwd,
+                launches=dict(zip(FC_NAMES, train_launches)),
+                eval_launches=dict(zip(FC_NAMES, eval_launches)),
+                eval_rate=eval_rate, eval_peak_gib=eval_peak,
+                train_rate=train_rate, train_peak_gib=peak / 2**30,
+                stages=stages, train_stages=train_stages, wall_s=wall)
+
+
 def main():
     import numpy as np
     import torch
@@ -4145,6 +4786,10 @@ def main():
     torch.cuda.empty_cache()
     bench = bench_path(card)
 
+    # ---- 16. the fast_cov family (NeRF-Det configs typed ImVoxelNet) -----
+    torch.cuda.empty_cache()
+    family = fast_cov_path(api, voxel, render, card)
+
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
     fps_bound_by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]
@@ -4316,7 +4961,23 @@ def main():
         entry["ddp_launches"] = ddp["launches"].get(entry["name"], 0)
         # phase 14.1's rank 0, its steps at --mesh-views 2
         entry["mesh_launches"] = mesh["launches"].get(entry["name"], 0)
-    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+        # phase 16.1's exemplar: 5 joint train steps
+        entry["fast_cov_launches"] = family["launches"].get(entry["name"], 0)
+    # phase 16.0: the kernels at the fast_cov family's shapes
+    by_name = {e["name"]: e for e in record["kernels"]}
+    by_name["fused_mean_cov"]["fast_cov"] = dict(
+        family["k1"], **family["k1_m16"])
+    by_name["fused_mean_cov_backward"]["fast_cov_kG2"] = family["k1_bwd"]
+    by_name["fused_mean_cov_rgb"]["fast_cov"] = {
+        "ungated": family["rgb"], "depth_gated": family["rgb_gated"]}
+    by_name["streaming_sample_mean_var"]["fast_cov_eval_form_c16"] = \
+        family["k2"]
+    by_name["streaming_sample_mean_var_backward"]["fast_cov_c16"] = \
+        family["k2_bwd"]
+    shown = ("eval_launches", "eval_rate", "eval_peak_gib", "train_rate",
+             "train_peak_gib", "stages", "train_stages", "wall_s")
+    log(f"[fast_cov] {json.dumps({k: family[k] for k in shown})}")
+    log(f"[done] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     shown = {k: v for k, v in ddp.items() if k != "launches" and k[0] != "_"}
     log(f"[ddp] {json.dumps(shown)}")
     log(f"[mesh] {json.dumps({k: v for k, v in mesh.items() if k != 'sums'})}")

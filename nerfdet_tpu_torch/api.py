@@ -40,11 +40,11 @@ from .config import Config
 from .core.nms import aligned_3d_nms
 from .core.nvs_metrics import aggregate_nvs, evaluate_rendering
 from .data.dataset import build_dataset
-from .data.ray_stats import RAY_STREAM_KEYS, prepare_rays
+from .data.ray_stats import RAY_STREAM_KEYS, draw_rays, prepare_rays
 from .data.rgb_stats import host_rgb_stats
 from .device import resolve_device
 from .models.builder import build_model
-from .models.nerfdet import NerfDet, SceneMeta
+from .models.nerfdet import VOLUME_MESH_VIEWS, NerfDet, SceneMeta
 from .models.votenet import VoteNet, votenet_nms
 from .nn.heads import get_candidate_bboxes
 from .nn.vote_head import vote_head_get_bboxes
@@ -116,11 +116,17 @@ def _to_device(x, dev) -> torch.Tensor:
 def render_batch(model: NerfDet, scene: Dict) -> Dict:
     """``render_full``'s inputs for one scene: images, denormalized
     images and the rays on the model's device, the geometry on the host
-    (the projection is computed there)."""
+    (the projection is computed there); in volume mode also the origin
+    and, where the scene has them, the depth maps (``render_full`` fuses
+    the volume first)."""
     dev = _device_of(model)
     batch = {k: scene[k] for k in ("intrinsic", "extrinsics")}
     for k in ("imgs", "denorm_images", "ray_o", "ray_d"):
         batch[k] = _to_device(scene[k], dev)
+    if model.nerf_mode == "volume":
+        batch["origin"] = scene["origin"]
+        if "depth" in scene:
+            batch["depth"] = _to_device(scene["depth"], dev)
     return batch
 
 
@@ -128,15 +134,19 @@ def device_batch(model: NerfDet, scene: Dict, view_group=None) -> Dict:
     """The eval step's detection inputs for one scene: images and, where
     the scene has them, its depth maps on the model's device; the small
     geometry arrays stay on the host (the projection is computed there).
-    The density path's rgb stream: for a scene with depth maps the
-    denormalized images go to the device (the stream is gated there),
-    else the host rgb sums, computed here (at the model's compute dtype)
-    when the scene does not carry them. Merged with ``render_batch``, the
-    forward also renders the scene's rays. With a ``view_group`` the
+    The density path's rgb stream: for a scene with depth maps, or a
+    model whose data path ships no host streams (``host_streams``: the
+    ImVoxelNet-typed configs, as in the JAX package), the denormalized
+    images go to the device (the stream is summed there, gated by the
+    depth where the scene has it), else the host rgb sums, computed here
+    (at the model's compute dtype) when the scene does not carry them.
+    Merged with ``render_batch``, the forward also renders the scene's
+    rays. With a ``view_group`` the
     view-led keys are this rank's slice of the views (``view_shard``),
     taken after the host rgb sums."""
     dev = _device_of(model)
-    host_rgb = model.nerf_density and "depth" not in scene
+    host_rgb = (model.nerf_density and model.host_streams
+                and "depth" not in scene)
     if host_rgb and "rgb_s1" not in scene:
         scene = dict(scene, **dict(zip(("rgb_s1", "rgb_s2"), host_rgb_stats(
             scene["denorm_images"], scene["intrinsic"], scene["extrinsics"],
@@ -151,7 +161,10 @@ def device_batch(model: NerfDet, scene: Dict, view_group=None) -> Dict:
     if host_rgb:
         batch["rgb_s1"] = _to_device(scene["rgb_s1"], dev)
         batch["rgb_s2"] = _to_device(scene["rgb_s2"], dev)
-    elif model.nerf_density:
+    # the images feed the density's rgb stream without host sums, and an
+    # image-mode render without the host ray stream
+    if (model.nerf_density and not host_rgb) or (
+            not model.host_streams and model.nerf_mode == "image"):
         batch["denorm_images"] = _to_device(scene["denorm_images"], dev)
     return batch
 
@@ -168,11 +181,20 @@ def train_batch(model: NerfDet, scenes: List[Dict],
     near/far, samples and compute dtype, drawn from ``rng``, a fresh unseeded
     ``RandomState`` if None, where the scene carries no stream yet). With
     a ``view_group`` the images are this rank's slice of the views
-    (``device_batch``); the rays and their stream hold every view."""
+    (``device_batch``); the rays and their stream hold every view.
+
+    A model without host streams (``NerfDet.host_streams``) gets the
+    drawn rays alone (``data/ray_stats.draw_rays``): its render jitters
+    the depths on the device and samples the denormalized images there
+    (image mode; ``device_batch`` sends them)."""
     dev = _device_of(model)
     out = []
     for scene in scenes:
-        if "ray_o" in scene and "z_vals" not in scene:
+        rays = "ray_o" in scene
+        if rays and not model.host_streams:
+            scene = draw_rays(scene, rng if rng is not None else
+                              np.random.RandomState(), model.n_rand)
+        elif rays and "z_vals" not in scene:
             scene = prepare_rays(
                 scene, rng if rng is not None else
                 np.random.RandomState(), model.n_rand,
@@ -185,8 +207,9 @@ def train_batch(model: NerfDet, scenes: List[Dict],
             np.asarray(scene["gt_labels"], np.int64), device=dev)
         batch["gt_mask"] = torch.as_tensor(
             np.asarray(scene["gt_mask"], bool), device=dev)
-        if "ray_o" in scene:
-            keys = ("ray_o", "ray_d", "gt_rgb") + RAY_STREAM_KEYS + (
+        if rays:
+            keys = ("ray_o", "ray_d", "gt_rgb") + (
+                RAY_STREAM_KEYS if model.host_streams else ()) + (
                 ("gt_depth",) if "gt_depth" in scene else ())
             batch.update((k, _to_device(scene[k], dev)) for k in keys)
         out.append(batch)
@@ -227,7 +250,8 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
     (``train/step.py``): every rank builds the same model from the same
     ``seed`` and ``checkpoint`` and steps its own scenes. ``mesh_views``
     > 1 lays the group out as the 2-D data x views grid, ``mesh_views``
-    ranks a scene (``parallel/train2d.make_train_step_2d``)."""
+    ranks a scene (``parallel/train2d.make_train_step_2d``; not in volume
+    mode)."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = init_detector(config, checkpoint, device, seed, compute_dtype)
@@ -247,6 +271,8 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
         use_nerf_mask=config.model.get("use_nerf_mask", True),
         rgb_supervision=config.model.get("rgb_supervision", True))
     if mesh_views > 1:
+        if model.nerf_mode == "volume":
+            raise NotImplementedError(VOLUME_MESH_VIEWS)
         step, views, data = make_train_step_2d(
             model, optimizer, mesh_views, process_group, **losses)
         return Trainer(model, optimizer, step, views, data)

@@ -154,6 +154,22 @@ def prepare_rays(scene: Dict, rng: np.random.RandomState, n_rand: int,
     rays and ``RAY_STREAM_KEYS`` (z_vals (R, S), ray_s1u / ray_s2u /
     ray_s1m (R, S, 3), ray_cnt (R, S, 1)); ``compute_dtype`` is the
     stream's (``host_ray_rgb_stats``)."""
+    out = draw_rays(scene, rng, n_rand)
+    z_vals = host_sample_z(rng, out["ray_o"].shape[0], near_far[0],
+                           near_far[1], n_samples)
+    stats = host_ray_rgb_stats(
+        scene["denorm_images"], scene["intrinsic"], scene["extrinsics"],
+        out["ray_o"], out["ray_d"], z_vals, ori_shape, img_shape,
+        compute_dtype)
+    out.update(zip(RAY_STREAM_KEYS, (z_vals,) + stats))
+    return out
+
+
+def draw_rays(scene: Dict, rng: np.random.RandomState, n_rand: int) -> Dict:
+    """``prepare_rays``' draw alone: a new dict with the scene's rays
+    flat, ``n_rand`` of them drawn without replacement from ``rng`` where
+    it holds more (zero-depth rays dropped first where it carries depths
+    and enough remain)."""
     out = dict(scene)
     rays = {k: np.asarray(scene[k]) for k in ("ray_o", "ray_d", "gt_rgb")}
     rays = {k: a.reshape(-1, 3) for k, a in rays.items()}
@@ -168,11 +184,4 @@ def prepare_rays(scene: Dict, rng: np.random.RandomState, n_rand: int,
                          replace=False)
         rays = {k: a[sel] for k, a in rays.items()}
     out.update(rays)
-    z_vals = host_sample_z(rng, rays["ray_o"].shape[0], near_far[0],
-                           near_far[1], n_samples)
-    stats = host_ray_rgb_stats(
-        scene["denorm_images"], scene["intrinsic"], scene["extrinsics"],
-        rays["ray_o"], rays["ray_d"], z_vals, ori_shape, img_shape,
-        compute_dtype)
-    out.update(zip(RAY_STREAM_KEYS, (z_vals,) + stats))
     return out

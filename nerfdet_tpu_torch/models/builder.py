@@ -1,9 +1,13 @@
 """Build the port's models from a config's ``model`` dict.
 
-Port of ``nerfdet_tpu/models/builder.py`` for the two ported types:
-``"nerfdet"`` (``_build_nerfdet``) and ``"VoteNet"``
-(``_build_votenet``). The config's ``pretrained='torchvision://...'`` is
-not read: that is a download; weights come from a seed or a checkpoint.
+Port of ``nerfdet_tpu/models/builder.py`` for the ported types:
+``"nerfdet"`` (``_build_nerfdet``), ``"VoteNet"`` (``_build_votenet``)
+and ``"ImVoxelNet"`` as far as JAX routes it to the NeRF-Det graph (the
+fast_cov family: an indoor 3D neck and a NeRF key, ``_build_imvoxelnet``).
+The config's ``pretrained`` is not read: that is a download; weights come
+from a seed or a checkpoint. Keys the JAX builder reads nowhere
+(``pc_supervise``, ``overfit_nerfmlp``, ``nerf_sample_view``, ...) stay
+unread here too.
 """
 
 from __future__ import annotations
@@ -15,17 +19,23 @@ from .nerfdet import NerfDet, SceneMeta
 from .votenet import SCANNET_MEAN_SIZES, VoteNet
 
 
+# the SwinTransformer keys the JAX builder passes on
+SWIN_KEYS = ("embed_dims", "patch_size", "window_size", "mlp_ratio",
+             "depths", "num_heads", "out_indices", "qkv_bias")
+
+
 def _build_nerfdet(cfg: dict, meta: SceneMeta = None,
                    compute_dtype=torch.float32) -> NerfDet:
     backbone = cfg["backbone"]
-    if backbone.get("type", "ResNet") != "ResNet":
-        raise NotImplementedError("only the ResNet backbone is ported")
-    if cfg.get("nerf_mode", "image") != "image":
-        raise NotImplementedError("only the image nerf_mode is ported")
-    if cfg.get("volume_type", "mean") != "mean":
-        raise NotImplementedError("only the 'mean' volume_type is ported")
+    btype = backbone.get("type", "ResNet")
+    swin_cfg = None
+    if btype == "SwinTransformer":
+        swin_cfg = {k: tuple(v) if isinstance(v, list) else v
+                    for k, v in backbone.items() if k in SWIN_KEYS}
     neck, neck_3d, head = cfg["neck"], cfg["neck_3d"], cfg["bbox_head"]
     return NerfDet(
+        backbone_type=btype,
+        backbone_cfg=swin_cfg,
         backbone_depth=backbone.get("depth", 50),
         fpn_in_channels=tuple(neck["in_channels"]),
         fpn_out_channels=neck["out_channels"],
@@ -43,9 +53,51 @@ def _build_nerfdet(cfg: dict, meta: SceneMeta = None,
         n_rand=cfg.get("N_rand", 2048),
         squeeze_scale=cfg.get("squeeze_scale", 4),
         nerf_density=cfg.get("nerf_density", False),
+        nerf_mode=cfg.get("nerf_mode", "image"),
+        volume_type=cfg.get("volume_type", "mean"),
+        **({"aabb": tuple(tuple(x) for x in cfg["aabb"])}
+           if "aabb" in cfg else {}),
+        # JAX's data path ships the host rgb sums and ray stream for the
+        # nerfdet type only (nerfdet_tpu/data/dataset.py, the *_spec_from
+        # _config functions): the ImVoxelNet-typed configs keep them on
+        # the device
+        host_streams=cfg["type"] == "nerfdet",
         meta=meta or SceneMeta(),
         compute_dtype=compute_dtype,
     )
+
+
+NERF_KEYS = ("volume_type", "nerf_mode", "nerf_density", "N_samples")
+
+
+def routes_to_nerfdet(cfg: dict) -> bool:
+    """Whether the model config builds the NeRF-Det graph: the
+    ``nerfdet`` type, or JAX's ``ImVoxelNet`` rule: an indoor 3D neck
+    (``ImVoxelNeck``, ``FastIndoorImVoxelNeck``) with any NeRF key (the
+    56 fast_cov configs)."""
+    if cfg["type"] == "nerfdet":
+        return True
+    n3_type = cfg.get("neck_3d", {}).get("type", "KittiImVoxelNeck")
+    return (cfg["type"] == "ImVoxelNet"
+            and n3_type in ("ImVoxelNeck", "FastIndoorImVoxelNeck")
+            and any(k in cfg for k in NERF_KEYS))
+
+
+def _build_imvoxelnet(cfg: dict, meta: SceneMeta = None,
+                      compute_dtype=torch.float32) -> NerfDet:
+    """The NeRF-keyed ImVoxelNet configs (``routes_to_nerfdet``) build
+    the NeRF-Det graph; every other ImVoxelNet config (the indoor
+    detector without NeRF keys, the outdoor ones) is not ported."""
+    if routes_to_nerfdet(cfg):
+        return _build_nerfdet(cfg, meta, compute_dtype)
+    n3_type = cfg.get("neck_3d", {}).get("type", "KittiImVoxelNeck")
+    kind = ("the indoor ImVoxelNet without NeRF keys"
+            if n3_type in ("ImVoxelNeck", "FastIndoorImVoxelNeck")
+            else "the outdoor ImVoxelNet")
+    raise NotImplementedError(
+        f"{kind} (3D neck {n3_type!r}) is not ported yet: ROADMAP §1 item "
+        f"3 (ImVoxelNet); of the ImVoxelNet type the port builds the "
+        f"NeRF-keyed indoor configs (the fast_cov family) only")
 
 
 def _build_votenet(cfg: dict, meta: SceneMeta = None,
@@ -67,7 +119,8 @@ def _build_votenet(cfg: dict, meta: SceneMeta = None,
     )
 
 
-_BUILDERS = {"nerfdet": _build_nerfdet, "VoteNet": _build_votenet}
+_BUILDERS = {"nerfdet": _build_nerfdet, "VoteNet": _build_votenet,
+             "ImVoxelNet": _build_imvoxelnet}
 
 
 def build_model(cfg: dict, meta: SceneMeta = None,

@@ -19,6 +19,17 @@ rgb sums), or, without ``z_vals``, at depths jittered on the device. The
 gradient reaches the FPN and ``mapping`` through K1's backward and
 through K2's.
 
+The fast_cov family's options (the ``ImVoxelNet``-typed configs):
+``volume_type`` picks the statistic the 3D neck reads (``mean``, ``cov``
+= exp(-variance), or ``cov_w_mean`` = mean * cov); ``backbone_type``
+"SwinTransformer" takes ``nn/swin.py`` in place of the ResNet;
+``nerf_mode`` "volume" renders from the fused mean and cov volumes
+(``mean_mapping`` / ``cov_mapping``, 1x1x1 convs, sampled trilinearly
+in ``aabb``) with ``nerf_density`` off; ``host_streams`` False says the
+data path ships neither the host rgb sums nor the ray stream (the
+ImVoxelNet type's, as JAX's dataset specs), so ``api`` sends the
+images to the device for both.
+
 ``compute_dtype`` is the JAX model's: at bfloat16 every module computes
 in bfloat16 with float32 parameters (``nn/compute.py``), the feature maps
 reach K1 and K2 in bfloat16 (K1's mapped stream keeps the float32
@@ -48,15 +59,35 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..nn.compute import linear
+from ..nn.compute import conv, linear
 from ..nn.fpn import FPN
 from ..nn.heads import ScanNetImVoxelHeadV2
 from ..nn.neck3d import FastIndoorImVoxelNeck
 from ..nn.nerf_mlp import VanillaNeRFRadianceField
 from ..nn.resnet import ResNet
+from ..nn.swin import SwinTransformer, WindowAttention
 from ..ops import render as render_ops
 from ..ops.render import view_projection
 from ..ops.voxel import compute_projection, fused_mean_cov, get_points
+
+
+VOLUME_TYPES = ("mean", "cov", "cov_w_mean")
+
+# nerfdet_tpu/models/nerfdet.py shares one radiance field between the
+# density query ([g_mean, g_cov]: nerf_feature_dim + 6 wide) and the
+# volume-mode render ([mean_pts, cov_pts]: nerf_feature_dim wide); flax
+# fixes the first layer's width at its first call, so JAX's init fails
+# (ScopeParamShapeError at nerf_mlp/mlp/base/hidden_0)
+VOLUME_DENSITY_FAULT = (
+    "nerf_mode='volume' with nerf_density=True does not run in the JAX "
+    "package (its density query and its volume-mode render share one "
+    "NeRF MLP at two input widths: ScopeParamShapeError at "
+    "nerf_mlp/mlp/base/hidden_0), so the port has nothing to hold it "
+    "to; set model.nerf_density=False (ROADMAP §2 item 2.2)")
+VOLUME_MESH_VIEWS = (
+    "volume mode with the views sharded (--mesh-views) is not ported: "
+    "JAX sums the view counts of the volume-mode render over the views "
+    "axis (ROADMAP §2 item 2.2)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +116,27 @@ class NerfDet(nn.Module):
                  n_samples: int = 64, n_rand: int = 2048,
                  squeeze_scale: int = 4, nerf_density: bool = True,
                  meta: SceneMeta = SceneMeta(),
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32,
+                 backbone_type: str = "ResNet", backbone_cfg=None,
+                 nerf_mode: str = "image", volume_type: str = "mean",
+                 aabb=((-2.7, -2.7, -0.78), (3.7, 3.7, 1.78)),
+                 host_streams: bool = True):
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"compute_dtype must be float32 or bfloat16, "
                             f"got {compute_dtype}")
+        if volume_type not in VOLUME_TYPES:
+            raise ValueError(f"volume_type must be one of {VOLUME_TYPES}, "
+                             f"got {volume_type!r}")
+        if nerf_mode not in ("image", "volume"):
+            raise ValueError(f"nerf_mode must be 'image' or 'volume', got "
+                             f"{nerf_mode!r}")
+        if nerf_mode == "volume" and nerf_density:
+            raise NotImplementedError(VOLUME_DENSITY_FAULT)
+        if backbone_type not in ("ResNet", "SwinTransformer"):
+            raise NotImplementedError(
+                f"backbone {backbone_type!r} is not ported (ResNet, "
+                f"SwinTransformer)")
         self.compute_dtype = dt = compute_dtype
         self.n_classes = n_classes
         self.n_scales = n_scales
@@ -101,23 +148,38 @@ class NerfDet(nn.Module):
         self.n_samples = n_samples
         self.n_rand = n_rand
         self.nerf_density = nerf_density
+        self.nerf_mode = nerf_mode
+        self.volume_type = volume_type
+        self.aabb = tuple(tuple(float(a) for a in b) for b in aabb)
+        self.host_streams = host_streams
         self.meta = meta
-        self.backbone = ResNet(depth=backbone_depth,
-                               out_indices=tuple(range(len(fpn_in_channels))),
-                               dtype=dt)
+        if backbone_type == "SwinTransformer":
+            self.backbone = SwinTransformer(dtype=dt, **(backbone_cfg or {}))
+        else:
+            self.backbone = ResNet(
+                depth=backbone_depth,
+                out_indices=tuple(range(len(fpn_in_channels))), dtype=dt)
         self.neck = FPN(fpn_in_channels, fpn_out_channels, dt)
         self.neck_3d = FastIndoorImVoxelNeck(
             fpn_out_channels, neck3d_out_channels, neck3d_n_blocks, dt)
         self.bbox_head = ScanNetImVoxelHeadV2(
             n_classes, neck3d_out_channels, head_n_reg_outs, n_scales, dt)
         nerf_feature_dim = fpn_out_channels // squeeze_scale
-        # rgb mean + var add 3 + 3 to the global volume's width
+        half = nerf_feature_dim // 2
+        # image mode: [rgb, mapped] means and covs, rgb adding 3 + 3 to
+        # the width; volume mode: the mean and cov volumes mapped to half
+        # the width each (flax infers the width at its first call)
         self.nerf_mlp = VanillaNeRFRadianceField(
             net_depth=4, net_width=256, skip_layer=3,
-            feature_dim=nerf_feature_dim + 6, net_depth_condition=1,
-            net_width_condition=128, dtype=dt)
-        self.mapping = nn.Sequential(
-            nn.Linear(fpn_out_channels, nerf_feature_dim // 2))
+            feature_dim=nerf_feature_dim + (6 if nerf_mode == "image" else 0),
+            net_depth_condition=1, net_width_condition=128, dtype=dt)
+        if nerf_mode == "image":
+            self.mapping = nn.Sequential(nn.Linear(fpn_out_channels, half))
+        else:
+            self.mean_mapping = nn.Sequential(
+                nn.Conv3d(fpn_out_channels, half, 1))
+            self.cov_mapping = nn.Sequential(
+                nn.Conv3d(fpn_out_channels, half, 1))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -144,13 +206,20 @@ class NerfDet(nn.Module):
                                     generator=generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.BatchNorm3d):
+            elif isinstance(m, (nn.BatchNorm3d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, WindowAttention):
+                nn.init.trunc_normal_(m.relative_position_bias_table,
+                                      std=0.02, a=-0.04, b=0.04,
+                                      generator=generator)
         self.bbox_head.cls_conv.bias.fill_(-math.log((1 - 0.01) / 0.01))
 
     def extract_2d(self, imgs: torch.Tensor) -> torch.Tensor:
         """(V, Hp, Wp, 3) normalized images -> (V, Hp/4, Wp/4, C)."""
-        feats = self.backbone(imgs.permute(0, 3, 1, 2))
+        if isinstance(self.backbone, SwinTransformer):  # channels last
+            feats = [f.permute(0, 3, 1, 2) for f in self.backbone(imgs)]
+        else:
+            feats = self.backbone(imgs.permute(0, 3, 1, 2))
         return self.neck(feats, num_outs=1)[0].permute(0, 2, 3, 1)
 
     def build_volume(self, features, intrinsic, extrinsics, origin,
@@ -165,8 +234,11 @@ class NerfDet(nn.Module):
         (V, Hp, Wp, 3) ``denorm_images`` on the device (``rgb_carry``), as
         the JAX model chooses. ``view_group``: the views are this rank's
         share, the fusion's sums summed over the group (``fused_mean_cov``).
-        Returns det_volume (nx, ny, nz, C) and valid (nx, ny, nz), the
-        observing-view counts.
+        ``volume_type`` picks the statistic the 3D neck reads: the mean,
+        the cov (exp(-variance)) or mean * cov, before the density
+        modulation and the observed mask. Returns det_volume (nx, ny, nz,
+        C), valid (nx, ny, nz), the observing-view counts, and the fused
+        mean and cov (nx, ny, nz, C).
         """
         dev = features.device
         h_img, w_img = self.meta.img_shape
@@ -193,22 +265,27 @@ class NerfDet(nn.Module):
                                intrinsic, extrinsics,
                                self.meta.ori_shape[0] / h_img, dev),
                            extra_image_hw=(h_img, w_img))
-            mean, _, count, g_mean, g_cov = fused_mean_cov(
+            mean, cov, count, g_mean, g_cov = fused_mean_cov(
                 features, pts_flat, projection,
                 mapped_kernel=lin.weight.t(), mapped_bias=lin.bias,
                 **gate, **rgb)
+        else:
+            mean, cov, count = fused_mean_cov(features, pts_flat,
+                                              projection, **gate)
+        det_volume = (mean if self.volume_type == "mean" else
+                      cov if self.volume_type == "cov" else mean * cov)
+        if self.nerf_density:
             density = self.nerf_mlp.query_density(
                 pts_flat, torch.cat([g_mean, g_cov], dim=-1))
-            det_volume = (1.0 - torch.exp(-density)) * mean
-        else:
-            det_volume, _, count = fused_mean_cov(features, pts_flat,
-                                                  projection, **gate)
+            det_volume = (1.0 - torch.exp(-density)) * det_volume
         observed = count[:, None] > 0
         det_volume = torch.where(observed, det_volume,
                                  torch.zeros_like(det_volume))
         nx, ny, nz = self.n_voxels
         return dict(det_volume=det_volume.reshape(nx, ny, nz, -1),
-                    valid=count.reshape(nx, ny, nz))
+                    valid=count.reshape(nx, ny, nz),
+                    mean=mean.reshape(nx, ny, nz, -1),
+                    cov=cov.reshape(nx, ny, nz, -1))
 
     def detect(self, det_volume) -> List[Tuple[torch.Tensor, ...]]:
         """3D neck + head: per scale (centerness, bbox_pred, cls_score),
@@ -237,6 +314,17 @@ class NerfDet(nn.Module):
         ratio = self.meta.ori_shape[0] / self.meta.img_shape[0]
         return view_projection(intrinsic, extrinsics, ratio, device)
 
+    def render_volumes(self, vol) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Volume mode: ``mean_mapping`` and ``cov_mapping`` (1x1x1
+        convs) of ``build_volume``'s fused mean and cov, each (nx, ny,
+        nz, nerf_feature_dim / 2)."""
+        def mapped(layer, x):
+            y = conv(layer[0], x.permute(3, 0, 1, 2)[None],
+                     self.compute_dtype)
+            return y[0].permute(1, 2, 3, 0)
+        return (mapped(self.mean_mapping, vol["mean"]),
+                mapped(self.cov_mapping, vol["cov"]))
+
     def _render_chunk(self, ray_o, ray_d, imgs_denorm, proj, featmaps,
                       **kw):
         if imgs_denorm is not None:
@@ -250,7 +338,8 @@ class NerfDet(nn.Module):
                extrinsics, det: bool = True,
                generator: Optional[torch.Generator] = None, z_vals=None,
                precomputed_rgb=None, view_group=None,
-               n_ray_shards: int = 1) -> Dict[str, torch.Tensor]:
+               n_ray_shards: int = 1,
+               volumes=None) -> Dict[str, torch.Tensor]:
         """Render a bundle of rays (R, 3): rgb (R, 3), depth (R,) and the
         ray mask (R,). ``features`` are the stride-4 FPN maps,
         ``imgs_denorm`` the (V, Hp, Wp, 3) denormalized views (unused
@@ -258,8 +347,17 @@ class NerfDet(nn.Module):
         samples lie at ``z_vals`` (R, S) where given, else evenly spaced
         (``det``) or jittered from ``generator``. ``view_group`` and
         ``n_ray_shards``: ``render_ops.render_rays_chunk``'s (the outputs
-        are then this rank's R / n rays)."""
+        are then this rank's R / n rays). Volume mode samples
+        ``volumes``, the ``render_volumes`` pair, instead of the views
+        (``features`` and ``imgs_denorm`` are then unused)."""
         proj = self.render_projection(intrinsic, extrinsics, ray_o.device)
+        if self.nerf_mode == "volume":
+            if view_group is not None:
+                raise NotImplementedError(VOLUME_MESH_VIEWS)
+            return self._render_chunk(ray_o, ray_d, None, proj, None,
+                                      det=det, generator=generator,
+                                      z_vals=z_vals, volumes=volumes,
+                                      aabb=self.aabb)
         return self._render_chunk(ray_o, ray_d, imgs_denorm, proj,
                                   self.render_featmaps(features), det=det,
                                   generator=generator, z_vals=z_vals,
@@ -275,7 +373,6 @@ class NerfDet(nn.Module):
         the first ones, and the output cut back. Returns rgb (N, 3) and
         depth (N,)."""
         features = self.extract_2d(batch["imgs"])
-        featmaps = self.render_featmaps(features)
         ray_o = batch["ray_o"].reshape(-1, 3)
         ray_d = batch["ray_d"].reshape(-1, 3)
         n = ray_o.shape[0]
@@ -285,10 +382,22 @@ class NerfDet(nn.Module):
             ray_d = torch.cat([ray_d, ray_d[:pad]])
         proj = self.render_projection(batch["intrinsic"], batch["extrinsics"],
                                       ray_o.device)
-        images = batch["denorm_images"].to(self.compute_dtype)
-        outs = render_ops.render_rays_full(
-            ray_o, ray_d, chunk, lambda ro, rd: self._render_chunk(
-                ro, rd, images, proj, featmaps))
+        if self.nerf_mode == "volume":
+            vol = self.build_volume(features, batch["intrinsic"],
+                                    batch["extrinsics"], batch["origin"],
+                                    depth=batch.get("depth"))
+            volumes = self.render_volumes(vol)
+
+            def chunk_fn(ro, rd):
+                return self._render_chunk(ro, rd, None, proj, None,
+                                          volumes=volumes, aabb=self.aabb)
+        else:
+            featmaps = self.render_featmaps(features)
+            images = batch["denorm_images"].to(self.compute_dtype)
+
+            def chunk_fn(ro, rd):
+                return self._render_chunk(ro, rd, images, proj, featmaps)
+        outs = render_ops.render_rays_full(ray_o, ray_d, chunk, chunk_fn)
         return outs["rgb"][:n], outs["depth"][:n]
 
     def forward(self, batch: Dict[str, torch.Tensor],
@@ -322,18 +431,20 @@ class NerfDet(nn.Module):
             host = (tuple(batch[k] for k in ("ray_s1u", "ray_s2u",
                                              "ray_s1m", "ray_cnt"))
                     if "ray_s1u" in batch else None)
+            volumes = (self.render_volumes(vol)
+                       if self.nerf_mode == "volume" else None)
             render_out = self.render(
                 batch["ray_o"], batch["ray_d"], features,
                 batch.get("denorm_images"), batch["intrinsic"],
                 batch["extrinsics"], det=not self.training,
                 generator=generator, z_vals=batch.get("z_vals"),
                 precomputed_rgb=host, view_group=view_group,
-                n_ray_shards=n_ray_shards)
+                n_ray_shards=n_ray_shards, volumes=volumes)
         return self.detect(vol["det_volume"]), vol["valid"], render_out
 
     def mlvl_points(self, origin) -> List[torch.Tensor]:
         """Per-scale voxel-center grids, each (P, 3)."""
-        dev = self.mapping[0].weight.device
+        dev = next(self.parameters()).device
         pts = []
         for i in range(self.n_scales):
             n_vox = tuple(v // (2 ** i) for v in self.n_voxels)

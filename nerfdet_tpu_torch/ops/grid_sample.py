@@ -1,9 +1,11 @@
-"""Bilinear sampling from a 2x2-packed map (zero padding).
+"""Bilinear sampling from a 2x2-packed map (zero padding), and
+trilinear sampling of a voxel volume.
 
-Port of ``pack_bilinear`` and ``grid_sample_2d_packed`` of
-``nerfdet_tpu/ops/grid_sample.py``. Coordinates are unnormalized pixel
-coordinates (``align_corners=True``). The plain version of K2
-(``ops/render.ray_view_carry_plain``) is built on these two functions.
+Port of ``pack_bilinear``, ``grid_sample_2d_packed`` and
+``grid_sample_3d`` of ``nerfdet_tpu/ops/grid_sample.py``. Coordinates
+are unnormalized pixel coordinates (``align_corners=True``). The plain
+version of K2 (``ops/render.ray_view_carry_plain``) is built on the first
+two; the volume-mode renderer on the third.
 
 On a bfloat16 map the taps follow JAX's two forms: the feature taps
 (its native-dtype einsum) round the four weights to bfloat16, sum the
@@ -71,3 +73,50 @@ def grid_sample_2d_packed(packed: torch.Tensor, px: torch.Tensor,
     for k in (1, 2, 3):
         out = out + rows[..., k, :] * wgt[k][..., None]
     return bf16_round(out) if bf16 else out
+
+
+def _clip(p: torch.Tensor, size: int) -> torch.Tensor:
+    """``jnp.clip(p, 0, size - 1)``: max, then min, so a coordinate on an
+    edge takes half the gradient, as JAX's tie rule gives it."""
+    lo = torch.zeros((), dtype=p.dtype, device=p.device)
+    return torch.minimum(torch.maximum(p, lo), lo + (size - 1))
+
+
+def grid_sample_3d(volume: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                   pz: torch.Tensor, padding: str = "border") -> torch.Tensor:
+    """Trilinear sample of a (D, H, W, C) volume at float voxel
+    coordinates (...,) -> (..., C): ``px`` indexes W, ``py`` H, ``pz`` D
+    (torch's 5-D ``grid_sample`` order). ``padding`` "border" clamps the
+    coordinates into the volume; "zeros" drops the taps outside it. The
+    eight taps add in the JAX order (x, then y, then z tap outermost
+    first), each weight ``(wx * wy) * wz`` float32, so a bfloat16 volume
+    gives float32 samples, as JAX's type promotion does. Differentiable
+    in the volume and the coordinates (autograd)."""
+    d, h, w, c = volume.shape
+    if padding == "border":
+        px, py, pz = _clip(px, w), _clip(py, h), _clip(pz, d)
+    elif padding != "zeros":
+        raise ValueError(f"padding must be 'border' or 'zeros', got "
+                         f"{padding!r}")
+    x0, y0, z0 = torch.floor(px), torch.floor(py), torch.floor(pz)
+    wx1, wy1, wz1 = px - x0, py - y0, pz - z0
+    flat = volume.reshape(d * h * w, c)
+
+    def tap(xi, yi, zi, wgt):
+        if padding == "zeros":
+            inb = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                   & (zi >= 0) & (zi <= d - 1))
+            wgt = wgt * inb.to(wgt.dtype)
+        xc = torch.clamp(xi, 0, w - 1).long()
+        yc = torch.clamp(yi, 0, h - 1).long()
+        zc = torch.clamp(zi, 0, d - 1).long()
+        vals = flat.index_select(0, ((zc * h + yc) * w + xc).reshape(-1))
+        return vals.reshape(wgt.shape + (c,)) * wgt[..., None]
+
+    out = None
+    for dx, wx in ((0, 1 - wx1), (1, wx1)):
+        for dy, wy in ((0, 1 - wy1), (1, wy1)):
+            for dz, wz in ((0, 1 - wz1), (1, wz1)):
+                t = tap(x0 + dx, y0 + dy, z0 + dz, wx * wy * wz)
+                out = t if out is None else out + t
+    return out

@@ -1,10 +1,13 @@
 """Ray sampling, view-streaming sample statistics, volume rendering.
 
-Port of the image-mode renderer of ``nerfdet_tpu/ops/render.py``. Every
-ray sample point projects into every source view, where it samples the
-denormalized image (3 channels) and the mapped feature map (C channels)
-bilinearly; the view loop keeps only running sums, so the
-(rays, samples, views, 3 + C) tensor never exists. The carry and its
+Port of the renderer of ``nerfdet_tpu/ops/render.py``: image mode, and
+volume mode (``volume_sampling``: the field's features sampled from the
+fused volumes, no view loop, no kernel: JAX computes it outside any
+Pallas kernel too). In image mode every ray sample point projects into
+every source view, where it samples the denormalized image (3 channels)
+and the mapped feature map (C channels) bilinearly; the view loop keeps
+only running sums, so the (rays, samples, views, 3 + C) tensor never
+exists. The carry and its
 epilogue (masked mean, variance over all views, ``exp(-var)``, the
 two-view mask) are one hand-written CUDA kernel, K2
 (``csrc/streaming_sample_mean_var.cu``): the sums stay in registers.
@@ -50,7 +53,8 @@ import torch
 from ..parallel import dist as pdist
 from . import cuda_build
 from .bf16 import bf16_round, scatter_add_bf16
-from .grid_sample import _window, grid_sample_2d_packed, pack_bilinear
+from .grid_sample import (_window, grid_sample_2d_packed, grid_sample_3d,
+                          pack_bilinear)
 from .voxel import _SMEM_OPTIN, _host, _ptrs, _stream
 
 
@@ -1080,13 +1084,52 @@ def raw2outputs(raw, z_vals, mask) -> Dict[str, torch.Tensor]:
     return dict(rgb=rgb_map, depth=depth_map, mask=ray_mask)
 
 
+def volume_sampling(pts, volume, aabb):
+    """Trilinear lookup of an (nx, ny, nz, C) volume at the points (...,
+    3), normalized by the box ``aabb`` ((x0, y0, z0), (x1, y1, z1)) to
+    [-1, 1] and sampled with border padding, each world axis on its own
+    voxel axis. Returns the features (..., C) and ``inbound`` (...,):
+    the point lies strictly inside the box."""
+    lo = torch.tensor(aabb[0], dtype=torch.float32, device=pts.device)
+    hi = torch.tensor(aabb[1], dtype=torch.float32, device=pts.device)
+    norm = (pts - lo) / (hi - lo) * 2.0 - 1.0
+    inbound = torch.all((norm > -1) & (norm < 1), dim=-1)
+    nx, ny, nz = volume.shape[:3]
+    ix = (norm[..., 0] + 1.0) / 2.0 * (nx - 1)
+    iy = (norm[..., 1] + 1.0) / 2.0 * (ny - 1)
+    iz = (norm[..., 2] + 1.0) / 2.0 * (nz - 1)
+    # (D, H, W) = (nx, ny, nz): px indexes W = z, pz indexes D = x
+    return grid_sample_3d(volume, iz, iy, ix, padding="border"), inbound
+
+
+def _volume_mode(pts, proj, img_hw, volumes, aabb):
+    """The volume-mode render's field inputs: the mapped mean and cov
+    volumes sampled at the points, the two-view mask from the projection
+    alone (JAX samples the images there and drops them) and ``inbound``
+    (the density is zeroed outside the box)."""
+    mean_pts, inbound = volume_sampling(pts, volumes[0], aabb)
+    cov_pts, _ = volume_sampling(pts, volumes[1], aabb)
+    pixels, in_front = project_to_views(pts, proj)
+    px, py = pixels[..., 0], pixels[..., 1]
+    h, w = img_hw
+    seen = (px <= w - 1.0) & (px >= 0) & (py <= h - 1.0) & (py >= 0)
+    count = (seen & in_front).float().sum(dim=0)
+    return torch.cat([mean_pts, cov_pts], dim=-1), count > 1, inbound
+
+
 def render_rays_chunk(ray_o, ray_d, mlp_fn: Callable, *,
                       near_far: Tuple[float, float], n_samples: int,
                       images, proj, img_hw, featmaps, det: bool = True,
                       generator: Optional[torch.Generator] = None,
                       z_vals=None, precomputed_rgb=None, view_group=None,
-                      n_ray_shards: int = 1) -> Dict:
-    """Render one chunk of rays in image mode.
+                      n_ray_shards: int = 1, volumes=None,
+                      aabb=None) -> Dict:
+    """Render one chunk of rays in image mode, or in volume mode where
+    ``volumes`` (the mapped mean and cov volumes, each (nx, ny, nz, C'))
+    are given: the field's features are then those volumes sampled
+    trilinearly in the box ``aabb`` (``volume_sampling``) and its density
+    is zeroed outside it; ``images`` and ``featmaps`` are not read, and
+    the views are not sharded (``NerfDet.render`` refuses a group).
 
     ``mlp_fn(pts, viewdirs, features) -> (rgb, sigma)`` is the radiance
     field. The samples: at ``z_vals`` (R, S) where given (the host's
@@ -1107,6 +1150,13 @@ def render_rays_chunk(ray_o, ray_d, mlp_fn: Callable, *,
         pts, z_vals = sample_along_camera_ray(
             ray_o, ray_d, near_far[0], near_far[1], n_samples, det=det,
             generator=generator)
+    if volumes is not None:
+        globalfeat, pixel_mask, inbound = _volume_mode(pts, proj, img_hw,
+                                                       volumes, aabb)
+        rgb_pts, density_pts = mlp_fn(pts, ray_d, globalfeat)
+        density_pts = density_pts * inbound[..., None]
+        return raw2outputs(torch.cat([rgb_pts, density_pts], dim=-1),
+                           z_vals, pixel_mask)
     globalfeat, pixel_mask = streaming_sample_mean_var(
         pts, images, proj, img_hw, featmaps, precomputed_rgb, view_group)
     if n_ray_shards > 1:

@@ -25,7 +25,9 @@ ranks out as the 2-D data x views grid (``parallel/train2d.py``): each
 scene's views are sharded over a views group of N ranks (its first rank
 loads the scene and sends it to the others), and the scenes over the
 world / N data groups; the JAX tool shards the views alone. N must
-divide the world and the test scenes' views.
+divide the world and the test scenes' views. The fast_cov family
+(NeRF-keyed ``ImVoxelNet`` configs) evaluates through the same graph,
+its rgb stream summed on the device (its dataset ships no host sums).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from .. import api
 from ..config import Config
 from ..data.dataset import build_dataset, rgb_stats_spec_from_config
 from ..device import resolve_device
+from ..models.builder import routes_to_nerfdet
 from ..parallel import dist as pdist
 from ..parallel.train2d import check_mesh_views, pipeline_views
 from ..utils.logging import get_root_logger
@@ -77,10 +80,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_options(args.options)
-    if cfg.model["type"] != "nerfdet":
+    if not routes_to_nerfdet(cfg.model):
         raise NotImplementedError(
             f"evaluating {cfg.model['type']} from the CLI is not ported "
-            f"yet: ROADMAP §1 item 3")
+            f"yet (the NeRF-Det graph is: nerfdet and the NeRF-keyed "
+            f"ImVoxelNet configs): ROADMAP §1 item 3")
     if not args.distributed:
         check_mesh_views(args.mesh_views, None, {})
         return evaluate(args, cfg, resolve_device(args.device), None)

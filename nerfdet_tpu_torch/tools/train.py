@@ -48,8 +48,17 @@ views group loads the group's scenes and sends them to the others. N
 must divide the world, the train scenes' views and ``N_rand``.
 Validation is sharded over the scenes, as without it.
 
+The fast_cov family (``configs/imvoxelnet/*fast_cov*``, typed
+``ImVoxelNet`` with NeRF keys) trains through the same graph
+(``models/builder.routes_to_nerfdet``); as in the JAX tool its dataset
+ships no host rgb sums and no ray stream, so the rgb stream and the
+render's image samples are taken on the device and the depths jittered
+there.
+
 Not ported, refused with the ROADMAP item that brings them: the
-point-cloud and ImVoxelNet models.
+point-cloud models and ImVoxelNet without NeRF keys; volume mode with
+the density (``VOLUME_DENSITY_FAULT``: JAX's own init fails) or with
+``--mesh-views``.
 
 ``main(argv)`` returns what the run did (work dir, checkpoints, every
 step's metrics with its seconds waiting on the loader and in the step,
@@ -73,6 +82,8 @@ from ..data.dataset import (build_dataset, ray_stats_spec_from_config,
                             rgb_stats_spec_from_config)
 from ..data.loader import BatchLoader
 from ..device import resolve_device
+from ..models.builder import routes_to_nerfdet
+from ..models.nerfdet import VOLUME_DENSITY_FAULT, VOLUME_MESH_VIEWS
 from ..parallel import dist as pdist
 from ..parallel.train2d import (check_mesh_views, pipeline_views,
                                 shared_batches)
@@ -122,11 +133,20 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args, cfg) -> None:
-    """Raise for what the port cannot train yet, naming its ROADMAP item."""
-    if cfg.model["type"] != "nerfdet":
+    """Raise for what the port cannot train yet, naming its ROADMAP item:
+    a model that does not build the NeRF-Det graph (``nerfdet`` and the
+    NeRF-keyed ``ImVoxelNet`` configs do), volume mode with the density
+    (a fault of the JAX package) or with ``--mesh-views``."""
+    if not routes_to_nerfdet(cfg.model):
         raise NotImplementedError(
-            f"training {cfg.model['type']} (the point-cloud and ImVoxelNet "
-            f"models) is not ported yet: ROADMAP §1 item 3")
+            f"training {cfg.model['type']} (the point-cloud models and "
+            f"ImVoxelNet without NeRF keys) is not ported yet: ROADMAP §1 "
+            f"item 3")
+    if cfg.model.get("nerf_mode", "image") == "volume":
+        if cfg.model.get("nerf_density", False):
+            raise NotImplementedError(VOLUME_DENSITY_FAULT)
+        if args.mesh_views > 1:
+            raise NotImplementedError(VOLUME_MESH_VIEWS)
 
 
 def _profiler(device) -> "object":

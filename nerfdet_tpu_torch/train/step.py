@@ -46,7 +46,7 @@ averaged over every rank, n_pos and the metrics over the data group.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -60,7 +60,9 @@ def scene_loss_terms(model: NerfDet, scene: Dict,
                      depth_supervise: bool = False,
                      use_nerf_mask: bool = True,
                      rgb_supervision: bool = True, view_group=None,
-                     n_ray_shards: int = 1) -> Dict[str, torch.Tensor]:
+                     n_ray_shards: int = 1,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Loss sums of ONE scene through the train-mode forward (which
     updates the 3D neck's running statistics in place). With rays and
     ``rgb_supervision``: ``loss_nvs``, the squared rgb error summed over
@@ -70,8 +72,11 @@ def scene_loss_terms(model: NerfDet, scene: Dict,
     scene's view-led inputs are this rank's views (``NerfDet.forward``);
     with ``n_ray_shards`` > 1 the rank renders its slice of the rays, and
     the masked sums and the mask's sum are summed over the group before
-    the divide, so every term is the scene's on every rank."""
-    head_outs, valid, render = model(scene, view_group=view_group,
+    the divide, so every term is the scene's on every rank.
+    ``generator`` jitters the render's depths where the scene brings no
+    ``z_vals``."""
+    head_outs, valid, render = model(scene, generator=generator,
+                                     view_group=view_group,
                                      n_ray_shards=n_ray_shards)
     terms = head_loss_sums(
         head_outs, valid, model.mlvl_points(scene["origin"]),
@@ -164,8 +169,16 @@ def make_train_step(model: NerfDet, optimizer: Optimizer,
     ``process_group`` is then the world, ``data_group`` this rank's data
     group) the step is the 2-D data x views step: each rank's scenes are
     its slices of its views group's scenes (``parallel/train2d``), and
-    each renders its slice of their rays."""
+    each renders its slice of their rays.
+
+    A scene without ``z_vals`` (no host ray stream: the ImVoxelNet-typed
+    configs) has its render's depths jittered on the device, from a
+    generator on the model's device seeded with 0 when the step is made:
+    every rank of a views group draws the same depths for every ray, then
+    keeps its slice."""
     n_ray_shards = pdist.world(view_group)
+    generator = torch.Generator(next(model.parameters()).device)
+    generator.manual_seed(0)
     loss_group = process_group if view_group is None else data_group
 
     def step(scenes: List[Dict]) -> Dict[str, torch.Tensor]:
@@ -181,7 +194,8 @@ def make_train_step(model: NerfDet, optimizer: Optimizer,
                     s.copy_(s0)
             terms.append(scene_loss_terms(model, scene, depth_supervise,
                                           use_nerf_mask, rgb_supervision,
-                                          view_group, n_ray_shards))
+                                          view_group, n_ray_shards,
+                                          generator))
             with torch.no_grad():
                 for u, s in zip(updated, stats):
                     u += s

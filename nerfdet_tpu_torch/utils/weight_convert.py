@@ -14,7 +14,15 @@
   already holds its frozen norms folded);
 * for VoteNet, every dense layer and BatchNorm under its own flax path
   (``backbone/sa{i}/mlp/fc{j}``, ``bbox_head/vote_module/bn{i}``, ...),
-  the port's module names being the flax names.
+  the port's module names being the flax names;
+* the Swin backbone under its flax names too (``nn/swin.py``): the patch
+  embedding's kernel HWIO -> OIHW, dense kernels transposed, each
+  LayerNorm's scale and bias as weight and bias, the relative position
+  bias tables as they are;
+* in volume mode (a tree without ``mapping``, which only image mode
+  calls) its ``mean_mapping`` / ``cov_mapping`` (1x1x1 convs); a tree
+  with both, as ``convert_reference_checkpoint`` writes one, is an
+  image-mode model's.
 
 Every mapping of ``from_jax_variables`` is a permutation (a transpose, a
 spatial flip) or a copy, so a JAX gradient tree, given as ``params``
@@ -137,6 +145,23 @@ def _neck3d(out: Dict, p: Mapping, s: Mapping) -> None:
             _bn(out, f"{pre}.1", blk["norm"], st["norm"])
 
 
+def _swin_tree(out: Dict, prefix: str, p: Mapping) -> None:
+    """The Swin backbone's flax tree under its own names: a node with a
+    4-d ``kernel`` is the patch embedding (a conv), with a 2-d one a
+    Dense, with a ``scale`` a LayerNorm."""
+    for name, sub in p.items():
+        key = f"{prefix}.{name}"
+        if not hasattr(sub, "items"):  # relative_position_bias_table
+            out[key] = _t(sub)
+        elif "kernel" in sub:
+            (_conv if np.ndim(sub["kernel"]) == 4 else _linear)(out, key, sub)
+        elif "scale" in sub:
+            out[f"{key}.weight"] = _t(sub["scale"])
+            out[f"{key}.bias"] = _t(sub["bias"])
+        else:
+            _swin_tree(out, key, sub)
+
+
 def _mlp(out: Dict, key: str, p: Mapping) -> None:
     for name, layer in p.items():
         if name == "output":
@@ -170,7 +195,10 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         for name in ("backbone", "bbox_head"):
             _dense_bn_tree(out, name, params[name], stats.get(name, {}))
         return out
-    _backbone(out, params["backbone"])
+    if "patch_embed" in params["backbone"]:
+        _swin_tree(out, "backbone", params["backbone"])
+    else:
+        _backbone(out, params["backbone"])
     for name, layer in params["neck"].items():
         kind, i = name.rsplit("_", 1)
         group = "lateral_convs" if kind == "lateral" else "fpn_convs"
@@ -183,7 +211,11 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         out[f"bbox_head.scales.{i}.scale"] = torch.tensor(float(s))
     for name, sub in params["nerf_mlp"]["mlp"].items():
         _mlp(out, f"nerf_mlp.mlp.{name}", sub)
-    _linear(out, "mapping.0", params["mapping"])
+    if "mapping" in params:  # image mode: volume mode never calls it
+        _linear(out, "mapping.0", params["mapping"])
+    else:  # volume mode: its init holds the 1x1x1 volume mappings
+        for name in ("mean_mapping", "cov_mapping"):
+            _conv(out, f"{name}.0", params[name])
     return out
 
 
@@ -213,9 +245,18 @@ def from_reference_state_dict(state: Mapping) -> Dict[str, torch.Tensor]:
 
 def load_reference_state_dict(model: torch.nn.Module, state: Mapping) -> None:
     """Load a reference state_dict into the port's model; keys of
-    modules the port does not build (the volume-mode mappings, the
-    reference's unused towers) are dropped, and every key the model has
-    must be present."""
+    modules the port does not build (the volume-mode mappings in image
+    mode, ``mapping`` in volume mode, the reference's unused towers) are
+    dropped, and every key the model has must be present. A model with
+    the Swin backbone is refused: the JAX package's
+    ``convert_reference_checkpoint`` converts ResNet backbones only."""
+    from ..nn.swin import SwinTransformer
+
+    if isinstance(getattr(model, "backbone", None), SwinTransformer):
+        raise NotImplementedError(
+            "reference checkpoints with the Swin backbone are not converted "
+            "(the JAX package's convert_reference_checkpoint reads ResNet "
+            "backbones only)")
     converted = from_reference_state_dict(state)
     own = model.state_dict()
     model.load_state_dict({k: v for k, v in converted.items() if k in own},

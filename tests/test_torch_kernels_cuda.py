@@ -1319,6 +1319,143 @@ def test_k2_backward_refuses_more_windows_than_shared_memory_holds(dev):
             pts, proj, (239, 320), big, g, gf, s1u, cnt)
 
 
+# ---- the fast_cov family's shapes: 480x640 scenes, M = 16, C = 16 ---------
+
+FAMILY_IMG = (478, 640)  # img_shape of the family's 640x480 Resize
+
+
+def _family_cameras(rng, v):
+    """``_cameras`` at the family's 640x480 images (twice the focal)."""
+    intrinsic, extr = _cameras(rng, v)
+    intrinsic = intrinsic.copy()
+    intrinsic[:2] *= 2.0
+    return intrinsic, extr
+
+
+def _family_pix(dev, v):
+    """K1's pixel indices at the family's stride-4 maps (120x160, bounds
+    119x160) for the exemplar's 40x40x16 volume at 0.2 m."""
+    intrinsic, extr = _family_cameras(np.random.RandomState(v), v)
+    points = voxel.get_points((40, 40, 16), (0.2, 0.2, 0.2), (0, 0, 0.5),
+                              dev).reshape(-1, 3)
+    proj = voxel.compute_projection(intrinsic, extr, 4.0, dev)
+    x, y, _, valid = voxel.project_points(points, proj, 119, 160)
+    return voxel.pixel_index(x, y, valid, 160).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_family_mapped_rows_m16_and_carry_match_plain(dev, dtype):
+    """K1 at ``squeeze_scale`` 8 (M = 16) on the family's 51 views of
+    (120, 160, 256) maps: phase A's rows within 1e-5 relative of
+    ``mapped_rows_plain`` (on bfloat16 maps W in three pieces on the
+    tensor cores), the carry's count, s1 and s2 bitwise and s2m 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    feats = torch.randn((51, 120, 160, 256), generator=gen,
+                        device=dev).to(dtype)
+    w = torch.randn((256, 16), generator=gen, device=dev) / 16.0
+    b = torch.randn((16,), generator=gen, device=dev)
+    got = voxel._mapped_rows_launch(feats, w, b)
+    want = voxel.mapped_rows_plain(feats, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (51, 120 * 160, 16)
+    assert _rel(got, want) <= 1e-5
+    del got, want
+    pix = _family_pix(dev, 51)
+    k = voxel.fusion_carry(feats, pix, w, b)
+    p = voxel.fusion_carry_plain(feats, pix, w, b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(k[:3], p[:3]))
+    assert _rel(k[3], p[3]) <= 1e-5
+    assert float(k[2].max()) >= 2 and int((k[2] == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("mapped", [False, True])
+def test_family_fusion_backward_with_g2_matches_plain(dev, mapped):
+    """K1's backward with the s2 cotangent (kG2: a ``cov`` volume trains
+    it) at the exemplar's training shape, 30 views of 480x640 (120x160
+    maps), C = 256, M = 32: d features within 1e-5 x max, dW and db 1e-4 x
+    max, a second run bitwise (``test_fusion_backward_matches_plain``'s
+    tolerances)."""
+    pix = _family_pix(dev, 30)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    n, c, m = pix.shape[1], 256, 32
+    feats = torch.randn((30, 120, 160, c), generator=gen, device=dev)
+    w = b = gm = rows = None
+    if mapped:
+        w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
+        b = torch.randn((m,), generator=gen, device=dev)
+        gm = torch.randn((n, m), generator=gen, device=dev)
+        rows = voxel.mapped_rows_plain(feats, w, b)
+    g1 = torch.randn((n, c), generator=gen, device=dev)
+    g2 = torch.randn((n, c), generator=gen, device=dev)
+    count = (pix >= 0).float().sum(0)
+    args = (feats, pix, count, g1, g2, gm, w, b, rows)
+    got = voxel.fusion_carry_backward(*args)
+    want = voxel.fusion_carry_backward_plain(*args)
+    again = voxel.fusion_carry_backward(*args)
+    torch.cuda.synchronize()
+    assert _close(got[0], want[0], 1e-5)
+    assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def _family_rays(dev, v, r, s, c, seed):
+    """``_ray_inputs`` at the family's size: 480x640 images, 119x160
+    feature maps of C channels, the cameras at 478x640."""
+    rng = np.random.RandomState(seed)
+    intrinsic, extr = _family_cameras(rng, v)
+    pts = rng.uniform([-3, -3, -0.5], [3, 3, 3], (r, s, 3))
+    pts[: r // 8, :, 2] += 50.0
+    images = rng.uniform(0, 1, (v, 480, 640, 3))
+    feats = rng.randn(v, 119, 160, c)
+    proj = render.view_projection(intrinsic, extr, 1.0, dev)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (pts, images, feats)] + [proj]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["eval", "training"])
+def test_family_k2_c16_forms_and_backward_match_plain(dev, form, dtype):
+    """K2 at C = 16 (``squeeze_scale`` 8) at the squeeze-8 config's
+    training shape, 40 views of 480x640 and 4096 rays of 64 samples, in
+    the eval form (the family trains through it, under grad) and the
+    training form: the mask exact, globalfeat 1e-5 relative (bfloat16 bit
+    for bit); then K2's backward on a random cotangent against its plain
+    version, 1e-5 x max (bfloat16 bit for bit), a second run bitwise."""
+    pts, images, feats, proj = _family_rays(dev, 40, 4096, 64, 16, seed=16)
+    images, feats = images.to(dtype), feats.to(dtype)
+    host = None
+    if form == "training":
+        carry = render.ray_view_carry_plain(pts, images, images[..., :1],
+                                            proj, FAMILY_IMG)
+        host = tuple(t[..., :3].contiguous() for t in carry[:3]) + (
+            carry[3],)
+        del carry
+    args = (pts, None if host else images, proj, FAMILY_IMG, feats, host)
+    gf, mask, s1u, cnt = render._k2_launch(*args, for_grad=True)
+    want = render.streaming_sample_mean_var_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, want[1])
+    assert 0 < float(mask.float().mean()) < 1
+    assert _rel(gf, want[0]) <= 1e-5
+    if dtype == torch.bfloat16:
+        assert torch.equal(gf, want[0])
+    gen = torch.Generator(device=dev).manual_seed(40)
+    g = torch.randn(gf.shape, generator=gen, device=dev)
+    bargs = (pts, proj, FAMILY_IMG, feats, g, gf, s1u, cnt)
+    d = render.streaming_sample_mean_var_backward(*bargs)
+    again = render.streaming_sample_mean_var_backward(*bargs)
+    d_want = render.streaming_sample_mean_var_backward_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(d, again)
+    assert float(d_want.float().abs().max()) > 0
+    if dtype == torch.bfloat16:
+        assert torch.equal(d, d_want)
+    else:
+        assert _rel(d, d_want) <= 1e-5
+
+
 def test_entry_device_turns_tf32_off(dev):
     from nerfdet_tpu_torch.device import resolve_device
 

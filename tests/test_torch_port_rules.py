@@ -50,6 +50,13 @@ def _port_files():
                             for name in ("chip_smoke.py", "kernel_ab.py")]
 
 
+def test_the_import_rule_reads_every_module_of_the_port():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("nn/swin.py", "ops/grid_sample.py", "ops/render.py",
+                 "models/builder.py", "models/nerfdet.py"):
+        assert os.path.join("nerfdet_tpu_torch", name) in names, name
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_imports(path):
@@ -68,7 +75,8 @@ def test_no_jax_imports(path):
 
 @pytest.mark.parametrize("cfg", sorted(glob.glob(
     os.path.join(ROOT, "configs", "nerfdet", "*.py"))) + sorted(glob.glob(
-    os.path.join(ROOT, "configs", "votenet", "*.py"))),
+    os.path.join(ROOT, "configs", "votenet", "*.py"))) + sorted(glob.glob(
+    os.path.join(ROOT, "configs", "imvoxelnet", "*fast_cov*.py"))),
     ids=os.path.basename)
 def test_config_copy(cfg):
     assert Config.fromfile(cfg).to_dict() == JaxConfig.fromfile(cfg).to_dict()
