@@ -170,6 +170,30 @@ Phases, each reported on its own lines:
     detection again with the synthetic intrinsic scaled to
     ``ori_shape``, the tool's own functions timing it.
 
+16. the fast_cov family (``fast_cov_path``: NeRF-Det configs typed
+    ``ImVoxelNet``, no host streams) at 480x640 with depth.
+
+17. the indoor ImVoxelNet on ScanNet (``indoor_path``: ``ImVoxelNet``
+    configs without NeRF keys, and the lowercase ``imvoxelnet`` type),
+    random weights, phase 16's scene maker at 478x640: 17.0 K1's
+    plain-mean form (no mapped or rgb stream) at 50 views of (120, 160,
+    64) maps into the 80x80x32 volume in float32 and bfloat16 (count, s1,
+    s2 bitwise), its g1-only backward at the 20-view training pixel
+    indices in both dtypes (``index_add_`` of the g1 rows as the
+    yardstick), C = 1, 8 and 16 run padded to 32, C = 256 depth-gated at
+    40x40x16, each with its time, bound and plain time; 17.1
+    ``imvoxelnet_scannet.py`` (the Atlas neck, the V1 head):
+    ``eval_step`` + host NMS at 50 views (K1 once; kernels vs plain
+    through the graph; stage times: backbone, K1, Atlas neck, head,
+    decode; scenes/s), ``Trainer.step`` at 20 views (2 + 5 steps, K1 and
+    its backward once a step, positives, steps/s, peak memory) and one
+    step against the same step with the plain K1; 17.2 the fast and
+    fast_depth configs (the fast neck, the V2 head; the gate's kept
+    share); 17.3 ``imvoxelnet_scannet_swin_t.py`` (Swin-T, NeRF-Det
+    without the density: K2's eval form and its backward in the step);
+    17.4 bfloat16; 17.5 ``tools/train`` for 2 steps then ``tools/test
+    --eval mAP`` on 484x648 files; the phase's wall time.
+
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
 ``ori_shape``), in the main path's form (no s2 cotangent), with the
@@ -350,18 +374,21 @@ def bound_text(bound):
     return text + ")"
 
 
-def check_fusion(voxel, cases, hw, gen, m=32):
+def check_fusion(voxel, cases, hw, gen, m=32, c=256):
     """K1 vs its plain version at the main path's shape: count, s1 and
     s2 bitwise equal, s2m within 1e-5 relative. ``cases``: (name, pix,
     dtype, mapped); ``m`` the mapped stream's width (32, or 16 where
-    ``squeeze_scale`` is 8). Each line gives K1's time, its phases' (the
-    uncounted launches ``_mapped_rows_launch`` and ``_carry_launch``),
-    the plain version's and the bound; the f32 mapped forms also time
-    ``torch.addmm`` on the same maps, phase A's one-call yardstick."""
+    ``squeeze_scale`` is 8); ``c`` the maps' channels (off
+    ``voxel.K1_CHANNELS`` the wrappers pad them). Each line gives K1's
+    time, its phases' (the uncounted launches ``_mapped_rows_launch`` and
+    ``_carry_launch``), the plain version's and the bound; the f32 mapped
+    forms also time ``torch.addmm`` on the same maps, phase A's one-call
+    yardstick (the plain-mean form has no phase A, and no one-call
+    counterpart)."""
     import torch
 
     dev = cases[0][1].device
-    v, (fh, fw), c = cases[0][1].shape[0], hw, 256
+    v, (fh, fw) = cases[0][1].shape[0], hw
     feats32 = torch.randn((v, fh, fw, c), generator=gen, device=dev)
     w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
     b = torch.randn((m,), generator=gen, device=dev)
@@ -424,10 +451,12 @@ def check_fusion(voxel, cases, hw, gen, m=32):
 
 def fusion_backward_bound(pix, hw, c, m, with_g2, elt=4):
     """Least time of K1's backward on these inputs. Bytes: each referenced
-    pixel row of the maps (``elt`` bytes an element) and of phase A's
-    mapped rows read once, the whole d-features map written once (``elt``
-    again), the cotangents g1 (g2), gm, the indices, counts, W, b read
-    once and dW, db written once. Operations: per valid (voxel, view)
+    pixel row of the maps (``elt`` bytes an element; only where the s2
+    cotangent or the mapped stream needs x: d features from g1 alone never
+    read them) and of phase A's mapped rows read once, the whole
+    d-features map written once (``elt`` again), the cotangents g1 (g2),
+    gm, the indices, counts, W, b read once and dW, db written once.
+    Operations: per valid (voxel, view)
     pair, C adds for G1 (2C with g2) and M for GM; per referenced row, 2M
     for dY, 2CM for dY @ W^T, C for the sum (3C more with g2), 2CM for
     dW and M for db; 2M per voxel for the unseen views' bias term. On
@@ -441,8 +470,10 @@ def fusion_backward_bound(pix, hw, c, m, with_g2, elt=4):
     rows = sum(int(torch.unique(p[k]).numel()) for p, k in zip(pix, valid))
     n_valid = int(valid.sum())
     g = 2 if with_g2 else 1
+    reads_x = bool(m) or with_g2
     nbytes = (4 * (rows * m + g * n * c + n * m + pix.numel() + n
-                   + 2 * (c * m + m)) + elt * (rows * c + v * hw * c))
+                   + 2 * (c * m + m))
+              + elt * (rows * c * reads_x + v * hw * c))
     per_pair = elt == 2
     ops = (n_valid * (g * c + m + (2 * c * m + c if per_pair else 0))
            + rows * (2 * m + (2 if per_pair else 4) * c * m
@@ -466,88 +497,105 @@ def bf16_ulps(got, want):
 
 
 def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None,
-                          with_g2=False):
+                          with_g2=False, c=256, m=32):
     """K1's backward kernel vs ``fusion_carry_backward_plain`` at the main
     path's form (C = 256, M = 32, cotangents of s1 and s2m, none of s2;
-    ``with_g2`` adds one of s2, the form a ``cov`` volume trains, kG2):
-    two runs bitwise equal; on float32 maps d features within 1e-5 x max,
-    on bfloat16 maps (``dtype``) within 2 bfloat16 ulps of the largest
-    at under 1% of the elements (each pair's product with W^T sums its M
-    terms in another order); dW and db within 1e-4 x max. Times the
-    kernel, its passes (the index preparation, pass 1, 2 and 3, each on
-    the last one's outputs), the plain version and ``torch.mm`` on the
-    two products it contains (dY @ W^T and x^T dY over the referenced
-    rows)."""
+    ``with_g2`` adds one of s2, the form a ``cov`` volume trains, kG2;
+    ``m`` = 0 is the plain-mean volume's form, the s1 cotangent alone;
+    ``c`` off ``voxel.K1_CHANNELS`` runs padded): two runs bitwise equal;
+    on float32 maps d features within 1e-5 x max, on bfloat16 maps
+    (``dtype``) within 2 bfloat16 ulps of the largest at under 1% of the
+    elements (each pair's product with W^T sums its M terms in another
+    order; without the mapped stream bitwise); dW and db within 1e-4 x
+    max. Times the kernel, its passes (the index preparation, pass 1, 2
+    and 3, each on the last one's outputs; at K1's own widths), the plain
+    version and the yardstick: ``torch.mm`` on the two products it
+    contains (dY @ W^T and x^T dY over the referenced rows) or, without
+    the mapped stream, ``index_add_`` of the valid pairs' g1 rows into
+    the flat maps (the whole function in one call)."""
     import torch
 
     dev = pix.device
     v, n = pix.shape
-    c, m = 256, 32
     dtype = dtype or torch.float32
     feats = torch.randn((v,) + hw + (c,), generator=gen,
                         device=dev).to(dtype)
-    w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
-    b = torch.randn((m,), generator=gen, device=dev)
     g1 = torch.randn((n, c), generator=gen, device=dev)
-    gm = torch.randn((n, m), generator=gen, device=dev)
+    w = b = gm = rows_p = None
+    if m:
+        w = torch.randn((c, m), generator=gen, device=dev) / c ** 0.5
+        b = torch.randn((m,), generator=gen, device=dev)
+        gm = torch.randn((n, m), generator=gen, device=dev)
     g2 = torch.randn((n, c), generator=gen, device=dev) if with_g2 else None
     count = (pix >= 0).float().sum(0)
-    rows_p = voxel.mapped_rows_plain(feats, w, b)
+    if m:
+        rows_p = voxel.mapped_rows_plain(feats, w, b)
     args = (feats, pix, count, g1, g2, gm, w, b, rows_p)
     got = voxel.fusion_carry_backward(*args)
     again = voxel.fusion_carry_backward(*args)
     want = voxel.fusion_carry_backward_plain(*args)
     torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+    if not all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(got, again)):
         raise SystemExit("K1 backward: two runs differ")
-    errs = [float((x.float() - y.float()).abs().max())
-            for x, y in zip(got, want)]
+    pairs = [(x, y) for x, y in zip(got, want) if y is not None]
+    errs = [float((x.float() - y.float()).abs().max()) for x, y in pairs]
     rels = [e / max(float(y.float().abs().max()), 1e-30)
-            for e, y in zip(errs, want)]
+            for e, (_, y) in zip(errs, pairs)] + [0.0, 0.0]
     bf16 = dtype == torch.bfloat16
     ulps, share = bf16_ulps(got[0], want[0]) if bf16 else (0.0, 0.0)
     ms = cuda_time_ms(lambda: voxel.fusion_carry_backward(*args), 20)
     n_pix = hw[0] * hw[1]
-    order, off, rows, n_rows = voxel.pixel_order(pix, n_pix)
-    _, dy = voxel._pixel_sums(feats, order, off, g1, g2, gm, rows_p, w)
-    parts = voxel._weight_parts(feats, dy, rows, n_rows, gm, count)
-    passes = {
-        "index_ms": cuda_time_ms(lambda: voxel.pixel_order(pix, n_pix), 20),
-        "pass1_ms": cuda_time_ms(lambda: voxel._pixel_sums(
-            feats, order, off, g1, g2, gm, rows_p, w), 20),
-        "pass2_ms": cuda_time_ms(lambda: voxel._weight_parts(
-            feats, dy, rows, n_rows, gm, count), 20),
-        "pass3_ms": cuda_time_ms(lambda: voxel._weight_reduce(*parts, b),
-                                 20)}
+    passes = {"index_ms": cuda_time_ms(lambda: voxel.pixel_order(pix, n_pix),
+                                       20)}
+    if c in voxel.K1_CHANNELS:
+        order, off, rows, n_rows = voxel.pixel_order(pix, n_pix)
+        _, dy = voxel._pixel_sums(feats, order, off, g1, g2, gm, rows_p, w)
+        passes["pass1_ms"] = cuda_time_ms(lambda: voxel._pixel_sums(
+            feats, order, off, g1, g2, gm, rows_p, w), 20)
+        if m:
+            parts = voxel._weight_parts(feats, dy, rows, n_rows, gm, count)
+            passes["pass2_ms"] = cuda_time_ms(lambda: voxel._weight_parts(
+                feats, dy, rows, n_rows, gm, count), 20)
+            passes["pass3_ms"] = cuda_time_ms(
+                lambda: voxel._weight_reduce(*parts, b), 20)
     plain_ms = cuda_time_ms(lambda: voxel.fusion_carry_backward_plain(*args),
                             3, warmup=1)
-    # the yardstick: the two products over the referenced rows
     keys = torch.where(pix >= 0, pix.long() + torch.arange(
         v, device=dev)[:, None] * n_pix, -1).flatten()
-    ref = torch.unique(keys[keys >= 0])
-    x_r = feats.reshape(-1, c)[ref].float()
-    dy_r = torch.randn((ref.numel(), m), generator=gen, device=dev)
-    wt = w.t().contiguous()
-    library_ms = cuda_time_ms(
-        lambda: (torch.mm(dy_r, wt), torch.mm(x_r.t(), dy_r)), 20)
+    if m:  # the yardstick: the two products over the referenced rows
+        ref = torch.unique(keys[keys >= 0])
+        x_r = feats.reshape(-1, c)[ref].float()
+        dy_r = torch.randn((ref.numel(), m), generator=gen, device=dev)
+        wt = w.t().contiguous()
+        library_ms = cuda_time_ms(
+            lambda: (torch.mm(dy_r, wt), torch.mm(x_r.t(), dy_r)), 20)
+        what = "torch.mm: dY @ W^T and x^T dY over the referenced rows"
+    else:  # the scatter of every valid pair's g1 row to its pixel
+        kept = keys >= 0
+        dst, rows_g = keys[kept], g1.repeat(v, 1)[kept]
+        flat = torch.zeros((v * n_pix, c), device=dev)
+        library_ms = cuda_time_ms(lambda: flat.index_add_(0, dst, rows_g),
+                                  20)
+        what = "index_add_ of the valid pairs' g1 rows into the flat maps"
     bound_ms, bound_by, nbytes, ops, n_ref = fusion_backward_bound(
         pix, n_pix, c, m, with_g2, feats.element_size())
     tol = (f"{ulps:.2f} bfloat16 ulps at {share:.4f} of the elements, tol 2 "
            f"at under 0.01" if bf16 else "tol 1e-5")
-    form = "with the s2 cotangent (kG2)" if with_g2 else "no s2 cotangent"
-    log(f"[kernel] fused_mean_cov_backward {str(dtype)[6:]} mapped, {form}, "
+    g2_form = "with the s2 cotangent (kG2)" if with_g2 else "no s2 cotangent"
+    form = (f"mapped, {g2_form}" if m else f"plain mean, {g2_form}"
+            if with_g2 else "plain mean (g1 only)")
+    log(f"[kernel] fused_mean_cov_backward {str(dtype)[6:]} {form}, "
         f"{label}: V={v} map={hw[0]}x{hw[1]} C={c} N={n} M={m}; {n_ref} "
-        f"referenced rows: two runs bitwise equal; max_abs_err d features "
-        f"{errs[0]:.3e} (rel {rels[0]:.3e}, {tol}), dW {errs[1]:.3e} "
-        f"(rel {rels[1]:.3e}, tol 1e-4), db {errs[2]:.3e} (rel "
-        f"{rels[2]:.3e}, tol 1e-4) ms={ms:.4f} (index preparation "
-        f"{passes['index_ms']:.4f}, pass 1 {passes['pass1_ms']:.4f}, pass 2 "
-        f"{passes['pass2_ms']:.4f}, pass 3 {passes['pass3_ms']:.4f}) "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.mm: "
-        f"dY @ W^T and x^T dY over the referenced rows) "
+        f"referenced rows: two runs bitwise equal; max_abs_err "
+        + ", ".join(f"{k} {e:.3e} (rel {r:.3e})" for k, e, r in zip(
+            ("d features", "dW", "db"), errs, rels))
+        + f" ({tol}; dW, db tol 1e-4) ms={ms:.4f} ("
+        + ", ".join(f"{k[:-3]} {t:.4f}" for k, t in passes.items())
+        + f") plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({what}) "
         f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, {ops} FLOP)")
-    if ((ulps > 2 or share >= 0.01) if bf16 else rels[0] > 1e-5) \
-            or rels[1] > 1e-4 or rels[2] > 1e-4:
+    if ((ulps > 2 or share >= 0.01 or (not m and ulps > 0)) if bf16
+            else rels[0] > 1e-5) or rels[1] > 1e-4 or rels[2] > 1e-4:
         raise SystemExit("K1 backward disagrees with its plain version")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -4495,6 +4543,425 @@ def fast_cov_path(api, voxel, render, card):
                 stages=stages, train_stages=train_stages, wall_s=wall)
 
 
+# phase 17: the indoor ImVoxelNet on ScanNet (ImVoxelNet configs without
+# NeRF keys, and the lowercase imvoxelnet type)
+IV = "configs/imvoxelnet/imvoxelnet_scannet"
+IV_ATLAS = IV + ".py"
+IV_FAST = IV + "_fast.py"
+IV_FAST_DEPTH = IV + "_fast_depth.py"
+IV_SWIN = IV + "_swin_t.py"
+IV_CLI_STEPS = 2
+IV_CLI_VIEWS = 60  # views of each written scene (train 20, test 50)
+IV_NARROW = (1, 8, 16)  # K1 off its widths: the smoke config's FPN 8
+
+
+def indoor_path(api, voxel, render, card):
+    """Phase 17: the indoor ImVoxelNet on ScanNet at full width, random
+    weights from ``SEED``, synthetic 478x640 scenes (phase 16's scene
+    maker) at the intrinsic scaled to ``ori_shape``. 17.0 K1 at this
+    slice's shapes against its plain version (the plain-mean form into the
+    80x80x32 volume and its g1-only backward, C = 256 depth-gated at
+    40x40x16, C = 1, 8, 16 run padded); 17.1 ``imvoxelnet_scannet.py``
+    (the Atlas neck, the V1 head): eval_step at 50 views with stage
+    times, the Trainer.step at 20 views (2 + 5 steps), one step kernels vs
+    plain; 17.2 the fast and fast_depth configs; 17.3 the lowercase
+    imvoxelnet (Swin-T, the NeRF-Det graph without the density); 17.4
+    bfloat16; 17.5 tools/train then tools/test on files. Returns the
+    record's numbers."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.data.synthetic import write_synthetic_scannet
+    from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
+    from nerfdet_tpu_torch.parallel.train2d import pipeline_views
+    from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.tools import train as train_cli
+
+    t_phase = time.perf_counter()
+    dev = api.resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                voxel.rgb_carry, render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return [fn.launches for fn in counters]
+
+    def named(launches):
+        return ", ".join(f"{n} {c}" for n, c in zip(FC_NAMES, launches))
+
+    def expect(launches, want, what):
+        if launches != want:
+            raise SystemExit(f"phase 17 {what} launched {named(launches)}; "
+                             f"expected {named(want)}")
+
+    def finite_candidates(res, what):
+        if not (torch.isfinite(res["boxes"]).all()
+                and torch.isfinite(res["scores"]).all()):
+            raise SystemExit(f"phase 17 {what}: non-finite candidates")
+
+    def finite_metrics(metrics, what, need=("n_pos",)):
+        m = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in m.values()) or not all(
+                m.get(k, 0.0) > 0 for k in need):
+            raise SystemExit(f"phase 17 {what}: metrics {m}")
+        return m
+
+    # ---- imvoxelnet_scannet.py and its scene ----
+    t0 = time.perf_counter()
+    cfg = family_config(IV_ATLAS)
+    model = api.init_detector(cfg, device="cuda", seed=SEED)
+    meta = model.meta
+    n_test, n_train = family_views(cfg, "test"), family_views(cfg, "train")
+    scene = depth_scene(model, SEED + 17, n_test)
+    c = model.neck.fpn_convs[0].conv.out_channels
+    log(f"[indoor] {IV_ATLAS}: {type(model).__name__}, 3D neck "
+        f"{type(model.neck_3d).__name__}, head {model.head_type} (V1 "
+        f"{model.uses_v1_head}), volume {model.n_voxels} at "
+        f"{model.voxel_size}, FPN {c}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; scene "
+        f"{n_test} views {meta.img_shape} padded {meta.pad_shape}, train "
+        f"{n_train}: {time.perf_counter() - t0:.1f} s")
+    if not model.uses_v1_head or type(model).__name__ != "IndoorImVoxelNet":
+        raise SystemExit(f"{IV_ATLAS} did not build the indoor ImVoxelNet")
+
+    # ---- 17.0 K1 at this slice's shapes ----
+    hw = (meta.pad_shape[0] // 4, meta.pad_shape[1] // 4)
+    vol = "x".join(str(n) for n in model.n_voxels)
+    pix_test = family_pix(voxel, model, scene, dev, False)["features"]
+    k1 = check_fusion(voxel, [
+        (f"float32 plain mean, {n_test} views into {vol}", pix_test, f32,
+         False),
+        (f"bfloat16 plain mean, {n_test} views into {vol}", pix_test, bf16,
+         False)], hw, gen, c=c)
+    del pix_test
+    pix_train = family_pix(voxel, model, first_views(scene, n_train), dev,
+                           False)["features"]
+    train_label = f"the training pix ({n_train} views into {vol})"
+    k1_bwd = check_fusion_backward(voxel, pix_train, hw, gen, train_label,
+                                   c=c, m=0)
+    k1_bwd_bf16 = check_fusion_backward(voxel, pix_train, hw, gen,
+                                        train_label, dtype=bf16, c=c, m=0)
+    narrow, narrow_bwd = {}, {}
+    for cn in IV_NARROW:
+        narrow[cn] = check_fusion(voxel, [
+            (f"float32 plain mean C={cn} (run at "
+             f"{voxel.k1_width(cn)}), {train_label}", pix_train, f32,
+             False)], hw, gen, c=cn)
+        narrow_bwd[cn] = check_fusion_backward(
+            voxel, pix_train, hw, gen, f"C={cn}, {train_label}", c=cn, m=0)
+    del pix_train
+    cfg_fd = family_config(IV_FAST_DEPTH)
+    fd_model = api.init_detector(cfg_fd, device="cuda", seed=SEED)
+    pix_fd = family_pix(voxel, fd_model, scene, dev, True)["features"]
+    kept_fd = float((pix_fd >= 0).float().mean())
+    c_fd = fd_model.neck.fpn_convs[0].conv.out_channels
+    k1_fd = check_fusion(voxel, [
+        (f"float32 plain mean C={c_fd}, {n_test} views depth-gated into "
+         f"{fd_model.n_voxels}", pix_fd, f32, False)], hw, gen, c=c_fd)
+    log(f"[indoor] 17.0 the depth gate keeps {kept_fd:.4f} of the (voxel, "
+        f"view) pairs at {fd_model.n_voxels} ({IV_FAST_DEPTH})")
+    del pix_fd, fd_model
+
+    # ---- 17.1 eval_step at 50 views ----
+    nms_pre, iou_thr = cfg.test_cfg["nms_pre"], cfg.test_cfg["iou_thr"]
+    nodepth = first_views(scene, n_test, depth=False)
+    batch = api.device_batch(model, nodepth)
+    if set(batch) != {"imgs", "intrinsic", "extrinsics", "origin"}:
+        raise SystemExit(f"the indoor batch holds {sorted(batch)}")
+    zero()
+    res = api.eval_step(model, batch, nms_pre)
+    det = api.detections_from_candidates(
+        res["boxes"].float().cpu().numpy(),
+        res["scores"].float().cpu().numpy(), SCORE_THR, iou_thr)
+    eval_launches = counts()
+    log(f"[indoor] 17.1 eval_step at {n_test} views -> "
+        f"{tuple(res['boxes'].shape)} candidates, NMS kept "
+        f"{len(det['labels_3d'])}; launches {named(eval_launches)}")
+    expect(eval_launches, [1, 0, 0, 0, 0], "17.1 eval_step")
+    finite_candidates(res, "17.1 eval_step")
+    with torch.inference_mode():
+        head_k, valid_k, _ = model(batch)
+        saved = voxel.fusion_carry
+        voxel.fusion_carry = voxel.fusion_carry_plain
+        try:
+            head_p, valid_p, _ = model(batch)
+        finally:
+            voxel.fusion_carry = saved
+    diff = max(float((a - b).abs().max()) for hk, hp in zip(head_k, head_p)
+               for a, b in zip(hk, hp))
+    scale = max(float(b.abs().max()) for hp in head_p for b in hp)
+    shapes = [tuple(t[0].shape[:3]) for t in head_k]
+    log(f"[indoor] 17.1 kernels vs plain (K1) through the whole graph: view "
+        f"counts equal {torch.equal(valid_k, valid_p)}, head outputs max "
+        f"|diff| {diff:.3e} (max |out| {scale:.3e}, tol 1e-4 relative); "
+        f"scales {shapes}")
+    if not torch.equal(valid_k, valid_p) or diff > 1e-4 * max(scale, 1.0):
+        raise SystemExit("kernel and plain indoor graphs disagree")
+    if shapes != [tuple(n >> i for n in model.n_voxels) for i in range(3)]:
+        raise SystemExit(f"the Atlas neck's scales are {shapes}")
+    del head_k, head_p
+    with torch.inference_mode():
+        feats, _ = model.extract_2d(batch["imgs"])
+        geo = (batch["intrinsic"], batch["extrinsics"], batch["origin"])
+        volume, valid = model.build_volume(feats, *geo)
+        x = volume.permute(3, 0, 1, 2)[None]
+        scales = model.neck_3d(x)
+        heads = model.detect(volume)
+        mlvl = model.mlvl_points(batch["origin"])
+        stages = {}
+        for name, fn in {
+                "extract_2d (ResNet-50 + FPN)": lambda: model.extract_2d(
+                    batch["imgs"]),
+                "build_volume (projection + K1)": lambda: model.build_volume(
+                    feats, *geo),
+                "Atlas neck": lambda: model.neck_3d(x),
+                "V1 head": lambda: model.bbox_head(scales),
+                "get_candidate_bboxes": lambda: get_candidate_bboxes(
+                    heads, valid, mlvl, nms_pre, model.n_classes),
+        }.items():
+            stages[name] = cuda_time_ms(fn, 3, warmup=1)
+            log(f"[stage] indoor {n_test} views {name}: "
+                f"{stages[name]:.3f} ms")
+    del feats, volume, x, scales, heads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        res = api.eval_step(model, batch, nms_pre)
+        api.detections_from_candidates(
+            res["boxes"].float().cpu().numpy(),
+            res["scores"].float().cpu().numpy(), cfg.test_cfg["score_thr"],
+            iou_thr)
+    dt = (time.perf_counter() - t0) / iters
+    eval_rate = 1 / dt
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_ms = cuda_time_ms(lambda: api.eval_step(model, batch, nms_pre), 3,
+                           warmup=1)
+    log(f"[indoor] 17.1 inference: {eval_rate:.3f} scenes/s ({dt * 1e3:.2f} "
+        f"ms a scene: eval_step + host NMS at {n_test} views), peak memory "
+        f"{eval_peak:.2f} GiB; the Atlas neck {stages['Atlas neck']:.3f} ms "
+        f"of it; measured on {card}")
+    del model, batch, res
+    torch.cuda.empty_cache()
+
+    # ---- 17.1 the Trainer.step at 20 views ----
+    t0 = time.perf_counter()
+    tr = api.init_trainer(cfg, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    tbatch = api.train_batch(tr.model, [first_views(scene, n_train,
+                                                    depth=False)],
+                             rng=np.random.RandomState(SEED))
+    log(f"[indoor] 17.1 init_trainer, {n_train} views: "
+        f"{time.perf_counter() - t0:.1f} s")
+    start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    loss_k, _, grads_k, _ = family_step_grads(voxel, render, tr.model,
+                                              tbatch, start, False)
+    loss_p, _, grads_p, _ = family_step_grads(voxel, render, tr.model,
+                                              tbatch, start, True)
+    tr.model.load_state_dict(start)
+    tr.optimizer.zero_grad()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = {n: float((grads_k[n] - grads_p[n]).norm())
+                / max(float(grads_p[n].norm()), 1e-30) for n in (
+                    "neck.lateral_convs.0.conv.weight",
+                    "neck_3d.model.down_0_0.conv1.weight",
+                    "bbox_head.cls_conv.weight")}
+    log(f"[indoor] 17.1 kernels vs plain (K1 and its backward) for one step:"
+        f" loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, tol "
+        f"1e-5); gradients rel norm " + ", ".join(
+            f"{n} {v:.3e}" for n, v in grad_rel.items()) + " (tol 1e-4)")
+    if loss_rel > 1e-5 or max(grad_rel.values()) > 1e-4:
+        raise SystemExit("kernel and plain indoor train steps disagree")
+    del grads_k, grads_p, start
+    hist, dt, train_launches, peak = timed_steps(tr, tbatch, counters)
+    last = finite_metrics(hist[-1], "17.1 train")
+    log(f"[indoor] 17.1 train, 5 steps: launches {named(train_launches)}; "
+        f"last step " + ", ".join(f"{k} {v:.6g}" for k, v in last.items()))
+    expect(train_launches, [5, 5, 0, 0, 0], "17.1 training (5 steps)")
+    train_stages = step_stage_times(tr, tbatch)
+    for k, ms in train_stages.items():
+        log(f"[stage] indoor train {k}: {ms:.3f} ms")
+    train_rate = 1 / dt
+    log(f"[indoor] 17.1 train: {train_rate:.3f} steps/s ({dt * 1e3:.2f} ms "
+        f"a step: Trainer.step, one scene of {n_train} views at "
+        f"{meta.pad_shape[0]}x{meta.pad_shape[1]}, host clock after 2 "
+        f"warm-up steps), peak memory {peak / 2**30:.2f} GiB; measured on "
+        f"{card}")
+    del tr, tbatch
+    torch.cuda.empty_cache()
+
+    # ---- 17.2 the fast neck and the V2 head, with and without depth ----
+    fast = {}
+    for path in (IV_FAST, IV_FAST_DEPTH):
+        cfg2 = family_config(path)
+        depth = bool(cfg2.input_modality["use_depth"])
+        model = api.init_detector(cfg2, device="cuda", seed=SEED)
+        if model.uses_v1_head or type(model.neck_3d).__name__ != \
+                "FastIndoorImVoxelNeck":
+            raise SystemExit(f"{path} did not build the fast neck and V2 "
+                             f"head")
+        batch = api.device_batch(model, first_views(scene, n_test, depth))
+        zero()
+        res = api.eval_step(model, batch, cfg2.test_cfg["nms_pre"])
+        torch.cuda.synchronize()
+        ev = counts()
+        finite_candidates(res, f"17.2 {path} eval_step")
+        expect(ev, [1, 0, 0, 0, 0], f"17.2 {path} eval_step")
+        ms = cuda_time_ms(lambda: api.eval_step(
+            model, batch, cfg2.test_cfg["nms_pre"]), 3, warmup=1)
+        del model, batch, res
+        tr = api.init_trainer(cfg2, device="cuda", seed=SEED,
+                              steps_per_epoch=1000)
+        n2 = family_views(cfg2, "train")
+        b2 = api.train_batch(tr.model, [first_views(scene, n2, depth)],
+                             rng=np.random.RandomState(SEED))
+        zero()
+        m2 = finite_metrics(tr.step(b2), f"17.2 {path} train")
+        tl = counts()
+        log(f"[indoor] 17.2 {path} (depth {depth}): eval_step at {n_test} "
+            f"views {ms:.2f} ms, launches {named(ev)}; one step at {n2} "
+            f"views, launches {named(tl)}; loss {m2['loss']:.6g}, n_pos "
+            f"{m2['n_pos']:.0f}; measured on {card}")
+        expect(tl, [1, 1, 0, 0, 0], f"17.2 {path} training")
+        fast[os.path.basename(path)] = dict(eval_ms=ms, loss=m2["loss"])
+        del tr, b2
+        torch.cuda.empty_cache()
+
+    # ---- 17.3 the lowercase imvoxelnet: Swin-T, NeRF-Det without density
+    cfg3 = family_config(IV_SWIN)
+    model = api.init_detector(cfg3, device="cuda", seed=SEED)
+    if (type(model.backbone).__name__ != "SwinTransformer"
+            or model.nerf_density or model.host_streams):
+        raise SystemExit(f"{IV_SWIN} did not build NeRF-Det with Swin-T, "
+                         f"no density, no host streams")
+    sw_scene = train_scene(model, SEED + 173)
+    batch = api.device_batch(model, sw_scene)
+    zero()
+    res = api.eval_step(model, batch, cfg3.test_cfg["nms_pre"])
+    torch.cuda.synchronize()
+    launches3 = counts()
+    finite_candidates(res, "17.3 eval_step")
+    expect(launches3, [1, 0, 0, 0, 0], "17.3 eval_step")
+    del model, batch, res
+    tr = api.init_trainer(cfg3, device="cuda", seed=SEED,
+                          steps_per_epoch=1000)
+    n3 = pipeline_views(cfg3.data["train"])  # less the target views
+    b3 = api.train_batch(tr.model, [first_views(sw_scene, n3)],
+                         rng=np.random.RandomState(SEED))
+    zero()
+    m3 = finite_metrics(tr.step(b3), "17.3 train", ("n_pos", "loss_nvs"))
+    train3 = counts()
+    log(f"[indoor] 17.3 {IV_SWIN}: eval_step at {N_VIEWS} views of "
+        f"{tr.model.meta.pad_shape}, launches {named(launches3)}; one step "
+        f"at {n3} views and {tr.model.n_rand} rays, launches "
+        f"{named(train3)}; loss {m3['loss']:.6g}, loss_nvs "
+        f"{m3['loss_nvs']:.6g}")
+    expect(train3, [1, 1, 0, 1, 1], "17.3 training")
+    del tr, b3, sw_scene
+    torch.cuda.empty_cache()
+
+    # ---- 17.4 bfloat16 ----
+    model = api.init_detector(cfg, device="cuda", seed=SEED,
+                              compute_dtype=bf16)
+    batch = api.device_batch(model, nodepth)
+    zero()
+    res = api.eval_step(model, batch, nms_pre)
+    torch.cuda.synchronize()
+    launches4 = counts()
+    finite_candidates(res, "17.4 bf16 eval_step")
+    expect(launches4, [1, 0, 0, 0, 0], "17.4 bf16 eval_step")
+    bf16_ms = cuda_time_ms(lambda: api.eval_step(model, batch, nms_pre), 3,
+                           warmup=1)
+    del model, batch, res
+    tr = api.init_trainer(cfg, device="cuda", seed=SEED,
+                          steps_per_epoch=1000, compute_dtype=bf16)
+    b4 = api.train_batch(tr.model, [first_views(scene, n_train,
+                                                depth=False)],
+                         rng=np.random.RandomState(SEED))
+    zero()
+    t0 = time.perf_counter()
+    m4 = finite_metrics(tr.step(b4), "17.4 bf16 train")
+    torch.cuda.synchronize()
+    step4_s = time.perf_counter() - t0
+    train4 = counts()
+    log(f"[indoor] 17.4 bfloat16 {IV_ATLAS}: eval_step at {n_test} views "
+        f"{bf16_ms:.2f} ms (float32 {eval_ms:.2f}), "
+        f"launches {named(launches4)}; one step at {n_train} views "
+        f"({step4_s:.2f} s, the first), launches {named(train4)}; loss "
+        f"{m4['loss']:.6g}; measured on {card}")
+    expect(train4, [1, 1, 0, 0, 0], "17.4 bf16 training")
+    del tr, b4
+    torch.cuda.empty_cache()
+
+    # ---- 17.5 the CLIs from files ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_indoor_") as tmp:
+        t0 = time.perf_counter()
+        roots = [write_synthetic_scannet(
+            os.path.join(tmp, split), n_scenes=1, n_images=IV_CLI_VIEWS,
+            hw=RUNTIME_HW, seed=SEED + 170 + i, splits=(split,), workers=8)
+            for i, split in enumerate(("train", "val"))]
+        opts = runtime_options(cfg, *roots)
+        log(f"[indoor] 17.5 wrote 2 scenes of {IV_CLI_VIEWS} views at "
+            f"{RUNTIME_HW[0]}x{RUNTIME_HW[1]}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        per_step = []
+        original_init = counted_trainers(api, counters, per_step)
+        try:
+            t0 = time.perf_counter()
+            result = train_cli.main([
+                IV_ATLAS, "--work-dir", os.path.join(tmp, "work"),
+                "--max-steps", str(IV_CLI_STEPS), "--no-validate",
+                "--options", *opts])
+            cli_train_s = time.perf_counter() - t0
+        finally:
+            api.init_trainer = original_init
+        for hh, n in zip(result["history"], per_step):
+            log(f"[indoor] 17.5 tools/train step {hh['step']}: launches "
+                f"{named(n)}; loss {hh['loss']:.5g}, n_pos {hh['n_pos']:.0f}")
+            # the files' scenes, their origin shifted at random, may hold
+            # no positive in a step: finite is the check here (17.1 has
+            # the positives)
+            finite_metrics(hh, "17.5 tools/train", ())
+        if per_step != [[1, 1, 0, 0, 0]] * IV_CLI_STEPS:
+            raise SystemExit(f"17.5 tools/train launches a step {per_step}")
+        zero()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([IV_ATLAS, result["checkpoints"][0],
+                                 "--eval", "mAP", "--options", *opts])
+        cli_test_s = time.perf_counter() - t0
+        cli_launches = counts()
+        log(f"[indoor] 17.5 tools/train {IV_CLI_STEPS} steps "
+            f"{cli_train_s:.1f} s; tools/test --eval mAP {cli_test_s:.1f} s, "
+            f"launches {named(cli_launches)}; " + ", ".join(
+                f"{k} {metrics[k]:.4f}" for k in ("mAP_0.25", "mAR_0.25")))
+        expect(cli_launches, [1, 0, 0, 0, 0], "17.5 tools/test")
+        if not all(math.isfinite(v) for k, v in metrics.items()
+                   if k.startswith(("mAP", "mAR"))):
+            raise SystemExit(f"non-finite test metrics {metrics}")
+    wall = time.perf_counter() - t_phase
+    log(f"[indoor] phase 17 in {wall:.1f} s")
+    return dict(k1=k1, k1_bwd=k1_bwd, k1_bwd_bf16=k1_bwd_bf16,
+                k1_fast_depth=k1_fd, kept_fast_depth=kept_fd,
+                narrow={str(k): v for k, v in narrow.items()},
+                narrow_bwd={str(k): v for k, v in narrow_bwd.items()},
+                launches=dict(zip(FC_NAMES, train_launches)),
+                eval_launches=dict(zip(FC_NAMES, eval_launches)),
+                eval_rate=eval_rate, eval_peak_gib=eval_peak,
+                train_rate=train_rate, train_peak_gib=peak / 2**30,
+                stages=stages, train_stages=train_stages, fast=fast,
+                eval_ms=eval_ms, bf16_eval_ms=bf16_ms, wall_s=wall)
+
+
 def main():
     import numpy as np
     import torch
@@ -4790,6 +5257,10 @@ def main():
     torch.cuda.empty_cache()
     family = fast_cov_path(api, voxel, render, card)
 
+    # ---- 17. the indoor ImVoxelNet on ScanNet -----------------------------
+    torch.cuda.empty_cache()
+    indoor = indoor_path(api, voxel, render, card)
+
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
     fps_bound_by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]
@@ -4977,7 +5448,19 @@ def main():
     shown = ("eval_launches", "eval_rate", "eval_peak_gib", "train_rate",
              "train_peak_gib", "stages", "train_stages", "wall_s")
     log(f"[fast_cov] {json.dumps({k: family[k] for k in shown})}")
-    log(f"[done] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
+    for entry in record["kernels"]:  # phase 17.1: 5 indoor train steps
+        entry["indoor_launches"] = indoor["launches"].get(entry["name"], 0)
+    # phase 17.0: K1 at the indoor ImVoxelNet's shapes
+    by_name["fused_mean_cov"]["indoor_plain_mean"] = dict(
+        indoor["k1"], **indoor["k1_fast_depth"],
+        **{f"C={k} padded": v for k, r in indoor["narrow"].items()
+           for v in r.values()})
+    by_name["fused_mean_cov_backward"]["indoor_g1"] = {
+        "float32": indoor["k1_bwd"], "bfloat16": indoor["k1_bwd_bf16"],
+        **{f"C={k} padded": v for k, v in indoor["narrow_bwd"].items()}}
+    shown += ("fast", "eval_ms", "bf16_eval_ms", "kept_fast_depth")
+    log(f"[indoor] {json.dumps({k: indoor[k] for k in shown})}")
+    log(f"[done] phases 1-17 in {time.perf_counter() - t_start:.1f} s")
     shown = {k: v for k, v in ddp.items() if k != "launches" and k[0] != "_"}
     log(f"[ddp] {json.dumps(shown)}")
     log(f"[mesh] {json.dumps({k: v for k, v in mesh.items() if k != 'sums'})}")

@@ -44,6 +44,7 @@ from .data.ray_stats import RAY_STREAM_KEYS, draw_rays, prepare_rays
 from .data.rgb_stats import host_rgb_stats
 from .device import resolve_device
 from .models.builder import build_model
+from .models.imvoxelnet_indoor import IndoorImVoxelNet
 from .models.nerfdet import VOLUME_MESH_VIEWS, NerfDet, SceneMeta
 from .models.votenet import VoteNet, votenet_nms
 from .nn.heads import get_candidate_bboxes
@@ -77,13 +78,14 @@ def scene_meta_from_config(config) -> SceneMeta:
 def init_detector(config, checkpoint: Optional[str] = None,
                   device="cuda", seed: int = 0,
                   compute_dtype=None) -> torch.nn.Module:
-    """Build the detector (NeRF-Det or VoteNet) from a config file or
-    object, in eval mode on ``device``. Weights are random from ``seed``
-    unless ``checkpoint`` names a NeRF-Det ``.pth``: one the port's train
-    CLI wrote (``utils/checkpoint.save_checkpoint``, the model's
-    state_dict under ``"model"``), or ``tools/publish_model`` published,
-    or a reference state_dict. NeRF-Det
-    computes in ``compute_dtype`` (float32 where None; bfloat16 is the
+    """Build the detector (NeRF-Det, the indoor ImVoxelNet or VoteNet)
+    from a config file or object, in eval mode on ``device``. Weights are
+    random from ``seed`` unless ``checkpoint`` names a ``.pth``: one the
+    port's train CLI wrote (``utils/checkpoint.save_checkpoint``, the
+    model's state_dict under ``"model"``), or ``tools/publish_model``
+    published, or for NeRF-Det a reference state_dict. NeRF-Det and the
+    indoor ImVoxelNet
+    compute in ``compute_dtype`` (float32 where None; bfloat16 is the
     JAX package's ``--bf16`` path), its parameters float32 either way.
     Raises if ``device`` is CUDA and there is none."""
     dev = resolve_device(device)
@@ -93,13 +95,19 @@ def init_detector(config, checkpoint: Optional[str] = None,
                         compute_dtype=compute_dtype or torch.float32)
     model.init_weights(torch.Generator().manual_seed(seed))
     if checkpoint is not None:
-        if not isinstance(model, NerfDet):
+        if isinstance(model, VoteNet):
             raise NotImplementedError(
                 f"reference checkpoints of {type(model).__name__} are not "
                 f"ported yet")
         obj = load_checkpoint(checkpoint)
         if "model" in obj:  # the port's own (published: no optimizer)
             model.load_state_dict(obj["model"], strict=True)
+        elif isinstance(model, IndoorImVoxelNet):
+            # the JAX package converts no reference ImVoxelNet either
+            raise NotImplementedError(
+                "reference checkpoints of IndoorImVoxelNet are not "
+                "converted (the JAX package loads its own only); the "
+                "port's own checkpoints load")
         else:
             load_reference_state_dict(model, obj.get("state_dict", obj))
     return model.to(dev).eval()
@@ -190,7 +198,7 @@ def train_batch(model: NerfDet, scenes: List[Dict],
     dev = _device_of(model)
     out = []
     for scene in scenes:
-        rays = "ray_o" in scene
+        rays = "ray_o" in scene and isinstance(model, NerfDet)
         if rays and not model.host_streams:
             scene = draw_rays(scene, rng if rng is not None else
                               np.random.RandomState(), model.n_rand)
@@ -255,7 +263,7 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = init_detector(config, checkpoint, device, seed, compute_dtype)
-    if not isinstance(model, NerfDet):
+    if not isinstance(model, (NerfDet, IndoorImVoxelNet)):
         raise NotImplementedError(
             f"training {type(model).__name__} is not ported yet")
     model.train()
@@ -271,7 +279,7 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
         use_nerf_mask=config.model.get("use_nerf_mask", True),
         rgb_supervision=config.model.get("rgb_supervision", True))
     if mesh_views > 1:
-        if model.nerf_mode == "volume":
+        if getattr(model, "nerf_mode", None) == "volume":
             raise NotImplementedError(VOLUME_MESH_VIEWS)
         step, views, data = make_train_step_2d(
             model, optimizer, mesh_views, process_group, **losses)

@@ -1,9 +1,13 @@
 """Build the port's models from a config's ``model`` dict.
 
 Port of ``nerfdet_tpu/models/builder.py`` for the ported types:
-``"nerfdet"`` (``_build_nerfdet``), ``"VoteNet"`` (``_build_votenet``)
-and ``"ImVoxelNet"`` as far as JAX routes it to the NeRF-Det graph (the
-fast_cov family: an indoor 3D neck and a NeRF key, ``_build_imvoxelnet``).
+``"nerfdet"`` (``_build_nerfdet``), ``"VoteNet"`` (``_build_votenet``),
+``"imvoxelnet"`` (the NeRF-Det graph with ``nerf_density`` off,
+``_build_imvoxelnet``) and ``"ImVoxelNet"`` with an indoor 3D neck
+(``_build_imvoxelnet_ref``): with a NeRF key the NeRF-Det graph (the
+fast_cov family), without one the indoor ImVoxelNet
+(``models/imvoxelnet_indoor.py``). The outdoor ImVoxelNet and the SUN
+RGB-D heads are refused by name.
 The config's ``pretrained`` is not read: that is a download; weights come
 from a seed or a checkpoint. Keys the JAX builder reads nowhere
 (``pc_supervise``, ``overfit_nerfmlp``, ``nerf_sample_view``, ...) stay
@@ -15,6 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .imvoxelnet_indoor import (INDOOR_NECKS, build_imvoxelnet_indoor,
+                                indoor_refusal)
 from .nerfdet import NerfDet, SceneMeta
 from .votenet import SCANNET_MEAN_SIZES, VoteNet
 
@@ -70,34 +76,57 @@ def _build_nerfdet(cfg: dict, meta: SceneMeta = None,
 NERF_KEYS = ("volume_type", "nerf_mode", "nerf_density", "N_samples")
 
 
+def _neck3d_type(cfg: dict) -> str:
+    return cfg.get("neck_3d", {}).get("type", "KittiImVoxelNeck")
+
+
 def routes_to_nerfdet(cfg: dict) -> bool:
     """Whether the model config builds the NeRF-Det graph: the
-    ``nerfdet`` type, or JAX's ``ImVoxelNet`` rule: an indoor 3D neck
-    (``ImVoxelNeck``, ``FastIndoorImVoxelNeck``) with any NeRF key (the
-    56 fast_cov configs)."""
-    if cfg["type"] == "nerfdet":
+    ``nerfdet`` and ``imvoxelnet`` types, or JAX's ``ImVoxelNet`` rule:
+    an indoor 3D neck (``ImVoxelNeck``, ``FastIndoorImVoxelNeck``) with
+    any NeRF key (the 56 fast_cov configs)."""
+    if cfg["type"] in ("nerfdet", "imvoxelnet"):
         return True
-    n3_type = cfg.get("neck_3d", {}).get("type", "KittiImVoxelNeck")
-    return (cfg["type"] == "ImVoxelNet"
-            and n3_type in ("ImVoxelNeck", "FastIndoorImVoxelNeck")
+    return (cfg["type"] == "ImVoxelNet" and _neck3d_type(cfg) in INDOOR_NECKS
             and any(k in cfg for k in NERF_KEYS))
+
+
+def unported_refusal(cfg: dict):
+    """Why the port cannot build (or train, or evaluate) the model config,
+    naming its ROADMAP item, or None: the types it has no builder for,
+    the outdoor ImVoxelNet, the indoor one's SUN RGB-D heads and layout
+    head."""
+    if cfg["type"] not in _BUILDERS:
+        return (f"model type {cfg['type']!r} is not ported; ported: "
+                f"{sorted(_BUILDERS)}")
+    if cfg["type"] != "ImVoxelNet" or routes_to_nerfdet(cfg):
+        return None
+    if _neck3d_type(cfg) not in INDOOR_NECKS:
+        return (f"the outdoor ImVoxelNet (3D neck {_neck3d_type(cfg)!r}) is "
+                f"not ported yet: ROADMAP §1 item 3 (after the SUN RGB-D "
+                f"slice)")
+    return indoor_refusal(cfg)
 
 
 def _build_imvoxelnet(cfg: dict, meta: SceneMeta = None,
                       compute_dtype=torch.float32) -> NerfDet:
-    """The NeRF-keyed ImVoxelNet configs (``routes_to_nerfdet``) build
-    the NeRF-Det graph; every other ImVoxelNet config (the indoor
-    detector without NeRF keys, the outdoor ones) is not ported."""
+    """The lowercase ``imvoxelnet`` type: the NeRF-Det graph without the
+    NeRF density (JAX's ``_build_imvoxelnet``)."""
+    return _build_nerfdet(dict(cfg, nerf_density=False), meta, compute_dtype)
+
+
+def _build_imvoxelnet_ref(cfg: dict, meta: SceneMeta = None,
+                          compute_dtype=torch.float32) -> nn.Module:
+    """The ``ImVoxelNet`` type, routed as JAX routes it: the NeRF-keyed
+    indoor configs (``routes_to_nerfdet``) build the NeRF-Det graph, the
+    other indoor ones the indoor ImVoxelNet; the rest raise
+    (``unported_refusal``)."""
     if routes_to_nerfdet(cfg):
         return _build_nerfdet(cfg, meta, compute_dtype)
-    n3_type = cfg.get("neck_3d", {}).get("type", "KittiImVoxelNeck")
-    kind = ("the indoor ImVoxelNet without NeRF keys"
-            if n3_type in ("ImVoxelNeck", "FastIndoorImVoxelNeck")
-            else "the outdoor ImVoxelNet")
-    raise NotImplementedError(
-        f"{kind} (3D neck {n3_type!r}) is not ported yet: ROADMAP §1 item "
-        f"3 (ImVoxelNet); of the ImVoxelNet type the port builds the "
-        f"NeRF-keyed indoor configs (the fast_cov family) only")
+    refusal = unported_refusal(cfg)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    return build_imvoxelnet_indoor(cfg, meta, compute_dtype)
 
 
 def _build_votenet(cfg: dict, meta: SceneMeta = None,
@@ -120,17 +149,15 @@ def _build_votenet(cfg: dict, meta: SceneMeta = None,
 
 
 _BUILDERS = {"nerfdet": _build_nerfdet, "VoteNet": _build_votenet,
-             "ImVoxelNet": _build_imvoxelnet}
+             "imvoxelnet": _build_imvoxelnet,
+             "ImVoxelNet": _build_imvoxelnet_ref}
 
 
 def build_model(cfg: dict, meta: SceneMeta = None,
                 compute_dtype=torch.float32) -> nn.Module:
     """The model of ``cfg`` computing in ``compute_dtype`` (float32, or
-    bfloat16 for NeRF-Det: the JAX package's ``--bf16`` path); its
-    parameters are float32 either way."""
-    builder = _BUILDERS.get(cfg["type"])
-    if builder is None:
-        raise NotImplementedError(
-            f"model type {cfg['type']!r} is not ported; ported: "
-            f"{sorted(_BUILDERS)}")
-    return builder(cfg, meta, compute_dtype)
+    bfloat16 for NeRF-Det and the indoor ImVoxelNet: the JAX package's
+    ``--bf16`` path); its parameters are float32 either way."""
+    if cfg["type"] not in _BUILDERS:
+        raise NotImplementedError(unported_refusal(cfg))
+    return _BUILDERS[cfg["type"]](cfg, meta, compute_dtype)

@@ -39,7 +39,8 @@ class ScanNetImVoxelHeadV2(nn.Module):
         self.dtype = dtype
         if n_reg_outs != 6:
             raise NotImplementedError(
-                "the yawed (n_reg_outs=7) head is not yet ported")
+                "the yawed (n_reg_outs=7) head (SunRgbdImVoxelHeadV2) is not "
+                "ported yet: ROADMAP §1 item 3 (the SUN RGB-D slice)")
         self.centerness_conv = nn.Conv3d(n_channels, 1, 3, padding=1,
                                          bias=False)
         self.reg_conv = nn.Conv3d(n_channels, n_reg_outs, 3, padding=1,

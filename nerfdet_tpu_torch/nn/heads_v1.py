@@ -1,0 +1,208 @@
+"""The indoor ImVoxelNet's V1 head (ScanNet, axis-aligned): forward, the
+regress-range assignment, the loss sums and the decode.
+
+Port of ``nerfdet_tpu/nn/heads_v1.py`` for ``yaw=False``
+(``ScanNetImVoxelHead``): ``_ConvTower`` (``n_convs`` x conv-BN-ReLU a
+branch), ``ImVoxelHeadV1`` (centerness and regression convs on the
+regression tower, the class conv on the class tower, one scale a
+regress range exp'd with the regression), ``get_targets_v1`` (FCOS-style:
+inside the box, its largest distance within the point's level range,
+among the box's ``centerness_topk`` most central points, then the
+smallest volume) and ``head_loss_sums_v1``. Its decode without yaw is the
+V2 head's (``nn/heads.get_candidate_bboxes``), as in JAX.
+The yawed head (``SunRgbdImVoxelHead``: a rotated 3D IoU loss, rotated
+NMS) is not ported: ``yaw=True`` raises.
+
+Names follow the flax tree (``reg_convs.conv_{i}``, ``reg_convs.norm_{i}``,
+``centerness_conv``, ``reg_conv``, ``cls_conv``) and, as the port's V2
+head, ``scales.{i}.scale``. The 3x3x3 convs run the JAX package's
+schedule at ``dtype`` (``nn/compute.conv3x3x3``); outputs as
+``nn/heads.ScanNetImVoxelHeadV2``'s.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from . import losses
+from .compute import conv3x3x3
+from .heads import (_Scale, bbox_pred_to_bbox, compute_centerness,
+                    resize_valid)
+from .neck3d import BatchNorm3d
+
+INF = 1e8
+YAW_REFUSAL = (
+    "the yawed V1 head (SunRgbdImVoxelHead: rotated 3D IoU loss, rotated "
+    "NMS and mAP) is not ported yet: ROADMAP §1 item 3 (the SUN RGB-D "
+    "slice)")
+
+
+def _conv3(c_in: int, c_out: int, bias: bool = False) -> nn.Conv3d:
+    return nn.Conv3d(c_in, c_out, 3, padding=1, bias=bias)
+
+
+class _ConvTower(nn.Module):
+    """``n_convs`` x (3x3x3 conv without bias, BN, ReLU)."""
+
+    def __init__(self, c_in: int, n_channels: int, n_convs: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.n_convs, self.dtype = n_convs, dtype
+        for i in range(n_convs):
+            self.add_module(f"conv_{i}", _conv3(c_in if i == 0
+                                                else n_channels, n_channels))
+            self.add_module(f"norm_{i}", BatchNorm3d(n_channels))
+
+    def forward(self, x):
+        for i in range(self.n_convs):
+            x = conv3x3x3(getattr(self, f"conv_{i}"), x, self.dtype)
+            x = torch.relu(getattr(self, f"norm_{i}")(x))
+        return x
+
+
+class ImVoxelHeadV1(nn.Module):
+    """Multi-level head with separate regression and class towers."""
+
+    def __init__(self, in_channels: int, n_classes: int = 18,
+                 n_channels: int = 64, n_convs: int = 0,
+                 n_reg_outs: int = 6,
+                 regress_ranges: Sequence[Tuple[float, float]] = (
+                     (-1e8, 1e8),), yaw: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        if yaw or n_reg_outs != 6:
+            raise NotImplementedError(YAW_REFUSAL)
+        self.dtype = dtype
+        self.reg_convs = _ConvTower(in_channels, n_channels, n_convs, dtype)
+        self.cls_convs = _ConvTower(in_channels, n_channels, n_convs, dtype)
+        c = n_channels if n_convs else in_channels
+        self.centerness_conv = _conv3(c, 1)
+        self.reg_conv = _conv3(c, n_reg_outs)
+        self.cls_conv = _conv3(c, n_classes, bias=True)
+        self.scales = nn.ModuleList(_Scale() for _ in regress_ranges)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        """Per level (centerness, exp(scale * reg), cls), NCDHW."""
+        dt, outs = self.dtype, []
+        for i, x in enumerate(xs):
+            reg, cls = self.reg_convs(x), self.cls_convs(x)
+            bbox = torch.exp(self.scales[i].scale.to(dt)
+                             * conv3x3x3(self.reg_conv, reg, dt))
+            outs.append((conv3x3x3(self.centerness_conv, reg, dt), bbox,
+                         conv3x3x3(self.cls_conv, cls, dt)))
+        return outs
+
+
+def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
+                   gt_mask, n_classes: int, centerness_topk: int):
+    """The V1 assignment without yaw.
+
+    A point is a candidate for a real gt box when it lies inside it, the
+    largest of its six distances to the box's faces lies in the point's
+    level range (``regress_ranges[range_ids]``, both ends included) and,
+    with ``centerness_topk`` > 0, its centerness is strictly above the
+    box's k-th largest (a value: a tie cannot change the assignment). A
+    point several boxes take goes to the smallest volume, then the first
+    box.
+
+    Args:
+        points: (P, 3) centers of every level, concatenated.
+        range_ids: (P,) level of each point.
+        regress_ranges: (L, 2) (min, max) distance of each level.
+        gt_boxes: (G, 7) bottom-centered boxes, padded; gt_labels (G,);
+            gt_mask (G,) bool, the real rows.
+
+    Returns (centerness targets (P,), corner-format boxes (P, 6), labels
+    (P,), ``n_classes`` for background).
+    """
+    n_points = points.shape[0]
+    bottom = gt_boxes[:, :3]
+    centers = torch.cat([bottom[:, :2], bottom[:, 2:3]
+                         + gt_boxes[:, 5:6] * 0.5], dim=-1)
+    dims = gt_boxes[:, 3:6]
+    volumes = dims[:, 0] * dims[:, 1] * dims[:, 2]
+    local = points[:, None, :]
+    dists = torch.stack([
+        local[..., 0] - centers[None, :, 0] + dims[None, :, 0] / 2,
+        centers[None, :, 0] + dims[None, :, 0] / 2 - local[..., 0],
+        local[..., 1] - centers[None, :, 1] + dims[None, :, 1] / 2,
+        centers[None, :, 1] + dims[None, :, 1] / 2 - local[..., 1],
+        local[..., 2] - centers[None, :, 2] + dims[None, :, 2] / 2,
+        centers[None, :, 2] + dims[None, :, 2] / 2 - local[..., 2],
+    ], dim=-1)  # (P, G, 6)
+
+    inside = (dists.min(-1).values > 0) & gt_mask[None, :]
+    ranges = torch.as_tensor(regress_ranges, dtype=torch.float32,
+                             device=points.device)[range_ids.long()]
+    max_dist = dists.max(-1).values
+    in_range = (max_dist >= ranges[:, :1]) & (max_dist <= ranges[:, 1:])
+
+    vols = volumes[None, :].expand(n_points, -1)
+    inf = torch.full_like(vols, INF)
+    if centerness_topk > 0:
+        centerness = torch.where(inside & in_range,
+                                 compute_centerness(dists),
+                                 torch.full_like(vols, -1.0))
+        k = min(centerness_topk, n_points)
+        top_c = torch.topk(centerness.t(), k, dim=1).values[:, -1]
+        vols = torch.where(centerness > top_c[None, :], vols, inf)
+    vols = torch.where(inside & in_range, vols, inf)
+    min_area = vols.min(dim=1).values
+    min_inds = torch.argmin(vols, dim=1)  # the first of equal minima
+    labels = torch.where(min_area == INF,
+                         torch.full_like(gt_labels[min_inds], n_classes),
+                         gt_labels[min_inds])
+    sel = dists[torch.arange(n_points, device=points.device), min_inds]
+    return compute_centerness(sel), bbox_pred_to_bbox(points, sel), labels
+
+
+def head_loss_sums_v1(head_outs, valid, mlvl_points, regress_ranges,
+                      gt_boxes, gt_labels, gt_mask, n_classes: int,
+                      centerness_topk: int) -> Dict[str, torch.Tensor]:
+    """Per-scene V1 loss sums and normalizers, the contract of
+    ``nn/heads.head_loss_sums`` (cls_sum, centerness_sum, bbox_sum, n_pos,
+    bbox_avg): focal loss over the observed voxels (background -1 for it,
+    where the assignment says ``n_classes``), BCE centerness and the
+    axis-aligned IoU loss over the positives. ``head_outs`` per level
+    (centerness, bbox_pred, cls_score) channels-last; ``valid`` the
+    (nx, ny, nz) view counts at level 0. Targets carry no gradient."""
+    flat_center, flat_bbox, flat_cls, flat_valid = [], [], [], []
+    for c, b, s in head_outs:
+        flat_center.append(c.reshape(-1))
+        flat_bbox.append(b.reshape(-1, b.shape[-1]))
+        flat_cls.append(s.reshape(-1, n_classes))
+        flat_valid.append(resize_valid(valid, c.shape[:-1]).reshape(-1))
+    centerness = torch.cat(flat_center)
+    bbox_preds = torch.cat(flat_bbox)
+    cls_scores = torch.cat(flat_cls)
+    valids = torch.cat(flat_valid)
+    points = torch.cat(mlvl_points)
+    range_ids = torch.cat([
+        torch.full((p.shape[0],), i, dtype=torch.int32, device=p.device)
+        for i, p in enumerate(mlvl_points)])
+
+    with torch.no_grad():
+        centerness_t, box_t, labels = get_targets_v1(
+            points, range_ids, regress_ranges, gt_boxes, gt_labels,
+            gt_mask, n_classes, centerness_topk)
+    fg = labels < n_classes
+    pos = fg & valids
+    background = torch.full_like(labels, -1)
+    cls_sum = losses.sigmoid_focal_loss(
+        cls_scores, torch.where(valids & fg, labels, background),
+        weight=valids.to(torch.float32))
+    pos_w = pos.to(torch.float32)
+    centerness_t = torch.where(pos, centerness_t,
+                               torch.zeros_like(centerness_t))
+    centerness_sum = losses.binary_cross_entropy(centerness, centerness_t,
+                                                 weight=pos_w)
+    w = centerness_t * pos_w
+    bbox_sum = losses.axis_aligned_iou_loss(
+        bbox_pred_to_bbox(points, bbox_preds), box_t, weight=w)
+    return dict(cls_sum=cls_sum, centerness_sum=centerness_sum,
+                bbox_sum=bbox_sum, n_pos=pos.sum().to(torch.float32),
+                bbox_avg=torch.sum(w))
+

@@ -193,6 +193,27 @@ K1_CHANNELS = (32, 64, 128, 256, 512, 1024)  # 32 x a power of two
 K1_MAX_MAP = 32  # mapped outputs: lane m of a warp owns output m
 
 
+def k1_width(c: int) -> int:
+    """The width K1's kernels run ``c`` channels at: the least of
+    ``K1_CHANNELS`` at or above it. The wrappers zero-pad the maps'
+    channels (and W's rows, and the backward's cotangents) up to it and
+    cut the outputs back: a padded channel sums zeros, and no real
+    channel's arithmetic reads another channel, so the real channels are
+    what the kernels give at their own width. At C = 8 the padded maps
+    are 4x the bytes (the toy configs only)."""
+    if not 1 <= c <= K1_CHANNELS[-1]:
+        raise ValueError(f"K1 takes 1 to {K1_CHANNELS[-1]} channels (run at "
+                         f"the widths {K1_CHANNELS}), got C={c}")
+    return next(w for w in K1_CHANNELS if w >= c)
+
+
+def _pad_channels(t, width: int):
+    """``t`` with its last axis zero-padded to ``width`` (a new
+    contiguous tensor), or ``t`` where it is that wide already."""
+    c = t.shape[-1]
+    return t if c == width else torch.nn.functional.pad(t, (0, width - c))
+
+
 def fusion_smem_bytes(c: int, itemsize: int) -> int:
     """Shared memory of one K1 phase A block for C channels of
     ``itemsize``-byte maps, in bytes (the layouts in
@@ -481,10 +502,7 @@ def _check_maps(features):
                         f"got {features.dtype}")
     if features.dim() != 4 or not features.is_contiguous():
         raise ValueError("features must be a contiguous (V, H, W, C) map")
-    c = features.shape[3]
-    if c not in K1_CHANNELS:
-        raise ValueError(f"K1 takes C in {K1_CHANNELS} (C % 32 == 0 and C "
-                         f"/ 32 a power of two), got C={c}")
+    k1_width(features.shape[3])
 
 
 def _mapped_rows_launch(features, mapped_kernel, mapped_bias):
@@ -505,6 +523,9 @@ def _mapped_rows_launch(features, mapped_kernel, mapped_bias):
             or mapped_kernel.device != dev or mapped_bias.device != dev):
         raise ValueError("mapped stream needs float32 contiguous "
                          "(C, M) kernel and (M,) bias on the device")
+    c = k1_width(c)
+    features = _pad_channels(features, c)
+    mapped_kernel = _pad_channels(mapped_kernel.t(), c).t().contiguous()
     out = torch.empty((v, h * w, m), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):  # the attribute and launch act on it
@@ -521,15 +542,18 @@ def _mapped_rows_launch(features, mapped_kernel, mapped_bias):
 def _carry_launch(features, pix, mapped, mapped_bias):
     """Check and launch K1's phase B on ``mapped`` (phase A's output) and
     the bias, or on neither (None); returns (s1, s2, count, s2m or None).
-    The launch is not counted."""
+    The launch is not counted. Maps narrower than their ``k1_width`` run
+    zero-padded to it, s1 and s2 cut back."""
     _check_maps(features)
-    v, h, w, c = features.shape
+    v, h, w, c_in = features.shape
+    c = k1_width(c_in)
     n = pix.shape[1] if pix.dim() == 2 else -1
     dev = features.device
     if (pix.dtype != torch.int32 or pix.shape != (v, n)
             or not pix.is_contiguous() or pix.device != dev):
         raise ValueError("pix must be a contiguous (V, N) int32 tensor on "
                          "the features' device")
+    features = _pad_channels(features, c)
     s1 = torch.empty((n, c), dtype=torch.float32, device=dev)
     s2 = torch.empty_like(s1)
     count = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -550,6 +574,8 @@ def _carry_launch(features, pix, mapped, mapped_bias):
     if err != 0:
         raise RuntimeError(f"fused_mean_cov phase B launch failed: "
                            f"cudaError {err}")
+    if c != c_in:
+        s1, s2 = s1[:, :c_in].contiguous(), s2[:, :c_in].contiguous()
     return s1, s2, count, s2m
 
 
@@ -626,7 +652,9 @@ def _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
     db or None): the index preparation (``pixel_order``), pass 1
     (``_pixel_sums``), and with the mapped stream passes 2 and 3
     (``_weight_parts``, ``_weight_reduce``). On bfloat16 maps pass 1
-    rounds as ``_pair_cotangents_bf16`` does. The launch is not counted."""
+    rounds as ``_pair_cotangents_bf16`` does. Maps narrower than their
+    ``k1_width`` run zero-padded to it (with the cotangents and W's rows),
+    d features and dW cut back. The launch is not counted."""
     _check_maps(features)
     v, h, w, c = features.shape
     n = pix.shape[1] if pix.dim() == 2 else -1
@@ -649,14 +677,27 @@ def _backward_launch(features, pix, count, g1, g2, gm, mapped_kernel,
         mapped_kernel = _contiguous_f32(mapped_kernel, (c, m), "W", dev)
         mapped_bias = _contiguous_f32(mapped_bias, (m,), "b", dev)
         count = _contiguous_f32(count, (n,), "count", dev)
+    width = k1_width(c)
+    if width != c:
+        features, g1 = (_pad_channels(t, width) for t in (features, g1))
+        if g2 is not None:
+            g2 = _pad_channels(g2, width)
+        if with_m:
+            mapped_kernel = _pad_channels(mapped_kernel.t(),
+                                          width).t().contiguous()
     order, off, rows, n_rows = _pixel_order_launch(pix, h * w)
+    d_w = d_b = None
     if not with_m:
         d_feats, _ = _pixel_sums(features, order, off, g1, g2)
-        return d_feats, None, None
-    d_feats, dy = _pixel_sums(features, order, off, g1, g2, gm, mapped,
-                              mapped_kernel)
-    parts = _weight_parts(features, dy, rows, n_rows, gm, count)
-    return (d_feats,) + _weight_reduce(*parts, mapped_bias)
+    else:
+        d_feats, dy = _pixel_sums(features, order, off, g1, g2, gm, mapped,
+                                  mapped_kernel)
+        parts = _weight_parts(features, dy, rows, n_rows, gm, count)
+        d_w, d_b = _weight_reduce(*parts, mapped_bias)
+    if width != c:
+        d_feats = d_feats[..., :c].contiguous()
+        d_w = None if d_w is None else d_w[:c].contiguous()
+    return d_feats, d_w, d_b
 
 
 def _pixel_sums(features, order, off, g1, g2, gm=None, mapped=None, w=None):

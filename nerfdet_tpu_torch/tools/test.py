@@ -27,7 +27,9 @@ loads the scene and sends it to the others), and the scenes over the
 world / N data groups; the JAX tool shards the views alone. N must
 divide the world and the test scenes' views. The fast_cov family
 (NeRF-keyed ``ImVoxelNet`` configs) evaluates through the same graph,
-its rgb stream summed on the device (its dataset ships no host sums).
+its rgb stream summed on the device (its dataset ships no host sums);
+the indoor ImVoxelNet (``ImVoxelNet`` without NeRF keys) through its
+own (``models/imvoxelnet_indoor.py``), ``mAP`` only.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from .. import api
 from ..config import Config
 from ..data.dataset import build_dataset, rgb_stats_spec_from_config
 from ..device import resolve_device
-from ..models.builder import routes_to_nerfdet
+from ..models.builder import routes_to_nerfdet, unported_refusal
 from ..parallel import dist as pdist
 from ..parallel.train2d import check_mesh_views, pipeline_views
 from ..utils.logging import get_root_logger
@@ -80,11 +82,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_options(args.options)
-    if not routes_to_nerfdet(cfg.model):
-        raise NotImplementedError(
-            f"evaluating {cfg.model['type']} from the CLI is not ported "
-            f"yet (the NeRF-Det graph is: nerfdet and the NeRF-keyed "
-            f"ImVoxelNet configs): ROADMAP §1 item 3")
+    refusal = unported_refusal(cfg.model)
+    if refusal is None and cfg.model["type"] == "VoteNet":
+        refusal = ("evaluating VoteNet from the CLI is not ported yet: "
+                   "ROADMAP §1 item 3")
+    if refusal is None and "nvs" in args.eval \
+            and not routes_to_nerfdet(cfg.model):
+        refusal = ("--eval nvs renders views: the indoor ImVoxelNet has no "
+                   "render branch")
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     if not args.distributed:
         check_mesh_views(args.mesh_views, None, {})
         return evaluate(args, cfg, resolve_device(args.device), None)

@@ -55,8 +55,15 @@ ships no host rgb sums and no ray stream, so the rgb stream and the
 render's image samples are taken on the device and the depths jittered
 there.
 
+The indoor ImVoxelNet (``ImVoxelNet`` configs without NeRF keys:
+``imvoxelnet_scannet*.py``, ``imvoxelnet_smoke_synthetic.py``) trains the
+same way, its scenes without rays: the plain-mean volume (K1 and its
+backward), the Atlas or the fast neck, the V1 head's losses
+(``train/step.py``) or the V2 head's; ``use_depth`` gates its fusion.
+
 Not ported, refused with the ROADMAP item that brings them: the
-point-cloud models and ImVoxelNet without NeRF keys; volume mode with
+point-cloud models, the outdoor ImVoxelNet, the SUN RGB-D heads and the
+layout head; volume mode with
 the density (``VOLUME_DENSITY_FAULT``: JAX's own init fails) or with
 ``--mesh-views``.
 
@@ -82,7 +89,7 @@ from ..data.dataset import (build_dataset, ray_stats_spec_from_config,
                             rgb_stats_spec_from_config)
 from ..data.loader import BatchLoader
 from ..device import resolve_device
-from ..models.builder import routes_to_nerfdet
+from ..models.builder import unported_refusal
 from ..models.nerfdet import VOLUME_DENSITY_FAULT, VOLUME_MESH_VIEWS
 from ..parallel import dist as pdist
 from ..parallel.train2d import (check_mesh_views, pipeline_views,
@@ -134,14 +141,17 @@ def parse_args(argv=None):
 
 def refuse_unported(args, cfg) -> None:
     """Raise for what the port cannot train yet, naming its ROADMAP item:
-    a model that does not build the NeRF-Det graph (``nerfdet`` and the
-    NeRF-keyed ``ImVoxelNet`` configs do), volume mode with the density
-    (a fault of the JAX package) or with ``--mesh-views``."""
-    if not routes_to_nerfdet(cfg.model):
+    a model it cannot build (``models/builder.unported_refusal``: the
+    outdoor ImVoxelNet, the SUN RGB-D heads, the layout head), the
+    point-cloud models, volume mode with the density (a fault of the JAX
+    package) or with ``--mesh-views``."""
+    refusal = unported_refusal(cfg.model)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    if cfg.model["type"] == "VoteNet":
         raise NotImplementedError(
-            f"training {cfg.model['type']} (the point-cloud models and "
-            f"ImVoxelNet without NeRF keys) is not ported yet: ROADMAP §1 "
-            f"item 3")
+            "training VoteNet (the point-cloud models) is not ported yet: "
+            "ROADMAP §1 item 3")
     if cfg.model.get("nerf_mode", "image") == "volume":
         if cfg.model.get("nerf_density", False):
             raise NotImplementedError(VOLUME_DENSITY_FAULT)

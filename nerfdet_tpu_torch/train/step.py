@@ -52,6 +52,7 @@ import torch
 
 from ..models.nerfdet import NerfDet
 from ..nn.heads import head_loss_sums
+from ..nn.heads_v1 import head_loss_sums_v1
 from ..parallel import dist as pdist
 from .optim import Optimizer
 
@@ -64,7 +65,10 @@ def scene_loss_terms(model: NerfDet, scene: Dict,
                      generator: Optional[torch.Generator] = None
                      ) -> Dict[str, torch.Tensor]:
     """Loss sums of ONE scene through the train-mode forward (which
-    updates the 3D neck's running statistics in place). With rays and
+    updates the 3D neck's running statistics in place): the head's, or
+    for the indoor ImVoxelNet's V1 head its regress-range sums
+    (``nn/heads_v1.head_loss_sums_v1``), as JAX's ``_uses_v1_head``
+    picks them. With rays and
     ``rgb_supervision``: ``loss_nvs``, the squared rgb error summed over
     the rays' mask (the ray mask if ``use_nerf_mask``, else every ray)
     over the mask's sum + 1e-6, and with ``depth_supervise`` likewise
@@ -78,11 +82,16 @@ def scene_loss_terms(model: NerfDet, scene: Dict,
     head_outs, valid, render = model(scene, generator=generator,
                                      view_group=view_group,
                                      n_ray_shards=n_ray_shards)
-    terms = head_loss_sums(
-        head_outs, valid, model.mlvl_points(scene["origin"]),
-        scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"],
-        model.n_scales, model.head_limit, model.head_centerness_topk,
-        model.n_classes)
+    gt = (scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"])
+    mlvl_points = model.mlvl_points(scene["origin"])
+    if getattr(model, "uses_v1_head", False):  # the indoor ImVoxelNet's
+        terms = head_loss_sums_v1(
+            head_outs, valid, mlvl_points, model.regress_ranges, *gt,
+            model.n_classes, model.head_centerness_topk)
+    else:
+        terms = head_loss_sums(
+            head_outs, valid, mlvl_points, *gt, model.n_scales,
+            model.head_limit, model.head_centerness_topk, model.n_classes)
     if render is not None and rgb_supervision:
         gt_rgb, gt_depth = scene["gt_rgb"], scene.get("gt_depth")
         sharded = view_group is not None and n_ray_shards > 1

@@ -22,7 +22,13 @@
 * in volume mode (a tree without ``mapping``, which only image mode
   calls) its ``mean_mapping`` / ``cov_mapping`` (1x1x1 convs); a tree
   with both, as ``convert_reference_checkpoint`` writes one, is an
-  image-mode model's.
+  image-mode model's;
+* the indoor ImVoxelNet (a tree without ``nerf_mlp``): the Atlas neck
+  (``neck_3d/model/...``, ``out_conv_{i}``, ``out_norm_{i}``) under its
+  flax names, every conv DHWIO -> OIDHW with its bias, every BatchNorm
+  with its statistics; the V1 head's towers (``reg_convs/conv_{i}``,
+  ``norm_{i}``) likewise; the fast neck and the heads' convs and
+  ``scales`` as NeRF-Det's.
 
 Every mapping of ``from_jax_variables`` is a permutation (a transpose, a
 spatial flip) or a copy, so a JAX gradient tree, given as ``params``
@@ -171,29 +177,30 @@ def _mlp(out: Dict, key: str, p: Mapping) -> None:
             _linear(out, f"{key}.hidden_layers.{i}", layer)
 
 
-def _dense_bn_tree(out: Dict, prefix: str, p: Mapping, s: Mapping) -> None:
-    """Dense layers and BatchNorms of a flax tree under their own path:
-    a node with a ``kernel`` is a Dense, one with batch statistics a
-    BatchNorm."""
+def _layer_bn_tree(out: Dict, prefix: str, p: Mapping, s: Mapping,
+                   layer=_linear) -> None:
+    """Layers and BatchNorms of a flax tree under their own path: a node
+    with a ``kernel`` is a ``layer`` (``_linear`` for Dense, ``_conv`` for
+    convs), one with batch statistics a BatchNorm."""
     for name, sub in p.items():
         key = f"{prefix}.{name}"
         if "kernel" in sub:
-            _linear(out, key, sub)
+            layer(out, key, sub)
         elif "mean" in s.get(name, {}):
             _bn(out, key, sub, s[name])
         else:
-            _dense_bn_tree(out, key, sub, s.get(name, {}))
+            _layer_bn_tree(out, key, sub, s.get(name, {}), layer)
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX NerfDet or VoteNet ``{"params", "batch_stats"}`` -> the
-    port's state_dict (float32 CPU tensors)."""
+    """JAX NerfDet, IndoorImVoxelNet or VoteNet ``{"params",
+    "batch_stats"}`` -> the port's state_dict (float32 CPU tensors)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
     if "sa0" in params["backbone"]:  # VoteNet: PointNet++ levels
         for name in ("backbone", "bbox_head"):
-            _dense_bn_tree(out, name, params[name], stats.get(name, {}))
+            _layer_bn_tree(out, name, params[name], stats.get(name, {}))
         return out
     if "patch_embed" in params["backbone"]:
         _swin_tree(out, "backbone", params["backbone"])
@@ -203,12 +210,22 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         kind, i = name.rsplit("_", 1)
         group = "lateral_convs" if kind == "lateral" else "fpn_convs"
         _conv(out, f"neck.{group}.{i}.conv", layer)
-    _neck3d(out, params["neck_3d"], stats["neck_3d"])
+    if "model" in params["neck_3d"]:  # the Atlas neck
+        _layer_bn_tree(out, "neck_3d", params["neck_3d"], stats["neck_3d"],
+                       _conv)
+    else:
+        _neck3d(out, params["neck_3d"], stats["neck_3d"])
     head = params["bbox_head"]
     for name in ("centerness_conv", "reg_conv", "cls_conv"):
         _conv(out, f"bbox_head.{name}", head[name])
+    for name in ("reg_convs", "cls_convs"):  # the V1 head's towers
+        if name in head:
+            _layer_bn_tree(out, f"bbox_head.{name}", head[name],
+                           stats["bbox_head"][name], _conv)
     for i, s in enumerate(_np32(head["scales"])):
         out[f"bbox_head.scales.{i}.scale"] = torch.tensor(float(s))
+    if "nerf_mlp" not in params:  # the indoor ImVoxelNet
+        return out
     for name, sub in params["nerf_mlp"]["mlp"].items():
         _mlp(out, f"nerf_mlp.mlp.{name}", sub)
     if "mapping" in params:  # image mode: volume mode never calls it

@@ -353,6 +353,33 @@ def test_test_items_match_jax(case, written):
         _assert_items_equal(got, jax_ds[i], f"{case} test [{i}]")
 
 
+IMVOXELNET = os.path.join(ROOT, "configs", "imvoxelnet",
+                          "imvoxelnet_scannet.py")
+
+
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_imvoxelnet_items_match_jax(split, written):
+    """The indoor ImVoxelNet's pipelines (``imvoxelnet_scannet.py``:
+    480x640 views resized from the written 240x320, no target views, no
+    host streams; the train split's ``RandomShiftOrigin`` std (.7, .7,
+    0) in a RepeatDataset x3, 13 of its 20 views as the scene holds 14;
+    the test split's 6 of its 50 by stride) give the JAX package's items
+    bit for bit."""
+    cfg = JaxConfig.fromfile(IMVOXELNET)
+    assert jdataset.rgb_stats_spec_from_config(cfg) is None
+    assert jdataset.ray_stats_spec_from_config(cfg) is None
+    test_mode = split == "val"
+    port, jax_ds = _both(IMVOXELNET, _data_cfg(
+        IMVOXELNET, written["flagship"], split, 6 if test_mode else 13),
+        test_mode=test_mode)
+    assert len(port) == len(jax_ds) == (1 if test_mode else 3)
+    for i in range(len(port)):
+        got = port[i]
+        assert got["imgs"].shape[1:] == (480, 640, 3)
+        assert "ray_o" not in got and "rgb_s1" not in got
+        _assert_items_equal(got, jax_ds[i], f"imvoxelnet {split} [{i}]")
+
+
 def test_repeat_dataset_len_and_refusals(written):
     cfg = _data_cfg(FLAGSHIP, written["flagship"], "train")
     assert cfg["type"] == "RepeatDataset" and cfg["times"] == 6

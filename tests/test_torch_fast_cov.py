@@ -5,8 +5,8 @@
   with the fields JAX's builder gives its NerfDet (routing, volume_type,
   nerf_mode, the Swin keys, the geometry), its data path without host
   streams (as JAX's dataset specs say); the four volume-mode configs
-  (``nerf_density=True``) and ImVoxelNet configs without NeRF keys raise
-  their named errors, and one case pins the JAX fault the first refusal
+  (``nerf_density=True``) and the SUN RGB-D and outdoor ImVoxelNet
+  configs without NeRF keys raise their named errors, and one case pins the JAX fault the first refusal
   names (``ScopeParamShapeError`` at the NeRF MLP's first layer).
 * ``build_volume`` for each ``volume_type``, with and without the
   density, on random maps (the in-scan rgb stream, gated by depth):
@@ -439,9 +439,12 @@ def test_volume_mode_with_density_is_refused_for_the_jax_fault(name):
         assert build_model(cfg.model).nerf_mode == "volume"
 
 
-@pytest.mark.parametrize("name", ["imvoxelnet_scannet.py",
+@pytest.mark.parametrize("name", ["imvoxelnet_sunrgbd.py",
                                   "imvoxelnet_kitti.py"])
 def test_imvoxelnet_without_nerf_keys_is_refused(name):
+    """Of the ImVoxelNet configs without NeRF keys the ScanNet ones build
+    the indoor ImVoxelNet (``tests/test_torch_imvoxelnet.py``); the SUN
+    RGB-D and outdoor ones are refused by name."""
     path = os.path.join(ROOT, "configs", "imvoxelnet", name)
     cfg = Config.fromfile(path)
     assert not routes_to_nerfdet(cfg.model)

@@ -230,6 +230,34 @@ def test_k1_bf16_phase_a_holds_two_blocks_an_sm_and_every_width():
                for c in tvox.K1_CHANNELS) <= 232448
 
 
+@pytest.mark.parametrize("c,width", [(1, 32), (8, 32), (16, 32), (32, 32),
+                                     (40, 64), (96, 128), (1024, 1024)])
+def test_k1_runs_any_width_up_to_1024_padded_to_its_widths(c, width):
+    """K1 takes C from 1 to 1024 on the card: the wrappers zero-pad the
+    channels to ``k1_width(C)``, the least of ``K1_CHANNELS`` at or
+    above it, and cut the outputs back (``test_fusion_carry_off_its_
+    widths_runs_padded`` holds the kernels so on the card); the plain
+    version's s1 at C is its padded s1's first C channels, bit for bit,
+    and the padding sums zeros."""
+    assert tvox.k1_width(c) == width
+    rng = np.random.RandomState(c)
+    feats = torch.from_numpy(rng.randn(2, 6, 10, c).astype(np.float32))
+    padded = tvox._pad_channels(feats, width)
+    assert padded.shape == (2, 6, 10, width) and padded.is_contiguous()
+    pix = torch.from_numpy(rng.randint(-1, 60, (2, 50)).astype(np.int32))
+    narrow = tvox.fusion_carry_plain(feats, pix)
+    wide = tvox.fusion_carry_plain(padded, pix)
+    assert torch.equal(wide[0][:, :c], narrow[0])
+    assert torch.equal(wide[1][:, :c], narrow[1])
+    assert float(wide[0][:, c:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("c", [0, 1025])
+def test_k1_refuses_widths_past_1024(c):
+    with pytest.raises(ValueError, match="1 to 1024 channels"):
+        tvox.k1_width(c)
+
+
 def _shared_pixel_scene(seed, c=32, m=8):
     """The card tests' scene at C channels, M mapped outputs and 3 views;
     its pixel indices put several voxels on one pixel of each view."""

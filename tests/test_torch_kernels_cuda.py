@@ -231,20 +231,130 @@ def test_mapped_rows_bf16_three_pieces_are_exact(dev, c, m, aligned):
 
 def test_fusion_carry_rejects_what_it_cannot_take(dev):
     pix = _pix(dev, v=2)
-    with pytest.raises(ValueError, match="C % 32"):
-        voxel.fusion_carry(torch.zeros((2, 60, 80, 40), device=dev), pix)
+    with pytest.raises(ValueError, match="1 to 1024 channels"):
+        voxel.fusion_carry(torch.zeros((2, 60, 80, 1025), device=dev), pix)
     with pytest.raises(ValueError, match="pix"):
         voxel.fusion_carry(torch.zeros((2, 60, 80, 64), device=dev),
                            pix.long())
 
 
-@pytest.mark.parametrize("c", [96, 2048])
+@pytest.mark.parametrize("c", [1025, 2048])
 def test_fusion_carry_refuses_c_off_its_widths(dev, c):
     """Phase B keeps C / 32 channels a lane in registers, compiled for
-    C = 32 x a power of two up to 1024."""
+    C = 32 x a power of two up to 1024; a narrower map runs padded to the
+    next of them, a wider one is refused."""
     pix = _pix(dev, v=2)
-    with pytest.raises(ValueError, match="power of two"):
+    with pytest.raises(ValueError, match="1 to 1024 channels"):
         voxel.fusion_carry(torch.zeros((2, 60, 80, c), device=dev), pix)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mapped", [False, True])
+@pytest.mark.parametrize("c", [1, 8, 16, 40, 96])
+def test_fusion_carry_off_its_widths_runs_padded(dev, c, mapped, dtype):
+    """K1 at C off ``K1_CHANNELS`` (the smoke ImVoxelNet's FPN 8): the
+    wrappers pad the channels to ``k1_width(C)`` with zeros and launch
+    (once, counted); count, s1 and s2 bitwise the plain version's at C,
+    s2m within 1e-5 relative. The backward (g1, g2 and with the mapped
+    stream gm) within ``test_fusion_backward_matches_plain``'s
+    tolerances on float32 maps, bitwise without the mapped stream on
+    bfloat16 maps; a second run bitwise."""
+    pix = _fusion_case(dev, "scene")
+    gen = torch.Generator(device=dev).manual_seed(c)
+    n = pix.shape[1]
+    feats = torch.randn((pix.shape[0], 60, 80, c), generator=gen,
+                        device=dev).to(dtype)
+    w = b = gm = rows = None
+    if mapped:
+        w = torch.randn((c, 32), generator=gen, device=dev) / c ** 0.5
+        b = torch.randn((32,), generator=gen, device=dev)
+        gm = torch.randn((n, 32), generator=gen, device=dev)
+        rows = voxel.mapped_rows_plain(feats, w, b)
+    before = voxel.fusion_carry.launches
+    got = voxel.fusion_carry(feats, pix, w, b)
+    want = voxel.fusion_carry_plain(feats, pix, w, b)
+    torch.cuda.synchronize()
+    assert voxel.fusion_carry.launches == before + 1
+    assert got[0].shape == (n, c) and got[0].is_contiguous()
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+    if mapped:
+        assert _rel(got[3], want[3]) <= 1e-5
+        assert _rel(voxel._mapped_rows_launch(feats, w, b), rows) <= 1e-5
+    g1 = torch.randn((n, c), generator=gen, device=dev)
+    g2 = torch.randn((n, c), generator=gen, device=dev)
+    count = want[2]
+    args = (feats, pix, count, g1, g2, gm, w, b, rows)
+    got = voxel.fusion_carry_backward(*args)
+    again = voxel.fusion_carry_backward(*args)
+    want = voxel.fusion_carry_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == feats.shape and got[0].dtype == dtype
+    if dtype == torch.bfloat16 and not mapped:
+        assert torch.equal(got[0], want[0])
+    elif dtype == torch.bfloat16:
+        assert _bf16_ulps(got[0], want[0]) <= 2
+    else:
+        assert _close(got[0], want[0], 1e-5)
+    if mapped:
+        assert got[1].shape == (c, 32)
+    assert _close(got[1], want[1], 1e-4) and _close(got[2], want[2], 1e-4)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def _indoor_pix(dev, v):
+    """K1's pixel indices at the indoor ImVoxelNet's shapes: 480x640
+    views (120x160 stride-4 maps, bounds 119x160 of the 478x640 image)
+    into its 80x80x32 volume at 0.08 m (204,800 voxels)."""
+    intrinsic, extr = _family_cameras(np.random.RandomState(v), v)
+    points = voxel.get_points((80, 80, 32), (0.08, 0.08, 0.08),
+                              (0, 0, 0.5), dev).reshape(-1, 3)
+    proj = voxel.compute_projection(intrinsic, extr, 4.0, dev)
+    x, y, _, valid = voxel.project_points(points, proj, 119, 160)
+    return voxel.pixel_index(x, y, valid, 160).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_indoor_plain_mean_fusion_matches_plain(dev, dtype):
+    """K1's plain-mean form (no mapped stream) at the indoor ImVoxelNet's
+    test shape, 50 views of (120, 160, 64) maps into the 80x80x32 volume:
+    count, s1 and s2 bitwise the plain version's."""
+    pix = _indoor_pix(dev, 50)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    feats = torch.randn((50, 120, 160, 64), generator=gen,
+                        device=dev).to(dtype)
+    got = voxel.fusion_carry(feats, pix)
+    want = voxel.fusion_carry_plain(feats, pix)
+    torch.cuda.synchronize()
+    assert got[3] is None and want[3] is None
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+    assert float(got[2].max()) >= 2 and int((got[2] == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_indoor_fusion_backward_g1_matches_plain(dev, dtype):
+    """K1's backward with the s1 cotangent alone (the plain-mean volume
+    trains only it) at the indoor training shape, 20 views of 480x640
+    into the 80x80x32 volume, C = 64: d features within 1e-5 x max on
+    float32 maps (``test_fusion_backward_matches_plain``'s tolerance),
+    bitwise on bfloat16 maps; a second run bitwise."""
+    pix = _indoor_pix(dev, 20)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    feats = torch.randn((20, 120, 160, 64), generator=gen,
+                        device=dev).to(dtype)
+    g1 = torch.randn((pix.shape[1], 64), generator=gen, device=dev)
+    count = (pix >= 0).float().sum(0)
+    args = (feats, pix, count, g1)
+    got = voxel.fusion_carry_backward(*args)
+    again = voxel.fusion_carry_backward(*args)
+    want = voxel.fusion_carry_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert got[1] is None and got[2] is None
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[0], want[0])
+    else:
+        assert _close(got[0], want[0], 1e-5)
+    assert torch.equal(got[0], again[0])
 
 
 def test_fusion_carry_refuses_more_than_32_mapped_channels(dev):

@@ -53,7 +53,9 @@ def _port_files():
 def test_the_import_rule_reads_every_module_of_the_port():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     for name in ("nn/swin.py", "ops/grid_sample.py", "ops/render.py",
-                 "models/builder.py", "models/nerfdet.py"):
+                 "models/builder.py", "models/nerfdet.py",
+                 "models/imvoxelnet_indoor.py", "nn/imvoxel_necks.py",
+                 "nn/heads_v1.py"):
         assert os.path.join("nerfdet_tpu_torch", name) in names, name
 
 
