@@ -157,7 +157,7 @@ Phases, each reported on its own lines:
     process (loss terms 1e-4 relative, grad_norm 1e-3, the ranks'
     parameters bitwise equal; each rank launching K1, K1's backward,
     K2's sums form and K2's backward once a step; the step's ms and the
-    all-reduces'); 14.2 R101*'s ``eval_step`` at 100 views with the views
+    all-reduces'); 14.2 R101*'s ``eval_step`` at 50 views with the views
     sharded (the depth gate and the rgb stream on each rank's half)
     against one process (head outputs and the candidates' sorted scores
     1e-4 of their max, the view counts exact); 14.3 ``tools/test
@@ -193,6 +193,22 @@ Phases, each reported on its own lines:
     without the density: K2's eval form and its backward in the step);
     17.4 bfloat16; 17.5 ``tools/train`` for 2 steps then ``tools/test
     --eval mAP`` on 484x648 files; the phase's wall time.
+
+18. the SUN RGB-D ImVoxelNet (``sunrgbd_path``: one view a scene, the
+    yawed heads, rotated NMS and mAP on the host), random weights, on
+    530x730 PNG views and an info pkl it writes (``sunrgbd_fixture``)
+    read through the port's dataset: 18.0 K1's plain-mean form at one
+    view, (1, 120, 160, 64) maps into 80x80x32 in float32 and bfloat16
+    and ``_fast``'s C = 256 into 40x40x16 (count, s1, s2 bitwise, with
+    time, bound and plain time); 18.1 ``imvoxelnet_sunrgbd.py``:
+    ``eval_step`` + host rotated NMS (K1 once; kernels vs plain through
+    the graph; stage times: backbone, K1, Atlas neck, yawed V1 head,
+    decode, the host NMS at the config's score threshold and over every
+    candidate; scenes/s); 18.2 ``_fast`` (the yawed V2 head), 18.3 the
+    perspective split (30 classes), 18.4 bfloat16, one scene each; 18.5
+    ``tools/test --eval mAP`` from the files in float32, on the
+    perspective split and with ``--bf16``, finite mAP at 0.25 / 0.5
+    (0.15 for the perspective split).
 
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
@@ -3146,8 +3162,8 @@ def jpeg_path(api, voxel, pointnet, render, card, ckpt, tmp):
 
 
 # phase 13: multi-card training and evaluation, one process a card
-DDP_STEPS = 3  # 13.1's steps through the train CLI
-DDP_TIMED = 3  # 13.2's timed steps after the compared one
+DDP_STEPS = 2  # 13.1's steps through the train CLI (3 before)
+DDP_TIMED = 1  # 13.2's timed steps after the compared one (3 before)
 DDP_TIMEOUT = 300  # seconds a child run of phase 13 may take
 LAUNCHER = """\
 # a child run of chip_smoke.py phase 13: python3 <this> MODE OUT [ARGS]
@@ -3561,7 +3577,8 @@ def ddp_path(api, ray_stats, card, tmp, runtime_opts):
 
 # phase 14: the 2-D data x views sharding, two gloo ranks on this card
 MESH_VIEWS = 2  # ranks a scene (--mesh-views)
-MESH_TIMED = 3  # 14.1's and 14.2's timed calls after the compared one
+MESH_TIMED = 1  # 14.1's and 14.2's timed calls after the compared one
+MESH_EVAL_VIEWS = 50  # 14.2's R101* views, 25 a rank (100 before)
 
 
 def mesh_child(mode, out, api, counters, per_step, counted):
@@ -3693,7 +3710,7 @@ def mesh_path(api, render, ray_stats, card, tmp, ddp):
     grad_norm 1e-3, the ranks' parameters bitwise equal; K1, K1's
     backward, K2's sums form and K2's backward once a step on each rank;
     the step's ms and the all-reduces'); 14.2: R101*'s ``eval_step`` at
-    100 views with the views sharded (the depth gate and the rgb stream
+    ``MESH_EVAL_VIEWS`` views with the views sharded (the depth gate and the rgb stream
     on each rank's half) against one process (head outputs and the
     candidates' sorted scores 1e-4 of their max, view counts exact);
     14.3: ``tools/test --distributed --mesh-views 2`` on phase 13.3's
@@ -3791,7 +3808,7 @@ def mesh_path(api, render, ray_stats, card, tmp, ddp):
 
     # ---- 14.2 R101*'s eval_step at 100 views, the views sharded ----
     model = api.init_detector(DEPTH_CONFIG, device="cuda", seed=SEED)
-    dscene = depth_scene(model, SEED + 3, DEPTH_VIEWS)
+    dscene = depth_scene(model, SEED + 3, MESH_EVAL_VIEWS)
     base = os.path.join(tmp, "mesh_eval")
     np.savez(f"{base}.scene.npz", **dscene)
     nms_pre = Config.fromfile(DEPTH_CONFIG).test_cfg["nms_pre"]
@@ -3817,8 +3834,9 @@ def mesh_path(api, render, ray_stats, card, tmp, ddp):
                     for r in ranks)
     same_valid = all(torch.equal(r["valid"], valid.cpu()) for r in ranks)
     err = max(head_err, score_err)
-    log(f"[mesh] 14.2 R101* eval_step at {DEPTH_VIEWS} views (depth gate, "
-        f"rgb stream on the card), {DEPTH_VIEWS // MESH_VIEWS} a rank, "
+    log(f"[mesh] 14.2 R101* eval_step at {MESH_EVAL_VIEWS} views (depth "
+        f"gate, rgb stream on the card), {MESH_EVAL_VIEWS // MESH_VIEWS} a "
+        f"rank, "
         f"against one process: head outputs max diff {head_err:.3e} of "
         f"their max, candidates' sorted scores {score_err:.3e} (tol 1e-4); "
         f"view counts equal {same_valid}; rank 0's launches "
@@ -4962,6 +4980,326 @@ def indoor_path(api, voxel, render, card):
                 eval_ms=eval_ms, bf16_eval_ms=bf16_ms, wall_s=wall)
 
 
+# ---------------------------------------------------------------------
+# phase 18: the SUN RGB-D ImVoxelNet (monocular: one view a scene,
+# yawed heads, rotated NMS, rotated mAP), inference and evaluation
+SR = "configs/imvoxelnet/imvoxelnet_sunrgbd"
+SR_V1 = SR + ".py"
+SR_FAST = SR + "_fast.py"
+SR_PERSP = "configs/imvoxelnet/imvoxelnet_perspective_sunrgbd.py"
+SR_HW = (530, 730)  # the configs' nominal ori_shape
+SR_SCENES = 3  # the fixture's val scenes
+SR_ITERS = 5  # timed eval_step + host NMS calls
+
+
+def sunrgbd_fixture(root, n_scenes, n_classes, seed):
+    """A SUN RGB-D val split on disk, as JAX's ETL lays it out: PNG views
+    of ``SR_HW`` under ``sunrgbd_trainval/image`` and an info pkl of its
+    schema (``image``, ``calib`` with ``K`` column-major and ``Rt``,
+    ``annos`` with gravity-centered yawed ``gt_boxes_upright_depth``).
+    The camera sits at the origin looking along +y, a few degrees of
+    pitch apart; the GT boxes lie in the volume's 6.4 x 6.4 x 2.56 m
+    around (0, 3, -1). Returns the pkl's path."""
+    import pickle
+
+    import numpy as np
+
+    from nerfdet_tpu_torch.data.pipeline import imwrite_png
+
+    rng = np.random.RandomState(seed)
+    image_dir = os.path.join(root, "sunrgbd_trainval", "image")
+    os.makedirs(image_dir, exist_ok=True)
+    h, w = SR_HW
+    k = np.array([[529.5, 0, w / 2], [0, 529.5, h / 2], [0, 0, 1]])
+    infos = []
+    for i in range(n_scenes):
+        coarse = rng.randint(0, 256, (h // 10 + 1, w // 10 + 1, 3))
+        img = np.kron(coarse, np.ones((10, 10, 1)))[:h, :w].astype(np.uint8)
+        rel = os.path.join("sunrgbd_trainval", "image", f"{i + 1:06d}.png")
+        imwrite_png(os.path.join(root, rel), img)
+        a = rng.uniform(-0.08, 0.08)  # pitch, radians
+        rt = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                       [0, np.sin(a), np.cos(a)]])
+        n = rng.randint(2, 6)
+        boxes = np.concatenate([
+            rng.uniform(-2, 2, (n, 1)), rng.uniform(1.5, 5, (n, 1)),
+            rng.uniform(-1.8, -0.4, (n, 1)), rng.uniform(0.4, 2.0, (n, 3)),
+            rng.uniform(-np.pi, np.pi, (n, 1))], 1)
+        labels = rng.randint(0, n_classes, n)
+        infos.append(dict(
+            point_cloud=dict(num_features=6, lidar_idx=i + 1),
+            pts_path=os.path.join("points", f"{i + 1:06d}.bin"),
+            image=dict(image_idx=i + 1, image_shape=np.array(SR_HW, np.int32),
+                       image_path=rel),
+            calib=dict(K=k.T.flatten(), Rt=rt),
+            annos=dict(gt_num=n, name=np.array([f"class{c}" for c in labels]),
+                       bbox=rng.uniform(0, 500, (n, 4)),
+                       location=boxes[:, :3], dimensions=boxes[:, 3:6],
+                       rotation_y=boxes[:, 6],
+                       index=np.arange(n, dtype=np.int32),
+                       **{"class": labels}, gt_boxes_upright_depth=boxes)))
+    path = os.path.join(root, f"sunrgbd_c{n_classes}_infos_val.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path
+
+
+def sunrgbd_path(api, voxel, render, card):
+    """Phase 18: the SUN RGB-D ImVoxelNet at full width, random weights
+    from ``SEED``, on a fixture this phase writes (``sunrgbd_fixture``:
+    530x730 PNG views read through the port's dataset, so each scene is
+    the test pipeline's: 465x640 padded to 480x640, origin (0, 3, -1)).
+    18.0 K1's plain-mean form at one view against its plain version
+    (``imvoxelnet_sunrgbd.py``'s (1, 120, 160, 64) maps into 80x80x32 f32
+    and bf16, ``_fast``'s C = 256 into 40x40x16); 18.1
+    ``imvoxelnet_sunrgbd.py``: eval_step + host rotated NMS, K1 once a
+    scene, kernels vs plain through the graph, stage times, scenes/s;
+    18.2 ``_fast`` (the yawed V2 head), 18.3 the perspective split (30
+    classes), 18.4 bfloat16, one scene each; 18.5 ``tools/test --eval
+    mAP`` from the files (f32, the perspective split, ``--bf16``).
+    Returns the record's numbers."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfdet_tpu_torch.data.dataset import build_dataset
+    from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
+    from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    dev = api.resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    f32, bf16 = torch.float32, torch.bfloat16
+    counters = (voxel.fusion_carry, voxel.fusion_carry_backward,
+                voxel.rgb_carry, render.streaming_sample_mean_var,
+                render.streaming_sample_mean_var_backward)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return [fn.launches for fn in counters]
+
+    def named(launches):
+        return ", ".join(f"{n} {c}" for n, c in zip(FC_NAMES, launches))
+
+    def expect(launches, want, what):
+        if launches != want:
+            raise SystemExit(f"phase 18 {what} launched {named(launches)}; "
+                             f"expected {named(want)}")
+
+    def candidates(model, batch, what):
+        zero()
+        res = api.eval_step(model, batch, 1000)
+        torch.cuda.synchronize()
+        launches = counts()
+        expect(launches, [1, 0, 0, 0, 0], what)
+        if not (res["boxes"].shape[-1] == 7
+                and torch.isfinite(res["boxes"]).all()
+                and torch.isfinite(res["scores"]).all()):
+            raise SystemExit(f"phase 18 {what}: candidates "
+                             f"{tuple(res['boxes'].shape)} not yawed and "
+                             f"finite")
+        return res, launches
+
+    def host_nms(res, cfg, score_thr=None, iters=3):
+        """The host tail (score threshold, rotated NMS a class): its ms
+        on the host clock (the mean of ``iters`` calls after one) and the
+        boxes kept."""
+        boxes = res["boxes"].float().cpu().numpy()
+        scores = res["scores"].float().cpu().numpy()
+        thr = cfg.test_cfg["score_thr"] if score_thr is None else score_thr
+        for i in range(iters + 1):
+            if i == 1:
+                t0 = time.perf_counter()
+            det = api.detections_from_candidates(boxes, scores, thr,
+                                                 cfg.test_cfg["iou_thr"])
+        return ((time.perf_counter() - t0) * 1e3 / iters,
+                len(det["labels_3d"]))
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sunrgbd_")
+    root = tmp.name + "/"
+    t0 = time.perf_counter()
+    ann10 = sunrgbd_fixture(root, SR_SCENES, 10, SEED + 180)
+    ann30 = sunrgbd_fixture(root, SR_SCENES, 30, SEED + 181)
+    # the perspective configs' data dicts keep their base's 10 class names
+    # (a fault of the config files, JAX's too: ROADMAP §3); name the 30
+    persp_names = tuple(family_config(SR_PERSP).class_names)
+    files = {10: [f"data.test.data_root={root}", f"data.test.ann_file={ann10}"],
+             30: [f"data.test.data_root={root}", f"data.test.ann_file={ann30}",
+                  f"data.test.classes={persp_names!r}"]}
+    cfg = family_config(SR_V1, files[10])
+    dataset = build_dataset(cfg.data["test"], test_mode=True)
+    scene = dataset[0]
+    model = api.init_detector(cfg, device="cuda", seed=SEED)
+    meta = model.meta
+    c = model.neck.fpn_convs[0].conv.out_channels
+    log(f"[sunrgbd] {SR_V1}: {type(model).__name__}, head {model.head_type} "
+        f"(yaw {model.yaw}), volume {model.n_voxels} at {model.voxel_size}, "
+        f"FPN {c}, {sum(p.numel() for p in model.parameters())} "
+        f"parameters; {type(dataset).__name__} of {len(dataset)} scenes: "
+        f"one view {meta.ori_shape} -> {meta.img_shape} padded "
+        f"{meta.pad_shape}, imgs {scene['imgs'].shape}, origin "
+        f"{scene['origin'].tolist()}; {time.perf_counter() - t0:.1f} s")
+    if not model.yaw or not model.uses_v1_head or scene["imgs"].shape[0] != 1:
+        raise SystemExit(f"{SR_V1} did not build the yawed V1 head on one "
+                         f"view")
+
+    # ---- 18.0 K1 at one view ----
+    hw = (meta.pad_shape[0] // 4, meta.pad_shape[1] // 4)
+    vol = "x".join(str(n) for n in model.n_voxels)
+    pix = family_pix(voxel, model, scene, dev, False)["features"]
+    k1 = check_fusion(voxel, [
+        (f"float32 plain mean, one view into {vol}", pix, f32, False),
+        (f"bfloat16 plain mean, one view into {vol}", pix, bf16, False)],
+        hw, gen, c=c)
+    fast_cfg = family_config(SR_FAST, files[10])
+    fast = api.init_detector(fast_cfg, device="cuda", seed=SEED)
+    c_fast = fast.neck.fpn_convs[0].conv.out_channels
+    pix_fast = family_pix(voxel, fast, scene, dev, False)["features"]
+    k1.update(check_fusion(voxel, [
+        (f"float32 plain mean C={c_fast}, one view into "
+         f"{'x'.join(str(n) for n in fast.n_voxels)} ({SR_FAST})", pix_fast,
+         f32, False)], hw, gen, c=c_fast))
+    del pix, pix_fast
+
+    # ---- 18.1 imvoxelnet_sunrgbd.py: eval_step + host rotated NMS ----
+    batch = api.device_batch(model, scene)
+    res, eval_launches = candidates(model, batch, "18.1 eval_step")
+    nms_ms, kept = host_nms(res, cfg)
+    nms_all_ms, kept_all = host_nms(res, cfg, 0.0)
+    log(f"[sunrgbd] 18.1 eval_step -> {tuple(res['boxes'].shape)} yawed "
+        f"candidates; launches {named(eval_launches)}; host rotated NMS at "
+        f"score_thr {cfg.test_cfg['score_thr']}: {nms_ms:.2f} ms, kept "
+        f"{kept}; at 0 (every candidate): {nms_all_ms:.2f} ms, kept "
+        f"{kept_all}")
+    with torch.inference_mode():
+        head_k, valid_k, _ = model(batch)
+        saved = voxel.fusion_carry
+        voxel.fusion_carry = voxel.fusion_carry_plain
+        try:
+            head_p, valid_p, _ = model(batch)
+        finally:
+            voxel.fusion_carry = saved
+    diff = max(float((a - b).abs().max()) for hk, hp in zip(head_k, head_p)
+               for a, b in zip(hk, hp))
+    scale = max(float(b.abs().max()) for hp in head_p for b in hp)
+    seen = float((valid_k > 0).float().mean())
+    log(f"[sunrgbd] 18.1 kernels vs plain (K1) through the whole graph: "
+        f"view counts equal {torch.equal(valid_k, valid_p)} ({seen:.4f} of "
+        f"the voxels seen), head outputs max |diff| {diff:.3e} (max |out| "
+        f"{scale:.3e}, tol 1e-4 relative)")
+    if not torch.equal(valid_k, valid_p) or diff > 1e-4 * max(scale, 1.0):
+        raise SystemExit("kernel and plain SUN RGB-D graphs disagree")
+    del head_k, head_p
+    with torch.inference_mode():
+        feats, _ = model.extract_2d(batch["imgs"])
+        geo = (batch["intrinsic"], batch["extrinsics"], batch["origin"])
+        volume, valid = model.build_volume(feats, *geo)
+        x = volume.permute(3, 0, 1, 2)[None]
+        scales = model.neck_3d(x)
+        heads = model.detect(volume)
+        mlvl = model.mlvl_points(batch["origin"])
+        stages = {}
+        for name, fn in {
+                "extract_2d (ResNet-50 + FPN)": lambda: model.extract_2d(
+                    batch["imgs"]),
+                "build_volume (projection + K1)": lambda: model.build_volume(
+                    feats, *geo),
+                "Atlas neck": lambda: model.neck_3d(x),
+                "V1 head (yawed)": lambda: model.bbox_head(scales),
+                "get_candidate_bboxes (yawed)": lambda: get_candidate_bboxes(
+                    heads, valid, mlvl, 1000, model.n_classes, yaw=True),
+        }.items():
+            stages[name] = cuda_time_ms(fn, 3, warmup=1)
+            log(f"[stage] sunrgbd one view {name}: {stages[name]:.3f} ms")
+    stages["rotated NMS (host)"] = nms_ms
+    stages["rotated NMS, every candidate (host)"] = nms_all_ms
+    del feats, volume, x, scales, heads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(SR_ITERS):
+        res = api.eval_step(model, batch, 1000)
+        api.detections_from_candidates(
+            res["boxes"].float().cpu().numpy(),
+            res["scores"].float().cpu().numpy(), cfg.test_cfg["score_thr"],
+            cfg.test_cfg["iou_thr"])
+    dt = (time.perf_counter() - t0) / SR_ITERS
+    eval_rate = 1 / dt
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_ms = cuda_time_ms(lambda: api.eval_step(model, batch, 1000), 3,
+                           warmup=1)
+    log(f"[sunrgbd] 18.1 inference: {eval_rate:.3f} scenes/s ({dt * 1e3:.2f} "
+        f"ms a scene: eval_step + host rotated NMS, one view), eval_step "
+        f"{eval_ms:.3f} ms, peak memory {eval_peak:.2f} GiB; measured on "
+        f"{card}")
+    ckpt10 = save_checkpoint(os.path.join(root, "ckpt10"), 0, {
+        "model": model.state_dict(), "optimizer": {}})
+    del model, batch, res
+    torch.cuda.empty_cache()
+
+    # ---- 18.2 _fast, 18.3 the perspective split, 18.4 bfloat16 ----
+    others = {}
+    persp_cfg = family_config(SR_PERSP, files[30])
+    persp = api.init_detector(persp_cfg, device="cuda", seed=SEED)
+    ckpt30 = save_checkpoint(os.path.join(root, "ckpt30"), 0, {
+        "model": persp.state_dict(), "optimizer": {}})
+    low = api.init_detector(cfg, ckpt10, device="cuda",
+                            compute_dtype=bf16)
+    for tag, path, m, c_ in (("18.2", SR_FAST, fast, fast_cfg),
+                             ("18.3", SR_PERSP, persp, persp_cfg),
+                             ("18.4 bf16", SR_V1, low, cfg)):
+        b = api.device_batch(m, build_dataset(c_.data["test"],
+                                              test_mode=True)[0])
+        r, launches = candidates(m, b, f"{tag} eval_step")
+        ms = cuda_time_ms(lambda: api.eval_step(m, b, 1000), 3, warmup=1)
+        n_ms, n_kept = host_nms(r, c_)
+        others[tag] = dict(eval_ms=ms, nms_ms=n_ms, kept=n_kept)
+        log(f"[sunrgbd] {tag} {path}: {m.head_type} (V1 {m.uses_v1_head}), "
+            f"{m.n_classes} classes, volume {m.n_voxels}, "
+            f"{str(m.compute_dtype).split('.')[-1]}: eval_step {ms:.3f} ms, "
+            f"launches {named(launches)}; host rotated NMS at score_thr "
+            f"{c_.test_cfg['score_thr']}: {n_ms:.2f} ms, kept {n_kept}; "
+            f"measured on {card}")
+    del fast, persp, low
+    torch.cuda.empty_cache()
+
+    # ---- 18.5 tools/test --eval mAP from the files ----
+    cli = {}
+    for tag, path, ckpt, extra, ious in (
+            ("f32", SR_V1, ckpt10, [], (0.25, 0.5)),
+            ("perspective", SR_PERSP, ckpt30, [], (0.15,)),
+            ("bf16", SR_V1, ckpt10, ["--bf16"], (0.25, 0.5))):
+        zero()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([path, ckpt, "--eval", "mAP", *extra,
+                                 "--options", *files[30 if tag ==
+                                                     "perspective" else 10]])
+        wall = time.perf_counter() - t0
+        launches = counts()
+        keys = [f"mAP_{t:.2f}" for t in ious] + [f"mAR_{t:.2f}" for t in ious]
+        log(f"[sunrgbd] 18.5 tools/test --eval mAP {tag} ({path}, "
+            f"{SR_SCENES} scenes of one view from PNG): {wall:.1f} s, "
+            f"launches {named(launches)}; " + ", ".join(
+                f"{k} {metrics.get(k, float('nan')):.4f}" for k in keys))
+        expect(launches, [SR_SCENES, 0, 0, 0, 0], f"18.5 tools/test {tag}")
+        if not all(math.isfinite(metrics.get(k, float("nan")))
+                   for k in keys):
+            raise SystemExit(f"18.5 tools/test {tag}: metrics {metrics}")
+        cli[tag] = dict(wall_s=wall, **{k: metrics[k] for k in keys})
+    tmp.cleanup()
+    wall = time.perf_counter() - t_phase
+    log(f"[sunrgbd] phase 18 in {wall:.1f} s")
+    return dict(k1=k1, launches=dict(zip(FC_NAMES, eval_launches)),
+                eval_rate=eval_rate, eval_ms=eval_ms, eval_peak_gib=eval_peak,
+                stages=stages, others=others, cli=cli, wall_s=wall)
+
+
 def main():
     import numpy as np
     import torch
@@ -5261,6 +5599,10 @@ def main():
     torch.cuda.empty_cache()
     indoor = indoor_path(api, voxel, render, card)
 
+    # ---- 18. the SUN RGB-D ImVoxelNet: one view, yawed, rotated NMS ----
+    torch.cuda.empty_cache()
+    sunrgbd = sunrgbd_path(api, voxel, render, card)
+
     main = fusion["float32 mapped"]
     on_path = [fps[n] for n in path_names]  # one forward's five calls
     fps_bound_by = max(on_path, key=lambda r: r["bound_ms"])["bound_by"]
@@ -5460,7 +5802,14 @@ def main():
         **{f"C={k} padded": v for k, v in indoor["narrow_bwd"].items()}}
     shown += ("fast", "eval_ms", "bf16_eval_ms", "kept_fast_depth")
     log(f"[indoor] {json.dumps({k: indoor[k] for k in shown})}")
-    log(f"[done] phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+    for entry in record["kernels"]:  # phase 18.1: one SUN RGB-D scene
+        entry["sunrgbd_launches"] = sunrgbd["launches"].get(entry["name"], 0)
+    # phase 18.0: K1 at one view (imvoxelnet_sunrgbd.py, _fast)
+    by_name["fused_mean_cov"]["sunrgbd_one_view"] = sunrgbd["k1"]
+    shown = ("eval_rate", "eval_ms", "eval_peak_gib", "stages", "others",
+             "cli", "wall_s")
+    log(f"[sunrgbd] {json.dumps({k: sunrgbd[k] for k in shown})}")
+    log(f"[done] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     shown = {k: v for k, v in ddp.items() if k != "launches" and k[0] != "_"}
     log(f"[ddp] {json.dumps(shown)}")
     log(f"[mesh] {json.dumps({k: v for k, v in mesh.items() if k != 'sums'})}")

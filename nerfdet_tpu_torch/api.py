@@ -37,13 +37,13 @@ import numpy as np
 import torch
 
 from .config import Config
-from .core.nms import aligned_3d_nms
+from .core.nms import aligned_3d_nms, nms_bev_rotated
 from .core.nvs_metrics import aggregate_nvs, evaluate_rendering
 from .data.dataset import build_dataset
 from .data.ray_stats import RAY_STREAM_KEYS, draw_rays, prepare_rays
 from .data.rgb_stats import host_rgb_stats
 from .device import resolve_device
-from .models.builder import build_model
+from .models.builder import build_model, unported_refusal
 from .models.imvoxelnet_indoor import IndoorImVoxelNet
 from .models.nerfdet import VOLUME_MESH_VIEWS, NerfDet, SceneMeta
 from .models.votenet import VoteNet, votenet_nms
@@ -262,6 +262,9 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
     mode)."""
     if isinstance(config, str):
         config = Config.fromfile(config)
+    refusal = unported_refusal(config.model, training=True)
+    if refusal is not None:  # the SUN RGB-D heads build, but do not train
+        raise NotImplementedError(refusal)
     model = init_detector(config, checkpoint, device, seed, compute_dtype)
     if not isinstance(model, (NerfDet, IndoorImVoxelNet)):
         raise NotImplementedError(
@@ -292,7 +295,8 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
 @torch.inference_mode()
 def eval_step(model: NerfDet, batch: Dict, nms_pre: int = 1000,
               view_group=None) -> Dict:
-    """Single-scene inference on the device: candidate boxes (M, 6) and
+    """Single-scene inference on the device: candidate boxes (M, 6), or
+    (M, 7) gravity-centered yawed boxes for a yawed head (SUN RGB-D), and
     scores (M, n_classes), density modulation on; with a ray bundle in
     ``batch`` also its render_rgb (R, 3) and render_depth (R,). The
     scores and render_rgb are in the model's compute dtype. With a
@@ -301,7 +305,7 @@ def eval_step(model: NerfDet, batch: Dict, nms_pre: int = 1000,
     head_outs, valid, render_out = model(batch, view_group=view_group)
     boxes, scores = get_candidate_bboxes(
         head_outs, valid, model.mlvl_points(batch["origin"]), nms_pre,
-        model.n_classes)
+        model.n_classes, yaw=getattr(model, "yaw", False))
     out = dict(boxes=boxes, scores=scores)
     if render_out is not None:
         out["render_rgb"] = render_out["rgb"]
@@ -311,15 +315,32 @@ def eval_step(model: NerfDet, batch: Dict, nms_pre: int = 1000,
 
 def detections_from_candidates(boxes, scores, score_thr: float = 0.01,
                                iou_thr: float = 0.25) -> Dict:
-    """Candidates -> final detections on the host: score threshold,
-    class-aware axis-aligned NMS, corners -> (cx, cy, z_bottom, dx, dy,
-    dz, yaw=0). Returns numpy boxes_3d (n, 7), scores_3d, labels_3d."""
+    """Candidates -> final detections on the host: score threshold, then
+    for (M, 6) corner boxes class-aware axis-aligned NMS, corners -> (cx,
+    cy, z_bottom, dx, dy, dz, yaw=0); for (M, 7) gravity-centered yawed
+    boxes (SUN RGB-D) rotated BEV NMS class by class on (cx, cy, dx, dy,
+    yaw), the kept boxes in descending score order (a stable sort of the
+    classes' picks in ascending class order), each gravity center moved
+    to the bottom. Returns numpy boxes_3d (n, 7), scores_3d, labels_3d."""
     boxes = np.asarray(boxes, np.float32)
     scores = np.asarray(scores, np.float32)
     labels = scores.argmax(axis=1)
     max_scores = scores.max(axis=1)
     keep = max_scores > score_thr
     boxes, max_scores, labels = boxes[keep], max_scores[keep], labels[keep]
+    if boxes.shape[-1] == 7:
+        pick = []
+        for cls in np.unique(labels):
+            sel = np.flatnonzero(labels == cls)
+            ids = nms_bev_rotated(boxes[sel][:, [0, 1, 3, 4, 6]],
+                                  max_scores[sel], iou_thr)
+            pick.extend(sel[ids])
+        pick = np.asarray(sorted(pick, key=lambda i: -max_scores[i]),
+                          np.int64)
+        out = boxes[pick].copy()
+        out[:, 2] -= out[:, 5] / 2.0  # gravity center -> bottom
+        return dict(boxes_3d=out, scores_3d=max_scores[pick],
+                    labels_3d=labels[pick])
     ids = aligned_3d_nms(boxes, max_scores, labels, iou_thr)
     boxes = boxes[ids]
     out = np.zeros((len(boxes), 7), np.float32)
@@ -413,7 +434,11 @@ def inference_detector(model: NerfDet, info: Dict, config,
     ``extrinsics`` world->cam, ``c2w``, ``intrinsic`` at the images'
     size), replaying the config's test pipeline with ``RandomState(0)``
     (with ``use_depth`` reading each view's depth map); the origin is
-    (0, 0, 0.5). Returns ``single_scene_test``'s dict."""
+    (0, 0, 0.5) and the NMS threshold the test_cfg's ``iou_thr`` (0.25
+    where it has none), as the JAX function sets them for every config:
+    a SUN RGB-D dataset's origin (0, 3, -1) and its ``nms_thr`` (0.15)
+    are not read here (``run_eval`` reads both; ROADMAP §3). Returns
+    ``single_scene_test``'s dict."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     ds = build_dataset(dict(config.data["test"]), test_mode=True,

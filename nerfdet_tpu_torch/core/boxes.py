@@ -4,9 +4,12 @@ The port's copy of the numpy branches of ``gravity_center``,
 ``corners_from_boxes`` and the z-axis case of ``rotation_3d_in_axis``
 in ``nerfdet_tpu/core/boxes.py``, held bit for bit against them by
 ``tests/test_torch_port_rules.py``; of what the indoor evaluation needs
-(``shift_origin``, ``height_overlap``, ``axis_aligned_bev_overlap``, the
-axis-aligned branch of ``boxes_iou_3d`` and ``DepthBoxes3D``), held
-against them by ``tests/test_torch_eval.py``; and torch versions of
+(``shift_origin``, ``height_overlap``, ``axis_aligned_bev_overlap``,
+``boxes_iou_3d`` and ``DepthBoxes3D``), held against them by
+``tests/test_torch_eval.py`` and, for yawed boxes (the rotated BEV
+overlap of ``ops/rotated_iou.py`` in float64, as the JAX package's C++
+library computes it), by ``tests/test_torch_sunrgbd.py``; and torch
+versions of
 ``volume_of_boxes`` and ``axis_aligned_iou_corner_format`` for the
 head's targets and IoU loss (``volume_of_boxes`` also takes numpy).
 Boxes are (N, 7) rows (cx, cy, z_bottom, dx, dy, dz, yaw).
@@ -16,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.rotated_iou import rotated_bev_overlap
 
 
 def volume_of_boxes(boxes: torch.Tensor) -> torch.Tensor:
@@ -118,19 +123,27 @@ def axis_aligned_bev_overlap(boxes1, boxes2):
     return wh[..., 0] * wh[..., 1]
 
 
+def rotated_bev_overlap_f32(boxes1, boxes2):
+    """Pairwise (N, M) BEV intersection areas of rotated boxes, computed
+    in float64 and returned as float32, as the JAX package's C++
+    ``rotated_bev_overlap`` (``csrc/geometry.cc``) returns them."""
+    return rotated_bev_overlap(np.asarray(boxes1, np.float64),
+                               np.asarray(boxes2, np.float64)).astype(
+                                   np.float32)
+
+
 def boxes_iou_3d(boxes1, boxes2, with_yaw: bool = False, mode: str = "iou"):
     """Pairwise 3D IoU (``mode='iou'``) or overlap over the first box's
     volume (``'iof'``) of bottom-centered numpy boxes: height overlap x
-    BEV overlap. Only yaw-free boxes (ScanNet's upright GT): the rotated
-    BEV overlap comes with the zoo (ROADMAP §1 item 3)."""
+    BEV overlap, the rotated BEV overlap where ``with_yaw`` and the boxes
+    carry a yaw (SUN RGB-D)."""
     if boxes1.shape[0] == 0 or boxes2.shape[0] == 0:
         return np.zeros((boxes1.shape[0], boxes2.shape[0]), np.float32)
     if with_yaw and boxes1.shape[-1] > 6:
-        raise NotImplementedError(
-            "the rotated BEV overlap of yawed boxes is not ported yet: "
-            "ROADMAP §1 item 3")
-    overlaps_3d = (axis_aligned_bev_overlap(boxes1, boxes2)
-                   * height_overlap(boxes1, boxes2))
+        overlaps_bev = rotated_bev_overlap_f32(boxes1, boxes2)
+    else:
+        overlaps_bev = axis_aligned_bev_overlap(boxes1, boxes2)
+    overlaps_3d = overlaps_bev * height_overlap(boxes1, boxes2)
     volume1 = volume_of_boxes(boxes1)[:, None]
     volume2 = volume_of_boxes(boxes2)[None, :]
     if mode == "iou":

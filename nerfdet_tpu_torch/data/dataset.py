@@ -10,8 +10,10 @@ rays with their stratified depths and rgb sums (``data/ray_stats.py``),
 all computed with the pipeline's own ``ori_shape`` / ``img_shape``.
 ``api.train_batch`` takes the scenes as they are and draws nothing more.
 
-Only float32 host statistics are ported, and the other dataset types
-(points, SUN RGB-D, the outdoor sets) are not.
+``build_dataset`` also builds the SUN RGB-D monocular datasets
+(``data/sunrgbd_multiview.py``). Only float32 host statistics are
+ported, and the other dataset types (points, SUN RGB-D's total-scene
+split, the outdoor sets) are not.
 """
 
 from __future__ import annotations
@@ -280,15 +282,41 @@ def build_dataset(data_cfg: Dict, test_mode: bool = False,
     if data_cfg.get("type") == "RepeatDataset":
         repeat = data_cfg["times"]
         data_cfg = data_cfg["dataset"]
-    if data_cfg.get("type", "ScanNetMultiViewDataset") != \
-            "ScanNetMultiViewDataset":
+    kind = data_cfg.get("type", "ScanNetMultiViewDataset")
+    if kind == "SunRgbdTotalMultiViewDataset":
         raise NotImplementedError(
-            f"dataset type {data_cfg.get('type')!r} is not ported yet "
-            f"(the point-cloud, SUN RGB-D and outdoor datasets come with "
-            f"their models: ROADMAP §1 item 3)")
+            "the SUN RGB-D total-scene dataset (the layout head's) is not "
+            "ported yet: ROADMAP §1 item 3 (the SUN RGB-D total-scene "
+            "configs)")
+    if kind not in ("ScanNetMultiViewDataset", "SunRgbdMultiViewDataset",
+                    "SunRgbdPerspectiveMultiViewDataset"):
+        raise NotImplementedError(
+            f"dataset type {kind!r} is not ported yet (the point-cloud "
+            f"and outdoor datasets come with their models: ROADMAP §1 "
+            f"item 3)")
     pcfg = {d["type"]: d for d in data_cfg["pipeline"]}
     mv = pcfg.get("MultiViewPipeline", {})
     transforms = {t["type"]: t for t in mv.get("transforms", [])}
+    if kind != "ScanNetMultiViewDataset":  # JAX's SUN RGB-D branch
+        from .sunrgbd_multiview import (SunRgbdMultiViewDataset,
+                                        SunRgbdPerspectiveMultiViewDataset)
+        cls = (SunRgbdMultiViewDataset if kind == "SunRgbdMultiViewDataset"
+               else SunRgbdPerspectiveMultiViewDataset)
+        return cls(
+            data_root=data_cfg["data_root"],
+            ann_file=data_cfg["ann_file"],
+            pipeline=MultiViewPipeline(
+                n_images=mv.get("n_images", 1),
+                img_scale=tuple(transforms.get("Resize", {}).get(
+                    "img_scale", (640, 480))),
+                pad_size=tuple(transforms.get("Pad", {}).get(
+                    "size", (480, 640))),
+                loading=mv.get("loading", "random"),
+                nerf_target_views=mv.get("nerf_target_views", 0)),
+            classes=data_cfg.get("classes"),
+            test_mode=test_mode or data_cfg.get("test_mode", False),
+            filter_empty_gt=data_cfg.get("filter_empty_gt", True),
+            repeat_times=repeat)
     pipeline = MultiViewPipeline(
         n_images=mv.get("n_images", 50),
         img_scale=tuple(transforms.get("Resize", {}).get(

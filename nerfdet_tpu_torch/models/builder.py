@@ -6,8 +6,9 @@ Port of ``nerfdet_tpu/models/builder.py`` for the ported types:
 ``_build_imvoxelnet``) and ``"ImVoxelNet"`` with an indoor 3D neck
 (``_build_imvoxelnet_ref``): with a NeRF key the NeRF-Det graph (the
 fast_cov family), without one the indoor ImVoxelNet
-(``models/imvoxelnet_indoor.py``). The outdoor ImVoxelNet and the SUN
-RGB-D heads are refused by name.
+(``models/imvoxelnet_indoor.py``, the SUN RGB-D configs' yawed heads
+too). The outdoor ImVoxelNet, the layout head and training the SUN RGB-D
+heads are refused by name.
 The config's ``pretrained`` is not read: that is a download; weights come
 from a seed or a checkpoint. Keys the JAX builder reads nowhere
 (``pc_supervise``, ``overfit_nerfmlp``, ``nerf_sample_view``, ...) stay
@@ -91,11 +92,11 @@ def routes_to_nerfdet(cfg: dict) -> bool:
             and any(k in cfg for k in NERF_KEYS))
 
 
-def unported_refusal(cfg: dict):
-    """Why the port cannot build (or train, or evaluate) the model config,
-    naming its ROADMAP item, or None: the types it has no builder for,
-    the outdoor ImVoxelNet, the indoor one's SUN RGB-D heads and layout
-    head."""
+def unported_refusal(cfg: dict, training: bool = False):
+    """Why the port cannot build and evaluate the model config (with
+    ``training``: train it), naming its ROADMAP item, or None: the types
+    it has no builder for, the outdoor ImVoxelNet, the indoor one's layout
+    head; with ``training`` also its yawed SUN RGB-D heads."""
     if cfg["type"] not in _BUILDERS:
         return (f"model type {cfg['type']!r} is not ported; ported: "
                 f"{sorted(_BUILDERS)}")
@@ -104,8 +105,8 @@ def unported_refusal(cfg: dict):
     if _neck3d_type(cfg) not in INDOOR_NECKS:
         return (f"the outdoor ImVoxelNet (3D neck {_neck3d_type(cfg)!r}) is "
                 f"not ported yet: ROADMAP §1 item 3 (after the SUN RGB-D "
-                f"slice)")
-    return indoor_refusal(cfg)
+                f"configs)")
+    return indoor_refusal(cfg, training)
 
 
 def _build_imvoxelnet(cfg: dict, meta: SceneMeta = None,

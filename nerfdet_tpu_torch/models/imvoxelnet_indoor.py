@@ -7,8 +7,10 @@ back-projected plain-mean volume (K1 without a mapped or rgb stream,
 gated by the sensed depth for ``use_depth``), the Atlas neck
 (``nn/imvoxel_necks.ImVoxelNeck``) or the fast neck
 (``nn/neck3d.FastIndoorImVoxelNeck``), and the V1 head
-(``nn/heads_v1.ImVoxelHeadV1``, ScanNet) or the V2 head
-(``nn/heads.ScanNetImVoxelHeadV2``). The scene contract is NeRF-Det's
+(``nn/heads_v1.ImVoxelHeadV1``) or the V2 head
+(``nn/heads.ScanNetImVoxelHeadV2``), each yawed for SUN RGB-D (the
+``SunRgbd*`` head types: ``yaw``, seven regression outputs, decoded to
+yawed boxes; one view a scene). The scene contract is NeRF-Det's
 (``models/nerfdet.py``): imgs (V, Hp, Wp, 3) normalized, intrinsic (4,
 4), extrinsics (V, 4, 4), origin (3,), optionally depth (V, H, W);
 public methods take and return channels-last tensors without a batch
@@ -17,8 +19,9 @@ by the scene's statistics and update their running ones. ``view_group``
 shards the views over ranks as NeRF-Det's (the fusion's sums summed over
 the group).
 
-Not ported, refused by name: the SUN RGB-D heads (yawed) and the layout
-head (``head_2d``, the total-SUN RGB-D mode), ROADMAP §1 item 3.
+Not ported, refused by name: training the yawed heads
+(``indoor_refusal(cfg, training=True)``, the losses' ``yaw``) and the
+layout head (``head_2d``, the total-SUN RGB-D mode), ROADMAP §1 item 3.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from torch import nn
 
 from ..nn.fpn import FPN
 from ..nn.heads import ScanNetImVoxelHeadV2
-from ..nn.heads_v1 import YAW_REFUSAL, ImVoxelHeadV1
+from ..nn.heads_v1 import YAW_TRAINING_REFUSAL, ImVoxelHeadV1
 from ..nn.imvoxel_necks import ImVoxelNeck
 from ..nn.neck3d import BatchNorm3d, FastIndoorImVoxelNeck
 from ..nn.resnet import ResNet
@@ -41,7 +44,7 @@ from .nerfdet import SceneMeta
 INF = 1e8
 LAYOUT_REFUSAL = (
     "the layout head (head_2d, the total-SUN RGB-D configs) is not ported "
-    "yet: ROADMAP §1 item 3 (the SUN RGB-D slice)")
+    "yet: ROADMAP §1 item 3 (the SUN RGB-D total-scene configs)")
 INDOOR_NECKS = ("ImVoxelNeck", "FastIndoorImVoxelNeck")
 
 
@@ -74,8 +77,6 @@ class IndoorImVoxelNet(nn.Module):
                             f"got {compute_dtype}")
         if with_layout:
             raise NotImplementedError(LAYOUT_REFUSAL)
-        if head_type.startswith("SunRgbd"):
-            raise NotImplementedError(YAW_REFUSAL)
         n3 = dict(neck3d or {})
         n3_type = n3.get("type", "ImVoxelNeck")
         self.compute_dtype = dt = compute_dtype
@@ -85,7 +86,7 @@ class IndoorImVoxelNet(nn.Module):
         self.head_centerness_topk = head_centerness_topk
         self.regress_ranges = tuple(tuple(float(x) for x in r)
                                     for r in regress_ranges)
-        self.yaw = False
+        self.yaw = head_type.startswith("SunRgbd")  # JAX's ``yaw``
         self.n_voxels = tuple(n_voxels)
         self.voxel_size = tuple(voxel_size)
         self.meta = meta
@@ -115,7 +116,7 @@ class IndoorImVoxelNet(nn.Module):
         else:
             self.bbox_head = ImVoxelHeadV1(
                 head_in, n_classes, head_n_channels, head_n_convs,
-                head_n_reg_outs, self.regress_ranges, False, dt)
+                head_n_reg_outs, self.regress_ranges, self.yaw, dt)
 
     @property
     def uses_v1_head(self) -> bool:
@@ -206,13 +207,14 @@ class IndoorImVoxelNet(nn.Module):
         return pts
 
 
-def indoor_refusal(cfg: dict) -> Optional[str]:
-    """Why an indoor ``ImVoxelNet`` model config is not ported (the yawed
-    SUN RGB-D heads, the layout head), or None."""
-    if cfg.get("bbox_head", {}).get("type", "").startswith("SunRgbd"):
-        return YAW_REFUSAL
+def indoor_refusal(cfg: dict, training: bool = False) -> Optional[str]:
+    """Why an indoor ``ImVoxelNet`` model config is not ported (the layout
+    head; with ``training``, also the yawed SUN RGB-D heads), or None."""
     if cfg.get("head_2d") is not None:
         return LAYOUT_REFUSAL
+    if training and cfg.get("bbox_head", {}).get("type", "").startswith(
+            "SunRgbd"):
+        return YAW_TRAINING_REFUSAL
     return None
 
 

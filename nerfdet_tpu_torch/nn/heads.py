@@ -1,10 +1,13 @@
-"""Anchor-free 3D detection head (ScanNet variant): forward, decode and
-the training targets and loss sums.
+"""Anchor-free 3D detection head: forward, decode and the training
+targets and loss sums.
 
-Port of ``nerfdet_tpu/nn/heads.py`` for the non-yawed V2 head:
-``ScanNetImVoxelHeadV2`` (shared 3x3x3 conv towers over the scales),
-``bbox_pred_to_bbox``, ``resize_valid``, ``get_candidate_bboxes``,
-``compute_centerness``, ``get_targets`` and ``head_loss_sums``. Module
+Port of ``nerfdet_tpu/nn/heads.py``: ``ScanNetImVoxelHeadV2`` (shared
+3x3x3 conv towers over the scales; with ``n_reg_outs=7`` the SUN RGB-D
+``SunRgbdImVoxelHeadV2``, its seventh channel the raw angle),
+``bbox_pred_to_bbox``, ``resize_valid``, ``get_candidate_bboxes`` (with
+``yaw``, gravity-centered yawed boxes, the decode of both SUN RGB-D
+heads), ``compute_centerness``, ``get_targets`` and ``head_loss_sums``
+(without yaw: the yawed targets are training, refused by name). Module
 names follow the reference state_dict (``centerness_conv``,
 ``reg_conv``, ``cls_conv``, ``scales.{i}.scale``). The head's ``dtype``
 is flax's compute dtype (``nn/compute.py``): at bfloat16 its outputs are
@@ -24,6 +27,11 @@ from ..ops.resize import resize_axes
 from . import losses
 from .compute import conv3x3x3
 
+YAW_TRAINING_REFUSAL = (
+    "training the SUN RGB-D ImVoxelNet (the yawed targets and the rotated "
+    "3D IoU loss) is not ported yet: ROADMAP §1 item 3 (SUN RGB-D "
+    "training)")
+
 
 class _Scale(nn.Module):
     def __init__(self, value: float = 1.0):
@@ -37,10 +45,7 @@ class ScanNetImVoxelHeadV2(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        if n_reg_outs != 6:
-            raise NotImplementedError(
-                "the yawed (n_reg_outs=7) head (SunRgbdImVoxelHeadV2) is not "
-                "ported yet: ROADMAP §1 item 3 (the SUN RGB-D slice)")
+        self.n_reg_outs = n_reg_outs
         self.centerness_conv = nn.Conv3d(n_channels, 1, 3, padding=1,
                                          bias=False)
         self.reg_conv = nn.Conv3d(n_channels, n_reg_outs, 3, padding=1,
@@ -49,12 +54,17 @@ class ScanNetImVoxelHeadV2(nn.Module):
         self.scales = nn.ModuleList(_Scale() for _ in range(n_scales))
 
     def forward(self, xs: Sequence[torch.Tensor]):
-        """Per scale (centerness, exp(scale * reg), cls), NCDHW."""
-        dt = self.dtype
-        return [(conv3x3x3(self.centerness_conv, x, dt),
-                 torch.exp(self.scales[i].scale.to(dt)
-                           * conv3x3x3(self.reg_conv, x, dt)),
-                 conv3x3x3(self.cls_conv, x, dt)) for i, x in enumerate(xs)]
+        """Per scale (centerness, exp(scale * reg), cls), NCDHW; past six
+        regression channels the rest (the angle) are not exp'd."""
+        dt, outs = self.dtype, []
+        for i, x in enumerate(xs):
+            reg = conv3x3x3(self.reg_conv, x, dt)
+            bbox = torch.exp(self.scales[i].scale.to(dt) * reg[:, :6])
+            if self.n_reg_outs > 6:
+                bbox = torch.cat([bbox, reg[:, 6:]], dim=1)
+            outs.append((conv3x3x3(self.centerness_conv, x, dt), bbox,
+                         conv3x3x3(self.cls_conv, x, dt)))
+        return outs
 
 
 def bbox_pred_to_bbox(points, bbox_pred):
@@ -87,7 +97,8 @@ def _top_k_ids(values: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def get_candidate_bboxes(head_outs, valid, mlvl_points, nms_pre: int,
-                         n_classes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                         n_classes: int, yaw: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-level top-k candidates.
 
     Args:
@@ -96,9 +107,12 @@ def get_candidate_bboxes(head_outs, valid, mlvl_points, nms_pre: int,
         valid: (nx, ny, nz) view counts at scale 0.
         mlvl_points: per scale (P, 3) voxel centers.
 
-    Returns (M, 6) corner boxes and (M, n_classes) scores
-    (sigmoid(cls) * sigmoid(centerness) * valid).
+    Returns (M, 6) corner boxes, or with ``yaw`` (M, 7) gravity-centered
+    yawed boxes (``heads_v1.bbox_pred_to_bbox_yaw``), and (M, n_classes)
+    scores (sigmoid(cls) * sigmoid(centerness) * valid).
     """
+    from .heads_v1 import bbox_pred_to_bbox_yaw
+    decode = bbox_pred_to_bbox_yaw if yaw else bbox_pred_to_bbox
     all_boxes: List[torch.Tensor] = []
     all_scores: List[torch.Tensor] = []
     for (c, b, s), points in zip(head_outs, mlvl_points):
@@ -110,7 +124,7 @@ def get_candidate_bboxes(head_outs, valid, mlvl_points, nms_pre: int,
         if scores.shape[0] > nms_pre > 0:
             ids = _top_k_ids(scores.max(dim=1).values, nms_pre)
             bbox_pred, scores, points = bbox_pred[ids], scores[ids], points[ids]
-        all_boxes.append(bbox_pred_to_bbox(points, bbox_pred))
+        all_boxes.append(decode(points, bbox_pred))
         all_scores.append(scores)
     return torch.cat(all_boxes), torch.cat(all_scores)
 
@@ -128,8 +142,10 @@ def compute_centerness(bbox_targets):
 
 
 def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
-                n_scales: int, limit: int, centerness_topk: int):
-    """Assign each voxel center a target box and label.
+                n_scales: int, limit: int, centerness_topk: int,
+                yaw: bool = False):
+    """Assign each voxel center a target box and label (without yaw:
+    ``yaw=True``, SUN RGB-D training, is refused by name).
 
     A point is a candidate for a (real) gt box when it lies inside it, on
     the box's best scale and among the box's ``centerness_topk`` most
@@ -148,6 +164,8 @@ def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
     Returns (centerness targets (P,), corner-format target boxes (P, 6),
     labels (P,), -1 for background).
     """
+    if yaw:
+        raise NotImplementedError(YAW_TRAINING_REFUSAL)
     float_max = 1e8
     n_points = points.shape[0]
     volumes = volume_of_boxes(gt_boxes)
@@ -210,7 +228,8 @@ def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
 
 def head_loss_sums(head_outs, valid, mlvl_points, gt_boxes, gt_labels,
                    gt_mask, n_scales: int, limit: int, centerness_topk: int,
-                   n_classes: int) -> Dict[str, torch.Tensor]:
+                   n_classes: int,
+                   yaw: bool = False) -> Dict[str, torch.Tensor]:
     """Per-scene loss sums and their normalizers: cls_sum (focal over the
     observed voxels), centerness_sum (BCE over the positives), bbox_sum
     (1 - IoU weighted by the centerness targets), n_pos and bbox_avg (the
@@ -219,8 +238,11 @@ def head_loss_sums(head_outs, valid, mlvl_points, gt_boxes, gt_labels,
     ``head_outs``: per scale (centerness, bbox_pred, cls_score),
     channels-last without a batch dimension; ``valid`` the (nx, ny, nz)
     view counts at scale 0; ``mlvl_points`` per-scale (P_i, 3) centers.
-    Targets carry no gradient.
+    Targets carry no gradient. ``yaw=True`` is refused by name
+    (``get_targets``).
     """
+    if yaw:
+        raise NotImplementedError(YAW_TRAINING_REFUSAL)
     flat_center, flat_bbox, flat_cls, flat_valid = [], [], [], []
     for c, b, s in head_outs:
         flat_center.append(c.reshape(-1))

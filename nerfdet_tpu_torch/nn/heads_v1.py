@@ -1,17 +1,20 @@
-"""The indoor ImVoxelNet's V1 head (ScanNet, axis-aligned): forward, the
-regress-range assignment, the loss sums and the decode.
+"""The indoor ImVoxelNet's V1 head: forward, the regress-range
+assignment, the loss sums and the decode.
 
-Port of ``nerfdet_tpu/nn/heads_v1.py`` for ``yaw=False``
-(``ScanNetImVoxelHead``): ``_ConvTower`` (``n_convs`` x conv-BN-ReLU a
-branch), ``ImVoxelHeadV1`` (centerness and regression convs on the
-regression tower, the class conv on the class tower, one scale a
-regress range exp'd with the regression), ``get_targets_v1`` (FCOS-style:
-inside the box, its largest distance within the point's level range,
-among the box's ``centerness_topk`` most central points, then the
-smallest volume) and ``head_loss_sums_v1``. Its decode without yaw is the
-V2 head's (``nn/heads.get_candidate_bboxes``), as in JAX.
-The yawed head (``SunRgbdImVoxelHead``: a rotated 3D IoU loss, rotated
-NMS) is not ported: ``yaw=True`` raises.
+Port of ``nerfdet_tpu/nn/heads_v1.py``: ``_ConvTower`` (``n_convs`` x
+conv-BN-ReLU a branch), ``ImVoxelHeadV1`` (centerness and regression
+convs on the regression tower, the class conv on the class tower, one
+scale a regress range exp'd with the regression; with ``yaw``, the SUN
+RGB-D ``SunRgbdImVoxelHead``, the six distances exp'd and the seventh
+channel, the angle, raw), ``bbox_pred_to_bbox_yaw`` (the yawed decode's
+boxes), ``get_targets_v1`` (FCOS-style: inside the box, its largest
+distance within the point's level range, among the box's
+``centerness_topk`` most central points, then the smallest volume) and
+``head_loss_sums_v1``. Its decode is the V2 head's
+(``nn/heads.get_candidate_bboxes``, with ``yaw`` for the SUN RGB-D head),
+as in JAX. The yawed targets and losses (the rotated 3D IoU loss) are
+training and not ported yet: ``get_targets_v1`` and
+``head_loss_sums_v1`` refuse ``yaw=True`` by name.
 
 Names follow the flax tree (``reg_convs.conv_{i}``, ``reg_convs.norm_{i}``,
 ``centerness_conv``, ``reg_conv``, ``cls_conv``) and, as the port's V2
@@ -29,15 +32,11 @@ from torch import nn
 
 from . import losses
 from .compute import conv3x3x3
-from .heads import (_Scale, bbox_pred_to_bbox, compute_centerness,
-                    resize_valid)
+from .heads import (YAW_TRAINING_REFUSAL, _Scale, bbox_pred_to_bbox,
+                    compute_centerness, resize_valid)
 from .neck3d import BatchNorm3d
 
 INF = 1e8
-YAW_REFUSAL = (
-    "the yawed V1 head (SunRgbdImVoxelHead: rotated 3D IoU loss, rotated "
-    "NMS and mAP) is not ported yet: ROADMAP §1 item 3 (the SUN RGB-D "
-    "slice)")
 
 
 def _conv3(c_in: int, c_out: int, bias: bool = False) -> nn.Conv3d:
@@ -73,9 +72,10 @@ class ImVoxelHeadV1(nn.Module):
                      (-1e8, 1e8),), yaw: bool = False,
                  dtype=torch.float32):
         super().__init__()
-        if yaw or n_reg_outs != 6:
-            raise NotImplementedError(YAW_REFUSAL)
-        self.dtype = dtype
+        if n_reg_outs != (7 if yaw else 6):
+            raise ValueError(f"the V1 head regresses {7 if yaw else 6} "
+                             f"values with yaw={yaw}, not {n_reg_outs}")
+        self.dtype, self.yaw = dtype, yaw
         self.reg_convs = _ConvTower(in_channels, n_channels, n_convs, dtype)
         self.cls_convs = _ConvTower(in_channels, n_channels, n_convs, dtype)
         c = n_channels if n_convs else in_channels
@@ -85,20 +85,49 @@ class ImVoxelHeadV1(nn.Module):
         self.scales = nn.ModuleList(_Scale() for _ in regress_ranges)
 
     def forward(self, xs: Sequence[torch.Tensor]):
-        """Per level (centerness, exp(scale * reg), cls), NCDHW."""
+        """Per level (centerness, exp(scale * reg), cls), NCDHW; with yaw
+        the regression's seventh channel (the angle) is not exp'd."""
         dt, outs = self.dtype, []
         for i, x in enumerate(xs):
             reg, cls = self.reg_convs(x), self.cls_convs(x)
-            bbox = torch.exp(self.scales[i].scale.to(dt)
-                             * conv3x3x3(self.reg_conv, reg, dt))
+            reg_final = conv3x3x3(self.reg_conv, reg, dt)
+            bbox = torch.exp(self.scales[i].scale.to(dt) * reg_final[:, :6])
+            if self.yaw:
+                bbox = torch.cat([bbox, reg_final[:, 6:7]], dim=1)
             outs.append((conv3x3x3(self.centerness_conv, reg, dt), bbox,
                          conv3x3x3(self.cls_conv, cls, dt)))
         return outs
 
 
+def bbox_pred_to_bbox_yaw(points, bbox_pred):
+    """(M, 7) distances and angle -> (M, 7) gravity-centered yawed boxes
+    (cx, cy, cz, dx, dy, dz, yaw): the distances' midpoint offset rotated
+    by the angle about +z (``rotation_3d_in_axis(..., axis=2)``, a row
+    vector times R^T) from the point. The rotation runs in float32 and is
+    cast to the predictions' dtype, as JAX's einsum accumulates."""
+    dt = bbox_pred.dtype
+    sx = (bbox_pred[:, 1] - bbox_pred[:, 0]) / 2
+    sy = (bbox_pred[:, 3] - bbox_pred[:, 2]) / 2
+    sz = (bbox_pred[:, 5] - bbox_pred[:, 4]) / 2
+    angle = bbox_pred[:, 6]
+    c, s = torch.cos(angle).float(), torch.sin(angle).float()
+    shift = torch.stack([sx.float() * c + sy.float() * s,
+                         sy.float() * c - sx.float() * s,
+                         sz.float()], dim=-1).to(dt)
+    center = points + shift
+    size = torch.stack([bbox_pred[:, 0] + bbox_pred[:, 1],
+                        bbox_pred[:, 2] + bbox_pred[:, 3],
+                        bbox_pred[:, 4] + bbox_pred[:, 5]], dim=-1)
+    out_dt = torch.promote_types(center.dtype, dt)
+    return torch.cat([center.to(out_dt), size.to(out_dt),
+                      bbox_pred[:, 6:7].to(out_dt)], dim=-1)
+
+
 def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
-                   gt_mask, n_classes: int, centerness_topk: int):
-    """The V1 assignment without yaw.
+                   gt_mask, n_classes: int, centerness_topk: int,
+                   yaw: bool = False):
+    """The V1 assignment without yaw (``yaw=True``, SUN RGB-D training,
+    is refused by name).
 
     A point is a candidate for a real gt box when it lies inside it, the
     largest of its six distances to the box's faces lies in the point's
@@ -118,6 +147,8 @@ def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
     Returns (centerness targets (P,), corner-format boxes (P, 6), labels
     (P,), ``n_classes`` for background).
     """
+    if yaw:
+        raise NotImplementedError(YAW_TRAINING_REFUSAL)
     n_points = points.shape[0]
     bottom = gt_boxes[:, :3]
     centers = torch.cat([bottom[:, :2], bottom[:, 2:3]
@@ -161,14 +192,18 @@ def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
 
 def head_loss_sums_v1(head_outs, valid, mlvl_points, regress_ranges,
                       gt_boxes, gt_labels, gt_mask, n_classes: int,
-                      centerness_topk: int) -> Dict[str, torch.Tensor]:
+                      centerness_topk: int,
+                      yaw: bool = False) -> Dict[str, torch.Tensor]:
     """Per-scene V1 loss sums and normalizers, the contract of
     ``nn/heads.head_loss_sums`` (cls_sum, centerness_sum, bbox_sum, n_pos,
     bbox_avg): focal loss over the observed voxels (background -1 for it,
     where the assignment says ``n_classes``), BCE centerness and the
     axis-aligned IoU loss over the positives. ``head_outs`` per level
     (centerness, bbox_pred, cls_score) channels-last; ``valid`` the
-    (nx, ny, nz) view counts at level 0. Targets carry no gradient."""
+    (nx, ny, nz) view counts at level 0. Targets carry no gradient.
+    ``yaw=True`` (the rotated 3D IoU loss) is refused by name."""
+    if yaw:
+        raise NotImplementedError(YAW_TRAINING_REFUSAL)
     flat_center, flat_bbox, flat_cls, flat_valid = [], [], [], []
     for c, b, s in head_outs:
         flat_center.append(c.reshape(-1))

@@ -3,7 +3,8 @@
     python -m nerfdet_tpu_torch.tools.test \
         configs/nerfdet/nerfdet_res50_2x_low_res.py W/ckpts/ckpt_12.pth \
         --eval mAP nvs [--out metrics.json] [--show-dir renders] \
-        [--max-scenes N] [--device cuda|cpu] [--options key=value ...]
+        [--max-scenes N] [--device cuda|cpu] [--bf16] \
+        [--options key=value ...]
     torchrun --nproc_per_node 4 -m nerfdet_tpu_torch.tools.test \
         <config> <checkpoint> --eval mAP --distributed
 
@@ -29,7 +30,12 @@ divide the world and the test scenes' views. The fast_cov family
 (NeRF-keyed ``ImVoxelNet`` configs) evaluates through the same graph,
 its rgb stream summed on the device (its dataset ships no host sums);
 the indoor ImVoxelNet (``ImVoxelNet`` without NeRF keys) through its
-own (``models/imvoxelnet_indoor.py``), ``mAP`` only.
+own (``models/imvoxelnet_indoor.py``), ``mAP`` only: on ScanNet, and on
+the SUN RGB-D monocular datasets (one view a scene, yawed boxes, rotated
+NMS at the test_cfg's ``iou_thr``, else its ``nms_thr``, ``mAP`` at the
+dataset's IoUs: (0.25, 0.5), the perspective split (0.15,)). ``--bf16`` computes in
+bfloat16 (``api.init_detector``'s ``compute_dtype``; the JAX tool has no
+such flag, its ``tools/train --bf16`` does).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import argparse
 import json
 import logging
 from typing import Dict, List, Optional
+
+import torch
 
 from .. import api
 from ..config import Config
@@ -63,6 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--max-scenes", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (the parameters stay float32)")
     p.add_argument("--mesh-views", type=int, default=1,
                    help="ranks a scene's views are sharded over (with "
                         "--distributed)")
@@ -116,10 +126,12 @@ def evaluate(args, cfg, device, group) -> Dict:
     dataset = build_dataset(cfg.data["test"], test_mode=True,
                             use_depth=use_depth,
                             rgb_stats_spec=rgb_stats_spec_from_config(
-                                cfg, use_depth=use_depth))
+                                cfg, use_depth=use_depth, bf16=args.bf16))
     if args.max_scenes:
         dataset.data_infos = dataset.data_infos[: args.max_scenes]
-    model = api.init_detector(cfg, args.checkpoint, device=device)
+    model = api.init_detector(
+        cfg, args.checkpoint, device=device,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
 
     metrics = {}
     if "mAP" in args.eval:

@@ -141,11 +141,12 @@ def parse_args(argv=None):
 
 def refuse_unported(args, cfg) -> None:
     """Raise for what the port cannot train yet, naming its ROADMAP item:
-    a model it cannot build (``models/builder.unported_refusal``: the
-    outdoor ImVoxelNet, the SUN RGB-D heads, the layout head), the
+    a model it cannot build or train (``models/builder.unported_refusal``
+    with ``training``: the outdoor ImVoxelNet, the SUN RGB-D heads, the
+    layout head), the
     point-cloud models, volume mode with the density (a fault of the JAX
     package) or with ``--mesh-views``."""
-    refusal = unported_refusal(cfg.model)
+    refusal = unported_refusal(cfg.model, training=True)
     if refusal is not None:
         raise NotImplementedError(refusal)
     if cfg.model["type"] == "VoteNet":

@@ -84,14 +84,16 @@ def scene_loss_terms(model: NerfDet, scene: Dict,
                                      n_ray_shards=n_ray_shards)
     gt = (scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"])
     mlvl_points = model.mlvl_points(scene["origin"])
+    yaw = getattr(model, "yaw", False)  # SUN RGB-D: refused by name
     if getattr(model, "uses_v1_head", False):  # the indoor ImVoxelNet's
         terms = head_loss_sums_v1(
             head_outs, valid, mlvl_points, model.regress_ranges, *gt,
-            model.n_classes, model.head_centerness_topk)
+            model.n_classes, model.head_centerness_topk, yaw)
     else:
         terms = head_loss_sums(
             head_outs, valid, mlvl_points, *gt, model.n_scales,
-            model.head_limit, model.head_centerness_topk, model.n_classes)
+            model.head_limit, model.head_centerness_topk, model.n_classes,
+            yaw)
     if render is not None and rgb_supervision:
         gt_rgb, gt_depth = scene["gt_rgb"], scene.get("gt_depth")
         sharded = view_group is not None and n_ray_shards > 1

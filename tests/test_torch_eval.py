@@ -8,7 +8,7 @@ GT and one with GT and no detections, a scene without GT, no detections
 at all, and IoU ties (duplicated GT boxes: the first wins, as in the
 reference's greedy match, so the second copies stay unmatched) with
 equal scores. The box helpers the
-evaluation copies are held bit for bit; yawed overlaps are refused.
+evaluation copies are held bit for bit; yawed overlaps match JAX's.
 """
 
 import numpy as np
@@ -141,6 +141,12 @@ def test_box_helpers_equal_jax():
                                origin=(0.5, 0.5, 0.5))
     np.testing.assert_array_equal(got.tensor, want.tensor)
     np.testing.assert_array_equal(got.overlaps(got), want.overlaps(want))
+    # yawed boxes take the rotated BEV overlap (float64, as the JAX
+    # package's C++ library; tests/test_torch_sunrgbd.py holds it to both
+    # JAX forms on harder cases)
+    a[:, 6] = rng.uniform(-np.pi, np.pi, len(a))
     yawed = tboxes.DepthBoxes3D(a)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-        yawed.overlaps(yawed)
+    np.testing.assert_allclose(yawed.overlaps(yawed),
+                               jboxes.DepthBoxes3D(a).overlaps(
+                                   jboxes.DepthBoxes3D(a)), rtol=0,
+                               atol=1e-5)

@@ -442,14 +442,20 @@ def test_volume_mode_with_density_is_refused_for_the_jax_fault(name):
 @pytest.mark.parametrize("name", ["imvoxelnet_sunrgbd.py",
                                   "imvoxelnet_kitti.py"])
 def test_imvoxelnet_without_nerf_keys_is_refused(name):
-    """Of the ImVoxelNet configs without NeRF keys the ScanNet ones build
-    the indoor ImVoxelNet (``tests/test_torch_imvoxelnet.py``); the SUN
-    RGB-D and outdoor ones are refused by name."""
+    """Of the ImVoxelNet configs without NeRF keys the ScanNet and SUN
+    RGB-D ones build the indoor ImVoxelNet, not NeRF-Det
+    (``tests/test_torch_imvoxelnet.py``, ``tests/test_torch_sunrgbd.py``);
+    training SUN RGB-D and the outdoor ones are refused by name."""
     path = os.path.join(ROOT, "configs", "imvoxelnet", name)
     cfg = Config.fromfile(path)
     assert not routes_to_nerfdet(cfg.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-        build_model(cfg.model)
+    if "sunrgbd" in name:
+        with torch.device("meta"):
+            assert type(build_model(cfg.model)).__name__ == \
+                "IndoorImVoxelNet"
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+            build_model(cfg.model)
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
         train_cli.refuse_unported(train_cli.parse_args([path]), cfg)
 

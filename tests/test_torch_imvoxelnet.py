@@ -3,8 +3,10 @@ the lowercase ``imvoxelnet`` type) through the port, against the JAX
 package on the CPU.
 
 * The six ScanNet configs build in the port with the fields JAX's
-  builder gives them; the SUN RGB-D and outdoor configs raise errors
-  naming their ROADMAP item; the optimizer labels of
+  builder gives them; the outdoor and total-scene SUN RGB-D configs
+  raise errors naming their ROADMAP item, the other SUN RGB-D configs
+  build (``tests/test_torch_sunrgbd.py``) and refuse training by name;
+  the optimizer labels of
   ``imvoxelnet_scannet.py``'s tree are JAX's ``param_labels`` (the Atlas
   blocks' ``conv1`` / ``bn1`` train).
 * The Atlas neck (``nn/imvoxel_necks.py``) against JAX's ``ImVoxelNeck``
@@ -93,11 +95,13 @@ SCANNET = ("imvoxelnet_scannet.py", "imvoxelnet_scannet_top27.py",
            "imvoxelnet_smoke_synthetic.py", "imvoxelnet_scannet_fast.py",
            "imvoxelnet_scannet_fast_depth.py",
            "imvoxelnet_scannet_swin_t.py")
-REFUSED = {"imvoxelnet_sunrgbd.py": "SUN RGB-D",
-           "imvoxelnet_sunrgbd_fast.py": "SUN RGB-D",
-           "imvoxelnet_total_sunrgbd.py": "SUN RGB-D",
-           "imvoxelnet_kitti.py": "outdoor",
-           "imvoxelnet_nuscenes.py": "outdoor"}
+# what each refuses, and whether building it is refused too (the
+# SUN RGB-D configs without the layout head build and evaluate)
+REFUSED = {"imvoxelnet_sunrgbd.py": ("SUN RGB-D training", False),
+           "imvoxelnet_sunrgbd_fast.py": ("SUN RGB-D training", False),
+           "imvoxelnet_total_sunrgbd.py": ("SUN RGB-D", True),
+           "imvoxelnet_kitti.py": ("outdoor", True),
+           "imvoxelnet_nuscenes.py": ("outdoor", True)}
 
 ORI, IMG, PAD = (240, 320), (60, 80), (64, 80)
 N_VOX, VOX = (16, 16, 8), (0.4, 0.4, 0.4)
@@ -202,12 +206,18 @@ def test_scannet_config_builds_with_the_jax_fields(name):
 def test_unported_imvoxelnet_configs_are_refused_by_name(name):
     path = os.path.join(CONFIGS, name)
     cfg = Config.fromfile(path)
-    for fn in (lambda: build_model(cfg.model),
-               lambda: train_cli.refuse_unported(
-                   train_cli.parse_args([path]), cfg)):
+    what, build_refused = REFUSED[name]
+    fns = [lambda: train_cli.refuse_unported(train_cli.parse_args([path]),
+                                             cfg)]
+    if build_refused:
+        fns.append(lambda: build_model(cfg.model))
+    else:
+        with torch.device("meta"):
+            assert isinstance(build_model(cfg.model), IndoorImVoxelNet)
+    for fn in fns:
         with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP §1 item 3.*{REFUSED[name]}"
-                           if REFUSED[name] == "SUN RGB-D"
+                           match=f"ROADMAP §1 item 3.*{what}"
+                           if what.startswith("SUN RGB-D")
                            else "ROADMAP §1 item 3"):
             fn()
 
@@ -626,9 +636,12 @@ def test_v1_candidates_match_jax(nms_pre):
                                atol=1e-5)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0,
                                atol=1e-6)
-    # the yawed (SUN RGB-D) head, whose decode differs, is refused
-    with pytest.raises(NotImplementedError, match="SUN RGB-D"):
-        theads_v1.ImVoxelHeadV1(8, 5, 8, 1, 7, RANGES, yaw=True)
+    # the yawed (SUN RGB-D) head builds, its decode is yawed
+    # (tests/test_torch_sunrgbd.py); its training targets are refused
+    assert theads_v1.ImVoxelHeadV1(8, 5, 8, 1, 7, RANGES, yaw=True).yaw
+    with pytest.raises(NotImplementedError, match="SUN RGB-D training"):
+        theads_v1.get_targets_v1(pts[0], None, RANGES, None, None, None, 5,
+                                 18, yaw=True)
 
 
 # ---------------------------------------------------------------------

@@ -331,6 +331,47 @@ def test_indoor_plain_mean_fusion_matches_plain(dev, dtype):
     assert float(got[2].max()) >= 2 and int((got[2] == 0).sum()) > 0
 
 
+def _sunrgbd_pix(dev, n_voxels, voxel_size):
+    """K1's pixel indices at the SUN RGB-D ImVoxelNet's shapes: one
+    530x730 view resized to 465x640 (stride-4 bounds 116x160 of the
+    120x160 padded maps), its camera at the world origin looking along +y
+    (the dataset's extrinsic for an identity ``Rt``), the volume at the
+    fixed origin (0, 3, -1)."""
+    intrinsic = np.array([[529.5, 0, 365.0], [0, 529.5, 265.0], [0, 0, 1]],
+                         np.float32)
+    extr = np.eye(4, dtype=np.float32)
+    extr[:3, :3] = [[1, 0, 0], [0, 0, -1], [0, 1, 0]]
+    points = voxel.get_points(n_voxels, voxel_size, (0, 3, -1),
+                              dev).reshape(-1, 3)
+    proj = voxel.compute_projection(intrinsic, extr[None], 530 / (465 / 4),
+                                    dev)
+    x, y, _, valid = voxel.project_points(points, proj, 116, 160)
+    return voxel.pixel_index(x, y, valid, 160).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, n_voxels, size", [
+    (64, (80, 80, 32), 0.08), (256, (40, 40, 16), 0.16)],
+    ids=["sunrgbd", "sunrgbd_fast"])
+def test_one_view_plain_mean_fusion_matches_plain(dev, dtype, c, n_voxels,
+                                                  size):
+    """K1's plain-mean form at one view (SUN RGB-D: a partial group of
+    phase B's bfloat16 walk, which takes views 4 at a time), (1, 120, 160,
+    C) maps into ``imvoxelnet_sunrgbd.py``'s 80x80x32 volume and
+    ``_fast``'s 40x40x16: count, s1 and s2 bitwise the plain version's."""
+    pix = _sunrgbd_pix(dev, n_voxels, (size,) * 3)
+    gen = torch.Generator(device=dev).manual_seed(c)
+    feats = torch.randn((1, 120, 160, c), generator=gen,
+                        device=dev).to(dtype)
+    got = voxel.fusion_carry(feats, pix)
+    want = voxel.fusion_carry_plain(feats, pix)
+    torch.cuda.synchronize()
+    assert got[3] is None and want[3] is None
+    assert all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+    assert float(got[2].max()) == 1 and 0 < int((got[2] == 0).sum()) < \
+        pix.shape[1]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_indoor_fusion_backward_g1_matches_plain(dev, dtype):
     """K1's backward with the s1 cotangent alone (the plain-mean volume

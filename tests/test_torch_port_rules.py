@@ -17,10 +17,14 @@ import torch
 from nerfdet_tpu.config import Config as JaxConfig
 from nerfdet_tpu.core import nvs_metrics as jax_nvs_metrics
 from nerfdet_tpu.core.boxes import corners_from_boxes as jax_corners
+from nerfdet_tpu.data.sunrgbd_dataset import \
+    SUNRGBD_CLASSES as JAX_SUNRGBD_CLASSES
+from nerfdet_tpu.data.sunrgbd_etl import CLASSES_V2 as JAX_CLASSES_V2
 from nerfdet_tpu.data.synthetic import make_synthetic_scene as jax_scene
 from nerfdet_tpu.models.nerfdet import NerfDet as JaxNerfDet
 from nerfdet_tpu.models.nerfdet import SceneMeta as JaxSceneMeta
 from nerfdet_tpu.models.votenet import votenet_nms as jax_votenet_nms
+from nerfdet_tpu.ops import rotated_iou as jax_rotated_iou
 from nerfdet_tpu.ops.voxel import host_rgb_stats as jax_rgb_stats
 from nerfdet_tpu.utils.weight_convert import (convert_reference_checkpoint,
                                               merge_params)
@@ -30,9 +34,11 @@ from nerfdet_tpu_torch.config import Config
 from nerfdet_tpu_torch.core import nvs_metrics
 from nerfdet_tpu_torch.core.boxes import corners_from_boxes
 from nerfdet_tpu_torch.data.rgb_stats import host_rgb_stats
+from nerfdet_tpu_torch.data.sunrgbd_multiview import SUNRGBD_CLASSES
 from nerfdet_tpu_torch.data.synthetic import make_synthetic_scene
 from nerfdet_tpu_torch.models.nerfdet import NerfDet
 from nerfdet_tpu_torch.models.votenet import VoteNet, votenet_nms
+from nerfdet_tpu_torch.ops import rotated_iou
 from nerfdet_tpu_torch.utils.weight_convert import (
     from_jax_variables, from_reference_state_dict, load_reference_state_dict)
 
@@ -55,7 +61,8 @@ def test_the_import_rule_reads_every_module_of_the_port():
     for name in ("nn/swin.py", "ops/grid_sample.py", "ops/render.py",
                  "models/builder.py", "models/nerfdet.py",
                  "models/imvoxelnet_indoor.py", "nn/imvoxel_necks.py",
-                 "nn/heads_v1.py"):
+                 "nn/heads_v1.py", "ops/rotated_iou.py",
+                 "data/sunrgbd_multiview.py"):
         assert os.path.join("nerfdet_tpu_torch", name) in names, name
 
 
@@ -158,6 +165,31 @@ def test_corners_from_boxes_copy(yaw):
     got, want = corners_from_boxes(boxes), jax_corners(boxes)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fn", ["bev_corners", "rotated_bev_overlap",
+                                "rotated_iou_3d"])
+def test_rotated_iou_copy(fn, dtype):
+    """The numpy rotated overlap (``ops/rotated_iou.py``) on yawed boxes,
+    a few of them identical, nested or touching, at float32 (JAX's numpy
+    path) and float64 (the port's)."""
+    a = _boxes(np.random.RandomState(4), 30)
+    a[1], a[3] = a[0], a[2] * np.float32([1, 1, 1, .5, .5, .5, 1])
+    a[5] = a[4] + np.float32([a[4, 3], 0, 0, 0, 0, 0, 0])
+    a[4:6, 6] = 0
+    a = a.astype(dtype)
+    if fn == "bev_corners":
+        got, want = rotated_iou.bev_corners(a), jax_rotated_iou.bev_corners(a)
+    else:
+        got = getattr(rotated_iou, fn)(a, a[::2])
+        want = getattr(jax_rotated_iou, fn)(a, a[::2])
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sunrgbd_class_tuple_copy():
+    assert SUNRGBD_CLASSES == JAX_SUNRGBD_CLASSES == JAX_CLASSES_V2
 
 
 @pytest.mark.parametrize("per_class_proposal", [True, False])
@@ -263,6 +295,34 @@ def test_from_jax_variables_loads_the_render_head():
                     n_voxels=(8, 8, 4), n_samples=16)
     model.load_state_dict(state, strict=True)
     load_reference_state_dict(model, _reference_state())
+
+
+@pytest.mark.parametrize("kind", ["v1", "v2"])
+def test_from_jax_variables_carries_the_yawed_heads(kind):
+    """A JAX indoor ImVoxelNet with a SUN RGB-D head (the yawed V1 or V2
+    head, seven regression outputs) loads strictly into the port: its
+    ``reg_conv`` kernel DHWIO -> OIDHW, (7, C, 3, 3, 3), and the V1
+    towers' convs and norms by their flax names."""
+    from tests.test_torch_sunrgbd import jax_toy, port_toy, toy_scene
+
+    batch = {k: jax.numpy.asarray(v) for k, v in toy_scene().items()}
+    shapes = jax.eval_shape(lambda k: jax_toy(kind).init(k, batch),
+                            jax.random.PRNGKey(0))
+    rng = np.random.RandomState(1)
+    variables = jax.tree_util.tree_map(
+        lambda x: rng.randn(*x.shape).astype(np.float32), shapes)
+    state = from_jax_variables(variables)
+    head = variables["params"]["bbox_head"]
+    kernel = head["reg_conv"]["kernel"]
+    assert kernel.shape[-1] == 7
+    np.testing.assert_array_equal(state["bbox_head.reg_conv.weight"].numpy(),
+                                  kernel.transpose(4, 3, 0, 1, 2))
+    if kind == "v1":
+        np.testing.assert_array_equal(
+            state["bbox_head.reg_convs.norm_0.running_var"].numpy(),
+            variables["batch_stats"]["bbox_head"]["reg_convs"]["norm_0"][
+                "var"])
+    port_toy(kind).load_state_dict(state, strict=True)
 
 
 def test_entry_points_need_cuda_unless_cpu():
