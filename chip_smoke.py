@@ -208,7 +208,18 @@ Phases, each reported on its own lines:
     perspective split (30 classes), 18.4 bfloat16, one scene each; 18.5
     ``tools/test --eval mAP`` from the files in float32, on the
     perspective split and with ``--bf16``, finite mAP at 0.25 / 0.5
-    (0.15 for the perspective split).
+    (0.15 for the perspective split); 18.6 K1's s1-only backward at one
+    view (the same maps and ``_fast``'s, float32 within 1e-6 x max,
+    bfloat16 bitwise, two runs bitwise; its time, bound, plain time and
+    ``index_add_`` of the valid pairs' g1 rows); 18.7 training:
+    ``tools/train --batch-size 4`` (the configs' ``samples_per_gpu``)
+    for 2 steps on a train split the phase writes, then ``tools/test
+    --eval mAP`` from its checkpoint, for ``imvoxelnet_sunrgbd.py`` in
+    float32, ``_fast`` in float32 and ``imvoxelnet_sunrgbd.py`` with
+    ``--bf16`` (finite losses, grad_norm and mAP; K1 and its backward 4
+    times a step), and for each a ``Trainer.step`` of the same 4 scenes:
+    steps/s, peak memory, the step's stages and the rotated 3D IoU loss
+    alone (forward and backward over every point of the 4 scenes).
 
 Phase 3 also holds K1's backward kernel against its plain version at
 phase 4's pixel indices and at phase 8's (the intrinsic scaled to
@@ -470,8 +481,10 @@ def fusion_backward_bound(pix, hw, c, m, with_g2, elt=4):
     pixel row of the maps (``elt`` bytes an element; only where the s2
     cotangent or the mapped stream needs x: d features from g1 alone never
     read them) and of phase A's mapped rows read once, the whole
-    d-features map written once (``elt`` again), the cotangents g1 (g2),
-    gm, the indices, counts, W, b read once and dW, db written once.
+    d-features map written once (``elt`` again), the rows of g1 (g2) of
+    the voxels with a valid pair (the pixel buckets never reach the
+    others), the indices read once, and with the mapped stream gm,
+    counts, W, b read once and dW, db written once.
     Operations: per valid (voxel, view)
     pair, C adds for G1 (2C with g2) and M for GM; per referenced row, 2M
     for dY, 2CM for dY @ W^T, C for the sum (3C more with g2), 2CM for
@@ -485,10 +498,11 @@ def fusion_backward_bound(pix, hw, c, m, with_g2, elt=4):
     valid = pix >= 0
     rows = sum(int(torch.unique(p[k]).numel()) for p, k in zip(pix, valid))
     n_valid = int(valid.sum())
+    n_seen = int(valid.any(0).sum())
     g = 2 if with_g2 else 1
     reads_x = bool(m) or with_g2
-    nbytes = (4 * (rows * m + g * n * c + n * m + pix.numel() + n
-                   + 2 * (c * m + m))
+    nbytes = (4 * (rows * m + g * n_seen * c + pix.numel()
+                   + (n * m + n + 2 * (c * m + m) if m else 0))
               + elt * (rows * c * reads_x + v * hw * c))
     per_pair = elt == 2
     ops = (n_valid * (g * c + m + (2 * c * m + c if per_pair else 0))
@@ -513,18 +527,20 @@ def bf16_ulps(got, want):
 
 
 def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None,
-                          with_g2=False, c=256, m=32):
+                          with_g2=False, c=256, m=32, rel_tol=1e-5):
     """K1's backward kernel vs ``fusion_carry_backward_plain`` at the main
     path's form (C = 256, M = 32, cotangents of s1 and s2m, none of s2;
     ``with_g2`` adds one of s2, the form a ``cov`` volume trains, kG2;
     ``m`` = 0 is the plain-mean volume's form, the s1 cotangent alone;
     ``c`` off ``voxel.K1_CHANNELS`` runs padded): two runs bitwise equal;
-    on float32 maps d features within 1e-5 x max, on bfloat16 maps
+    on float32 maps d features within ``rel_tol`` x max, on bfloat16 maps
     (``dtype``) within 2 bfloat16 ulps of the largest at under 1% of the
     elements (each pair's product with W^T sums its M terms in another
     order; without the mapped stream bitwise); dW and db within 1e-4 x
-    max. Times the kernel, its passes (the index preparation, pass 1, 2
-    and 3, each on the last one's outputs; at K1's own widths), the plain
+    max. Times the kernel (back to back, and from a full queue:
+    ``device_ms``), its passes (the index preparation, also from a full
+    queue, pass 1, 2 and 3, each on the last one's outputs; at K1's own
+    widths), the plain
     version and the yardstick: ``torch.mm`` on the two products it
     contains (dY @ W^T and x^T dY over the referenced rows) or, without
     the mapped stream, ``index_add_`` of the valid pairs' g1 rows into
@@ -561,9 +577,13 @@ def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None,
     bf16 = dtype == torch.bfloat16
     ulps, share = bf16_ulps(got[0], want[0]) if bf16 else (0.0, 0.0)
     ms = cuda_time_ms(lambda: voxel.fusion_carry_backward(*args), 20)
+    # from a full queue: at one view the wrapper's host work outlasts it
+    device_ms = queued_time_ms(lambda: voxel.fusion_carry_backward(*args))
     n_pix = hw[0] * hw[1]
     passes = {"index_ms": cuda_time_ms(lambda: voxel.pixel_order(pix, n_pix),
-                                       20)}
+                                       20),
+              "index_device_ms": queued_time_ms(
+                  lambda: voxel.pixel_order(pix, n_pix))}
     if c in voxel.K1_CHANNELS:
         order, off, rows, n_rows = voxel.pixel_order(pix, n_pix)
         _, dy = voxel._pixel_sums(feats, order, off, g1, g2, gm, rows_p, w)
@@ -597,7 +617,7 @@ def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None,
     bound_ms, bound_by, nbytes, ops, n_ref = fusion_backward_bound(
         pix, n_pix, c, m, with_g2, feats.element_size())
     tol = (f"{ulps:.2f} bfloat16 ulps at {share:.4f} of the elements, tol 2 "
-           f"at under 0.01" if bf16 else "tol 1e-5")
+           f"at under 0.01" if bf16 else f"tol {rel_tol:g}")
     g2_form = "with the s2 cotangent (kG2)" if with_g2 else "no s2 cotangent"
     form = (f"mapped, {g2_form}" if m else f"plain mean, {g2_form}"
             if with_g2 else "plain mean (g1 only)")
@@ -606,16 +626,17 @@ def check_fusion_backward(voxel, pix, hw, gen, label, dtype=None,
         f"referenced rows: two runs bitwise equal; max_abs_err "
         + ", ".join(f"{k} {e:.3e} (rel {r:.3e})" for k, e, r in zip(
             ("d features", "dW", "db"), errs, rels))
-        + f" ({tol}; dW, db tol 1e-4) ms={ms:.4f} ("
+        + f" ({tol}; dW, db tol 1e-4) ms={ms:.4f} device_ms="
+        f"{device_ms:.4f} ("
         + ", ".join(f"{k[:-3]} {t:.4f}" for k, t in passes.items())
         + f") plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({what}) "
         f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, {ops} FLOP)")
     if ((ulps > 2 or share >= 0.01 or (not m and ulps > 0)) if bf16
-            else rels[0] > 1e-5) or rels[1] > 1e-4 or rels[2] > 1e-4:
+            else rels[0] > rel_tol) or rels[1] > 1e-4 or rels[2] > 1e-4:
         raise SystemExit("K1 backward disagrees with its plain version")
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                **passes)
+    return dict(max_abs_err=max(errs), ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, **passes)
 
 
 def fps_bound(n, c, s):
@@ -1484,14 +1505,14 @@ def train_grads(api, model, scene):
     return float(loss.detach()), metrics, grads, fpn_out[0].grad.clone()
 
 
-def timed_steps(tr, batch, counters, iters=5):
-    """2 warm-up steps of ``tr``, then ``iters`` timed on the host clock
+def timed_steps(tr, batch, counters, iters=5, warmup=2):
+    """``warmup`` steps of ``tr``, then ``iters`` timed on the host clock
     with every count of ``counters`` set to 0 just before. Returns the
     metrics of each timed step, the seconds a step, the counts and the
     peak memory."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         tr.step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1836,21 +1857,27 @@ class HostClock:
         self.saved = []
 
 
-def counted_trainers(api, counters, per_step):
+def counted_trainers(api, counters, per_step, kept=None):
     """Wrap ``api.init_trainer`` so every ``Trainer.step`` appends the
-    launches of ``counters`` it made to ``per_step``. Returns the
-    original, to put back."""
+    launches of ``counters`` it made to ``per_step``; a dict ``kept``
+    gets the last Trainer (``trainer``, its uncounted ``step``) and the
+    batch it last stepped on (``batch``). Returns the original, to put
+    back."""
     original = api.init_trainer
 
     def init_trainer(*args, **kwargs):
         tr = original(*args, **kwargs)
         step = tr.step
+        if kept is not None:
+            kept.update(trainer=tr, step=step)
 
         def counted(batch):
             before = [fn.launches for fn in counters]
             out = step(batch)
             per_step.append([fn.launches - b
                              for fn, b in zip(counters, before)])
+            if kept is not None:
+                kept["batch"] = batch
             return out
 
         tr.step = counted
@@ -4990,10 +5017,53 @@ SR_PERSP = "configs/imvoxelnet/imvoxelnet_perspective_sunrgbd.py"
 SR_HW = (530, 730)  # the configs' nominal ori_shape
 SR_SCENES = 3  # the fixture's val scenes
 SR_ITERS = 5  # timed eval_step + host NMS calls
+SR_BATCH = 4  # the configs' samples_per_gpu: scenes a train step
+SR_TRAIN_SCENES = 4  # the train split's scenes (x2: RepeatDataset)
+SR_CLI_STEPS = 2
 
 
-def sunrgbd_fixture(root, n_scenes, n_classes, seed):
-    """A SUN RGB-D val split on disk, as JAX's ETL lays it out: PNG views
+def rotated_iou_ms(model, batch, iters=3):
+    """CUDA-event ms of the yawed heads' rotated 3D IoU loss alone: for
+    each scene of ``batch``, the forward and backward of
+    ``nn/heads.yawed_iou_loss`` over every point of every level against
+    the step's targets, summed over the scenes; and the points a
+    scene."""
+    import torch
+
+    from nerfdet_tpu_torch.nn.heads import get_targets, yawed_iou_loss
+    from nerfdet_tpu_torch.nn.heads_v1 import get_targets_v1
+
+    total = 0.0
+    for scene in batch:
+        with torch.no_grad():
+            head_outs, _, _ = model(scene)
+            mlvl = model.mlvl_points(scene["origin"])
+            points = torch.cat(mlvl)
+            ids = torch.cat([torch.full((p.shape[0],), i, dtype=torch.int32,
+                                        device=p.device)
+                             for i, p in enumerate(mlvl)])
+            gt = (scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"])
+            if model.uses_v1_head:
+                _, box_t, _ = get_targets_v1(
+                    points, ids, model.regress_ranges, *gt, model.n_classes,
+                    model.head_centerness_topk, yaw=True)
+            else:
+                _, box_t, _ = get_targets(
+                    points, ids, *gt, model.n_scales, model.head_limit,
+                    model.head_centerness_topk, yaw=True)
+        pred = torch.cat([b.reshape(-1, b.shape[-1])
+                          for _, b, _ in head_outs]).detach()
+        pred.requires_grad_()
+
+        def run():
+            (1.0 - yawed_iou_loss(points, pred, box_t)).sum().backward()
+
+        total += cuda_time_ms(run, iters, warmup=1)
+    return total, int(points.shape[0])
+
+
+def sunrgbd_fixture(root, n_scenes, n_classes, seed, split="val"):
+    """A SUN RGB-D split on disk, as JAX's ETL lays it out: PNG views
     of ``SR_HW`` under ``sunrgbd_trainval/image`` and an info pkl of its
     schema (``image``, ``calib`` with ``K`` column-major and ``Rt``,
     ``annos`` with gravity-centered yawed ``gt_boxes_upright_depth``).
@@ -5038,7 +5108,7 @@ def sunrgbd_fixture(root, n_scenes, n_classes, seed):
                        rotation_y=boxes[:, 6],
                        index=np.arange(n, dtype=np.int32),
                        **{"class": labels}, gt_boxes_upright_depth=boxes)))
-    path = os.path.join(root, f"sunrgbd_c{n_classes}_infos_val.pkl")
+    path = os.path.join(root, f"sunrgbd_c{n_classes}_infos_{split}.pkl")
     with open(path, "wb") as f:
         pickle.dump(infos, f)
     return path
@@ -5056,17 +5126,18 @@ def sunrgbd_path(api, voxel, render, card):
     scene, kernels vs plain through the graph, stage times, scenes/s;
     18.2 ``_fast`` (the yawed V2 head), 18.3 the perspective split (30
     classes), 18.4 bfloat16, one scene each; 18.5 ``tools/test --eval
-    mAP`` from the files (f32, the perspective split, ``--bf16``).
-    Returns the record's numbers."""
+    mAP`` from the files (f32, the perspective split, ``--bf16``); 18.6
+    K1's s1-only backward at one view; 18.7 training through the CLIs
+    and a timed ``Trainer.step``. Returns the record's numbers."""
     import math
     import tempfile
 
-    import numpy as np
     import torch
 
     from nerfdet_tpu_torch.data.dataset import build_dataset
     from nerfdet_tpu_torch.nn.heads import get_candidate_bboxes
     from nerfdet_tpu_torch.tools import test as test_cli
+    from nerfdet_tpu_torch.tools import train as train_cli
     from nerfdet_tpu_torch.utils.checkpoint import save_checkpoint
 
     t_phase = time.perf_counter()
@@ -5165,6 +5236,16 @@ def sunrgbd_path(api, voxel, render, card):
         (f"float32 plain mean C={c_fast}, one view into "
          f"{'x'.join(str(n) for n in fast.n_voxels)} ({SR_FAST})", pix_fast,
          f32, False)], hw, gen, c=c_fast))
+
+    # ---- 18.6 K1's s1-only backward at one view (the training form) ----
+    k1_bwd = {}
+    for tag, p_, c_ in ((f"{SR_V1} C={c}", pix, c),
+                        (f"{SR_FAST} C={c_fast}", pix_fast, c_fast)):
+        for dt in (f32, bf16):
+            k1_bwd[f"{str(dt)[6:]} {tag}"] = check_fusion_backward(
+                voxel, p_, hw, gen, f"18.6 one view ({tag}; "
+                f"{int((p_ >= 0).sum())} valid pairs)", dtype=dt, c=c_,
+                m=0, rel_tol=1e-6)
     del pix, pix_fast
 
     # ---- 18.1 imvoxelnet_sunrgbd.py: eval_step + host rotated NMS ----
@@ -5292,12 +5373,89 @@ def sunrgbd_path(api, voxel, render, card):
                    for k in keys):
             raise SystemExit(f"18.5 tools/test {tag}: metrics {metrics}")
         cli[tag] = dict(wall_s=wall, **{k: metrics[k] for k in keys})
+
+    # ---- 18.7 training: tools/train, tools/test, a timed Trainer.step ----
+    train_root = os.path.join(root, "train") + "/"
+    ann_train = sunrgbd_fixture(train_root, SR_TRAIN_SCENES, 10, SEED + 182,
+                                split="train")
+    train_opts = [f"data.train.dataset.data_root={train_root}",
+                  f"data.train.dataset.ann_file={ann_train}", *files[10]]
+    train_runs, train_launches = {}, None
+    for tag, path, extra in (("f32", SR_V1, []), ("fast f32", SR_FAST, []),
+                             ("bf16", SR_V1, ["--bf16"])):
+        per_step, kept = [], {}
+        original_init = counted_trainers(api, counters, per_step, kept)
+        t0 = time.perf_counter()
+        try:
+            result = train_cli.main([
+                path, "--work-dir", os.path.join(root, "work", tag),
+                "--max-steps", str(SR_CLI_STEPS), "--batch-size",
+                str(SR_BATCH), "--no-validate", *extra,
+                "--options", *train_opts])
+        finally:
+            api.init_trainer = original_init
+        train_s = time.perf_counter() - t0
+        names = ("loss", "loss_cls", "loss_centerness", "loss_bbox",
+                 "grad_norm")
+        for hh, n in zip(result["history"], per_step):
+            log(f"[sunrgbd] 18.7 tools/train {tag} ({path}) step "
+                f"{hh['step']}: launches {named(n)}; " + ", ".join(
+                    f"{k} {hh[k]:.5g}" for k in names + ("n_pos",)))
+            if not all(math.isfinite(float(hh[k])) for k in names):
+                raise SystemExit(f"18.7 tools/train {tag}: step {hh}")
+        if per_step != [[SR_BATCH, SR_BATCH, 0, 0, 0]] * SR_CLI_STEPS:
+            raise SystemExit(f"18.7 tools/train {tag} launches a step "
+                             f"{per_step}")
+        train_launches = train_launches or per_step[0]
+        zero()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([path, result["checkpoints"][-1], "--eval",
+                                 "mAP", *extra, "--options", *files[10]])
+        test_s = time.perf_counter() - t0
+        expect(counts(), [SR_SCENES, 0, 0, 0, 0], f"18.7 tools/test {tag}")
+        maps = {k: v for k, v in metrics.items()
+                if k.startswith(("mAP", "mAR"))}
+        if not maps or not all(math.isfinite(v) for v in maps.values()):
+            raise SystemExit(f"18.7 tools/test {tag}: metrics {metrics}")
+
+        # the CLI's own Trainer, timed on the last batch it stepped on
+        tr, tbatch = kept["trainer"], kept["batch"]
+        tr.step = kept["step"]
+        hist, dt, launches, peak = timed_steps(tr, tbatch, counters, iters=3,
+                                               warmup=1)
+        expect(launches, [3 * SR_BATCH, 3 * SR_BATCH, 0, 0, 0],
+               f"18.7 Trainer.step {tag} (3 steps)")
+        step_stages = step_stage_times(tr, tbatch, iters=2)
+        iou_ms, n_points = rotated_iou_ms(tr.model, tbatch)
+        step_ms = sum(step_stages.values())
+        train_runs[tag] = dict(
+            cli_train_s=train_s, cli_test_s=test_s, steps_per_s=1 / dt,
+            step_ms=dt * 1e3, peak_gib=peak / 2**30, stages=step_stages,
+            rotated_iou_ms=iou_ms, rotated_iou_share=iou_ms / step_ms,
+            points=n_points, loss=float(hist[-1]["loss"]),
+            grad_norm=float(hist[-1]["grad_norm"]), **maps)
+        log(f"[sunrgbd] 18.7 {tag} ({path}): tools/train {SR_CLI_STEPS} "
+            f"steps of {SR_BATCH} scenes {train_s:.1f} s, tools/test "
+            f"--eval mAP {test_s:.1f} s (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in maps.items()) + f"); "
+            f"its Trainer.step {dt * 1e3:.2f} ms ({1 / dt:.3f} steps/s, "
+            f"host clock after a warm-up step), peak memory "
+            f"{peak / 2**30:.2f} GiB; stages " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in step_stages.items())
+            + f"; the rotated 3D IoU loss alone {iou_ms:.3f} ms over "
+            f"{SR_BATCH} x {n_points} points ({iou_ms / step_ms:.4f} of "
+            f"the stages' sum); measured on {card}")
+        del tr, tbatch, kept
+        torch.cuda.empty_cache()
     tmp.cleanup()
     wall = time.perf_counter() - t_phase
     log(f"[sunrgbd] phase 18 in {wall:.1f} s")
-    return dict(k1=k1, launches=dict(zip(FC_NAMES, eval_launches)),
+    return dict(k1=k1, k1_bwd=k1_bwd,
+                launches=dict(zip(FC_NAMES, eval_launches)),
+                train_launches=dict(zip(FC_NAMES, train_launches)),
                 eval_rate=eval_rate, eval_ms=eval_ms, eval_peak_gib=eval_peak,
-                stages=stages, others=others, cli=cli, wall_s=wall)
+                stages=stages, others=others, cli=cli, train=train_runs,
+                wall_s=wall)
 
 
 def main():
@@ -5804,10 +5962,16 @@ def main():
     log(f"[indoor] {json.dumps({k: indoor[k] for k in shown})}")
     for entry in record["kernels"]:  # phase 18.1: one SUN RGB-D scene
         entry["sunrgbd_launches"] = sunrgbd["launches"].get(entry["name"], 0)
+        # phase 18.7: a tools/train step of 4 SUN RGB-D scenes
+        entry["sunrgbd_train_launches"] = sunrgbd["train_launches"].get(
+            entry["name"], 0)
     # phase 18.0: K1 at one view (imvoxelnet_sunrgbd.py, _fast)
     by_name["fused_mean_cov"]["sunrgbd_one_view"] = sunrgbd["k1"]
+    # phase 18.6: its s1-only backward at one view
+    by_name["fused_mean_cov_backward"]["sunrgbd_one_view_g1"] = \
+        sunrgbd["k1_bwd"]
     shown = ("eval_rate", "eval_ms", "eval_peak_gib", "stages", "others",
-             "cli", "wall_s")
+             "cli", "train", "wall_s")
     log(f"[sunrgbd] {json.dumps({k: sunrgbd[k] for k in shown})}")
     log(f"[done] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     shown = {k: v for k, v in ddp.items() if k != "launches" and k[0] != "_"}

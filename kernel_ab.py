@@ -4,6 +4,7 @@ in one call.
 
     python3 kernel_ab.py [CHECKOUT] [--save OUT.pt] [--profile] [--forward]
     python3 kernel_ab.py [CHECKOUT] --fusion [--save OUT.pt]
+    python3 kernel_ab.py [CHECKOUT] --sort [--save OUT.pt] [--profile]
     python3 kernel_ab.py --compare A.pt B.pt
     python3 kernel_ab.py --ablate
     python3 kernel_ab.py --ablate-backward
@@ -42,7 +43,16 @@ depth-gated indices, 100 views of float32 images and 50 of bfloat16
 (R101*'s scenes), its device time from a full queue
 (``chip_smoke.queued_time_ms``: the kernel is shorter than its wrapper's
 host work) beside the wrapper's back to back; ``--save`` then writes
-count, s1, s2, s2m, phase A's rows, s1e and s2e. ``--ablate-fusion``
+count, s1, s2, s2m, phase A's rows, s1e and s2e. With ``--sort`` it
+times the backwards' counting sort (``csrc/counting_sort.cuh``) alone,
+back to back and from a full queue: K1's ``pixel_order`` at SUN RGB-D's
+one view (``SORT_CASES``: 204,800 and 25,600 voxels into 120x160
+pixels) and at the indoor ImVoxelNet's 20 views, and K1's g1-only
+backward there (C = 64); K2's ``_window_order_launch`` and its rank form
+at phase 8's 50 views (131,072 points, 4,720 windows a view). The keys
+are random from a seed at each case's share of valid pairs, not a
+scene's; ``--save`` writes the sorts' outputs (the entries the sort
+leaves unspecified dropped), ``--profile`` each sort's kernels. ``--ablate-fusion``
 times phase A, phase B and the rgb stream with each of FUSION_VARIANTS
 (text edits of ``csrc/fused_mean_cov.cu``: ring stages, group depths,
 loads) built into a library of its own. Prints one line of times and the card.
@@ -749,6 +759,71 @@ def run(root, save, with_profile, forward_only):
     return 0
 
 
+# --sort: (views, items, bins, share of valid pairs); K1 at SUN RGB-D's
+# one view into 80x80x32 and 40x40x16 and at 20 views into 80x80x32, K2
+# at phase 8's 50 views
+SORT_CASES = {"k1_one_view": (1, 204800, 19200, 0.518),
+              "k1_one_view_fast": (1, 25600, 19200, 0.507),
+              "k1_20_views": (20, 204800, 19200, 0.578),
+              "k2_50_views": (50, 131072, 4720, 0.642)}
+
+
+def sort_ab(root, save, with_profile):
+    """The backwards' counting sort of one checkout (``--sort``)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from nerfdet_tpu_torch.ops import cuda_build, render, voxel
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smoke = _smoke()
+    _build(cuda_build, ["fused_mean_cov_backward",
+                        "streaming_sample_mean_var_backward"])
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    out, t = {}, {}
+    for tag, (v, n, hw, share) in SORT_CASES.items():
+        keys = torch.randint(0, hw, (v, n), device="cuda", generator=gen,
+                             dtype=torch.int32)
+        drop = torch.rand((v, n), device="cuda", generator=gen) > share
+        if tag.startswith("k1"):
+            pix = keys.masked_fill(drop, -1)
+            calls = {tag: lambda: voxel.pixel_order(pix, hw)}
+            out[tag] = list(calls[tag]())
+            g1 = torch.randn((n, 64), device="cuda", generator=gen)
+            feats = torch.zeros((v, 120, 160, 64), device="cuda")
+            count = (pix >= 0).float().sum(0)
+            bwd = (lambda: voxel.fusion_carry_backward(
+                feats, pix, count, g1=g1))
+            t[f"{tag}_bwd"] = timed(bwd)
+            t[f"{tag}_bwd_device"] = smoke.queued_time_ms(bwd)
+        else:  # K2's keys: the view's windows after the views before
+            keys = (keys + torch.arange(v, device="cuda", dtype=torch.int32)
+                    [:, None] * hw).masked_fill(drop, -1)
+            kept = keys.reshape(-1) >= 0
+            calls = {tag: lambda: render._window_order_launch(keys, hw),
+                     f"{tag}_rank": lambda: render._window_order_launch(
+                         keys, hw, rank=True)}
+            order, off = calls[tag]()
+            rank, off_r = calls[f"{tag}_rank"]()
+            out[tag] = [order[:int(off[-1])], off]
+            out[f"{tag}_rank"] = [rank.reshape(-1)[kept], off_r]
+        for name, fn in calls.items():
+            t[name] = timed(fn)
+            t[f"{name}_device"] = smoke.queued_time_ms(fn)
+            if with_profile:
+                profile(f"sort {name}", fn)
+    torch.cuda.synchronize()
+    if save:
+        os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
+        torch.save(out, save)
+    print(f"[kernel_ab] {root} --sort: " + " ".join(
+        f"{k}={v:.4f}" for k, v in t.items())
+        + f" ({time.strftime('%H:%M:%S')}; {_card()})", flush=True)
+    return 0
+
+
 # outputs held within 1e-5 relative, not bit for bit: phase A's rows and
 # s2m (their C-long dot products may run in another order)
 CLOSE = ("_rows", "_s2m")
@@ -795,10 +870,14 @@ def main(argv):
     with_profile = "--profile" in argv
     forward_only = "--forward" in argv
     with_fusion = "--fusion" in argv
+    with_sort = "--sort" in argv
     argv = [a for a in argv if a not in ("--profile", "--forward",
-                                         "--fusion")]
+                                         "--fusion", "--sort")]
     if with_fusion:
         return fusion(os.path.abspath(argv[0] if argv else HERE), save)
+    if with_sort:
+        return sort_ab(os.path.abspath(argv[0] if argv else HERE), save,
+                       with_profile)
     return run(os.path.abspath(argv[0] if argv else HERE), save,
                with_profile, forward_only)
 

@@ -262,8 +262,8 @@ def init_trainer(config, checkpoint: Optional[str] = None, device="cuda",
     mode)."""
     if isinstance(config, str):
         config = Config.fromfile(config)
-    refusal = unported_refusal(config.model, training=True)
-    if refusal is not None:  # the SUN RGB-D heads build, but do not train
+    refusal = unported_refusal(config.model)
+    if refusal is not None:
         raise NotImplementedError(refusal)
     model = init_detector(config, checkpoint, device, seed, compute_dtype)
     if not isinstance(model, (NerfDet, IndoorImVoxelNet)):

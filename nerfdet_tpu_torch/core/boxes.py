@@ -10,8 +10,10 @@ in ``nerfdet_tpu/core/boxes.py``, held bit for bit against them by
 overlap of ``ops/rotated_iou.py`` in float64, as the JAX package's C++
 library computes it), by ``tests/test_torch_sunrgbd.py``; and torch
 versions of
-``volume_of_boxes`` and ``axis_aligned_iou_corner_format`` for the
-head's targets and IoU loss (``volume_of_boxes`` also takes numpy).
+``volume_of_boxes``, ``axis_aligned_iou_corner_format`` and
+``rotation_3d_in_z`` (``rotation_3d_in_z_torch``, the yawed targets')
+for the heads' targets and IoU loss (``volume_of_boxes`` also takes
+numpy).
 Boxes are (N, 7) rows (cx, cy, z_bottom, dx, dy, dz, yaw).
 """
 
@@ -67,6 +69,21 @@ def rotation_3d_in_z(points, angles):
         np.stack([zeros, zeros, ones]),
     ])
     return np.einsum("aij,jka->aik", points, rot_mat_T)
+
+
+def rotation_3d_in_z_torch(points: torch.Tensor,
+                           angles: torch.Tensor) -> torch.Tensor:
+    """``rotation_3d_in_z`` on tensors (the yawed targets' rotation on the
+    device): (N, M, 3) points by (N,) angles about +z, ``points @ R_T``
+    per batch element, as JAX's einsum."""
+    rot_sin, rot_cos = torch.sin(angles), torch.cos(angles)
+    ones, zeros = torch.ones_like(rot_cos), torch.zeros_like(rot_cos)
+    rot_mat_T = torch.stack([
+        torch.stack([rot_cos, -rot_sin, zeros]),
+        torch.stack([rot_sin, rot_cos, zeros]),
+        torch.stack([zeros, zeros, ones]),
+    ])
+    return torch.einsum("aij,jka->aik", points, rot_mat_T)
 
 
 def gravity_center(boxes):

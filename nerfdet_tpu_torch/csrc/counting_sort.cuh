@@ -7,22 +7,29 @@
 // sort lists every kept item of bin b of view v in ascending item order,
 // views in order, bins in order; integer atomics only count, so the
 // placement does not depend on their order and two runs give the same
-// bits. Three launches:
+// bits. Four launches:
 //
 // count_kernel: a block a tile of kTile items of one view, a histogram of
-//   its nb bins in shared memory, written to hist (V, J, nb) with the
-//   tile's kept count in tile_kept (V, J), J = ceil(N / kTile).
-// scan_kernel: a block a view. Each bin's total over the view's tiles, the
-//   view's exclusive scan of them, and from it `off`; then hist in place
-//   becomes base (V, J, nb): where tile j's items of bin b start in the
-//   output. Optionally the view's non-empty bins, compacted.
-// place_kernel: a block a tile, up to kPlaceWarps warps each with its own
-//   cursors in shared memory: the tile's base row plus the counts of the
-//   warps' parts before its own. A warp walks its part 32 items a round in
-//   item order; the lanes of one bin (found by a ballot a bit of the bin)
-//   take consecutive places in lane order, the bin's last lane advances
-//   its cursor. It writes each kept item at its place (`order`), or its
-//   place at the item (`rank`, the inverse), or both.
+//   its nb bins in shared memory, written to hist's rows (V, J, nb) with
+//   the tile's kept count in tile_kept (V, J), J = ceil(N / kTile).
+// tile_scan_kernel: a thread a bin of one view, many blocks a view (one
+//   block a view walking every tile is slow where V is small). In place,
+//   each count of the bin becomes the sum of the view's tiles before it;
+//   the bin's total goes to hist's last V rows, tot (V, nb).
+// scan_kernel: a block a view. The view's exclusive scan of its bins'
+//   totals, and from it `off`; then tot in place becomes where bin b of
+//   view v starts in the output. Optionally the view's non-empty bins,
+//   compacted.
+// place_kernel: a block a tile cut into up to kPlaceWarps parts, each
+//   with its own cursors in shared memory: the bin's start plus the
+//   tile's row of tile_scan_kernel plus the counts of the parts before.
+//   All kPlaceThreads threads count the parts and set the cursors (a few
+//   placing warps alone wait on every load where V is small); then a warp
+//   a part walks it 32 items a round in item order; the lanes of one bin
+//   (found by a ballot a bit of the bin) take consecutive places in lane
+//   order, the bin's last lane advances its cursor. It writes each kept
+//   item at its place (`order`), or its place at the item (`rank`, the
+//   inverse), or both.
 //
 // Two layouts:
 // - global (K2): positions run over all views, viewbase + the view's scan;
@@ -34,9 +41,9 @@
 //   b >= 1 come out as rows b - 1 (V, nb - 1), -1 past the view's count.
 //
 // The bytes are the keys read three times, the kept items' indices (or
-// places) written once and the histograms (4 V J nb bytes) written, read
-// twice and rewritten. Every loop over global memory loads kAhead values
-// before it uses the first.
+// places) written once and the histograms (4 V J nb bytes) written, read,
+// rewritten and read again. Every loop over global memory loads kAhead
+// values before it uses the first.
 
 #pragma once
 
@@ -46,9 +53,11 @@ namespace csort {
 
 constexpr int kTile = 8192;  // items of one view a tile holds
 constexpr int kCountThreads = 256;
+constexpr int kTileScanThreads = 128;
 constexpr int kScanThreads = 1024;
 constexpr int kAhead = 8;  // rounds of keys a placing warp loads ahead
 constexpr int kPlaceWarps = 4;  // placing warps a tile, at most
+constexpr int kPlaceThreads = 512;
 
 __device__ __forceinline__ void tile_range(int n, int* beg, int* end) {
   *beg = blockIdx.x * kTile;
@@ -119,26 +128,49 @@ __device__ __forceinline__ int block_scan(int x, int* red, int* total) {
   return out;
 }
 
+__global__ void __launch_bounds__(kTileScanThreads)
+    tile_scan_kernel(int* __restrict__ hist, int* __restrict__ tot,
+                     int tiles, int nb) {
+  const int v = blockIdx.y;
+  const int b = blockIdx.x * kTileScanThreads + threadIdx.x;
+  if (b >= nb) return;
+  int* hb = hist + (size_t)v * tiles * nb + b;
+  int s = 0;
+  for (int j0 = 0; j0 < tiles; j0 += kAhead) {
+    int c[kAhead];  // kAhead loads in flight
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      c[k] = j0 + k < tiles ? hb[(size_t)(j0 + k) * nb] : 0;
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (j0 + k < tiles) hb[(size_t)(j0 + k) * nb] = s;
+      s += c[k];
+    }
+  }
+  tot[(size_t)v * nb + b] = s;
+}
+
 __global__ void __launch_bounds__(kScanThreads)
-    scan_kernel(int* __restrict__ hist, const int* __restrict__ tile_kept,
+    scan_kernel(int* __restrict__ tot, const int* __restrict__ tile_kept,
                 int* __restrict__ off, int* __restrict__ rows,
                 int* __restrict__ n_rows, int n_views, int tiles, int n,
                 int nb, int per_view) {
   extern __shared__ int t[];  // nb + 1: the bins' totals, then their scan
   __shared__ int red[32];
   const int v = blockIdx.x;
-  int* hv = hist + (size_t)v * tiles * nb;
-  for (int b = threadIdx.x; b < nb; b += kScanThreads) {
-    int s = 0;
-    for (int j0 = 0; j0 < tiles; j0 += kAhead) {
-      int c[kAhead];  // kAhead loads in flight
+  int* tv = tot + (size_t)v * nb;
+  for (int b0 = threadIdx.x; b0 < nb; b0 += kAhead * kScanThreads) {
+    int c[kAhead];  // kAhead loads in flight
 #pragma unroll
-      for (int k = 0; k < kAhead; ++k)
-        c[k] = j0 + k < tiles ? hv[(size_t)(j0 + k) * nb + b] : 0;
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) s += c[k];
+    for (int k = 0; k < kAhead; ++k) {
+      const int b = b0 + k * kScanThreads;
+      c[k] = b < nb ? tv[b] : 0;
     }
-    t[b] = s;
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int b = b0 + k * kScanThreads;
+      if (b < nb) t[b] = c[k];
+    }
   }
   // the view's start: v N, or the kept items of the views before it
   int base = 0;
@@ -187,70 +219,58 @@ __global__ void __launch_bounds__(kScanThreads)
       rows[(size_t)v * (nb - 1) + k] = -1;
     if (threadIdx.x == 0) n_rows[v] = n_ref;
   }
-  // the tiles' starts in each bin
-  for (int b = threadIdx.x; b < nb; b += kScanThreads) {
-    int at = base + t[b];
-    for (int j0 = 0; j0 < tiles; j0 += kAhead) {
-      int c[kAhead];
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k)
-        c[k] = j0 + k < tiles ? hv[(size_t)(j0 + k) * nb + b] : 0;
-#pragma unroll
-      for (int k = 0; k < kAhead; ++k) {
-        if (j0 + k < tiles) hv[(size_t)(j0 + k) * nb + b] = at;
-        at += c[k];
-      }
-    }
-  }
+  // the bins' starts in the output
+  for (int b = threadIdx.x; b < nb; b += kScanThreads) tv[b] = base + t[b];
 }
 
-// Up to kPlaceWarps warps a block, warp w placing the w-th of as many
-// equal parts of the tile. For kept item i of view v, item = v item_step +
-// i: `order[place] = item` and `rank[item] = place`, each where not null.
-__global__ void __launch_bounds__(32 * kPlaceWarps)
+// `parts` (up to kPlaceWarps) equal parts of a tile, warp w placing the
+// w-th. For kept item i of view v, item = v item_step + i:
+// `order[place] = item` and `rank[item] = place`, each where not null.
+__global__ void __launch_bounds__(kPlaceThreads)
     place_kernel(const int* __restrict__ keys, const int* __restrict__ base,
-                 int* __restrict__ order, int* __restrict__ rank, int n,
-                 int nb, int key_step, int key_bias, int item_step) {
-  extern __shared__ int cur[];  // a warp's nb cursors after another's
+                 const int* __restrict__ start, int* __restrict__ order,
+                 int* __restrict__ rank, int n, int nb, int key_step,
+                 int key_bias, int item_step, int parts) {
+  extern __shared__ int cur[];  // a part's nb cursors after another's
   const int v = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
   int beg, end;
   tile_range(n, &beg, &end);
-  const int part = kTile / warps;
-  const int my_beg = min(beg + warp * part, end);
-  const int my_end = min(my_beg + part, end);
+  const int part = kTile / parts;
   const int* kv = keys + (size_t)v * n;
   const int shift = v * key_step + key_bias;
-  int* mine = cur + warp * nb;
-  // each warp's part's histogram, then per bin the warps' cursors: the
-  // tile's start plus the parts before
-  for (int i = threadIdx.x; i < warps * nb; i += blockDim.x) cur[i] = 0;
+  // each part's histogram, then per bin the parts' cursors: the tile's
+  // start plus the parts before
+  for (int i = threadIdx.x; i < parts * nb; i += kPlaceThreads) cur[i] = 0;
   __syncthreads();
-  for (int i0 = my_beg; i0 < my_end; i0 += 32 * kAhead) {
+  for (int i0 = beg + threadIdx.x; i0 < end; i0 += kAhead * kPlaceThreads) {
     int bin[kAhead];  // kAhead loads in flight before the first atomic
 #pragma unroll
     for (int k = 0; k < kAhead; ++k) {
-      const int i = i0 + 32 * k + lane;
-      bin[k] = i < my_end ? __ldg(kv + i) + shift : -1;
+      const int i = i0 + k * kPlaceThreads;
+      bin[k] = i < end ? __ldg(kv + i) + shift : -1;
     }
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k)
-      if (bin[k] >= 0 && bin[k] < nb) atomicAdd(mine + bin[k], 1);
+    for (int k = 0; k < kAhead; ++k) {
+      const int i = i0 + k * kPlaceThreads;
+      if (bin[k] >= 0 && bin[k] < nb)
+        atomicAdd(cur + (i - beg) / part * nb + bin[k], 1);
+    }
   }
   __syncthreads();
   const int* row = base + ((size_t)v * gridDim.x + blockIdx.x) * nb;
-  for (int b0 = threadIdx.x; b0 < nb; b0 += kAhead * blockDim.x) {
+  const int* sv = start + (size_t)v * nb;
+  for (int b0 = threadIdx.x; b0 < nb; b0 += kAhead * kPlaceThreads) {
     int at[kAhead];
 #pragma unroll
     for (int k = 0; k < kAhead; ++k) {
-      const int b = b0 + k * blockDim.x;
-      at[k] = b < nb ? __ldg(row + b) : 0;
+      const int b = b0 + k * kPlaceThreads;
+      at[k] = b < nb ? __ldg(row + b) + __ldg(sv + b) : 0;
     }
 #pragma unroll
     for (int k = 0; k < kAhead; ++k) {
-      const int b = b0 + k * blockDim.x;
+      const int b = b0 + k * kPlaceThreads;
       if (b >= nb) break;
-      for (int w = 0; w < warps; ++w) {
+      for (int w = 0; w < parts; ++w) {
         const int c = cur[w * nb + b];
         cur[w * nb + b] = at[k];
         at[k] += c;
@@ -258,6 +278,10 @@ __global__ void __launch_bounds__(32 * kPlaceWarps)
     }
   }
   __syncthreads();
+  if (warp >= parts) return;  // no barrier below
+  const int my_beg = min(beg + warp * part, end);
+  const int my_end = min(my_beg + part, end);
+  int* mine = cur + warp * nb;
   const unsigned below = (1u << lane) - 1u;
   const int bits = 32 - __clz(nb);  // bins and nb, the dropped items' value
   // the next kAhead rounds' keys load while this group is placed
@@ -321,9 +345,8 @@ inline cudaError_t fit_smem(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The three launches. hist (V, J, nb) and tile_kept (V, J) are scratch;
-// hist holds the tiles' bases after. order / rank, rows / n_rows may be
-// null.
+// The four launches. hist (V J + V, nb) and tile_kept (V, J) are
+// scratch. order / rank, rows / n_rows may be null.
 inline cudaError_t sort(const int* keys, int* hist, int* tile_kept,
                         int* order, int* rank, int* off, int* rows,
                         int* n_rows,
@@ -336,23 +359,28 @@ inline cudaError_t sort(const int* keys, int* hist, int* tile_kept,
   const size_t smem = (size_t)(nb + 1) * sizeof(int);
   cudaError_t err = fit_smem((const void*)count_kernel, smem);
   if (err == cudaSuccess) err = fit_smem((const void*)scan_kernel, smem);
-  // as many placing warps as their cursors fit in shared memory
-  int warps = kPlaceWarps;
+  // as many parts as their cursors fit in shared memory
+  int parts = kPlaceWarps;
   while (err == cudaSuccess) {
-    err = fit_smem((const void*)place_kernel, (size_t)warps * nb * 4);
-    if (err != cudaErrorInvalidValue || warps == 1) break;
-    warps /= 2;
+    err = fit_smem((const void*)place_kernel, (size_t)parts * nb * 4);
+    if (err != cudaErrorInvalidValue || parts == 1) break;
+    parts /= 2;
     err = cudaSuccess;
   }
   if (err != cudaSuccess) return err;
   count_kernel<<<grid, kCountThreads, smem, s>>>(keys, hist, tile_kept, n,
                                                  nb, key_step, key_bias);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_kernel<<<n_views, kScanThreads, smem, s>>>(
-      hist, tile_kept, off, rows, n_rows, n_views, tiles, n, nb, per_view);
+  int* tot = hist + (size_t)n_views * tiles * nb;
+  const dim3 bins((nb + kTileScanThreads - 1) / kTileScanThreads, n_views);
+  tile_scan_kernel<<<bins, kTileScanThreads, 0, s>>>(hist, tot, tiles, nb);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  place_kernel<<<grid, 32 * warps, (size_t)warps * nb * 4, s>>>(
-      keys, hist, order, rank, n, nb, key_step, key_bias, item_step);
+  scan_kernel<<<n_views, kScanThreads, smem, s>>>(
+      tot, tile_kept, off, rows, n_rows, n_views, tiles, n, nb, per_view);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  place_kernel<<<grid, kPlaceThreads, (size_t)parts * nb * 4, s>>>(
+      keys, hist, tot, order, rank, n, nb, key_step, key_bias, item_step,
+      parts);
   return cudaGetLastError();
 }
 

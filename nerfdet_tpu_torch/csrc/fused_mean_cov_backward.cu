@@ -1002,11 +1002,11 @@ extern "C" int fused_mean_cov_backward_parts() { return kParts; }
 // scratch by it.
 extern "C" int fused_mean_cov_backward_tile() { return csort::kTile; }
 
-// Index preparation. pix (V, N) int32, -1 where invalid; hist (V, J, HW +
-// 1) and tile_kept (V, J) int32 scratch, J = ceil(N / tile); outputs order
-// (V, N) int32, each view's voxels sorted stably by pixel (the invalid
-// first); off (V, HW + 1) int32, the start of each pixel's voxels in
-// `order` (off[v, p + 1] - off[v, p] of them); rows (V, HW) int32, each
+// Index preparation. pix (V, N) int32, -1 where invalid; hist (V J + V,
+// HW + 1) and tile_kept (V, J) int32 scratch, J = ceil(N / tile); outputs
+// order (V, N) int32, each view's voxels sorted stably by pixel (the
+// invalid first); off (V, HW + 1) int32, the start of each pixel's voxels
+// in `order` (off[v, p + 1] - off[v, p] of them); rows (V, HW) int32, each
 // view's referenced pixels in order, -1 past n_rows[v]; n_rows (V,) int32.
 extern "C" int fused_mean_cov_backward_order(const int* pix, int* hist,
                                              int* tile_kept, int* order,

@@ -916,7 +916,7 @@ extern "C" int streaming_sample_mean_var_backward_tile() {
   return csort::kTile;
 }
 
-// Index preparation. keys (V, N) from pass 0; hist (V, J, FH FW) and
+// Index preparation. keys (V, N) from pass 0; hist (V J + V, FH FW) and
 // tile_kept (V, J) int32 scratch, J = ceil(N / tile); order (V N) int32
 // out, the kept
 // pairs by window in point order (the entries past off[V FH FW]

@@ -92,11 +92,10 @@ def routes_to_nerfdet(cfg: dict) -> bool:
             and any(k in cfg for k in NERF_KEYS))
 
 
-def unported_refusal(cfg: dict, training: bool = False):
-    """Why the port cannot build and evaluate the model config (with
-    ``training``: train it), naming its ROADMAP item, or None: the types
-    it has no builder for, the outdoor ImVoxelNet, the indoor one's layout
-    head; with ``training`` also its yawed SUN RGB-D heads."""
+def unported_refusal(cfg: dict):
+    """Why the port cannot build, evaluate and train the model config,
+    naming its ROADMAP item, or None: the types it has no builder for,
+    the outdoor ImVoxelNet, the indoor one's layout head."""
     if cfg["type"] not in _BUILDERS:
         return (f"model type {cfg['type']!r} is not ported; ported: "
                 f"{sorted(_BUILDERS)}")
@@ -106,7 +105,7 @@ def unported_refusal(cfg: dict, training: bool = False):
         return (f"the outdoor ImVoxelNet (3D neck {_neck3d_type(cfg)!r}) is "
                 f"not ported yet: ROADMAP §1 item 3 (after the SUN RGB-D "
                 f"configs)")
-    return indoor_refusal(cfg, training)
+    return indoor_refusal(cfg)
 
 
 def _build_imvoxelnet(cfg: dict, meta: SceneMeta = None,

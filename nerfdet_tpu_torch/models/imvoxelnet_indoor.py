@@ -19,9 +19,8 @@ by the scene's statistics and update their running ones. ``view_group``
 shards the views over ranks as NeRF-Det's (the fusion's sums summed over
 the group).
 
-Not ported, refused by name: training the yawed heads
-(``indoor_refusal(cfg, training=True)``, the losses' ``yaw``) and the
-layout head (``head_2d``, the total-SUN RGB-D mode), ROADMAP §1 item 3.
+Not ported, refused by name: the layout head (``head_2d``, the
+total-SUN RGB-D mode), ROADMAP §1 item 3.
 """
 
 from __future__ import annotations
@@ -34,7 +33,7 @@ from torch import nn
 
 from ..nn.fpn import FPN
 from ..nn.heads import ScanNetImVoxelHeadV2
-from ..nn.heads_v1 import YAW_TRAINING_REFUSAL, ImVoxelHeadV1
+from ..nn.heads_v1 import ImVoxelHeadV1
 from ..nn.imvoxel_necks import ImVoxelNeck
 from ..nn.neck3d import BatchNorm3d, FastIndoorImVoxelNeck
 from ..nn.resnet import ResNet
@@ -207,14 +206,11 @@ class IndoorImVoxelNet(nn.Module):
         return pts
 
 
-def indoor_refusal(cfg: dict, training: bool = False) -> Optional[str]:
+def indoor_refusal(cfg: dict) -> Optional[str]:
     """Why an indoor ``ImVoxelNet`` model config is not ported (the layout
-    head; with ``training``, also the yawed SUN RGB-D heads), or None."""
+    head), or None."""
     if cfg.get("head_2d") is not None:
         return LAYOUT_REFUSAL
-    if training and cfg.get("bbox_head", {}).get("type", "").startswith(
-            "SunRgbd"):
-        return YAW_TRAINING_REFUSAL
     return None
 
 

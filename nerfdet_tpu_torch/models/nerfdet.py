@@ -83,11 +83,11 @@ VOLUME_DENSITY_FAULT = (
     "package (its density query and its volume-mode render share one "
     "NeRF MLP at two input widths: ScopeParamShapeError at "
     "nerf_mlp/mlp/base/hidden_0), so the port has nothing to hold it "
-    "to; set model.nerf_density=False (ROADMAP §2 item 2.2)")
+    "to; set model.nerf_density=False (ROADMAP §1 item 2.2)")
 VOLUME_MESH_VIEWS = (
     "volume mode with the views sharded (--mesh-views) is not ported: "
     "JAX sums the view counts of the volume-mode render over the views "
-    "axis (ROADMAP §2 item 2.2)")
+    "axis (ROADMAP §1 item 2.2)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,7 +7,9 @@ Port of ``nerfdet_tpu/nn/heads.py``: ``ScanNetImVoxelHeadV2`` (shared
 ``bbox_pred_to_bbox``, ``resize_valid``, ``get_candidate_bboxes`` (with
 ``yaw``, gravity-centered yawed boxes, the decode of both SUN RGB-D
 heads), ``compute_centerness``, ``get_targets`` and ``head_loss_sums``
-(without yaw: the yawed targets are training, refused by name). Module
+(with ``yaw``, SUN RGB-D: the offsets rotated into each box's frame,
+the assigned gravity-centered yawed boxes as targets, and the rotated
+3D IoU loss of ``ops/rotated_iou_loss.py``). Module
 names follow the reference state_dict (``centerness_conv``,
 ``reg_conv``, ``cls_conv``, ``scales.{i}.scale``). The head's ``dtype``
 is flax's compute dtype (``nn/compute.py``): at bfloat16 its outputs are
@@ -22,15 +24,11 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..core.boxes import volume_of_boxes
+from ..core.boxes import rotation_3d_in_z_torch, volume_of_boxes
 from ..ops.resize import resize_axes
+from ..ops.rotated_iou_loss import rotated_iou_3d_aligned, to_bottom
 from . import losses
 from .compute import conv3x3x3
-
-YAW_TRAINING_REFUSAL = (
-    "training the SUN RGB-D ImVoxelNet (the yawed targets and the rotated "
-    "3D IoU loss) is not ported yet: ROADMAP §1 item 3 (SUN RGB-D "
-    "training)")
 
 
 class _Scale(nn.Module):
@@ -144,8 +142,7 @@ def compute_centerness(bbox_targets):
 def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
                 n_scales: int, limit: int, centerness_topk: int,
                 yaw: bool = False):
-    """Assign each voxel center a target box and label (without yaw:
-    ``yaw=True``, SUN RGB-D training, is refused by name).
+    """Assign each voxel center a target box and label.
 
     A point is a candidate for a (real) gt box when it lies inside it, on
     the box's best scale and among the box's ``centerness_topk`` most
@@ -153,7 +150,9 @@ def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
     best scale is the one before the first scale with fewer than
     ``limit`` points inside the box (scale 0 if that is scale 0), or the
     coarsest if no scale has fewer. A point that several boxes take goes
-    to the smallest volume, then to the first box.
+    to the smallest volume, then to the first box. With ``yaw`` the
+    distances to the faces are taken in each box's frame (the point's
+    offset from the box's center rotated by minus its yaw).
 
     Args:
         points: (P, 3) voxel centers of all scales, concatenated.
@@ -161,11 +160,10 @@ def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
         gt_boxes: (G, 7) bottom-centered boxes, padded; gt_labels (G,);
             gt_mask (G,) bool, the real rows.
 
-    Returns (centerness targets (P,), corner-format target boxes (P, 6),
-    labels (P,), -1 for background).
+    Returns (centerness targets (P,), target boxes, labels (P,), -1 for
+    background): the boxes corner-format (P, 6), or with ``yaw`` the
+    assigned gt boxes gravity-centered with their yaw (P, 7).
     """
-    if yaw:
-        raise NotImplementedError(YAW_TRAINING_REFUSAL)
     float_max = 1e8
     n_points = points.shape[0]
     volumes = volume_of_boxes(gt_boxes)
@@ -174,7 +172,8 @@ def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
         [bottom[..., :2], bottom[..., 2:3] + gt_boxes[..., 5:6] * 0.5],
         dim=-1)
     dims = gt_boxes[:, 3:6]
-    local = points[:, None, :]
+    local = _box_frame(points, centers, gt_boxes[:, 6]) if yaw \
+        else points[:, None, :]
     dx_min = local[..., 0] - centers[None, :, 0] + dims[None, :, 0] / 2
     dx_max = centers[None, :, 0] + dims[None, :, 0] / 2 - local[..., 0]
     dy_min = local[..., 1] - centers[None, :, 1] + dims[None, :, 1] / 2
@@ -222,8 +221,29 @@ def get_targets(points, scale_ids, gt_boxes, gt_labels, gt_mask,
                          labels)
     sel_targets = bbox_targets[torch.arange(n_points, device=points.device),
                                min_inds]
+    if yaw:
+        tgt = torch.cat([centers, dims, gt_boxes[:, 6:7]], dim=-1)
+        return compute_centerness(sel_targets), tgt[min_inds], labels
     return (compute_centerness(sel_targets),
             bbox_pred_to_bbox(points, sel_targets), labels)
+
+
+def _box_frame(points, centers, yaws):
+    """(P, G, 3): each point in each box's frame, its offset from the
+    box's center rotated by minus the box's yaw, then the center added
+    back (JAX's ``rotation_3d_in_axis(..., axis=2)`` on (G, P, 3))."""
+    rel = points[:, None, :] - centers[None, :, :]
+    rel_r = rotation_3d_in_z_torch(rel.transpose(0, 1), -yaws)
+    return rel_r.transpose(0, 1) + centers[None, :, :]
+
+
+def yawed_iou_loss(points, bbox_preds, box_t):
+    """(P,) rotated 3D IoU of the decoded yawed predictions
+    (``heads_v1.bbox_pred_to_bbox_yaw``) with the gravity-centered yawed
+    targets, both moved to their bottoms first."""
+    from .heads_v1 import bbox_pred_to_bbox_yaw
+    pred = bbox_pred_to_bbox_yaw(points, bbox_preds)
+    return rotated_iou_3d_aligned(to_bottom(pred), to_bottom(box_t))
 
 
 def head_loss_sums(head_outs, valid, mlvl_points, gt_boxes, gt_labels,
@@ -232,17 +252,16 @@ def head_loss_sums(head_outs, valid, mlvl_points, gt_boxes, gt_labels,
                    yaw: bool = False) -> Dict[str, torch.Tensor]:
     """Per-scene loss sums and their normalizers: cls_sum (focal over the
     observed voxels), centerness_sum (BCE over the positives), bbox_sum
-    (1 - IoU weighted by the centerness targets), n_pos and bbox_avg (the
-    positives' centerness sum). The train step normalizes them.
+    (1 - IoU weighted by the centerness targets: the axis-aligned IoU, or
+    with ``yaw`` the rotated 3D IoU, summed over the positives alone), n_pos
+    and bbox_avg (the positives' centerness sum). The train step
+    normalizes them.
 
     ``head_outs``: per scale (centerness, bbox_pred, cls_score),
     channels-last without a batch dimension; ``valid`` the (nx, ny, nz)
     view counts at scale 0; ``mlvl_points`` per-scale (P_i, 3) centers.
-    Targets carry no gradient. ``yaw=True`` is refused by name
-    (``get_targets``).
+    Targets carry no gradient.
     """
-    if yaw:
-        raise NotImplementedError(YAW_TRAINING_REFUSAL)
     flat_center, flat_bbox, flat_cls, flat_valid = [], [], [], []
     for c, b, s in head_outs:
         flat_center.append(c.reshape(-1))
@@ -261,7 +280,7 @@ def head_loss_sums(head_outs, valid, mlvl_points, gt_boxes, gt_labels,
     with torch.no_grad():
         centerness_t, bbox_t, labels = get_targets(
             points, scale_ids, gt_boxes, gt_labels, gt_mask, n_scales,
-            limit, centerness_topk)
+            limit, centerness_topk, yaw)
     pos = (labels >= 0) & valids
     n_pos = pos.sum().to(torch.float32)
     cls_sum = losses.sigmoid_focal_loss(
@@ -273,8 +292,13 @@ def head_loss_sums(head_outs, valid, mlvl_points, gt_boxes, gt_labels,
     centerness_sum = losses.binary_cross_entropy(centerness, centerness_t,
                                                  weight=pos_w)
     bbox_avg = torch.sum(centerness_t * pos_w)
-    bbox_sum = losses.axis_aligned_iou_loss(
-        bbox_pred_to_bbox(points, bbox_preds), bbox_t,
-        weight=centerness_t * pos_w)
+    if yaw:  # a background row's IoU may be anything finite: mask it
+        iou = yawed_iou_loss(points, bbox_preds, bbox_t)
+        bbox_sum = torch.sum(torch.where(
+            pos, (1.0 - iou) * centerness_t * pos_w, torch.zeros_like(iou)))
+    else:
+        bbox_sum = losses.axis_aligned_iou_loss(
+            bbox_pred_to_bbox(points, bbox_preds), bbox_t,
+            weight=centerness_t * pos_w)
     return dict(cls_sum=cls_sum, centerness_sum=centerness_sum,
                 bbox_sum=bbox_sum, n_pos=n_pos, bbox_avg=bbox_avg)

@@ -10,11 +10,11 @@ channel, the angle, raw), ``bbox_pred_to_bbox_yaw`` (the yawed decode's
 boxes), ``get_targets_v1`` (FCOS-style: inside the box, its largest
 distance within the point's level range, among the box's
 ``centerness_topk`` most central points, then the smallest volume) and
-``head_loss_sums_v1``. Its decode is the V2 head's
+``head_loss_sums_v1`` (with ``yaw``: the offsets rotated into each
+box's frame, the assigned gravity-centered yawed boxes as targets, the
+rotated 3D IoU loss). Its decode is the V2 head's
 (``nn/heads.get_candidate_bboxes``, with ``yaw`` for the SUN RGB-D head),
-as in JAX. The yawed targets and losses (the rotated 3D IoU loss) are
-training and not ported yet: ``get_targets_v1`` and
-``head_loss_sums_v1`` refuse ``yaw=True`` by name.
+as in JAX.
 
 Names follow the flax tree (``reg_convs.conv_{i}``, ``reg_convs.norm_{i}``,
 ``centerness_conv``, ``reg_conv``, ``cls_conv``) and, as the port's V2
@@ -32,8 +32,8 @@ from torch import nn
 
 from . import losses
 from .compute import conv3x3x3
-from .heads import (YAW_TRAINING_REFUSAL, _Scale, bbox_pred_to_bbox,
-                    compute_centerness, resize_valid)
+from .heads import (_box_frame, _Scale, bbox_pred_to_bbox,
+                    compute_centerness, resize_valid, yawed_iou_loss)
 from .neck3d import BatchNorm3d
 
 INF = 1e8
@@ -126,8 +126,7 @@ def bbox_pred_to_bbox_yaw(points, bbox_pred):
 def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
                    gt_mask, n_classes: int, centerness_topk: int,
                    yaw: bool = False):
-    """The V1 assignment without yaw (``yaw=True``, SUN RGB-D training,
-    is refused by name).
+    """The V1 assignment.
 
     A point is a candidate for a real gt box when it lies inside it, the
     largest of its six distances to the box's faces lies in the point's
@@ -135,7 +134,7 @@ def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
     with ``centerness_topk`` > 0, its centerness is strictly above the
     box's k-th largest (a value: a tie cannot change the assignment). A
     point several boxes take goes to the smallest volume, then the first
-    box.
+    box. With ``yaw`` the distances are taken in each box's frame.
 
     Args:
         points: (P, 3) centers of every level, concatenated.
@@ -144,18 +143,18 @@ def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
         gt_boxes: (G, 7) bottom-centered boxes, padded; gt_labels (G,);
             gt_mask (G,) bool, the real rows.
 
-    Returns (centerness targets (P,), corner-format boxes (P, 6), labels
-    (P,), ``n_classes`` for background).
+    Returns (centerness targets (P,), boxes, labels (P,), ``n_classes``
+    for background): the boxes corner-format (P, 6), or with ``yaw`` the
+    assigned gt boxes gravity-centered with their yaw (P, 7).
     """
-    if yaw:
-        raise NotImplementedError(YAW_TRAINING_REFUSAL)
     n_points = points.shape[0]
     bottom = gt_boxes[:, :3]
     centers = torch.cat([bottom[:, :2], bottom[:, 2:3]
                          + gt_boxes[:, 5:6] * 0.5], dim=-1)
     dims = gt_boxes[:, 3:6]
     volumes = dims[:, 0] * dims[:, 1] * dims[:, 2]
-    local = points[:, None, :]
+    local = _box_frame(points, centers, gt_boxes[:, 6]) if yaw \
+        else points[:, None, :]
     dists = torch.stack([
         local[..., 0] - centers[None, :, 0] + dims[None, :, 0] / 2,
         centers[None, :, 0] + dims[None, :, 0] / 2 - local[..., 0],
@@ -187,6 +186,9 @@ def get_targets_v1(points, range_ids, regress_ranges, gt_boxes, gt_labels,
                          torch.full_like(gt_labels[min_inds], n_classes),
                          gt_labels[min_inds])
     sel = dists[torch.arange(n_points, device=points.device), min_inds]
+    if yaw:
+        tgt = torch.cat([centers, dims, gt_boxes[:, 6:7]], dim=-1)
+        return compute_centerness(sel), tgt[min_inds], labels
     return compute_centerness(sel), bbox_pred_to_bbox(points, sel), labels
 
 
@@ -198,12 +200,10 @@ def head_loss_sums_v1(head_outs, valid, mlvl_points, regress_ranges,
     ``nn/heads.head_loss_sums`` (cls_sum, centerness_sum, bbox_sum, n_pos,
     bbox_avg): focal loss over the observed voxels (background -1 for it,
     where the assignment says ``n_classes``), BCE centerness and the
-    axis-aligned IoU loss over the positives. ``head_outs`` per level
-    (centerness, bbox_pred, cls_score) channels-last; ``valid`` the
-    (nx, ny, nz) view counts at level 0. Targets carry no gradient.
-    ``yaw=True`` (the rotated 3D IoU loss) is refused by name."""
-    if yaw:
-        raise NotImplementedError(YAW_TRAINING_REFUSAL)
+    axis-aligned IoU loss (with ``yaw`` the rotated 3D IoU loss) over the
+    positives. ``head_outs`` per level (centerness, bbox_pred, cls_score)
+    channels-last; ``valid`` the (nx, ny, nz) view counts at level 0.
+    Targets carry no gradient."""
     flat_center, flat_bbox, flat_cls, flat_valid = [], [], [], []
     for c, b, s in head_outs:
         flat_center.append(c.reshape(-1))
@@ -222,7 +222,7 @@ def head_loss_sums_v1(head_outs, valid, mlvl_points, regress_ranges,
     with torch.no_grad():
         centerness_t, box_t, labels = get_targets_v1(
             points, range_ids, regress_ranges, gt_boxes, gt_labels,
-            gt_mask, n_classes, centerness_topk)
+            gt_mask, n_classes, centerness_topk, yaw)
     fg = labels < n_classes
     pos = fg & valids
     background = torch.full_like(labels, -1)
@@ -235,8 +235,13 @@ def head_loss_sums_v1(head_outs, valid, mlvl_points, regress_ranges,
     centerness_sum = losses.binary_cross_entropy(centerness, centerness_t,
                                                  weight=pos_w)
     w = centerness_t * pos_w
-    bbox_sum = losses.axis_aligned_iou_loss(
-        bbox_pred_to_bbox(points, bbox_preds), box_t, weight=w)
+    if yaw:  # a background row's IoU may be anything finite: mask it
+        iou = yawed_iou_loss(points, bbox_preds, box_t)
+        bbox_sum = torch.sum(torch.where(pos, (1.0 - iou) * w,
+                                         torch.zeros_like(iou)))
+    else:
+        bbox_sum = losses.axis_aligned_iou_loss(
+            bbox_pred_to_bbox(points, bbox_preds), box_t, weight=w)
     return dict(cls_sum=cls_sum, centerness_sum=centerness_sum,
                 bbox_sum=bbox_sum, n_pos=pos.sum().to(torch.float32),
                 bbox_avg=torch.sum(w))

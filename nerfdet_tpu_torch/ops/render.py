@@ -797,9 +797,10 @@ def _window_order_launch(keys, hw: int, rank: bool = False):
     dev = keys.device
     lib = _backward_lib()
     tiles = -(-n // lib.streaming_sample_mean_var_backward_tile())
-    if v * tiles * hw >= 2 ** 31:
+    if v * (tiles + 1) * hw >= 2 ** 31:
         raise ValueError("K2's backward indexes its tiles' bins in int32")
-    hist = torch.empty((v, tiles, hw), dtype=torch.int32, device=dev)
+    # the tiles' histograms, then each view's bin totals
+    hist = torch.empty((v * (tiles + 1), hw), dtype=torch.int32, device=dev)
     kept = torch.empty((v, tiles), dtype=torch.int32, device=dev)
     out = torch.empty((v * n,), dtype=torch.int32, device=dev)
     off = torch.empty((v * hw + 1,), dtype=torch.int32, device=dev)

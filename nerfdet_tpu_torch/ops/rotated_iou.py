@@ -14,8 +14,8 @@ of equal yaw with collinear edges that loses vertices (half the area, in
 JAX's numpy form too; ROADMAP §3), so ``core/boxes.boxes_iou_3d`` and
 ``core/nms.nms_bev_rotated`` call these on float64 boxes, as the JAX
 package's C++ geometry library computes in double. The differentiable
-aligned form (the rotated IoU loss) belongs to training and is not
-here.
+aligned form (the rotated IoU loss) is ``ops/rotated_iou_loss.py``, in
+torch.
 """
 
 from __future__ import annotations

@@ -459,13 +459,15 @@ def _pixel_order_launch(pix, hw: int):
     dev = pix.device
     lib = _backward_lib()
     tiles = -(-n // lib.fused_mean_cov_backward_tile())
-    if v * tiles * (hw + 1) >= 2 ** 31 or v * n >= 2 ** 31:
+    if v * (tiles + 1) * (hw + 1) >= 2 ** 31 or v * n >= 2 ** 31:
         raise ValueError("K1's backward indexes its voxels and tiles' bins "
                          "in int32")
     if 4 * (hw + 2) > _SMEM_OPTIN:
         raise ValueError(f"K1's backward keeps a view's {hw} pixels in "
                          f"shared memory: at most {_SMEM_OPTIN // 4 - 2}")
-    hist = torch.empty((v, tiles, hw + 1), dtype=torch.int32, device=dev)
+    # the tiles' histograms, then each view's bin totals
+    hist = torch.empty((v * (tiles + 1), hw + 1), dtype=torch.int32,
+                       device=dev)
     kept = torch.empty((v, tiles), dtype=torch.int32, device=dev)
     order = torch.empty((v, n), dtype=torch.int32, device=dev)
     off = torch.empty((v, hw + 1), dtype=torch.int32, device=dev)

@@ -60,10 +60,14 @@ The indoor ImVoxelNet (``ImVoxelNet`` configs without NeRF keys:
 same way, its scenes without rays: the plain-mean volume (K1 and its
 backward), the Atlas or the fast neck, the V1 head's losses
 (``train/step.py``) or the V2 head's; ``use_depth`` gates its fusion.
+So do the six SUN RGB-D configs without the layout head
+(``imvoxelnet_sunrgbd*.py``, ``imvoxelnet_perspective_sunrgbd*.py``):
+one view a scene, the yawed targets and the rotated 3D IoU loss
+(``ops/rotated_iou_loss.py``).
 
 Not ported, refused with the ROADMAP item that brings them: the
-point-cloud models, the outdoor ImVoxelNet, the SUN RGB-D heads and the
-layout head; volume mode with
+point-cloud models, the outdoor ImVoxelNet and the layout head; volume
+mode with
 the density (``VOLUME_DENSITY_FAULT``: JAX's own init fails) or with
 ``--mesh-views``.
 
@@ -141,12 +145,11 @@ def parse_args(argv=None):
 
 def refuse_unported(args, cfg) -> None:
     """Raise for what the port cannot train yet, naming its ROADMAP item:
-    a model it cannot build or train (``models/builder.unported_refusal``
-    with ``training``: the outdoor ImVoxelNet, the SUN RGB-D heads, the
-    layout head), the
-    point-cloud models, volume mode with the density (a fault of the JAX
-    package) or with ``--mesh-views``."""
-    refusal = unported_refusal(cfg.model, training=True)
+    a model it cannot build (``models/builder.unported_refusal``: the
+    outdoor ImVoxelNet, the layout head), the point-cloud models, volume
+    mode with the density (a fault of the JAX package) or with
+    ``--mesh-views``."""
+    refusal = unported_refusal(cfg.model)
     if refusal is not None:
         raise NotImplementedError(refusal)
     if cfg.model["type"] == "VoteNet":

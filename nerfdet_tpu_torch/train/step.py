@@ -84,7 +84,7 @@ def scene_loss_terms(model: NerfDet, scene: Dict,
                                      n_ray_shards=n_ray_shards)
     gt = (scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"])
     mlvl_points = model.mlvl_points(scene["origin"])
-    yaw = getattr(model, "yaw", False)  # SUN RGB-D: refused by name
+    yaw = getattr(model, "yaw", False)  # SUN RGB-D: the rotated IoU loss
     if getattr(model, "uses_v1_head", False):  # the indoor ImVoxelNet's
         terms = head_loss_sums_v1(
             head_outs, valid, mlvl_points, model.regress_ranges, *gt,

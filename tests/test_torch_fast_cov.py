@@ -432,7 +432,8 @@ def test_volume_mode_with_density_is_refused_for_the_jax_fault(name):
     for fn in (lambda: build_model(cfg.model),
                lambda: train_cli.refuse_unported(
                    train_cli.parse_args([path]), cfg)):
-        with pytest.raises(NotImplementedError, match="ScopeParamShapeError"):
+        with pytest.raises(NotImplementedError,
+                           match="ScopeParamShapeError.*ROADMAP §1 item 2.2"):
             fn()
     cfg.merge_from_options({"model.nerf_density": False})
     with torch.device("meta"):
@@ -444,8 +445,8 @@ def test_volume_mode_with_density_is_refused_for_the_jax_fault(name):
 def test_imvoxelnet_without_nerf_keys_is_refused(name):
     """Of the ImVoxelNet configs without NeRF keys the ScanNet and SUN
     RGB-D ones build the indoor ImVoxelNet, not NeRF-Det
-    (``tests/test_torch_imvoxelnet.py``, ``tests/test_torch_sunrgbd.py``);
-    training SUN RGB-D and the outdoor ones are refused by name."""
+    (``tests/test_torch_imvoxelnet.py``, ``tests/test_torch_sunrgbd.py``)
+    and train; the outdoor ones are refused by name."""
     path = os.path.join(ROOT, "configs", "imvoxelnet", name)
     cfg = Config.fromfile(path)
     assert not routes_to_nerfdet(cfg.model)
@@ -453,9 +454,10 @@ def test_imvoxelnet_without_nerf_keys_is_refused(name):
         with torch.device("meta"):
             assert type(build_model(cfg.model)).__name__ == \
                 "IndoorImVoxelNet"
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
-            build_model(cfg.model)
+        train_cli.refuse_unported(train_cli.parse_args([path]), cfg)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+        build_model(cfg.model)
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
         train_cli.refuse_unported(train_cli.parse_args([path]), cfg)
 

@@ -5,8 +5,8 @@ package on the CPU.
 * The six ScanNet configs build in the port with the fields JAX's
   builder gives them; the outdoor and total-scene SUN RGB-D configs
   raise errors naming their ROADMAP item, the other SUN RGB-D configs
-  build (``tests/test_torch_sunrgbd.py``) and refuse training by name;
-  the optimizer labels of
+  build and train (``tests/test_torch_sunrgbd.py``,
+  ``tests/test_torch_sunrgbd_train.py``); the optimizer labels of
   ``imvoxelnet_scannet.py``'s tree are JAX's ``param_labels`` (the Atlas
   blocks' ``conv1`` / ``bn1`` train).
 * The Atlas neck (``nn/imvoxel_necks.py``) against JAX's ``ImVoxelNeck``
@@ -95,10 +95,10 @@ SCANNET = ("imvoxelnet_scannet.py", "imvoxelnet_scannet_top27.py",
            "imvoxelnet_smoke_synthetic.py", "imvoxelnet_scannet_fast.py",
            "imvoxelnet_scannet_fast_depth.py",
            "imvoxelnet_scannet_swin_t.py")
-# what each refuses, and whether building it is refused too (the
-# SUN RGB-D configs without the layout head build and evaluate)
-REFUSED = {"imvoxelnet_sunrgbd.py": ("SUN RGB-D training", False),
-           "imvoxelnet_sunrgbd_fast.py": ("SUN RGB-D training", False),
+# what each refuses, and whether building it is refused too; None: the
+# SUN RGB-D configs without the layout head, which build and train
+REFUSED = {"imvoxelnet_sunrgbd.py": (None, False),
+           "imvoxelnet_sunrgbd_fast.py": (None, False),
            "imvoxelnet_total_sunrgbd.py": ("SUN RGB-D", True),
            "imvoxelnet_kitti.py": ("outdoor", True),
            "imvoxelnet_nuscenes.py": ("outdoor", True)}
@@ -207,8 +207,11 @@ def test_unported_imvoxelnet_configs_are_refused_by_name(name):
     path = os.path.join(CONFIGS, name)
     cfg = Config.fromfile(path)
     what, build_refused = REFUSED[name]
-    fns = [lambda: train_cli.refuse_unported(train_cli.parse_args([path]),
-                                             cfg)]
+    refuse = lambda: train_cli.refuse_unported(  # noqa: E731
+        train_cli.parse_args([path]), cfg)
+    if what is None:  # trains now: nothing refuses it
+        refuse()
+    fns = [refuse] if what else []
     if build_refused:
         fns.append(lambda: build_model(cfg.model))
     else:
@@ -637,11 +640,9 @@ def test_v1_candidates_match_jax(nms_pre):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0,
                                atol=1e-6)
     # the yawed (SUN RGB-D) head builds, its decode is yawed
-    # (tests/test_torch_sunrgbd.py); its training targets are refused
+    # (tests/test_torch_sunrgbd.py), its training targets are held to
+    # JAX's in tests/test_torch_sunrgbd_train.py
     assert theads_v1.ImVoxelHeadV1(8, 5, 8, 1, 7, RANGES, yaw=True).yaw
-    with pytest.raises(NotImplementedError, match="SUN RGB-D training"):
-        theads_v1.get_targets_v1(pts[0], None, RANGES, None, None, None, 5,
-                                 18, yaw=True)
 
 
 # ---------------------------------------------------------------------
@@ -775,7 +776,14 @@ def _check_loss_terms(toy):
         assert _rel(got[k], want[k]) <= 1e-4, (k, got[k], want[k])
 
 
-def _check_gradients(toy):
+REACHED = ("neck.lateral_convs.0.conv.weight",
+           "backbone.layer3.2.conv2.weight",
+           "neck_3d.model.down_0_0.conv1.weight",
+           "neck_3d.model.proj_0.conv.weight",
+           "bbox_head.reg_convs.conv_0.weight", "bbox_head.scales.0.scale")
+
+
+def _check_gradients(toy, reached=REACHED):
     grads, want = toy["grads"], toy["ref"]["grads"]
     assert set(grads) == {k for k in want if not k.endswith((
         "running_mean", "running_var", "num_batches_tracked"))}
@@ -789,12 +797,7 @@ def _check_gradients(toy):
         assert float((g - want[name]).abs().max()) <= tol, name
     # the gradient crosses K1's backward into the FPN and the backbone,
     # and reaches the Atlas blocks and the V1 head's towers
-    for name in ("neck.lateral_convs.0.conv.weight",
-                 "backbone.layer3.2.conv2.weight",
-                 "neck_3d.model.down_0_0.conv1.weight",
-                 "neck_3d.model.proj_0.conv.weight",
-                 "bbox_head.reg_convs.conv_0.weight",
-                 "bbox_head.scales.0.scale"):
+    for name in reached:
         assert float(grads[name].abs().max()) > 0, name
 
 

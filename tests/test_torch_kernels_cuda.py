@@ -398,6 +398,42 @@ def test_indoor_fusion_backward_g1_matches_plain(dev, dtype):
     assert torch.equal(got[0], again[0])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c, n_voxels, size", [
+    (64, (80, 80, 32), 0.08), (256, (40, 40, 16), 0.16)],
+    ids=["sunrgbd", "sunrgbd_fast"])
+def test_one_view_fusion_backward_g1_matches_plain(dev, dtype, c, n_voxels,
+                                                   size):
+    """K1's backward with the s1 cotangent alone at one view (SUN RGB-D
+    training: one pixel bucket a referenced pixel, most of the 19,200
+    empty), (1, 120, 160, C) maps from ``imvoxelnet_sunrgbd.py``'s
+    80x80x32 and ``_fast``'s 40x40x16: d features within 1e-6 x max on
+    float32 maps, bitwise on bfloat16 maps; a second run bitwise."""
+    pix = _sunrgbd_pix(dev, n_voxels, (size,) * 3)
+    gen = torch.Generator(device=dev).manual_seed(c + 1)
+    feats = torch.randn((1, 120, 160, c), generator=gen,
+                        device=dev).to(dtype)
+    g1 = torch.randn((pix.shape[1], c), generator=gen, device=dev)
+    count = (pix >= 0).float().sum(0)
+    args = (feats, pix, count, g1)
+    got = voxel.fusion_carry_backward(*args)
+    again = voxel.fusion_carry_backward(*args)
+    want = voxel.fusion_carry_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert got[1] is None and got[2] is None
+    assert got[0].shape == feats.shape and got[0].dtype == dtype
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[0], want[0])
+    else:
+        assert _close(got[0], want[0], 1e-6)
+    assert torch.equal(got[0], again[0])
+    # pixels no voxel references get exactly 0
+    seen = torch.zeros(120 * 160, dtype=torch.bool, device=dev)
+    seen[pix[0][pix[0] >= 0].long()] = True
+    assert 0 < int(seen.sum()) < seen.numel()
+    assert not bool(got[0].reshape(-1, c)[~seen].any())
+
+
 def test_fusion_carry_refuses_more_than_32_mapped_channels(dev):
     pix = _pix(dev, v=2)
     feats = torch.zeros((2, 60, 80, 64), device=dev)

@@ -34,8 +34,10 @@ the JAX package on the CPU.
   ``detections_from_candidates`` (labels and order exact, boxes 1e-5 of
   their largest coordinate; from JAX's own candidates 1e-5).
 * The six configs build through ``init_detector`` on the CPU with JAX's
-  fields; training them, and the three total-scene configs anywhere, is
-  refused by name.
+  fields and through ``init_trainer`` at float32 and bfloat16, and pass
+  ``tools/train``'s refusals with and without ``--distributed``
+  (their training against JAX: ``tests/test_torch_sunrgbd_train.py``);
+  the three total-scene configs are refused everywhere by name.
 
 JAX's references are compiled once a run (``computed_once``).
 """
@@ -94,7 +96,6 @@ SUNRGBD = ("imvoxelnet_sunrgbd.py", "imvoxelnet_sunrgbd_top27.py",
            "imvoxelnet_perspective_sunrgbd_fast.py")
 TOTAL = ("imvoxelnet_total_sunrgbd.py", "imvoxelnet_total_sunrgbd_fast.py",
          "imvoxelnet_total_sunrgbd_top27.py")
-TRAINING = "ROADMAP §1 item 3 \\(SUN RGB-D training\\)"
 LAYOUT = "ROADMAP §1 item 3.*(layout|total-scene)"
 
 IMG = (48, 64)
@@ -648,6 +649,10 @@ def test_toy_slices_match_jax(tmp_path_factory):
 
 @pytest.mark.parametrize("name", SUNRGBD)
 def test_sunrgbd_config_builds_and_refuses_training(name):
+    """(Named when training was refused.) The config builds with JAX's
+    fields and now trains: ``init_trainer`` at float32 and bfloat16, and
+    ``tools/train``'s refusals pass it with and without
+    ``--distributed``."""
     path = os.path.join(CONFIGS, name)
     cfg = Config.fromfile(path)
     jcfg = JaxConfig.fromfile(path)
@@ -664,11 +669,13 @@ def test_sunrgbd_config_builds_and_refuses_training(name):
         want.meta.__dict__.values()) == ((530, 730), (465, 640), (480, 640))
     assert model.bbox_head.reg_conv.out_channels == 7
     assert unported_refusal(cfg.model) is None
-    for fn in (lambda: api.init_trainer(cfg, device="cpu"),
-               lambda: train_cli.refuse_unported(
-                   train_cli.parse_args([path]), cfg)):
-        with pytest.raises(NotImplementedError, match=TRAINING):
-            fn()
+    for dtype in (torch.float32, torch.bfloat16):
+        tr = api.init_trainer(cfg, device="cpu", compute_dtype=dtype)
+        assert isinstance(tr.model, IndoorImVoxelNet) and tr.model.training
+        assert tr.model.yaw and tr.model.compute_dtype == dtype
+        del tr
+    for extra in ([], ["--distributed"]):
+        train_cli.refuse_unported(train_cli.parse_args([path, *extra]), cfg)
 
 
 @pytest.mark.parametrize("name", TOTAL)
@@ -684,19 +691,3 @@ def test_total_sunrgbd_configs_are_refused_everywhere(name):
         with pytest.raises(NotImplementedError, match=LAYOUT):
             fn()
 
-
-def test_yawed_training_is_refused_by_name():
-    """The yawed targets and losses (training) raise by name."""
-    z = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match=TRAINING):
-        theads_v1.get_targets_v1(z, z[:, 0].int(), RANGES, torch.zeros(2, 7),
-                                 torch.zeros(2).long(), torch.ones(2).bool(),
-                                 5, 18, yaw=True)
-    with pytest.raises(NotImplementedError, match=TRAINING):
-        theads.get_targets(z, z[:, 0].int(), torch.zeros(2, 7),
-                           torch.zeros(2).long(), torch.ones(2).bool(), 3,
-                           27, 18, yaw=True)
-    with pytest.raises(NotImplementedError, match=TRAINING):
-        theads_v1.head_loss_sums_v1(*([None] * 9), yaw=True)
-    with pytest.raises(NotImplementedError, match=TRAINING):
-        theads.head_loss_sums(*([None] * 10), yaw=True)

@@ -237,7 +237,9 @@ def test_volume_step_matches_jax(tmp_path_factory):
 def test_volume_mode_over_a_views_group_is_refused():
     model = port_toy(**VOLUME)
     scene = toy_scene(0)
-    with pytest.raises(NotImplementedError, match="mesh-views"):
+    # volume mode is ROADMAP §1 item 2.2 (the strings once said §2)
+    with pytest.raises(NotImplementedError,
+                       match="mesh-views.*ROADMAP §1 item 2.2"):
         model.render(torch.from_numpy(scene["ray_o"]),
                      torch.from_numpy(scene["ray_d"]), None, None,
                      scene["intrinsic"], scene["extrinsics"],
@@ -246,7 +248,8 @@ def test_volume_mode_over_a_views_group_is_refused():
             f"volume_renderrgb_volume_mode.py")
     cfg = Config.fromfile(path)
     cfg.merge_from_options({"model.nerf_density": False})
-    with pytest.raises(NotImplementedError, match="mesh-views"):
+    with pytest.raises(NotImplementedError,
+                       match="mesh-views.*ROADMAP §1 item 2.2"):
         train_cli.refuse_unported(
             train_cli.parse_args([path, "--mesh-views", "2"]), cfg)
     train_cli.refuse_unported(train_cli.parse_args([path]), cfg)
